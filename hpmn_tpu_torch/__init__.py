@@ -1,0 +1,19 @@
+"""hpmn_tpu_torch — the PyTorch and CUDA port of ``hpmn_tpu``.
+
+The JAX package stays beside this one as the reference; every module here
+mirrors the path of its counterpart there (``hpmn_tpu/models/hpmn.py`` ->
+``hpmn_tpu_torch/models/hpmn.py``), and ``tests/test_torch_*.py`` hold each
+one to it on the same numpy inputs.
+
+This package imports ``torch`` and numpy only: never ``jax``,
+``ml_collections`` or anything under ``hpmn_tpu``, so it runs on a machine
+that has none of them. The Pallas kernels of the path it covers are
+hand-written CUDA for Hopper (``csrc/``), built from source at first use
+(``ops/_build.py``).
+
+Covered so far: the ``hpmn`` forward (``models.model.apply_model``) and the
+lifelong serving store (``serving.lifelong.UserMemoryStore``). What waits is
+listed in ROADMAP.md.
+"""
+
+__version__ = "0.3.0"  # keep in sync with pyproject.toml

@@ -1,0 +1,50 @@
+"""Batch schema — counterpart of ``hpmn_tpu/data/schema.py``.
+
+Same fields and layout: sequences are left-padded (the most recent event at
+index T-1), ``seq_mask`` is 1.0 at valid positions, ids are int32 and labels
+and masks float32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Batch:
+    """One batch of tensors. B = batch, T = max sequence length."""
+
+    uid: torch.Tensor  # int32 [B]
+    item_seq: torch.Tensor  # int32 [B, T], left-padded with 0
+    cat_seq: torch.Tensor  # int32 [B, T], left-padded with 0
+    seq_mask: torch.Tensor  # float32 [B, T], 1.0 where valid
+    target_item: torch.Tensor  # int32 [B]
+    target_cat: torch.Tensor  # int32 [B]
+    label: torch.Tensor  # float32 [B]
+    neg_item_seq: torch.Tensor  # int32 [B, T] (DIEN's auxiliary negatives)
+    neg_cat_seq: torch.Tensor  # int32 [B, T]
+
+    @property
+    def batch_size(self) -> int:
+        return self.item_seq.shape[0]
+
+    @property
+    def seq_len(self) -> int:
+        return self.item_seq.shape[1]
+
+
+def batch_from_numpy(arrays: dict, indices: Optional[np.ndarray] = None,
+                     device="cpu") -> Batch:
+    """Build a Batch on ``device`` from a dict of numpy arrays, optionally
+    row-sliced by numpy fancy indexing."""
+
+    def take(name):
+        a = arrays[name]
+        a = a if indices is None else a[indices]
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return Batch(**{f.name: take(f.name) for f in dataclasses.fields(Batch)})

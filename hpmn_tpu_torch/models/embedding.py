@@ -1,0 +1,36 @@
+"""Item and category embedding tables — counterpart of
+``hpmn_tpu/models/embedding.py``.
+
+The behaviour embedding is concat(item emb, cat emb). The forward is a plain
+row gather (``hpmn_tpu/ops/embedding_agg.py::take_rows``'s forward); the
+one-hot matmul aggregation of its backward is a TPU workaround and waits
+with the training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class Embedding(nn.Module):
+    """item [n_items, emb_dim] and cat [n_cats, emb_dim] tables."""
+
+    def __init__(self, n_items: int, n_cats: int, emb_dim: int):
+        super().__init__()
+        self.item = nn.Parameter(torch.empty(n_items, emb_dim))
+        self.cat = nn.Parameter(torch.empty(n_cats, emb_dim))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Normal(0, 1/emb_dim) entries (as ``init_embedding``)."""
+        scale = self.item.shape[1] ** -0.5
+        for table in (self.item, self.cat):
+            table.normal_(0.0, scale, generator=generator)
+
+
+def dense_lookup(emb: Embedding, item_ids: torch.Tensor,
+                 cat_ids: torch.Tensor) -> torch.Tensor:
+    """ids [...] (int32 or int64) -> behaviour embedding [..., 2*emb_dim]."""
+    return torch.cat([emb.item[item_ids.long()], emb.cat[cat_ids.long()]],
+                     dim=-1)

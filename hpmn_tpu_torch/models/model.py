@@ -1,0 +1,106 @@
+"""The hpmn model's forward — counterpart of ``hpmn_tpu/models/model.py``
+for ``cfg.model.name == "hpmn"``.
+
+    model = init_model(cfg, n_items, n_cats, device=...)
+    logits = apply_model(model, cfg, batch)
+
+``apply_model`` has the JAX function's three hpmn branches:
+
+- ``use_pallas`` (with the hierarchical scan): embeddings gathered straight
+  into time-major [T, B, 2d], the hierarchy of scans through the CUDA scan
+  kernel and the readout through the CUDA readout kernel (on CPU tensors,
+  their plain versions);
+- the batch-major hierarchy of plain scans;
+- the masked single-scan oracle (``use_hierarchical_scan=False``).
+
+Forward only: the loss and the training step come with the backward kernel
+(ROADMAP.md). Other families raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..configs import Config
+from ..data.schema import Batch
+from ..ops import cuda_gru, cuda_readout
+from . import hpmn as hpmn_mod
+from .embedding import Embedding, dense_lookup
+from .readout import Readout, attention_readout
+from .tower import Tower, apply_tower
+
+
+class HPMNModel(nn.Module):
+    """embedding, encoder, readout and tower, each in the JAX layout (see
+    ``convert.py`` for the parameter names on both sides)."""
+
+    def __init__(self, cfg: Config, n_items: int, n_cats: int):
+        super().__init__()
+        m = cfg.model
+        d_beh = 2 * m.emb_dim
+        self.embedding = Embedding(n_items, n_cats, m.emb_dim)
+        self.encoder = hpmn_mod.HPMNEncoder(d_beh, m.mem_dim, m.hpmn_layers)
+        self.readout = Readout(m.mem_dim, d_beh, m.readout_dim)
+        self.tower = Tower(d_beh + m.mem_dim, m.tower_hidden)
+
+
+def check_supported(cfg: Config) -> None:
+    """Raise on config choices the port does not cover yet."""
+    m = cfg.model
+    if m.name != "hpmn":
+        raise NotImplementedError(
+            f"model family {m.name!r} is not ported yet (ROADMAP.md)")
+    todo = {"dtype": m.dtype != "float32",
+            "scan_dtype": m.scan_dtype != "float32",
+            "pallas_stride_outputs": m.pallas_stride_outputs,
+            "use_user_emb": m.use_user_emb}
+    for field, unsupported in todo.items():
+        if unsupported:
+            raise NotImplementedError(
+                f"model.{field}={getattr(m, field)!r} is not ported yet "
+                "(ROADMAP.md)")
+
+
+def init_model(cfg: Config, n_items: int, n_cats: int,
+               seed: Optional[int] = None, device="cpu") -> HPMNModel:
+    """The port's own seeded init, drawn on the CPU from a
+    ``torch.Generator`` (so the weights do not depend on the device), then
+    moved to ``device``. Same distributions as the JAX init, other numbers."""
+    check_supported(cfg)
+    gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+    model = HPMNModel(cfg, n_items, n_cats)
+    for part in (model.embedding, model.encoder, model.readout, model.tower):
+        part.reset_parameters(gen)
+    return model.to(device)
+
+
+def apply_model(model: HPMNModel, cfg: Config, batch: Batch) -> torch.Tensor:
+    """-> logits [B]."""
+    check_supported(cfg)
+    m = cfg.model
+    emb = model.embedding
+    q = dense_lookup(emb, batch.target_item, batch.target_cat)  # [B, 2d]
+    if m.use_pallas and m.use_hierarchical_scan:
+        # Transposing the int32 ids, not the activations, gives time-major
+        # embeddings.
+        x_tm = dense_lookup(emb, batch.item_seq.T, batch.cat_seq.T)
+        mask_tm = (None if m.assume_full_mask
+                   else batch.seq_mask.T.to(x_tm.dtype).contiguous())
+        memory = hpmn_mod.encode_hierarchical_tm(
+            model.encoder, x_tm, mask_tm, m.hpmn_period,
+            gru_seq_tm_fn=cuda_gru.gru_sequence_tm)
+        state = cuda_readout.fused_attention_readout(model.readout, memory, q)
+    else:
+        x = dense_lookup(emb, batch.item_seq, batch.cat_seq)  # [B, T, 2d]
+        mask = batch.seq_mask.to(x.dtype)
+        if m.use_hierarchical_scan:
+            memory = hpmn_mod.encode_hierarchical(model.encoder, x, mask,
+                                                  m.hpmn_period)
+        else:
+            memory = hpmn_mod.encode_oracle(model.encoder, x, mask,
+                                            m.hpmn_period)
+        state = attention_readout(model.readout, memory, q)
+    return apply_tower(model.tower, torch.cat([q, state], dim=-1))

@@ -1,0 +1,223 @@
+"""Lifelong serving: per-user HPMN memory with O(1) updates per event —
+counterpart of ``hpmn_tpu/serving/lifelong.py::UserMemoryStore`` in its
+device-resident form.
+
+    store = UserMemoryStore(cfg, model, device="cuda")
+    store.ingest_histories(uids, item_seqs, cat_seqs)  # cold start, batched
+    store.update(uids, item_ids, cat_ids)      # one new behaviour per user
+    scores = store.predict(uids, cand_items, cand_cats)           # [B]
+    scores = store.rank(uids, cand_items_bc, cand_cats_bc)        # [B, C]
+
+The memory arena ``[capacity, L, d_m]`` (f32) and the event counters live on
+``device``; the uid -> row index, the LRU clock and eviction stay on the
+host. A request moves ids up and scores down. Arena rows are updated in
+place. Save/load, bundles, the bf16 arena and user embeddings wait
+(ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..configs import Config
+from ..models.embedding import dense_lookup
+from ..models.model import check_supported
+from ..models.tower import apply_tower
+from .protocol import encode_full, read_state, update_state
+
+
+class UserMemoryStore:
+    """Per-user HPMN memory (uid -> [L, d_m] slots + event counter) in a
+    device arena with amortized doubling growth. With ``max_users`` set,
+    a full store evicts the least recently touched quarter in one pass; an
+    evicted user who comes back starts from empty memory."""
+
+    _MIN_CAP = 1024
+
+    def __init__(self, cfg: Config, model, max_users: Optional[int] = None,
+                 device="cpu"):
+        check_supported(cfg)
+        self.device = torch.empty(0, device=device).device  # "cuda" -> cuda:i
+        if model.embedding.item.device != self.device:
+            raise ValueError(f"the model is on {model.embedding.item.device}"
+                             f", the store on {self.device}: move one")
+        self.cfg = cfg
+        self.model = model
+        self.family = cfg.model.name
+        self.L = cfg.model.hpmn_layers
+        self.d_m = cfg.model.mem_dim
+        self.period = cfg.model.hpmn_period
+        self.max_users = max_users
+        cap = (self._MIN_CAP if max_users is None
+               else min(self._MIN_CAP, max_users))
+        self._mem = torch.zeros(cap, self.L, self.d_m, device=self.device)
+        self._cnt = torch.zeros(cap, dtype=torch.int64, device=self.device)
+        self._last_touch = np.zeros((cap,), np.int64)  # LRU clock per row
+        self._clock = 0
+        self._row: Dict[int, int] = {}  # uid -> arena row
+        self._row_uid = np.full((cap,), -1, np.int64)  # row -> uid
+        self._next_row = 0  # high-water mark; evicted rows are recycled
+        self._free_rows: list = []
+
+    @property
+    def n_users(self) -> int:
+        return len(self._row)
+
+    # ------------------------------------------------------------ arena --
+    def _grow(self, need: int) -> None:
+        cap = len(self._row_uid)
+        new_cap = max(cap * 2, need, self._MIN_CAP)
+        if self.max_users is not None:
+            new_cap = min(new_cap, max(self.max_users, need))
+        for name, fill in (("_last_touch", 0), ("_row_uid", -1)):
+            old = getattr(self, name)
+            new = np.full((new_cap,), fill, old.dtype)
+            new[:cap] = old
+            setattr(self, name, new)
+        for name in ("_mem", "_cnt"):
+            old = getattr(self, name)
+            new = old.new_zeros((new_cap,) + tuple(old.shape[1:]))
+            new[:cap] = old
+            setattr(self, name, new)
+
+    def _evict(self, need: int, protected=frozenset()) -> None:
+        """Drop the ~25% least recently touched users (or ``need``, if
+        more) in one pass. ``protected`` rows belong to the request in
+        flight and are never evicted."""
+        n_live = len(self._row)
+        live = np.flatnonzero(self._row_uid >= 0)
+        if protected:
+            live = live[~np.isin(live, np.fromiter(protected, np.int64))]
+        if len(live) < need:
+            raise ValueError(
+                f"cannot evict {need} rows: only {len(live)} unprotected "
+                f"users (max_users={self.max_users} smaller than the "
+                f"request batch's distinct-user count?)")
+        k = min(len(live), max(n_live // 4, need))
+        victims = live[np.argpartition(self._last_touch[live], k - 1)[:k]]
+        for u in self._row_uid[victims]:
+            del self._row[int(u)]
+        self._row_uid[victims] = -1
+        self._free_rows = victims.tolist()
+
+    def _rows_for(self, uids: np.ndarray, create: bool) -> np.ndarray:
+        """uid -> arena row (-1 for unknown users unless ``create``)."""
+        rows = np.empty(len(uids), np.int64)
+        row_map = self._row
+        missing = []
+        fresh = []  # rows allocated or recycled here, zeroed below
+        for i, u in enumerate(uids):
+            r = row_map.get(int(u), -1)
+            rows[i] = r
+            if r < 0:
+                missing.append(i)
+        if missing and create:
+            protected = {int(r) for r in rows if r >= 0}
+            for i in missing:
+                u = int(uids[i])
+                r = row_map.get(u, -1)  # a new uid repeated in the batch
+                if r < 0:
+                    if self._free_rows:
+                        r = self._free_rows.pop()
+                    elif (self.max_users is not None
+                          and self._next_row >= self.max_users):
+                        self._evict(1, frozenset(protected))
+                        r = self._free_rows.pop()
+                    else:
+                        if self._next_row >= len(self._row_uid):
+                            self._grow(self._next_row + 1)
+                        r = self._next_row
+                        self._next_row += 1
+                    row_map[u] = r
+                    self._row_uid[r] = u
+                    fresh.append(r)
+                    protected.add(int(r))
+                rows[i] = r
+        if fresh:
+            fr = torch.as_tensor(fresh, device=self.device)
+            self._mem[fr] = 0.0
+            self._cnt[fr] = 0
+        return rows
+
+    def _touch(self, rows: np.ndarray) -> None:
+        self._clock += 1
+        self._last_touch[rows] = self._clock
+
+    def _set_rows(self, uids: np.ndarray, mem: torch.Tensor,
+                  cnt: torch.Tensor) -> None:
+        rows = self._rows_for(uids, create=True)
+        r = torch.as_tensor(rows, device=self.device)
+        self._mem[r] = mem.to(self._mem.dtype)
+        self._cnt[r] = cnt.to(self._cnt.dtype)
+        self._touch(rows)
+
+    def _gather(self, uids: np.ndarray):
+        """(memory [B, L, d_m], counters [B]) of ``uids``; unknown users
+        read zeros (the cold-start state)."""
+        rows = torch.as_tensor(self._rows_for(uids, create=False),
+                               device=self.device)
+        known = rows >= 0
+        safe = torch.where(known, rows, 0)
+        mem = torch.where(known[:, None, None], self._mem[safe], 0.0)
+        cnt = torch.where(known, self._cnt[safe], 0)
+        return mem, cnt
+
+    def _ids(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), device=self.device)
+
+    # -------------------------------------------------------- operations --
+    @torch.no_grad()
+    def ingest_histories(self, uids, item_seqs, cat_seqs, masks=None) -> None:
+        """Set many users' memories from whole histories in one batched
+        encode; the same state as replaying each history through
+        :meth:`update`. item_seqs, cat_seqs: [B, T] left-padded ids; masks:
+        [B, T] or None (full histories). Overwrites these users' state."""
+        items, cats = self._ids(item_seqs), self._ids(cat_seqs)
+        # Gathering with the transposed ids gives time-major embeddings.
+        x_tm = dense_lookup(self.model.embedding, items.T, cats.T)
+        mask_tm = (None if masks is None else
+                   self._ids(masks).to(torch.float32).T.contiguous())
+        mem, counts = encode_full(self.family, self.model, x_tm, mask_tm,
+                                  self.period)
+        self._set_rows(np.asarray(uids), mem, counts)
+
+    @torch.no_grad()
+    def update(self, uids, item_ids, cat_ids) -> None:
+        """Ingest one new behaviour per listed user (O(1) each)."""
+        rows = self._rows_for(np.asarray(uids), create=True)
+        r = torch.as_tensor(rows, device=self.device)
+        x = dense_lookup(self.model.embedding, self._ids(item_ids),
+                         self._ids(cat_ids))
+        mem, cnt = update_state(self.family, self.model.encoder, self._mem[r],
+                                self._cnt[r], x, self.period)
+        self._mem[r] = mem
+        self._cnt[r] = cnt
+        self._touch(rows)
+
+    def _scores(self, mem: torch.Tensor, items: torch.Tensor,
+                cats: torch.Tensor) -> torch.Tensor:
+        q = dense_lookup(self.model.embedding, items, cats)
+        read = read_state(self.family, self.model, mem, q)
+        logits = apply_tower(self.model.tower, torch.cat([q, read], dim=-1))
+        return torch.sigmoid(logits)
+
+    @torch.no_grad()
+    def predict(self, uids, cand_items, cand_cats) -> np.ndarray:
+        """CTR scores sigmoid(logit) [B] for (user, candidate) pairs."""
+        mem, _ = self._gather(np.asarray(uids))
+        return self._scores(mem, self._ids(cand_items),
+                            self._ids(cand_cats)).cpu().numpy()
+
+    @torch.no_grad()
+    def rank(self, uids, cand_items, cand_cats) -> np.ndarray:
+        """Scores [B, C] of C candidates per user in one call; column c
+        equals ``predict(uids, cand_items[:, c], cand_cats[:, c])``."""
+        items, cats = self._ids(cand_items), self._ids(cand_cats)
+        B, C = items.shape
+        mem, _ = self._gather(np.asarray(uids))
+        scores = self._scores(mem.repeat_interleave(C, dim=0),
+                              items.reshape(-1), cats.reshape(-1))
+        return scores.reshape(B, C).cpu().numpy()

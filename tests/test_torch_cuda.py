@@ -1,0 +1,138 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Skipped where ``torch.cuda.is_available()`` is false. This file imports no
+JAX, so it also runs on a machine without it; there, skip the repo's
+conftest (which imports JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances as in chip_smoke.py: 1e-4 on scans (f32, other summation order
+and transcendentals, a carry that does not grow errors), 1e-5 on the
+readout, TF32 off."""
+
+import numpy as np
+import pytest
+import torch
+
+from hpmn_tpu_torch import configs
+from hpmn_tpu_torch.models.model import init_model
+from hpmn_tpu_torch.models.readout import Readout, attention_readout
+from hpmn_tpu_torch.ops import cuda_gru, cuda_readout
+from hpmn_tpu_torch.ops.gru import GRUParams, gru_scan_tm
+from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
+
+pytestmark = pytest.mark.cuda
+
+TOL_GRU, TOL_READOUT = 1e-4, 1e-5
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _gru(d_in, dev, seed=0):
+    p = GRUParams(d_in, 32)
+    p.reset_parameters(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        p.b.uniform_(-0.1, 0.1, generator=torch.Generator().manual_seed(1))
+    return p.requires_grad_(False).to(dev)
+
+
+def _mask(T, B, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(1, T + 1, (B,), generator=g)
+    return (torch.arange(T)[:, None] >= T - lens[None, :]).float().to(dev)
+
+
+@pytest.mark.parametrize("T,B,d_in,masked", [
+    (1, 3, 32, False), (7, 33, 32, True), (100, 64, 32, False),
+    (100, 64, 32, True), (50, 10, 70, True), (20, 5, 5, False)])
+def test_gru_kernel_matches_plain(dev, T, B, d_in, masked):
+    p = _gru(d_in, dev)
+    x = torch.randn(T, B, d_in, generator=torch.Generator().manual_seed(T)
+                    ).to(dev)
+    mask = _mask(T, B, dev) if masked else None
+    h0 = torch.randn(B, 32, device=dev) if B % 2 else None
+    n = cuda_gru.launches
+    h_k, hT_k = cuda_gru.gru_sequence_tm(p, x, mask, h0)
+    h_p, hT_p = gru_scan_tm(p, x, mask, h0)
+    torch.cuda.synchronize()
+    assert cuda_gru.launches == n + 1
+    assert (h_k - h_p).abs().max().item() <= TOL_GRU
+    assert (hT_k - hT_p).abs().max().item() <= TOL_GRU
+
+
+def test_gru_kernel_takes_strided_time_views(dev):
+    p = _gru(32, dev)
+    h = torch.randn(100, 16, 32, device=dev)
+    mask = _mask(100, 16, dev)
+    h_k, _ = cuda_gru.gru_sequence_tm(p, h[2::3], mask[2::3])
+    h_p, _ = gru_scan_tm(p, h[2::3].contiguous(), mask[2::3].contiguous())
+    assert (h_k - h_p).abs().max().item() <= TOL_GRU
+
+
+def test_gru_kernel_rejects_what_it_does_not_take(dev):
+    with pytest.raises(ValueError, match="d_m"):
+        p = GRUParams(32, 16).requires_grad_(False).to(dev)
+        cuda_gru.gru_sequence_tm(p, torch.zeros(4, 2, 32, device=dev))
+    p = _gru(32, dev)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_gru.gru_sequence_tm(p, torch.zeros(4, 2, 32, device=dev,
+                                                dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_gru.gru_sequence_tm(p, torch.zeros(4, 32, 2, device=dev
+                                                ).transpose(1, 2))
+    p.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        cuda_gru.gru_sequence_tm(p, torch.zeros(4, 2, 32, device=dev))
+
+
+@pytest.mark.parametrize("B,L,d_q", [(1, 1, 32), (512, 6, 32), (37, 16, 40),
+                                     (6400, 6, 32)])
+def test_readout_kernel_matches_plain(dev, B, L, d_q):
+    r = Readout(32, d_q, 32)
+    r.reset_parameters(torch.Generator().manual_seed(B))
+    r = r.requires_grad_(False).to(dev)
+    g = torch.Generator().manual_seed(L)
+    mem = torch.randn(B, L, 32, generator=g).to(dev)
+    q = torch.randn(B, d_q, generator=g).to(dev)
+    n = cuda_readout.launches
+    got = cuda_readout.fused_attention_readout(r, mem, q)
+    want = attention_readout(r, mem, q)
+    torch.cuda.synchronize()
+    assert cuda_readout.launches == n + 1
+    assert (got - want).abs().max().item() <= TOL_READOUT
+
+
+def test_store_on_the_card_matches_the_cpu_store(dev):
+    cfg = configs.get_config("xlong_hpmn")
+    rng = np.random.default_rng(0)
+    T, B = 250, 16  # layer scans of 250, 83, 27, 9, 3, 1 steps
+    items = rng.integers(1, 500, size=(B, T))
+    lens = rng.integers(1, T + 1, size=B)
+    mask = (np.arange(T)[None, :] >= T - lens[:, None]).astype(np.float32)
+    stores = [UserMemoryStore(cfg, init_model(cfg, 500, 40, device=d),
+                              device=d) for d in ("cpu", dev)]
+    n_gru, n_ro = cuda_gru.launches, cuda_readout.launches
+    for s in stores:
+        s.ingest_histories(np.arange(B), items, items % 40)
+        padded = (items * mask).astype(np.int64)
+        s.ingest_histories(np.arange(B, 2 * B), padded, padded % 40,
+                           masks=mask)
+        s.update(np.arange(0, 2 * B, 3), items[:11, 0], items[:11, 1] % 40)
+    assert cuda_gru.launches == n_gru + 2 * cfg.model.hpmn_layers
+    uids = np.arange(2 * B)
+    m_cpu, c_cpu = stores[0]._gather(uids)
+    m_dev, c_dev = stores[1]._gather(uids)
+    assert (m_dev.cpu() - m_cpu).abs().max().item() <= TOL_GRU
+    assert torch.equal(c_dev.cpu(), c_cpu)
+    ci = rng.integers(1, 500, size=(2 * B, 7))
+    s_cpu = stores[0].rank(uids, ci, ci % 40)
+    s_dev = stores[1].rank(uids, ci, ci % 40)
+    np.testing.assert_allclose(s_dev, s_cpu, atol=TOL_GRU)
+    assert cuda_readout.launches == n_ro + 1

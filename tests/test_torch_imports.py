@@ -1,0 +1,46 @@
+"""The port must run where JAX is absent: ``hpmn_tpu_torch`` and
+``chip_smoke.py`` import neither ``jax``, ``ml_collections`` nor anything
+of ``hpmn_tpu``, at import time or inside a function."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "ml_collections", "optax", "hpmn_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import pkgutil, sys, hpmn_tpu_torch\n"
+        "for m in pkgutil.walk_packages(hpmn_tpu_torch.__path__, "
+        "'hpmn_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(len([n for n in sys.modules if n.startswith('hpmn_tpu_torch')]))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 15  # every submodule was imported
+
+
+def test_no_source_of_the_port_names_jax():
+    files = sorted((ROOT / "hpmn_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            assert not any(_forbidden(n) for n in names), (path, names)

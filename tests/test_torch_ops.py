@@ -1,0 +1,168 @@
+"""The port's ops against the JAX package on the CPU: the plain GRU, the
+CUDA kernels' wrappers on CPU tensors (which run their plain versions)
+against the Pallas kernels in interpret mode, and the readout with a slot
+mask. Inputs and weights are drawn with numpy from a seed and handed to
+both sides. Tolerance: atol = rtol = 1e-5 in f32 (the two sides sum in
+other orders and the Pallas GRU writes sigmoid through tanh)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import hpmn_tpu.ops.pallas_gru as pg
+import hpmn_tpu.ops.pallas_readout as pr
+from hpmn_tpu.models.readout import attention_readout as j_attention_readout
+from hpmn_tpu.ops.gru import GRUParams as JGRUParams
+from hpmn_tpu.ops.gru import gru_sequence as j_gru_sequence
+from hpmn_tpu_torch.models.readout import Readout, attention_readout
+from hpmn_tpu_torch.ops import cuda_gru, cuda_readout
+from hpmn_tpu_torch.ops.gru import GRUParams, gru_sequence
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture
+def interpret():
+    """Run the Pallas kernels in interpret mode, as tests/test_pallas.py."""
+    pg._INTERPRET = pr._INTERPRET = True
+    try:
+        yield
+    finally:
+        pg._INTERPRET = pr._INTERPRET = False
+
+
+def _gru(rng, d_in, d_m):
+    """The same random GRU weights as a JAX GRUParams and a port module."""
+    arrays = dict(wx=rng.uniform(-0.5, 0.5, (d_in, 3 * d_m)),
+                  wh=rng.uniform(-0.5, 0.5, (d_m, 3 * d_m)),
+                  b=rng.uniform(-0.1, 0.1, (3 * d_m,)))
+    arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+    port = GRUParams(d_in, d_m).requires_grad_(False)
+    for k, v in arrays.items():
+        getattr(port, k).copy_(torch.from_numpy(v))
+    return JGRUParams(**{k: jnp.asarray(v) for k, v in arrays.items()}), port
+
+
+def _readout(rng, d_m, d_q, A):
+    arrays = dict(wm=rng.uniform(-0.5, 0.5, (d_m, A)),
+                  wq=rng.uniform(-0.5, 0.5, (d_q, A)),
+                  b=rng.uniform(-0.1, 0.1, (A,)),
+                  v=rng.uniform(-0.5, 0.5, (A,)))
+    arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+    port = Readout(d_m, d_q, A).requires_grad_(False)
+    for k, v in arrays.items():
+        getattr(port, k).copy_(torch.from_numpy(v))
+    return {k: jnp.asarray(v) for k, v in arrays.items()}, port
+
+
+def _left_pad_mask(rng, B, T):
+    lens = rng.integers(1, T + 1, size=B)
+    return (np.arange(T)[None, :] >= T - lens[:, None]).astype(np.float32)
+
+
+def _close(a, b):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), **TOL)
+
+
+@pytest.mark.parametrize("use_mask,use_h0", [
+    (False, False), (True, False), (False, True), (True, True)])
+def test_gru_sequence_matches_jax(use_mask, use_h0):
+    rng = np.random.default_rng(0)
+    B, T, d_in, d_m = 5, 17, 6, 4
+    jp, tp = _gru(rng, d_in, d_m)
+    x = rng.standard_normal((B, T, d_in)).astype(np.float32)
+    mask = _left_pad_mask(rng, B, T) if use_mask else None
+    h0 = rng.standard_normal((B, d_m)).astype(np.float32) if use_h0 else None
+    h_j, hT_j = j_gru_sequence(jp, jnp.asarray(x),
+                               h0=None if h0 is None else jnp.asarray(h0),
+                               mask=None if mask is None else jnp.asarray(mask))
+    h_t, hT_t = gru_sequence(tp, torch.from_numpy(x),
+                             h0=None if h0 is None else torch.from_numpy(h0),
+                             mask=None if mask is None
+                             else torch.from_numpy(mask))
+    _close(h_t, h_j)
+    _close(hT_t, hT_j)
+
+
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_cuda_gru_wrapper_on_cpu_matches_pallas(interpret, use_mask):
+    rng = np.random.default_rng(1)
+    B, T, d_in, d_m = 4, 13, 6, 4
+    jp, tp = _gru(rng, d_in, d_m)
+    x_tm = rng.standard_normal((T, B, d_in)).astype(np.float32)
+    mask_tm = _left_pad_mask(rng, B, T).T.copy() if use_mask else None
+    h_j, hT_j = pg.pallas_gru_sequence_tm(
+        jp, jnp.asarray(x_tm),
+        mask_tm=None if mask_tm is None else jnp.asarray(mask_tm))
+    launches = cuda_gru.launches
+    h_t, hT_t = cuda_gru.gru_sequence_tm(
+        tp, torch.from_numpy(x_tm),
+        None if mask_tm is None else torch.from_numpy(mask_tm))
+    assert cuda_gru.launches == launches  # CPU tensors: the plain version
+    _close(h_t, h_j)
+    _close(hT_t, hT_j)
+
+
+def test_cuda_gru_wrapper_takes_a_strided_time_view(interpret):
+    """The next HPMN layer's input is h_seq[period-1::period], a view."""
+    rng = np.random.default_rng(2)
+    T, B, d_in, d_m = 20, 3, 5, 4
+    jp, tp = _gru(rng, d_in, d_m)
+    x_tm = rng.standard_normal((T, B, d_in)).astype(np.float32)
+    mask_tm = _left_pad_mask(rng, B, T).T.copy()
+    h_j, _ = pg.pallas_gru_sequence_tm(jp, jnp.asarray(x_tm[2::3]),
+                                       mask_tm=jnp.asarray(mask_tm[2::3]))
+    h_t, _ = cuda_gru.gru_sequence_tm(tp, torch.from_numpy(x_tm)[2::3],
+                                      torch.from_numpy(mask_tm)[2::3])
+    _close(h_t, h_j)
+
+
+@pytest.mark.parametrize("B,L", [(8, 6), (3, 1), (5, 4)])
+def test_cuda_readout_wrapper_on_cpu_matches_pallas(interpret, B, L):
+    rng = np.random.default_rng(3)
+    d_m, d_q, A = 8, 6, 5
+    jp, tp = _readout(rng, d_m, d_q, A)
+    mem = rng.standard_normal((B, L, d_m)).astype(np.float32)
+    q = rng.standard_normal((B, d_q)).astype(np.float32)
+    r_j = pr.pallas_attention_readout(jp, jnp.asarray(mem), jnp.asarray(q))
+    launches = cuda_readout.launches
+    r_t = cuda_readout.fused_attention_readout(tp, torch.from_numpy(mem),
+                                               torch.from_numpy(q))
+    assert cuda_readout.launches == launches
+    _close(r_t, r_j)
+
+
+def test_attention_readout_slot_mask_matches_jax():
+    rng = np.random.default_rng(4)
+    B, L, d_m, d_q, A = 6, 5, 4, 3, 7
+    jp, tp = _readout(rng, d_m, d_q, A)
+    mem = rng.standard_normal((B, L, d_m)).astype(np.float32)
+    q = rng.standard_normal((B, d_q)).astype(np.float32)
+    slot_mask = (rng.random((B, L)) > 0.4).astype(np.float32)
+    slot_mask[1] = 0.0  # every slot masked: reads zeros
+    slot_mask[4] = 0.0
+    slot_mask[2] = 1.0
+    r_j = j_attention_readout(jp, jnp.asarray(mem), jnp.asarray(q),
+                              slot_mask=jnp.asarray(slot_mask))
+    r_t = attention_readout(tp, torch.from_numpy(mem), torch.from_numpy(q),
+                            slot_mask=torch.from_numpy(slot_mask))
+    _close(r_t, r_j)
+    assert not r_t[1].any() and not r_t[4].any()
+    # without a mask: the plain version of the readout kernel
+    _close(attention_readout(tp, torch.from_numpy(mem), torch.from_numpy(q)),
+           j_attention_readout(jp, jnp.asarray(mem), jnp.asarray(q)))
+
+
+def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
+    """No silent fallback: only CPU tensors take the plain version."""
+    rng = np.random.default_rng(5)
+    _, tp = _gru(rng, 4, 4)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        cuda_gru.gru_sequence_tm(tp, torch.empty(3, 2, 4, device="meta"))
+    _, rp = _readout(rng, 4, 3, 5)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        cuda_readout.fused_attention_readout(
+            rp, torch.empty(2, 3, 4, device="meta"),
+            torch.empty(2, 3, device="meta"))
+
