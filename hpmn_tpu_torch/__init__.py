@@ -11,9 +11,11 @@ that has none of them. The Pallas kernels of the path it covers are
 hand-written CUDA for Hopper (``csrc/``), built from source at first use
 (``ops/_build.py``).
 
-Covered so far: the ``hpmn`` forward (``models.model.apply_model``) and the
-lifelong serving store (``serving.lifelong.UserMemoryStore``). What waits is
-listed in ROADMAP.md.
+Covered so far: the ``hpmn`` forward and loss (``models.model.apply_model``,
+``loss_fn``), its training step with plain Adam (``train.train``), and the
+lifelong serving store (``serving.lifelong.UserMemoryStore``). Entry points
+put their tensors on the card unless the caller passes ``device="cpu"``.
+What waits is listed in ROADMAP.md.
 """
 
 __version__ = "0.3.0"  # keep in sync with pyproject.toml

@@ -1,9 +1,10 @@
-"""The hpmn configs the port serves, as frozen dataclasses.
+"""The hpmn configs the port serves and trains, as frozen dataclasses.
 
 Counterpart of ``hpmn_tpu/configs/base.py``, which builds
-``ml_collections.ConfigDict``s. Only the fields the forward and serving path
-read are carried; their names and values are the JAX config's, so a config
-dict saved by the JAX package maps onto these one to one.
+``ml_collections.ConfigDict``s. Only the fields the forward, serving and
+training-step paths read are carried; their names and values are the JAX
+config's, so a config dict saved by the JAX package maps onto these one to
+one.
 """
 
 from __future__ import annotations
@@ -34,10 +35,35 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LossConfig:
+    cov_weight: float = 0.1  # HPMN slot decorrelation
+    l2_weight: float = 1e-4  # sum of squares of every >=2-D parameter
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 128
+    lr: float = 1e-3
+    # Optimizer extras of the JAX make_optimizer. Only the defaults (plain
+    # Adam) are ported; train.make_optimizer raises on the others.
+    lr_schedule: str = "constant"
+    warmup_steps: int = 0
+    grad_clip_norm: float = 0.0
+    weight_decay: float = 0.0
+    grad_accum: int = 1
+    ema_decay: float = 0.0
+    # Steps per dispatch of the JAX driver (0 = its startup probe). The
+    # port's make_multistep_train takes k from the batches it is given.
+    steps_per_dispatch: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     seed: int = 0
     dataset: str = "amazon"
     model: ModelConfig = ModelConfig()
+    loss: LossConfig = LossConfig()
+    train: TrainConfig = TrainConfig()
 
     def with_model(self, **changes) -> "Config":
         """A copy with ``model`` fields replaced."""
@@ -48,20 +74,26 @@ class Config:
 def amazon_hpmn() -> Config:
     """T=100, one memory layer (hpmn_tpu configs/base.py amazon_hpmn)."""
     return Config(dataset="amazon",
-                  model=ModelConfig(hpmn_layers=1, hpmn_period=4))
+                  model=ModelConfig(hpmn_layers=1, hpmn_period=4),
+                  loss=LossConfig(l2_weight=1e-4),
+                  train=TrainConfig(steps_per_dispatch=0))
 
 
 def taobao_hpmn() -> Config:
     """T=300, three layers of period 10 (hpmn_tpu taobao_hpmn)."""
     return Config(dataset="taobao",
-                  model=ModelConfig(hpmn_layers=3, hpmn_period=10))
+                  model=ModelConfig(hpmn_layers=3, hpmn_period=10),
+                  loss=LossConfig(l2_weight=1e-5),
+                  train=TrainConfig(batch_size=512, steps_per_dispatch=0))
 
 
 def xlong_hpmn() -> Config:
     """T=1000, six layers of period 3: scans of 1000, 333, 111, 37, 12 and
     4 steps (hpmn_tpu xlong_hpmn)."""
     return Config(dataset="xlong",
-                  model=ModelConfig(hpmn_layers=6, hpmn_period=3))
+                  model=ModelConfig(hpmn_layers=6, hpmn_period=3),
+                  loss=LossConfig(l2_weight=1e-5),
+                  train=TrainConfig(batch_size=512, steps_per_dispatch=0))
 
 
 _CONFIGS = {

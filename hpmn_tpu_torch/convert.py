@@ -43,7 +43,7 @@ def jax_key(name: str) -> str:
 
 
 def model_from_flat(cfg: Config, flat: Mapping[str, np.ndarray],
-                    device="cpu") -> HPMNModel:
+                    device="cuda") -> HPMNModel:
     """Build an ``HPMNModel`` for ``cfg`` holding the JAX arrays of
     ``flat``; the vocab sizes are read from the embedding tables."""
     check_supported(cfg)

@@ -38,7 +38,7 @@ class Batch:
 
 
 def batch_from_numpy(arrays: dict, indices: Optional[np.ndarray] = None,
-                     device="cpu") -> Batch:
+                     device="cuda") -> Batch:
     """Build a Batch on ``device`` from a dict of numpy arrays, optionally
     row-sliced by numpy fancy indexing."""
 

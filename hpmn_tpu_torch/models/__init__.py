@@ -1,2 +1,2 @@
-"""Models: the hpmn encoder, readout, tower and the forward
-(``models.model``)."""
+"""Models: the hpmn encoder, readout, tower, losses, and the forward and
+loss (``models.model``)."""

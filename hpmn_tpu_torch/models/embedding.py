@@ -2,9 +2,14 @@
 ``hpmn_tpu/models/embedding.py``.
 
 The behaviour embedding is concat(item emb, cat emb). The forward is a plain
-row gather (``hpmn_tpu/ops/embedding_agg.py::take_rows``'s forward); the
-one-hot matmul aggregation of its backward is a TPU workaround and waits
-with the training slice.
+row gather (``hpmn_tpu/ops/embedding_agg.py::take_rows``'s forward), and its
+backward is autograd's own index backward (a scatter-add of the row
+gradients into the table).
+
+Not ported: the one-hot matmul aggregation of ``take_rows``' backward
+(``hpmn_tpu/ops/embedding_agg.py``). It works around XLA's sort-based
+scatter on the TPU; it is jnp, not a Pallas kernel, and the card has a
+scatter-add of its own.
 """
 
 from __future__ import annotations

@@ -1,25 +1,25 @@
-"""The hpmn model's forward — counterpart of ``hpmn_tpu/models/model.py``
+"""The hpmn model and its loss — counterpart of ``hpmn_tpu/models/model.py``
 for ``cfg.model.name == "hpmn"``.
 
-    model = init_model(cfg, n_items, n_cats, device=...)
-    logits = apply_model(model, cfg, batch)
+    model = init_model(cfg, n_items, n_cats)             # on the card
+    logits, aux = apply_model(model, cfg, batch)
+    loss, metrics = loss_fn(model, cfg, batch)           # differentiable
 
 ``apply_model`` has the JAX function's three hpmn branches:
 
 - ``use_pallas`` (with the hierarchical scan): embeddings gathered straight
   into time-major [T, B, 2d], the hierarchy of scans through the CUDA scan
-  kernel and the readout through the CUDA readout kernel (on CPU tensors,
-  their plain versions);
+  kernels (forward K1, backward K2) and the readout through the CUDA
+  readout kernel (on CPU tensors, their plain versions);
 - the batch-major hierarchy of plain scans;
 - the masked single-scan oracle (``use_hierarchical_scan=False``).
 
-Forward only: the loss and the training step come with the backward kernel
-(ROADMAP.md). Other families raise.
+Other families raise.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -29,6 +29,7 @@ from ..data.schema import Batch
 from ..ops import cuda_gru, cuda_readout
 from . import hpmn as hpmn_mod
 from .embedding import Embedding, dense_lookup
+from .losses import bce_with_logits, covariance_regularizer, l2_regularizer
 from .readout import Readout, attention_readout
 from .tower import Tower, apply_tower
 
@@ -65,7 +66,7 @@ def check_supported(cfg: Config) -> None:
 
 
 def init_model(cfg: Config, n_items: int, n_cats: int,
-               seed: Optional[int] = None, device="cpu") -> HPMNModel:
+               seed: Optional[int] = None, device="cuda") -> HPMNModel:
     """The port's own seeded init, drawn on the CPU from a
     ``torch.Generator`` (so the weights do not depend on the device), then
     moved to ``device``. Same distributions as the JAX init, other numbers."""
@@ -77,8 +78,10 @@ def init_model(cfg: Config, n_items: int, n_cats: int,
     return model.to(device)
 
 
-def apply_model(model: HPMNModel, cfg: Config, batch: Batch) -> torch.Tensor:
-    """-> logits [B]."""
+def apply_model(model: HPMNModel, cfg: Config, batch: Batch,
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """-> (logits [B], aux): aux["memory"] is the HPMN slots [B, L, d_m]
+    that the covariance regularizer reads."""
     check_supported(cfg)
     m = cfg.model
     emb = model.embedding
@@ -103,4 +106,36 @@ def apply_model(model: HPMNModel, cfg: Config, batch: Batch) -> torch.Tensor:
             memory = hpmn_mod.encode_oracle(model.encoder, x, mask,
                                             m.hpmn_period)
         state = attention_readout(model.readout, memory, q)
-    return apply_tower(model.tower, torch.cat([q, state], dim=-1))
+    logits = apply_tower(model.tower, torch.cat([q, state], dim=-1))
+    return logits, {"memory": memory}
+
+
+def total_loss(model: HPMNModel, cfg: Config, logits: torch.Tensor,
+               aux: Dict[str, torch.Tensor], labels: torch.Tensor,
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """BCE + cov_weight * covariance regularizer (on aux["memory"]) +
+    l2_weight * sum of squares of every >= 2-D parameter."""
+    bce = bce_with_logits(logits, labels)
+    loss = bce
+    metrics = {"bce": bce}
+    if "memory" in aux and cfg.loss.cov_weight > 0:
+        cov = covariance_regularizer(aux["memory"])
+        loss = loss + cfg.loss.cov_weight * cov
+        metrics["cov_reg"] = cov
+    if cfg.loss.l2_weight > 0:
+        l2 = l2_regularizer(model.parameters())
+        loss = loss + cfg.loss.l2_weight * l2
+        metrics["l2"] = l2
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def loss_fn(model: HPMNModel, cfg: Config, batch: Batch,
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One differentiable call: -> (loss, metrics with bce, cov_reg, l2,
+    loss and the logits)."""
+    logits, aux = apply_model(model, cfg, batch)
+    loss, metrics = total_loss(model, cfg, logits, aux,
+                               batch.label.to(logits.dtype))
+    metrics["logits"] = logits
+    return loss, metrics

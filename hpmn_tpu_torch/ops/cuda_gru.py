@@ -1,19 +1,23 @@
-"""GRU scan forward through the hand-written CUDA kernel.
+"""GRU scan through the hand-written CUDA kernels, forward and backward.
 
-Replaces ``hpmn_tpu/ops/pallas_gru.py::_fwd_kernel`` (reached there through
-``pallas_gru_sequence_tm``) in its mask and no-mask forms, f32 chain, for
-the serving and forward path. The kernel is ``csrc/gru_scan_fwd.cu``: one
-launch scans a whole layer, the time loop inside the kernel and the carry in
-registers, one warp per batch row with lane j owning hidden unit j. The
-recurrence bounds it (each step waits for the last); keeping the whole loop
-in one launch, with no barrier or device-memory round trip between steps, is
-what the design does about that. See the source's header for the rest.
+Replaces ``hpmn_tpu/ops/pallas_gru.py``'s ``_fwd_kernel`` (K1) and
+``_bwd_kernel`` (K2), reached there through ``pallas_gru_sequence_tm`` and
+its ``jax.custom_vjp``, in their mask and no-mask forms, f32 chain. The
+kernels are ``csrc/gru_scan_fwd.cu`` and ``csrc/gru_scan_bwd.cu``: one
+launch scans a whole layer (forward, or backward in reverse), the time loop
+inside the kernel and the carry in registers, one warp per batch row with
+lane j owning hidden unit j. The recurrence bounds both (each step waits
+for the last); keeping the whole loop in one launch, with no barrier or
+device-memory round trip between steps, is what the design does about
+that. See the sources' headers for the rest.
 
-:func:`gru_sequence_tm` launches the kernel for CUDA tensors and raises on
-what it does not take (d_m != 32, d_in > 96, other dtypes); for CPU tensors
-it runs the plain version, ``ops.gru.gru_scan_tm``. Forward only: the
-backward kernel is still to port (ROADMAP.md), so a CUDA call that would
-need a gradient raises.
+:class:`GRUScan` is the ``torch.autograd.Function`` that mirrors the
+custom_vjp: on CUDA tensors its forward launches K1 and its backward K2;
+on CPU tensors they are the plain versions ``ops.gru.gru_scan_tm`` and
+``ops.gru.gru_scan_tm_bwd``, so the CPU tests run the same plumbing (saved
+tensors, strided views, the mask). On a CUDA tensor a wrapper launches its
+kernel or raises on what it does not take (d_m != 32, d_in > 96, other
+dtypes); nothing falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -25,14 +29,17 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .gru import GRUParams, gru_scan_tm
+from .gru import GRUParams, GRUWeights, gru_scan_tm, gru_scan_tm_bwd
 
 SOURCE = "hpmn_tpu_torch/csrc/gru_scan_fwd.cu"
 REPLACES = "hpmn_tpu/ops/pallas_gru.py:127"
+BWD_SOURCE = "hpmn_tpu_torch/csrc/gru_scan_bwd.cu"
+BWD_REPLACES = "hpmn_tpu/ops/pallas_gru.py:209"
 
 #: Kernel launches so far in this process (a run's proof that it went
-#: through the kernel). Callers may reset it to 0.
+#: through the kernels): K1 and K2. Callers may reset them to 0.
 launches = 0
+bwd_launches = 0
 
 _D_M = 32
 _MAX_D_IN = 96
@@ -50,45 +57,57 @@ def _kernel_fn():
     return fn
 
 
-def _check_cuda_args(params, x_tm, mask_tm, h0):
+@functools.lru_cache(maxsize=None)
+def _bwd_fns():
+    lib = _build.load_library()
+    rows = lib.hpmn_gru_scan_bwd_rows_per_block
+    rows.argtypes = [ctypes.c_int]
+    rows.restype = ctypes.c_int
+    fn = lib.hpmn_gru_scan_bwd
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong,
+                    ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 11
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return rows, fn
+
+
+def _check_cuda_args(w, x_tm, mask_tm, h0, name):
     T, B, d_in = x_tm.shape
-    d_m = params.wh.shape[0]
+    d_m = w.wh.shape[0]
     if d_m != _D_M or not 1 <= d_in <= _MAX_D_IN:
-        raise ValueError(f"gru_scan_fwd takes d_m == {_D_M} and d_in <= "
+        raise ValueError(f"{name} takes d_m == {_D_M} and d_in <= "
                          f"{_MAX_D_IN}; got d_m={d_m}, d_in={d_in}")
-    tensors = [x_tm, params.wx, params.wh, params.b]
+    tensors = [x_tm, w.wx, w.wh, w.b]
     tensors += [t for t in (mask_tm, h0) if t is not None]
     for t in tensors:
         if t.dtype != torch.float32 or t.device != x_tm.device:
-            raise ValueError("gru_scan_fwd takes float32 tensors on one "
+            raise ValueError(f"{name} takes float32 tensors on one "
                              f"device; got {t.dtype} on {t.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "gru_scan_fwd is forward only (the backward kernel is still to "
-            "port, ROADMAP.md); call it under torch.no_grad()")
     if x_tm.stride(2) != 1 or x_tm.stride(1) != d_in:
         raise ValueError("x_tm rows must be contiguous (any time stride)")
     if mask_tm is not None and (mask_tm.shape != (T, B)
                                 or mask_tm.stride(1) != 1):
         raise ValueError("mask_tm must be [T, B] with a unit batch stride")
-    for w in (params.wx, params.wh, params.b):
-        if not w.is_contiguous():
+    for t in (w.wx, w.wh, w.b):
+        if not t.is_contiguous():
             raise ValueError("GRU weights must be contiguous")
     if h0 is not None and (h0.shape != (B, d_m) or not h0.is_contiguous()):
         raise ValueError("h0 must be a contiguous [B, d_m] tensor")
 
 
-def _launch(params: GRUParams, x_tm, mask_tm, h0) -> torch.Tensor:
+def _launch(w, x_tm, mask_tm, h0) -> torch.Tensor:
+    """K1: -> h_seq [T, B, 32]."""
     global launches
     T, B, d_in = x_tm.shape
-    _check_cuda_args(params, x_tm, mask_tm, h0)
+    _check_cuda_args(w, x_tm, mask_tm, h0, "gru_scan_fwd")
     hseq = torch.empty(T, B, _D_M, dtype=torch.float32, device=x_tm.device)
     stream = torch.cuda.current_stream(x_tm.device).cuda_stream
     code = _kernel_fn()(
         x_tm.data_ptr(), x_tm.stride(0),
         None if mask_tm is None else mask_tm.data_ptr(),
         0 if mask_tm is None else mask_tm.stride(0),
-        params.wx.data_ptr(), params.wh.data_ptr(), params.b.data_ptr(),
+        w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
         None if h0 is None else h0.data_ptr(), hseq.data_ptr(),
         T, B, d_in, stream)
     _build.check_launch(code, "gru_scan_fwd")
@@ -96,24 +115,96 @@ def _launch(params: GRUParams, x_tm, mask_tm, h0) -> torch.Tensor:
     return hseq
 
 
+def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq):
+    """K2: -> (dx, dwx, dwh, db, dh0), the weight gradients summed over
+    the kernel's per-block partials."""
+    global bwd_launches
+    T, B, d_in = x_tm.shape
+    _check_cuda_args(w, x_tm, mask_tm, h0, "gru_scan_bwd")
+    for t in (hseq, dhseq):
+        if t.shape != (T, B, _D_M) or t.dtype != torch.float32 \
+                or t.device != x_tm.device or not t.is_contiguous():
+            raise ValueError("h_seq and dh_seq must be contiguous float32 "
+                             f"[T, B, {_D_M}] tensors on x's device")
+    rows_fn, fn = _bwd_fns()
+    n_blocks = -(-B // rows_fn(d_in))
+    dev = x_tm.device
+    dx = torch.empty(T, B, d_in, dtype=torch.float32, device=dev)
+    dh0 = torch.empty(B, _D_M, dtype=torch.float32, device=dev)
+    dwx = torch.empty(n_blocks, d_in, 3 * _D_M, dtype=torch.float32,
+                      device=dev)
+    dwh = torch.empty(n_blocks, _D_M, 3 * _D_M, dtype=torch.float32,
+                      device=dev)
+    db = torch.empty(n_blocks, 3 * _D_M, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = fn(
+        x_tm.data_ptr(), x_tm.stride(0),
+        None if mask_tm is None else mask_tm.data_ptr(),
+        0 if mask_tm is None else mask_tm.stride(0),
+        w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
+        None if h0 is None else h0.data_ptr(), hseq.data_ptr(),
+        dhseq.data_ptr(), dx.data_ptr(), dh0.data_ptr(), dwx.data_ptr(),
+        dwh.data_ptr(), db.data_ptr(), T, B, d_in, stream)
+    _build.check_launch(code, "gru_scan_bwd")
+    bwd_launches += 1
+    return dx, dwx.sum(0), dwh.sum(0), db.sum(0), dh0
+
+
+def gru_scan_bwd(params: GRUParams, x_tm: torch.Tensor,
+                 mask_tm: Optional[torch.Tensor], h_seq: torch.Tensor,
+                 dh_seq: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The scan backward: K2 on CUDA tensors, ``gru_scan_tm_bwd`` (same
+    arguments and results) on CPU tensors."""
+    if x_tm.device.type == "cpu":
+        return gru_scan_tm_bwd(params, x_tm, mask_tm, h_seq, dh_seq, h0)
+    if x_tm.device.type != "cuda":
+        raise ValueError(f"gru_scan_bwd runs on cpu or cuda, not "
+                         f"{x_tm.device}")
+    return _launch_bwd(params, x_tm, mask_tm, h0, h_seq, dh_seq.contiguous())
+
+
+class GRUScan(torch.autograd.Function):
+    """h_seq = scan(x_tm, mask_tm, h0; wx, wh, b), time-major. Forward K1
+    and backward K2 on CUDA tensors; the plain versions on CPU tensors. The
+    mask gets no gradient; h0 gets one when it is given."""
+
+    @staticmethod
+    def forward(ctx, x_tm, mask_tm, h0, wx, wh, b):
+        w = GRUWeights(wx, wh, b)
+        if x_tm.device.type == "cpu":
+            h_seq = gru_scan_tm(w, x_tm, mask_tm, h0)[0]
+        else:
+            h_seq = _launch(w, x_tm, mask_tm, h0)
+        ctx.save_for_backward(x_tm, mask_tm, h0, wx, wh, b, h_seq)
+        return h_seq
+
+    @staticmethod
+    def backward(ctx, dh_seq):
+        x_tm, mask_tm, h0, wx, wh, b, h_seq = ctx.saved_tensors
+        dx, dwx, dwh, db, dh0 = gru_scan_bwd(
+            GRUWeights(wx, wh, b), x_tm, mask_tm, h_seq, dh_seq, h0)
+        return dx, None, None if h0 is None else dh0, dwx, dwh, db
+
+
 def gru_sequence_tm(params: GRUParams, x_tm: torch.Tensor,
                     mask_tm: Optional[torch.Tensor] = None,
                     h0: Optional[torch.Tensor] = None,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Time-major scan: x_tm [T, B, d_in], mask_tm [T, B] or None (full
-    sequences), h0 [B, d_m] or None -> (h_seq [T, B, d_m], h_T [B, d_m]).
+    sequences), h0 [B, d_m] or None -> (h_seq [T, B, d_m], h_T [B, d_m]),
+    differentiable through :class:`GRUScan`.
 
     x_tm may be a leading-axis strided view (``h_seq[period-1::period]`` of
-    the layer below): the kernel takes the time stride, so nothing is
+    the layer below): both kernels take the time stride, so nothing is
     copied. Likewise mask_tm."""
-    if x_tm.device.type == "cpu":
-        return gru_scan_tm(params, x_tm, mask_tm, h0)
-    if x_tm.device.type != "cuda":
+    if x_tm.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gru_sequence_tm runs on cpu or cuda, not "
                          f"{x_tm.device}")
     T, B, _ = x_tm.shape
     if T == 0:
-        h = (torch.zeros(B, _D_M, device=x_tm.device) if h0 is None else h0)
-        return x_tm.new_zeros(0, B, _D_M), h
-    hseq = _launch(params, x_tm, mask_tm, h0)
-    return hseq, hseq[-1]
+        d_m = params.wh.shape[0]
+        h = x_tm.new_zeros(B, d_m) if h0 is None else h0
+        return x_tm.new_zeros(0, B, d_m), h
+    h_seq = GRUScan.apply(x_tm, mask_tm, h0, params.wx, params.wh, params.b)
+    return h_seq, h_seq[-1]

@@ -8,18 +8,21 @@ registers. Bytes bound it (about 16 FLOP per byte read); one pass that keeps
 the [B, L, A] activations out of device memory is what the design does
 about that. See the source's header for the rest.
 
-:func:`fused_attention_readout` launches the kernel for CUDA tensors and
-raises on what it does not take (readout width or d_m other than 32,
-L > 16, d_q > 256, other dtypes); for CPU tensors it runs the plain
-version, ``models.readout.attention_readout`` with no slot mask. Forward
-only, like the TPU kernel's own forward: a CUDA call that would need a
-gradient raises.
+:func:`fused_attention_readout` goes through :class:`AttentionReadout`,
+a ``torch.autograd.Function``: its forward launches the kernel for CUDA
+tensors and raises on what it does not take (readout width or d_m other
+than 32, L > 16, d_q > 256, other dtypes); for CPU tensors it runs the
+plain version, ``models.readout.attention_readout`` with no slot mask. Its
+backward is autograd of that plain version, recomputed from the saved
+memory, query and weights: what the JAX ``_core_bwd`` does (``jax.vjp`` of
+the jnp oracle; the TPU package has no backward kernel for the readout).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -46,6 +49,15 @@ def _kernel_fn():
     return fn
 
 
+class ReadoutWeights(NamedTuple):
+    """Bare weight tensors with ``Readout``'s field names."""
+
+    wm: torch.Tensor
+    wq: torch.Tensor
+    b: torch.Tensor
+    v: torch.Tensor
+
+
 def _launch(module, memory: torch.Tensor, query: torch.Tensor):
     global launches
     B, L, d_m = memory.shape
@@ -63,9 +75,6 @@ def _launch(module, memory: torch.Tensor, query: torch.Tensor):
                 or not t.is_contiguous():
             raise ValueError("readout_fwd takes contiguous float32 tensors "
                              f"on one device; got {t.dtype} on {t.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "readout_fwd is forward only; call it under torch.no_grad()")
     out = torch.empty(B, d_m, dtype=torch.float32, device=memory.device)
     if B == 0:
         return out
@@ -79,13 +88,35 @@ def _launch(module, memory: torch.Tensor, query: torch.Tensor):
     return out
 
 
+class AttentionReadout(torch.autograd.Function):
+    """read = readout(memory, query; wm, wq, b, v). Forward: the kernel on
+    CUDA tensors, the plain version on CPU tensors. Backward: autograd of
+    the plain version, recomputed."""
+
+    @staticmethod
+    def forward(ctx, memory, query, wm, wq, b, v):
+        w = ReadoutWeights(wm, wq, b, v)
+        ctx.save_for_backward(memory, query, wm, wq, b, v)
+        if memory.device.type == "cpu":
+            return attention_readout(w, memory, query)
+        return _launch(w, memory, query)
+
+    @staticmethod
+    def backward(ctx, d_read):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            read = attention_readout(ReadoutWeights(*inputs[2:]), inputs[0],
+                                     inputs[1])
+        return torch.autograd.grad(read, inputs, d_read)
+
+
 def fused_attention_readout(module, memory: torch.Tensor,
                             query: torch.Tensor) -> torch.Tensor:
     """memory [B, L, d_m], query [B, d_q] -> read [B, d_m], with the
-    readout weights of ``module`` (a ``models.readout.Readout``)."""
-    if memory.device.type == "cpu":
-        return attention_readout(module, memory, query)
-    if memory.device.type != "cuda":
+    readout weights of ``module`` (a ``models.readout.Readout``),
+    differentiable through :class:`AttentionReadout`."""
+    if memory.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_attention_readout runs on cpu or cuda, not "
                          f"{memory.device}")
-    return _launch(module, memory, query)
+    return AttentionReadout.apply(memory, query, module.wm, module.wq,
+                                  module.b, module.v)

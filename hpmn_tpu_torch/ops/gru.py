@@ -9,15 +9,25 @@ step, the reset gate applied to its candidate block afterwards):
     c = tanh(xp_c + r * g_c);  h' = (1 - z) * h + z * c
 
 A masked step carries h unchanged (left-padded sequences). This is the plain
-version that the CUDA scan kernel (ops/cuda_gru.py) is held against.
+version that the CUDA scan kernels (ops/cuda_gru.py) are held against:
+``gru_scan_tm`` for the forward, ``gru_scan_tm_bwd`` for the backward.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+
+
+class GRUWeights(NamedTuple):
+    """Bare weight tensors with GRUParams' field names, for the functions
+    below where no module is at hand (inside an autograd.Function)."""
+
+    wx: torch.Tensor
+    wh: torch.Tensor
+    b: torch.Tensor
 
 
 class GRUParams(nn.Module):
@@ -85,6 +95,56 @@ def gru_scan_tm(params: GRUParams, x_tm: torch.Tensor,
     if not hs:
         return x_tm.new_zeros(0, B, d_m), h
     return torch.stack(hs), h
+
+
+def gru_scan_tm_bwd(params: GRUParams, x_tm: torch.Tensor,
+                    mask_tm: Optional[torch.Tensor], h_seq: torch.Tensor,
+                    dh_seq: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                    ) -> Tuple[torch.Tensor, ...]:
+    """Backward of :func:`gru_scan_tm` by hand, independent of autograd:
+    x_tm [T, B, d_in], mask_tm [T, B] or None, h_seq [T, B, d_m] (the
+    forward's output), dh_seq [T, B, d_m] (its cotangent), h0 [B, d_m] or
+    None -> (dx [T, B, d_in], dwx, dwh, db, dh0 [B, d_m]).
+
+    The reverse sweep of the scan backward kernel: the gates are recomputed
+    from h_{t-1} = h_seq[t-1] (h0 at t = 0) with the forward's formulas,
+    and dh is carried in reverse. Per step, with m = mask_t (1 with none):
+
+        gtot = dh_seq[t] + dh;  gcell = gtot * m
+        dz_s = gcell (c - h_prev);  dc = gcell z (1 - c^2)
+        dz = dz_s z (1 - z);        dr = dc g_c r (1 - r)
+        dh = gcell (1 - z) + (gtot - gcell) + [dr|dz|dc r] @ wh^T
+
+    and dx_t = [dr|dz|dc] @ wx^T, dwx += x_t^T [dr|dz|dc], dwh += h_prev^T
+    [dr|dz|dc r], db += sum [dr|dz|dc]."""
+    T, B, _ = x_tm.shape
+    d_m = params.wh.shape[0]
+    h0 = x_tm.new_zeros(B, d_m) if h0 is None else h0
+    h_prev = torch.cat([h0[None], h_seq[:-1]])  # [T, B, d_m]
+    xp = gru_input_proj(params, x_tm)  # the forward's projection
+    dpre_x = x_tm.new_empty(T, B, 3 * d_m)  # [dr | dz | dc]
+    dpre_h = x_tm.new_empty(T, B, 3 * d_m)  # [dr | dz | dc * r]
+    dh = x_tm.new_zeros(B, d_m)
+    for t in reversed(range(T)):
+        hp = h_prev[t]
+        g = hp @ params.wh
+        r = torch.sigmoid(xp[t, :, :d_m] + g[:, :d_m])
+        z = torch.sigmoid(xp[t, :, d_m:2 * d_m] + g[:, d_m:2 * d_m])
+        g_c = g[:, 2 * d_m:]
+        c = torch.tanh(xp[t, :, 2 * d_m:] + r * g_c)
+        gtot = dh_seq[t] + dh
+        gcell = gtot if mask_tm is None else gtot * mask_tm[t][:, None]
+        dzs = gcell * (c - hp)
+        dc = gcell * z * (1.0 - c * c)
+        dz = dzs * z * (1.0 - z)
+        dr = dc * g_c * r * (1.0 - r)
+        dpre_x[t] = torch.cat([dr, dz, dc], dim=-1)
+        dpre_h[t] = torch.cat([dr, dz, dc * r], dim=-1)
+        dh = gcell * (1.0 - z) + (gtot - gcell) + dpre_h[t] @ params.wh.T
+    dx = dpre_x @ params.wx.T
+    dwx = torch.einsum("tbi,tbj->ij", x_tm, dpre_x)
+    dwh = torch.einsum("tbi,tbj->ij", h_prev, dpre_h)
+    return dx, dwx, dwh, dpre_x.sum(dim=(0, 1)), dh
 
 
 def gru_sequence(params: GRUParams, x: torch.Tensor,

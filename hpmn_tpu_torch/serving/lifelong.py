@@ -2,7 +2,7 @@
 counterpart of ``hpmn_tpu/serving/lifelong.py::UserMemoryStore`` in its
 device-resident form.
 
-    store = UserMemoryStore(cfg, model, device="cuda")
+    store = UserMemoryStore(cfg, model)        # on the card, as the model
     store.ingest_histories(uids, item_seqs, cat_seqs)  # cold start, batched
     store.update(uids, item_ids, cat_ids)      # one new behaviour per user
     scores = store.predict(uids, cand_items, cand_cats)           # [B]
@@ -38,7 +38,7 @@ class UserMemoryStore:
     _MIN_CAP = 1024
 
     def __init__(self, cfg: Config, model, max_users: Optional[int] = None,
-                 device="cpu"):
+                 device="cuda"):
         check_supported(cfg)
         self.device = torch.empty(0, device=device).device  # "cuda" -> cuda:i
         if model.embedding.item.device != self.device:

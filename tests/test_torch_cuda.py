@@ -8,22 +8,26 @@ conftest (which imports JAX):
 
 Tolerances as in chip_smoke.py: 1e-4 on scans (f32, other summation order
 and transcendentals, a carry that does not grow errors), 1e-5 on the
-readout, TF32 off."""
+readout; the scan backward's outputs within 1e-4 of each tensor's max abs
+(the weight gradients sum over T*B row-steps in another order), and so is
+every parameter's gradient of a training step; TF32 off."""
 
 import numpy as np
 import pytest
 import torch
 
 from hpmn_tpu_torch import configs
-from hpmn_tpu_torch.models.model import init_model
+from hpmn_tpu_torch.data import synthetic
+from hpmn_tpu_torch.data.schema import batch_from_numpy
+from hpmn_tpu_torch.models.model import init_model, loss_fn
 from hpmn_tpu_torch.models.readout import Readout, attention_readout
 from hpmn_tpu_torch.ops import cuda_gru, cuda_readout
-from hpmn_tpu_torch.ops.gru import GRUParams, gru_scan_tm
+from hpmn_tpu_torch.ops.gru import GRUParams, gru_scan_tm, gru_scan_tm_bwd
 from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
 
 pytestmark = pytest.mark.cuda
 
-TOL_GRU, TOL_READOUT = 1e-4, 1e-5
+TOL_GRU, TOL_READOUT, TOL_GRAD = 1e-4, 1e-5, 1e-4
 
 
 @pytest.fixture
@@ -87,9 +91,86 @@ def test_gru_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         cuda_gru.gru_sequence_tm(p, torch.zeros(4, 32, 2, device=dev
                                                 ).transpose(1, 2))
-    p.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        cuda_gru.gru_sequence_tm(p, torch.zeros(4, 2, 32, device=dev))
+    x = torch.zeros(4, 2, 32, device=dev)
+    h = torch.zeros(4, 2, 32, device=dev)
+    with pytest.raises(ValueError, match="dh_seq"):
+        cuda_gru.gru_scan_bwd(p, x, None, h, h.transpose(0, 1))
+
+
+def _rel_err(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+@pytest.mark.parametrize("T,B,d_in,masked,strided", [
+    (1, 3, 32, False, False), (7, 33, 32, True, False),
+    (100, 64, 32, False, True), (100, 64, 32, True, False),
+    (50, 10, 70, True, False), (20, 5, 5, False, False),
+    (9, 6, 96, True, True)])
+def test_gru_bwd_kernel_matches_plain(dev, T, B, d_in, masked, strided):
+    p = _gru(d_in, dev)
+    g = torch.Generator().manual_seed(T + B)
+    x_all = torch.randn(3 * T if strided else T, B, d_in, generator=g).to(dev)
+    x = x_all[2::3] if strided else x_all
+    mask = _mask(T, B, dev) if masked else None
+    h0 = torch.randn(B, 32, generator=g).to(dev) if B % 2 else None
+    h_seq = cuda_gru.gru_sequence_tm(p, x, mask, h0)[0]
+    dh_seq = torch.randn(T, B, 32, generator=g).to(dev)
+    n = cuda_gru.bwd_launches
+    got = cuda_gru.gru_scan_bwd(p, x, mask, h_seq, dh_seq, h0)
+    want = gru_scan_tm_bwd(p, x, mask, h_seq, dh_seq, h0)
+    torch.cuda.synchronize()
+    assert cuda_gru.bwd_launches == n + 1
+    for name, a, b in zip(("dx", "dwx", "dwh", "db", "dh0"), got, want):
+        assert a.shape == b.shape, name
+        assert _rel_err(a, b) <= TOL_GRAD, name
+
+
+def test_gradient_through_the_scan_function_on_the_card(dev):
+    """autograd through GRUScan (K1 forward, K2 backward) on a strided view
+    with a mask == the CPU Function (plain forward and backward)."""
+    g = torch.Generator().manual_seed(3)
+    x_all = torch.randn(60, 16, 32, generator=g)
+    mask = _mask(20, 16, torch.device("cpu"))
+    dh = torch.randn(20, 16, 32, generator=g)
+    grads = []
+    for d in ("cpu", dev):
+        p = _gru(32, d).requires_grad_(True)
+        x_leaf = x_all.to(d).requires_grad_(True)
+        h_seq, h_T = cuda_gru.gru_sequence_tm(p, x_leaf[2::3], mask.to(d))
+        loss = (h_seq * dh.to(d)).sum() + h_T.square().sum()
+        grads.append([t.cpu() for t in torch.autograd.grad(
+            loss, [x_leaf, p.wx, p.wh, p.b])])
+    for a, b in zip(grads[1], grads[0]):
+        assert _rel_err(a, b) <= TOL_GRAD
+
+
+@pytest.mark.parametrize("full_mask", [True, False])
+def test_train_step_kernel_path_matches_plain_path(dev, full_mask):
+    """One loss and gradient through the kernels (use_pallas) == the plain
+    hierarchy and readout on the card, from the same weights and batch."""
+    cfg = configs.get_config("xlong_hpmn").with_model(
+        use_pallas=True, assume_full_mask=full_mask)
+    spec = synthetic.DatasetSpec("mid", seq_len=250, n_items=500, n_cats=40,
+                                 n_users=50)
+    data = synthetic.make_ctr_dataset(spec, 32, seed=1,
+                                      min_len_frac=1.0 if full_mask else 0.3)
+    batch = batch_from_numpy(data, device=dev)
+    out = []
+    for c in (cfg, cfg.with_model(use_pallas=False)):
+        model = init_model(c, 500, 40, seed=2, device=dev)
+        counts = (cuda_gru.launches, cuda_gru.bwd_launches)
+        loss, _ = loss_fn(model, c, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        ran = (cuda_gru.launches - counts[0], cuda_gru.bwd_launches - counts[1])
+        out.append((loss.item(), dict(model.named_parameters()), ran))
+    (l_k, p_k, ran_k), (l_p, p_p, ran_p) = out
+    L = cfg.model.hpmn_layers
+    assert ran_k == (L, L) and ran_p == (0, 0)
+    assert abs(l_k - l_p) <= 1e-5 * abs(l_p)
+    for name, p in p_k.items():
+        assert _rel_err(p.grad, p_p[name].grad) <= TOL_GRAD, name
 
 
 @pytest.mark.parametrize("B,L,d_q", [(1, 1, 32), (512, 6, 32), (37, 16, 40),

@@ -5,6 +5,7 @@ Tolerances: encoders atol = rtol = 1e-5 in f32; logits atol = rtol = 1e-4
 (a tower of three products over the memory's 1e-5)."""
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +31,7 @@ from hpmn_tpu_torch.models.hpmn import (HPMNEncoder, encode_hierarchical,
                                         encode_hierarchical_tm, encode_oracle)
 from hpmn_tpu_torch.models.model import apply_model, init_model
 from hpmn_tpu_torch.ops import cuda_gru
+from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
 
 ENC_TOL = dict(atol=1e-5, rtol=1e-5)
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -74,9 +76,11 @@ def _inputs(rng, B, T, d_in):
 def test_configs_match_jax(name):
     mine, theirs = configs.get_config(name), j_get_config(name)
     assert mine.seed == theirs.seed and mine.dataset == theirs.dataset
-    for f in dataclasses.fields(mine.model):
-        assert getattr(mine.model, f.name) == getattr(theirs.model, f.name), \
-            f.name
+    for part in ("model", "loss", "train"):
+        for f in dataclasses.fields(getattr(mine, part)):
+            assert (getattr(getattr(mine, part), f.name)
+                    == getattr(getattr(theirs, part), f.name)), \
+                f"{part}.{f.name}"
 
 
 @pytest.mark.parametrize("spec_name,n,min_len_frac", [
@@ -147,38 +151,42 @@ def test_apply_model_matches_jax(interpret, use_pallas, hierarchical,
         hpmn_layers=3, use_pallas=use_pallas,
         use_hierarchical_scan=hierarchical, assume_full_mask=full_mask)
     params = j_init_model(jax.random.key(5), j_cfg, N_ITEMS, N_CATS)
-    model = model_from_flat(cfg, _flat(params)).requires_grad_(False)
+    model = model_from_flat(cfg, _flat(params),
+                            device="cpu").requires_grad_(False)
     data = synthetic.make_ctr_dataset(
         SMALL, 6, seed=5, min_len_frac=1.0 if full_mask else 0.5)
-    want, _ = j_apply_model(params, j_cfg, j_batch_from_numpy(data))
-    got = apply_model(model, cfg, batch_from_numpy(data))
+    want, want_aux = j_apply_model(params, j_cfg, j_batch_from_numpy(data))
+    got, aux = apply_model(model, cfg, batch_from_numpy(data, device="cpu"))
     assert got.shape == (6,)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+    np.testing.assert_allclose(aux["memory"].numpy(),
+                               np.asarray(want_aux["memory"]), **ENC_TOL)
 
 
 def test_convert_consumes_every_key_and_fills_every_parameter():
     j_cfg = j_get_config("taobao_hpmn")
     cfg = configs.get_config("taobao_hpmn")
     flat = _flat(j_init_model(jax.random.key(6), j_cfg, N_ITEMS, N_CATS))
-    model = model_from_flat(cfg, flat)
+    model = model_from_flat(cfg, flat, device="cpu")
     assert {jax_key(n) for n, _ in model.named_parameters()} == set(flat)
     for name, p in model.named_parameters():
         np.testing.assert_array_equal(p.detach().numpy(), flat[jax_key(name)])
     extra = dict(flat, **{"['encoder']['layers'][9].wx": np.zeros((1, 1))})
     with pytest.raises(KeyError, match="no parameter"):
-        model_from_flat(cfg, extra)
+        model_from_flat(cfg, extra, device="cpu")
     missing = {k: v for k, v in flat.items() if k != "['readout']['v']"}
     with pytest.raises(KeyError, match="no JAX array"):
-        model_from_flat(cfg, missing)
+        model_from_flat(cfg, missing, device="cpu")
     with pytest.raises(ValueError, match="shape"):
-        model_from_flat(cfg.with_model(hpmn_layers=3, mem_dim=8), flat)
+        model_from_flat(cfg.with_model(hpmn_layers=3, mem_dim=8), flat,
+                        device="cpu")
 
 
 def test_init_model_is_seeded_and_shaped_like_jax():
     cfg = configs.get_config("xlong_hpmn")
-    a = init_model(cfg, N_ITEMS, N_CATS, seed=3)
-    b = init_model(cfg, N_ITEMS, N_CATS, seed=3)
-    c = init_model(cfg, N_ITEMS, N_CATS, seed=4)
+    a = init_model(cfg, N_ITEMS, N_CATS, seed=3, device="cpu")
+    b = init_model(cfg, N_ITEMS, N_CATS, seed=3, device="cpu")
+    c = init_model(cfg, N_ITEMS, N_CATS, seed=4, device="cpu")
     j_flat = _flat(j_init_model(jax.random.key(0), j_get_config("xlong_hpmn"),
                                 N_ITEMS, N_CATS))
     for (name, pa), pb, pc in zip(a.named_parameters(), b.parameters(),
@@ -194,4 +202,12 @@ def test_init_model_is_seeded_and_shaped_like_jax():
 def test_unported_options_raise(change):
     cfg = configs.get_config("xlong_hpmn").with_model(**change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model(cfg, N_ITEMS, N_CATS)
+        init_model(cfg, N_ITEMS, N_CATS, device="cpu")
+
+
+@pytest.mark.parametrize("entry", [init_model, model_from_flat,
+                                   batch_from_numpy, UserMemoryStore])
+def test_entry_points_default_to_the_card(entry):
+    """The port runs on the card unless the caller asks for the CPU (the
+    tests here pass device="cpu"); nothing falls back to the CPU."""
+    assert inspect.signature(entry).parameters["device"].default == "cuda"

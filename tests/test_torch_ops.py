@@ -1,10 +1,16 @@
 """The port's ops against the JAX package on the CPU: the plain GRU, the
 CUDA kernels' wrappers on CPU tensors (which run their plain versions)
 against the Pallas kernels in interpret mode, and the readout with a slot
-mask. Inputs and weights are drawn with numpy from a seed and handed to
-both sides. Tolerance: atol = rtol = 1e-5 in f32 (the two sides sum in
-other orders and the Pallas GRU writes sigmoid through tanh)."""
+mask; then the backward: the plain scan backward against autograd and
+against ``jax.vjp`` of the Pallas scan (whose backward is the Pallas
+backward kernel), ``gradcheck`` of the scan's autograd Function, and the
+readout Function's gradients against ``jax.vjp`` of the Pallas readout.
+Inputs and weights are drawn with numpy from a seed and handed to both
+sides. Tolerance: atol = rtol = 1e-5 in f32 (the two sides sum in other
+orders and the Pallas GRU writes sigmoid through tanh); gradients, which
+sum T*B such terms, atol = rtol = 1e-5 as well at these sizes."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +23,8 @@ from hpmn_tpu.ops.gru import GRUParams as JGRUParams
 from hpmn_tpu.ops.gru import gru_sequence as j_gru_sequence
 from hpmn_tpu_torch.models.readout import Readout, attention_readout
 from hpmn_tpu_torch.ops import cuda_gru, cuda_readout
-from hpmn_tpu_torch.ops.gru import GRUParams, gru_sequence
+from hpmn_tpu_torch.ops.gru import (GRUParams, gru_scan_tm, gru_scan_tm_bwd,
+                                    gru_sequence)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -165,4 +172,134 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
         cuda_readout.fused_attention_readout(
             rp, torch.empty(2, 3, 4, device="meta"),
             torch.empty(2, 3, device="meta"))
+
+
+
+def _port_params(tp, dtype=torch.float32):
+    """The port module's weights as fresh leaves that require grad."""
+    return [getattr(tp, k).detach().to(dtype).clone().requires_grad_(True)
+            for k in ("wx", "wh", "b")]
+
+
+@pytest.mark.parametrize("T", [1, 7, 29])
+@pytest.mark.parametrize("use_mask,strided", [
+    (False, False), (True, False), (True, True)])
+def test_gru_scan_tm_bwd_matches_autograd(T, use_mask, strided):
+    """The plain backward (the kernel's reference) == autograd of the plain
+    forward, T not a multiple of 8, with an h0, on a strided x view."""
+    rng = np.random.default_rng(T)
+    B, d_in, d_m = 5, 6, 4
+    _, tp = _gru(rng, d_in, d_m)
+    rows = 3 * T if strided else T
+    x_all = torch.from_numpy(
+        rng.standard_normal((rows, B, d_in)).astype(np.float32))
+    x_tm = x_all[2::3] if strided else x_all
+    mask = (torch.from_numpy(_left_pad_mask(rng, B, T).T.copy())
+            if use_mask else None)
+    h0 = torch.from_numpy(rng.standard_normal((B, d_m)).astype(np.float32))
+    dh_seq = torch.from_numpy(
+        rng.standard_normal((T, B, d_m)).astype(np.float32))
+    wx, wh, b = _port_params(tp)
+    leaves = [x_all.clone().requires_grad_(True), h0.requires_grad_(True),
+              wx, wh, b]
+    xv = leaves[0][2::3] if strided else leaves[0]
+    w = cuda_gru.GRUWeights(wx, wh, b)
+    h_seq, _ = gru_scan_tm(w, xv, mask, leaves[1])
+    want = torch.autograd.grad(h_seq, leaves, dh_seq)
+    with torch.no_grad():
+        dx, dwx, dwh, db, dh0 = gru_scan_tm_bwd(w, x_tm, mask, h_seq, dh_seq,
+                                                h0)
+    want_dx = want[0][2::3] if strided else want[0]
+    for got, ref in zip((dx, dh0, dwx, dwh, db), (want_dx, *want[1:])):
+        _close(got, ref)
+
+
+@pytest.mark.parametrize("T", [1, 7, 29])
+@pytest.mark.parametrize("use_mask,strided", [
+    (False, False), (True, False), (False, True)])
+def test_gru_scan_grads_match_pallas_vjp(interpret, T, use_mask, strided):
+    """Gradients through the scan's autograd Function on CPU tensors ==
+    ``jax.vjp`` of ``pallas_gru_sequence_tm`` (the custom_vjp whose backward
+    is the Pallas ``_bwd_kernel``), cotangents on both h_seq and h_T."""
+    rng = np.random.default_rng(100 + T)
+    B, d_in, d_m = 4, 5, 4
+    jp, tp = _gru(rng, d_in, d_m)
+    rows = 3 * T if strided else T
+    x_all = rng.standard_normal((rows, B, d_in)).astype(np.float32)
+    mask = _left_pad_mask(rng, B, T).T.copy() if use_mask else None
+    dh_seq = rng.standard_normal((T, B, d_m)).astype(np.float32)
+    dh_T = rng.standard_normal((B, d_m)).astype(np.float32)
+
+    def j_fn(p, xa):
+        xs = xa[2::3] if strided else xa
+        return pg.pallas_gru_sequence_tm(
+            p, xs, mask_tm=None if mask is None else jnp.asarray(mask))
+
+    _, vjp = jax.vjp(j_fn, jp, jnp.asarray(x_all))
+    j_dp, j_dx = vjp((jnp.asarray(dh_seq), jnp.asarray(dh_T)))
+
+    wx, wh, b = _port_params(tp)
+    x_leaf = torch.from_numpy(x_all).requires_grad_(True)
+    params = cuda_gru.GRUWeights(wx, wh, b)
+    h_seq, h_T = cuda_gru.gru_sequence_tm(
+        params, x_leaf[2::3] if strided else x_leaf,
+        None if mask is None else torch.from_numpy(mask))
+    got = torch.autograd.grad((h_seq, h_T), [x_leaf, wx, wh, b],
+                              (torch.from_numpy(dh_seq),
+                               torch.from_numpy(dh_T)))
+    for g, ref in zip(got, (j_dx, j_dp.wx, j_dp.wh, j_dp.b)):
+        _close(g, ref)
+
+
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_gru_scan_function_gradcheck(use_mask):
+    """Finite differences in float64 through ``GRUScan`` (the CPU side runs
+    the plain forward and the plain backward)."""
+    rng = np.random.default_rng(7)
+    T, B, d_in, d_m = 5, 3, 2, 3
+    f64 = dict(dtype=torch.float64, requires_grad=True)
+    x = torch.tensor(rng.standard_normal((T, B, d_in)), **f64)
+    h0 = torch.tensor(rng.standard_normal((B, d_m)), **f64)
+    wx = torch.tensor(rng.uniform(-0.5, 0.5, (d_in, 3 * d_m)), **f64)
+    wh = torch.tensor(rng.uniform(-0.5, 0.5, (d_m, 3 * d_m)), **f64)
+    b = torch.tensor(rng.uniform(-0.1, 0.1, (3 * d_m,)), **f64)
+    mask = (torch.from_numpy(_left_pad_mask(rng, B, T).T.copy()).double()
+            if use_mask else None)
+    assert torch.autograd.gradcheck(
+        cuda_gru.GRUScan.apply, (x, mask, h0, wx, wh, b))
+
+
+@pytest.mark.parametrize("B,L", [(8, 6), (3, 1), (5, 4)])
+def test_readout_function_grads_match_pallas_vjp(interpret, B, L):
+    """The readout's autograd Function (plain forward on CPU tensors,
+    backward by autograd of the recomputed plain readout) == ``jax.vjp`` of
+    ``pallas_attention_readout`` (the JAX ``_core_bwd``)."""
+    rng = np.random.default_rng(30 + B)
+    d_m, d_q, A = 8, 6, 5
+    jp, tp = _readout(rng, d_m, d_q, A)
+    mem = rng.standard_normal((B, L, d_m)).astype(np.float32)
+    q = rng.standard_normal((B, d_q)).astype(np.float32)
+    g = rng.standard_normal((B, d_m)).astype(np.float32)
+    _, vjp = jax.vjp(pr.pallas_attention_readout, jp, jnp.asarray(mem),
+                     jnp.asarray(q))
+    j_dp, j_dmem, j_dq = vjp(jnp.asarray(g))
+    tp.requires_grad_(True)
+    mem_t = torch.from_numpy(mem).requires_grad_(True)
+    q_t = torch.from_numpy(q).requires_grad_(True)
+    read = cuda_readout.fused_attention_readout(tp, mem_t, q_t)
+    _close(read.detach(), attention_readout(tp, mem_t, q_t).detach())
+    names = ("wm", "wq", "b", "v")
+    got = torch.autograd.grad(read, [mem_t, q_t, *(getattr(tp, k)
+                                                   for k in names)],
+                              torch.from_numpy(g))
+    for t, ref in zip(got, (j_dmem, j_dq, *(j_dp[k] for k in names))):
+        _close(t, ref)
+
+
+def test_cuda_scan_backward_refuses_other_devices():
+    rng = np.random.default_rng(6)
+    _, tp = _gru(rng, 4, 4)
+    meta = torch.empty(3, 2, 4, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        cuda_gru.gru_scan_bwd(tp, meta, None, meta, meta)
 

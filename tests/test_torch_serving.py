@@ -33,9 +33,10 @@ def _stores(seed=0, max_users=None):
     params = j_init_model(jax.random.key(seed), j_cfg, N_ITEMS, N_CATS)
     keys, leaves, _ = flatten_with_keys(params)
     model = model_from_flat(cfg, {k: np.asarray(v)
-                                  for k, v in zip(keys, leaves)})
+                                  for k, v in zip(keys, leaves)},
+                            device="cpu")
     return (JStore(j_cfg, params, max_users=max_users),
-            UserMemoryStore(cfg, model, max_users=max_users))
+            UserMemoryStore(cfg, model, max_users=max_users, device="cpu"))
 
 
 def _histories(rng, B, padded):
@@ -144,7 +145,7 @@ def test_arena_grows_past_its_first_capacity():
 
 def test_store_refuses_a_model_on_another_device():
     cfg = configs.get_config("xlong_hpmn")
-    model = init_model(cfg, N_ITEMS, N_CATS)  # on the CPU
+    model = init_model(cfg, N_ITEMS, N_CATS, device="cpu")
     with pytest.raises(ValueError, match="the model is on cpu"):
         UserMemoryStore(cfg, model, device="meta")
 
