@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's xlong_hpmn serving path and training step
-once on one GPU.
+(f32 and bf16 scans) once on one GPU.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a GPU
 
@@ -12,7 +12,8 @@ before the last line):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the paths' shapes, with its tolerance, its time, the plain time, the
    time of the one PyTorch call that computes the same (cuDNN's GRU for the
-   scans), and the least time the card could take (bound).
+   scans), and the least time the card could take (bound); the bf16 scan
+   kernels in bf16, with their drift from the f32 kernels.
 4. serving: a ``UserMemoryStore`` on the card at the full width of
    xlong_hpmn (random seeded weights) ingests histories, takes updates,
    predicts and ranks; launch counters prove the path ran the kernels, and
@@ -22,6 +23,9 @@ before the last line):
    gradients, full and left-padded; then k = 8 steps per dispatch, timed,
    with launch counters; then one profiled dispatch for the device's
    busy share.
+6. bf16 training: the same step with ``scan_dtype="bfloat16"`` (bench.py's
+   headline leg: K1-bf16 and K2-bf16), held against the plain bf16 path
+   and the f32 step's loss, then timed, counted and profiled as phase 5.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -57,12 +61,33 @@ TOL_SLICE = 1e-4
 TOL_GRAD = 1e-4
 TOL_STEP_GRAD = 1e-3
 TOL_STEP_LOSS = 1e-5
+# The bf16 chain (K1-bf16, K2-bf16) against the plain bf16 versions, in
+# bf16. Both round at the same places but sum x@wx and h@wh in their own
+# f32 orders, so a bf16 rounding may flip, and a flip runs on through the
+# recurrence as a few bf16 ulps (2^-8 at |h| in [0.5, 1); up to 1.95e-2 at
+# T = 30 on the CPU against JAX): h within 3e-2. K2-bf16's outputs, whose
+# dh carry and sums are f32: 1e-2 of their max abs. Against the f32 kernel
+# the bf16 chain drifts by its own roundings: h within 0.06, the JAX
+# package's bound (tests/test_pallas.py). The bf16 step against its plain
+# bf16 path (autograd through the plain chain, which rounds the backward's
+# ops elsewhere than K2-bf16): loss 1e-4 relative, gradients 2e-2 of their
+# max abs; its loss against the f32 step's: 1e-4 relative. PERF.md has the
+# measured worst cases.
+TOL_GRU_BF16 = 3e-2
+TOL_GRAD_BF16 = 1e-2
+TOL_BF16_VS_F32 = 0.06
+TOL_STEP_LOSS_BF16 = 1e-4
+TOL_STEP_GRAD_BF16 = 2e-2
+TOL_STEP_LOSS_BF16_VS_F32 = 1e-4
 
 # The card's peaks (NVIDIA H100 SXM data sheet, at 700 W; the printed
 # power limit says whether this card runs at it): float32 outside the
 # tensor cores, and HBM bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# bf16 operands with f32 sums are what the tensor cores do: the bf16 scans'
+# operations are counted at the dense bf16 tensor-core rate.
+PEAK_BF16_FLOPS = 989e12
 
 B_SCAN = 512  # the JAX config's batch, also the ingest batch below
 N_FULL_USERS = 8192
@@ -85,27 +110,30 @@ def check(cond, msg):
         fail(msg)
 
 
-def bound(flops, n_bytes):
+def bound(flops, n_bytes, peak_flops=PEAK_FP32_FLOPS):
     """-> (ms, "operations" or "bytes"): the least time for the work."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_HBM_BYTES
+    t_ops, t_bytes = flops / peak_flops, n_bytes / PEAK_HBM_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def scan_fwd_work(T, B, d_in, masked):
-    """K1: x@wx and h@wh per row-step; x and the mask read, h_seq written."""
+def scan_fwd_work(T, B, d_in, masked, es=4):
+    """K1: x@wx and h@wh per row-step; x, the mask and the weights read,
+    h_seq written, es bytes per element (4 in f32, 2 in bf16)."""
     flops = 2 * T * B * (d_in + 32) * 96
-    n_bytes = 4 * (T * B * (d_in + 32) + (T * B if masked else 0)
-                   + (d_in + 33) * 96)
+    n_bytes = es * (T * B * (d_in + 32) + (T * B if masked else 0)
+                    + (d_in + 33) * 96)
     return flops, n_bytes
 
 
-def scan_bwd_work(T, B, d_in, masked):
+def scan_bwd_work(T, B, d_in, masked, es=4):
     """K2: the recompute, dh, dx, dWx and dWh products per row-step; x,
-    h_seq, dh_seq and the mask read; dx, dh0 and the gradients written."""
+    h_seq, dh_seq, the mask and the weights read (es bytes per element),
+    dx written (es), dh0 and the weight gradients written (f32)."""
     flops = 2 * T * B * 96 * (3 * d_in + 3 * 32)
-    n_bytes = 4 * (T * B * (2 * d_in + 64) + (T * B if masked else 0)
-                   + B * 32 + 2 * (d_in + 33) * 96)
+    n_bytes = (es * (T * B * (2 * d_in + 64) + (T * B if masked else 0)
+                     + (d_in + 33) * 96)
+               + 4 * (B * 32 + (d_in + 33) * 96))
     return flops, n_bytes
 
 
@@ -134,7 +162,9 @@ def main():
         from hpmn_tpu_torch.models.readout import attention_readout
         from hpmn_tpu_torch.models.tower import apply_tower
         from hpmn_tpu_torch.ops import _build, cuda_gru, cuda_readout
-        from hpmn_tpu_torch.ops.gru import gru_scan_tm, gru_scan_tm_bwd
+        from hpmn_tpu_torch.ops.gru import (GRUWeights, gru_scan_tm,
+                                            gru_scan_tm_bf16, gru_scan_tm_bwd,
+                                            gru_scan_tm_bwd_bf16)
         from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
         from hpmn_tpu_torch.train.train import (make_multistep_train,
                                                 make_optimizer)
@@ -184,11 +214,11 @@ def main():
         pos = torch.arange(T, device=dev)[:, None]
         return (pos >= T - lens[None, :]).float().contiguous()  # [T, B]
 
-    def cudnn_gru(layer, d_in):
+    def cudnn_gru(layer, d_in, dtype=torch.float32):
         """The library yardstick: torch.nn.GRU (cuDNN) computing the same
         scan as K1: our z is torch's 1 - z, so the z blocks of wx, wh and b
         are negated, and the hidden-side bias is 0. Timed only."""
-        g = torch.nn.GRU(d_in, 32).to(dev)
+        g = torch.nn.GRU(d_in, 32).to(dev, dtype)
         neg = torch.ones(96, 1, device=dev)
         neg[32:64] = -1.0
         with torch.no_grad():
@@ -198,11 +228,44 @@ def main():
             g.bias_hh_l0.zero_()
         return g
 
+    def lib_times(lib, x, dh_seq):
+        """-> (forward ms, backward ms) of nn.GRU on x."""
+        x_lib = x.clone().requires_grad_(True)
+        out_lib, _ = lib(x_lib)
+        args = [x_lib, *lib.parameters()]
+
+        def fwd():
+            with torch.no_grad():
+                return lib(x)
+
+        return cuda_ms(fwd, 10), cuda_ms(lambda: torch.autograd.grad(
+            out_lib, args, dh_seq, retain_graph=True), 10)
+
+    def fmt(t):
+        return "-" if t is None else f"{t:.4f}"
+
+    def library_kernels(lib, x):
+        """The device kernels of one forward of the library's GRU, by launch
+        count: which path cuDNN takes for this dtype."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with torch.no_grad():
+                lib(x)
+            torch.cuda.synchronize()
+        kern = sorted(((a.count, a.key) for a in prof.key_averages()
+                       if a.device_type == DeviceType.CUDA
+                       and a.self_device_time_total > 0), reverse=True)
+        return ", ".join(f"{name[:40]} x{n}" for n, name in kern[:3])
+
     T_l = [XLONG.seq_len]
     for _ in range(m.hpmn_layers - 1):
         T_l.append(T_l[-1] // m.hpmn_period)
     gru_err, gru_rows = 0.0, []
     bwd_err, bwd_abs, bwd_rows = 0.0, 0.0, []
+    bf_err, bf_rows, bf_drift = 0.0, [], 0.0
+    bfb_err, bfb_abs, bfb_rows, bfb_drift = 0.0, 0.0, [], 0.0
     for l, T in enumerate(T_l):
         layer = model.encoder.layers[l]
         d_in = layer.wx.shape[0]
@@ -224,6 +287,21 @@ def main():
         lib_args = [x_lib, *lib.parameters()]
         lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
             out_lib, lib_args, dh_seq, retain_graph=True), 10)
+        # The bf16 chain's inputs: the same x, dh_seq and weights in bf16.
+        w16 = GRUWeights(layer.wx.bfloat16(), layer.wh.bfloat16(),
+                         layer.b.bfloat16())
+        x16, dh16 = x.bfloat16(), dh_seq.bfloat16()
+        # nn.GRU goes to cuDNN only where ATen's cudnn_is_acceptable
+        # takes the input; otherwise it runs its own per-step loop, timed
+        # and printed, but no cuDNN yardstick.
+        cudnn16 = bool(torch.cudnn_is_acceptable(x16))
+        lib16 = cudnn_gru(layer, d_in, torch.bfloat16)
+        nat16 = lib_times(lib16, x16, dh16)
+        lib16_fwd, lib16_bwd = nat16 if cudnn16 else (None, None)
+        print(f"phase 3 library nn.GRU bf16 T={T}: cuDNN takes bf16: "
+              f"{cudnn16} | nn.GRU forward {nat16[0]:.4f} ms, backward "
+              f"{nat16[1]:.4f} ms | forward kernels: "
+              f"{library_kernels(lib16, x16)}", flush=True)
         for masked in (False, True):
             mask = left_pad_mask(T, B_SCAN) if masked else None
             h_k, hT_k = cuda_gru.gru_sequence_tm(layer, x, mask)
@@ -274,6 +352,71 @@ def main():
                   f"{rel:.3e} (tol {TOL_GRAD}) | kernel {ms:.4f} ms | plain "
                   f"{plain_ms:.4f} ms | library "
                   f"{'-' if lib_t is None else f'{lib_t:.4f}'} ms | bound "
+                  f"{b_ms:.4f} ms ({b_by})", flush=True)
+
+            # K1-bf16 and K2-bf16 on the same inputs in bf16, against the
+            # plain bf16 chain and against the f32 kernels above.
+            m16 = None if mask is None else mask.bfloat16()
+            h16, hT16 = cuda_gru.gru_sequence_tm(w16, x16, m16)
+            h16_p, hT16_p = gru_scan_tm_bf16(w16, x16, m16)
+            torch.cuda.synchronize()
+            check(h16.dtype == torch.bfloat16
+                  and torch.isfinite(h16.float()).all().item(),
+                  f"K1-bf16 T={T}: not finite bf16")
+            err = max((h16.float() - h16_p.float()).abs().max().item(),
+                      (hT16.float() - hT16_p.float()).abs().max().item())
+            drift = (h16.float() - h_k).abs().max().item()
+            check(err <= TOL_GRU_BF16, f"K1-bf16 T={T} mask={masked}: max "
+                  f"abs err {err:.3e} > {TOL_GRU_BF16}")
+            check(drift <= TOL_BF16_VS_F32, f"K1-bf16 T={T} mask={masked}: "
+                  f"{drift:.3e} from the f32 kernel > {TOL_BF16_VS_F32}")
+            ms = cuda_ms(lambda: cuda_gru.gru_sequence_tm(w16, x16, m16), 10)
+            plain_ms = cuda_ms(lambda: gru_scan_tm_bf16(w16, x16, m16), 2)
+            lib_t = None if masked else lib16_fwd
+            b_ms, b_by = bound(*scan_fwd_work(T, B_SCAN, d_in, masked, 2),
+                               PEAK_BF16_FLOPS)
+            bf_err, bf_drift = max(bf_err, err), max(bf_drift, drift)
+            bf_rows.append((T, masked, err, ms, plain_ms, lib_t, b_ms, b_by))
+            print(f"phase 3 kernel gru_scan_fwd_bf16 T={T} B={B_SCAN} "
+                  f"d_in={d_in} mask={masked}: max_abs_err {err:.3e} (tol "
+                  f"{TOL_GRU_BF16}) | vs f32 kernel {drift:.3e} (tol "
+                  f"{TOL_BF16_VS_F32}) | kernel {ms:.4f} ms | plain "
+                  f"{plain_ms:.4f} ms | library {fmt(lib_t)} ms | bound "
+                  f"{b_ms:.4f} ms ({b_by})", flush=True)
+
+            got16 = cuda_gru.gru_scan_bwd(w16, x16, m16, h16, dh16)
+            want16 = gru_scan_tm_bwd_bf16(w16, x16, m16, h16, dh16)
+            torch.cuda.synchronize()
+            rel, absd, drift = 0.0, 0.0, 0.0
+            for name, a, b, f in zip(("dx", "dwx", "dwh", "db", "dh0"),
+                                     got16, want16, got):
+                check(a.shape == b.shape and a.dtype == b.dtype
+                      and torch.isfinite(a.float()).all().item(),
+                      f"K2-bf16 T={T} mask={masked}: {name} shape, dtype or "
+                      "non-finite")
+                d = (a.float() - b.float()).abs().max().item()
+                absd = max(absd, d)
+                rel = max(rel, d / max(b.float().abs().max().item(), 1e-30))
+                drift = max(drift, (a.float() - f).abs().max().item()
+                            / max(f.abs().max().item(), 1e-30))
+            check(rel <= TOL_GRAD_BF16, f"K2-bf16 T={T} mask={masked}: max "
+                  f"abs err over max abs {rel:.3e} > {TOL_GRAD_BF16}")
+            ms = cuda_ms(lambda: cuda_gru.gru_scan_bwd(w16, x16, m16, h16,
+                                                       dh16), 10)
+            plain_ms = cuda_ms(lambda: gru_scan_tm_bwd_bf16(
+                w16, x16, m16, h16, dh16), 2)
+            lib_t = None if masked else lib16_bwd
+            b_ms, b_by = bound(*scan_bwd_work(T, B_SCAN, d_in, masked, 2),
+                               PEAK_BF16_FLOPS)
+            bfb_err, bfb_abs = max(bfb_err, rel), max(bfb_abs, absd)
+            bfb_drift = max(bfb_drift, drift)
+            bfb_rows.append((T, masked, absd, ms, plain_ms, lib_t, b_ms,
+                             b_by))
+            print(f"phase 3 kernel gru_scan_bwd_bf16 T={T} B={B_SCAN} "
+                  f"d_in={d_in} mask={masked}: max_abs_err {absd:.3e}, over "
+                  f"max abs {rel:.3e} (tol {TOL_GRAD_BF16}) | vs f32 kernel "
+                  f"{drift:.3e} of max abs | kernel {ms:.4f} ms | plain "
+                  f"{plain_ms:.4f} ms | library {fmt(lib_t)} ms | bound "
                   f"{b_ms:.4f} ms ({b_by})", flush=True)
         del lib, out_lib, x_lib, lib_args
 
@@ -457,80 +600,128 @@ def main():
     check(padded_data["seq_mask"].min() == 0.0, "padded batch has no padding")
     padded_batch = batch_from_numpy(padded_data, device=dev)
 
-    def loss_and_grads(c, batch):
+    def loss_and_grads(c, batch, plain=False):
         model_g = init_model(c, XLONG.n_items, XLONG.n_cats, seed=cfg.seed,
                              device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, _ = loss_fn(model_g, c, batch)
+        loss, _ = loss_fn(model_g, c, batch, plain=plain)
         loss.backward()
         torch.cuda.synchronize()
         return (loss.item(), dict(model_g.named_parameters()),
                 time.perf_counter() - t0)
 
-    step_rows = []
-    for form, c_k, batch in (
-            ("full", cfg_k, batches[0]),
-            ("padded", cfg_k.with_model(assume_full_mask=False),
-             padded_batch)):
+    def step_check(phase, form, c_k, batch, c_p, plain, tol_loss, tol_grad):
+        """The kernel path's loss and every gradient against the plain
+        path's (config c_p, ``plain`` flag), same weights and batch."""
         loss_k, p_k, t_k = loss_and_grads(c_k, batch)
-        loss_p, p_p, t_p = loss_and_grads(c_k.with_model(use_pallas=False),
-                                          batch)
+        loss_p, p_p, t_p = loss_and_grads(c_p, batch, plain)
         check(np.isfinite(loss_k), f"training loss ({form}) not finite")
         loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-        check(loss_rel <= TOL_STEP_LOSS, f"step ({form}): loss {loss_k} vs "
-              f"plain {loss_p}, relative {loss_rel:.3e} > {TOL_STEP_LOSS}")
+        check(loss_rel <= tol_loss, f"step ({form}): loss {loss_k} vs "
+              f"plain {loss_p}, relative {loss_rel:.3e} > {tol_loss}")
         worst, worst_name = 0.0, ""
         for name, p in p_p.items():
             gk = p_k[name].grad
-            check(gk is not None and torch.isfinite(gk).all().item(),
-                  f"step ({form}): no finite gradient for {name}")
+            check(gk is not None and gk.dtype == torch.float32
+                  and torch.isfinite(gk).all().item(),
+                  f"step ({form}): no finite f32 gradient for {name}")
             rel = ((gk - p.grad).abs().max()
                    / p.grad.abs().max().clamp_min(1e-30)).item()
             if rel >= worst:
                 worst, worst_name = rel, name
-        check(worst <= TOL_STEP_GRAD, f"step ({form}): gradient of "
+        check(worst <= tol_grad, f"step ({form}): gradient of "
               f"{worst_name} off by {worst:.3e} of its max abs > "
-              f"{TOL_STEP_GRAD}")
-        step_rows.append((form, loss_rel, worst, worst_name))
-        print(f"phase 5 step check {form} B={n_b} T={XLONG.seq_len}: loss "
-              f"kernel {loss_k:.7f} plain {loss_p:.7f} (relative "
-              f"{loss_rel:.2e}, tol {TOL_STEP_LOSS}) | {len(p_p)} gradients,"
+              f"{tol_grad}")
+        print(f"phase {phase} step check {form} B={n_b} T={XLONG.seq_len}: "
+              f"loss kernel {loss_k:.7f} plain {loss_p:.7f} (relative "
+              f"{loss_rel:.2e}, tol {tol_loss}) | {len(p_p)} gradients,"
               f" worst {worst_name} {worst:.2e} of max abs (tol "
-              f"{TOL_STEP_GRAD}) | one step, first call: kernel path "
+              f"{tol_grad}) | one step, first call: kernel path "
               f"{1e3 * t_k:.1f} ms, plain path {1e3 * t_p:.1f} ms", flush=True)
-        del p_k, p_p
-    torch.cuda.empty_cache()
+        return loss_k
 
-    model_t = init_model(cfg_k, XLONG.n_items, XLONG.n_cats, seed=cfg.seed,
-                         device=dev)
-    multistep = make_multistep_train(cfg_k, model_t,
-                                     make_optimizer(cfg_k,
-                                                    model_t.parameters()))
+    def counters():
+        return (cuda_gru.launches, cuda_gru.bwd_launches,
+                cuda_gru.launches_bf16, cuda_gru.bwd_launches_bf16,
+                cuda_readout.launches)
+
+    def timed_train(c_k):
+        """k steps per dispatch, 2 warm-up and 3 timed dispatches, the
+        batches cycled; the counters set to 0 just before -> (last step's
+        metrics, ms per step, examples/s, launches, the multistep)."""
+        model_t = init_model(c_k, XLONG.n_items, XLONG.n_cats, seed=cfg.seed,
+                             device=dev)
+        multistep = make_multistep_train(
+            c_k, model_t, make_optimizer(c_k, model_t.parameters()))
+        torch.cuda.synchronize()
+        cuda_gru.launches = cuda_gru.bwd_launches = 0
+        cuda_gru.launches_bf16 = cuda_gru.bwd_launches_bf16 = 0
+        cuda_readout.launches = 0
+        for i in range(WARMUP_DISPATCHES):
+            metrics = multistep(stacks[i % N_TRAIN_BATCHES])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(WARMUP_DISPATCHES,
+                       WARMUP_DISPATCHES + TIMED_DISPATCHES):
+            metrics = multistep(stacks[i % N_TRAIN_BATCHES])
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = counters()
+        metrics = {name: v.item() for name, v in metrics.items()}
+        check(all(np.isfinite(v) for v in metrics.values()),
+              f"training metrics not finite: {metrics}")
+        return (metrics, 1e3 * t_train / (TIMED_DISPATCHES * k),
+                TIMED_DISPATCHES * k * n_b / t_train, launches, multistep)
+
+    def profile_dispatch(phase, multistep, step_ms):
+        """One more dispatch under the profiler: the device's kernel time
+        per step against the unprofiled wall time per step. Only kernels
+        count: a CPU op (or an autograd Function's record) that launches a
+        kernel also reports that kernel's time as its own, and a user
+        annotation (the optimizer's step) spans kernels listed apart."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            multistep(stacks[0])
+            torch.cuda.synchronize()
+        kern = sorted(((a.self_device_time_total, a.count, a.key)
+                       for a in prof.key_averages()
+                       if a.device_type == DeviceType.CUDA
+                       and not getattr(a, "is_user_annotation", False)
+                       and a.self_device_time_total > 0), reverse=True)
+        dev_ms = sum(t for t, _, _ in kern) / 1e3 / k
+        if dev_ms > 0:
+            top = ", ".join(f"{name[:48]} {t / 1e3 / k:.3f} ms "
+                            f"({n / k:g}/step)" for t, n, name in kern[:10])
+            print(f"phase {phase} profile: device kernel time {dev_ms:.3f} "
+                  f"ms per step of {step_ms:.3f} ms wall: busy "
+                  f"{dev_ms / step_ms:.1%}, idle {1 - dev_ms / step_ms:.1%} "
+                  f"| top: {top}", flush=True)
+        else:
+            print(f"phase {phase} profile: the profiler saw no device time; "
+                  "device busy share not measured", flush=True)
+
     k = STEPS_PER_DISPATCH
     stacks = [[batches[(i + j) % N_TRAIN_BATCHES] for j in range(k)]
               for i in range(N_TRAIN_BATCHES)]
-    torch.cuda.synchronize()
-    cuda_gru.launches = cuda_gru.bwd_launches = cuda_readout.launches = 0
-    for i in range(WARMUP_DISPATCHES):
-        metrics = multistep(stacks[i % N_TRAIN_BATCHES])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(WARMUP_DISPATCHES, WARMUP_DISPATCHES + TIMED_DISPATCHES):
-        metrics = multistep(stacks[i % N_TRAIN_BATCHES])
-    torch.cuda.synchronize()
-    t_train = time.perf_counter() - t0
-    train_launches = (cuda_gru.launches, cuda_gru.bwd_launches,
-                      cuda_readout.launches)
+    f32_loss = {}
+    for form, c_k, batch in (
+            ("full", cfg_k, batches[0]),
+            ("padded", cfg_k.with_model(assume_full_mask=False),
+             padded_batch)):
+        f32_loss[form] = step_check(
+            5, form, c_k, batch, c_k.with_model(use_pallas=False), False,
+            TOL_STEP_LOSS, TOL_STEP_GRAD)
+    torch.cuda.empty_cache()
+
+    metrics, step_ms, ex_per_s, train_launches, multistep = timed_train(cfg_k)
     n_steps = (WARMUP_DISPATCHES + TIMED_DISPATCHES) * k
-    metrics = {name: v.item() for name, v in metrics.items()}
-    check(all(np.isfinite(v) for v in metrics.values()),
-          f"training metrics not finite: {metrics}")
-    check(train_launches == (L * n_steps, L * n_steps, n_steps),
+    check(train_launches == (L * n_steps, L * n_steps, 0, 0, n_steps),
           f"launches over {n_steps} steps: gru_scan_fwd, gru_scan_bwd, "
-          f"readout_fwd = {train_launches}, expected {L}, {L} and 1 per step")
-    step_ms = 1e3 * t_train / (TIMED_DISPATCHES * k)
-    ex_per_s = TIMED_DISPATCHES * k * n_b / t_train
+          f"gru_scan_fwd_bf16, gru_scan_bwd_bf16, readout_fwd = "
+          f"{train_launches}, expected {L}, {L}, 0, 0 and 1 per step")
     print(f"phase 5 train xlong_hpmn B={n_b} T={XLONG.seq_len} L={L} f32, "
           f"{k} steps per dispatch: {ex_per_s:.1f} examples/s ({step_ms:.3f}"
           f" ms per step, {TIMED_DISPATCHES} dispatches after "
@@ -539,34 +730,56 @@ def main():
           f"cov_reg {metrics['cov_reg']:.3e} l2 {metrics['l2']:.3f} | "
           f"launches over {n_steps} steps: gru_scan_fwd {train_launches[0]}"
           f" gru_scan_bwd {train_launches[1]} readout_fwd "
-          f"{train_launches[2]} ({L}, {L}, 1 per step)", flush=True)
+          f"{train_launches[4]} ({L}, {L}, 1 per step; bf16 scans "
+          f"{train_launches[2]}, {train_launches[3]})", flush=True)
+    profile_dispatch(5, multistep, step_ms)
+    del multistep
+    torch.cuda.empty_cache()
 
-    # One more dispatch under the profiler: the device's kernel time per
-    # step against the unprofiled wall time per step above.
-    # Only kernels count: a CPU op (or an autograd Function's record) that
-    # launches a kernel also reports that kernel's time as its own, and a
-    # user annotation (the optimizer's step) spans kernels listed apart.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        multistep(stacks[0])
-        torch.cuda.synchronize()
-    kern = sorted(((a.self_device_time_total, a.count, a.key)
-                   for a in prof.key_averages()
-                   if a.device_type == DeviceType.CUDA
-                   and not getattr(a, "is_user_annotation", False)
-                   and a.self_device_time_total > 0), reverse=True)
-    dev_ms = sum(t for t, _, _ in kern) / 1e3 / k
-    if dev_ms > 0:
-        top = ", ".join(f"{name[:48]} {t / 1e3 / k:.3f} ms ({n / k:g}/step)"
-                        for t, n, name in kern[:10])
-        print(f"phase 5 profile: device kernel time {dev_ms:.3f} ms per step"
-              f" of {step_ms:.3f} ms wall: busy {dev_ms / step_ms:.1%}, idle "
-              f"{1 - dev_ms / step_ms:.1%} | top: {top}", flush=True)
-    else:
-        print("phase 5 profile: the profiler saw no device time; device "
-              "busy share not measured", flush=True)
+    # ---------------------------------------------------- 6. bf16 training --
+    # bench.py's headline leg: the same flags with scan_dtype="bfloat16".
+    # The plain path is the same time-major branch with the plain bf16
+    # scans and the plain readout under autograd (loss_fn's plain=True).
+    cfg_b = cfg_k.with_model(scan_dtype="bfloat16")
+    bf16_loss = {}
+    for form, c_b, batch in (
+            ("full", cfg_b, batches[0]),
+            ("padded", cfg_b.with_model(assume_full_mask=False),
+             padded_batch)):
+        bf16_loss[form] = step_check(6, form, c_b, batch, c_b, True,
+                                     TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16)
+    vs_f32 = {form: abs(bf16_loss[form] - f32_loss[form]) / abs(f32_loss[form])
+              for form in bf16_loss}
+    for form, rel in vs_f32.items():
+        check(rel <= TOL_STEP_LOSS_BF16_VS_F32, f"bf16 step ({form}): loss "
+              f"{bf16_loss[form]} vs the f32 step's {f32_loss[form]}, "
+              f"relative {rel:.3e} > {TOL_STEP_LOSS_BF16_VS_F32}")
+    print(f"phase 6 vs f32 step (same weights and batch): loss bf16 "
+          f"{bf16_loss['full']:.7f} f32 {f32_loss['full']:.7f} full "
+          f"(relative {vs_f32['full']:.2e}), bf16 {bf16_loss['padded']:.7f} "
+          f"f32 {f32_loss['padded']:.7f} padded (relative "
+          f"{vs_f32['padded']:.2e}) (tol {TOL_STEP_LOSS_BF16_VS_F32})",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    metrics, step_ms_b, ex_per_s_b, bf16_launches, multistep = \
+        timed_train(cfg_b)
+    check(bf16_launches == (0, 0, L * n_steps, L * n_steps, n_steps),
+          f"launches over {n_steps} steps: gru_scan_fwd, gru_scan_bwd, "
+          f"gru_scan_fwd_bf16, gru_scan_bwd_bf16, readout_fwd = "
+          f"{bf16_launches}, expected 0, 0, {L}, {L} and 1 per step")
+    print(f"phase 6 train xlong_hpmn B={n_b} T={XLONG.seq_len} L={L} bf16 "
+          f"scans, {k} steps per dispatch: {ex_per_s_b:.1f} examples/s "
+          f"({step_ms_b:.3f} ms per step; f32, phase 5: {ex_per_s:.1f} "
+          f"examples/s, {step_ms:.3f} ms) | last step loss "
+          f"{metrics['loss']:.6f} bce {metrics['bce']:.6f} cov_reg "
+          f"{metrics['cov_reg']:.3e} l2 {metrics['l2']:.3f} | launches over "
+          f"{n_steps} steps: gru_scan_fwd_bf16 {bf16_launches[2]} "
+          f"gru_scan_bwd_bf16 {bf16_launches[3]} readout_fwd "
+          f"{bf16_launches[4]} ({L}, {L}, 1 per step; f32 scans "
+          f"{bf16_launches[0]}, {bf16_launches[1]})", flush=True)
+    profile_dispatch(6, multistep, step_ms_b)
+    del multistep
 
     def entry(name, src, rep, row, err, by_path, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -577,6 +790,7 @@ def main():
 
     g = gru_rows[0]   # T=1000, no mask: the heaviest scan of both paths
     gb = bwd_rows[0]
+    g16, gb16 = bf_rows[0], bfb_rows[0]
     r = ro_rows[0]    # B=512: predict's and the training step's shape
     print(json.dumps({"kernels": [
         entry("gru_scan_fwd", cuda_gru.SOURCE, cuda_gru.REPLACES,
@@ -588,7 +802,19 @@ def main():
               max_err_over_max_abs=bwd_err),
         entry("readout_fwd", cuda_readout.SOURCE, cuda_readout.REPLACES,
               (r[2], r[3], None, r[4], r[5]), ro_err,
-              {"serving": launches_ro, "training": train_launches[2]}),
+              {"serving": launches_ro, "training": train_launches[4],
+               "training_bf16": bf16_launches[4]}),
+        entry("gru_scan_fwd_bf16", cuda_gru.SOURCE_BF16,
+              cuda_gru.REPLACES_BF16,
+              (g16[3], g16[4], g16[5], g16[6], g16[7]), bf_err,
+              {"training_bf16": bf16_launches[2]},
+              max_abs_diff_from_f32_kernel=bf_drift),
+        entry("gru_scan_bwd_bf16", cuda_gru.BWD_SOURCE_BF16,
+              cuda_gru.BWD_REPLACES_BF16,
+              (gb16[3], gb16[4], gb16[5], gb16[6], gb16[7]), bfb_abs,
+              {"training_bf16": bf16_launches[3]},
+              max_err_over_max_abs=bfb_err,
+              diff_from_f32_kernel_over_max_abs=bfb_drift),
     ]}), flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"ok": True, "device": {

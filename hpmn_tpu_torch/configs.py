@@ -26,7 +26,10 @@ class ModelConfig:
     # Name kept from the JAX config: selects the fused kernels, which here
     # are the hand-written CUDA ones (ops/cuda_gru.py, ops/cuda_readout.py).
     use_pallas: bool = False
-    scan_dtype: str = "float32"  # only float32 is ported
+    # The use_pallas scans' chain: "float32" or "bfloat16" (bf16 streams,
+    # carry and gate ops, f32 sums; the JAX bench headline). The plain
+    # paths ignore it, as in JAX.
+    scan_dtype: str = "float32"
     assume_full_mask: bool = False  # no padding: the scan skips the mask
     pallas_stride_outputs: bool = False  # strided-output kernel: not ported
     readout_dim: int = 32

@@ -9,7 +9,8 @@ for ``cfg.model.name == "hpmn"``.
 
 - ``use_pallas`` (with the hierarchical scan): embeddings gathered straight
   into time-major [T, B, 2d], the hierarchy of scans through the CUDA scan
-  kernels (forward K1, backward K2) and the readout through the CUDA
+  kernels (forward K1, backward K2; with ``scan_dtype="bfloat16"`` their
+  bf16 chain, K1-bf16 and K2-bf16) and the readout through the CUDA
   readout kernel (on CPU tensors, their plain versions);
 - the batch-major hierarchy of plain scans;
 - the masked single-scan oracle (``use_hierarchical_scan=False``).
@@ -19,6 +20,7 @@ Other families raise.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -27,11 +29,15 @@ from torch import nn
 from ..configs import Config
 from ..data.schema import Batch
 from ..ops import cuda_gru, cuda_readout
+from ..ops.gru import GRUWeights, gru_scan_tm, gru_scan_tm_bf16
 from . import hpmn as hpmn_mod
 from .embedding import Embedding, dense_lookup
 from .losses import bce_with_logits, covariance_regularizer, l2_regularizer
 from .readout import Readout, attention_readout
 from .tower import Tower, apply_tower
+
+
+_SCAN_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class HPMNModel(nn.Module):
@@ -55,7 +61,7 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             f"model family {m.name!r} is not ported yet (ROADMAP.md)")
     todo = {"dtype": m.dtype != "float32",
-            "scan_dtype": m.scan_dtype != "float32",
+            "scan_dtype": m.scan_dtype not in _SCAN_DTYPES,
             "pallas_stride_outputs": m.pallas_stride_outputs,
             "use_user_emb": m.use_user_emb}
     for field, unsupported in todo.items():
@@ -78,24 +84,51 @@ def init_model(cfg: Config, n_items: int, n_cats: int,
     return model.to(device)
 
 
+def _scan_weights(enc: hpmn_mod.HPMNEncoder, dtype: torch.dtype):
+    """The encoder's layers with their weights cast to the scan's dtype,
+    differentiably (autograd carries the gradients back to the f32
+    parameters, as the VJP of the JAX ``astype`` does)."""
+    if dtype == torch.float32:
+        return enc
+    return SimpleNamespace(layers=[
+        GRUWeights(layer.wx.to(dtype), layer.wh.to(dtype), layer.b.to(dtype))
+        for layer in enc.layers])
+
+
 def apply_model(model: HPMNModel, cfg: Config, batch: Batch,
+                plain: bool = False,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (logits [B], aux): aux["memory"] is the HPMN slots [B, L, d_m]
-    that the covariance regularizer reads."""
+    (float32) that the covariance regularizer reads.
+
+    ``plain=True`` runs the ``use_pallas`` branch with the kernels' plain
+    versions under autograd (``gru_scan_tm`` or ``gru_scan_tm_bf16``, the
+    plain readout) on any device: the reference that chip_smoke.py holds
+    the kernel path to on the card."""
     check_supported(cfg)
     m = cfg.model
     emb = model.embedding
     q = dense_lookup(emb, batch.target_item, batch.target_cat)  # [B, 2d]
     if m.use_pallas and m.use_hierarchical_scan:
         # Transposing the int32 ids, not the activations, gives time-major
-        # embeddings.
+        # embeddings. The scans run in scan_dtype: x, the mask and the
+        # weights are cast to it here (pallas_gru_sequence_tm casts them
+        # inside), and the memory comes back to float32 for the readout
+        # and the covariance regularizer, as the JAX apply_model does.
+        dtype = _SCAN_DTYPES[m.scan_dtype]
         x_tm = dense_lookup(emb, batch.item_seq.T, batch.cat_seq.T)
         mask_tm = (None if m.assume_full_mask
-                   else batch.seq_mask.T.to(x_tm.dtype).contiguous())
+                   else batch.seq_mask.T.to(dtype).contiguous())
+        if plain:
+            scan = gru_scan_tm_bf16 if dtype == torch.bfloat16 else gru_scan_tm
+            readout = attention_readout
+        else:
+            scan = cuda_gru.gru_sequence_tm
+            readout = cuda_readout.fused_attention_readout
         memory = hpmn_mod.encode_hierarchical_tm(
-            model.encoder, x_tm, mask_tm, m.hpmn_period,
-            gru_seq_tm_fn=cuda_gru.gru_sequence_tm)
-        state = cuda_readout.fused_attention_readout(model.readout, memory, q)
+            _scan_weights(model.encoder, dtype), x_tm.to(dtype), mask_tm,
+            m.hpmn_period, gru_seq_tm_fn=scan).float()
+        state = readout(model.readout, memory, q)
     else:
         x = dense_lookup(emb, batch.item_seq, batch.cat_seq)  # [B, T, 2d]
         mask = batch.seq_mask.to(x.dtype)
@@ -131,10 +164,11 @@ def total_loss(model: HPMNModel, cfg: Config, logits: torch.Tensor,
 
 
 def loss_fn(model: HPMNModel, cfg: Config, batch: Batch,
+            plain: bool = False,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One differentiable call: -> (loss, metrics with bce, cov_reg, l2,
-    loss and the logits)."""
-    logits, aux = apply_model(model, cfg, batch)
+    loss and the logits). ``plain`` as for :func:`apply_model`."""
+    logits, aux = apply_model(model, cfg, batch, plain=plain)
     loss, metrics = total_loss(model, cfg, logits, aux,
                                batch.label.to(logits.dtype))
     metrics["logits"] = logits

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``hpmn_tpu_torch/csrc/*.cu``).
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface, for Hopper only (``sm_90a``), and ``ctypes`` loads
-it. The library lands in ``hpmn_tpu_torch/_build/<key>/``, where ``key``
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper only
+(``sm_90a``), one process per source, all started together, and links the
+objects into one shared library with a plain C interface, which ``ctypes``
+loads. The library lands in ``hpmn_tpu_torch/_build/<key>/``, where ``key``
 hashes the sources and the flags, so a change to either rebuilds and an
 unchanged tree reuses the last build. A file lock keeps concurrent
 processes from building the same key twice. A failed build raises with
@@ -28,7 +29,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_NAME = "libhpmn_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 
 def _nvcc() -> str:
@@ -42,16 +44,16 @@ def _nvcc() -> str:
     return found
 
 
-def _sources():
-    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+def _sources(csrc: str):
+    srcs = sorted(glob.glob(os.path.join(csrc, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(csrc, "*.cuh")))
     return srcs, headers
 
 
-def build_key() -> str:
+def build_key(csrc: str = CSRC) -> str:
     """Hash of every kernel source, header and flag."""
-    srcs, headers = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    srcs, headers = _sources(csrc)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in srcs + headers:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -59,11 +61,28 @@ def build_key() -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> str:
-    """Compile csrc/*.cu into the keyed library if it is not there yet and
-    return its path."""
-    srcs, _ = _sources()
-    key = build_key()
+def _run_all(cmds) -> None:
+    """Run the commands side by side; raise with nvcc's stderr if any
+    fails, after all have ended."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def build(csrc: str = CSRC) -> str:
+    """Compile csrc/*.cu (this package's, or another tree's for a
+    comparison) into the keyed library if it is not there yet and return
+    its path."""
+    srcs, _ = _sources(csrc)
+    key = build_key(csrc)
     out_dir = os.path.join(BUILD_DIR, key)
     lib = os.path.join(out_dir, LIB_NAME)
     os.makedirs(out_dir, exist_ok=True)
@@ -73,12 +92,12 @@ def build() -> str:
             if os.path.isfile(lib):
                 return lib
             tmp = f"{lib}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *srcs]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stderr}")
+            objs = [os.path.join(out_dir, f"{os.path.basename(src)}."
+                                 f"{os.getpid()}.o") for src in srcs]
+            nvcc = _nvcc()
+            _run_all([[nvcc, *NVCC_FLAGS, "-I", csrc, "-c", "-o", obj, src]
+                      for src, obj in zip(srcs, objs)])
+            _run_all([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]])
             os.replace(tmp, lib)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
@@ -86,9 +105,9 @@ def build() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
+def load_library(csrc: str = CSRC) -> ctypes.CDLL:
     """Build if needed, then load the kernels' library once per process."""
-    lib = ctypes.CDLL(build())
+    lib = ctypes.CDLL(build(csrc))
     lib.hpmn_cuda_error_string.argtypes = [ctypes.c_int]
     lib.hpmn_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -2,8 +2,10 @@
 
 Replaces ``hpmn_tpu/ops/pallas_gru.py``'s ``_fwd_kernel`` (K1) and
 ``_bwd_kernel`` (K2), reached there through ``pallas_gru_sequence_tm`` and
-its ``jax.custom_vjp``, in their mask and no-mask forms, f32 chain. The
-kernels are ``csrc/gru_scan_fwd.cu`` and ``csrc/gru_scan_bwd.cu``: one
+its ``jax.custom_vjp``, in their mask and no-mask forms, in the f32 chain
+and in the bf16 one (``dtype=bfloat16``: K1-bf16 and K2-bf16, chosen by the
+tensors' dtype). The kernels are ``csrc/gru_scan_fwd.cu`` and
+``csrc/gru_scan_bwd.cu``, each one template for both chains: one
 launch scans a whole layer (forward, or backward in reverse), the time loop
 inside the kernel and the carry in registers, one warp per batch row with
 lane j owning hidden unit j. The recurrence bounds both (each step waits
@@ -14,10 +16,11 @@ that. See the sources' headers for the rest.
 :class:`GRUScan` is the ``torch.autograd.Function`` that mirrors the
 custom_vjp: on CUDA tensors its forward launches K1 and its backward K2;
 on CPU tensors they are the plain versions ``ops.gru.gru_scan_tm`` and
-``ops.gru.gru_scan_tm_bwd``, so the CPU tests run the same plumbing (saved
-tensors, strided views, the mask). On a CUDA tensor a wrapper launches its
-kernel or raises on what it does not take (d_m != 32, d_in > 96, other
-dtypes); nothing falls back to the plain version.
+``ops.gru.gru_scan_tm_bwd`` (``gru_scan_tm_bf16``/``gru_scan_tm_bwd_bf16``
+in bf16), so the CPU tests run the same plumbing (saved tensors, strided
+views, the mask). On a CUDA tensor a wrapper launches its kernel or raises
+on what it does not take (d_m != 32, d_in > 96, dtypes other than float32
+and bfloat16, a mix of the two); nothing falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -29,25 +32,38 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .gru import GRUParams, GRUWeights, gru_scan_tm, gru_scan_tm_bwd
+from .gru import (GRUParams, GRUWeights, gru_scan_tm, gru_scan_tm_bf16,
+                  gru_scan_tm_bwd, gru_scan_tm_bwd_bf16)
 
 SOURCE = "hpmn_tpu_torch/csrc/gru_scan_fwd.cu"
 REPLACES = "hpmn_tpu/ops/pallas_gru.py:127"
 BWD_SOURCE = "hpmn_tpu_torch/csrc/gru_scan_bwd.cu"
 BWD_REPLACES = "hpmn_tpu/ops/pallas_gru.py:209"
+# K1-bf16 and K2-bf16: the same sources' bf16 instantiations, in place of
+# the same Pallas kernels run with dtype=bfloat16.
+SOURCE_BF16, REPLACES_BF16 = SOURCE, REPLACES
+BWD_SOURCE_BF16, BWD_REPLACES_BF16 = BWD_SOURCE, BWD_REPLACES
 
 #: Kernel launches so far in this process (a run's proof that it went
-#: through the kernels): K1 and K2. Callers may reset them to 0.
+#: through the kernels): K1, K2, K1-bf16 and K2-bf16. Callers may reset
+#: them to 0.
 launches = 0
 bwd_launches = 0
+launches_bf16 = 0
+bwd_launches_bf16 = 0
 
 _D_M = 32
 _MAX_D_IN = 96
+# The C entry points by stream dtype: the f32 chain and the bf16 one.
+_FWD_ENTRY = {torch.float32: "hpmn_gru_scan_fwd",
+              torch.bfloat16: "hpmn_gru_scan_fwd_bf16"}
+_BWD_ENTRY = {torch.float32: "hpmn_gru_scan_bwd",
+              torch.bfloat16: "hpmn_gru_scan_bwd_bf16"}
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    fn = _build.load_library().hpmn_gru_scan_fwd
+def _kernel_fn(dtype: torch.dtype):
+    fn = getattr(_build.load_library(), _FWD_ENTRY[dtype])
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -58,12 +74,12 @@ def _kernel_fn():
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_fns():
+def _bwd_fns(dtype: torch.dtype):
     lib = _build.load_library()
     rows = lib.hpmn_gru_scan_bwd_rows_per_block
     rows.argtypes = [ctypes.c_int]
     rows.restype = ctypes.c_int
-    fn = lib.hpmn_gru_scan_bwd
+    fn = getattr(lib, _BWD_ENTRY[dtype])
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong,
                     ctypes.c_void_p, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 11
@@ -78,12 +94,17 @@ def _check_cuda_args(w, x_tm, mask_tm, h0, name):
     if d_m != _D_M or not 1 <= d_in <= _MAX_D_IN:
         raise ValueError(f"{name} takes d_m == {_D_M} and d_in <= "
                          f"{_MAX_D_IN}; got d_m={d_m}, d_in={d_in}")
+    if x_tm.dtype not in _FWD_ENTRY:
+        raise ValueError(f"{name} takes float32 or bfloat16 tensors; got "
+                         f"{x_tm.dtype}")
     tensors = [x_tm, w.wx, w.wh, w.b]
     tensors += [t for t in (mask_tm, h0) if t is not None]
     for t in tensors:
-        if t.dtype != torch.float32 or t.device != x_tm.device:
-            raise ValueError(f"{name} takes float32 tensors on one "
-                             f"device; got {t.dtype} on {t.device}")
+        if t.dtype != x_tm.dtype or t.device != x_tm.device:
+            raise ValueError(f"{name} takes tensors of one dtype (float32 "
+                             f"or bfloat16) on one device; got {t.dtype} on "
+                             f"{t.device} beside x's {x_tm.dtype} on "
+                             f"{x_tm.device}")
     if x_tm.stride(2) != 1 or x_tm.stride(1) != d_in:
         raise ValueError("x_tm rows must be contiguous (any time stride)")
     if mask_tm is not None and (mask_tm.shape != (T, B)
@@ -97,39 +118,46 @@ def _check_cuda_args(w, x_tm, mask_tm, h0, name):
 
 
 def _launch(w, x_tm, mask_tm, h0) -> torch.Tensor:
-    """K1: -> h_seq [T, B, 32]."""
-    global launches
+    """K1 (float32) or K1-bf16 (bfloat16): -> h_seq [T, B, 32], x's
+    dtype."""
+    global launches, launches_bf16
     T, B, d_in = x_tm.shape
     _check_cuda_args(w, x_tm, mask_tm, h0, "gru_scan_fwd")
-    hseq = torch.empty(T, B, _D_M, dtype=torch.float32, device=x_tm.device)
+    hseq = torch.empty(T, B, _D_M, dtype=x_tm.dtype, device=x_tm.device)
     stream = torch.cuda.current_stream(x_tm.device).cuda_stream
-    code = _kernel_fn()(
+    code = _kernel_fn(x_tm.dtype)(
         x_tm.data_ptr(), x_tm.stride(0),
         None if mask_tm is None else mask_tm.data_ptr(),
         0 if mask_tm is None else mask_tm.stride(0),
         w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
         None if h0 is None else h0.data_ptr(), hseq.data_ptr(),
         T, B, d_in, stream)
-    _build.check_launch(code, "gru_scan_fwd")
-    launches += 1
+    if x_tm.dtype == torch.bfloat16:
+        _build.check_launch(code, "gru_scan_fwd_bf16")
+        launches_bf16 += 1
+    else:
+        _build.check_launch(code, "gru_scan_fwd")
+        launches += 1
     return hseq
 
 
 def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq):
-    """K2: -> (dx, dwx, dwh, db, dh0), the weight gradients summed over
-    the kernel's per-block partials."""
-    global bwd_launches
+    """K2 (float32) or K2-bf16 (bfloat16): -> (dx in x's dtype, dwx, dwh,
+    db, dh0 in float32), the weight gradients summed over the kernel's
+    per-block partials."""
+    global bwd_launches, bwd_launches_bf16
     T, B, d_in = x_tm.shape
     _check_cuda_args(w, x_tm, mask_tm, h0, "gru_scan_bwd")
     for t in (hseq, dhseq):
-        if t.shape != (T, B, _D_M) or t.dtype != torch.float32 \
+        if t.shape != (T, B, _D_M) or t.dtype != x_tm.dtype \
                 or t.device != x_tm.device or not t.is_contiguous():
-            raise ValueError("h_seq and dh_seq must be contiguous float32 "
-                             f"[T, B, {_D_M}] tensors on x's device")
-    rows_fn, fn = _bwd_fns()
+            raise ValueError("h_seq and dh_seq must be contiguous "
+                             f"[T, B, {_D_M}] tensors of x's dtype on x's "
+                             "device")
+    rows_fn, fn = _bwd_fns(x_tm.dtype)
     n_blocks = -(-B // rows_fn(d_in))
     dev = x_tm.device
-    dx = torch.empty(T, B, d_in, dtype=torch.float32, device=dev)
+    dx = torch.empty(T, B, d_in, dtype=x_tm.dtype, device=dev)
     dh0 = torch.empty(B, _D_M, dtype=torch.float32, device=dev)
     dwx = torch.empty(n_blocks, d_in, 3 * _D_M, dtype=torch.float32,
                       device=dev)
@@ -145,8 +173,12 @@ def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq):
         None if h0 is None else h0.data_ptr(), hseq.data_ptr(),
         dhseq.data_ptr(), dx.data_ptr(), dh0.data_ptr(), dwx.data_ptr(),
         dwh.data_ptr(), db.data_ptr(), T, B, d_in, stream)
-    _build.check_launch(code, "gru_scan_bwd")
-    bwd_launches += 1
+    if x_tm.dtype == torch.bfloat16:
+        _build.check_launch(code, "gru_scan_bwd_bf16")
+        bwd_launches_bf16 += 1
+    else:
+        _build.check_launch(code, "gru_scan_bwd")
+        bwd_launches += 1
     return dx, dwx.sum(0), dwh.sum(0), db.sum(0), dh0
 
 
@@ -154,10 +186,14 @@ def gru_scan_bwd(params: GRUParams, x_tm: torch.Tensor,
                  mask_tm: Optional[torch.Tensor], h_seq: torch.Tensor,
                  dh_seq: torch.Tensor, h0: Optional[torch.Tensor] = None,
                  ) -> Tuple[torch.Tensor, ...]:
-    """The scan backward: K2 on CUDA tensors, ``gru_scan_tm_bwd`` (same
-    arguments and results) on CPU tensors."""
+    """The scan backward: K2 (K2-bf16 on bfloat16 tensors) on CUDA
+    tensors, ``gru_scan_tm_bwd`` (``gru_scan_tm_bwd_bf16``; same arguments
+    and results) on CPU tensors. The weight gradients and dh0 come back in
+    float32, dx in x's dtype."""
     if x_tm.device.type == "cpu":
-        return gru_scan_tm_bwd(params, x_tm, mask_tm, h_seq, dh_seq, h0)
+        plain = (gru_scan_tm_bwd_bf16 if x_tm.dtype == torch.bfloat16
+                 else gru_scan_tm_bwd)
+        return plain(params, x_tm, mask_tm, h_seq, dh_seq, h0)
     if x_tm.device.type != "cuda":
         raise ValueError(f"gru_scan_bwd runs on cpu or cuda, not "
                          f"{x_tm.device}")
@@ -166,14 +202,19 @@ def gru_scan_bwd(params: GRUParams, x_tm: torch.Tensor,
 
 class GRUScan(torch.autograd.Function):
     """h_seq = scan(x_tm, mask_tm, h0; wx, wh, b), time-major. Forward K1
-    and backward K2 on CUDA tensors; the plain versions on CPU tensors. The
-    mask gets no gradient; h0 gets one when it is given."""
+    and backward K2 on CUDA tensors; the plain versions on CPU tensors. All
+    tensors float32, or all bfloat16 (the bf16 chain). The mask gets no
+    gradient; h0 gets one when it is given. The weight gradients, summed in
+    float32, come back in the weights' dtype: in bf16 that rounding is the
+    TPU kernel's ``astype(wx4.dtype)`` after its tile sum."""
 
     @staticmethod
     def forward(ctx, x_tm, mask_tm, h0, wx, wh, b):
         w = GRUWeights(wx, wh, b)
         if x_tm.device.type == "cpu":
-            h_seq = gru_scan_tm(w, x_tm, mask_tm, h0)[0]
+            plain = (gru_scan_tm_bf16 if x_tm.dtype == torch.bfloat16
+                     else gru_scan_tm)
+            h_seq = plain(w, x_tm, mask_tm, h0)[0]
         else:
             h_seq = _launch(w, x_tm, mask_tm, h0)
         ctx.save_for_backward(x_tm, mask_tm, h0, wx, wh, b, h_seq)
@@ -184,7 +225,8 @@ class GRUScan(torch.autograd.Function):
         x_tm, mask_tm, h0, wx, wh, b, h_seq = ctx.saved_tensors
         dx, dwx, dwh, db, dh0 = gru_scan_bwd(
             GRUWeights(wx, wh, b), x_tm, mask_tm, h_seq, dh_seq, h0)
-        return dx, None, None if h0 is None else dh0, dwx, dwh, db
+        return (dx, None, None if h0 is None else dh0.to(h0.dtype),
+                dwx.to(wx.dtype), dwh.to(wh.dtype), db.to(b.dtype))
 
 
 def gru_sequence_tm(params: GRUParams, x_tm: torch.Tensor,

@@ -10,7 +10,9 @@ step, the reset gate applied to its candidate block afterwards):
 
 A masked step carries h unchanged (left-padded sequences). This is the plain
 version that the CUDA scan kernels (ops/cuda_gru.py) are held against:
-``gru_scan_tm`` for the forward, ``gru_scan_tm_bwd`` for the backward.
+``gru_scan_tm`` for the forward, ``gru_scan_tm_bwd`` for the backward, and
+``gru_scan_tm_bf16``/``gru_scan_tm_bwd_bf16`` for the bf16 chain of the
+TPU kernel's ``dtype=bfloat16`` form (see there).
 """
 
 from __future__ import annotations
@@ -145,6 +147,101 @@ def gru_scan_tm_bwd(params: GRUParams, x_tm: torch.Tensor,
     dwx = torch.einsum("tbi,tbj->ij", x_tm, dpre_x)
     dwh = torch.einsum("tbi,tbj->ij", h_prev, dpre_h)
     return dx, dwx, dwh, dpre_x.sum(dim=(0, 1)), dh
+
+
+# The bf16 chain: where ``hpmn_tpu/ops/pallas_gru.py`` with dtype=bfloat16
+# rounds. Every operand (x, h, the weights, the mask) is bf16; the products
+# are f32 sums of bf16 values (upcast, then ``@``), summed as the TPU kernel
+# sums its packed blocks, (x @ wx + h @ wh) + b, and rounded to bf16 once per
+# block: r, z, the candidate's x part pre_c and its h part g_c (the packed
+# zero blocks keep those two apart). From there every op runs on bf16
+# tensors, so each rounds, and sigmoid is 0.5 * tanh(0.5 v) + 0.5.
+
+
+def _sigmoid_tanh(v: torch.Tensor) -> torch.Tensor:
+    return 0.5 * torch.tanh(0.5 * v) + 0.5
+
+
+def _bf16_gates(xw_t, h, whf, bf):
+    """One step's r, z, c, g_c (bf16) from xw_t = x_t @ wx [B, 3*d_m] (f32,
+    no bias), h [B, d_m] (bf16) and the f32 copies of wh and b."""
+    d_m = h.shape[-1]
+    g = h.float() @ whf
+    pre = ((xw_t[:, :2 * d_m] + g[:, :2 * d_m]) + bf[:2 * d_m]).bfloat16()
+    pre_c = (xw_t[:, 2 * d_m:] + bf[2 * d_m:]).bfloat16()
+    g_c = g[:, 2 * d_m:].bfloat16()
+    r = _sigmoid_tanh(pre[:, :d_m])
+    z = _sigmoid_tanh(pre[:, d_m:])
+    c = torch.tanh(pre_c + r * g_c)
+    return r, z, c, g_c
+
+
+def gru_scan_tm_bf16(params: GRUParams, x_tm: torch.Tensor,
+                     mask_tm: Optional[torch.Tensor] = None,
+                     h0: Optional[torch.Tensor] = None,
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gru_scan_tm` in the bf16 chain: every tensor bf16 (the weights
+    too) -> (h_seq [T, B, d_m], h_T [B, d_m]), bf16. With a mask the step is
+    h + m * (h_cell - h), rounded op by op; without one it is h_cell."""
+    T, B, _ = x_tm.shape
+    d_m = params.wh.shape[0]
+    whf, bf = params.wh.float(), params.b.float()
+    h = (x_tm.new_zeros(B, d_m) if h0 is None else h0)
+    xw = x_tm.float() @ params.wx.float()  # [T, B, 3*d_m], f32
+    hs = []
+    for t in range(T):
+        r, z, c, _ = _bf16_gates(xw[t], h, whf, bf)
+        h_cell = h + z * (c - h)
+        h = (h_cell if mask_tm is None
+             else h + mask_tm[t][:, None] * (h_cell - h))
+        hs.append(h)
+    if not hs:
+        return x_tm.new_zeros(0, B, d_m), h
+    return torch.stack(hs), h
+
+
+def gru_scan_tm_bwd_bf16(params: GRUParams, x_tm: torch.Tensor,
+                         mask_tm: Optional[torch.Tensor], h_seq: torch.Tensor,
+                         dh_seq: torch.Tensor,
+                         h0: Optional[torch.Tensor] = None,
+                         ) -> Tuple[torch.Tensor, ...]:
+    """:func:`gru_scan_tm_bwd` in the bf16 chain, as the TPU backward
+    kernel: bf16 inputs -> (dx bf16, dwx, dwh, db f32, dh0 f32).
+
+    The dh carry is f32: gtot = bf16(dh_seq[t] + dh). dz_s, dc, dz, dr and
+    dc * r are bf16, op by op, and so is the carry's own term gcell -
+    gcell z (+ gtot - gcell with a mask); dh = f32(that) + dpre @ wh^T,
+    an f32 sum. dx = bf16(dpre @ wx^T). The weight gradients are f32 sums
+    of bf16 products; rounding them to the weights' dtype is the caller's
+    (``cuda_gru.GRUScan``)."""
+    T, B, _ = x_tm.shape
+    d_m = params.wh.shape[0]
+    wxf, whf, bf = params.wx.float(), params.wh.float(), params.b.float()
+    h0 = x_tm.new_zeros(B, d_m) if h0 is None else h0
+    h_prev = torch.cat([h0[None], h_seq[:-1]])  # [T, B, d_m]
+    xw = x_tm.float() @ wxf
+    dpre_x = x_tm.new_empty(T, B, 3 * d_m)  # [dr | dz | dc]
+    dpre_h = x_tm.new_empty(T, B, 3 * d_m)  # [dr | dz | dc * r]
+    dh = x_tm.new_zeros(B, d_m, dtype=torch.float32)
+    for t in reversed(range(T)):
+        hp = h_prev[t]
+        r, z, c, g_c = _bf16_gates(xw[t], hp, whf, bf)
+        gtot = (dh_seq[t].float() + dh).bfloat16()
+        gcell = gtot if mask_tm is None else gtot * mask_tm[t][:, None]
+        dzs = gcell * (c - hp)
+        dc = gcell * z * (1.0 - c * c)
+        dz = dzs * z * (1.0 - z)
+        dr = dc * g_c * r * (1.0 - r)
+        carry = gcell - gcell * z
+        if mask_tm is not None:
+            carry = carry + (gtot - gcell)
+        dpre_x[t] = torch.cat([dr, dz, dc], dim=-1)
+        dpre_h[t] = torch.cat([dr, dz, dc * r], dim=-1)
+        dh = carry.float() + dpre_h[t].float() @ whf.T
+    dx = (dpre_x.float() @ wxf.T).bfloat16()
+    dwx = torch.einsum("tbi,tbj->ij", x_tm.float(), dpre_x.float())
+    dwh = torch.einsum("tbi,tbj->ij", h_prev.float(), dpre_h.float())
+    return dx, dwx, dwh, dpre_x.float().sum(dim=(0, 1)), dh
 
 
 def gru_sequence(params: GRUParams, x: torch.Tensor,

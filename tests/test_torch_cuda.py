@@ -10,7 +10,14 @@ Tolerances as in chip_smoke.py: 1e-4 on scans (f32, other summation order
 and transcendentals, a carry that does not grow errors), 1e-5 on the
 readout; the scan backward's outputs within 1e-4 of each tensor's max abs
 (the weight gradients sum over T*B row-steps in another order), and so is
-every parameter's gradient of a training step; TF32 off."""
+every parameter's gradient of a training step; TF32 off.
+
+The bf16 chain (K1-bf16, K2-bf16) against the plain bf16 versions, in bf16
+on the card, as chip_smoke.py holds it: h within 3e-2 (a few bf16 ulps at
+|h| < 1: the kernel and the plain version sum in other f32 orders, so a
+bf16 rounding can flip and run on through the recurrence), the backward's
+outputs within 1e-2 of their max abs; the bf16 training step's loss within
+1e-4 relative and its gradients within 2e-2 of their max abs."""
 
 import numpy as np
 import pytest
@@ -22,12 +29,17 @@ from hpmn_tpu_torch.data.schema import batch_from_numpy
 from hpmn_tpu_torch.models.model import init_model, loss_fn
 from hpmn_tpu_torch.models.readout import Readout, attention_readout
 from hpmn_tpu_torch.ops import cuda_gru, cuda_readout
-from hpmn_tpu_torch.ops.gru import GRUParams, gru_scan_tm, gru_scan_tm_bwd
+from hpmn_tpu_torch.ops.gru import (GRUParams, GRUWeights, gru_scan_tm,
+                                    gru_scan_tm_bf16, gru_scan_tm_bwd,
+                                    gru_scan_tm_bwd_bf16)
 from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
 
 pytestmark = pytest.mark.cuda
 
 TOL_GRU, TOL_READOUT, TOL_GRAD = 1e-4, 1e-5, 1e-4
+TOL_GRU_BF16, TOL_GRAD_BF16 = 3e-2, 1e-2
+TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16 = 1e-4, 2e-2
+BF16 = torch.bfloat16
 
 
 @pytest.fixture
@@ -171,6 +183,94 @@ def test_train_step_kernel_path_matches_plain_path(dev, full_mask):
     assert abs(l_k - l_p) <= 1e-5 * abs(l_p)
     for name, p in p_k.items():
         assert _rel_err(p.grad, p_p[name].grad) <= TOL_GRAD, name
+
+
+def _bf16(p):
+    return GRUWeights(p.wx.to(BF16), p.wh.to(BF16), p.b.to(BF16))
+
+
+@pytest.mark.parametrize("T,B,d_in,masked,strided", [
+    (1, 3, 32, False, False), (7, 33, 32, True, False),
+    (100, 64, 32, False, True), (100, 64, 32, True, True),
+    (50, 10, 70, True, False), (20, 5, 5, False, False)])
+def test_gru_bf16_kernels_match_plain(dev, T, B, d_in, masked, strided):
+    """K1-bf16 and K2-bf16 against gru_scan_tm_bf16 and
+    gru_scan_tm_bwd_bf16 on the same bf16 inputs; no f32 kernel runs."""
+    p = _bf16(_gru(d_in, dev))
+    g = torch.Generator().manual_seed(T + B)
+    x_all = torch.randn(3 * T if strided else T, B, d_in, generator=g
+                        ).to(dev, BF16)
+    x = x_all[2::3] if strided else x_all
+    mask = _mask(T, B, dev).to(BF16) if masked else None
+    h0 = torch.randn(B, 32, generator=g).to(dev, BF16) if B % 2 else None
+    dh_seq = torch.randn(T, B, 32, generator=g).to(dev, BF16)
+    counts = (cuda_gru.launches, cuda_gru.bwd_launches,
+              cuda_gru.launches_bf16, cuda_gru.bwd_launches_bf16)
+    h_k, hT_k = cuda_gru.gru_sequence_tm(p, x, mask, h0)
+    h_p, hT_p = gru_scan_tm_bf16(p, x, mask, h0)
+    got = cuda_gru.gru_scan_bwd(p, x, mask, h_k, dh_seq, h0)
+    want = gru_scan_tm_bwd_bf16(p, x, mask, h_k, dh_seq, h0)
+    torch.cuda.synchronize()
+    assert (cuda_gru.launches, cuda_gru.bwd_launches,
+            cuda_gru.launches_bf16, cuda_gru.bwd_launches_bf16) == (
+                counts[0], counts[1], counts[2] + 1, counts[3] + 1)
+    assert h_k.dtype == BF16
+    assert (h_k.float() - h_p.float()).abs().max().item() <= TOL_GRU_BF16
+    assert (hT_k.float() - hT_p.float()).abs().max().item() <= TOL_GRU_BF16
+    for name, a, b in zip(("dx", "dwx", "dwh", "db", "dh0"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel_err(a.float(), b.float()) <= TOL_GRAD_BF16, name
+
+
+def test_gru_kernels_refuse_dtype_mixes(dev):
+    p = _gru(32, dev)
+    x32 = torch.zeros(4, 2, 32, device=dev)
+    with pytest.raises(ValueError, match="one dtype"):
+        cuda_gru.gru_sequence_tm(p, x32.to(BF16))  # f32 weights
+    with pytest.raises(ValueError, match="one dtype"):
+        cuda_gru.gru_sequence_tm(_bf16(p), x32)
+    with pytest.raises(ValueError, match="one dtype"):
+        cuda_gru.gru_sequence_tm(p, x32, torch.ones(4, 2, device=dev,
+                                                    dtype=BF16))
+    x16 = x32.to(BF16)
+    with pytest.raises(ValueError, match="dh_seq"):
+        cuda_gru.gru_scan_bwd(_bf16(p), x16, None, x16, x32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cuda_gru.gru_sequence_tm(p, x32.half())
+
+
+@pytest.mark.parametrize("full_mask", [True, False])
+def test_train_step_bf16_kernel_path_matches_plain_path(dev, full_mask):
+    """scan_dtype="bfloat16": one loss and gradient through K1-bf16, K2-bf16
+    and K5 == the same branch with the plain bf16 scans and the plain
+    readout under autograd (``plain=True``), from the same weights and
+    batch."""
+    cfg = configs.get_config("xlong_hpmn").with_model(
+        use_pallas=True, assume_full_mask=full_mask, scan_dtype="bfloat16")
+    spec = synthetic.DatasetSpec("mid", seq_len=250, n_items=500, n_cats=40,
+                                 n_users=50)
+    data = synthetic.make_ctr_dataset(spec, 32, seed=1,
+                                      min_len_frac=1.0 if full_mask else 0.3)
+    batch = batch_from_numpy(data, device=dev)
+    out = []
+    for plain in (False, True):
+        model = init_model(cfg, 500, 40, seed=2, device=dev)
+        counts = (cuda_gru.launches, cuda_gru.bwd_launches,
+                  cuda_gru.launches_bf16, cuda_gru.bwd_launches_bf16)
+        loss, _ = loss_fn(model, cfg, batch, plain=plain)
+        loss.backward()
+        torch.cuda.synchronize()
+        ran = (cuda_gru.launches - counts[0], cuda_gru.bwd_launches - counts[1],
+               cuda_gru.launches_bf16 - counts[2],
+               cuda_gru.bwd_launches_bf16 - counts[3])
+        out.append((loss.item(), dict(model.named_parameters()), ran))
+    (l_k, p_k, ran_k), (l_p, p_p, ran_p) = out
+    L = cfg.model.hpmn_layers
+    assert ran_k == (0, 0, L, L) and ran_p == (0, 0, 0, 0)
+    assert abs(l_k - l_p) <= TOL_STEP_LOSS_BF16 * abs(l_p)
+    for name, p in p_k.items():
+        assert p.grad.dtype == torch.float32, name
+        assert _rel_err(p.grad, p_p[name].grad) <= TOL_STEP_GRAD_BF16, name
 
 
 @pytest.mark.parametrize("B,L,d_q", [(1, 1, 32), (512, 6, 32), (37, 16, 40),

@@ -2,7 +2,10 @@
 against the JAX package on the CPU. JAX parameters reach the port through
 ``hpmn_tpu_torch.convert``; inputs are drawn with numpy from a seed.
 Tolerances: encoders atol = rtol = 1e-5 in f32; logits atol = rtol = 1e-4
-(a tower of three products over the memory's 1e-5)."""
+(a tower of three products over the memory's 1e-5). With the bf16 scan
+chain (``scan_dtype="bfloat16"``) the memory is held at 2e-2 abs, the bf16
+scans' tolerance in tests/test_torch_bf16.py, and the logits at 5e-2 abs
+(the tower's products over that memory)."""
 
 import dataclasses
 import inspect
@@ -35,6 +38,8 @@ from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
 
 ENC_TOL = dict(atol=1e-5, rtol=1e-5)
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
+BF16_ENC_TOL = dict(atol=2e-2, rtol=0)
+BF16_LOGIT_TOL = dict(atol=5e-2, rtol=0)
 N_ITEMS, N_CATS = 200, 20
 SMALL = synthetic.DatasetSpec("small", seq_len=29, n_items=N_ITEMS,
                               n_cats=N_CATS, n_users=50)
@@ -137,19 +142,18 @@ def test_encode_hierarchical_tm_matches_jax_oracle(T, L, period, use_mask):
         assert not got[:, -1].any()
 
 
-@pytest.mark.parametrize("use_pallas,hierarchical,full_mask", [
-    (True, True, False), (True, True, True), (False, True, False),
-    (False, False, False)])
-def test_apply_model_matches_jax(interpret, use_pallas, hierarchical,
-                                 full_mask):
+def _apply_model_against_jax(use_pallas, hierarchical, full_mask,
+                             scan_dtype, enc_tol, logit_tol):
     j_cfg = j_get_config("xlong_hpmn")
     j_cfg.model.hpmn_layers = 3
     j_cfg.model.use_pallas = use_pallas
     j_cfg.model.use_hierarchical_scan = hierarchical
     j_cfg.model.assume_full_mask = full_mask
+    j_cfg.model.scan_dtype = scan_dtype
     cfg = configs.get_config("xlong_hpmn").with_model(
         hpmn_layers=3, use_pallas=use_pallas,
-        use_hierarchical_scan=hierarchical, assume_full_mask=full_mask)
+        use_hierarchical_scan=hierarchical, assume_full_mask=full_mask,
+        scan_dtype=scan_dtype)
     params = j_init_model(jax.random.key(5), j_cfg, N_ITEMS, N_CATS)
     model = model_from_flat(cfg, _flat(params),
                             device="cpu").requires_grad_(False)
@@ -158,9 +162,27 @@ def test_apply_model_matches_jax(interpret, use_pallas, hierarchical,
     want, want_aux = j_apply_model(params, j_cfg, j_batch_from_numpy(data))
     got, aux = apply_model(model, cfg, batch_from_numpy(data, device="cpu"))
     assert got.shape == (6,)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+    assert aux["memory"].dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **logit_tol)
     np.testing.assert_allclose(aux["memory"].numpy(),
-                               np.asarray(want_aux["memory"]), **ENC_TOL)
+                               np.asarray(want_aux["memory"]), **enc_tol)
+
+
+@pytest.mark.parametrize("use_pallas,hierarchical,full_mask", [
+    (True, True, False), (True, True, True), (False, True, False),
+    (False, False, False)])
+def test_apply_model_matches_jax(interpret, use_pallas, hierarchical,
+                                 full_mask):
+    _apply_model_against_jax(use_pallas, hierarchical, full_mask, "float32",
+                             ENC_TOL, LOGIT_TOL)
+
+
+@pytest.mark.parametrize("full_mask", [False, True])
+def test_apply_model_bf16_matches_jax(interpret, full_mask):
+    """scan_dtype="bfloat16" on the use_pallas path: the scans in the bf16
+    chain, the memory back in f32 for the readout (JAX apply_model)."""
+    _apply_model_against_jax(True, True, full_mask, "bfloat16",
+                             BF16_ENC_TOL, BF16_LOGIT_TOL)
 
 
 def test_convert_consumes_every_key_and_fills_every_parameter():
@@ -197,7 +219,7 @@ def test_init_model_is_seeded_and_shaped_like_jax():
 
 
 @pytest.mark.parametrize("change", [
-    dict(scan_dtype="bfloat16"), dict(pallas_stride_outputs=True),
+    dict(scan_dtype="float16"), dict(pallas_stride_outputs=True),
     dict(use_user_emb=True), dict(name="dien")])
 def test_unported_options_raise(change):
     cfg = configs.get_config("xlong_hpmn").with_model(**change)

@@ -13,6 +13,11 @@ Tolerances, f32:
   B*T row-steps through three scans, in other orders on the two sides,
   and the Pallas scan writes sigmoid through tanh;
 - parameters after three Adam steps: atol 2e-5 (see that test).
+
+With the bf16 scan chain (``scan_dtype="bfloat16"``, bench.py's headline
+leg): the loss at rtol 1e-3 and every gradient within 2e-2 of its max abs,
+the bf16 scans' tolerances of tests/test_torch_bf16.py (a flipped bf16
+rounding runs on through the recurrences as a few bf16 ulps).
 """
 
 import dataclasses
@@ -45,6 +50,8 @@ from hpmn_tpu_torch.ops import cuda_gru, cuda_readout
 from hpmn_tpu_torch.train import train
 
 LOSS_TOL = dict(rtol=1e-5, atol=1e-7)
+BF16_LOSS_RTOL = 1e-3
+BF16_GRAD_TOL = 2e-2  # of each gradient's max abs
 N_ITEMS, N_CATS, B = 200, 20, 6
 SMALL = synthetic.DatasetSpec("small", seq_len=29, n_items=N_ITEMS,
                               n_cats=N_CATS, n_users=50)
@@ -69,16 +76,18 @@ def _flat(tree):
     return {k: np.asarray(v) for k, v in zip(keys, leaves)}
 
 
-def _configs(setting):
+def _configs(setting, scan_dtype="float32"):
     use_pallas, hierarchical, full_mask = SETTINGS[setting]
     j_cfg = j_get_config("xlong_hpmn")
     j_cfg.model.hpmn_layers = 3
     j_cfg.model.use_pallas = use_pallas
     j_cfg.model.use_hierarchical_scan = hierarchical
     j_cfg.model.assume_full_mask = full_mask
+    j_cfg.model.scan_dtype = scan_dtype
     cfg = configs.get_config("xlong_hpmn").with_model(
         hpmn_layers=3, use_pallas=use_pallas,
-        use_hierarchical_scan=hierarchical, assume_full_mask=full_mask)
+        use_hierarchical_scan=hierarchical, assume_full_mask=full_mask,
+        scan_dtype=scan_dtype)
     return j_cfg, cfg
 
 
@@ -167,6 +176,30 @@ def test_loss_fn_gradients_match_jax(interpret, setting):
     assert {jax_key(n) for n in names} == set(want)
     for name, p in model.named_parameters():
         _close_grad(p.grad.numpy(), want[jax_key(name)], name)
+
+
+@pytest.mark.parametrize("setting", ["pallas_full", "pallas_padded"])
+def test_loss_fn_gradients_match_jax_bf16(interpret, setting):
+    """bench.py's headline leg: scan_dtype="bfloat16". The loss and every
+    parameter's gradient (f32 parameters; the scans' weight gradients
+    rounded to bf16 inside, as the JAX custom_vjp does) ==
+    jax.value_and_grad of the JAX loss_fn, full and left-padded."""
+    j_cfg, cfg = _configs(setting, "bfloat16")
+    params = j_init_model(jax.random.key(8), j_cfg, N_ITEMS, N_CATS)
+    data = _data(setting, seed=8)
+    (j_loss, _), j_grads = jax.value_and_grad(j_loss_fn, has_aux=True)(
+        params, j_cfg, j_batch_from_numpy(data))
+    model = model_from_flat(cfg, _flat(params), device="cpu")
+    loss, _ = loss_fn(model, cfg, batch_from_numpy(data, device="cpu"))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(j_loss),
+                               rtol=BF16_LOSS_RTOL)
+    want = _flat(j_grads)
+    for name, p in model.named_parameters():
+        assert p.grad.dtype == torch.float32, name
+        ref = want[jax_key(name)]
+        err = np.abs(p.grad.numpy() - ref).max()
+        assert err <= BF16_GRAD_TOL * np.abs(ref).max(), name
 
 
 def test_three_adam_steps_match_jax(interpret):
