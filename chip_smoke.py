@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's xlong_hpmn serving path and training step
-(f32 and bf16 scans) once on one GPU.
+(f32 and bf16 scans, dense and strided-output) once on one GPU.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a GPU
 
@@ -13,7 +13,9 @@ before the last line):
    the paths' shapes, with its tolerance, its time, the plain time, the
    time of the one PyTorch call that computes the same (cuDNN's GRU for the
    scans), and the least time the card could take (bound); the bf16 scan
-   kernels in bf16, with their drift from the f32 kernels.
+   kernels in bf16, with their drift from the f32 kernels; the strided
+   scan kernels (K3, K4 and their bf16 forms), with their difference from
+   the dense kernels' strided rows and gradients.
 4. serving: a ``UserMemoryStore`` on the card at the full width of
    xlong_hpmn (random seeded weights) ingests histories, takes updates,
    predicts and ranks; launch counters prove the path ran the kernels, and
@@ -26,6 +28,9 @@ before the last line):
 6. bf16 training: the same step with ``scan_dtype="bfloat16"`` (bench.py's
    headline leg: K1-bf16 and K2-bf16), held against the plain bf16 path
    and the f32 step's loss, then timed, counted and profiled as phase 5.
+7. strided training: the step with ``pallas_stride_outputs=True`` (K3 and
+   K4), f32 then bf16, held against its plain path and the dense step's
+   loss, then timed, counted and profiled as phase 5.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -137,6 +142,33 @@ def scan_bwd_work(T, B, d_in, masked, es=4):
     return flops, n_bytes
 
 
+def stride_rows(T, period, chunk):
+    """K3's outputs, in rows of B x 32: the strided rows, the chunk
+    boundaries and h_T."""
+    return T // period + -(-T // chunk) + 1
+
+
+def scan_stride_fwd_work(T, B, d_in, period, chunk, es=4):
+    """K3: K1's operations; x and the weights read, the strided rows, the
+    boundaries and h_T written."""
+    flops = 2 * T * B * (d_in + 32) * 96
+    n_bytes = es * (T * B * d_in + stride_rows(T, period, chunk) * B * 32
+                    + (d_in + 33) * 96)
+    return flops, n_bytes
+
+
+def scan_stride_bwd_work(T, B, d_in, period, chunk, es=4):
+    """K4: K2's operations (its replay is K2's recompute of x@wx and h@wh:
+    the sweep reads the replay's gates back); x, the boundaries, dhs, dhT
+    and the weights read, dx written (es bytes per element), dh0 and the
+    weight gradients written (f32)."""
+    flops = 2 * T * B * 96 * (3 * d_in + 3 * 32)
+    n_bytes = (es * (2 * T * B * d_in + stride_rows(T, period, chunk) * B * 32
+                     + (d_in + 33) * 96)
+               + 4 * (B * 32 + (d_in + 33) * 96))
+    return flops, n_bytes
+
+
 def readout_work(B, L, d_q):
     """K5: memory and query through wm, wq and the scores; memory and query
     read, the read written."""
@@ -161,10 +193,12 @@ def main():
         from hpmn_tpu_torch.models.model import init_model, loss_fn
         from hpmn_tpu_torch.models.readout import attention_readout
         from hpmn_tpu_torch.models.tower import apply_tower
-        from hpmn_tpu_torch.ops import _build, cuda_gru, cuda_readout
-        from hpmn_tpu_torch.ops.gru import (GRUWeights, gru_scan_tm,
-                                            gru_scan_tm_bf16, gru_scan_tm_bwd,
-                                            gru_scan_tm_bwd_bf16)
+        from hpmn_tpu_torch.ops import (_build, cuda_gru, cuda_gru_stride,
+                                        cuda_readout)
+        from hpmn_tpu_torch.ops.gru import (
+            GRUWeights, gru_scan_stride_tm, gru_scan_stride_tm_bf16,
+            gru_scan_stride_tm_bwd, gru_scan_stride_tm_bwd_bf16, gru_scan_tm,
+            gru_scan_tm_bf16, gru_scan_tm_bwd, gru_scan_tm_bwd_bf16)
         from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
         from hpmn_tpu_torch.train.train import (make_multistep_train,
                                                 make_optimizer)
@@ -266,6 +300,15 @@ def main():
     bwd_err, bwd_abs, bwd_rows = 0.0, 0.0, []
     bf_err, bf_rows, bf_drift = 0.0, [], 0.0
     bfb_err, bfb_abs, bfb_rows, bfb_drift = 0.0, 0.0, [], 0.0
+    period = m.hpmn_period
+    chunk = cuda_gru_stride.chunk()
+    # The strided kernels' rows, by name: (T, err, ms, plain ms, library
+    # ms, bound ms, bound by); worst errors and differences from the dense
+    # kernels over the six shapes.
+    st_rows = {n: [] for n in ("fwd", "bwd", "fwd_bf16", "bwd_bf16")}
+    st_err = dict.fromkeys(st_rows, 0.0)
+    st_abs = dict.fromkeys(st_rows, 0.0)
+    st_vs_dense = dict.fromkeys(st_rows, 0.0)
     for l, T in enumerate(T_l):
         layer = model.encoder.layers[l]
         d_in = layer.wx.shape[0]
@@ -327,6 +370,8 @@ def main():
             # K2 on K1's output, against the plain backward.
             got = cuda_gru.gru_scan_bwd(layer, x, mask, h_k, dh_seq)
             want = gru_scan_tm_bwd(layer, x, mask, h_k, dh_seq)
+            if not masked:
+                h_dense = h_k
             torch.cuda.synchronize()
             rel, absd = 0.0, 0.0
             for name, a, b in zip(("dx", "dwx", "dwh", "db", "dh0"), got,
@@ -359,6 +404,8 @@ def main():
             m16 = None if mask is None else mask.bfloat16()
             h16, hT16 = cuda_gru.gru_sequence_tm(w16, x16, m16)
             h16_p, hT16_p = gru_scan_tm_bf16(w16, x16, m16)
+            if not masked:
+                h16_dense, hT16_dense = h16, hT16
             torch.cuda.synchronize()
             check(h16.dtype == torch.bfloat16
                   and torch.isfinite(h16.float()).all().item(),
@@ -418,6 +465,111 @@ def main():
                   f"{drift:.3e} of max abs | kernel {ms:.4f} ms | plain "
                   f"{plain_ms:.4f} ms | library {fmt(lib_t)} ms | bound "
                   f"{b_ms:.4f} ms ({b_by})", flush=True)
+
+        # K3, K4 and their bf16 forms on the same x and weights, no mask,
+        # with random cotangents on the strided rows and on h_T; K4 runs
+        # from K3's boundaries. The dense kernels on the same inputs give
+        # the strided rows h_seq[period-1::period] and, with dh_seq holding
+        # dhs at the firing steps and dhT added at T-1, the same gradients
+        # up to rounding. No PyTorch call emits only the strided rows: the
+        # library time is nn.GRU's dense forward, and its backward with
+        # that dh_seq.
+        S = T // period
+        dhs = torch.randn(S, B_SCAN, 32, generator=gen, device=dev)
+        dhT = torch.randn(B_SCAN, 32, generator=gen, device=dev)
+        dh_dense = torch.zeros(T, B_SCAN, 32, device=dev)
+        dh_dense[period - 1:S * period:period] = dhs
+        dh_dense[T - 1] += dhT
+        lib_st_bwd = cuda_ms(lambda: torch.autograd.grad(
+            out_lib, lib_args, dh_dense, retain_graph=True), 10)
+        lib16_st = lib_times(lib16, x16, dh_dense.bfloat16())
+        lib16_st_bwd = lib16_st[1] if cudnn16 else None
+        for bf in (False, True):
+            sfx = "_bf16" if bf else ""
+            w, xs = (w16, x16) if bf else (layer, x)
+            d_s, d_T = ((dhs.bfloat16(), dhT.bfloat16()) if bf
+                        else (dhs, dhT))
+            es, peak = (2, PEAK_BF16_FLOPS) if bf else (4, PEAK_FP32_FLOPS)
+            tol_h, tol_g = ((TOL_GRU_BF16, TOL_GRAD_BF16) if bf
+                            else (TOL_GRU, TOL_GRAD))
+            p_fwd, p_bwd = ((gru_scan_stride_tm_bf16,
+                             gru_scan_stride_tm_bwd_bf16) if bf else
+                            (gru_scan_stride_tm, gru_scan_stride_tm_bwd))
+            hs_k, hT_k, bounds = cuda_gru_stride.stride_fwd(w, xs, period)
+            hs_p, hT_p = p_fwd(w, xs, period)
+            hd, hTd = (h16_dense, hT16_dense) if bf else (h_dense,
+                                                          h_dense[-1])
+            torch.cuda.synchronize()
+            check(hs_k.shape == (S, B_SCAN, 32) and hs_k.dtype == xs.dtype
+                  and torch.isfinite(hs_k.float()).all().item()
+                  and torch.isfinite(hT_k.float()).all().item(),
+                  f"K3{sfx} T={T}: shape, dtype or non-finite")
+            err = max((hs_k.float() - hs_p.float()).abs().max().item()
+                      if S else 0.0,
+                      (hT_k.float() - hT_p.float()).abs().max().item())
+            vs = max((hs_k.float() - hd[period - 1::period].float()).abs()
+                     .max().item() if S else 0.0,
+                     (hT_k.float() - hTd.float()).abs().max().item())
+            check(err <= tol_h, f"K3{sfx} T={T}: max abs err {err:.3e} > "
+                  f"{tol_h}")
+            bits = (torch.equal(hs_k, hd[period - 1::period])
+                    and torch.equal(hT_k, hTd))
+            if bf:
+                check(bits, f"K3-bf16 T={T}: strided rows not K1-bf16's bit "
+                      f"for bit ({vs:.3e})")
+            ms = cuda_ms(lambda: cuda_gru_stride.stride_fwd(w, xs, period),
+                         10)
+            plain_ms = cuda_ms(lambda: p_fwd(w, xs, period), 2)
+            lib_t = lib16_fwd if bf else lib_ms
+            b_ms, b_by = bound(*scan_stride_fwd_work(T, B_SCAN, d_in, period,
+                                                     chunk, es), peak)
+            name = "fwd" + sfx
+            st_err[name] = st_abs[name] = max(st_err[name], err)
+            st_vs_dense[name] = max(st_vs_dense[name], vs)
+            st_rows[name].append((T, err, ms, plain_ms, lib_t, b_ms, b_by))
+            print(f"phase 3 kernel gru_stride_fwd{sfx} T={T} B={B_SCAN} "
+                  f"d_in={d_in} period={period}: max_abs_err {err:.3e} (tol "
+                  f"{tol_h}) | vs dense kernel's strided rows {vs:.3e} (bit "
+                  f"for bit: {bits}) | kernel {ms:.4f} ms | plain "
+                  f"{plain_ms:.4f} ms | library {fmt(lib_t)} ms (dense "
+                  f"nn.GRU) | bound {b_ms:.4f} ms ({b_by})", flush=True)
+
+            got = cuda_gru_stride.stride_bwd(w, xs, period, bounds, d_s, d_T)
+            want = p_bwd(w, xs, period, d_s, d_T)
+            dense = cuda_gru.gru_scan_bwd(w, xs, None, hd,
+                                          dh_dense.to(xs.dtype))
+            torch.cuda.synchronize()
+            rel, absd, vs = 0.0, 0.0, 0.0
+            for gname, a, b, f in zip(("dx", "dwx", "dwh", "db", "dh0"), got,
+                                      want, dense):
+                check(a.shape == b.shape and a.dtype == b.dtype
+                      and torch.isfinite(a.float()).all().item(),
+                      f"K4{sfx} T={T}: {gname} shape, dtype or non-finite")
+                d = (a.float() - b.float()).abs().max().item()
+                absd = max(absd, d)
+                rel = max(rel, d / max(b.float().abs().max().item(), 1e-30))
+                vs = max(vs, (a.float() - f.float()).abs().max().item()
+                         / max(f.float().abs().max().item(), 1e-30))
+            check(rel <= tol_g, f"K4{sfx} T={T}: max abs err over max abs "
+                  f"{rel:.3e} > {tol_g}")
+            ms = cuda_ms(lambda: cuda_gru_stride.stride_bwd(
+                w, xs, period, bounds, d_s, d_T), 10)
+            plain_ms = cuda_ms(lambda: p_bwd(w, xs, period, d_s, d_T), 2)
+            lib_t = lib16_st_bwd if bf else lib_st_bwd
+            b_ms, b_by = bound(*scan_stride_bwd_work(T, B_SCAN, d_in, period,
+                                                     chunk, es), peak)
+            name = "bwd" + sfx
+            st_err[name] = max(st_err[name], rel)
+            st_abs[name] = max(st_abs[name], absd)
+            st_vs_dense[name] = max(st_vs_dense[name], vs)
+            st_rows[name].append((T, absd, ms, plain_ms, lib_t, b_ms, b_by))
+            print(f"phase 3 kernel gru_stride_bwd{sfx} T={T} B={B_SCAN} "
+                  f"d_in={d_in} period={period}: max_abs_err {absd:.3e}, over"
+                  f" max abs {rel:.3e} (tol {tol_g}) | vs dense kernel's "
+                  f"gradients {vs:.3e} of max abs | kernel {ms:.4f} ms | "
+                  f"plain {plain_ms:.4f} ms | library {fmt(lib_t)} ms (dense "
+                  f"nn.GRU, strided cotangent) | bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
         del lib, out_lib, x_lib, lib_args
 
     ro_err, ro_rows = 0.0, []
@@ -601,21 +753,25 @@ def main():
     padded_batch = batch_from_numpy(padded_data, device=dev)
 
     def loss_and_grads(c, batch, plain=False):
+        """-> (loss, parameters with their gradients, seconds, the peak
+        device memory of the loss and its backward in MiB)."""
         model_g = init_model(c, XLONG.n_items, XLONG.n_cats, seed=cfg.seed,
                              device=dev)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         loss, _ = loss_fn(model_g, c, batch, plain=plain)
         loss.backward()
         torch.cuda.synchronize()
         return (loss.item(), dict(model_g.named_parameters()),
-                time.perf_counter() - t0)
+                time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated(dev) / 2**20)
 
     def step_check(phase, form, c_k, batch, c_p, plain, tol_loss, tol_grad):
         """The kernel path's loss and every gradient against the plain
         path's (config c_p, ``plain`` flag), same weights and batch."""
-        loss_k, p_k, t_k = loss_and_grads(c_k, batch)
-        loss_p, p_p, t_p = loss_and_grads(c_p, batch, plain)
+        loss_k, p_k, t_k, mib_k = loss_and_grads(c_k, batch)
+        loss_p, p_p, t_p, _ = loss_and_grads(c_p, batch, plain)
         check(np.isfinite(loss_k), f"training loss ({form}) not finite")
         loss_rel = abs(loss_k - loss_p) / abs(loss_p)
         check(loss_rel <= tol_loss, f"step ({form}): loss {loss_k} vs "
@@ -638,13 +794,16 @@ def main():
               f"{loss_rel:.2e}, tol {tol_loss}) | {len(p_p)} gradients,"
               f" worst {worst_name} {worst:.2e} of max abs (tol "
               f"{tol_grad}) | one step, first call: kernel path "
-              f"{1e3 * t_k:.1f} ms, plain path {1e3 * t_p:.1f} ms", flush=True)
+              f"{1e3 * t_k:.1f} ms, plain path {1e3 * t_p:.1f} ms | kernel "
+              f"path's peak device memory {mib_k:.1f} MiB", flush=True)
         return loss_k
 
     def counters():
         return (cuda_gru.launches, cuda_gru.bwd_launches,
                 cuda_gru.launches_bf16, cuda_gru.bwd_launches_bf16,
-                cuda_readout.launches)
+                cuda_readout.launches, cuda_gru_stride.launches,
+                cuda_gru_stride.bwd_launches, cuda_gru_stride.launches_bf16,
+                cuda_gru_stride.bwd_launches_bf16)
 
     def timed_train(c_k):
         """k steps per dispatch, 2 warm-up and 3 timed dispatches, the
@@ -658,6 +817,8 @@ def main():
         cuda_gru.launches = cuda_gru.bwd_launches = 0
         cuda_gru.launches_bf16 = cuda_gru.bwd_launches_bf16 = 0
         cuda_readout.launches = 0
+        cuda_gru_stride.launches = cuda_gru_stride.bwd_launches = 0
+        cuda_gru_stride.launches_bf16 = cuda_gru_stride.bwd_launches_bf16 = 0
         for i in range(WARMUP_DISPATCHES):
             metrics = multistep(stacks[i % N_TRAIN_BATCHES])
         torch.cuda.synchronize()
@@ -718,10 +879,12 @@ def main():
 
     metrics, step_ms, ex_per_s, train_launches, multistep = timed_train(cfg_k)
     n_steps = (WARMUP_DISPATCHES + TIMED_DISPATCHES) * k
-    check(train_launches == (L * n_steps, L * n_steps, 0, 0, n_steps),
+    check(train_launches == (L * n_steps, L * n_steps, 0, 0, n_steps,
+                             0, 0, 0, 0),
           f"launches over {n_steps} steps: gru_scan_fwd, gru_scan_bwd, "
-          f"gru_scan_fwd_bf16, gru_scan_bwd_bf16, readout_fwd = "
-          f"{train_launches}, expected {L}, {L}, 0, 0 and 1 per step")
+          f"gru_scan_fwd_bf16, gru_scan_bwd_bf16, readout_fwd, the four "
+          f"strided = {train_launches}, expected {L}, {L}, 0, 0, 1 and 0 per "
+          "step")
     print(f"phase 5 train xlong_hpmn B={n_b} T={XLONG.seq_len} L={L} f32, "
           f"{k} steps per dispatch: {ex_per_s:.1f} examples/s ({step_ms:.3f}"
           f" ms per step, {TIMED_DISPATCHES} dispatches after "
@@ -764,10 +927,12 @@ def main():
 
     metrics, step_ms_b, ex_per_s_b, bf16_launches, multistep = \
         timed_train(cfg_b)
-    check(bf16_launches == (0, 0, L * n_steps, L * n_steps, n_steps),
+    check(bf16_launches == (0, 0, L * n_steps, L * n_steps, n_steps,
+                            0, 0, 0, 0),
           f"launches over {n_steps} steps: gru_scan_fwd, gru_scan_bwd, "
-          f"gru_scan_fwd_bf16, gru_scan_bwd_bf16, readout_fwd = "
-          f"{bf16_launches}, expected 0, 0, {L}, {L} and 1 per step")
+          f"gru_scan_fwd_bf16, gru_scan_bwd_bf16, readout_fwd, the four "
+          f"strided = {bf16_launches}, expected 0, 0, {L}, {L}, 1 and 0 per "
+          "step")
     print(f"phase 6 train xlong_hpmn B={n_b} T={XLONG.seq_len} L={L} bf16 "
           f"scans, {k} steps per dispatch: {ex_per_s_b:.1f} examples/s "
           f"({step_ms_b:.3f} ms per step; f32, phase 5: {ex_per_s:.1f} "
@@ -780,6 +945,52 @@ def main():
           f"{bf16_launches[0]}, {bf16_launches[1]})", flush=True)
     profile_dispatch(6, multistep, step_ms_b)
     del multistep
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 7. strided training --
+    # The same legs with pallas_stride_outputs=True: each layer's scan is K3
+    # (K3-bf16), its backward K4 (K4-bf16); no dense h_seq. The plain path
+    # is the same branch with the plain strided scans under autograd.
+    stride_launches = {}
+    for leg, c_d, dense_loss, dense_eps, tols in (
+            ("f32", cfg_k, f32_loss["full"], ex_per_s,
+             (TOL_STEP_LOSS, TOL_STEP_GRAD)),
+            ("bf16", cfg_b, bf16_loss["full"], ex_per_s_b,
+             (TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16))):
+        c_s = c_d.with_model(pallas_stride_outputs=True)
+        loss_s = step_check(7, f"strided {leg} full", c_s, batches[0], c_s,
+                            True, *tols)
+        rel = abs(loss_s - dense_loss) / abs(dense_loss)
+        check(rel <= tols[0], f"strided {leg} step: loss {loss_s} vs the "
+              f"dense step's {dense_loss}, relative {rel:.3e} > {tols[0]}")
+        torch.cuda.empty_cache()
+        metrics, step_ms_s, ex_per_s_s, launches, multistep = \
+            timed_train(c_s)
+        k3 = L * n_steps
+        want = ((0, 0, 0, 0, n_steps, k3, k3, 0, 0) if leg == "f32"
+                else (0, 0, 0, 0, n_steps, 0, 0, k3, k3))
+        check(launches == want, f"strided {leg} launches over {n_steps} "
+              f"steps: gru_scan_fwd, gru_scan_bwd, gru_scan_fwd_bf16, "
+              f"gru_scan_bwd_bf16, readout_fwd, gru_stride_fwd, "
+              f"gru_stride_bwd, gru_stride_fwd_bf16, gru_stride_bwd_bf16 = "
+              f"{launches}, expected {want}")
+        stride_launches[leg] = launches
+        sfx = "" if leg == "f32" else "_bf16"
+        print(f"phase 7 train xlong_hpmn B={n_b} T={XLONG.seq_len} L={L} "
+              f"{leg} scans, strided outputs, {k} steps per dispatch: "
+              f"{ex_per_s_s:.1f} examples/s ({step_ms_s:.3f} ms per step; "
+              f"dense {leg} step: {dense_eps:.1f} examples/s) | loss vs the "
+              f"dense step's (same weights and batch): {loss_s:.7f} vs "
+              f"{dense_loss:.7f}, relative {rel:.2e} (tol {tols[0]}) | last "
+              f"step loss {metrics['loss']:.6f} bce {metrics['bce']:.6f} | "
+              f"launches over {n_steps} steps: gru_stride_fwd{sfx} "
+              f"{launches[5] + launches[7]} gru_stride_bwd{sfx} "
+              f"{launches[6] + launches[8]} readout_fwd {launches[4]} ({L}, "
+              f"{L}, 1 per step; dense scans {sum(launches[:4])})",
+              flush=True)
+        profile_dispatch(7, multistep, step_ms_s)
+        del multistep
+        torch.cuda.empty_cache()
 
     def entry(name, src, rep, row, err, by_path, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -815,6 +1026,18 @@ def main():
               {"training_bf16": bf16_launches[3]},
               max_err_over_max_abs=bfb_err,
               diff_from_f32_kernel_over_max_abs=bfb_drift),
+        *(entry(f"gru_stride_{name}",
+                cuda_gru_stride.BWD_SOURCE if "bwd" in name
+                else cuda_gru_stride.SOURCE,
+                cuda_gru_stride.BWD_REPLACES if "bwd" in name
+                else cuda_gru_stride.REPLACES,
+                st_rows[name][0][2:], st_abs[name],
+                {f"training_stride{'_bf16' if 'bf16' in name else ''}":
+                 stride_launches["bf16" if "bf16" in name else "f32"][
+                     5 + ("bwd" in name) + 2 * ("bf16" in name)]},
+                max_err_over_max_abs=st_err[name],
+                diff_from_dense_kernel=st_vs_dense[name])
+          for name in ("fwd", "bwd", "fwd_bf16", "bwd_bf16")),
     ]}), flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"ok": True, "device": {

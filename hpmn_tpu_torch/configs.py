@@ -31,7 +31,9 @@ class ModelConfig:
     # paths ignore it, as in JAX.
     scan_dtype: str = "float32"
     assume_full_mask: bool = False  # no padding: the scan skips the mask
-    pallas_stride_outputs: bool = False  # strided-output kernel: not ported
+    # With assume_full_mask and hpmn_period > 1 on the use_pallas path: the
+    # strided-output scan kernels (ops/cuda_gru_stride.py), off as in JAX.
+    pallas_stride_outputs: bool = False
     readout_dim: int = 32
     tower_hidden: Tuple[int, ...] = (200, 80)
     use_user_emb: bool = False  # not ported

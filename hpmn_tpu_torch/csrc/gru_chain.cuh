@@ -1,6 +1,9 @@
-// Device code shared by the GRU scan kernels (gru_scan_fwd.cu and
-// gru_scan_bwd.cu): the stream conversions and the gate chain, so that the
-// backward recomputes the forward's gates bit for bit.
+// Device code shared by the GRU scan kernels (gru_scan_fwd.cu K1,
+// gru_scan_bwd.cu K2, gru_scan_stride_fwd.cu K3, gru_scan_stride_bwd.cu
+// K4): the stream conversions, the projections and the gate chain, so that
+// a backward recomputes (or replays) its forward's gates bit for bit; the
+// strided scan's step; one step's gate gradients; and the shared-memory
+// pieces of the two backward kernels.
 //
 // Two chains, as hpmn_tpu/ops/pallas_gru.py has them:
 //
@@ -26,6 +29,8 @@
 namespace hpmn {
 
 constexpr int kDm = 32;  // hidden width: one lane per hidden unit
+constexpr int kG = 3 * kDm;  // the r, z and c blocks
+constexpr int kMaxChunks = 3;  // d_in <= 96: x_t in up to three 32-chunks
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename S>
@@ -69,21 +74,88 @@ __device__ __forceinline__ B sigmoid_bf16(B v) {
                half_b());
 }
 
+// x_t's row of one batch row for project(), lane k of chunk c holding
+// element 32*c + k, prefetched a step ahead in the stream type S and
+// converted to f32 only at the top of the step that uses it (load_x_raw,
+// then convert_x). Converted right after its load instead, as the
+// compiler schedules a conversion of a freshly loaded bf16 value, the
+// prefetch stalls the warp on the load every step: K3-bf16 took 3.07 ms
+// at T = 1000, B = 512 that way and 1.43 ms this way (PERF.md). xr starts
+// at zero; lanes past d_in keep it. `more` is false past the last step;
+// keep it inside the one condition: with `if (more)` around the call,
+// ptxas issued the loads ahead of the x projection and K3 (f32) took 1.94
+// ms instead of 0.94, the same bits.
+template <typename S>
+__device__ __forceinline__ void load_x_raw(S (&xr)[kMaxChunks], const S* x_t,
+                                           bool more, int n_chunks, int d_in,
+                                           int lane) {
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c) {
+    const int k = 32 * c + lane;
+    if (more && c < n_chunks && k < d_in) xr[c] = x_t[k];
+  }
+}
+
+template <typename S>
+__device__ __forceinline__ void convert_x(const S (&xr)[kMaxChunks],
+                                          float (&xv)[kMaxChunks]) {
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c) xv[c] = load_f(&xr[c]);
+}
+
+// One step's projections for lane's column of each gate block: a* = x_t @
+// wx, g* = h @ wh. xv[c] holds x_t[32*c + lane]; s_wx [d_in_pad][96] and
+// s_wh [32][96] are row-major in shared memory. The fmaf order (x chunk by
+// chunk, then h) is K1's, which every kernel that recomputes K1's gates
+// keeps.
+struct Proj {
+  float ar, az, ac, gr, gz, gc;
+};
+
+__device__ __forceinline__ Proj project(const float (&xv)[kMaxChunks],
+                                        int n_chunks, float h,
+                                        const float* s_wx, const float* s_wh,
+                                        int lane) {
+  Proj p;
+  p.ar = p.az = p.ac = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c) {
+    if (c < n_chunks) {
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        const float xk = __shfl_sync(kFull, xv[c], k);
+        const float* w = s_wx + (32 * c + k) * kG;
+        p.ar = fmaf(xk, w[lane], p.ar);
+        p.az = fmaf(xk, w[kDm + lane], p.az);
+        p.ac = fmaf(xk, w[2 * kDm + lane], p.ac);
+      }
+    }
+  }
+  p.gr = p.gz = p.gc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kDm; ++k) {
+    const float hk = __shfl_sync(kFull, h, k);
+    const float* w = s_wh + k * kG;
+    p.gr = fmaf(hk, w[lane], p.gr);
+    p.gz = fmaf(hk, w[kDm + lane], p.gz);
+    p.gc = fmaf(hk, w[2 * kDm + lane], p.gc);
+  }
+  return p;
+}
+
 struct Gates {
   float r, z, c;  // reset, update, candidate
   float gc;       // h @ wh_c: the candidate's h part, as the backward uses it
 };
 
-// f32 chain: one step's gates from the projections a* = x_t @ wx (per
-// block), g* = h @ wh, and the bias b_*.
-__device__ __forceinline__ Gates gates_f32(float ar, float az, float ac,
-                                           float gr, float gz, float gc,
-                                           float b_r, float b_z, float b_c) {
+// f32 chain: one step's gates from the projections and the bias b_*.
+__device__ __forceinline__ Gates gates_f32(const Proj& p, float b_r,
+                                           float b_z, float b_c) {
   Gates g;
-  g.r = sigmoid_f32((ar + b_r) + gr);
-  g.z = sigmoid_f32((az + b_z) + gz);
-  g.c = tanhf((ac + b_c) + g.r * gc);
-  g.gc = gc;
+  g.r = sigmoid_f32((p.ar + b_r) + p.gr);
+  g.z = sigmoid_f32((p.az + b_z) + p.gz);
+  g.c = tanhf((p.ac + b_c) + g.r * p.gc);
+  g.gc = p.gc;
   return g;
 }
 
@@ -93,17 +165,239 @@ struct GatesB {
 
 // bf16 chain: the same from f32 sums of bf16 products; each block rounded
 // once, in the TPU kernel's order (x@wx4 + h@wh4) + b4.
-__device__ __forceinline__ GatesB gates_bf16(float ar, float az, float ac,
-                                             float gr, float gz, float gc,
-                                             float b_r, float b_z,
-                                             float b_c) {
+__device__ __forceinline__ GatesB gates_bf16(const Proj& p, float b_r,
+                                             float b_z, float b_c) {
   GatesB g;
-  const B pre_c = to_b(ac + b_c);
-  g.gc = to_b(gc);
-  g.r = sigmoid_bf16(to_b((ar + gr) + b_r));
-  g.z = sigmoid_bf16(to_b((az + gz) + b_z));
+  const B pre_c = to_b(p.ac + b_c);
+  g.gc = to_b(p.gc);
+  g.r = sigmoid_bf16(to_b((p.ar + p.gr) + b_r));
+  g.z = sigmoid_bf16(to_b((p.az + p.gz) + b_z));
   g.c = to_b(tanhf(to_f(add_b(pre_c, mul_b(g.r, g.gc)))));
   return g;
+}
+
+// The strided scan's chunk: K3 writes the state at the start of every
+// chunk of kStrideChunk steps, and K4 replays one chunk at a time from it,
+// keeping the chunk's states in shared memory.
+constexpr int kStrideChunk = 16;
+
+// The strided scan's step (K3, and K4's replay of it): the no-mask update
+// h + z*(c - h) of pallas_gru.py::_fwd_stride_kernel. In f32 each op is
+// one _rn intrinsic, so nvcc fuses none of them and the plain version's
+// three roundings are the kernel's; in bf16 it is K1-bf16's no-mask h_cell.
+__device__ __forceinline__ float stride_update(const Gates& g, float h) {
+  return __fadd_rn(h, __fmul_rn(g.z, __fsub_rn(g.c, h)));
+}
+__device__ __forceinline__ B stride_update(const GatesB& g, B h) {
+  return add_b(h, mul_b(g.z, sub_b(g.c, h)));
+}
+
+// One step's gate gradients (dpre blocks) and the carry's own term, from
+// the step's gates, h_prev, the cotangent gtot that reaches h_t (the
+// output's plus the carry dh) and the mask m_t (1 with none).
+struct StepGrad {
+  float dr, dz, dc, dcr;
+  float carry;  // dh_prev before the products with wh^T
+};
+
+// f32: the port's first K2 formulas. The carry's term is the start of the
+// fmaf chain of dh_prev.
+__device__ __forceinline__ StepGrad step_grad_f32(const Gates& g, float hp,
+                                                  float gtot, float m) {
+  StepGrad o;
+  const float gcell = gtot * m;
+  const float dzs = gcell * (g.c - hp);
+  o.dc = gcell * g.z * (1.0f - g.c * g.c);
+  o.dz = dzs * g.z * (1.0f - g.z);
+  o.dr = o.dc * g.gc * g.r * (1.0f - g.r);
+  o.dcr = o.dc * g.r;
+  o.carry = gcell * (1.0f - g.z) + (gtot - gcell);
+  return o;
+}
+
+// bf16: pallas_gru.py::_bwd_kernel (and _bwd_stride_kernel) with
+// dtype=bfloat16, op by op; gtot is already rounded to bf16 from its f32
+// sum. The carry's term is added to the f32 sum of the products
+// afterwards, as the TPU kernel adds it to its dot.
+__device__ __forceinline__ StepGrad step_grad_bf16(const GatesB& g, B hp,
+                                                   B gtot, B m, bool masked) {
+  const B one = one_b();
+  const B gcell = mul_b(gtot, m);
+  const B dzs = mul_b(gcell, sub_b(g.c, hp));
+  const B dc = mul_b(mul_b(gcell, g.z), sub_b(one, mul_b(g.c, g.c)));
+  const B dz = mul_b(mul_b(dzs, g.z), sub_b(one, g.z));
+  const B dr = mul_b(mul_b(mul_b(dc, g.gc), g.r), sub_b(one, g.r));
+  B carry = sub_b(gcell, mul_b(gcell, g.z));
+  if (masked) carry = add_b(carry, sub_b(gtot, gcell));
+  StepGrad o;
+  o.dr = to_f(dr);
+  o.dz = to_f(dz);
+  o.dc = to_f(dc);
+  o.dcr = to_f(mul_b(dc, g.r));
+  o.carry = to_f(carry);
+  return o;
+}
+
+// ---- The backward kernels' shared memory (K2 and K4), per block: the
+// weights row-major (the recompute reads them) and transposed (dh and dx
+// read them along rows: lane j needs w[j][g*32+k] for a k shared by the
+// warp, a 32-way bank conflict in the row-major copy), then per warp the
+// weight-gradient accumulators dWx [d_in_pad][96], dWh [32][96], db [96],
+// where lane j owns column j of each gate block: no atomics, no bank
+// conflicts. The block sums its warps' slices into one f32 partial; the
+// wrapper sums the partials (as the TPU kernel emits one per batch tile).
+constexpr size_t kMaxSmem = 232448;  // a block's shared-memory limit
+
+__host__ __device__ __forceinline__ size_t weights_floats(int d_in_pad) {
+  return (size_t)2 * (d_in_pad + kDm) * kG;
+}
+__host__ __device__ __forceinline__ size_t acc_floats(int d_in_pad) {
+  return (size_t)(d_in_pad + kDm + 1) * kG;
+}
+
+struct BwdSmem {
+  float* wx;   // [d_in_pad][96], zero rows past d_in
+  float* wxT;  // [96][d_in_pad]
+  float* wh;   // [32][96]
+  float* whT;  // [96][32]
+  float* acc;  // this warp's accumulators: acc_floats()
+  float* end;  // past the last warp's accumulators
+};
+
+// Carve the block's shared memory, load the weights (as f32) and zero
+// every warp's accumulators. Ends with a block barrier.
+template <typename S>
+__device__ __forceinline__ BwdSmem load_bwd_smem(float* smem, const S* wx,
+                                                 const S* wh, int d_in,
+                                                 int d_in_pad, int warps,
+                                                 int warp) {
+  BwdSmem s;
+  s.wx = smem;
+  s.wxT = s.wx + d_in_pad * kG;
+  s.wh = s.wxT + kG * d_in_pad;
+  s.whT = s.wh + kDm * kG;
+  float* acc0 = s.whT + kG * kDm;
+  const int acc_n = (int)acc_floats(d_in_pad);
+  s.acc = acc0 + warp * acc_n;
+  s.end = acc0 + warps * acc_n;
+  for (int i = threadIdx.x; i < d_in_pad * kG; i += blockDim.x) {
+    const int r = i / kG, col = i - r * kG;
+    const float w = r < d_in ? load_f(wx + i) : 0.0f;
+    s.wx[i] = w;
+    s.wxT[col * d_in_pad + r] = w;
+  }
+  for (int i = threadIdx.x; i < kDm * kG; i += blockDim.x) {
+    const int r = i / kG, col = i - r * kG;
+    const float w = load_f(wh + i);
+    s.wh[i] = w;
+    s.whT[col * kDm + r] = w;
+  }
+  for (int i = threadIdx.x; i < warps * acc_n; i += blockDim.x)
+    acc0[i] = 0.0f;
+  __syncthreads();
+  return s;
+}
+
+// dh_prev = carry + [dr|dz|dc*r] @ wh^T and dx_t = [dr|dz|dc] @ wx^T, from
+// the transposed weights; writes dx_t's row (S) and returns dh_prev. In
+// bf16 the carry's term is added after the f32 sum of the products, as the
+// TPU kernel adds it to its dot.
+template <typename S>
+__device__ __forceinline__ float backprop_step(const StepGrad& sg,
+                                               const BwdSmem& s, int n_chunks,
+                                               int d_in, int d_in_pad,
+                                               int lane, S* dx_row) {
+  constexpr bool kBf16 = kIsBf16<S>;
+  float dh_new = kBf16 ? 0.0f : sg.carry;
+  float dxa[kMaxChunks];
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c) dxa[c] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kDm; ++k) {
+    const float drk = __shfl_sync(kFull, sg.dr, k);
+    const float dzk = __shfl_sync(kFull, sg.dz, k);
+    const float dck = __shfl_sync(kFull, sg.dc, k);
+    const float dcrk = __shfl_sync(kFull, sg.dcr, k);
+    dh_new = fmaf(drk, s.whT[k * kDm + lane], dh_new);
+    dh_new = fmaf(dzk, s.whT[(kDm + k) * kDm + lane], dh_new);
+    dh_new = fmaf(dcrk, s.whT[(2 * kDm + k) * kDm + lane], dh_new);
+#pragma unroll
+    for (int c = 0; c < kMaxChunks; ++c) {
+      if (c < n_chunks) {
+        const int i = 32 * c + lane;
+        dxa[c] = fmaf(drk, s.wxT[k * d_in_pad + i], dxa[c]);
+        dxa[c] = fmaf(dzk, s.wxT[(kDm + k) * d_in_pad + i], dxa[c]);
+        dxa[c] = fmaf(dck, s.wxT[(2 * kDm + k) * d_in_pad + i], dxa[c]);
+      }
+    }
+  }
+  if (kBf16) dh_new = sg.carry + dh_new;
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c) {
+    const int i = 32 * c + lane;
+    if (c < n_chunks && i < d_in) store_f(dx_row + i, dxa[c]);
+  }
+  return dh_new;
+}
+
+// dWx += x_t^T [dr|dz|dc] and dWh += h_prev^T [dr|dz|dc*r] into this
+// warp's accumulators (db is summed in registers by the caller).
+__device__ __forceinline__ void accumulate_wgrad(
+    const float (&xv)[kMaxChunks], float hp, const StepGrad& sg,
+    const BwdSmem& s, int n_chunks, int d_in_pad, int lane) {
+  float* acc_wx = s.acc;                     // [d_in_pad][96]
+  float* acc_wh = s.acc + d_in_pad * kG;     // [32][96]
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c) {
+    if (c < n_chunks) {
+#pragma unroll 8
+      for (int k = 0; k < 32; ++k) {
+        const float xk = __shfl_sync(kFull, xv[c], k);
+        float* a = acc_wx + (32 * c + k) * kG;
+        a[lane] = fmaf(xk, sg.dr, a[lane]);
+        a[kDm + lane] = fmaf(xk, sg.dz, a[kDm + lane]);
+        a[2 * kDm + lane] = fmaf(xk, sg.dc, a[2 * kDm + lane]);
+      }
+    }
+  }
+#pragma unroll 8
+  for (int k = 0; k < kDm; ++k) {
+    const float hk = __shfl_sync(kFull, hp, k);
+    float* a = acc_wh + k * kG;
+    a[lane] = fmaf(hk, sg.dr, a[lane]);
+    a[kDm + lane] = fmaf(hk, sg.dz, a[kDm + lane]);
+    a[2 * kDm + lane] = fmaf(hk, sg.dcr, a[2 * kDm + lane]);
+  }
+}
+
+// After a block barrier: this block's partial, the sum of its warps'
+// slices, into dwx_part [d_in][96], dwh_part [32][96] and db_part [96] at
+// the block's index.
+__device__ __forceinline__ void write_wgrad_partials(
+    const BwdSmem& s, int warps, int d_in, int d_in_pad,
+    float* __restrict__ dwx_part, float* __restrict__ dwh_part,
+    float* __restrict__ db_part) {
+  const float* acc0 = s.whT + kG * kDm;
+  const int acc_n = (int)acc_floats(d_in_pad);
+  float* out_wx = dwx_part + (long long)blockIdx.x * d_in * kG;
+  for (int i = threadIdx.x; i < d_in * kG; i += blockDim.x) {
+    float sum = 0.0f;
+    for (int w = 0; w < warps; ++w) sum += acc0[w * acc_n + i];
+    out_wx[i] = sum;
+  }
+  float* out_wh = dwh_part + (long long)blockIdx.x * kDm * kG;
+  for (int i = threadIdx.x; i < kDm * kG; i += blockDim.x) {
+    float sum = 0.0f;
+    for (int w = 0; w < warps; ++w)
+      sum += acc0[w * acc_n + d_in_pad * kG + i];
+    out_wh[i] = sum;
+  }
+  for (int i = threadIdx.x; i < kG; i += blockDim.x) {
+    float sum = 0.0f;
+    for (int w = 0; w < warps; ++w)
+      sum += acc0[w * acc_n + (d_in_pad + kDm) * kG + i];
+    db_part[(long long)blockIdx.x * kG + i] = sum;
+  }
 }
 
 }  // namespace hpmn

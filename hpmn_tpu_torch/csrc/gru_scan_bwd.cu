@@ -8,7 +8,8 @@
 //
 //   h_prev = h_seq[t-1]            (h0, or zeros, at t = 0)
 //   r, z, c, g_c recomputed from x_t and h_prev with gru_scan_fwd.cu's
-//   formulas, bit for bit (gru_chain.cuh's gates(), the same fmaf order)
+//   formulas, bit for bit (gru_chain.cuh's project() and gates, the same
+//   fmaf order)
 //   gtot = dh_seq[t] + dh;   gcell = gtot * m_t
 //   dzs = gcell*(c - h_prev); dc = gcell*z*(1-c^2)
 //   dz = dzs*z*(1-z);         dr = dc*g_c*r*(1-r)
@@ -53,6 +54,10 @@
 //   the block sums its warps' slices and writes one partial per block; the
 //   wrapper sums the partials (as the TPU kernel emits one per batch tile).
 //
+// The step's gate gradients, the dh/dx products, the weight-gradient
+// accumulation and the shared-memory layout live in gru_chain.cuh, shared
+// with the strided backward K4 (gru_scan_stride_bwd.cu).
+//
 // The port's forward keeps the whole h_seq, so the backward reads h_{t-1}
 // from it: it needs no boundary states and no padding of T to 8.
 //
@@ -64,25 +69,15 @@
 namespace {
 
 using hpmn::kDm;
-using hpmn::kFull;
+using hpmn::kMaxChunks;  // d_in <= 96
 using hpmn::load_f;
-constexpr int kG = 3 * kDm;      // the r, z and c blocks
-constexpr int kMaxWarps = 4;     // batch rows per block, at most
-constexpr int kMaxChunks = 3;    // d_in <= 96
-constexpr size_t kMaxSmem = 232448;  // a block's shared-memory limit
-
-// Shared-memory floats: the weights (row-major and transposed) for the
-// block, and the accumulators (dWx [d_in_pad][96], dWh [32][96], db [96])
-// for each warp.
-size_t weights_floats(int d_in_pad) {
-  return (size_t)2 * (d_in_pad + kDm) * kG;
-}
-size_t acc_floats(int d_in_pad) { return (size_t)(d_in_pad + kDm + 1) * kG; }
+constexpr int kMaxWarps = 4;  // batch rows per block, at most
 
 int rows_per_block(int d_in) {
   const int d_in_pad = (d_in + 31) / 32 * 32;
-  const size_t free_bytes = kMaxSmem - weights_floats(d_in_pad) * 4;
-  int w = (int)(free_bytes / (acc_floats(d_in_pad) * 4));
+  const size_t free_bytes =
+      hpmn::kMaxSmem - hpmn::weights_floats(d_in_pad) * 4;
+  int w = (int)(free_bytes / (hpmn::acc_floats(d_in_pad) * 4));
   return w < kMaxWarps ? w : kMaxWarps;
 }
 
@@ -120,57 +115,6 @@ __device__ __forceinline__ void load_step(
   }
 }
 
-// One step's gate gradients (dpre blocks) and the carry's own term.
-struct StepGrad {
-  float dr, dz, dc, dcr;
-  float carry;  // dh_prev before the products with wh^T
-};
-
-// f32: the port's first K2 formulas. The carry's term is the start of the
-// fmaf chain of dh_prev.
-__device__ __forceinline__ StepGrad step_grad_f32(const hpmn::Gates& g,
-                                                  const StepIn& s, float dh) {
-  StepGrad o;
-  const float gtot = s.dhs + dh;
-  const float gcell = gtot * s.m;
-  const float dzs = gcell * (g.c - s.hp);
-  o.dc = gcell * g.z * (1.0f - g.c * g.c);
-  o.dz = dzs * g.z * (1.0f - g.z);
-  o.dr = o.dc * g.gc * g.r * (1.0f - g.r);
-  o.dcr = o.dc * g.r;
-  o.carry = gcell * (1.0f - g.z) + (gtot - gcell);
-  return o;
-}
-
-// bf16: pallas_gru.py::_bwd_kernel with dtype=bfloat16, op by op. The
-// carry's term is added to the f32 sum of the products afterwards, as the
-// TPU kernel adds it to its dot.
-__device__ __forceinline__ StepGrad step_grad_bf16(const hpmn::GatesB& g,
-                                                   const StepIn& s, float dh,
-                                                   bool masked) {
-  using hpmn::add_b;
-  using hpmn::B;
-  using hpmn::mul_b;
-  using hpmn::sub_b;
-  using hpmn::to_f;
-  const B one = hpmn::one_b();
-  const B gtot = hpmn::to_b(s.dhs + dh);
-  const B gcell = mul_b(gtot, s.mb);
-  const B dzs = mul_b(gcell, sub_b(g.c, s.hpb));
-  const B dc = mul_b(mul_b(gcell, g.z), sub_b(one, mul_b(g.c, g.c)));
-  const B dz = mul_b(mul_b(dzs, g.z), sub_b(one, g.z));
-  const B dr = mul_b(mul_b(mul_b(dc, g.gc), g.r), sub_b(one, g.r));
-  B carry = sub_b(gcell, mul_b(gcell, g.z));
-  if (masked) carry = add_b(carry, sub_b(gtot, gcell));
-  StepGrad o;
-  o.dr = to_f(dr);
-  o.dz = to_f(dz);
-  o.dc = to_f(dc);
-  o.dcr = to_f(mul_b(dc, g.r));
-  o.carry = to_f(carry);
-  return o;
-}
-
 // S: the stream type, float (K2) or __nv_bfloat16 (K2-bf16).
 template <typename S>
 __global__ void __launch_bounds__(kMaxWarps * 32)
@@ -184,39 +128,15 @@ gru_scan_bwd_kernel(const S* __restrict__ x, long long x_tstride,
                     S* __restrict__ dx, float* __restrict__ dh0,
                     float* __restrict__ dwx_part, float* __restrict__ dwh_part,
                     float* __restrict__ db_part, int T, int B, int d_in) {
-  constexpr bool kBf16 = hpmn::kIsBf16<S>;
   extern __shared__ float smem[];
   const int n_chunks = (d_in + 31) / 32;
   const int d_in_pad = n_chunks * 32;
   const int warps = blockDim.x >> 5;
-  float* s_wx = smem;                       // [d_in_pad][96], zero rows
-  float* s_wxT = s_wx + d_in_pad * kG;      // [96][d_in_pad]
-  float* s_wh = s_wxT + kG * d_in_pad;      // [32][96]
-  float* s_whT = s_wh + kDm * kG;           // [96][32]
-  float* s_acc = s_whT + kG * kDm;          // per warp: acc_floats()
-  const int acc_n = (d_in_pad + kDm + 1) * kG;
-  for (int i = threadIdx.x; i < d_in_pad * kG; i += blockDim.x) {
-    const int r = i / kG, col = i - r * kG;
-    const float w = r < d_in ? load_f(wx + i) : 0.0f;
-    s_wx[i] = w;
-    s_wxT[col * d_in_pad + r] = w;
-  }
-  for (int i = threadIdx.x; i < kDm * kG; i += blockDim.x) {
-    const int r = i / kG, col = i - r * kG;
-    const float w = load_f(wh + i);
-    s_wh[i] = w;
-    s_whT[col * kDm + r] = w;
-  }
-  for (int i = threadIdx.x; i < warps * acc_n; i += blockDim.x)
-    s_acc[i] = 0.0f;
-  __syncthreads();
-
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int row = blockIdx.x * warps + warp;
-  float* acc_wx = s_acc + warp * acc_n;      // [d_in_pad][96]
-  float* acc_wh = acc_wx + d_in_pad * kG;    // [32][96]
-  float* acc_b = acc_wh + kDm * kG;          // [96]
+  const hpmn::BwdSmem sm =
+      hpmn::load_bwd_smem(smem, wx, wh, d_in, d_in_pad, warps, warp);
 
   if (row < B) {  // a warp past the last row skips to the block sum
     const float b_r = load_f(bias + lane);
@@ -234,125 +154,37 @@ gru_scan_bwd_kernel(const S* __restrict__ x, long long x_tstride,
                      x_tstride, mask, m_tstride, h0, hseq, dhseq);
 
       // Recompute the forward's gates (gru_scan_fwd.cu, the same order).
-      float ar = 0.0f, az = 0.0f, ac = 0.0f;
-#pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c) {
-        if (c < n_chunks) {
-#pragma unroll
-          for (int k = 0; k < 32; ++k) {
-            const float xk = __shfl_sync(kFull, cur.x[c], k);
-            const float* w = s_wx + (32 * c + k) * kG;
-            ar = fmaf(xk, w[lane], ar);
-            az = fmaf(xk, w[kDm + lane], az);
-            ac = fmaf(xk, w[2 * kDm + lane], ac);
-          }
-        }
-      }
-      float gr = 0.0f, gz = 0.0f, gc = 0.0f;
-#pragma unroll
-      for (int k = 0; k < kDm; ++k) {
-        const float hk = __shfl_sync(kFull, cur.hp, k);
-        const float* w = s_wh + k * kG;
-        gr = fmaf(hk, w[lane], gr);
-        gz = fmaf(hk, w[kDm + lane], gz);
-        gc = fmaf(hk, w[2 * kDm + lane], gc);
-      }
-      StepGrad sg;
-      if constexpr (kBf16)
-        sg = step_grad_bf16(
-            hpmn::gates_bf16(ar, az, ac, gr, gz, gc, b_r, b_z, b_c), cur, dh,
-            mask != nullptr);
+      const hpmn::Proj p =
+          hpmn::project(cur.x, n_chunks, cur.hp, sm.wx, sm.wh, lane);
+      hpmn::StepGrad sg;
+      if constexpr (hpmn::kIsBf16<S>)
+        sg = hpmn::step_grad_bf16(hpmn::gates_bf16(p, b_r, b_z, b_c),
+                                  cur.hpb, hpmn::to_b(cur.dhs + dh), cur.mb,
+                                  mask != nullptr);
       else
-        sg = step_grad_f32(
-            hpmn::gates_f32(ar, az, ac, gr, gz, gc, b_r, b_z, b_c), cur, dh);
-      const float dr = sg.dr, dz = sg.dz, dc = sg.dc, dcr = sg.dcr;
+        sg = hpmn::step_grad_f32(hpmn::gates_f32(p, b_r, b_z, b_c), cur.hp,
+                                 cur.dhs + dh, cur.m);
 
-      // dh_prev and dx_t from the transposed weights.
-      float dh_new = kBf16 ? 0.0f : sg.carry;
-      float dxa[kMaxChunks];
-#pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c) dxa[c] = 0.0f;
-#pragma unroll
-      for (int k = 0; k < kDm; ++k) {
-        const float drk = __shfl_sync(kFull, dr, k);
-        const float dzk = __shfl_sync(kFull, dz, k);
-        const float dck = __shfl_sync(kFull, dc, k);
-        const float dcrk = __shfl_sync(kFull, dcr, k);
-        dh_new = fmaf(drk, s_whT[k * kDm + lane], dh_new);
-        dh_new = fmaf(dzk, s_whT[(kDm + k) * kDm + lane], dh_new);
-        dh_new = fmaf(dcrk, s_whT[(2 * kDm + k) * kDm + lane], dh_new);
-#pragma unroll
-        for (int c = 0; c < kMaxChunks; ++c) {
-          if (c < n_chunks) {
-            const int i = 32 * c + lane;
-            dxa[c] = fmaf(drk, s_wxT[k * d_in_pad + i], dxa[c]);
-            dxa[c] = fmaf(dzk, s_wxT[(kDm + k) * d_in_pad + i], dxa[c]);
-            dxa[c] = fmaf(dck, s_wxT[(2 * kDm + k) * d_in_pad + i], dxa[c]);
-          }
-        }
-      }
-      if (kBf16) dh_new = sg.carry + dh_new;
-      S* dx_row = dx + ((long long)t * B + row) * d_in;
-#pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c) {
-        const int i = 32 * c + lane;
-        if (c < n_chunks && i < d_in) hpmn::store_f(dx_row + i, dxa[c]);
-      }
-
-      // Weight gradients: lane j owns column j of each gate block.
-#pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c) {
-        if (c < n_chunks) {
-#pragma unroll 8
-          for (int k = 0; k < 32; ++k) {
-            const float xk = __shfl_sync(kFull, cur.x[c], k);
-            float* a = acc_wx + (32 * c + k) * kG;
-            a[lane] = fmaf(xk, dr, a[lane]);
-            a[kDm + lane] = fmaf(xk, dz, a[kDm + lane]);
-            a[2 * kDm + lane] = fmaf(xk, dc, a[2 * kDm + lane]);
-          }
-        }
-      }
-#pragma unroll 8
-      for (int k = 0; k < kDm; ++k) {
-        const float hk = __shfl_sync(kFull, cur.hp, k);
-        float* a = acc_wh + k * kG;
-        a[lane] = fmaf(hk, dr, a[lane]);
-        a[kDm + lane] = fmaf(hk, dz, a[kDm + lane]);
-        a[2 * kDm + lane] = fmaf(hk, dcr, a[2 * kDm + lane]);
-      }
-      db_r += dr;
-      db_z += dz;
-      db_c += dc;
+      const float dh_new = hpmn::backprop_step(
+          sg, sm, n_chunks, d_in, d_in_pad, lane,
+          dx + ((long long)t * B + row) * d_in);
+      hpmn::accumulate_wgrad(cur.x, cur.hp, sg, sm, n_chunks, d_in_pad,
+                             lane);
+      db_r += sg.dr;
+      db_z += sg.dz;
+      db_c += sg.dc;
       dh = dh_new;
       if (t > 0) cur = nxt;
     }
     dh0[(long long)row * kDm + lane] = dh;
+    float* acc_b = sm.acc + (d_in_pad + kDm) * hpmn::kG;
     acc_b[lane] = db_r;
     acc_b[kDm + lane] = db_z;
     acc_b[2 * kDm + lane] = db_c;
   }
   __syncthreads();
-
-  // This block's partial: the sum of its warps' slices.
-  float* out_wx = dwx_part + (long long)blockIdx.x * d_in * kG;
-  for (int i = threadIdx.x; i < d_in * kG; i += blockDim.x) {
-    float s = 0.0f;
-    for (int w = 0; w < warps; ++w) s += s_acc[w * acc_n + i];
-    out_wx[i] = s;
-  }
-  float* out_wh = dwh_part + (long long)blockIdx.x * kDm * kG;
-  for (int i = threadIdx.x; i < kDm * kG; i += blockDim.x) {
-    float s = 0.0f;
-    for (int w = 0; w < warps; ++w) s += s_acc[w * acc_n + d_in_pad * kG + i];
-    out_wh[i] = s;
-  }
-  for (int i = threadIdx.x; i < kG; i += blockDim.x) {
-    float s = 0.0f;
-    for (int w = 0; w < warps; ++w)
-      s += s_acc[w * acc_n + (d_in_pad + kDm) * kG + i];
-    db_part[(long long)blockIdx.x * kG + i] = s;
-  }
+  hpmn::write_wgrad_partials(sm, warps, d_in, d_in_pad, dwx_part, dwh_part,
+                             db_part);
 }
 
 // x [T,B,d_in] (time stride x_tstride, rows contiguous), mask [T,B] (time
@@ -373,7 +205,8 @@ int launch(const S* x, long long x_tstride, const S* mask, long long m_tstride,
   const int d_in_pad = (d_in + 31) / 32 * 32;
   const int warps = rows_per_block(d_in);
   const size_t smem =
-      (weights_floats(d_in_pad) + warps * acc_floats(d_in_pad)) * 4;
+      (hpmn::weights_floats(d_in_pad) + warps * hpmn::acc_floats(d_in_pad)) *
+      4;
   cudaError_t err = cudaFuncSetAttribute(
       gru_scan_bwd_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

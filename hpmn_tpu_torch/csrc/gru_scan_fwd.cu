@@ -49,9 +49,8 @@
 namespace {
 
 using hpmn::kDm;
-using hpmn::kFull;
-constexpr int kWarps = 4;        // batch rows per block
-constexpr int kMaxChunks = 3;    // d_in <= 96: weights fit 48 KB of smem
+using hpmn::kMaxChunks;  // d_in <= 96: weights fit 48 KB of smem
+constexpr int kWarps = 4;  // batch rows per block
 
 // S: the stream type, float (K1) or __nv_bfloat16 (K1-bf16).
 template <typename S>
@@ -107,43 +106,19 @@ gru_scan_fwd_kernel(const S* __restrict__ x, long long x_tstride,
     const float m = mask != nullptr ? load_f(m_ptr) : 1.0f;  // f32 chain
     const hpmn::B mb = mask != nullptr ? hpmn::load_b(m_ptr) : hpmn::one_b();
 
-    float ar = 0.0f, az = 0.0f, ac = 0.0f;  // x_t @ wx
-#pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
-      if (c < n_chunks) {
-#pragma unroll
-        for (int k = 0; k < 32; ++k) {
-          const float xk = __shfl_sync(kFull, xv[c], k);
-          const float* w = s_wx + (32 * c + k) * 3 * kDm;
-          ar = fmaf(xk, w[lane], ar);
-          az = fmaf(xk, w[kDm + lane], az);
-          ac = fmaf(xk, w[2 * kDm + lane], ac);
-        }
-      }
-    }
-    float gr = 0.0f, gz = 0.0f, gc = 0.0f;  // h @ wh
-#pragma unroll
-    for (int k = 0; k < kDm; ++k) {
-      const float hk = __shfl_sync(kFull, h, k);
-      const float* w = s_wh + k * 3 * kDm;
-      gr = fmaf(hk, w[lane], gr);
-      gz = fmaf(hk, w[kDm + lane], gz);
-      gc = fmaf(hk, w[2 * kDm + lane], gc);
-    }
+    const hpmn::Proj p = hpmn::project(xv, n_chunks, h, s_wx, s_wh, lane);
     S* h_out = hseq + ((long long)t * B + row) * kDm + lane;
     if constexpr (hpmn::kIsBf16<S>) {
       using hpmn::add_b;
       using hpmn::mul_b;
       using hpmn::sub_b;
-      const hpmn::GatesB g =
-          hpmn::gates_bf16(ar, az, ac, gr, gz, gc, b_r, b_z, b_c);
+      const hpmn::GatesB g = hpmn::gates_bf16(p, b_r, b_z, b_c);
       const hpmn::B h_cell = add_b(hb, mul_b(g.z, sub_b(g.c, hb)));
       hb = mask != nullptr ? add_b(hb, mul_b(mb, sub_b(h_cell, hb))) : h_cell;
       h = hpmn::to_f(hb);
       *h_out = hb;
     } else {
-      const hpmn::Gates g =
-          hpmn::gates_f32(ar, az, ac, gr, gz, gc, b_r, b_z, b_c);
+      const hpmn::Gates g = hpmn::gates_f32(p, b_r, b_z, b_c);
       const float h_cell = h + g.z * (g.c - h);
       h = h + m * (h_cell - h);
       hpmn::store_f(h_out, h);

@@ -2,7 +2,7 @@
 ``hpmn_tpu/models/hpmn.py``.
 
 Layer 0 is a GRU over every event; layer l fires every ``period**l`` steps
-and consumes layer l-1's memory. Three realizations of the same function:
+and consumes layer l-1's memory. Four realizations of the same function:
 
 - :func:`encode_oracle` — one masked scan over all T steps that carries every
   layer's slot and fires layer l where ``(t+1) % period**l == 0``. The
@@ -12,6 +12,10 @@ and consumes layer l-1's memory. Three realizations of the same function:
 - :func:`encode_hierarchical_tm` — the same, time-major, the path of the
   CUDA scan kernel (stride sampling is a leading-axis view, so nothing is
   transposed or copied between layers).
+- :func:`encode_hierarchical_stride_tm` — time-major, full sequences, each
+  layer's scan emitting only the strided rows the next layer reads and its
+  final state (``model.pallas_stride_outputs``: the CUDA strided scan
+  kernels, ``ops/cuda_gru_stride.py``).
 
 Each returns memory [B, L, d_m]: slot l is layer l's final carry.
 """
@@ -109,4 +113,26 @@ def encode_hierarchical_tm(enc: HPMNEncoder, x_tm: torch.Tensor,
         slots.append(h_T)
         seq = h_seq[period - 1::period]
         m = None if m is None else m[period - 1::period]
+    return torch.stack(slots, dim=1)
+
+
+def encode_hierarchical_stride_tm(enc: HPMNEncoder, x_tm: torch.Tensor,
+                                  period: int,
+                                  stride_fn: Callable) -> torch.Tensor:
+    """Time-major hierarchy of strided-output scans, full sequences:
+    x_tm [T, B, d_in] -> memory [B, L, d_m]. stride_fn: (params, x_tm,
+    period) -> (h_stride [T // period, B, d_m], h_T), e.g.
+    ``ops.cuda_gru_stride.gru_stride_tm``. A layer whose input has no rows
+    keeps a zero slot, as in the oracle."""
+    L = len(enc.layers)
+    B = x_tm.shape[1]
+    d_m = enc.layers[0].wh.shape[0]
+    slots = []
+    seq = x_tm
+    for l in range(L):
+        if seq.shape[0] == 0:
+            slots.extend([x_tm.new_zeros(B, d_m)] * (L - l))
+            break
+        seq, h_T = stride_fn(enc.layers[l], seq, period)
+        slots.append(h_T)
     return torch.stack(slots, dim=1)

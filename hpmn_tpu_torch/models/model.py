@@ -11,7 +11,10 @@ for ``cfg.model.name == "hpmn"``.
   into time-major [T, B, 2d], the hierarchy of scans through the CUDA scan
   kernels (forward K1, backward K2; with ``scan_dtype="bfloat16"`` their
   bf16 chain, K1-bf16 and K2-bf16) and the readout through the CUDA
-  readout kernel (on CPU tensors, their plain versions);
+  readout kernel (on CPU tensors, their plain versions). With full
+  sequences (``assume_full_mask``), ``pallas_stride_outputs`` and a period
+  above 1, the scans are the strided-output kernels instead (K3 and K4, or
+  K3-bf16 and K4-bf16), as in JAX;
 - the batch-major hierarchy of plain scans;
 - the masked single-scan oracle (``use_hierarchical_scan=False``).
 
@@ -28,8 +31,9 @@ from torch import nn
 
 from ..configs import Config
 from ..data.schema import Batch
-from ..ops import cuda_gru, cuda_readout
-from ..ops.gru import GRUWeights, gru_scan_tm, gru_scan_tm_bf16
+from ..ops import cuda_gru, cuda_gru_stride, cuda_readout
+from ..ops.gru import (GRUWeights, gru_scan_stride_tm, gru_scan_stride_tm_bf16,
+                       gru_scan_tm, gru_scan_tm_bf16)
 from . import hpmn as hpmn_mod
 from .embedding import Embedding, dense_lookup
 from .losses import bce_with_logits, covariance_regularizer, l2_regularizer
@@ -62,7 +66,6 @@ def check_supported(cfg: Config) -> None:
             f"model family {m.name!r} is not ported yet (ROADMAP.md)")
     todo = {"dtype": m.dtype != "float32",
             "scan_dtype": m.scan_dtype not in _SCAN_DTYPES,
-            "pallas_stride_outputs": m.pallas_stride_outputs,
             "use_user_emb": m.use_user_emb}
     for field, unsupported in todo.items():
         if unsupported:
@@ -103,8 +106,9 @@ def apply_model(model: HPMNModel, cfg: Config, batch: Batch,
 
     ``plain=True`` runs the ``use_pallas`` branch with the kernels' plain
     versions under autograd (``gru_scan_tm`` or ``gru_scan_tm_bf16``, the
-    plain readout) on any device: the reference that chip_smoke.py holds
-    the kernel path to on the card."""
+    strided ``gru_scan_stride_tm``/``_bf16``, the plain readout) on any
+    device: the reference that chip_smoke.py holds the kernel path to on
+    the card."""
     check_supported(cfg)
     m = cfg.model
     emb = model.embedding
@@ -119,15 +123,26 @@ def apply_model(model: HPMNModel, cfg: Config, batch: Batch,
         x_tm = dense_lookup(emb, batch.item_seq.T, batch.cat_seq.T)
         mask_tm = (None if m.assume_full_mask
                    else batch.seq_mask.T.to(dtype).contiguous())
-        if plain:
-            scan = gru_scan_tm_bf16 if dtype == torch.bfloat16 else gru_scan_tm
-            readout = attention_readout
+        bf16 = dtype == torch.bfloat16
+        enc = _scan_weights(model.encoder, dtype)
+        readout = (attention_readout if plain
+                   else cuda_readout.fused_attention_readout)
+        if mask_tm is None and m.pallas_stride_outputs and m.hpmn_period > 1:
+            if plain:
+                stride = gru_scan_stride_tm_bf16 if bf16 else gru_scan_stride_tm
+            else:
+                stride = cuda_gru_stride.gru_stride_tm
+            memory = hpmn_mod.encode_hierarchical_stride_tm(
+                enc, x_tm.to(dtype), m.hpmn_period, stride_fn=stride)
         else:
-            scan = cuda_gru.gru_sequence_tm
-            readout = cuda_readout.fused_attention_readout
-        memory = hpmn_mod.encode_hierarchical_tm(
-            _scan_weights(model.encoder, dtype), x_tm.to(dtype), mask_tm,
-            m.hpmn_period, gru_seq_tm_fn=scan).float()
+            if plain:
+                scan = gru_scan_tm_bf16 if bf16 else gru_scan_tm
+            else:
+                scan = cuda_gru.gru_sequence_tm
+            memory = hpmn_mod.encode_hierarchical_tm(
+                enc, x_tm.to(dtype), mask_tm, m.hpmn_period,
+                gru_seq_tm_fn=scan)
+        memory = memory.float()
         state = readout(model.readout, memory, q)
     else:
         x = dense_lookup(emb, batch.item_seq, batch.cat_seq)  # [B, T, 2d]

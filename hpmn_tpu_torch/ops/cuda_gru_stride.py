@@ -1,0 +1,238 @@
+"""Strided-output GRU scan through the hand-written CUDA kernels, forward
+and backward: the full-sequence path of ``model.pallas_stride_outputs``.
+
+Replaces ``hpmn_tpu/ops/pallas_gru.py``'s ``_fwd_stride_kernel`` (K3) and
+``_bwd_stride_kernel`` (K4), reached there through ``pallas_gru_stride_tm``
+and the ``jax.custom_vjp`` of ``_make_stride_core``, in the f32 chain and
+in the bf16 one (``dtype=bfloat16``: K3-bf16 and K4-bf16, chosen by the
+tensors' dtype). The kernels are ``csrc/gru_scan_stride_fwd.cu`` and
+``csrc/gru_scan_stride_bwd.cu``. A layer emits only the rows the next HPMN
+layer reads, h_seq[period-1::period], and h_T; the forward keeps the state
+at the start of every chunk of 16 steps for the backward, which replays
+each chunk from it and then sweeps it in reverse. No dense h_seq is
+written or read. See the sources' headers for the design.
+
+:class:`GRUStrideScan` is the ``torch.autograd.Function`` that mirrors the
+custom_vjp: on CUDA tensors its forward launches K3 and its backward K4; on
+CPU tensors they are the plain versions ``ops.gru.gru_scan_stride_tm`` and
+``ops.gru.gru_scan_stride_tm_bwd`` (their ``_bf16`` forms in bf16). On a
+CUDA tensor a wrapper launches its kernel or raises on what it does not
+take (as ``cuda_gru``'s, and period < 2); nothing falls back to the plain
+version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build, cuda_gru
+from .gru import (GRUParams, GRUWeights, gru_scan_stride_tm,
+                  gru_scan_stride_tm_bf16, gru_scan_stride_tm_bwd,
+                  gru_scan_stride_tm_bwd_bf16)
+
+SOURCE = "hpmn_tpu_torch/csrc/gru_scan_stride_fwd.cu"
+REPLACES = "hpmn_tpu/ops/pallas_gru.py:434"
+BWD_SOURCE = "hpmn_tpu_torch/csrc/gru_scan_stride_bwd.cu"
+BWD_REPLACES = "hpmn_tpu/ops/pallas_gru.py:465"
+
+#: Kernel launches so far in this process: K3, K4, K3-bf16 and K4-bf16.
+#: Callers may reset them to 0.
+launches = 0
+bwd_launches = 0
+launches_bf16 = 0
+bwd_launches_bf16 = 0
+
+_D_M = cuda_gru._D_M
+_FWD_ENTRY = {torch.float32: "hpmn_gru_scan_stride_fwd",
+              torch.bfloat16: "hpmn_gru_scan_stride_fwd_bf16"}
+_BWD_ENTRY = {torch.float32: "hpmn_gru_scan_stride_bwd",
+              torch.bfloat16: "hpmn_gru_scan_stride_bwd_bf16"}
+
+
+@functools.lru_cache(maxsize=None)
+def chunk() -> int:
+    """The kernels' chunk length in steps, a compile-time constant of
+    ``csrc/gru_scan_stride_fwd.cu``: K3 keeps one boundary state per chunk
+    (``ceil(T / chunk())`` of them) and K4 replays one chunk at a time."""
+    fn = _build.load_library().hpmn_gru_scan_stride_chunk
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_fn(dtype: torch.dtype):
+    fn = getattr(_build.load_library(), _FWD_ENTRY[dtype])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_fns(dtype: torch.dtype):
+    lib = _build.load_library()
+    rows = lib.hpmn_gru_scan_stride_bwd_rows_per_block
+    rows.argtypes = [ctypes.c_int]
+    rows.restype = ctypes.c_int
+    fn = getattr(lib, _BWD_ENTRY[dtype])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 11
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return rows, fn
+
+
+def _check_args(w, x_tm, h0, period, name):
+    cuda_gru._check_cuda_args(w, x_tm, None, h0, name)
+    if period < 2:
+        raise ValueError(f"{name} takes period >= 2; got {period}")
+
+
+def _check_rows(name, t, shape, x_tm):
+    if t.shape != shape or t.dtype != x_tm.dtype \
+            or t.device != x_tm.device or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {list(shape)} tensor "
+                         "of x's dtype on x's device")
+
+
+def _launch(w, x_tm, h0, period):
+    """K3 (float32) or K3-bf16 (bfloat16): -> (h_stride [T // period, B,
+    32], h_T [B, 32], boundaries [ceil(T / chunk), B, 32]), x's dtype."""
+    global launches, launches_bf16
+    T, B, d_in = x_tm.shape
+    _check_args(w, x_tm, h0, period, "gru_scan_stride_fwd")
+    fn = _fwd_fn(x_tm.dtype)
+    new = functools.partial(torch.empty, dtype=x_tm.dtype, device=x_tm.device)
+    hs, h_T = new(T // period, B, _D_M), new(B, _D_M)
+    bounds = new(-(-T // chunk()), B, _D_M)
+    code = fn(x_tm.data_ptr(), x_tm.stride(0), w.wx.data_ptr(),
+              w.wh.data_ptr(), w.b.data_ptr(),
+              None if h0 is None else h0.data_ptr(), hs.data_ptr(),
+              bounds.data_ptr(), h_T.data_ptr(), T, B, d_in, period,
+              torch.cuda.current_stream(x_tm.device).cuda_stream)
+    if x_tm.dtype == torch.bfloat16:
+        _build.check_launch(code, "gru_scan_stride_fwd_bf16")
+        launches_bf16 += 1
+    else:
+        _build.check_launch(code, "gru_scan_stride_fwd")
+        launches += 1
+    return hs, h_T, bounds
+
+
+def _launch_bwd(w, x_tm, period, bounds, dhs, dhT):
+    """K4 (float32) or K4-bf16 (bfloat16): -> (dx in x's dtype, dwx, dwh,
+    db, dh0 in float32), the weight gradients summed over the kernel's
+    per-block partials."""
+    global bwd_launches, bwd_launches_bf16
+    T, B, d_in = x_tm.shape
+    _check_args(w, x_tm, None, period, "gru_scan_stride_bwd")
+    rows_fn, fn = _bwd_fns(x_tm.dtype)
+    _check_rows("the boundaries", bounds, (-(-T // chunk()), B, _D_M), x_tm)
+    if dhs is not None:
+        _check_rows("dh_stride", dhs, (T // period, B, _D_M), x_tm)
+    if dhT is not None:
+        _check_rows("dh_T", dhT, (B, _D_M), x_tm)
+    n_blocks = -(-B // rows_fn(d_in))
+    dev = x_tm.device
+    f32 = functools.partial(torch.empty, dtype=torch.float32, device=dev)
+    dx = torch.empty(T, B, d_in, dtype=x_tm.dtype, device=dev)
+    dh0 = f32(B, _D_M)
+    dwx, dwh = f32(n_blocks, d_in, 3 * _D_M), f32(n_blocks, _D_M, 3 * _D_M)
+    db = f32(n_blocks, 3 * _D_M)
+    code = fn(x_tm.data_ptr(), x_tm.stride(0), w.wx.data_ptr(),
+              w.wh.data_ptr(), w.b.data_ptr(), bounds.data_ptr(),
+              None if dhs is None else dhs.data_ptr(),
+              None if dhT is None else dhT.data_ptr(), dx.data_ptr(),
+              dh0.data_ptr(), dwx.data_ptr(), dwh.data_ptr(), db.data_ptr(),
+              T, B, d_in, period, torch.cuda.current_stream(dev).cuda_stream)
+    if x_tm.dtype == torch.bfloat16:
+        _build.check_launch(code, "gru_scan_stride_bwd_bf16")
+        bwd_launches_bf16 += 1
+    else:
+        _build.check_launch(code, "gru_scan_stride_bwd")
+        bwd_launches += 1
+    return dx, dwx.sum(0), dwh.sum(0), db.sum(0), dh0
+
+
+def _on(x_tm, name):
+    if x_tm.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {x_tm.device}")
+    return x_tm.device.type
+
+
+def stride_fwd(params: GRUParams, x_tm: torch.Tensor, period: int,
+               h0: Optional[torch.Tensor] = None):
+    """The strided scan forward: K3 (K3-bf16 on bfloat16 tensors) on CUDA
+    tensors, -> (h_stride, h_T, boundaries for :func:`stride_bwd`);
+    ``gru_scan_stride_tm`` (``_bf16``) on CPU tensors, with no
+    boundaries (None)."""
+    if _on(x_tm, "stride_fwd") == "cpu":
+        plain = (gru_scan_stride_tm_bf16 if x_tm.dtype == torch.bfloat16
+                 else gru_scan_stride_tm)
+        return (*plain(params, x_tm, period, h0), None)
+    return _launch(params, x_tm, h0, period)
+
+
+def stride_bwd(params: GRUParams, x_tm: torch.Tensor, period: int,
+               bounds: Optional[torch.Tensor], dhs: Optional[torch.Tensor],
+               dhT: Optional[torch.Tensor],
+               h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """The strided scan backward: K4 (K4-bf16) on CUDA tensors, from K3's
+    boundaries (which hold h0); ``gru_scan_stride_tm_bwd`` (``_bf16``) on
+    CPU tensors, from h0. dhs and dhT may be None (zero). -> (dx in x's
+    dtype, dwx, dwh, db, dh0 in float32)."""
+    if _on(x_tm, "stride_bwd") == "cpu":
+        plain = (gru_scan_stride_tm_bwd_bf16 if x_tm.dtype == torch.bfloat16
+                 else gru_scan_stride_tm_bwd)
+        return plain(params, x_tm, period, dhs, dhT, h0)
+    return _launch_bwd(params, x_tm, period, bounds,
+                       None if dhs is None else dhs.contiguous(),
+                       None if dhT is None else dhT.contiguous())
+
+
+class GRUStrideScan(torch.autograd.Function):
+    """(h_stride, h_T) = strided scan(x_tm, h0; wx, wh, b), time-major, no
+    mask. Forward K3 and backward K4 on CUDA tensors; the plain versions on
+    CPU tensors. All tensors float32, or all bfloat16. Either output's
+    cotangent may be absent (the top layer's h_stride feeds nothing); h0
+    gets a gradient when it is given. The weight gradients, summed in
+    float32, come back in the weights' dtype, as :class:`cuda_gru.GRUScan`'s
+    do."""
+
+    @staticmethod
+    def forward(ctx, x_tm, h0, wx, wh, b, period):
+        w = GRUWeights(wx, wh, b)
+        h_stride, h_T, bounds = stride_fwd(w, x_tm, period, h0)
+        ctx.period = period
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x_tm, h0, wx, wh, b, bounds)
+        return h_stride, h_T
+
+    @staticmethod
+    def backward(ctx, dhs, dhT):
+        x_tm, h0, wx, wh, b, bounds = ctx.saved_tensors
+        dx, dwx, dwh, db, dh0 = stride_bwd(
+            GRUWeights(wx, wh, b), x_tm, ctx.period, bounds, dhs, dhT, h0)
+        return (dx, None if h0 is None else dh0.to(h0.dtype),
+                dwx.to(wx.dtype), dwh.to(wh.dtype), db.to(b.dtype), None)
+
+
+def gru_stride_tm(params: GRUParams, x_tm: torch.Tensor, period: int,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Strided-output time-major scan, h0 = 0 (``pallas_gru_stride_tm``):
+    x_tm [T, B, d_in] -> (h_stride [T // period, B, d_m] ==
+    h_seq[period-1::period], h_T [B, d_m]), differentiable through
+    :class:`GRUStrideScan`. ``period <= 1`` is the dense scan
+    (``cuda_gru.gru_sequence_tm``), as in JAX; T < period gives an empty
+    h_stride."""
+    if period <= 1:
+        return cuda_gru.gru_sequence_tm(params, x_tm)
+    _on(x_tm, "gru_stride_tm")
+    return GRUStrideScan.apply(x_tm, None, params.wx, params.wh, params.b,
+                               period)

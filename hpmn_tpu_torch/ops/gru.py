@@ -58,14 +58,22 @@ def gru_input_proj(params: GRUParams, x: torch.Tensor) -> torch.Tensor:
     return x @ params.wx + params.b
 
 
-def gru_cell(params: GRUParams, xp: torch.Tensor,
-             h: torch.Tensor) -> torch.Tensor:
-    """One step from the input projection: xp [B, 3*d_m], h [B, d_m]."""
+def _gates(params: GRUParams, xp: torch.Tensor, h: torch.Tensor):
+    """One step's r, z, c and g_c = (h @ wh)_c from the input projection
+    xp [..., 3*d_m] and h [..., d_m]."""
     d_m = h.shape[-1]
     g = h @ params.wh
     r = torch.sigmoid(xp[..., :d_m] + g[..., :d_m])
     z = torch.sigmoid(xp[..., d_m:2 * d_m] + g[..., d_m:2 * d_m])
-    c = torch.tanh(xp[..., 2 * d_m:] + r * g[..., 2 * d_m:])
+    g_c = g[..., 2 * d_m:]
+    c = torch.tanh(xp[..., 2 * d_m:] + r * g_c)
+    return r, z, c, g_c
+
+
+def gru_cell(params: GRUParams, xp: torch.Tensor,
+             h: torch.Tensor) -> torch.Tensor:
+    """One step from the input projection: xp [B, 3*d_m], h [B, d_m]."""
+    _, z, c, _ = _gates(params, xp, h)
     return (1.0 - z) * h + z * c
 
 
@@ -119,22 +127,28 @@ def gru_scan_tm_bwd(params: GRUParams, x_tm: torch.Tensor,
 
     and dx_t = [dr|dz|dc] @ wx^T, dwx += x_t^T [dr|dz|dc], dwh += h_prev^T
     [dr|dz|dc r], db += sum [dr|dz|dc]."""
+    h0 = x_tm.new_zeros(x_tm.shape[1], params.wh.shape[0]) if h0 is None \
+        else h0
+    h_prev = torch.cat([h0[None], h_seq[:-1]])  # [T, B, d_m]
+    return _bwd_sweep(params, x_tm, mask_tm, h_prev,
+                      lambda t, dh: dh_seq[t] + dh)
+
+
+def _bwd_sweep(params, x_tm, mask_tm, h_prev, cotangent):
+    """The reverse sweep of the f32 scan backward kernels (K2, K4): the
+    gates from h_prev [T, B, d_m] (the state before each step), the
+    cotangent gtot = cotangent(t, dh) that reaches h_t, the formulas of
+    :func:`gru_scan_tm_bwd`."""
     T, B, _ = x_tm.shape
     d_m = params.wh.shape[0]
-    h0 = x_tm.new_zeros(B, d_m) if h0 is None else h0
-    h_prev = torch.cat([h0[None], h_seq[:-1]])  # [T, B, d_m]
     xp = gru_input_proj(params, x_tm)  # the forward's projection
     dpre_x = x_tm.new_empty(T, B, 3 * d_m)  # [dr | dz | dc]
     dpre_h = x_tm.new_empty(T, B, 3 * d_m)  # [dr | dz | dc * r]
     dh = x_tm.new_zeros(B, d_m)
     for t in reversed(range(T)):
         hp = h_prev[t]
-        g = hp @ params.wh
-        r = torch.sigmoid(xp[t, :, :d_m] + g[:, :d_m])
-        z = torch.sigmoid(xp[t, :, d_m:2 * d_m] + g[:, d_m:2 * d_m])
-        g_c = g[:, 2 * d_m:]
-        c = torch.tanh(xp[t, :, 2 * d_m:] + r * g_c)
-        gtot = dh_seq[t] + dh
+        r, z, c, g_c = _gates(params, xp[t], hp)
+        gtot = cotangent(t, dh)
         gcell = gtot if mask_tm is None else gtot * mask_tm[t][:, None]
         dzs = gcell * (c - hp)
         dc = gcell * z * (1.0 - c * c)
@@ -214,11 +228,22 @@ def gru_scan_tm_bwd_bf16(params: GRUParams, x_tm: torch.Tensor,
     an f32 sum. dx = bf16(dpre @ wx^T). The weight gradients are f32 sums
     of bf16 products; rounding them to the weights' dtype is the caller's
     (``cuda_gru.GRUScan``)."""
+    h0 = x_tm.new_zeros(x_tm.shape[1], params.wh.shape[0]) if h0 is None \
+        else h0
+    h_prev = torch.cat([h0[None], h_seq[:-1]])  # [T, B, d_m]
+    return _bwd_sweep_bf16(
+        params, x_tm, mask_tm, h_prev,
+        lambda t, dh: (dh_seq[t].float() + dh).bfloat16())
+
+
+def _bwd_sweep_bf16(params, x_tm, mask_tm, h_prev, cotangent):
+    """The reverse sweep of the bf16 scan backward kernels (K2-bf16,
+    K4-bf16), as :func:`_bwd_sweep` with the bf16 chain's roundings;
+    cotangent(t, dh) returns gtot, already rounded to bf16 from its f32
+    sum."""
     T, B, _ = x_tm.shape
     d_m = params.wh.shape[0]
     wxf, whf, bf = params.wx.float(), params.wh.float(), params.b.float()
-    h0 = x_tm.new_zeros(B, d_m) if h0 is None else h0
-    h_prev = torch.cat([h0[None], h_seq[:-1]])  # [T, B, d_m]
     xw = x_tm.float() @ wxf
     dpre_x = x_tm.new_empty(T, B, 3 * d_m)  # [dr | dz | dc]
     dpre_h = x_tm.new_empty(T, B, 3 * d_m)  # [dr | dz | dc * r]
@@ -226,7 +251,7 @@ def gru_scan_tm_bwd_bf16(params: GRUParams, x_tm: torch.Tensor,
     for t in reversed(range(T)):
         hp = h_prev[t]
         r, z, c, g_c = _bf16_gates(xw[t], hp, whf, bf)
-        gtot = (dh_seq[t].float() + dh).bfloat16()
+        gtot = cotangent(t, dh)
         gcell = gtot if mask_tm is None else gtot * mask_tm[t][:, None]
         dzs = gcell * (c - hp)
         dc = gcell * z * (1.0 - c * c)
@@ -242,6 +267,96 @@ def gru_scan_tm_bwd_bf16(params: GRUParams, x_tm: torch.Tensor,
     dwx = torch.einsum("tbi,tbj->ij", x_tm.float(), dpre_x.float())
     dwh = torch.einsum("tbi,tbj->ij", h_prev.float(), dpre_h.float())
     return dx, dwx, dwh, dpre_x.float().sum(dim=(0, 1)), dh
+
+
+# The strided-output scan (pallas_gru.py's pallas_gru_stride_tm, the
+# full-sequence path of model.pallas_stride_outputs): no mask; the layer
+# emits only h_seq[period-1::period] (T // period rows) and h_T. The plain
+# versions of K3/K4 (and of their bf16 forms): the backward recomputes the
+# states from x (no boundaries) and takes the strided rows' and h_T's
+# cotangents where they enter, at the firing steps (t+1) % period == 0 and
+# at t = T-1, in the TPU kernel's order: (dh + dhs[s]) + dhT.
+
+
+def _stride_states(params: GRUParams, x_tm: torch.Tensor,
+                   h0: Optional[torch.Tensor],
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The strided scan's states, f32, with the TPU stride kernel's update
+    h + z * (c - h): -> (h_seq [T, B, d_m], h_T)."""
+    T, B, _ = x_tm.shape
+    d_m = params.wh.shape[0]
+    h = x_tm.new_zeros(B, d_m) if h0 is None else h0
+    xp = gru_input_proj(params, x_tm)
+    hs = []
+    for t in range(T):
+        _, z, c, _ = _gates(params, xp[t], h)
+        h = h + z * (c - h)
+        hs.append(h)
+    return (torch.stack(hs) if hs else x_tm.new_zeros(0, B, d_m)), h
+
+
+def gru_scan_stride_tm(params: GRUParams, x_tm: torch.Tensor, period: int,
+                       h0: Optional[torch.Tensor] = None,
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Strided-output scan, f32: x_tm [T, B, d_in], h0 [B, d_m] or None ->
+    (h_stride [T // period, B, d_m] = h_seq[period-1::period], h_T)."""
+    h_seq, h_T = _stride_states(params, x_tm, h0)
+    return h_seq[period - 1::period], h_T
+
+
+def _stride_cotangent(period, T, dhs, dhT, to_f=lambda v: v):
+    def cot(t, dh):
+        g = dh
+        if dhs is not None and (t + 1) % period == 0:
+            g = g + to_f(dhs[(t + 1) // period - 1])
+        if dhT is not None and t == T - 1:
+            g = g + to_f(dhT)
+        return g
+    return cot
+
+
+def gru_scan_stride_tm_bwd(params: GRUParams, x_tm: torch.Tensor,
+                           period: int, dhs: Optional[torch.Tensor],
+                           dhT: Optional[torch.Tensor],
+                           h0: Optional[torch.Tensor] = None,
+                           ) -> Tuple[torch.Tensor, ...]:
+    """Backward of :func:`gru_scan_stride_tm` by hand (the plain K4): dhs
+    [T // period, B, d_m] and dhT [B, d_m] the outputs' cotangents (None:
+    zero) -> (dx, dwx, dwh, db, dh0). The states are recomputed from x."""
+    T, B, _ = x_tm.shape
+    h0 = x_tm.new_zeros(B, params.wh.shape[0]) if h0 is None else h0
+    h_seq, _ = _stride_states(params, x_tm, h0)
+    h_prev = torch.cat([h0[None], h_seq[:-1]])
+    return _bwd_sweep(params, x_tm, None, h_prev,
+                      _stride_cotangent(period, T, dhs, dhT))
+
+
+def gru_scan_stride_tm_bf16(params: GRUParams, x_tm: torch.Tensor,
+                            period: int, h0: Optional[torch.Tensor] = None,
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gru_scan_stride_tm` in the bf16 chain (every tensor bf16):
+    the stride kernel's h + z * (c - h), rounded op by op, is the no-mask
+    h_cell of :func:`gru_scan_tm_bf16`."""
+    h_seq, h_T = gru_scan_tm_bf16(params, x_tm, None, h0)
+    return h_seq[period - 1::period], h_T
+
+
+def gru_scan_stride_tm_bwd_bf16(params: GRUParams, x_tm: torch.Tensor,
+                                period: int, dhs: Optional[torch.Tensor],
+                                dhT: Optional[torch.Tensor],
+                                h0: Optional[torch.Tensor] = None,
+                                ) -> Tuple[torch.Tensor, ...]:
+    """:func:`gru_scan_stride_tm_bwd` in the bf16 chain: bf16 inputs -> (dx
+    bf16, dwx, dwh, db, dh0 f32). The cotangents meet the f32 dh carry in
+    f32, (dh + dhs[s]) + dhT, and the sum is rounded to bf16 once (where the
+    dense path would sum dhs[s] and dhT in bf16 first)."""
+    T, B, _ = x_tm.shape
+    h0 = x_tm.new_zeros(B, params.wh.shape[0]) if h0 is None else h0
+    h_seq, _ = gru_scan_tm_bf16(params, x_tm, None, h0)
+    h_prev = torch.cat([h0[None], h_seq[:-1]])
+    cot = _stride_cotangent(period, T, dhs, dhT, lambda v: v.float())
+    return _bwd_sweep_bf16(params, x_tm, None, h_prev,
+                           lambda t, dh: cot(t, dh).bfloat16())
 
 
 def gru_sequence(params: GRUParams, x: torch.Tensor,

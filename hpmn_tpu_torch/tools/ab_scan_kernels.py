@@ -1,4 +1,5 @@
-"""The scan kernels (K1 and K2, or K1-bf16 and K2-bf16) of this tree
+"""The scan kernels (K1 and K2, or K1-bf16 and K2-bf16; and the strided
+K3 and K4, or their bf16 forms, where both trees have them) of this tree
 against those of another tree, on one card: the same inputs through both
 builds, compared bit for bit, then timed in turns (other, this, this,
 other) with CUDA events.
@@ -9,7 +10,9 @@ other) with CUDA events.
 
 Inputs: the xlong_hpmn layer-0 shape (T = 1000, B = 512, d_in = 32), the
 port's seeded GRU init, random x and dh_seq, no mask and a left-padded
-mask. Exits nonzero if an output differs or there is no card.
+mask; for the strided kernels period 3 and random cotangents of the
+strided rows and of h_T. Exits nonzero if an output differs or there is
+no card.
 """
 
 from __future__ import annotations
@@ -22,11 +25,14 @@ import sys
 
 import torch
 
-from ..ops import _build, cuda_gru
+from ..ops import _build, cuda_gru, cuda_gru_stride
 from ..ops.gru import GRUParams
 
 T, B, D_IN = 1000, 512, 32
+PERIOD = 3
 REPS = 20
+_CACHES = (cuda_gru._kernel_fn, cuda_gru._bwd_fns, cuda_gru_stride.chunk,
+           cuda_gru_stride._fwd_fn, cuda_gru_stride._bwd_fns)
 
 
 @contextlib.contextmanager
@@ -34,14 +40,18 @@ def _kernels_of(csrc: str):
     """Route the scan wrappers to the library built from ``csrc``."""
     load = _build.load_library
     _build.load_library = functools.partial(load, csrc)
-    cuda_gru._kernel_fn.cache_clear()
-    cuda_gru._bwd_fns.cache_clear()
+    for cache in _CACHES:
+        cache.cache_clear()
     try:
         yield
     finally:
         _build.load_library = load
-        cuda_gru._kernel_fn.cache_clear()
-        cuda_gru._bwd_fns.cache_clear()
+        for cache in _CACHES:
+            cache.cache_clear()
+
+
+def _has_stride(csrc: str) -> bool:
+    return os.path.isfile(os.path.join(csrc, "gru_scan_stride_fwd.cu"))
 
 
 def _ms(fn) -> float:
@@ -80,6 +90,9 @@ def main(argv=None) -> int:
     dh = torch.randn(T, B, 32, generator=gen).to(dev, dtype)
     lens = torch.randint(1, T + 1, (B,), generator=gen)
     mask = (torch.arange(T)[:, None] >= T - lens[None, :]).to(dev, dtype)
+    dhs = torch.randn(T // PERIOD, B, 32, generator=gen).to(dev, dtype)
+    dhT = torch.randn(B, 32, generator=gen).to(dev, dtype)
+    strided = all(_has_stride(c) for c in trees.values())
 
     outs = {}
     for tree, csrc in trees.items():
@@ -88,6 +101,10 @@ def main(argv=None) -> int:
             for m in (None, mask):
                 h = cuda_gru.gru_sequence_tm(p, x, m)[0]
                 res += [h, *cuda_gru.gru_scan_bwd(p, x, m, h, dh)]
+            if strided:
+                hs, hT, bounds = cuda_gru_stride.stride_fwd(p, x, PERIOD)
+                res += [hs, hT, bounds, *cuda_gru_stride.stride_bwd(
+                    p, x, PERIOD, bounds, dhs, dhT)]
             torch.cuda.synchronize()
             outs[tree] = res
     same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
@@ -95,15 +112,24 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"ab_scan_kernels: {smi} | T={T} B={B} d_in={D_IN} {name} | "
-          f"forward and backward outputs, mask and no mask, bit for bit the "
-          f"same: {same}")
+          f"forward and backward outputs, mask and no mask"
+          f"{', and the strided kernels' if strided else ''}, bit for bit "
+          f"the same: {same}")
     h = outs["this"][0]
+    bounds = outs["this"][14] if strided else None
     for tree in ("other", "this", "this", "other"):
         with _kernels_of(trees[tree]):
             fwd = _ms(lambda: cuda_gru.gru_sequence_tm(p, x, None))
             bwd = _ms(lambda: cuda_gru.gru_scan_bwd(p, x, None, h, dh))
+            st = ""
+            if strided:
+                st_fwd = _ms(lambda: cuda_gru_stride.stride_fwd(p, x, PERIOD))
+                st_bwd = _ms(lambda: cuda_gru_stride.stride_bwd(
+                    p, x, PERIOD, bounds, dhs, dhT))
+                st = (f" | strided forward {st_fwd:.4f} ms | strided backward "
+                      f"{st_bwd:.4f} ms (period {PERIOD})")
         print(f"ab_scan_kernels: {tree} ({trees[tree]}): forward {fwd:.4f} "
-              f"ms | backward {bwd:.4f} ms (mean of {REPS}, no mask, "
+              f"ms | backward {bwd:.4f} ms{st} (mean of {REPS}, no mask, "
               f"{name})")
     return 0 if same else 1
 

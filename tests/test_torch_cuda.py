@@ -17,7 +17,12 @@ on the card, as chip_smoke.py holds it: h within 3e-2 (a few bf16 ulps at
 |h| < 1: the kernel and the plain version sum in other f32 orders, so a
 bf16 rounding can flip and run on through the recurrence), the backward's
 outputs within 1e-2 of their max abs; the bf16 training step's loss within
-1e-4 relative and its gradients within 2e-2 of their max abs."""
+1e-4 relative and its gradients within 2e-2 of their max abs.
+
+The strided scan (K3, K4 and their bf16 forms) is held to the same
+tolerances, its backward run from K3's own boundary states; K3-bf16's rows
+equal K1-bf16's strided rows bit for bit (the same ops on the same
+values)."""
 
 import numpy as np
 import pytest
@@ -28,8 +33,11 @@ from hpmn_tpu_torch.data import synthetic
 from hpmn_tpu_torch.data.schema import batch_from_numpy
 from hpmn_tpu_torch.models.model import init_model, loss_fn
 from hpmn_tpu_torch.models.readout import Readout, attention_readout
-from hpmn_tpu_torch.ops import cuda_gru, cuda_readout
-from hpmn_tpu_torch.ops.gru import (GRUParams, GRUWeights, gru_scan_tm,
+from hpmn_tpu_torch.ops import cuda_gru, cuda_gru_stride, cuda_readout
+from hpmn_tpu_torch.ops.gru import (GRUParams, GRUWeights, gru_scan_stride_tm,
+                                    gru_scan_stride_tm_bf16,
+                                    gru_scan_stride_tm_bwd,
+                                    gru_scan_stride_tm_bwd_bf16, gru_scan_tm,
                                     gru_scan_tm_bf16, gru_scan_tm_bwd,
                                     gru_scan_tm_bwd_bf16)
 from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
@@ -271,6 +279,129 @@ def test_train_step_bf16_kernel_path_matches_plain_path(dev, full_mask):
     for name, p in p_k.items():
         assert p.grad.dtype == torch.float32, name
         assert _rel_err(p.grad, p_p[name].grad) <= TOL_STEP_GRAD_BF16, name
+
+
+def _all_counts():
+    return (cuda_gru.launches, cuda_gru.bwd_launches, cuda_gru.launches_bf16,
+            cuda_gru.bwd_launches_bf16, cuda_gru_stride.launches,
+            cuda_gru_stride.bwd_launches, cuda_gru_stride.launches_bf16,
+            cuda_gru_stride.bwd_launches_bf16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,period,B,d_in", [
+    (5, 3, 1, 32), (19, 4, 37, 32), (37, 3, 512, 32), (1000, 3, 512, 32),
+    (19, 10, 37, 70), (5, 10, 512, 32), (1000, 4, 1, 32), (37, 10, 1, 5)])
+def test_stride_kernels_match_plain(dev, T, period, B, d_in, dtype):
+    """K3 and K4 (or their bf16 forms) against the plain strided scan and
+    its backward, K4 run from K3's boundaries; ragged ends (T % period,
+    T % 16), an empty h_stride (T < period), an h0 for odd B; no other
+    scan kernel runs."""
+    dt = torch.float32 if dtype == "float32" else BF16
+    p = _gru(d_in, dev)
+    p = GRUWeights(p.wx.to(dt), p.wh.to(dt), p.b.to(dt))
+    g = torch.Generator().manual_seed(T + B + period)
+    x = torch.randn(T, B, d_in, generator=g).to(dev, dt)
+    h0 = torch.randn(B, 32, generator=g).to(dev, dt) if B % 2 else None
+    dhs = torch.randn(T // period, B, 32, generator=g).to(dev, dt)
+    dhT = torch.randn(B, 32, generator=g).to(dev, dt)
+    counts = _all_counts()
+    hs, hT, bounds = cuda_gru_stride.stride_fwd(p, x, period, h0)
+    got = cuda_gru_stride.stride_bwd(p, x, period, bounds, dhs, dhT)
+    plain_fwd, plain_bwd = ((gru_scan_stride_tm, gru_scan_stride_tm_bwd)
+                            if dt == torch.float32 else
+                            (gru_scan_stride_tm_bf16,
+                             gru_scan_stride_tm_bwd_bf16))
+    hs_p, hT_p = plain_fwd(p, x, period, h0)
+    want = plain_bwd(p, x, period, dhs, dhT, h0)
+    torch.cuda.synchronize()
+    k = 4 if dt == torch.float32 else 6
+    ran = [b - a for a, b in zip(counts, _all_counts())]
+    assert ran == [0] * k + [1, 1] + [0] * (6 - k)
+    tol_h, tol_g = ((TOL_GRU, TOL_GRAD) if dt == torch.float32
+                    else (TOL_GRU_BF16, TOL_GRAD_BF16))
+    assert hs.shape == (T // period, B, 32) and hs.dtype == dt
+    if T >= period:
+        assert (hs.float() - hs_p.float()).abs().max().item() <= tol_h
+    assert (hT.float() - hT_p.float()).abs().max().item() <= tol_h
+    for name, a, b in zip(("dx", "dwx", "dwh", "db", "dh0"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel_err(a.float(), b.float()) <= tol_g, name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stride_rows_against_the_dense_kernel(dev, dtype):
+    """K3's rows against K1's h_seq[period-1::period] on the same inputs:
+    bit for bit in bf16 (K1-bf16's no-mask h_cell is K3-bf16's update); in
+    f32 within an ulp's worth per step (K1 writes h + 1*(h_cell - h), the
+    TPU stride kernel h + z*(c - h))."""
+    dt = torch.float32 if dtype == "float32" else BF16
+    p = _gru(32, dev)
+    p = GRUWeights(p.wx.to(dt), p.wh.to(dt), p.b.to(dt))
+    x = torch.randn(1000, 64, 32, generator=torch.Generator().manual_seed(7)
+                    ).to(dev, dt)
+    h_seq, h_T = cuda_gru.gru_sequence_tm(p, x)
+    hs, hT = cuda_gru_stride.gru_stride_tm(p, x, 3)
+    if dt == BF16:
+        assert torch.equal(hs, h_seq[2::3]) and torch.equal(hT, h_T)
+    else:
+        assert (hs - h_seq[2::3]).abs().max().item() <= TOL_GRU
+        assert (hT - h_T).abs().max().item() <= TOL_GRU
+
+
+def test_stride_kernels_refuse_what_they_do_not_take(dev):
+    p = _gru(32, dev)
+    x = torch.zeros(12, 2, 32, device=dev)
+    with pytest.raises(ValueError, match="period"):
+        cuda_gru_stride.stride_fwd(p, x, 1)
+    with pytest.raises(ValueError, match="d_m"):
+        q = GRUParams(32, 16).requires_grad_(False).to(dev)
+        cuda_gru_stride.gru_stride_tm(q, x, 3)
+    with pytest.raises(ValueError, match="one dtype"):
+        cuda_gru_stride.gru_stride_tm(p, x.to(BF16), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_gru_stride.gru_stride_tm(
+            p, torch.zeros(12, 32, 2, device=dev).transpose(1, 2), 3)
+    _, _, bounds = cuda_gru_stride.stride_fwd(p, x, 3)
+    with pytest.raises(ValueError, match="dh_stride"):
+        cuda_gru_stride.stride_bwd(p, x, 3, bounds,
+                                   torch.zeros(3, 2, 32, device=dev), None)
+    with pytest.raises(ValueError, match="boundaries"):
+        cuda_gru_stride.stride_bwd(p, x, 3, bounds[:0], None, None)
+
+
+@pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16"])
+def test_train_step_stride_kernel_path_matches_plain_path(dev, scan_dtype):
+    """pallas_stride_outputs with full sequences: one loss and gradient
+    through K3 and K4 (or their bf16 forms) and K5 == the same branch with
+    the plain strided scans under autograd (``plain=True``); no dense scan
+    kernel runs."""
+    cfg = configs.get_config("xlong_hpmn").with_model(
+        use_pallas=True, assume_full_mask=True, pallas_stride_outputs=True,
+        scan_dtype=scan_dtype)
+    spec = synthetic.DatasetSpec("mid", seq_len=250, n_items=500, n_cats=40,
+                                 n_users=50)
+    data = synthetic.make_ctr_dataset(spec, 32, seed=1, min_len_frac=1.0)
+    batch = batch_from_numpy(data, device=dev)
+    out = []
+    for plain in (False, True):
+        model = init_model(cfg, 500, 40, seed=2, device=dev)
+        counts = _all_counts()
+        loss, _ = loss_fn(model, cfg, batch, plain=plain)
+        loss.backward()
+        torch.cuda.synchronize()
+        ran = [b - a for a, b in zip(counts, _all_counts())]
+        out.append((loss.item(), dict(model.named_parameters()), ran))
+    (l_k, p_k, ran_k), (l_p, p_p, ran_p) = out
+    L = cfg.model.hpmn_layers
+    k = 4 if scan_dtype == "float32" else 6
+    assert ran_k == [0] * k + [L, L] + [0] * (6 - k) and ran_p == [0] * 8
+    tol_loss, tol_grad = ((1e-5, TOL_GRAD) if scan_dtype == "float32"
+                          else (TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16))
+    assert abs(l_k - l_p) <= tol_loss * abs(l_p)
+    for name, p in p_k.items():
+        assert p.grad.dtype == torch.float32, name
+        assert _rel_err(p.grad, p_p[name].grad) <= tol_grad, name
 
 
 @pytest.mark.parametrize("B,L,d_q", [(1, 1, 32), (512, 6, 32), (37, 16, 40),
