@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's xlong_hpmn serving path and training step
-(f32 and bf16 scans, dense and strided-output) once on one GPU.
+(f32 and bf16 scans, dense and strided-output), and the taobao_dien
+training step and HistoryStore serving, once on one GPU.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a GPU
 
@@ -15,7 +16,8 @@ before the last line):
    scans), and the least time the card could take (bound); the bf16 scan
    kernels in bf16, with their drift from the f32 kernels; the strided
    scan kernels (K3, K4 and their bf16 forms), with their difference from
-   the dense kernels' strided rows and gradients.
+   the dense kernels' strided rows and gradients; the AUGRU scan kernels
+   (K1-scale, K2-scale and their bf16 forms) at DIEN's shape.
 4. serving: a ``UserMemoryStore`` on the card at the full width of
    xlong_hpmn (random seeded weights) ingests histories, takes updates,
    predicts and ranks; launch counters prove the path ran the kernels, and
@@ -31,6 +33,14 @@ before the last line):
 7. strided training: the step with ``pallas_stride_outputs=True`` (K3 and
    K4), f32 then bf16, held against its plain path and the dense step's
    loss, then timed, counted and profiled as phase 5.
+8. DIEN training: the taobao_dien step at B = 512, T = 300 with the
+   kernels, f32 on left-padded histories (the config's default: K1, K2,
+   K1-scale, K2-scale) and bf16 on full ones (the bench flagship: their
+   bf16 forms), each held against its plain path (``plain=True``), then
+   timed, counted and profiled as phase 5.
+9. DIEN serving: a ``HistoryStore`` on the card ingests 8192 histories,
+   takes updates, predicts and ranks (K1 and K1-scale per scoring call),
+   checked against the plain path and against the same store on the CPU.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -38,6 +48,7 @@ or away from the repo, it exits nonzero and prints no result. Imports
 nothing of JAX.
 """
 
+import copy
 import json
 import os
 import subprocess
@@ -122,22 +133,26 @@ def bound(flops, n_bytes, peak_flops=PEAK_FP32_FLOPS):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def scan_fwd_work(T, B, d_in, masked, es=4):
+def scan_fwd_work(T, B, d_in, masked, es=4, scaled=False):
     """K1: x@wx and h@wh per row-step; x, the mask and the weights read,
-    h_seq written, es bytes per element (4 in f32, 2 in bf16)."""
-    flops = 2 * T * B * (d_in + 32) * 96
+    h_seq written, es bytes per element (4 in f32, 2 in bf16). K1-scale
+    (``scaled``): the scale read too, and zs = z*a per unit."""
+    flops = 2 * T * B * (d_in + 32) * 96 + (T * B * 32 if scaled else 0)
     n_bytes = es * (T * B * (d_in + 32) + (T * B if masked else 0)
-                    + (d_in + 33) * 96)
+                    + (T * B if scaled else 0) + (d_in + 33) * 96)
     return flops, n_bytes
 
 
-def scan_bwd_work(T, B, d_in, masked, es=4):
+def scan_bwd_work(T, B, d_in, masked, es=4, scaled=False):
     """K2: the recompute, dh, dx, dWx and dWh products per row-step; x,
     h_seq, dh_seq, the mask and the weights read (es bytes per element),
-    dx written (es), dh0 and the weight gradients written (f32)."""
-    flops = 2 * T * B * 96 * (3 * d_in + 3 * 32)
+    dx written (es), dh0 and the weight gradients written (f32). K2-scale
+    (``scaled``): the scale read and dscale written (es), and per unit zs,
+    dz's factor a and dscale's product and sum."""
+    flops = (2 * T * B * 96 * (3 * d_in + 3 * 32)
+             + (4 * T * B * 32 if scaled else 0))
     n_bytes = (es * (T * B * (2 * d_in + 64) + (T * B if masked else 0)
-                     + (d_in + 33) * 96)
+                     + (2 * T * B if scaled else 0) + (d_in + 33) * 96)
                + 4 * (B * 32 + (d_in + 33) * 96))
     return flops, n_bytes
 
@@ -169,6 +184,13 @@ def scan_stride_bwd_work(T, B, d_in, period, chunk, es=4):
     return flops, n_bytes
 
 
+def kernel_label(name):
+    """A profiler kernel name, short but with its template arguments (K2
+    and K2-scale are one template)."""
+    return name.replace("void ", "").replace("(anonymous namespace)::",
+                                              "")[:56]
+
+
 def readout_work(B, L, d_q):
     """K5: memory and query through wm, wq and the scores; memory and query
     read, the read written."""
@@ -185,12 +207,14 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from hpmn_tpu_torch.configs import get_config
-        from hpmn_tpu_torch.data.synthetic import XLONG, make_ctr_dataset
+        from hpmn_tpu_torch.data.synthetic import (TAOBAO, XLONG,
+                                                   make_ctr_dataset)
         from hpmn_tpu_torch.models.embedding import dense_lookup
         from hpmn_tpu_torch.models.hpmn import (encode_hierarchical_tm,
                                                 encode_oracle)
         from hpmn_tpu_torch.data.schema import batch_from_numpy
-        from hpmn_tpu_torch.models.model import init_model, loss_fn
+        from hpmn_tpu_torch.models.model import (apply_model, init_model,
+                                                 loss_fn)
         from hpmn_tpu_torch.models.readout import attention_readout
         from hpmn_tpu_torch.models.tower import apply_tower
         from hpmn_tpu_torch.ops import (_build, cuda_gru, cuda_gru_stride,
@@ -199,6 +223,7 @@ def main():
             GRUWeights, gru_scan_stride_tm, gru_scan_stride_tm_bf16,
             gru_scan_stride_tm_bwd, gru_scan_stride_tm_bwd_bf16, gru_scan_tm,
             gru_scan_tm_bf16, gru_scan_tm_bwd, gru_scan_tm_bwd_bf16)
+        from hpmn_tpu_torch.serving.history import HistoryStore
         from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
         from hpmn_tpu_torch.train.train import (make_multistep_train,
                                                 make_optimizer)
@@ -595,6 +620,94 @@ def main():
               f"{ms:.4f} ms | plain {plain_ms:.4f} ms | library - | bound "
               f"{b_ms:.5f} ms ({b_by})", flush=True)
 
+    # The AUGRU kernels (K1-scale, K2-scale and their bf16 forms) at
+    # DIEN's shape (T = 300, B = 512, d_in = 32: taobao_dien's AUGRU, whose
+    # input is the first GRU's h_seq), on the port's seeded AUGRU weights,
+    # a scale in [0, 1) and random x and dh_seq, against the plain scaled
+    # scans. No PyTorch call computes a gate-scaled GRU (nn.GRU has no
+    # gate scale): no library time. A strided time view of x and the scale
+    # is the scan's other caller form; it is covered by the card tests.
+    cfg_d = get_config("taobao_dien").with_model(use_pallas=True)
+    model_d = init_model(cfg_d, TAOBAO.n_items, TAOBAO.n_cats, seed=cfg.seed,
+                         device=dev).requires_grad_(False)
+    T_d = TAOBAO.seq_len
+    aug = model_d.encoder.augru
+    x = torch.randn(T_d, B_SCAN, 32, generator=gen, device=dev)
+    a = torch.rand(T_d, B_SCAN, generator=gen, device=dev)
+    dh_seq = torch.randn(T_d, B_SCAN, 32, generator=gen, device=dev)
+    # by name: [(masked, err, ms, plain ms, bound ms, bound by)]
+    sc_rows = {n: [] for n in ("fwd", "bwd", "fwd_bf16", "bwd_bf16")}
+    sc_err = dict.fromkeys(sc_rows, 0.0)   # fwd: abs; bwd: of max abs
+    sc_abs = dict.fromkeys(sc_rows, 0.0)
+    for bf in (False, True):
+        sfx = "_bf16" if bf else ""
+        dt = torch.bfloat16 if bf else torch.float32
+        w = GRUWeights(aug.wx.to(dt), aug.wh.to(dt), aug.b.to(dt))
+        xs, a_s, dhs_ = x.to(dt), a.to(dt), dh_seq.to(dt)
+        es, peak = (2, PEAK_BF16_FLOPS) if bf else (4, PEAK_FP32_FLOPS)
+        tol_h, tol_g = ((TOL_GRU_BF16, TOL_GRAD_BF16) if bf
+                        else (TOL_GRU, TOL_GRAD))
+        p_fwd, p_bwd = ((gru_scan_tm_bf16, gru_scan_tm_bwd_bf16) if bf
+                        else (gru_scan_tm, gru_scan_tm_bwd))
+        for masked in (False, True):
+            mask = left_pad_mask(T_d, B_SCAN).to(dt) if masked else None
+            h_k, hT_k = cuda_gru.gru_sequence_tm(w, xs, mask, scale_tm=a_s)
+            h_p, hT_p = p_fwd(w, xs, mask, None, a_s)
+            torch.cuda.synchronize()
+            check(h_k.dtype == dt and torch.isfinite(h_k.float()).all().item(),
+                  f"K1-scale{sfx} mask={masked}: dtype or non-finite")
+            err = max((h_k.float() - h_p.float()).abs().max().item(),
+                      (hT_k.float() - hT_p.float()).abs().max().item())
+            check(err <= tol_h, f"K1-scale{sfx} mask={masked}: max abs err "
+                  f"{err:.3e} > {tol_h}")
+            ms = cuda_ms(lambda: cuda_gru.gru_sequence_tm(
+                w, xs, mask, scale_tm=a_s), 10)
+            plain_ms = cuda_ms(lambda: p_fwd(w, xs, mask, None, a_s), 2)
+            b_ms, b_by = bound(*scan_fwd_work(T_d, B_SCAN, 32, masked, es,
+                                              scaled=True), peak)
+            name = "fwd" + sfx
+            sc_err[name] = sc_abs[name] = max(sc_err[name], err)
+            sc_rows[name].append((masked, err, ms, plain_ms, b_ms, b_by))
+            print(f"phase 3 kernel gru_scan_fwd_scale{sfx} T={T_d} B={B_SCAN}"
+                  f" d_in=32 mask={masked}: max_abs_err {err:.3e} (tol "
+                  f"{tol_h}) | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms |"
+                  f" library - (nn.GRU has no gate scale) | bound "
+                  f"{b_ms:.4f} ms ({b_by})", flush=True)
+
+            got = cuda_gru.gru_scan_bwd(w, xs, mask, h_k, dhs_, scale_tm=a_s)
+            want = p_bwd(w, xs, mask, h_k, dhs_, None, a_s)
+            torch.cuda.synchronize()
+            rel, absd = 0.0, 0.0
+            for gname, u, v in zip(("dx", "dwx", "dwh", "db", "dh0",
+                                    "dscale"), got, want):
+                check(u.shape == v.shape and u.dtype == v.dtype
+                      and torch.isfinite(u.float()).all().item(),
+                      f"K2-scale{sfx} mask={masked}: {gname} shape, dtype or "
+                      "non-finite")
+                d = (u.float() - v.float()).abs().max().item()
+                absd = max(absd, d)
+                rel = max(rel, d / max(v.float().abs().max().item(), 1e-30))
+            check(len(got) == 6, f"K2-scale{sfx}: no dscale")
+            check(rel <= tol_g, f"K2-scale{sfx} mask={masked}: max abs err "
+                  f"over max abs {rel:.3e} > {tol_g}")
+            ms = cuda_ms(lambda: cuda_gru.gru_scan_bwd(
+                w, xs, mask, h_k, dhs_, scale_tm=a_s), 10)
+            plain_ms = cuda_ms(lambda: p_bwd(w, xs, mask, h_k, dhs_, None,
+                                             a_s), 2)
+            b_ms, b_by = bound(*scan_bwd_work(T_d, B_SCAN, 32, masked, es,
+                                              scaled=True), peak)
+            name = "bwd" + sfx
+            sc_err[name] = max(sc_err[name], rel)
+            sc_abs[name] = max(sc_abs[name], absd)
+            sc_rows[name].append((masked, absd, ms, plain_ms, b_ms, b_by))
+            print(f"phase 3 kernel gru_scan_bwd_scale{sfx} T={T_d} B={B_SCAN}"
+                  f" d_in=32 mask={masked}: max_abs_err {absd:.3e}, over max "
+                  f"abs {rel:.3e} (tol {tol_g}; dscale among the outputs) | "
+                  f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | library - "
+                  f"(nn.GRU has no gate scale) | bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
+    del x, a, dh_seq, h_k, h_p, got, want
+
     # ----------------------------------------------------------- 4. slice --
     full = make_ctr_dataset(XLONG, N_FULL_USERS, seed=1, min_len_frac=1.0)
     padded = make_ctr_dataset(XLONG, N_PADDED_USERS, seed=2)
@@ -752,10 +865,10 @@ def main():
     check(padded_data["seq_mask"].min() == 0.0, "padded batch has no padding")
     padded_batch = batch_from_numpy(padded_data, device=dev)
 
-    def loss_and_grads(c, batch, plain=False):
+    def loss_and_grads(c, batch, plain=False, spec=XLONG):
         """-> (loss, parameters with their gradients, seconds, the peak
         device memory of the loss and its backward in MiB)."""
-        model_g = init_model(c, XLONG.n_items, XLONG.n_cats, seed=cfg.seed,
+        model_g = init_model(c, spec.n_items, spec.n_cats, seed=cfg.seed,
                              device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -767,11 +880,12 @@ def main():
                 time.perf_counter() - t0,
                 torch.cuda.max_memory_allocated(dev) / 2**20)
 
-    def step_check(phase, form, c_k, batch, c_p, plain, tol_loss, tol_grad):
+    def step_check(phase, form, c_k, batch, c_p, plain, tol_loss, tol_grad,
+                   spec=XLONG):
         """The kernel path's loss and every gradient against the plain
         path's (config c_p, ``plain`` flag), same weights and batch."""
-        loss_k, p_k, t_k, mib_k = loss_and_grads(c_k, batch)
-        loss_p, p_p, t_p, _ = loss_and_grads(c_p, batch, plain)
+        loss_k, p_k, t_k, mib_k = loss_and_grads(c_k, batch, spec=spec)
+        loss_p, p_p, t_p, _ = loss_and_grads(c_p, batch, plain, spec)
         check(np.isfinite(loss_k), f"training loss ({form}) not finite")
         loss_rel = abs(loss_k - loss_p) / abs(loss_p)
         check(loss_rel <= tol_loss, f"step ({form}): loss {loss_k} vs "
@@ -789,7 +903,8 @@ def main():
         check(worst <= tol_grad, f"step ({form}): gradient of "
               f"{worst_name} off by {worst:.3e} of its max abs > "
               f"{tol_grad}")
-        print(f"phase {phase} step check {form} B={n_b} T={XLONG.seq_len}: "
+        print(f"phase {phase} step check {form} B={batch.batch_size} "
+              f"T={batch.seq_len}: "
               f"loss kernel {loss_k:.7f} plain {loss_p:.7f} (relative "
               f"{loss_rel:.2e}, tol {tol_loss}) | {len(p_p)} gradients,"
               f" worst {worst_name} {worst:.2e} of max abs (tol "
@@ -798,34 +913,42 @@ def main():
               f"path's peak device memory {mib_k:.1f} MiB", flush=True)
         return loss_k
 
-    def counters():
-        return (cuda_gru.launches, cuda_gru.bwd_launches,
-                cuda_gru.launches_bf16, cuda_gru.bwd_launches_bf16,
-                cuda_readout.launches, cuda_gru_stride.launches,
-                cuda_gru_stride.bwd_launches, cuda_gru_stride.launches_bf16,
-                cuda_gru_stride.bwd_launches_bf16)
+    # Launch counters, in this order: K1, K2, K1-bf16, K2-bf16, K5, K3, K4,
+    # K3-bf16, K4-bf16, K1-scale, K2-scale, K1-scale-bf16, K2-scale-bf16.
+    counted = ((cuda_gru, "launches"), (cuda_gru, "bwd_launches"),
+               (cuda_gru, "launches_bf16"), (cuda_gru, "bwd_launches_bf16"),
+               (cuda_readout, "launches"), (cuda_gru_stride, "launches"),
+               (cuda_gru_stride, "bwd_launches"),
+               (cuda_gru_stride, "launches_bf16"),
+               (cuda_gru_stride, "bwd_launches_bf16"),
+               (cuda_gru, "launches_scale"), (cuda_gru, "bwd_launches_scale"),
+               (cuda_gru, "launches_scale_bf16"),
+               (cuda_gru, "bwd_launches_scale_bf16"))
 
-    def timed_train(c_k):
+    def counters():
+        return tuple(getattr(mod, var) for mod, var in counted)
+
+    def zero_counters():
+        for mod, var in counted:
+            setattr(mod, var, 0)
+
+    def timed_train(c_k, stacks_, spec=XLONG):
         """k steps per dispatch, 2 warm-up and 3 timed dispatches, the
         batches cycled; the counters set to 0 just before -> (last step's
         metrics, ms per step, examples/s, launches, the multistep)."""
-        model_t = init_model(c_k, XLONG.n_items, XLONG.n_cats, seed=cfg.seed,
+        model_t = init_model(c_k, spec.n_items, spec.n_cats, seed=cfg.seed,
                              device=dev)
         multistep = make_multistep_train(
             c_k, model_t, make_optimizer(c_k, model_t.parameters()))
         torch.cuda.synchronize()
-        cuda_gru.launches = cuda_gru.bwd_launches = 0
-        cuda_gru.launches_bf16 = cuda_gru.bwd_launches_bf16 = 0
-        cuda_readout.launches = 0
-        cuda_gru_stride.launches = cuda_gru_stride.bwd_launches = 0
-        cuda_gru_stride.launches_bf16 = cuda_gru_stride.bwd_launches_bf16 = 0
+        zero_counters()
         for i in range(WARMUP_DISPATCHES):
-            metrics = multistep(stacks[i % N_TRAIN_BATCHES])
+            metrics = multistep(stacks_[i % N_TRAIN_BATCHES])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(WARMUP_DISPATCHES,
                        WARMUP_DISPATCHES + TIMED_DISPATCHES):
-            metrics = multistep(stacks[i % N_TRAIN_BATCHES])
+            metrics = multistep(stacks_[i % N_TRAIN_BATCHES])
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
         launches = counters()
@@ -835,34 +958,39 @@ def main():
         return (metrics, 1e3 * t_train / (TIMED_DISPATCHES * k),
                 TIMED_DISPATCHES * k * n_b / t_train, launches, multistep)
 
-    def profile_dispatch(phase, multistep, step_ms):
-        """One more dispatch under the profiler: the device's kernel time
-        per step against the unprofiled wall time per step. Only kernels
-        count: a CPU op (or an autograd Function's record) that launches a
-        kernel also reports that kernel's time as its own, and a user
-        annotation (the optimizer's step) spans kernels listed apart."""
+    def profile_work(phase, fn, wall_ms, n, unit):
+        """fn() once more under the profiler, doing n units of work (steps
+        or requests): the device's kernel time per unit against the
+        unprofiled wall time per unit. Only kernels count: a CPU op (or an
+        autograd Function's record) that launches a kernel also reports
+        that kernel's time as its own, and a user annotation (the
+        optimizer's step) spans kernels listed apart."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            multistep(stacks[0])
+            fn()
             torch.cuda.synchronize()
         kern = sorted(((a.self_device_time_total, a.count, a.key)
                        for a in prof.key_averages()
                        if a.device_type == DeviceType.CUDA
                        and not getattr(a, "is_user_annotation", False)
                        and a.self_device_time_total > 0), reverse=True)
-        dev_ms = sum(t for t, _, _ in kern) / 1e3 / k
+        dev_ms = sum(t for t, _, _ in kern) / 1e3 / n
         if dev_ms > 0:
-            top = ", ".join(f"{name[:48]} {t / 1e3 / k:.3f} ms "
-                            f"({n / k:g}/step)" for t, n, name in kern[:10])
+            top = ", ".join(f"{kernel_label(name)} {t / 1e3 / n:.3f} ms "
+                            f"({c / n:g}/{unit})" for t, c, name in kern[:10])
             print(f"phase {phase} profile: device kernel time {dev_ms:.3f} "
-                  f"ms per step of {step_ms:.3f} ms wall: busy "
-                  f"{dev_ms / step_ms:.1%}, idle {1 - dev_ms / step_ms:.1%} "
+                  f"ms per {unit} of {wall_ms:.3f} ms wall: busy "
+                  f"{dev_ms / wall_ms:.1%}, idle {1 - dev_ms / wall_ms:.1%} "
                   f"| top: {top}", flush=True)
         else:
             print(f"phase {phase} profile: the profiler saw no device time; "
                   "device busy share not measured", flush=True)
+
+    def profile_dispatch(phase, multistep, step_ms, stack):
+        """One more k-step dispatch under the profiler (profile_work)."""
+        profile_work(phase, lambda: multistep(stack), step_ms, k, "step")
 
     k = STEPS_PER_DISPATCH
     stacks = [[batches[(i + j) % N_TRAIN_BATCHES] for j in range(k)]
@@ -877,14 +1005,15 @@ def main():
             TOL_STEP_LOSS, TOL_STEP_GRAD)
     torch.cuda.empty_cache()
 
-    metrics, step_ms, ex_per_s, train_launches, multistep = timed_train(cfg_k)
+    metrics, step_ms, ex_per_s, train_launches, multistep = timed_train(
+        cfg_k, stacks)
     n_steps = (WARMUP_DISPATCHES + TIMED_DISPATCHES) * k
     check(train_launches == (L * n_steps, L * n_steps, 0, 0, n_steps,
-                             0, 0, 0, 0),
+                             0, 0, 0, 0) + (0,) * 4,
           f"launches over {n_steps} steps: gru_scan_fwd, gru_scan_bwd, "
           f"gru_scan_fwd_bf16, gru_scan_bwd_bf16, readout_fwd, the four "
-          f"strided = {train_launches}, expected {L}, {L}, 0, 0, 1 and 0 per "
-          "step")
+          f"strided, the four scale = {train_launches}, expected {L}, {L}, "
+          "0, 0, 1 and 0 per step")
     print(f"phase 5 train xlong_hpmn B={n_b} T={XLONG.seq_len} L={L} f32, "
           f"{k} steps per dispatch: {ex_per_s:.1f} examples/s ({step_ms:.3f}"
           f" ms per step, {TIMED_DISPATCHES} dispatches after "
@@ -895,7 +1024,7 @@ def main():
           f" gru_scan_bwd {train_launches[1]} readout_fwd "
           f"{train_launches[4]} ({L}, {L}, 1 per step; bf16 scans "
           f"{train_launches[2]}, {train_launches[3]})", flush=True)
-    profile_dispatch(5, multistep, step_ms)
+    profile_dispatch(5, multistep, step_ms, stacks[0])
     del multistep
     torch.cuda.empty_cache()
 
@@ -926,13 +1055,13 @@ def main():
     torch.cuda.empty_cache()
 
     metrics, step_ms_b, ex_per_s_b, bf16_launches, multistep = \
-        timed_train(cfg_b)
+        timed_train(cfg_b, stacks)
     check(bf16_launches == (0, 0, L * n_steps, L * n_steps, n_steps,
-                            0, 0, 0, 0),
+                            0, 0, 0, 0) + (0,) * 4,
           f"launches over {n_steps} steps: gru_scan_fwd, gru_scan_bwd, "
           f"gru_scan_fwd_bf16, gru_scan_bwd_bf16, readout_fwd, the four "
-          f"strided = {bf16_launches}, expected 0, 0, {L}, {L}, 1 and 0 per "
-          "step")
+          f"strided, the four scale = {bf16_launches}, expected 0, 0, {L}, "
+          f"{L}, 1 and 0 per step")
     print(f"phase 6 train xlong_hpmn B={n_b} T={XLONG.seq_len} L={L} bf16 "
           f"scans, {k} steps per dispatch: {ex_per_s_b:.1f} examples/s "
           f"({step_ms_b:.3f} ms per step; f32, phase 5: {ex_per_s:.1f} "
@@ -943,7 +1072,7 @@ def main():
           f"gru_scan_bwd_bf16 {bf16_launches[3]} readout_fwd "
           f"{bf16_launches[4]} ({L}, {L}, 1 per step; f32 scans "
           f"{bf16_launches[0]}, {bf16_launches[1]})", flush=True)
-    profile_dispatch(6, multistep, step_ms_b)
+    profile_dispatch(6, multistep, step_ms_b, stacks[0])
     del multistep
     torch.cuda.empty_cache()
 
@@ -965,15 +1094,15 @@ def main():
               f"dense step's {dense_loss}, relative {rel:.3e} > {tols[0]}")
         torch.cuda.empty_cache()
         metrics, step_ms_s, ex_per_s_s, launches, multistep = \
-            timed_train(c_s)
+            timed_train(c_s, stacks)
         k3 = L * n_steps
         want = ((0, 0, 0, 0, n_steps, k3, k3, 0, 0) if leg == "f32"
-                else (0, 0, 0, 0, n_steps, 0, 0, k3, k3))
+                else (0, 0, 0, 0, n_steps, 0, 0, k3, k3)) + (0,) * 4
         check(launches == want, f"strided {leg} launches over {n_steps} "
               f"steps: gru_scan_fwd, gru_scan_bwd, gru_scan_fwd_bf16, "
               f"gru_scan_bwd_bf16, readout_fwd, gru_stride_fwd, "
-              f"gru_stride_bwd, gru_stride_fwd_bf16, gru_stride_bwd_bf16 = "
-              f"{launches}, expected {want}")
+              f"gru_stride_bwd, gru_stride_fwd_bf16, gru_stride_bwd_bf16, "
+              f"the four scale = {launches}, expected {want}")
         stride_launches[leg] = launches
         sfx = "" if leg == "f32" else "_bf16"
         print(f"phase 7 train xlong_hpmn B={n_b} T={XLONG.seq_len} L={L} "
@@ -988,9 +1117,172 @@ def main():
               f"{launches[6] + launches[8]} readout_fwd {launches[4]} ({L}, "
               f"{L}, 1 per step; dense scans {sum(launches[:4])})",
               flush=True)
-        profile_dispatch(7, multistep, step_ms_s)
+        profile_dispatch(7, multistep, step_ms_s, stacks[0])
         del multistep
         torch.cuda.empty_cache()
+
+    # ------------------------------------------------- 8. DIEN training --
+    # taobao_dien with use_pallas at B = 512, T = 300: f32 on left-padded
+    # histories (the config's default mask; gru1 through K1/K2, the AUGRU
+    # through K1-scale/K2-scale) and bf16 on full ones (the bench flagship,
+    # tools/bench_config.py: scan_dtype bfloat16, assume_full_mask; their
+    # bf16 forms). The plain path is the same branch with the plain scans
+    # under autograd (plain=True). The loss is BCE + the aux loss + 1e-5 L2.
+    dien_legs = (
+        ("f32 padded", cfg_d, 9, 0.5, (TOL_STEP_LOSS, TOL_STEP_GRAD)),
+        ("bf16 full", cfg_d.with_model(scan_dtype="bfloat16",
+                                       assume_full_mask=True), 10, 1.0,
+         (TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16)))
+    n_bd = cfg_d.train.batch_size
+    dien_launches, dien_loss, dien_batches = {}, {}, {}
+    for form, c_d, seed, min_len, tols in dien_legs:
+        data_d = make_ctr_dataset(TAOBAO, N_TRAIN_BATCHES * n_bd, seed=seed,
+                                  min_len_frac=min_len)
+        check((data_d["seq_mask"].min() == 1.0) == (min_len == 1.0),
+              f"DIEN {form} batches: padding not as intended")
+        dien_batches[form] = [batch_from_numpy(
+            data_d, np.arange(i * n_bd, (i + 1) * n_bd), device=dev)
+            for i in range(N_TRAIN_BATCHES)]
+        dien_loss[form] = step_check(8, f"taobao_dien {form}", c_d,
+                                     dien_batches[form][0], c_d, True, *tols,
+                                     spec=TAOBAO)
+        torch.cuda.empty_cache()
+    # The bf16 step's loss against the f32 kernel path's on the same full
+    # batch and weights. Printed only: the aux loss reads gru1's h_seq,
+    # which the bf16 chain rounds to bf16, directly.
+    loss_f32_full = loss_and_grads(cfg_d.with_model(assume_full_mask=True),
+                                   dien_batches["bf16 full"][0],
+                                   spec=TAOBAO)[0]
+    bf_vs_f32 = abs(dien_loss["bf16 full"] - loss_f32_full) / abs(
+        loss_f32_full)
+    print(f"phase 8 vs f32 step (same weights and full batch): loss bf16 "
+          f"{dien_loss['bf16 full']:.7f} f32 {loss_f32_full:.7f} (relative "
+          f"{bf_vs_f32:.2e}, printed only)", flush=True)
+    torch.cuda.empty_cache()
+    for form, c_d, _, _, _ in dien_legs:
+        st = [[dien_batches[form][(i + j) % N_TRAIN_BATCHES]
+               for j in range(k)] for i in range(N_TRAIN_BATCHES)]
+        metrics, step_ms_d, ex_per_s_d, launches, multistep = timed_train(
+            c_d, st, TAOBAO)
+        want = ((n_steps, n_steps, 0, 0) + (0,) * 5 + (n_steps, n_steps, 0, 0)
+                if form.startswith("f32") else
+                (0, 0, n_steps, n_steps) + (0,) * 5 + (0, 0, n_steps,
+                                                        n_steps))
+        check(launches == want, f"DIEN {form} launches over {n_steps} steps:"
+              f" {launches}, expected {want} (K1, K2, K1-bf16, K2-bf16, K5,"
+              f" K3, K4, K3-bf16, K4-bf16, K1-scale, K2-scale, "
+              f"K1-scale-bf16, K2-scale-bf16)")
+        dien_launches[form] = launches
+        sfx = "" if form.startswith("f32") else "_bf16"
+        f0 = 0 if not sfx else 2
+        print(f"phase 8 train taobao_dien B={n_bd} T={T_d} {form}, {k} "
+              f"steps per dispatch: {ex_per_s_d:.1f} examples/s "
+              f"({step_ms_d:.3f} ms per step, {TIMED_DISPATCHES} dispatches "
+              f"after {WARMUP_DISPATCHES} warm-up, {N_TRAIN_BATCHES} batches "
+              f"cycled) | last step loss {metrics['loss']:.6f} bce "
+              f"{metrics['bce']:.6f} aux_loss {metrics['aux_loss']:.6f} l2 "
+              f"{metrics['l2']:.3f} | launches over {n_steps} steps: "
+              f"gru_scan_fwd{sfx} {launches[f0]} gru_scan_bwd{sfx} "
+              f"{launches[f0 + 1]} gru_scan_fwd_scale{sfx} "
+              f"{launches[9 + f0]} gru_scan_bwd_scale{sfx} "
+              f"{launches[10 + f0]} (1, 1, 1, 1 per step; others "
+              f"{sum(launches) - 4 * n_steps})", flush=True)
+        profile_dispatch(8, multistep, step_ms_d, st[0])
+        del multistep
+        torch.cuda.empty_cache()
+
+    # -------------------------------------------------- 9. DIEN serving --
+    # A HistoryStore on the card (taobao_dien, use_pallas, the config's
+    # masked f32 scans, W = 300) serves N_FULL_USERS left-padded histories:
+    # ingest (host), UPDATE_ROUNDS updates of B_SCAN users (host), then
+    # predict for B_SCAN users and rank RANK_USERS x RANK_CANDS, each one
+    # scoring call of K1 and K1-scale (rows <= max_score_rows). Held to the
+    # plain path and to the same store on the CPU.
+    hist = make_ctr_dataset(TAOBAO, N_FULL_USERS, seed=11)
+    check(hist["seq_mask"].min() == 0.0, "DIEN histories have no padding")
+    h_uids = np.arange(N_FULL_USERS)
+    upd_i = rng.integers(1, TAOBAO.n_items, size=(UPDATE_ROUNDS, B_SCAN))
+    upd_c = upd_i * 7 % (TAOBAO.n_cats - 1) + 1
+    rk_i = rng.integers(1, TAOBAO.n_items, size=(RANK_USERS, RANK_CANDS))
+    rk_c = rng.integers(1, TAOBAO.n_cats, size=(RANK_USERS, RANK_CANDS))
+    pr_i, pr_c = hist["target_item"][:B_SCAN], hist["target_cat"][:B_SCAN]
+    model_cpu = copy.deepcopy(model_d).cpu()
+    stores = {d: HistoryStore(cfg_d, m_, device=d)
+              for d, m_ in (("cpu", model_cpu), (dev, model_d))}
+    timings = {}
+    for d, hs in stores.items():
+        t0 = time.perf_counter()
+        for lo in range(0, N_FULL_USERS, B_SCAN):
+            sl = slice(lo, lo + B_SCAN)
+            hs.ingest_histories(h_uids[sl], hist["item_seq"][sl],
+                                hist["cat_seq"][sl], masks=hist["seq_mask"][sl])
+        t_ing = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for r in range(UPDATE_ROUNDS):
+            hs.update(h_uids[:B_SCAN], upd_i[r], upd_c[r])
+        timings[d] = (t_ing, time.perf_counter() - t0)
+    store_d = stores[dev]
+    torch.cuda.synchronize()
+    zero_counters()
+    t_pred, t_rank = [], []
+    for _ in range(REQUEST_REPS):
+        t0 = time.perf_counter()
+        pred_d = store_d.predict(h_uids[:B_SCAN], pr_i, pr_c)
+        t_pred.append(time.perf_counter() - t0)
+    for _ in range(REQUEST_REPS):
+        t0 = time.perf_counter()
+        rank_d = store_d.rank(h_uids[:RANK_USERS], rk_i, rk_c)
+        t_rank.append(time.perf_counter() - t0)
+    serve_launches = counters()
+    calls = 2 * REQUEST_REPS
+    want = (calls,) + (0,) * 8 + (calls, 0, 0, 0)
+    check(serve_launches == want, f"DIEN serving launches over {calls} "
+          f"scoring calls: {serve_launches}, expected {want}")
+    for name, sc in (("predict", pred_d), ("rank", rank_d)):
+        check(np.isfinite(sc).all() and (sc > 0).all() and (sc < 1).all(),
+              f"DIEN {name} scores not finite in (0, 1)")
+    check(pred_d.shape == (B_SCAN,)
+          and rank_d.shape == (RANK_USERS, RANK_CANDS), "DIEN score shapes")
+    col_d = max(np.abs(rank_d[:, c] - store_d.predict(
+        h_uids[:RANK_USERS], rk_i[:, c], rk_c[:, c])).max()
+        for c in range(0, RANK_CANDS, 10))
+    check(col_d <= TOL_READOUT, f"DIEN rank vs predict columns: {col_d:.3e}")
+    # the plain path on the store's own scoring batch
+    with torch.no_grad():
+        b_plain = batch_from_numpy(store_d._batch_arrays(
+            h_uids[:B_SCAN], store_d._rows_for(h_uids[:B_SCAN], False),
+            pr_i, pr_c), device=dev)
+        plain_scores = torch.sigmoid(apply_model(
+            model_d, cfg_d, b_plain, plain=True)[0]).cpu().numpy()
+    plain_err = float(np.abs(pred_d - plain_scores).max())
+    check(plain_err <= TOL_SLICE, f"DIEN predict vs plain path: "
+          f"{plain_err:.3e}")
+    # the same store on the CPU (the plain scans on CPU tensors)
+    pred_c = stores["cpu"].predict(h_uids[:B_SCAN], pr_i, pr_c)
+    rank_c = stores["cpu"].rank(h_uids[:RANK_USERS], rk_i, rk_c)
+    cpu_err = max(float(np.abs(pred_d - pred_c).max()),
+                  float(np.abs(rank_d - rank_c).max()))
+    check(cpu_err <= TOL_SLICE, f"DIEN store on the card vs on the CPU: "
+          f"{cpu_err:.3e}")
+    t_ing, t_upd = timings[dev]
+    print(f"phase 9 serve taobao_dien HistoryStore W={store_d.window} "
+          f"use_pallas f32 masked: ingest {N_FULL_USERS / t_ing:.1f} "
+          f"histories/s (host; {N_FULL_USERS} left-padded, batches of "
+          f"{B_SCAN}) | update {UPDATE_ROUNDS * B_SCAN / t_upd:.1f} events/s"
+          f" (host) | predict {1e3 * np.median(t_pred):.3f} ms median of "
+          f"{REQUEST_REPS} (first {1e3 * t_pred[0]:.3f}) ({B_SCAN} users) |"
+          f" rank {1e3 * np.median(t_rank):.3f} ms median of {REQUEST_REPS} "
+          f"(first {1e3 * t_rank[0]:.3f}) ({RANK_USERS}x{RANK_CANDS}) | "
+          f"launches over {calls} scoring calls: gru_scan_fwd "
+          f"{serve_launches[0]} gru_scan_fwd_scale {serve_launches[9]} | "
+          f"checks: rank==predict {col_d:.2e}, plain path {plain_err:.2e}, "
+          f"CPU store {cpu_err:.2e}: ok", flush=True)
+    profile_work(9, lambda: store_d.predict(h_uids[:B_SCAN], pr_i, pr_c),
+                 1e3 * np.median(t_pred), 1, "predict")
+    profile_work(9, lambda: store_d.rank(h_uids[:RANK_USERS], rk_i, rk_c),
+                 1e3 * np.median(t_rank), 1, "rank")
+    del stores, store_d, model_cpu
+    torch.cuda.empty_cache()
 
     def entry(name, src, rep, row, err, by_path, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -999,6 +1291,8 @@ def main():
                 "bound_ms": row[3], "bound_by": row[4],
                 "library_ms": row[2], **extra}
 
+    fd = dien_launches["f32 padded"]
+    bd = dien_launches["bf16 full"]
     g = gru_rows[0]   # T=1000, no mask: the heaviest scan of both paths
     gb = bwd_rows[0]
     g16, gb16 = bf_rows[0], bfb_rows[0]
@@ -1006,10 +1300,11 @@ def main():
     print(json.dumps({"kernels": [
         entry("gru_scan_fwd", cuda_gru.SOURCE, cuda_gru.REPLACES,
               (g[3], g[4], g[5], g[6], g[7]), gru_err,
-              {"serving": launches_gru, "training": train_launches[0]}),
+              {"serving": launches_gru, "training": train_launches[0],
+               "training_dien": fd[0], "serving_dien": serve_launches[0]}),
         entry("gru_scan_bwd", cuda_gru.BWD_SOURCE, cuda_gru.BWD_REPLACES,
               (gb[3], gb[4], gb[5], gb[6], gb[7]), bwd_abs,
-              {"training": train_launches[1]},
+              {"training": train_launches[1], "training_dien": fd[1]},
               max_err_over_max_abs=bwd_err),
         entry("readout_fwd", cuda_readout.SOURCE, cuda_readout.REPLACES,
               (r[2], r[3], None, r[4], r[5]), ro_err,
@@ -1018,12 +1313,14 @@ def main():
         entry("gru_scan_fwd_bf16", cuda_gru.SOURCE_BF16,
               cuda_gru.REPLACES_BF16,
               (g16[3], g16[4], g16[5], g16[6], g16[7]), bf_err,
-              {"training_bf16": bf16_launches[2]},
+              {"training_bf16": bf16_launches[2],
+               "training_dien_bf16": bd[2]},
               max_abs_diff_from_f32_kernel=bf_drift),
         entry("gru_scan_bwd_bf16", cuda_gru.BWD_SOURCE_BF16,
               cuda_gru.BWD_REPLACES_BF16,
               (gb16[3], gb16[4], gb16[5], gb16[6], gb16[7]), bfb_abs,
-              {"training_bf16": bf16_launches[3]},
+              {"training_bf16": bf16_launches[3],
+               "training_dien_bf16": bd[3]},
               max_err_over_max_abs=bfb_err,
               diff_from_f32_kernel_over_max_abs=bfb_drift),
         *(entry(f"gru_stride_{name}",
@@ -1038,6 +1335,23 @@ def main():
                 max_err_over_max_abs=st_err[name],
                 diff_from_dense_kernel=st_vs_dense[name])
           for name in ("fwd", "bwd", "fwd_bf16", "bwd_bf16")),
+        # The AUGRU kernels at their path's form: f32 masked (the DIEN
+        # config's default), bf16 without a mask (the flagship).
+        *(entry(f"gru_scan_{name.replace('_bf16', '')}_scale"
+                f"{'_bf16' if 'bf16' in name else ''}",
+                cuda_gru.BWD_SOURCE_SCALE if "bwd" in name
+                else cuda_gru.SOURCE_SCALE,
+                cuda_gru.BWD_REPLACES_SCALE if "bwd" in name
+                else cuda_gru.REPLACES_SCALE,
+                (row[2], row[3], None, row[4], row[5]), sc_abs[name],
+                ({"training_dien_bf16": bd[9 + idx]} if "bf16" in name
+                 else {"training_dien": fd[9 + idx], **(
+                     {"serving_dien": serve_launches[9]} if idx == 0
+                     else {})}),
+                **({"max_err_over_max_abs": sc_err[name]} if "bwd" in name
+                   else {}), masked=row[0])
+          for idx, name in enumerate(("fwd", "bwd", "fwd_bf16", "bwd_bf16"))
+          for row in [sc_rows[name][0 if "bf16" in name else 1]]),
     ]}), flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"ok": True, "device": {

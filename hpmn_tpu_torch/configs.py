@@ -1,4 +1,5 @@
-"""The hpmn configs the port serves and trains, as frozen dataclasses.
+"""The hpmn and dien configs the port serves and trains, as frozen
+dataclasses.
 
 Counterpart of ``hpmn_tpu/configs/base.py``, which builds
 ``ml_collections.ConfigDict``s. Only the fields the forward, serving and
@@ -36,6 +37,9 @@ class ModelConfig:
     pallas_stride_outputs: bool = False
     readout_dim: int = 32
     tower_hidden: Tuple[int, ...] = (200, 80)
+    # DIEN: the auxiliary next-behaviour loss and its weight in the total.
+    dien_use_aux_loss: bool = True
+    aux_weight: float = 1.0
     use_user_emb: bool = False  # not ported
 
 
@@ -101,10 +105,22 @@ def xlong_hpmn() -> Config:
                   train=TrainConfig(batch_size=512, steps_per_dispatch=0))
 
 
+def taobao_dien() -> Config:
+    """DIEN (GRU, then the attention-gated AUGRU) on Taobao, T=300
+    (hpmn_tpu taobao_dien: the taobao base keeps its hpmn_layers 5 and
+    period 3, which DIEN does not read)."""
+    return Config(dataset="taobao",
+                  model=ModelConfig(name="dien", hpmn_layers=5,
+                                    hpmn_period=3),
+                  loss=LossConfig(l2_weight=1e-5),
+                  train=TrainConfig(batch_size=512, steps_per_dispatch=0))
+
+
 _CONFIGS = {
     "amazon_hpmn": amazon_hpmn,
     "taobao_hpmn": taobao_hpmn,
     "xlong_hpmn": xlong_hpmn,
+    "taobao_dien": taobao_dien,
 }
 
 

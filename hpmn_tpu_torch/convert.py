@@ -7,8 +7,13 @@ parameter names correspond one to one:
 
     ['embedding']['item']           embedding.item
     ['encoder']['layers'][0].wx     encoder.layers.0.wx   (GRUParams fields)
+    ['encoder']['augru'].b          encoder.augru.b       (DIEN's GRUs)
+    ['encoder']['attn']['b']        encoder.attn.b        (a dict entry)
     ['readout']['wm']               readout.wm
     ['tower']['layers'][0]['w']     tower.layers.0.w
+
+A GRU's weights are fields of the NamedTuple ``GRUParams``, so their keys
+are attributes; every other leaf is a dict entry, whatever its name.
 
 Every key must be consumed and every parameter filled, at its shape, or
 :func:`model_from_flat` raises.
@@ -18,24 +23,28 @@ from __future__ import annotations
 
 from typing import Mapping
 
+import re
+
 import numpy as np
 import torch
+from torch import nn
 
 from .configs import Config
-from .models.model import HPMNModel, check_supported
+from .models.model import build_model
 
-_GRU_FIELDS = ("wx", "wh", "b")
+# The port's GRU modules (GRUParams in JAX): HPMN's layers, DIEN's two GRUs.
+_GRU_MODULE = re.compile(r"encoder\.(layers\.\d+|gru1|augru)")
 
 
 def jax_key(name: str) -> str:
     """Port parameter name -> the JAX keystr of the same leaf."""
     parts = name.split(".")
+    gru = _GRU_MODULE.fullmatch(".".join(parts[:-1])) is not None
     out = []
     for i, p in enumerate(parts):
         if p.isdigit():
             out.append(f"[{p}]")
-        elif parts[0] == "encoder" and i == len(parts) - 1 \
-                and p in _GRU_FIELDS:
+        elif gru and i == len(parts) - 1:
             out.append(f".{p}")  # GRUParams is a NamedTuple: attribute keys
         else:
             out.append(f"['{p}']")
@@ -43,13 +52,12 @@ def jax_key(name: str) -> str:
 
 
 def model_from_flat(cfg: Config, flat: Mapping[str, np.ndarray],
-                    device="cuda") -> HPMNModel:
-    """Build an ``HPMNModel`` for ``cfg`` holding the JAX arrays of
-    ``flat``; the vocab sizes are read from the embedding tables."""
-    check_supported(cfg)
+                    device="cuda") -> nn.Module:
+    """Build the model of ``cfg`` (``build_model``) holding the JAX arrays
+    of ``flat``; the vocab sizes are read from the embedding tables."""
     n_items = np.shape(flat["['embedding']['item']"])[0]
     n_cats = np.shape(flat["['embedding']['cat']"])[0]
-    model = HPMNModel(cfg, n_items, n_cats)
+    model = build_model(cfg, n_items, n_cats)
     left = dict(flat)
     with torch.no_grad():
         for name, param in model.named_parameters():

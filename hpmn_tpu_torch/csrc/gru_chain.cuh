@@ -1,9 +1,10 @@
-// Device code shared by the GRU scan kernels (gru_scan_fwd.cu K1,
-// gru_scan_bwd.cu K2, gru_scan_stride_fwd.cu K3, gru_scan_stride_bwd.cu
-// K4): the stream conversions, the projections and the gate chain, so that
-// a backward recomputes (or replays) its forward's gates bit for bit; the
-// strided scan's step; one step's gate gradients; and the shared-memory
-// pieces of the two backward kernels.
+// Device code shared by the GRU scan kernels (gru_scan_fwd.cu K1 and
+// K1-scale, gru_scan_bwd.cu K2 and K2-scale, gru_scan_stride_fwd.cu K3,
+// gru_scan_stride_bwd.cu K4): the stream conversions, the projections and
+// the gate chain, so that a backward recomputes (or replays) its forward's
+// gates bit for bit; the strided scan's step; one step's gate gradients,
+// with or without the AUGRU gate scale, and the warp sum of its dscale; and
+// the shared-memory pieces of the two backward kernels.
 //
 // Two chains, as hpmn_tpu/ops/pallas_gru.py has them:
 //
@@ -194,40 +195,64 @@ __device__ __forceinline__ B stride_update(const GatesB& g, B h) {
 
 // One step's gate gradients (dpre blocks) and the carry's own term, from
 // the step's gates, h_prev, the cotangent gtot that reaches h_t (the
-// output's plus the carry dh) and the mask m_t (1 with none).
+// output's plus the carry dh), the mask m_t (1 with none) and, with kScale
+// (the AUGRU, pallas_gru.py's has_scale), the gate scale a_t: zs = z*a_t
+// takes z's place in the update, so dc and the carry read zs and dz gains
+// the factor a_t.
 struct StepGrad {
   float dr, dz, dc, dcr;
   float carry;  // dh_prev before the products with wh^T
+  float da;     // with kScale: this lane's term dzs*z of dscale[t, row]
 };
 
 // f32: the port's first K2 formulas. The carry's term is the start of the
-// fmaf chain of dh_prev.
+// fmaf chain of dh_prev. Without kScale the expressions are K2's, so its
+// instantiations keep their bits.
+template <bool kScale = false>
 __device__ __forceinline__ StepGrad step_grad_f32(const Gates& g, float hp,
-                                                  float gtot, float m) {
+                                                  float gtot, float m,
+                                                  float a = 1.0f) {
   StepGrad o;
   const float gcell = gtot * m;
   const float dzs = gcell * (g.c - hp);
-  o.dc = gcell * g.z * (1.0f - g.c * g.c);
-  o.dz = dzs * g.z * (1.0f - g.z);
+  if constexpr (kScale) {
+    const float zs = g.z * a;
+    o.dc = gcell * zs * (1.0f - g.c * g.c);
+    o.dz = dzs * a * g.z * (1.0f - g.z);
+    o.carry = gcell * (1.0f - zs) + (gtot - gcell);
+    o.da = dzs * g.z;
+  } else {
+    o.dc = gcell * g.z * (1.0f - g.c * g.c);
+    o.dz = dzs * g.z * (1.0f - g.z);
+    o.carry = gcell * (1.0f - g.z) + (gtot - gcell);
+    o.da = 0.0f;
+  }
   o.dr = o.dc * g.gc * g.r * (1.0f - g.r);
   o.dcr = o.dc * g.r;
-  o.carry = gcell * (1.0f - g.z) + (gtot - gcell);
   return o;
 }
 
 // bf16: pallas_gru.py::_bwd_kernel (and _bwd_stride_kernel) with
 // dtype=bfloat16, op by op; gtot is already rounded to bf16 from its f32
 // sum. The carry's term is added to the f32 sum of the products
-// afterwards, as the TPU kernel adds it to its dot.
+// afterwards, as the TPU kernel adds it to its dot. With kScale: zs =
+// z*a, dc = (gcell*zs)*(1-c^2), dz = ((dzs*a)*z)*(1-z), carry = gcell -
+// gcell*zs, and da = dzs*z as an f32 product of the two bf16 values (exact,
+// not rounded: what XLA computes for the TPU kernel's jnp.sum(dzs * z) in
+// interpret mode, the sum in f32, rounded once at the store).
+template <bool kScale = false>
 __device__ __forceinline__ StepGrad step_grad_bf16(const GatesB& g, B hp,
-                                                   B gtot, B m, bool masked) {
+                                                   B gtot, B m, bool masked,
+                                                   B a = one_b()) {
   const B one = one_b();
   const B gcell = mul_b(gtot, m);
   const B dzs = mul_b(gcell, sub_b(g.c, hp));
-  const B dc = mul_b(mul_b(gcell, g.z), sub_b(one, mul_b(g.c, g.c)));
-  const B dz = mul_b(mul_b(dzs, g.z), sub_b(one, g.z));
+  const B zs = kScale ? mul_b(g.z, a) : g.z;
+  const B dc = mul_b(mul_b(gcell, zs), sub_b(one, mul_b(g.c, g.c)));
+  const B dz = mul_b(mul_b(kScale ? mul_b(dzs, a) : dzs, g.z),
+                     sub_b(one, g.z));
   const B dr = mul_b(mul_b(mul_b(dc, g.gc), g.r), sub_b(one, g.r));
-  B carry = sub_b(gcell, mul_b(gcell, g.z));
+  B carry = sub_b(gcell, mul_b(gcell, zs));
   if (masked) carry = add_b(carry, sub_b(gtot, gcell));
   StepGrad o;
   o.dr = to_f(dr);
@@ -235,7 +260,18 @@ __device__ __forceinline__ StepGrad step_grad_bf16(const GatesB& g, B hp,
   o.dc = to_f(dc);
   o.dcr = to_f(mul_b(dc, g.r));
   o.carry = to_f(carry);
+  o.da = kScale ? to_f(dzs) * to_f(g.z) : 0.0f;
   return o;
+}
+
+// dscale[t, row] = sum over the warp's lanes of StepGrad::da: an f32
+// __shfl_xor_sync tree (every lane ends with the sum; lane 0 stores it).
+// It reads only this step's gate gradients, so it sits beside the dh
+// carry's chain, not on it.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(kFull, v, s);
+  return v;
 }
 
 // ---- The backward kernels' shared memory (K2 and K4), per block: the

@@ -2,23 +2,34 @@
 // in reverse.
 //
 // Replaces hpmn_tpu/ops/pallas_gru.py::_bwd_kernel (its mask and no-mask
-// forms, no AUGRU scale), in both of its chains: f32 (K2, hpmn_gru_scan_bwd)
-// and dtype=bfloat16 (K2-bf16, hpmn_gru_scan_bwd_bf16). Per step t = T-1 ..
-// 0, for batch row b, with m_t = 1 when there is no mask:
+// forms, with and without the AUGRU gate scale), in both of its chains: f32
+// (K2, hpmn_gru_scan_bwd; K2-scale, hpmn_gru_scan_bwd_scale) and
+// dtype=bfloat16 (K2-bf16, hpmn_gru_scan_bwd_bf16; K2-scale-bf16,
+// hpmn_gru_scan_bwd_scale_bf16). Per step t = T-1 .. 0, for batch row b,
+// with m_t = 1 when there is no mask, a_t = 1 and zs = z in the no-scale
+// forms:
 //
 //   h_prev = h_seq[t-1]            (h0, or zeros, at t = 0)
 //   r, z, c, g_c recomputed from x_t and h_prev with gru_scan_fwd.cu's
 //   formulas, bit for bit (gru_chain.cuh's project() and gates, the same
-//   fmaf order)
+//   fmaf order); zs = z*a_t
 //   gtot = dh_seq[t] + dh;   gcell = gtot * m_t
-//   dzs = gcell*(c - h_prev); dc = gcell*z*(1-c^2)
-//   dz = dzs*z*(1-z);         dr = dc*g_c*r*(1-r)
-//   dh = gcell*(1-z) + (gtot - gcell) + [dr|dz|dc*r] @ wh^T
+//   dzs = gcell*(c - h_prev); dc = gcell*zs*(1-c^2)
+//   dz = dzs*a_t*z*(1-z);     dr = dc*g_c*r*(1-r)
+//   dh = gcell*(1-zs) + (gtot - gcell) + [dr|dz|dc*r] @ wh^T
 //   dx_t = [dr|dz|dc] @ wx^T
 //   dWx += x_t^T [dr|dz|dc];  dWh += h_prev^T [dr|dz|dc*r];  db += [dr|dz|dc]
+//   dscale[t, b] = sum_j dzs*z     (the scale forms: DIEN's attention
+//                                   gradient, pallas_gru.py:255)
 //
 // (gtot - gcell) is the pass-through of a masked step: a padded step carries
-// h unchanged, so its gradient flows to h_prev untouched.
+// h unchanged, so its gradient flows to h_prev untouched. The scale is a
+// compile-time flag (kScale): without it the instantiations are K2's and
+// K2-bf16's code as they were, bit for bit. With it, a_t is loaded a step
+// ahead with the step's other inputs, and dscale's sum over the 32 hidden
+// units is a __shfl_xor_sync tree (gru_chain.cuh's warp_sum) that reads
+// only the step's gate gradients, beside the dh carry's chain; lane 0
+// writes dscale[t, b] in the stream type. Shared memory is unchanged.
 //
 // The bf16 chain rounds where the TPU kernel's does: x, h_seq, dh_seq and
 // the mask are bf16 and dx is written as bf16; the dh carry stays f32, and
@@ -86,14 +97,17 @@ struct StepIn {
   float hp;             // h_prev[lane]
   float dhs;            // dh_seq[t][lane]
   float m;              // mask_t (the f32 chain)
-  hpmn::B hpb, mb;      // h_prev[lane] and mask_t as the bf16 chain's values
+  float a;              // scale_t (the f32 chain; kScale)
+  hpmn::B hpb, mb, ab;  // h_prev[lane], mask_t and scale_t as the bf16
+                        // chain's values
 };
 
-template <typename S>
+template <typename S, bool kScale>
 __device__ __forceinline__ void load_step(
     StepIn& s, int t, int row, int lane, int B, int d_in, int n_chunks,
     const S* __restrict__ x, long long x_tstride,
     const S* __restrict__ mask, long long m_tstride,
+    const S* __restrict__ scale, long long s_tstride,
     const S* __restrict__ h0, const S* __restrict__ hseq,
     const S* __restrict__ dhseq) {
   const S* x_row = x + (long long)t * x_tstride + (long long)row * d_in;
@@ -109,23 +123,32 @@ __device__ __forceinline__ void load_step(
   s.dhs = load_f(dhseq + ((long long)t * B + row) * kDm + lane);
   s.m = mask != nullptr ? load_f(mask + (long long)t * m_tstride + row)
                         : 1.0f;
+  if constexpr (kScale)
+    s.a = load_f(scale + (long long)t * s_tstride + row);
+  else
+    s.a = 1.0f;  // unread: step_grad_* ignores it without kScale
   if constexpr (hpmn::kIsBf16<S>) {  // exact: the values are bf16
     s.hpb = hpmn::to_b(s.hp);
     s.mb = hpmn::to_b(s.m);
+    s.ab = hpmn::to_b(s.a);
   }
 }
 
-// S: the stream type, float (K2) or __nv_bfloat16 (K2-bf16).
-template <typename S>
+// S: the stream type, float (K2) or __nv_bfloat16 (K2-bf16). kScale: the
+// AUGRU forms, reading scale [T, B] (time stride s_tstride) and writing
+// dscale [T, B] (contiguous).
+template <typename S, bool kScale>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 gru_scan_bwd_kernel(const S* __restrict__ x, long long x_tstride,
                     const S* __restrict__ mask, long long m_tstride,
+                    const S* __restrict__ scale, long long s_tstride,
                     const S* __restrict__ wx, const S* __restrict__ wh,
                     const S* __restrict__ bias,
                     const S* __restrict__ h0,
                     const S* __restrict__ hseq,
                     const S* __restrict__ dhseq,
-                    S* __restrict__ dx, float* __restrict__ dh0,
+                    S* __restrict__ dx, S* __restrict__ dscale,
+                    float* __restrict__ dh0,
                     float* __restrict__ dwx_part, float* __restrict__ dwh_part,
                     float* __restrict__ db_part, int T, int B, int d_in) {
   extern __shared__ float smem[];
@@ -145,31 +168,37 @@ gru_scan_bwd_kernel(const S* __restrict__ x, long long x_tstride,
     float dh = 0.0f;
     float db_r = 0.0f, db_z = 0.0f, db_c = 0.0f;
     StepIn cur;
-    load_step<S>(cur, T - 1, row, lane, B, d_in, n_chunks, x, x_tstride,
-                 mask, m_tstride, h0, hseq, dhseq);
+    load_step<S, kScale>(cur, T - 1, row, lane, B, d_in, n_chunks, x,
+                         x_tstride, mask, m_tstride, scale, s_tstride, h0,
+                         hseq, dhseq);
     for (int t = T - 1; t >= 0; --t) {
       StepIn nxt;  // step t-1, loaded before this step's math
       if (t > 0)
-        load_step<S>(nxt, t - 1, row, lane, B, d_in, n_chunks, x,
-                     x_tstride, mask, m_tstride, h0, hseq, dhseq);
+        load_step<S, kScale>(nxt, t - 1, row, lane, B, d_in, n_chunks, x,
+                             x_tstride, mask, m_tstride, scale, s_tstride,
+                             h0, hseq, dhseq);
 
       // Recompute the forward's gates (gru_scan_fwd.cu, the same order).
       const hpmn::Proj p =
           hpmn::project(cur.x, n_chunks, cur.hp, sm.wx, sm.wh, lane);
       hpmn::StepGrad sg;
       if constexpr (hpmn::kIsBf16<S>)
-        sg = hpmn::step_grad_bf16(hpmn::gates_bf16(p, b_r, b_z, b_c),
-                                  cur.hpb, hpmn::to_b(cur.dhs + dh), cur.mb,
-                                  mask != nullptr);
+        sg = hpmn::step_grad_bf16<kScale>(
+            hpmn::gates_bf16(p, b_r, b_z, b_c), cur.hpb,
+            hpmn::to_b(cur.dhs + dh), cur.mb, mask != nullptr, cur.ab);
       else
-        sg = hpmn::step_grad_f32(hpmn::gates_f32(p, b_r, b_z, b_c), cur.hp,
-                                 cur.dhs + dh, cur.m);
+        sg = hpmn::step_grad_f32<kScale>(hpmn::gates_f32(p, b_r, b_z, b_c),
+                                         cur.hp, cur.dhs + dh, cur.m, cur.a);
 
       const float dh_new = hpmn::backprop_step(
           sg, sm, n_chunks, d_in, d_in_pad, lane,
           dx + ((long long)t * B + row) * d_in);
       hpmn::accumulate_wgrad(cur.x, cur.hp, sg, sm, n_chunks, d_in_pad,
                              lane);
+      if constexpr (kScale) {
+        const float da = hpmn::warp_sum(sg.da);
+        if (lane == 0) hpmn::store_f(dscale + (long long)t * B + row, da);
+      }
       db_r += sg.dr;
       db_z += sg.dz;
       db_c += sg.dc;
@@ -188,19 +217,21 @@ gru_scan_bwd_kernel(const S* __restrict__ x, long long x_tstride,
 }
 
 // x [T,B,d_in] (time stride x_tstride, rows contiguous), mask [T,B] (time
-// stride m_tstride) or null, wx [d_in,96], wh [32,96], b [96], h0 [B,32] or
+// stride m_tstride) or null, scale [T,B] (time stride s_tstride; the scale
+// forms only, not null), wx [d_in,96], wh [32,96], b [96], h0 [B,32] or
 // null, hseq and dhseq [T,B,32] contiguous, all of one type S: float for K2,
-// bf16 for K2-bf16. Writes dx [T,B,d_in] (S) and dh0 [B,32] (f32, the
-// carry), both contiguous, and per block the f32 partials dwx_part
-// [d_in,96], dwh_part [32,96] and db_part [96]. Launches on `stream`;
-// returns cudaGetLastError().
-template <typename S>
+// bf16 for K2-bf16. Writes dx [T,B,d_in] (S), dscale [T,B] (S; the scale
+// forms) and dh0 [B,32] (f32, the carry), all contiguous, and per block the
+// f32 partials dwx_part [d_in,96], dwh_part [32,96] and db_part [96].
+// Launches on `stream`; returns cudaGetLastError().
+template <typename S, bool kScale>
 int launch(const S* x, long long x_tstride, const S* mask, long long m_tstride,
-           const S* wx, const S* wh, const S* b, const S* h0, const S* hseq,
-           const S* dhseq, S* dx, float* dh0, float* dwx_part,
-           float* dwh_part, float* db_part, int T, int B, int d_in,
-           void* stream) {
-  if (d_in < 1 || d_in > 32 * kMaxChunks || B < 1 || T < 1)
+           const S* scale, long long s_tstride, const S* wx, const S* wh,
+           const S* b, const S* h0, const S* hseq, const S* dhseq, S* dx,
+           S* dscale, float* dh0, float* dwx_part, float* dwh_part,
+           float* db_part, int T, int B, int d_in, void* stream) {
+  if (d_in < 1 || d_in > 32 * kMaxChunks || B < 1 || T < 1
+      || (kScale && (scale == nullptr || dscale == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int d_in_pad = (d_in + 31) / 32 * 32;
   const int warps = rows_per_block(d_in);
@@ -208,13 +239,15 @@ int launch(const S* x, long long x_tstride, const S* mask, long long m_tstride,
       (hpmn::weights_floats(d_in_pad) + warps * hpmn::acc_floats(d_in_pad)) *
       4;
   cudaError_t err = cudaFuncSetAttribute(
-      gru_scan_bwd_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      gru_scan_bwd_kernel<S, kScale>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + warps - 1) / warps;
-  gru_scan_bwd_kernel<S><<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
-      x, x_tstride, mask, m_tstride, wx, wh, b, h0, hseq, dhseq, dx, dh0,
-      dwx_part, dwh_part, db_part, T, B, d_in);
+  gru_scan_bwd_kernel<S, kScale>
+      <<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
+          x, x_tstride, mask, m_tstride, scale, s_tstride, wx, wh, b, h0,
+          hseq, dhseq, dx, dscale, dh0, dwx_part, dwh_part, db_part, T, B,
+          d_in);
   return (int)cudaGetLastError();
 }
 
@@ -235,8 +268,10 @@ extern "C" int hpmn_gru_scan_bwd(const float* x, long long x_tstride,
                                  float* dx, float* dh0, float* dwx_part,
                                  float* dwh_part, float* db_part, int T,
                                  int B, int d_in, void* stream) {
-  return launch(x, x_tstride, mask, m_tstride, wx, wh, b, h0, hseq, dhseq, dx,
-                dh0, dwx_part, dwh_part, db_part, T, B, d_in, stream);
+  return launch<float, false>(x, x_tstride, mask, m_tstride, nullptr, 0, wx,
+                              wh, b, h0, hseq, dhseq, dx, nullptr, dh0,
+                              dwx_part, dwh_part, db_part, T, B, d_in,
+                              stream);
 }
 
 extern "C" int hpmn_gru_scan_bwd_bf16(
@@ -246,6 +281,36 @@ extern "C" int hpmn_gru_scan_bwd_bf16(
     const __nv_bfloat16* hseq, const __nv_bfloat16* dhseq,
     __nv_bfloat16* dx, float* dh0, float* dwx_part, float* dwh_part,
     float* db_part, int T, int B, int d_in, void* stream) {
-  return launch(x, x_tstride, mask, m_tstride, wx, wh, b, h0, hseq, dhseq, dx,
-                dh0, dwx_part, dwh_part, db_part, T, B, d_in, stream);
+  return launch<__nv_bfloat16, false>(
+      x, x_tstride, mask, m_tstride, nullptr, 0, wx, wh, b, h0, hseq, dhseq,
+      dx, nullptr, dh0, dwx_part, dwh_part, db_part, T, B, d_in, stream);
+}
+
+// K2-scale and K2-scale-bf16: as above, plus scale [T,B] (time stride
+// s_tstride, unit batch stride; not null), the AUGRU's a_t, and its
+// gradient dscale [T,B] (contiguous, not null), of the stream type.
+extern "C" int hpmn_gru_scan_bwd_scale(
+    const float* x, long long x_tstride, const float* mask,
+    long long m_tstride, const float* scale, long long s_tstride,
+    const float* wx, const float* wh, const float* b, const float* h0,
+    const float* hseq, const float* dhseq, float* dx, float* dscale,
+    float* dh0, float* dwx_part, float* dwh_part, float* db_part, int T,
+    int B, int d_in, void* stream) {
+  return launch<float, true>(x, x_tstride, mask, m_tstride, scale, s_tstride,
+                             wx, wh, b, h0, hseq, dhseq, dx, dscale, dh0,
+                             dwx_part, dwh_part, db_part, T, B, d_in, stream);
+}
+
+extern "C" int hpmn_gru_scan_bwd_scale_bf16(
+    const __nv_bfloat16* x, long long x_tstride, const __nv_bfloat16* mask,
+    long long m_tstride, const __nv_bfloat16* scale, long long s_tstride,
+    const __nv_bfloat16* wx, const __nv_bfloat16* wh, const __nv_bfloat16* b,
+    const __nv_bfloat16* h0, const __nv_bfloat16* hseq,
+    const __nv_bfloat16* dhseq, __nv_bfloat16* dx, __nv_bfloat16* dscale,
+    float* dh0, float* dwx_part, float* dwh_part, float* db_part, int T,
+    int B, int d_in, void* stream) {
+  return launch<__nv_bfloat16, true>(
+      x, x_tstride, mask, m_tstride, scale, s_tstride, wx, wh, b, h0, hseq,
+      dhseq, dx, dscale, dh0, dwx_part, dwh_part, db_part, T, B, d_in,
+      stream);
 }

@@ -1,20 +1,27 @@
 // GRU scan forward for Hopper (sm_90a): one launch scans one whole layer.
 //
 // Replaces hpmn_tpu/ops/pallas_gru.py::_fwd_kernel (its mask and no-mask
-// forms, no AUGRU scale), in both of its chains: f32 (K1,
-// hpmn_gru_scan_fwd) and dtype=bfloat16 (K1-bf16, hpmn_gru_scan_fwd_bf16;
-// the chain is described in gru_chain.cuh). Per step, for batch row b:
+// forms, with and without the AUGRU gate scale), in both of its chains:
+// f32 (K1, hpmn_gru_scan_fwd; K1-scale, hpmn_gru_scan_fwd_scale) and
+// dtype=bfloat16 (K1-bf16, hpmn_gru_scan_fwd_bf16; K1-scale-bf16,
+// hpmn_gru_scan_fwd_scale_bf16; the chain is described in gru_chain.cuh).
+// Per step, for batch row b:
 //
 //   xp = x_t @ wx + b          (input projection, computed here as in the
 //                               TPU kernel, not hoisted out to a library)
 //   g  = h @ wh
 //   r = sigmoid(xp_r + g_r);  z = sigmoid(xp_z + g_z)
 //   c = tanh(xp_c + r * g_c)  (linear before reset)
-//   h_cell = h + z * (c - h); h' = h + m_t * (h_cell - h)
+//   zs = z * a_t               (the scale forms: DIEN's AUGRU; else zs = z)
+//   h_cell = h + zs * (c - h); h' = h + m_t * (h_cell - h)
 //
 // With no mask, the f32 form takes m_t = 1 and the bf16 form h' = h_cell, as
 // the TPU kernel's has_mask=False does (in bf16 the two can differ by a
-// rounding).
+// rounding). The scale is a compile-time flag (kScale): without it the
+// instantiations are the code of K1 and K1-bf16 as they were, bit for bit.
+// a [T, B] is read like the mask, one value per row and step, loaded
+// before the step's projections so that its latency hides behind them;
+// zs adds one multiply to the step's chain.
 //
 // What bounds it: the recurrence. Step t needs h_{t-1}, so one row's T steps
 // run one after another and the work per step is small (d_m = 32: 192 FMAs
@@ -52,11 +59,13 @@ using hpmn::kDm;
 using hpmn::kMaxChunks;  // d_in <= 96: weights fit 48 KB of smem
 constexpr int kWarps = 4;  // batch rows per block
 
-// S: the stream type, float (K1) or __nv_bfloat16 (K1-bf16).
-template <typename S>
+// S: the stream type, float (K1) or __nv_bfloat16 (K1-bf16). kScale: the
+// AUGRU forms, reading scale [T, B] (time stride s_tstride).
+template <typename S, bool kScale>
 __global__ void __launch_bounds__(kWarps * 32)
 gru_scan_fwd_kernel(const S* __restrict__ x, long long x_tstride,
                     const S* __restrict__ mask, long long m_tstride,
+                    const S* __restrict__ scale, long long s_tstride,
                     const S* __restrict__ wx, const S* __restrict__ wh,
                     const S* __restrict__ bias,
                     const S* __restrict__ h0, S* __restrict__ hseq,
@@ -105,6 +114,15 @@ gru_scan_fwd_kernel(const S* __restrict__ x, long long x_tstride,
     const S* m_ptr = mask + (long long)t * m_tstride + row;
     const float m = mask != nullptr ? load_f(m_ptr) : 1.0f;  // f32 chain
     const hpmn::B mb = mask != nullptr ? hpmn::load_b(m_ptr) : hpmn::one_b();
+    float a = 1.0f;  // the scale, f32 chain
+    hpmn::B ab = hpmn::one_b();  // the scale, bf16 chain
+    if constexpr (kScale) {
+      const S* a_ptr = scale + (long long)t * s_tstride + row;
+      if constexpr (hpmn::kIsBf16<S>)
+        ab = hpmn::load_b(a_ptr);
+      else
+        a = load_f(a_ptr);
+    }
 
     const hpmn::Proj p = hpmn::project(xv, n_chunks, h, s_wx, s_wh, lane);
     S* h_out = hseq + ((long long)t * B + row) * kDm + lane;
@@ -113,13 +131,15 @@ gru_scan_fwd_kernel(const S* __restrict__ x, long long x_tstride,
       using hpmn::mul_b;
       using hpmn::sub_b;
       const hpmn::GatesB g = hpmn::gates_bf16(p, b_r, b_z, b_c);
-      const hpmn::B h_cell = add_b(hb, mul_b(g.z, sub_b(g.c, hb)));
+      const hpmn::B zs = kScale ? mul_b(g.z, ab) : g.z;
+      const hpmn::B h_cell = add_b(hb, mul_b(zs, sub_b(g.c, hb)));
       hb = mask != nullptr ? add_b(hb, mul_b(mb, sub_b(h_cell, hb))) : h_cell;
       h = hpmn::to_f(hb);
       *h_out = hb;
     } else {
       const hpmn::Gates g = hpmn::gates_f32(p, b_r, b_z, b_c);
-      const float h_cell = h + g.z * (g.c - h);
+      const float zs = kScale ? g.z * a : g.z;
+      const float h_cell = h + zs * (g.c - h);
       h = h + m * (h_cell - h);
       hpmn::store_f(h_out, h);
     }
@@ -128,17 +148,21 @@ gru_scan_fwd_kernel(const S* __restrict__ x, long long x_tstride,
   }
 }
 
-template <typename S>
+template <typename S, bool kScale>
 int launch(const S* x, long long x_tstride, const S* mask, long long m_tstride,
-           const S* wx, const S* wh, const S* b, const S* h0, S* hseq, int T,
-           int B, int d_in, void* stream) {
-  if (d_in < 1 || d_in > 32 * kMaxChunks || B < 1 || T < 1)
+           const S* scale, long long s_tstride, const S* wx, const S* wh,
+           const S* b, const S* h0, S* hseq, int T, int B, int d_in,
+           void* stream) {
+  if (d_in < 1 || d_in > 32 * kMaxChunks || B < 1 || T < 1
+      || (kScale && scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const int d_in_pad = (d_in + 31) / 32 * 32;
   const size_t smem = (size_t)(d_in_pad + kDm) * 3 * kDm * sizeof(float);
   const int grid = (B + kWarps - 1) / kWarps;
-  gru_scan_fwd_kernel<S><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      x, x_tstride, mask, m_tstride, wx, wh, b, h0, hseq, T, B, d_in);
+  gru_scan_fwd_kernel<S, kScale>
+      <<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+          x, x_tstride, mask, m_tstride, scale, s_tstride, wx, wh, b, h0,
+          hseq, T, B, d_in);
   return (int)cudaGetLastError();
 }
 
@@ -153,8 +177,8 @@ extern "C" int hpmn_gru_scan_fwd(const float* x, long long x_tstride,
                                  const float* wx, const float* wh,
                                  const float* b, const float* h0, float* hseq,
                                  int T, int B, int d_in, void* stream) {
-  return launch(x, x_tstride, mask, m_tstride, wx, wh, b, h0, hseq, T, B,
-                d_in, stream);
+  return launch<float, false>(x, x_tstride, mask, m_tstride, nullptr, 0, wx,
+                              wh, b, h0, hseq, T, B, d_in, stream);
 }
 
 extern "C" int hpmn_gru_scan_fwd_bf16(
@@ -162,6 +186,30 @@ extern "C" int hpmn_gru_scan_fwd_bf16(
     long long m_tstride, const __nv_bfloat16* wx, const __nv_bfloat16* wh,
     const __nv_bfloat16* b, const __nv_bfloat16* h0, __nv_bfloat16* hseq,
     int T, int B, int d_in, void* stream) {
-  return launch(x, x_tstride, mask, m_tstride, wx, wh, b, h0, hseq, T, B,
-                d_in, stream);
+  return launch<__nv_bfloat16, false>(x, x_tstride, mask, m_tstride, nullptr,
+                                      0, wx, wh, b, h0, hseq, T, B, d_in,
+                                      stream);
+}
+
+// K1-scale and K1-scale-bf16: as above, plus scale [T,B] (time stride
+// s_tstride, unit batch stride; not null), the AUGRU's a_t, of the same
+// type.
+extern "C" int hpmn_gru_scan_fwd_scale(
+    const float* x, long long x_tstride, const float* mask,
+    long long m_tstride, const float* scale, long long s_tstride,
+    const float* wx, const float* wh, const float* b, const float* h0,
+    float* hseq, int T, int B, int d_in, void* stream) {
+  return launch<float, true>(x, x_tstride, mask, m_tstride, scale, s_tstride,
+                             wx, wh, b, h0, hseq, T, B, d_in, stream);
+}
+
+extern "C" int hpmn_gru_scan_fwd_scale_bf16(
+    const __nv_bfloat16* x, long long x_tstride, const __nv_bfloat16* mask,
+    long long m_tstride, const __nv_bfloat16* scale, long long s_tstride,
+    const __nv_bfloat16* wx, const __nv_bfloat16* wh, const __nv_bfloat16* b,
+    const __nv_bfloat16* h0, __nv_bfloat16* hseq, int T, int B, int d_in,
+    void* stream) {
+  return launch<__nv_bfloat16, true>(x, x_tstride, mask, m_tstride, scale,
+                                     s_tstride, wx, wh, b, h0, hseq, T, B,
+                                     d_in, stream);
 }

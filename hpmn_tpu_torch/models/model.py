@@ -1,5 +1,5 @@
-"""The hpmn model and its loss — counterpart of ``hpmn_tpu/models/model.py``
-for ``cfg.model.name == "hpmn"``.
+"""The hpmn and dien models and their loss — counterpart of
+``hpmn_tpu/models/model.py`` for ``cfg.model.name`` "hpmn" and "dien".
 
     model = init_model(cfg, n_items, n_cats)             # on the card
     logits, aux = apply_model(model, cfg, batch)
@@ -18,6 +18,13 @@ for ``cfg.model.name == "hpmn"``.
 - the batch-major hierarchy of plain scans;
 - the masked single-scan oracle (``use_hierarchical_scan=False``).
 
+and the JAX function's two dien branches: with ``use_pallas`` the
+time-major ``dien.encode_tm``, both scans through the CUDA scan kernels
+(``gru1``: K1 and K2; the AUGRU: K1-scale and K2-scale; or their bf16
+forms), the negatives gathered time-major too; otherwise the batch-major
+plain ``dien.encode``. DIEN has no readout and returns aux["aux_loss"],
+which ``total_loss`` weighs by ``aux_weight``.
+
 Other families raise.
 """
 
@@ -34,6 +41,7 @@ from ..data.schema import Batch
 from ..ops import cuda_gru, cuda_gru_stride, cuda_readout
 from ..ops.gru import (GRUWeights, gru_scan_stride_tm, gru_scan_stride_tm_bf16,
                        gru_scan_tm, gru_scan_tm_bf16)
+from . import dien as dien_mod
 from . import hpmn as hpmn_mod
 from .embedding import Embedding, dense_lookup
 from .losses import bce_with_logits, covariance_regularizer, l2_regularizer
@@ -58,10 +66,26 @@ class HPMNModel(nn.Module):
         self.tower = Tower(d_beh + m.mem_dim, m.tower_hidden)
 
 
+class DIENModel(nn.Module):
+    """embedding, encoder (``dien.DIENEncoder``) and tower; no readout: the
+    tower reads [target embedding; the evolved interest]."""
+
+    def __init__(self, cfg: Config, n_items: int, n_cats: int):
+        super().__init__()
+        m = cfg.model
+        d_beh = 2 * m.emb_dim
+        self.embedding = Embedding(n_items, n_cats, m.emb_dim)
+        self.encoder = dien_mod.DIENEncoder(d_beh, m.mem_dim, m.readout_dim)
+        self.tower = Tower(d_beh + m.mem_dim, m.tower_hidden)
+
+
+_MODELS = {"hpmn": HPMNModel, "dien": DIENModel}
+
+
 def check_supported(cfg: Config) -> None:
     """Raise on config choices the port does not cover yet."""
     m = cfg.model
-    if m.name != "hpmn":
+    if m.name not in _MODELS:
         raise NotImplementedError(
             f"model family {m.name!r} is not ported yet (ROADMAP.md)")
     todo = {"dtype": m.dtype != "float32",
@@ -74,15 +98,23 @@ def check_supported(cfg: Config) -> None:
                 "(ROADMAP.md)")
 
 
+def build_model(cfg: Config, n_items: int, n_cats: int) -> nn.Module:
+    """The model class of ``cfg.model.name`` (``HPMNModel`` or
+    ``DIENModel``), its parameters allocated on the CPU, not initialised."""
+    check_supported(cfg)
+    return _MODELS[cfg.model.name](cfg, n_items, n_cats)
+
+
 def init_model(cfg: Config, n_items: int, n_cats: int,
-               seed: Optional[int] = None, device="cuda") -> HPMNModel:
+               seed: Optional[int] = None, device="cuda") -> nn.Module:
     """The port's own seeded init, drawn on the CPU from a
     ``torch.Generator`` (so the weights do not depend on the device), then
-    moved to ``device``. Same distributions as the JAX init, other numbers."""
-    check_supported(cfg)
+    moved to ``device``. Same distributions as the JAX init, other numbers;
+    the parts are drawn in their order in the model (embedding, encoder,
+    readout where there is one, tower)."""
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
-    model = HPMNModel(cfg, n_items, n_cats)
-    for part in (model.embedding, model.encoder, model.readout, model.tower):
+    model = build_model(cfg, n_items, n_cats)
+    for part in model.children():
         part.reset_parameters(gen)
     return model.to(device)
 
@@ -98,21 +130,71 @@ def _scan_weights(enc: hpmn_mod.HPMNEncoder, dtype: torch.dtype):
         for layer in enc.layers])
 
 
-def apply_model(model: HPMNModel, cfg: Config, batch: Batch,
+def _dien_scan(dtype: torch.dtype, plain: bool):
+    """The use_pallas DIEN's scan: (params, x_tm, mask_tm, scale_tm=None)
+    -> (h_seq, h_T) in ``dtype``. x, the mask, the scale and the weights
+    are cast to it here, differentiably (as ``pallas_gru_sequence_tm``
+    casts them inside); then the CUDA scan (``cuda_gru.gru_sequence_tm``)
+    or, with ``plain``, its plain version under autograd."""
+    plain_scan = gru_scan_tm_bf16 if dtype == torch.bfloat16 else gru_scan_tm
+
+    def scan(p, x_tm, mask_tm, scale_tm=None):
+        w = GRUWeights(p.wx.to(dtype), p.wh.to(dtype), p.b.to(dtype))
+        m = None if mask_tm is None else mask_tm.to(dtype)
+        a = None if scale_tm is None else scale_tm.to(dtype)
+        if plain:
+            return plain_scan(w, x_tm.to(dtype), m, None, a)
+        return cuda_gru.gru_sequence_tm(w, x_tm.to(dtype), m, scale_tm=a)
+
+    return scan
+
+
+def _apply_dien(model: DIENModel, cfg: Config, batch: Batch,
+                q: torch.Tensor, plain: bool):
+    """DIEN's two branches of the JAX apply_model -> (state [B, d_m]
+    float32, the aux loss). The negatives feed only the aux loss, so
+    without it they are not gathered: JAX's jit drops that dead work,
+    eager PyTorch would run it."""
+    m = cfg.model
+    emb = model.embedding
+    aux_on = m.dien_use_aux_loss
+    if m.use_pallas:
+        x_tm = dense_lookup(emb, batch.item_seq.T, batch.cat_seq.T)
+        x_neg_tm = (dense_lookup(emb, batch.neg_item_seq.T,
+                                 batch.neg_cat_seq.T) if aux_on else None)
+        mask_tm = (None if m.assume_full_mask
+                   else batch.seq_mask.T.to(x_tm.dtype).contiguous())
+        state, aux_loss = dien_mod.encode_tm(
+            model.encoder, x_tm, mask_tm, q, x_neg_tm, aux_on,
+            gru_seq_tm_fn=_dien_scan(_SCAN_DTYPES[m.scan_dtype], plain))
+        return state.float(), aux_loss
+    x = dense_lookup(emb, batch.item_seq, batch.cat_seq)  # [B, T, 2d]
+    x_neg = (dense_lookup(emb, batch.neg_item_seq, batch.neg_cat_seq)
+             if aux_on else None)
+    return dien_mod.encode(model.encoder, x, batch.seq_mask.to(x.dtype), q,
+                           x_neg=x_neg, use_aux_loss=aux_on)
+
+
+def apply_model(model: nn.Module, cfg: Config, batch: Batch,
                 plain: bool = False,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """-> (logits [B], aux): aux["memory"] is the HPMN slots [B, L, d_m]
-    (float32) that the covariance regularizer reads.
+    """-> (logits [B], aux): for hpmn aux["memory"] is the slots [B, L,
+    d_m] (float32) that the covariance regularizer reads; for dien
+    aux["aux_loss"] is the auxiliary loss.
 
     ``plain=True`` runs the ``use_pallas`` branch with the kernels' plain
-    versions under autograd (``gru_scan_tm`` or ``gru_scan_tm_bf16``, the
-    strided ``gru_scan_stride_tm``/``_bf16``, the plain readout) on any
-    device: the reference that chip_smoke.py holds the kernel path to on
-    the card."""
+    versions under autograd (``gru_scan_tm`` or ``gru_scan_tm_bf16``, with
+    the scale for DIEN's AUGRU, the strided ``gru_scan_stride_tm``/``_bf16``,
+    the plain readout) on any device: the reference that chip_smoke.py
+    holds the kernel path to on the card."""
     check_supported(cfg)
     m = cfg.model
     emb = model.embedding
     q = dense_lookup(emb, batch.target_item, batch.target_cat)  # [B, 2d]
+    if m.name == "dien":
+        state, aux_loss = _apply_dien(model, cfg, batch, q, plain)
+        logits = apply_tower(model.tower, torch.cat([q, state], dim=-1))
+        return logits, {"aux_loss": aux_loss}
     if m.use_pallas and m.use_hierarchical_scan:
         # Transposing the int32 ids, not the activations, gives time-major
         # embeddings. The scans run in scan_dtype: x, the mask and the
@@ -158,11 +240,12 @@ def apply_model(model: HPMNModel, cfg: Config, batch: Batch,
     return logits, {"memory": memory}
 
 
-def total_loss(model: HPMNModel, cfg: Config, logits: torch.Tensor,
+def total_loss(model: nn.Module, cfg: Config, logits: torch.Tensor,
                aux: Dict[str, torch.Tensor], labels: torch.Tensor,
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """BCE + cov_weight * covariance regularizer (on aux["memory"]) +
-    l2_weight * sum of squares of every >= 2-D parameter."""
+    aux_weight * aux["aux_loss"] (DIEN) + l2_weight * sum of squares of
+    every >= 2-D parameter."""
     bce = bce_with_logits(logits, labels)
     loss = bce
     metrics = {"bce": bce}
@@ -170,6 +253,9 @@ def total_loss(model: HPMNModel, cfg: Config, logits: torch.Tensor,
         cov = covariance_regularizer(aux["memory"])
         loss = loss + cfg.loss.cov_weight * cov
         metrics["cov_reg"] = cov
+    if "aux_loss" in aux and cfg.model.aux_weight > 0:
+        loss = loss + cfg.model.aux_weight * aux["aux_loss"]
+        metrics["aux_loss"] = aux["aux_loss"]
     if cfg.loss.l2_weight > 0:
         l2 = l2_regularizer(model.parameters())
         loss = loss + cfg.loss.l2_weight * l2
@@ -178,11 +264,12 @@ def total_loss(model: HPMNModel, cfg: Config, logits: torch.Tensor,
     return loss, metrics
 
 
-def loss_fn(model: HPMNModel, cfg: Config, batch: Batch,
+def loss_fn(model: nn.Module, cfg: Config, batch: Batch,
             plain: bool = False,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One differentiable call: -> (loss, metrics with bce, cov_reg, l2,
-    loss and the logits). ``plain`` as for :func:`apply_model`."""
+    """One differentiable call: -> (loss, metrics with bce, cov_reg (hpmn)
+    or aux_loss (dien), l2, loss and the logits). ``plain`` as for
+    :func:`apply_model`."""
     logits, aux = apply_model(model, cfg, batch, plain=plain)
     loss, metrics = total_loss(model, cfg, logits, aux,
                                batch.label.to(logits.dtype))

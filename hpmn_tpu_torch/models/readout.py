@@ -5,7 +5,8 @@
     read = sum_l alpha_l * m_l
 
 This plain form is the version the CUDA readout kernel
-(``ops/cuda_readout.py``) is held against.
+(``ops/cuda_readout.py``) is held against. DIEN's batch-major encoder
+takes the weights alpha from it (``return_weights=True``) for its AUGRU.
 """
 
 from __future__ import annotations
@@ -41,11 +42,13 @@ class Readout(nn.Module):
 
 def attention_readout(module: Readout, memory: torch.Tensor,
                       query: torch.Tensor,
-                      slot_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """memory [B, L, d_m], query [B, d_q] -> read [B, d_m].
+                      slot_mask: Optional[torch.Tensor] = None,
+                      return_weights: bool = False):
+    """memory [B, L, d_m], query [B, d_q] -> read [B, d_m], or (read,
+    alpha [B, L]) with ``return_weights``.
 
     slot_mask [B, L] (optional): 1.0 for valid slots; a row with every slot
-    masked reads zeros."""
+    masked reads zeros (its alpha is 0, not NaN)."""
     e = torch.tanh(memory @ module.wm
                    + (query @ module.wq + module.b)[:, None, :])
     scores = e @ module.v  # [B, L]
@@ -55,4 +58,5 @@ def attention_readout(module: Readout, memory: torch.Tensor,
     alpha = torch.softmax(scores, dim=-1)
     if slot_mask is not None:
         alpha = torch.where(slot_mask.sum(-1, keepdim=True) > 0, alpha, 0.0)
-    return torch.einsum("bl,bld->bd", alpha, memory)
+    read = torch.einsum("bl,bld->bd", alpha, memory)
+    return (read, alpha) if return_weights else read

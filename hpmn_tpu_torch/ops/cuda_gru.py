@@ -4,7 +4,10 @@ Replaces ``hpmn_tpu/ops/pallas_gru.py``'s ``_fwd_kernel`` (K1) and
 ``_bwd_kernel`` (K2), reached there through ``pallas_gru_sequence_tm`` and
 its ``jax.custom_vjp``, in their mask and no-mask forms, in the f32 chain
 and in the bf16 one (``dtype=bfloat16``: K1-bf16 and K2-bf16, chosen by the
-tensors' dtype). The kernels are ``csrc/gru_scan_fwd.cu`` and
+tensors' dtype), with and without the AUGRU gate scale (``has_scale``:
+K1-scale and K2-scale and their bf16 forms, chosen by a ``scale_tm``; the
+backward then also returns dscale). The kernels are
+``csrc/gru_scan_fwd.cu`` and
 ``csrc/gru_scan_bwd.cu``, each one template for both chains: one
 launch scans a whole layer (forward, or backward in reverse), the time loop
 inside the kernel and the carry in registers, one warp per batch row with
@@ -20,7 +23,8 @@ on CPU tensors they are the plain versions ``ops.gru.gru_scan_tm`` and
 in bf16), so the CPU tests run the same plumbing (saved tensors, strided
 views, the mask). On a CUDA tensor a wrapper launches its kernel or raises
 on what it does not take (d_m != 32, d_in > 96, dtypes other than float32
-and bfloat16, a mix of the two); nothing falls back to the plain version.
+and bfloat16, a mix of the two, a scale that is not [T, B] with a unit
+batch stride); nothing falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -40,65 +44,82 @@ REPLACES = "hpmn_tpu/ops/pallas_gru.py:127"
 BWD_SOURCE = "hpmn_tpu_torch/csrc/gru_scan_bwd.cu"
 BWD_REPLACES = "hpmn_tpu/ops/pallas_gru.py:209"
 # K1-bf16 and K2-bf16: the same sources' bf16 instantiations, in place of
-# the same Pallas kernels run with dtype=bfloat16.
+# the same Pallas kernels run with dtype=bfloat16; K1-scale and K2-scale
+# (and their bf16 forms): their has_scale instantiations.
 SOURCE_BF16, REPLACES_BF16 = SOURCE, REPLACES
 BWD_SOURCE_BF16, BWD_REPLACES_BF16 = BWD_SOURCE, BWD_REPLACES
+SOURCE_SCALE, REPLACES_SCALE = SOURCE, REPLACES
+BWD_SOURCE_SCALE, BWD_REPLACES_SCALE = BWD_SOURCE, BWD_REPLACES
 
 #: Kernel launches so far in this process (a run's proof that it went
-#: through the kernels): K1, K2, K1-bf16 and K2-bf16. Callers may reset
+#: through the kernels): K1, K2, K1-bf16, K2-bf16, and the scale forms
+#: K1-scale, K2-scale, K1-scale-bf16 and K2-scale-bf16. Callers may reset
 #: them to 0.
 launches = 0
 bwd_launches = 0
 launches_bf16 = 0
 bwd_launches_bf16 = 0
+launches_scale = 0
+bwd_launches_scale = 0
+launches_scale_bf16 = 0
+bwd_launches_scale_bf16 = 0
 
 _D_M = 32
 _MAX_D_IN = 96
-# The C entry points by stream dtype: the f32 chain and the bf16 one.
-_FWD_ENTRY = {torch.float32: "hpmn_gru_scan_fwd",
-              torch.bfloat16: "hpmn_gru_scan_fwd_bf16"}
-_BWD_ENTRY = {torch.float32: "hpmn_gru_scan_bwd",
-              torch.bfloat16: "hpmn_gru_scan_bwd_bf16"}
+# The C entry points by (stream dtype, scale): the f32 chain and the bf16
+# one, without and with the AUGRU scale.
+_FWD_ENTRY = {(torch.float32, False): "hpmn_gru_scan_fwd",
+              (torch.bfloat16, False): "hpmn_gru_scan_fwd_bf16",
+              (torch.float32, True): "hpmn_gru_scan_fwd_scale",
+              (torch.bfloat16, True): "hpmn_gru_scan_fwd_scale_bf16"}
+_BWD_ENTRY = {(torch.float32, False): "hpmn_gru_scan_bwd",
+              (torch.bfloat16, False): "hpmn_gru_scan_bwd_bf16",
+              (torch.float32, True): "hpmn_gru_scan_bwd_scale",
+              (torch.bfloat16, True): "hpmn_gru_scan_bwd_scale_bf16"}
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _kernel_name(dtype: torch.dtype, scaled: bool, bwd: bool) -> str:
+    return ("gru_scan_" + ("bwd" if bwd else "fwd")
+            + ("_scale" if scaled else "")
+            + ("_bf16" if dtype == torch.bfloat16 else ""))
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(dtype: torch.dtype):
-    fn = getattr(_build.load_library(), _FWD_ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+def _kernel_fn(dtype: torch.dtype, scaled: bool = False):
+    fn = getattr(_build.load_library(), _FWD_ENTRY[dtype, scaled])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * (3 if scaled else 2)
+                   + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_fns(dtype: torch.dtype):
+def _bwd_fns(dtype: torch.dtype, scaled: bool = False):
     lib = _build.load_library()
     rows = lib.hpmn_gru_scan_bwd_rows_per_block
     rows.argtypes = [ctypes.c_int]
     rows.restype = ctypes.c_int
-    fn = getattr(lib, _BWD_ENTRY[dtype])
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong,
-                    ctypes.c_void_p, ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 11
+    fn = getattr(lib, _BWD_ENTRY[dtype, scaled])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * (3 if scaled else 2)
+                   + [ctypes.c_void_p] * (12 if scaled else 11)
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return rows, fn
 
 
-def _check_cuda_args(w, x_tm, mask_tm, h0, name):
+def _check_cuda_args(w, x_tm, mask_tm, h0, name, scale_tm=None):
     T, B, d_in = x_tm.shape
     d_m = w.wh.shape[0]
     if d_m != _D_M or not 1 <= d_in <= _MAX_D_IN:
         raise ValueError(f"{name} takes d_m == {_D_M} and d_in <= "
                          f"{_MAX_D_IN}; got d_m={d_m}, d_in={d_in}")
-    if x_tm.dtype not in _FWD_ENTRY:
+    if x_tm.dtype not in _DTYPES:
         raise ValueError(f"{name} takes float32 or bfloat16 tensors; got "
                          f"{x_tm.dtype}")
     tensors = [x_tm, w.wx, w.wh, w.b]
-    tensors += [t for t in (mask_tm, h0) if t is not None]
+    tensors += [t for t in (mask_tm, h0, scale_tm) if t is not None]
     for t in tensors:
         if t.dtype != x_tm.dtype or t.device != x_tm.device:
             raise ValueError(f"{name} takes tensors of one dtype (float32 "
@@ -107,9 +128,9 @@ def _check_cuda_args(w, x_tm, mask_tm, h0, name):
                              f"{x_tm.device}")
     if x_tm.stride(2) != 1 or x_tm.stride(1) != d_in:
         raise ValueError("x_tm rows must be contiguous (any time stride)")
-    if mask_tm is not None and (mask_tm.shape != (T, B)
-                                or mask_tm.stride(1) != 1):
-        raise ValueError("mask_tm must be [T, B] with a unit batch stride")
+    for arg, t in (("mask_tm", mask_tm), ("scale_tm", scale_tm)):
+        if t is not None and (t.shape != (T, B) or t.stride(1) != 1):
+            raise ValueError(f"{arg} must be [T, B] with a unit batch stride")
     for t in (w.wx, w.wh, w.b):
         if not t.is_contiguous():
             raise ValueError("GRU weights must be contiguous")
@@ -117,47 +138,65 @@ def _check_cuda_args(w, x_tm, mask_tm, h0, name):
         raise ValueError("h0 must be a contiguous [B, d_m] tensor")
 
 
-def _launch(w, x_tm, mask_tm, h0) -> torch.Tensor:
-    """K1 (float32) or K1-bf16 (bfloat16): -> h_seq [T, B, 32], x's
-    dtype."""
-    global launches, launches_bf16
+def _count(name: str) -> None:
+    """One more launch of the kernel ``name`` (the counter of that name
+    without its ``gru_scan_`` prefix)."""
+    counter = {"fwd": "launches", "bwd": "bwd_launches"}
+    kind, _, form = name[len("gru_scan_"):].partition("_")
+    var = counter[kind] + ("_" + form if form else "")
+    globals()[var] += 1
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _tstride(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.stride(0)
+
+
+def _launch(w, x_tm, mask_tm, h0, scale_tm=None) -> torch.Tensor:
+    """K1 (float32) or K1-bf16 (bfloat16), K1-scale or K1-scale-bf16 with
+    a scale_tm: -> h_seq [T, B, 32], x's dtype."""
     T, B, d_in = x_tm.shape
-    _check_cuda_args(w, x_tm, mask_tm, h0, "gru_scan_fwd")
+    scaled = scale_tm is not None
+    name = _kernel_name(x_tm.dtype, scaled, bwd=False)
+    _check_cuda_args(w, x_tm, mask_tm, h0, name, scale_tm)
     hseq = torch.empty(T, B, _D_M, dtype=x_tm.dtype, device=x_tm.device)
     stream = torch.cuda.current_stream(x_tm.device).cuda_stream
-    code = _kernel_fn(x_tm.dtype)(
-        x_tm.data_ptr(), x_tm.stride(0),
-        None if mask_tm is None else mask_tm.data_ptr(),
-        0 if mask_tm is None else mask_tm.stride(0),
-        w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
-        None if h0 is None else h0.data_ptr(), hseq.data_ptr(),
-        T, B, d_in, stream)
-    if x_tm.dtype == torch.bfloat16:
-        _build.check_launch(code, "gru_scan_fwd_bf16")
-        launches_bf16 += 1
-    else:
-        _build.check_launch(code, "gru_scan_fwd")
-        launches += 1
+    streams = [x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm),
+               _tstride(mask_tm)]
+    if scaled:
+        streams += [scale_tm.data_ptr(), scale_tm.stride(0)]
+    code = _kernel_fn(x_tm.dtype, scaled)(
+        *streams, w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
+        _ptr(h0), hseq.data_ptr(), T, B, d_in, stream)
+    _build.check_launch(code, name)
+    _count(name)
     return hseq
 
 
-def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq):
-    """K2 (float32) or K2-bf16 (bfloat16): -> (dx in x's dtype, dwx, dwh,
-    db, dh0 in float32), the weight gradients summed over the kernel's
-    per-block partials."""
-    global bwd_launches, bwd_launches_bf16
+def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq, scale_tm=None):
+    """K2 (float32) or K2-bf16 (bfloat16), K2-scale or K2-scale-bf16 with a
+    scale_tm: -> (dx in x's dtype, dwx, dwh, db, dh0 in float32), and
+    dscale [T, B] in x's dtype after them with a scale_tm; the weight
+    gradients summed over the kernel's per-block partials."""
     T, B, d_in = x_tm.shape
-    _check_cuda_args(w, x_tm, mask_tm, h0, "gru_scan_bwd")
+    scaled = scale_tm is not None
+    name = _kernel_name(x_tm.dtype, scaled, bwd=True)
+    _check_cuda_args(w, x_tm, mask_tm, h0, name, scale_tm)
     for t in (hseq, dhseq):
         if t.shape != (T, B, _D_M) or t.dtype != x_tm.dtype \
                 or t.device != x_tm.device or not t.is_contiguous():
             raise ValueError("h_seq and dh_seq must be contiguous "
                              f"[T, B, {_D_M}] tensors of x's dtype on x's "
                              "device")
-    rows_fn, fn = _bwd_fns(x_tm.dtype)
+    rows_fn, fn = _bwd_fns(x_tm.dtype, scaled)
     n_blocks = -(-B // rows_fn(d_in))
     dev = x_tm.device
     dx = torch.empty(T, B, d_in, dtype=x_tm.dtype, device=dev)
+    dscale = (torch.empty(T, B, dtype=x_tm.dtype, device=dev) if scaled
+              else None)
     dh0 = torch.empty(B, _D_M, dtype=torch.float32, device=dev)
     dwx = torch.empty(n_blocks, d_in, 3 * _D_M, dtype=torch.float32,
                       device=dev)
@@ -165,81 +204,88 @@ def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq):
                       device=dev)
     db = torch.empty(n_blocks, 3 * _D_M, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = fn(
-        x_tm.data_ptr(), x_tm.stride(0),
-        None if mask_tm is None else mask_tm.data_ptr(),
-        0 if mask_tm is None else mask_tm.stride(0),
-        w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
-        None if h0 is None else h0.data_ptr(), hseq.data_ptr(),
-        dhseq.data_ptr(), dx.data_ptr(), dh0.data_ptr(), dwx.data_ptr(),
-        dwh.data_ptr(), db.data_ptr(), T, B, d_in, stream)
-    if x_tm.dtype == torch.bfloat16:
-        _build.check_launch(code, "gru_scan_bwd_bf16")
-        bwd_launches_bf16 += 1
-    else:
-        _build.check_launch(code, "gru_scan_bwd")
-        bwd_launches += 1
-    return dx, dwx.sum(0), dwh.sum(0), db.sum(0), dh0
+    streams = [x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm),
+               _tstride(mask_tm)]
+    if scaled:
+        streams += [scale_tm.data_ptr(), scale_tm.stride(0)]
+    outs = [dx.data_ptr()] + ([dscale.data_ptr()] if scaled else [])
+    code = fn(*streams, w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
+              _ptr(h0), hseq.data_ptr(), dhseq.data_ptr(), *outs,
+              dh0.data_ptr(), dwx.data_ptr(), dwh.data_ptr(), db.data_ptr(),
+              T, B, d_in, stream)
+    _build.check_launch(code, name)
+    _count(name)
+    out = (dx, dwx.sum(0), dwh.sum(0), db.sum(0), dh0)
+    return out + (dscale,) if scaled else out
 
 
 def gru_scan_bwd(params: GRUParams, x_tm: torch.Tensor,
                  mask_tm: Optional[torch.Tensor], h_seq: torch.Tensor,
                  dh_seq: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                 scale_tm: Optional[torch.Tensor] = None,
                  ) -> Tuple[torch.Tensor, ...]:
-    """The scan backward: K2 (K2-bf16 on bfloat16 tensors) on CUDA
-    tensors, ``gru_scan_tm_bwd`` (``gru_scan_tm_bwd_bf16``; same arguments
-    and results) on CPU tensors. The weight gradients and dh0 come back in
-    float32, dx in x's dtype."""
+    """The scan backward: K2 (K2-bf16 on bfloat16 tensors; K2-scale or
+    K2-scale-bf16 with a scale_tm) on CUDA tensors, ``gru_scan_tm_bwd``
+    (``gru_scan_tm_bwd_bf16``; same arguments and results) on CPU tensors.
+    The weight gradients and dh0 come back in float32, dx (and dscale
+    [T, B], after dh0, with a scale_tm) in x's dtype."""
     if x_tm.device.type == "cpu":
         plain = (gru_scan_tm_bwd_bf16 if x_tm.dtype == torch.bfloat16
                  else gru_scan_tm_bwd)
-        return plain(params, x_tm, mask_tm, h_seq, dh_seq, h0)
+        return plain(params, x_tm, mask_tm, h_seq, dh_seq, h0, scale_tm)
     if x_tm.device.type != "cuda":
         raise ValueError(f"gru_scan_bwd runs on cpu or cuda, not "
                          f"{x_tm.device}")
-    return _launch_bwd(params, x_tm, mask_tm, h0, h_seq, dh_seq.contiguous())
+    return _launch_bwd(params, x_tm, mask_tm, h0, h_seq, dh_seq.contiguous(),
+                       scale_tm)
 
 
 class GRUScan(torch.autograd.Function):
-    """h_seq = scan(x_tm, mask_tm, h0; wx, wh, b), time-major. Forward K1
-    and backward K2 on CUDA tensors; the plain versions on CPU tensors. All
-    tensors float32, or all bfloat16 (the bf16 chain). The mask gets no
-    gradient; h0 gets one when it is given. The weight gradients, summed in
-    float32, come back in the weights' dtype: in bf16 that rounding is the
-    TPU kernel's ``astype(wx4.dtype)`` after its tile sum."""
+    """h_seq = scan(x_tm, mask_tm, h0, scale_tm; wx, wh, b), time-major.
+    Forward K1 and backward K2 (or their scale forms, given a scale_tm) on
+    CUDA tensors; the plain versions on CPU tensors. All tensors float32,
+    or all bfloat16 (the bf16 chain). The mask gets no gradient; h0 gets one
+    when it is given, and so does the scale (dscale, in its dtype). The
+    weight gradients, summed in float32, come back in the weights' dtype:
+    in bf16 that rounding is the TPU kernel's ``astype(wx4.dtype)`` after
+    its tile sum."""
 
     @staticmethod
-    def forward(ctx, x_tm, mask_tm, h0, wx, wh, b):
+    def forward(ctx, x_tm, mask_tm, h0, wx, wh, b, scale_tm=None):
         w = GRUWeights(wx, wh, b)
         if x_tm.device.type == "cpu":
             plain = (gru_scan_tm_bf16 if x_tm.dtype == torch.bfloat16
                      else gru_scan_tm)
-            h_seq = plain(w, x_tm, mask_tm, h0)[0]
+            h_seq = plain(w, x_tm, mask_tm, h0, scale_tm)[0]
         else:
-            h_seq = _launch(w, x_tm, mask_tm, h0)
-        ctx.save_for_backward(x_tm, mask_tm, h0, wx, wh, b, h_seq)
+            h_seq = _launch(w, x_tm, mask_tm, h0, scale_tm)
+        ctx.save_for_backward(x_tm, mask_tm, h0, wx, wh, b, scale_tm, h_seq)
         return h_seq
 
     @staticmethod
     def backward(ctx, dh_seq):
-        x_tm, mask_tm, h0, wx, wh, b, h_seq = ctx.saved_tensors
-        dx, dwx, dwh, db, dh0 = gru_scan_bwd(
-            GRUWeights(wx, wh, b), x_tm, mask_tm, h_seq, dh_seq, h0)
+        x_tm, mask_tm, h0, wx, wh, b, scale_tm, h_seq = ctx.saved_tensors
+        dx, dwx, dwh, db, dh0, *dscale = gru_scan_bwd(
+            GRUWeights(wx, wh, b), x_tm, mask_tm, h_seq, dh_seq, h0,
+            scale_tm)
         return (dx, None, None if h0 is None else dh0.to(h0.dtype),
-                dwx.to(wx.dtype), dwh.to(wh.dtype), db.to(b.dtype))
+                dwx.to(wx.dtype), dwh.to(wh.dtype), db.to(b.dtype),
+                dscale[0] if dscale else None)
 
 
 def gru_sequence_tm(params: GRUParams, x_tm: torch.Tensor,
                     mask_tm: Optional[torch.Tensor] = None,
                     h0: Optional[torch.Tensor] = None,
+                    scale_tm: Optional[torch.Tensor] = None,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Time-major scan: x_tm [T, B, d_in], mask_tm [T, B] or None (full
-    sequences), h0 [B, d_m] or None -> (h_seq [T, B, d_m], h_T [B, d_m]),
-    differentiable through :class:`GRUScan`.
+    sequences), h0 [B, d_m] or None, scale_tm [T, B] or None (the AUGRU
+    gate scale: DIEN's attention) -> (h_seq [T, B, d_m], h_T [B, d_m]),
+    differentiable through :class:`GRUScan`, the scale included.
 
     x_tm may be a leading-axis strided view (``h_seq[period-1::period]`` of
     the layer below): both kernels take the time stride, so nothing is
-    copied. Likewise mask_tm."""
+    copied. Likewise mask_tm and scale_tm."""
     if x_tm.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gru_sequence_tm runs on cpu or cuda, not "
                          f"{x_tm.device}")
@@ -248,5 +294,6 @@ def gru_sequence_tm(params: GRUParams, x_tm: torch.Tensor,
         d_m = params.wh.shape[0]
         h = x_tm.new_zeros(B, d_m) if h0 is None else h0
         return x_tm.new_zeros(0, B, d_m), h
-    h_seq = GRUScan.apply(x_tm, mask_tm, h0, params.wx, params.wh, params.b)
+    h_seq = GRUScan.apply(x_tm, mask_tm, h0, params.wx, params.wh, params.b,
+                          scale_tm)
     return h_seq, h_seq[-1]

@@ -8,11 +8,14 @@ step, the reset gate applied to its candidate block afterwards):
     r = sigmoid(xp_r + g_r);  z = sigmoid(xp_z + g_z)
     c = tanh(xp_c + r * g_c);  h' = (1 - z) * h + z * c
 
-A masked step carries h unchanged (left-padded sequences). This is the plain
-version that the CUDA scan kernels (ops/cuda_gru.py) are held against:
-``gru_scan_tm`` for the forward, ``gru_scan_tm_bwd`` for the backward, and
+A masked step carries h unchanged (left-padded sequences). The AUGRU of
+DIEN is the same cell with the update gate scaled by a per-step attention
+weight a_t (``gate_scale``): z' = a_t * z. This is the plain version that
+the CUDA scan kernels (ops/cuda_gru.py) are held against: ``gru_scan_tm``
+for the forward, ``gru_scan_tm_bwd`` for the backward, and
 ``gru_scan_tm_bf16``/``gru_scan_tm_bwd_bf16`` for the bf16 chain of the
-TPU kernel's ``dtype=bfloat16`` form (see there).
+TPU kernel's ``dtype=bfloat16`` form (see there), each with and without
+the scale.
 """
 
 from __future__ import annotations
@@ -70,17 +73,21 @@ def _gates(params: GRUParams, xp: torch.Tensor, h: torch.Tensor):
     return r, z, c, g_c
 
 
-def gru_cell(params: GRUParams, xp: torch.Tensor,
-             h: torch.Tensor) -> torch.Tensor:
-    """One step from the input projection: xp [B, 3*d_m], h [B, d_m]."""
+def gru_cell(params: GRUParams, xp: torch.Tensor, h: torch.Tensor,
+             gate_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One step from the input projection: xp [B, 3*d_m], h [B, d_m];
+    gate_scale [B] or None, the AUGRU's attention weight on z."""
     _, z, c, _ = _gates(params, xp, h)
+    if gate_scale is not None:
+        z = z * gate_scale.reshape(z.shape[0], 1)
     return (1.0 - z) * h + z * c
 
 
 def gru_step(params: GRUParams, xp_t: torch.Tensor, h: torch.Tensor,
-             mask_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+             mask_t: Optional[torch.Tensor] = None,
+             gate_scale_t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """gru_cell, with h carried unchanged where mask_t [B] is 0."""
-    h_new = gru_cell(params, xp_t, h)
+    h_new = gru_cell(params, xp_t, h, gate_scale_t)
     if mask_t is None:
         return h_new
     m = mask_t.reshape(h.shape[0], 1)
@@ -90,9 +97,11 @@ def gru_step(params: GRUParams, xp_t: torch.Tensor, h: torch.Tensor,
 def gru_scan_tm(params: GRUParams, x_tm: torch.Tensor,
                 mask_tm: Optional[torch.Tensor] = None,
                 h0: Optional[torch.Tensor] = None,
+                scale_tm: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Time-major scan: x_tm [T, B, d_in], mask_tm [T, B] or None, h0
-    [B, d_m] or None -> (h_seq [T, B, d_m], h_T [B, d_m])."""
+    [B, d_m] or None, scale_tm [T, B] or None (the AUGRU gate scale) ->
+    (h_seq [T, B, d_m], h_T [B, d_m])."""
     T, B, _ = x_tm.shape
     d_m = params.wh.shape[0]
     h = (torch.zeros(B, d_m, dtype=x_tm.dtype, device=x_tm.device)
@@ -100,7 +109,8 @@ def gru_scan_tm(params: GRUParams, x_tm: torch.Tensor,
     xp = gru_input_proj(params, x_tm)  # [T, B, 3*d_m], one matmul
     hs = []
     for t in range(T):
-        h = gru_step(params, xp[t], h, None if mask_tm is None else mask_tm[t])
+        h = gru_step(params, xp[t], h, None if mask_tm is None else mask_tm[t],
+                     None if scale_tm is None else scale_tm[t])
         hs.append(h)
     if not hs:
         return x_tm.new_zeros(0, B, d_m), h
@@ -110,20 +120,24 @@ def gru_scan_tm(params: GRUParams, x_tm: torch.Tensor,
 def gru_scan_tm_bwd(params: GRUParams, x_tm: torch.Tensor,
                     mask_tm: Optional[torch.Tensor], h_seq: torch.Tensor,
                     dh_seq: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                    scale_tm: Optional[torch.Tensor] = None,
                     ) -> Tuple[torch.Tensor, ...]:
     """Backward of :func:`gru_scan_tm` by hand, independent of autograd:
     x_tm [T, B, d_in], mask_tm [T, B] or None, h_seq [T, B, d_m] (the
     forward's output), dh_seq [T, B, d_m] (its cotangent), h0 [B, d_m] or
-    None -> (dx [T, B, d_in], dwx, dwh, db, dh0 [B, d_m]).
+    None, scale_tm [T, B] or None -> (dx [T, B, d_in], dwx, dwh, db, dh0
+    [B, d_m]), and dscale [T, B] after them when scale_tm is given.
 
     The reverse sweep of the scan backward kernel: the gates are recomputed
     from h_{t-1} = h_seq[t-1] (h0 at t = 0) with the forward's formulas,
-    and dh is carried in reverse. Per step, with m = mask_t (1 with none):
+    and dh is carried in reverse. Per step, with m = mask_t and a =
+    scale_t (1 with none), zs = z a:
 
         gtot = dh_seq[t] + dh;  gcell = gtot * m
-        dz_s = gcell (c - h_prev);  dc = gcell z (1 - c^2)
-        dz = dz_s z (1 - z);        dr = dc g_c r (1 - r)
-        dh = gcell (1 - z) + (gtot - gcell) + [dr|dz|dc r] @ wh^T
+        dz_s = gcell (c - h_prev);  dc = gcell zs (1 - c^2)
+        dz = dz_s a z (1 - z);      dr = dc g_c r (1 - r)
+        dh = gcell (1 - zs) + (gtot - gcell) + [dr|dz|dc r] @ wh^T
+        dscale_t = sum_j dz_s z
 
     and dx_t = [dr|dz|dc] @ wx^T, dwx += x_t^T [dr|dz|dc], dwh += h_prev^T
     [dr|dz|dc r], db += sum [dr|dz|dc]."""
@@ -131,36 +145,42 @@ def gru_scan_tm_bwd(params: GRUParams, x_tm: torch.Tensor,
         else h0
     h_prev = torch.cat([h0[None], h_seq[:-1]])  # [T, B, d_m]
     return _bwd_sweep(params, x_tm, mask_tm, h_prev,
-                      lambda t, dh: dh_seq[t] + dh)
+                      lambda t, dh: dh_seq[t] + dh, scale_tm)
 
 
-def _bwd_sweep(params, x_tm, mask_tm, h_prev, cotangent):
-    """The reverse sweep of the f32 scan backward kernels (K2, K4): the
-    gates from h_prev [T, B, d_m] (the state before each step), the
-    cotangent gtot = cotangent(t, dh) that reaches h_t, the formulas of
+def _bwd_sweep(params, x_tm, mask_tm, h_prev, cotangent, scale_tm=None):
+    """The reverse sweep of the f32 scan backward kernels (K2, K2-scale,
+    K4): the gates from h_prev [T, B, d_m] (the state before each step),
+    the cotangent gtot = cotangent(t, dh) that reaches h_t, the formulas of
     :func:`gru_scan_tm_bwd`."""
     T, B, _ = x_tm.shape
     d_m = params.wh.shape[0]
     xp = gru_input_proj(params, x_tm)  # the forward's projection
     dpre_x = x_tm.new_empty(T, B, 3 * d_m)  # [dr | dz | dc]
     dpre_h = x_tm.new_empty(T, B, 3 * d_m)  # [dr | dz | dc * r]
+    dscale = None if scale_tm is None else x_tm.new_empty(T, B)
     dh = x_tm.new_zeros(B, d_m)
     for t in reversed(range(T)):
         hp = h_prev[t]
         r, z, c, g_c = _gates(params, xp[t], hp)
         gtot = cotangent(t, dh)
         gcell = gtot if mask_tm is None else gtot * mask_tm[t][:, None]
+        a = None if scale_tm is None else scale_tm[t][:, None]
+        zs = z if a is None else z * a
         dzs = gcell * (c - hp)
-        dc = gcell * z * (1.0 - c * c)
-        dz = dzs * z * (1.0 - z)
+        dc = gcell * zs * (1.0 - c * c)
+        dz = (dzs if a is None else dzs * a) * z * (1.0 - z)
         dr = dc * g_c * r * (1.0 - r)
+        if dscale is not None:
+            dscale[t] = (dzs * z).sum(dim=-1)
         dpre_x[t] = torch.cat([dr, dz, dc], dim=-1)
         dpre_h[t] = torch.cat([dr, dz, dc * r], dim=-1)
-        dh = gcell * (1.0 - z) + (gtot - gcell) + dpre_h[t] @ params.wh.T
+        dh = gcell * (1.0 - zs) + (gtot - gcell) + dpre_h[t] @ params.wh.T
     dx = dpre_x @ params.wx.T
     dwx = torch.einsum("tbi,tbj->ij", x_tm, dpre_x)
     dwh = torch.einsum("tbi,tbj->ij", h_prev, dpre_h)
-    return dx, dwx, dwh, dpre_x.sum(dim=(0, 1)), dh
+    out = (dx, dwx, dwh, dpre_x.sum(dim=(0, 1)), dh)
+    return out if dscale is None else out + (dscale,)
 
 
 # The bf16 chain: where ``hpmn_tpu/ops/pallas_gru.py`` with dtype=bfloat16
@@ -193,10 +213,13 @@ def _bf16_gates(xw_t, h, whf, bf):
 def gru_scan_tm_bf16(params: GRUParams, x_tm: torch.Tensor,
                      mask_tm: Optional[torch.Tensor] = None,
                      h0: Optional[torch.Tensor] = None,
+                     scale_tm: Optional[torch.Tensor] = None,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`gru_scan_tm` in the bf16 chain: every tensor bf16 (the weights
-    too) -> (h_seq [T, B, d_m], h_T [B, d_m]), bf16. With a mask the step is
-    h + m * (h_cell - h), rounded op by op; without one it is h_cell."""
+    and the scale too) -> (h_seq [T, B, d_m], h_T [B, d_m]), bf16. The cell
+    is h_cell = h + zs * (c - h) with zs = z * a_t (one bf16 mul) or z; with
+    a mask the step is h + m * (h_cell - h), rounded op by op; without one
+    it is h_cell."""
     T, B, _ = x_tm.shape
     d_m = params.wh.shape[0]
     whf, bf = params.wh.float(), params.b.float()
@@ -205,7 +228,8 @@ def gru_scan_tm_bf16(params: GRUParams, x_tm: torch.Tensor,
     hs = []
     for t in range(T):
         r, z, c, _ = _bf16_gates(xw[t], h, whf, bf)
-        h_cell = h + z * (c - h)
+        zs = z if scale_tm is None else z * scale_tm[t][:, None]
+        h_cell = h + zs * (c - h)
         h = (h_cell if mask_tm is None
              else h + mask_tm[t][:, None] * (h_cell - h))
         hs.append(h)
@@ -218,46 +242,57 @@ def gru_scan_tm_bwd_bf16(params: GRUParams, x_tm: torch.Tensor,
                          mask_tm: Optional[torch.Tensor], h_seq: torch.Tensor,
                          dh_seq: torch.Tensor,
                          h0: Optional[torch.Tensor] = None,
+                         scale_tm: Optional[torch.Tensor] = None,
                          ) -> Tuple[torch.Tensor, ...]:
     """:func:`gru_scan_tm_bwd` in the bf16 chain, as the TPU backward
-    kernel: bf16 inputs -> (dx bf16, dwx, dwh, db f32, dh0 f32).
+    kernel: bf16 inputs -> (dx bf16, dwx, dwh, db f32, dh0 f32), and
+    dscale [T, B] bf16 after them when scale_tm is given.
 
-    The dh carry is f32: gtot = bf16(dh_seq[t] + dh). dz_s, dc, dz, dr and
-    dc * r are bf16, op by op, and so is the carry's own term gcell -
-    gcell z (+ gtot - gcell with a mask); dh = f32(that) + dpre @ wh^T,
-    an f32 sum. dx = bf16(dpre @ wx^T). The weight gradients are f32 sums
-    of bf16 products; rounding them to the weights' dtype is the caller's
-    (``cuda_gru.GRUScan``)."""
+    The dh carry is f32: gtot = bf16(dh_seq[t] + dh). zs = z * a, dz_s, dc
+    = (gcell zs)(1 - c^2), dz = ((dz_s a) z)(1 - z), dr and dc * r are
+    bf16, op by op, and so is the carry's own term gcell - gcell zs (+ gtot
+    - gcell with a mask); dh = f32(that) + dpre @ wh^T, an f32 sum. dx =
+    bf16(dpre @ wx^T). dscale_t is the f32 sum over j of dz_s z, each
+    product exact in f32 (two bf16 values), rounded to bf16 once: what XLA
+    computes for the TPU kernel's ``jnp.sum(dzs * z)`` in interpret mode,
+    where the sum runs in f32 and the product's bf16 rounding is elided.
+    The weight gradients are f32 sums of bf16 products; rounding them to
+    the weights' dtype is the caller's (``cuda_gru.GRUScan``)."""
     h0 = x_tm.new_zeros(x_tm.shape[1], params.wh.shape[0]) if h0 is None \
         else h0
     h_prev = torch.cat([h0[None], h_seq[:-1]])  # [T, B, d_m]
     return _bwd_sweep_bf16(
         params, x_tm, mask_tm, h_prev,
-        lambda t, dh: (dh_seq[t].float() + dh).bfloat16())
+        lambda t, dh: (dh_seq[t].float() + dh).bfloat16(), scale_tm)
 
 
-def _bwd_sweep_bf16(params, x_tm, mask_tm, h_prev, cotangent):
+def _bwd_sweep_bf16(params, x_tm, mask_tm, h_prev, cotangent, scale_tm=None):
     """The reverse sweep of the bf16 scan backward kernels (K2-bf16,
-    K4-bf16), as :func:`_bwd_sweep` with the bf16 chain's roundings;
-    cotangent(t, dh) returns gtot, already rounded to bf16 from its f32
-    sum."""
+    K2-scale-bf16, K4-bf16), as :func:`_bwd_sweep` with the bf16 chain's
+    roundings; cotangent(t, dh) returns gtot, already rounded to bf16 from
+    its f32 sum."""
     T, B, _ = x_tm.shape
     d_m = params.wh.shape[0]
     wxf, whf, bf = params.wx.float(), params.wh.float(), params.b.float()
     xw = x_tm.float() @ wxf
     dpre_x = x_tm.new_empty(T, B, 3 * d_m)  # [dr | dz | dc]
     dpre_h = x_tm.new_empty(T, B, 3 * d_m)  # [dr | dz | dc * r]
+    dscale = None if scale_tm is None else x_tm.new_empty(T, B)
     dh = x_tm.new_zeros(B, d_m, dtype=torch.float32)
     for t in reversed(range(T)):
         hp = h_prev[t]
         r, z, c, g_c = _bf16_gates(xw[t], hp, whf, bf)
         gtot = cotangent(t, dh)
         gcell = gtot if mask_tm is None else gtot * mask_tm[t][:, None]
+        a = None if scale_tm is None else scale_tm[t][:, None]
+        zs = z if a is None else z * a
         dzs = gcell * (c - hp)
-        dc = gcell * z * (1.0 - c * c)
-        dz = dzs * z * (1.0 - z)
+        dc = gcell * zs * (1.0 - c * c)
+        dz = (dzs if a is None else dzs * a) * z * (1.0 - z)
         dr = dc * g_c * r * (1.0 - r)
-        carry = gcell - gcell * z
+        if dscale is not None:
+            dscale[t] = (dzs.float() * z.float()).sum(dim=-1).bfloat16()
+        carry = gcell - gcell * zs
         if mask_tm is not None:
             carry = carry + (gtot - gcell)
         dpre_x[t] = torch.cat([dr, dz, dc], dim=-1)
@@ -266,7 +301,8 @@ def _bwd_sweep_bf16(params, x_tm, mask_tm, h_prev, cotangent):
     dx = (dpre_x.float() @ wxf.T).bfloat16()
     dwx = torch.einsum("tbi,tbj->ij", x_tm.float(), dpre_x.float())
     dwh = torch.einsum("tbi,tbj->ij", h_prev.float(), dpre_h.float())
-    return dx, dwx, dwh, dpre_x.float().sum(dim=(0, 1)), dh
+    out = (dx, dwx, dwh, dpre_x.float().sum(dim=(0, 1)), dh)
+    return out if dscale is None else out + (dscale,)
 
 
 # The strided-output scan (pallas_gru.py's pallas_gru_stride_tm, the
@@ -362,10 +398,12 @@ def gru_scan_stride_tm_bwd_bf16(params: GRUParams, x_tm: torch.Tensor,
 def gru_sequence(params: GRUParams, x: torch.Tensor,
                  h0: Optional[torch.Tensor] = None,
                  mask: Optional[torch.Tensor] = None,
+                 gate_scale: Optional[torch.Tensor] = None,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batch-major scan: x [B, T, d_in], mask [B, T] -> (h_seq [B, T, d_m],
-    h_T [B, d_m])."""
-    h_seq, h_T = gru_scan_tm(params, x.transpose(0, 1),
-                             None if mask is None else mask.transpose(0, 1),
-                             h0)
+    """Batch-major scan: x [B, T, d_in], mask [B, T], gate_scale [B, T]
+    (the AUGRU attention) -> (h_seq [B, T, d_m], h_T [B, d_m])."""
+    h_seq, h_T = gru_scan_tm(
+        params, x.transpose(0, 1),
+        None if mask is None else mask.transpose(0, 1), h0,
+        None if gate_scale is None else gate_scale.transpose(0, 1))
     return h_seq.transpose(0, 1), h_T

@@ -1,0 +1,173 @@
+"""Lifelong serving for a family whose encoder depends on the target
+(DIEN): a bounded window of each user's W most recent behaviours, re-encoded
+per request — counterpart of ``hpmn_tpu/serving/history.py::HistoryStore``
+(its serving core).
+
+    store = HistoryStore(cfg, model)            # on the card, as the model
+    store.ingest_histories(uids, item_seqs, cat_seqs, masks)  # cold start
+    store.update(uids, item_ids, cat_ids)       # one new behaviour per user
+    scores = store.predict(uids, cand_items, cand_cats)           # [B]
+    scores = store.rank(uids, cand_items_bc, cand_cats_bc)        # [B, C]
+
+DIEN's attention scores every step of the history against the candidate,
+so no per-user state summarizes the history (``UserMemoryStore`` refuses
+the family): the store keeps the ids and re-encodes. The window has the
+training layout: ``[W]`` int32 ids, left-padded with zeros, the newest
+event at W-1, mask 1.0 at valid positions; W defaults to the dataset's
+sequence length. A user with at most W events scores exactly what
+``apply_model`` gives on their full history; beyond W the window slides
+(the oldest event drops). One event per distinct user per ``update``.
+
+The ids live on the host (a request moves ids up and scores down); the
+uid -> row index, growth and LRU eviction are ``lifelong.UserRows``.
+Scores are ``sigmoid(apply_model(...))`` on the model's device, under
+``no_grad`` and with the auxiliary loss off (it reads the batch's
+negatives and never the logits): with ``use_pallas`` each scoring call
+runs K1 (the interest GRU, masked) and K1-scale (the AUGRU). A call scores at most
+``max_score_rows`` (user, candidate) rows at a time, so a large ``rank``
+cannot take the device's memory; each row's score depends on that row
+alone, so the chunking changes no score. Save/load and bundles wait
+(ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..configs import Config
+from ..data.schema import batch_from_numpy
+from ..data.synthetic import SPECS
+from ..models.model import apply_model, check_supported
+from .lifelong import UserRows
+
+
+class HistoryStore(UserRows):
+    """Per-user recent-history windows with batched re-encoding
+    predict/rank; the public API of ``UserMemoryStore``."""
+
+    def __init__(self, cfg: Config, model, window: Optional[int] = None,
+                 max_users: Optional[int] = None, max_score_rows: int = 8192,
+                 device="cuda"):
+        check_supported(cfg)
+        self.device = torch.empty(0, device=device).device  # "cuda" -> cuda:i
+        if model.embedding.item.device != self.device:
+            raise ValueError(f"the model is on {model.embedding.item.device}"
+                             f", the store on {self.device}: move one")
+        self.cfg = cfg
+        self._score_cfg = cfg.with_model(dien_use_aux_loss=False)
+        self.model = model
+        self.window = int(window) if window else SPECS[cfg.dataset].seq_len
+        # Rows per scoring call (0: no bound): the encode's activations
+        # grow with rows x W.
+        self.max_score_rows = int(max_score_rows)
+        cap = self._init_rows(max_users)
+        self._items = np.zeros((cap, self.window), np.int32)
+        self._cats = np.zeros((cap, self.window), np.int32)
+        self._cnt = np.zeros((cap,), np.int64)  # lifetime event count
+
+    # ------------------------------------------------------------ arena --
+    def _grow_rows(self, cap: int, new_cap: int) -> None:
+        for name in ("_items", "_cats", "_cnt"):
+            old = getattr(self, name)
+            new = np.zeros((new_cap,) + old.shape[1:], old.dtype)
+            new[:cap] = old
+            setattr(self, name, new)
+
+    def _clear_rows(self, rows: list) -> None:
+        self._items[rows] = 0
+        self._cats[rows] = 0
+        self._cnt[rows] = 0
+
+    # -------------------------------------------------------- operations --
+    def update(self, uids, item_ids, cat_ids) -> None:
+        """Append one behaviour per listed (distinct) user: the window
+        slides left by one and the event lands at W-1."""
+        rows = self._rows_for(np.asarray(uids), create=True)
+        self._items[rows, :-1] = self._items[rows, 1:]
+        self._cats[rows, :-1] = self._cats[rows, 1:]
+        self._items[rows, -1] = np.asarray(item_ids, np.int32)
+        self._cats[rows, -1] = np.asarray(cat_ids, np.int32)
+        self._cnt[rows] += 1
+        self._touch(rows)
+
+    def ingest_histories(self, uids, item_seqs, cat_seqs, masks=None) -> None:
+        """Set users' windows from whole histories (cold start): the last
+        <= W valid events, right-aligned; the same windows as replaying
+        each history through :meth:`update`. Overwrites their state."""
+        item_seqs = np.asarray(item_seqs, np.int32)
+        cat_seqs = np.asarray(cat_seqs, np.int32)
+        W = self.window
+        valid = (np.ones(item_seqs.shape, bool) if masks is None
+                 else np.asarray(masks) > 0)
+        rows = self._rows_for(np.asarray(uids), create=True)
+        self._items[rows] = 0
+        self._cats[rows] = 0
+        for i, r in enumerate(rows):  # ragged per-user tails
+            idx = np.flatnonzero(valid[i])[-W:]
+            n = len(idx)
+            if n:
+                self._items[r, W - n:] = item_seqs[i, idx]
+                self._cats[r, W - n:] = cat_seqs[i, idx]
+            self._cnt[r] = n
+        self._touch(rows)
+
+    def _batch_arrays(self, uids, rows, cand_items, cand_cats) -> dict:
+        """The scoring batch's arrays: unknown users (row -1) get the
+        cold-start window, every step masked."""
+        known = rows >= 0
+        safe = np.where(known, rows, 0)
+        W = self.window
+        n_valid = np.minimum(np.where(known, self._cnt[safe], 0), W)
+        zeros = np.zeros((len(rows), W), np.int32)
+        return dict(
+            uid=np.asarray(uids, np.int32),
+            item_seq=np.where(known[:, None], self._items[safe], 0),
+            cat_seq=np.where(known[:, None], self._cats[safe], 0),
+            seq_mask=(np.arange(W)[None, :] >= (W - n_valid)[:, None]
+                      ).astype(np.float32),
+            target_item=cand_items, target_cat=cand_cats,
+            label=np.zeros((len(rows),), np.float32),
+            neg_item_seq=zeros, neg_cat_seq=zeros)
+
+    @torch.no_grad()
+    def _score_rows(self, uids, rows, cand_items, cand_cats) -> np.ndarray:
+        """Scores of flat (user row, candidate) pairs, at most
+        ``max_score_rows`` per call of the model."""
+        n = len(rows)
+        step = self.max_score_rows or max(n, 1)
+        out = np.empty((n,), np.float32)
+        for lo in range(0, n, step):
+            sl = slice(lo, lo + step)
+            batch = batch_from_numpy(
+                self._batch_arrays(uids[sl], rows[sl], cand_items[sl],
+                                   cand_cats[sl]), device=self.device)
+            logits, _ = apply_model(self.model, self._score_cfg, batch)
+            out[sl] = torch.sigmoid(logits).cpu().numpy()
+        return out
+
+    def predict(self, uids, cand_items, cand_cats) -> np.ndarray:
+        """CTR scores sigmoid(logit) [B] for (user, candidate) pairs."""
+        uids = np.asarray(uids)
+        rows = self._rows_for(uids, create=False)
+        out = self._score_rows(uids, rows, np.asarray(cand_items, np.int32),
+                               np.asarray(cand_cats, np.int32))
+        self._touch(rows[rows >= 0])
+        return out
+
+    def rank(self, uids, cand_items, cand_cats) -> np.ndarray:
+        """Scores [B, C] of C candidates per user; column c equals
+        ``predict(uids, cand_items[:, c], cand_cats[:, c])``. The encode
+        depends on the candidate, so each (user, candidate) row is encoded
+        on its own: B*C rows, in chunks of ``max_score_rows``."""
+        uids = np.asarray(uids)
+        cand_items = np.asarray(cand_items, np.int32)
+        B, C = cand_items.shape
+        rows = self._rows_for(uids, create=False)
+        rep = np.repeat(np.arange(B), C)
+        out = self._score_rows(uids[rep], rows[rep], cand_items.reshape(-1),
+                               np.asarray(cand_cats, np.int32).reshape(-1))
+        self._touch(rows[rows >= 0])
+        return out.reshape(B, C)

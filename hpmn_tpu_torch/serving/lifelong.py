@@ -29,44 +29,43 @@ from ..models.tower import apply_tower
 from .protocol import encode_full, read_state, update_state
 
 
-class UserMemoryStore:
-    """Per-user HPMN memory (uid -> [L, d_m] slots + event counter) in a
-    device arena with amortized doubling growth. With ``max_users`` set,
-    a full store evicts the least recently touched quarter in one pass; an
-    evicted user who comes back starts from empty memory."""
+class UserRows:
+    """uid -> arena row, with amortized doubling growth and bulk LRU
+    eviction: the host-side index that ``UserMemoryStore`` and
+    ``serving.history.HistoryStore`` share (the JAX stores' identical
+    mechanics). A subclass allocates its per-row arrays in ``__init__``
+    (capacity ``_initial_capacity()``) and implements ``_grow_rows`` and
+    ``_clear_rows``. With ``max_users`` set, a full store evicts the least
+    recently touched quarter in one pass; an evicted user who comes back
+    starts empty."""
 
     _MIN_CAP = 1024
 
-    def __init__(self, cfg: Config, model, max_users: Optional[int] = None,
-                 device="cuda"):
-        check_supported(cfg)
-        self.device = torch.empty(0, device=device).device  # "cuda" -> cuda:i
-        if model.embedding.item.device != self.device:
-            raise ValueError(f"the model is on {model.embedding.item.device}"
-                             f", the store on {self.device}: move one")
-        self.cfg = cfg
-        self.model = model
-        self.family = cfg.model.name
-        self.L = cfg.model.hpmn_layers
-        self.d_m = cfg.model.mem_dim
-        self.period = cfg.model.hpmn_period
+    def _init_rows(self, max_users: Optional[int]) -> int:
+        """Set up the index; -> the arena's first capacity."""
         self.max_users = max_users
         cap = (self._MIN_CAP if max_users is None
                else min(self._MIN_CAP, max_users))
-        self._mem = torch.zeros(cap, self.L, self.d_m, device=self.device)
-        self._cnt = torch.zeros(cap, dtype=torch.int64, device=self.device)
         self._last_touch = np.zeros((cap,), np.int64)  # LRU clock per row
         self._clock = 0
         self._row: Dict[int, int] = {}  # uid -> arena row
         self._row_uid = np.full((cap,), -1, np.int64)  # row -> uid
         self._next_row = 0  # high-water mark; evicted rows are recycled
         self._free_rows: list = []
+        return cap
 
     @property
     def n_users(self) -> int:
         return len(self._row)
 
-    # ------------------------------------------------------------ arena --
+    def _grow_rows(self, cap: int, new_cap: int) -> None:
+        """Extend the subclass's per-row arrays from cap to new_cap rows."""
+        raise NotImplementedError
+
+    def _clear_rows(self, rows: list) -> None:
+        """Reset the subclass's state of rows just allocated or recycled."""
+        raise NotImplementedError
+
     def _grow(self, need: int) -> None:
         cap = len(self._row_uid)
         new_cap = max(cap * 2, need, self._MIN_CAP)
@@ -77,11 +76,7 @@ class UserMemoryStore:
             new = np.full((new_cap,), fill, old.dtype)
             new[:cap] = old
             setattr(self, name, new)
-        for name in ("_mem", "_cnt"):
-            old = getattr(self, name)
-            new = old.new_zeros((new_cap,) + tuple(old.shape[1:]))
-            new[:cap] = old
-            setattr(self, name, new)
+        self._grow_rows(cap, new_cap)
 
     def _evict(self, need: int, protected=frozenset()) -> None:
         """Drop the ~25% least recently touched users (or ``need``, if
@@ -108,7 +103,7 @@ class UserMemoryStore:
         rows = np.empty(len(uids), np.int64)
         row_map = self._row
         missing = []
-        fresh = []  # rows allocated or recycled here, zeroed below
+        fresh = []  # rows allocated or recycled here, cleared below
         for i, u in enumerate(uids):
             r = row_map.get(int(u), -1)
             rows[i] = r
@@ -137,14 +132,56 @@ class UserMemoryStore:
                     protected.add(int(r))
                 rows[i] = r
         if fresh:
-            fr = torch.as_tensor(fresh, device=self.device)
-            self._mem[fr] = 0.0
-            self._cnt[fr] = 0
+            self._clear_rows(fresh)
         return rows
 
     def _touch(self, rows: np.ndarray) -> None:
         self._clock += 1
         self._last_touch[rows] = self._clock
+
+
+class UserMemoryStore(UserRows):
+    """Per-user HPMN memory (uid -> [L, d_m] slots + event counter) in a
+    device arena with amortized doubling growth. With ``max_users`` set,
+    a full store evicts the least recently touched quarter in one pass; an
+    evicted user who comes back starts from empty memory."""
+
+    def __init__(self, cfg: Config, model, max_users: Optional[int] = None,
+                 device="cuda"):
+        check_supported(cfg)
+        if cfg.model.name != "hpmn":
+            raise ValueError(
+                f"model family {cfg.model.name!r} has no target-independent"
+                " encoder recurrence, so there is no O(1) per-event state "
+                "update; UserMemoryStore serves ('hpmn',). Serve this family"
+                " with serving.history.HistoryStore (a bounded recent-history"
+                " window, re-encoded per request).")
+        self.device = torch.empty(0, device=device).device  # "cuda" -> cuda:i
+        if model.embedding.item.device != self.device:
+            raise ValueError(f"the model is on {model.embedding.item.device}"
+                             f", the store on {self.device}: move one")
+        self.cfg = cfg
+        self.model = model
+        self.family = cfg.model.name
+        self.L = cfg.model.hpmn_layers
+        self.d_m = cfg.model.mem_dim
+        self.period = cfg.model.hpmn_period
+        cap = self._init_rows(max_users)
+        self._mem = torch.zeros(cap, self.L, self.d_m, device=self.device)
+        self._cnt = torch.zeros(cap, dtype=torch.int64, device=self.device)
+
+    # ------------------------------------------------------------ arena --
+    def _grow_rows(self, cap: int, new_cap: int) -> None:
+        for name in ("_mem", "_cnt"):
+            old = getattr(self, name)
+            new = old.new_zeros((new_cap,) + tuple(old.shape[1:]))
+            new[:cap] = old
+            setattr(self, name, new)
+
+    def _clear_rows(self, rows: list) -> None:
+        fr = torch.as_tensor(rows, device=self.device)
+        self._mem[fr] = 0.0
+        self._cnt[fr] = 0
 
     def _set_rows(self, uids: np.ndarray, mem: torch.Tensor,
                   cnt: torch.Tensor) -> None:

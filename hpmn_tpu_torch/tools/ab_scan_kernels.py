@@ -1,8 +1,9 @@
-"""The scan kernels (K1 and K2, or K1-bf16 and K2-bf16; and the strided
-K3 and K4, or their bf16 forms, where both trees have them) of this tree
-against those of another tree, on one card: the same inputs through both
-builds, compared bit for bit, then timed in turns (other, this, this,
-other) with CUDA events.
+"""The scan kernels (K1 and K2, or K1-bf16 and K2-bf16; the strided K3 and
+K4, or their bf16 forms, and the AUGRU K1-scale and K2-scale, or their
+bf16 forms, where both trees have them) of this tree against those of
+another tree, on one card: the same inputs through both builds, compared
+bit for bit, then timed in turns (other, this, this, other) with CUDA
+events.
 
     git archive <commit> | tar -x -C build/other      # a gitignored place
     python3 -m hpmn_tpu_torch.tools.ab_scan_kernels \\
@@ -11,8 +12,9 @@ other) with CUDA events.
 Inputs: the xlong_hpmn layer-0 shape (T = 1000, B = 512, d_in = 32), the
 port's seeded GRU init, random x and dh_seq, no mask and a left-padded
 mask; for the strided kernels period 3 and random cotangents of the
-strided rows and of h_T. Exits nonzero if an output differs or there is
-no card.
+strided rows and of h_T; for the AUGRU kernels a scale in [0, 1), with
+and without the mask. Exits nonzero if an output differs or there is no
+card.
 """
 
 from __future__ import annotations
@@ -54,6 +56,11 @@ def _has_stride(csrc: str) -> bool:
     return os.path.isfile(os.path.join(csrc, "gru_scan_stride_fwd.cu"))
 
 
+def _has_scale(csrc: str) -> bool:
+    with open(os.path.join(csrc, "gru_scan_fwd.cu")) as f:
+        return "hpmn_gru_scan_fwd_scale" in f.read()
+
+
 def _ms(fn) -> float:
     fn()
     torch.cuda.synchronize()
@@ -92,7 +99,9 @@ def main(argv=None) -> int:
     mask = (torch.arange(T)[:, None] >= T - lens[None, :]).to(dev, dtype)
     dhs = torch.randn(T // PERIOD, B, 32, generator=gen).to(dev, dtype)
     dhT = torch.randn(B, 32, generator=gen).to(dev, dtype)
+    a = torch.rand(T, B, generator=gen).to(dev, dtype)
     strided = all(_has_stride(c) for c in trees.values())
+    scaled = all(_has_scale(c) for c in trees.values())
 
     outs = {}
     for tree, csrc in trees.items():
@@ -105,6 +114,10 @@ def main(argv=None) -> int:
                 hs, hT, bounds = cuda_gru_stride.stride_fwd(p, x, PERIOD)
                 res += [hs, hT, bounds, *cuda_gru_stride.stride_bwd(
                     p, x, PERIOD, bounds, dhs, dhT)]
+            for m in (None, mask) if scaled else ():
+                h = cuda_gru.gru_sequence_tm(p, x, m, scale_tm=a)[0]
+                res += [h, *cuda_gru.gru_scan_bwd(p, x, m, h, dh,
+                                                  scale_tm=a)]
             torch.cuda.synchronize()
             outs[tree] = res
     same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
@@ -113,7 +126,8 @@ def main(argv=None) -> int:
                          text=True).stdout.strip()
     print(f"ab_scan_kernels: {smi} | T={T} B={B} d_in={D_IN} {name} | "
           f"forward and backward outputs, mask and no mask"
-          f"{', and the strided kernels' if strided else ''}, bit for bit "
+          f"{', and the strided kernels' if strided else ''}"
+          f"{', and the AUGRU kernels' if scaled else ''}, bit for bit "
           f"the same: {same}")
     h = outs["this"][0]
     bounds = outs["this"][14] if strided else None
@@ -128,6 +142,14 @@ def main(argv=None) -> int:
                     p, x, PERIOD, bounds, dhs, dhT))
                 st = (f" | strided forward {st_fwd:.4f} ms | strided backward "
                       f"{st_bwd:.4f} ms (period {PERIOD})")
+            if scaled:
+                h_a = cuda_gru.gru_sequence_tm(p, x, None, scale_tm=a)[0]
+                sc_fwd = _ms(lambda: cuda_gru.gru_sequence_tm(
+                    p, x, None, scale_tm=a))
+                sc_bwd = _ms(lambda: cuda_gru.gru_scan_bwd(
+                    p, x, None, h_a, dh, scale_tm=a))
+                st += (f" | AUGRU forward {sc_fwd:.4f} ms | AUGRU backward "
+                       f"{sc_bwd:.4f} ms")
         print(f"ab_scan_kernels: {tree} ({trees[tree]}): forward {fwd:.4f} "
               f"ms | backward {bwd:.4f} ms{st} (mean of {REPS}, no mask, "
               f"{name})")

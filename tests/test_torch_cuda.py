@@ -22,7 +22,13 @@ outputs within 1e-2 of their max abs; the bf16 training step's loss within
 The strided scan (K3, K4 and their bf16 forms) is held to the same
 tolerances, its backward run from K3's own boundary states; K3-bf16's rows
 equal K1-bf16's strided rows bit for bit (the same ops on the same
-values)."""
+values).
+
+The AUGRU forms (K1-scale, K2-scale and their bf16 forms) are held to the
+plain scaled scans at the tolerances of their unscaled forms, dscale
+among the backward's outputs; the DIEN step's kernel path to its plain
+path (``plain=True``) as the hpmn steps; the DIEN HistoryStore on the card
+to the same store on the CPU at 1e-4 (scores through two scans)."""
 
 import numpy as np
 import pytest
@@ -40,6 +46,7 @@ from hpmn_tpu_torch.ops.gru import (GRUParams, GRUWeights, gru_scan_stride_tm,
                                     gru_scan_stride_tm_bwd_bf16, gru_scan_tm,
                                     gru_scan_tm_bf16, gru_scan_tm_bwd,
                                     gru_scan_tm_bwd_bf16)
+from hpmn_tpu_torch.serving.history import HistoryStore
 from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
 
 pytestmark = pytest.mark.cuda
@@ -448,3 +455,139 @@ def test_store_on_the_card_matches_the_cpu_store(dev):
     s_dev = stores[1].rank(uids, ci, ci % 40)
     np.testing.assert_allclose(s_dev, s_cpu, atol=TOL_GRU)
     assert cuda_readout.launches == n_ro + 1
+
+
+def _scale_counts():
+    return (cuda_gru.launches, cuda_gru.bwd_launches, cuda_gru.launches_bf16,
+            cuda_gru.bwd_launches_bf16, cuda_gru.launches_scale,
+            cuda_gru.bwd_launches_scale, cuda_gru.launches_scale_bf16,
+            cuda_gru.bwd_launches_scale_bf16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("T,B,strided", [
+    (1, 1, False), (1, 512, True), (17, 5, True), (17, 512, False),
+    (300, 1, True), (300, 5, False), (300, 512, True)])
+def test_scale_kernels_match_plain(dev, T, B, strided, masked, dtype):
+    """K1-scale and K2-scale (or their bf16 forms) against gru_scan_tm and
+    gru_scan_tm_bwd with the same scale (or their bf16 forms), x and the
+    scale strided time views where ``strided``, an h0 for odd B; no other
+    scan kernel runs. dscale is among the compared outputs."""
+    dt = torch.float32 if dtype == "float32" else BF16
+    p = _gru(32, dev)
+    p = GRUWeights(p.wx.to(dt), p.wh.to(dt), p.b.to(dt))
+    g = torch.Generator().manual_seed(T + B + masked)
+    n = 3 * T if strided else T
+    x_all = torch.randn(n, B, 32, generator=g).to(dev, dt)
+    a_all = torch.rand(n, B, generator=g).to(dev, dt)
+    x, a = (x_all[2::3], a_all[2::3]) if strided else (x_all, a_all)
+    mask = _mask(T, B, dev, seed=T).to(dt) if masked else None
+    h0 = torch.randn(B, 32, generator=g).to(dev, dt) if B % 2 else None
+    dh_seq = torch.randn(T, B, 32, generator=g).to(dev, dt)
+    counts = _scale_counts()
+    h_k, hT_k = cuda_gru.gru_sequence_tm(p, x, mask, h0, scale_tm=a)
+    got = cuda_gru.gru_scan_bwd(p, x, mask, h_k, dh_seq, h0, scale_tm=a)
+    fwd, bwd = ((gru_scan_tm, gru_scan_tm_bwd) if dt == torch.float32
+                else (gru_scan_tm_bf16, gru_scan_tm_bwd_bf16))
+    h_p, hT_p = fwd(p, x, mask, h0, a)
+    want = bwd(p, x, mask, h_k, dh_seq, h0, a)
+    torch.cuda.synchronize()
+    k = 4 if dt == torch.float32 else 6
+    ran = [b - a_ for a_, b in zip(counts, _scale_counts())]
+    assert ran == [0] * k + [1, 1] + [0] * (6 - k)
+    tol_h, tol_g = ((TOL_GRU, TOL_GRAD) if dt == torch.float32
+                    else (TOL_GRU_BF16, TOL_GRAD_BF16))
+    assert h_k.dtype == dt
+    assert (h_k.float() - h_p.float()).abs().max().item() <= tol_h
+    assert (hT_k.float() - hT_p.float()).abs().max().item() <= tol_h
+    assert len(got) == len(want) == 6
+    for name, u, v in zip(("dx", "dwx", "dwh", "db", "dh0", "dscale"), got,
+                          want):
+        assert u.shape == v.shape and u.dtype == v.dtype, name
+        assert torch.isfinite(u.float()).all(), name
+        assert _rel_err(u.float(), v.float()) <= tol_g, name
+
+
+def test_scale_kernels_refuse_what_they_do_not_take(dev):
+    p = _gru(32, dev)
+    x = torch.zeros(4, 2, 32, device=dev)
+    h = torch.zeros(4, 2, 32, device=dev)
+    with pytest.raises(ValueError, match="scale_tm"):
+        cuda_gru.gru_sequence_tm(p, x, scale_tm=torch.ones(4, 3, device=dev))
+    with pytest.raises(ValueError, match="scale_tm"):
+        cuda_gru.gru_sequence_tm(p, x, scale_tm=torch.ones(2, 4, device=dev).T)
+    with pytest.raises(ValueError, match="one dtype"):
+        cuda_gru.gru_sequence_tm(p, x, scale_tm=torch.ones(4, 2, device=dev,
+                                                           dtype=BF16))
+    with pytest.raises(ValueError, match="scale_tm"):
+        cuda_gru.gru_scan_bwd(p, x, None, h, h,
+                              scale_tm=torch.ones(4, 3, device=dev))
+    with pytest.raises(ValueError, match="dh_seq"):
+        cuda_gru.gru_scan_bwd(p, x, None, h, h.transpose(0, 1),
+                              scale_tm=torch.ones(4, 2, device=dev))
+
+
+def _dien_data(full_mask, n=32, T=300):
+    spec = synthetic.DatasetSpec("mid", seq_len=T, n_items=500, n_cats=40,
+                                 n_users=50)
+    return synthetic.make_ctr_dataset(spec, n, seed=1,
+                                      min_len_frac=1.0 if full_mask else 0.3)
+
+
+@pytest.mark.parametrize("scan_dtype,full_mask", [("float32", False),
+                                                  ("bfloat16", True)])
+def test_dien_step_kernel_path_matches_plain_path(dev, scan_dtype, full_mask):
+    """taobao_dien with use_pallas: one loss and gradient through K1, K2,
+    K1-scale and K2-scale (or their bf16 forms) == the same branch with the
+    plain scans under autograd (``plain=True``), from the same weights and
+    batch: f32 on left-padded histories, bf16 on full ones."""
+    cfg = configs.get_config("taobao_dien").with_model(
+        use_pallas=True, assume_full_mask=full_mask, scan_dtype=scan_dtype)
+    batch = batch_from_numpy(_dien_data(full_mask), device=dev)
+    out = []
+    for plain in (False, True):
+        model = init_model(cfg, 500, 40, seed=2, device=dev)
+        counts = _scale_counts()
+        loss, _ = loss_fn(model, cfg, batch, plain=plain)
+        loss.backward()
+        torch.cuda.synchronize()
+        ran = [b - a for a, b in zip(counts, _scale_counts())]
+        out.append((loss.item(), dict(model.named_parameters()), ran))
+    (l_k, p_k, ran_k), (l_p, p_p, ran_p) = out
+    if scan_dtype == "float32":
+        assert ran_k == [1, 1, 0, 0, 1, 1, 0, 0]
+        tol_loss, tol_grad = 1e-5, TOL_GRAD
+    else:
+        assert ran_k == [0, 0, 1, 1, 0, 0, 1, 1]
+        tol_loss, tol_grad = TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16
+    assert ran_p == [0] * 8
+    assert abs(l_k - l_p) <= tol_loss * abs(l_p)
+    for name, p in p_k.items():
+        assert p.grad.dtype == torch.float32, name
+        assert _rel_err(p.grad, p_p[name].grad) <= tol_grad, name
+
+
+def test_history_store_on_the_card_matches_the_cpu_store(dev):
+    cfg = configs.get_config("taobao_dien").with_model(use_pallas=True)
+    data = _dien_data(False, n=48, T=300)
+    stores = [HistoryStore(cfg, init_model(cfg, 500, 40, device=d),
+                           max_score_rows=40, device=d)
+              for d in ("cpu", dev)]
+    uids = np.arange(48)
+    ci = data["item_seq"][:, -7:] % 499 + 1
+    counts = _scale_counts()
+    scores = []
+    for s in stores:
+        s.ingest_histories(uids[:40], data["item_seq"][:40],
+                           data["cat_seq"][:40], masks=data["seq_mask"][:40])
+        s.update(uids[::5], data["target_item"][::5], data["target_cat"][::5])
+        scores.append((s.predict(uids, data["target_item"],
+                                 data["target_cat"]),
+                       s.rank(uids[:8], ci[:8], ci[:8] % 40)))
+    ran = [b - a for a, b in zip(counts, _scale_counts())]
+    # predict: 48 rows in chunks of 40 (2 calls); rank: 56 rows (2 calls)
+    assert ran == [4, 0, 0, 0, 4, 0, 0, 0]
+    (p_cpu, r_cpu), (p_dev, r_dev) = scores
+    np.testing.assert_allclose(p_dev, p_cpu, atol=TOL_GRU)
+    np.testing.assert_allclose(r_dev, r_cpu, atol=TOL_GRU)
