@@ -13,7 +13,9 @@ before the last line):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the paths' shapes, with its tolerance, its time, the plain time, the
    time of the one PyTorch call that computes the same (cuDNN's GRU for the
-   scans), and the least time the card could take (bound); the bf16 scan
+   scans), and the least time the card could take (bound); before each K1
+   line, K1's input projection alone (its first kernel), against the plain
+   projection, with its time and share of K1's; the bf16 scan
    kernels in bf16, with their drift from the f32 kernels; the strided
    scan kernels (K3, K4 and their bf16 forms), with their difference from
    the dense kernels' strided rows and gradients; the AUGRU scan kernels
@@ -67,6 +69,11 @@ import numpy as np
 TOL_GRU = 1e-4
 TOL_READOUT = 1e-5
 TOL_SLICE = 1e-4
+# K1's input projection alone against the plain projection computed in
+# float64: max abs difference over the plain result's max abs. Each output
+# is one f32 fmaf chain over d_in = 32 terms, about sqrt(32) roundings of
+# half an ulp of the partial sums: 1e-6.
+TOL_PROJ = 1e-6
 # The scan backward (K2) and the training step's gradients: max abs
 # difference over each tensor's max abs. Weight gradients sum over T*B =
 # 512k row-steps, in the kernel per warp, then per block, then over blocks,
@@ -221,8 +228,9 @@ def main():
                                         cuda_readout)
         from hpmn_tpu_torch.ops.gru import (
             GRUWeights, gru_scan_stride_tm, gru_scan_stride_tm_bf16,
-            gru_scan_stride_tm_bwd, gru_scan_stride_tm_bwd_bf16, gru_scan_tm,
-            gru_scan_tm_bf16, gru_scan_tm_bwd, gru_scan_tm_bwd_bf16)
+            gru_input_proj, gru_scan_stride_tm_bwd,
+            gru_scan_stride_tm_bwd_bf16, gru_scan_tm, gru_scan_tm_bf16,
+            gru_scan_tm_bwd, gru_scan_tm_bwd_bf16)
         from hpmn_tpu_torch.serving.history import HistoryStore
         from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
         from hpmn_tpu_torch.train.train import (make_multistep_train,
@@ -322,6 +330,7 @@ def main():
     for _ in range(m.hpmn_layers - 1):
         T_l.append(T_l[-1] // m.hpmn_period)
     gru_err, gru_rows = 0.0, []
+    proj_err_max, proj_rows = 0.0, []  # K1's projection: (T, err, ms)
     bwd_err, bwd_abs, bwd_rows = 0.0, 0.0, []
     bf_err, bf_rows, bf_drift = 0.0, [], 0.0
     bfb_err, bfb_abs, bfb_rows, bfb_drift = 0.0, 0.0, [], 0.0
@@ -370,6 +379,22 @@ def main():
               f"{cudnn16} | nn.GRU forward {nat16[0]:.4f} ms, backward "
               f"{nat16[1]:.4f} ms | forward kernels: "
               f"{library_kernels(lib16, x16)}", flush=True)
+        # K1's first kernel alone: the input projection of the whole x.
+        xp_k = cuda_gru.input_proj(layer, x)
+        xp_p = gru_input_proj(GRUWeights(layer.wx.double(),
+                                         layer.wh.double(),
+                                         layer.b.double()), x.double())
+        torch.cuda.synchronize()
+        check(torch.isfinite(xp_k).all().item(), f"K1's projection "
+              f"non-finite T={T}")
+        proj_err = ((xp_k.double() - xp_p).abs().max()
+                    / xp_p.abs().max()).item()
+        check(proj_err <= TOL_PROJ, f"K1's projection T={T}: max err over "
+              f"max abs {proj_err:.3e} > {TOL_PROJ}")
+        del xp_k, xp_p
+        proj_ms = cuda_ms(lambda: cuda_gru.input_proj(layer, x), 10)
+        proj_err_max = max(proj_err_max, proj_err)
+        proj_rows.append((T, proj_err, proj_ms))
         for masked in (False, True):
             mask = left_pad_mask(T, B_SCAN) if masked else None
             h_k, hT_k = cuda_gru.gru_sequence_tm(layer, x, mask)
@@ -386,6 +411,12 @@ def main():
             b_ms, b_by = bound(*scan_fwd_work(T, B_SCAN, d_in, masked))
             gru_err = max(gru_err, err)
             gru_rows.append((T, masked, err, ms, plain_ms, lib_t, b_ms, b_by))
+            print(f"phase 3 kernel gru_input_proj T={T} B={B_SCAN} "
+                  f"d_in={d_in}: max err over max abs {proj_err:.3e} "
+                  f"against the plain projection in float64 (tol "
+                  f"{TOL_PROJ}) | kernel {proj_ms:.4f} ms, "
+                  f"{100 * proj_ms / ms:.1f}% of K1's {ms:.4f} ms "
+                  f"(mask={masked})", flush=True)
             print(f"phase 3 kernel gru_scan_fwd T={T} B={B_SCAN} d_in={d_in} "
                   f"mask={masked}: max_abs_err {err:.3e} (tol {TOL_GRU}) | "
                   f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | library "
@@ -977,13 +1008,17 @@ def main():
                        and not getattr(a, "is_user_annotation", False)
                        and a.self_device_time_total > 0), reverse=True)
         dev_ms = sum(t for t, _, _ in kern) / 1e3 / n
+        # K1 is two kernels: its projection and its recurrence.
+        k1 = [sum(t for t, _, name in kern if part in name) / 1e3 / n
+              for part in ("input_proj_kernel", "gru_scan_fwd_xp_kernel")]
         if dev_ms > 0:
             top = ", ".join(f"{kernel_label(name)} {t / 1e3 / n:.3f} ms "
                             f"({c / n:g}/{unit})" for t, c, name in kern[:10])
             print(f"phase {phase} profile: device kernel time {dev_ms:.3f} "
                   f"ms per {unit} of {wall_ms:.3f} ms wall: busy "
                   f"{dev_ms / wall_ms:.1%}, idle {1 - dev_ms / wall_ms:.1%} "
-                  f"| top: {top}", flush=True)
+                  f"| K1 {sum(k1):.3f} ms (projection {k1[0]:.3f}, "
+                  f"recurrence {k1[1]:.3f}) | top: {top}", flush=True)
         else:
             print(f"phase {phase} profile: the profiler saw no device time; "
                   "device busy share not measured", flush=True)
@@ -1301,7 +1336,10 @@ def main():
         entry("gru_scan_fwd", cuda_gru.SOURCE, cuda_gru.REPLACES,
               (g[3], g[4], g[5], g[6], g[7]), gru_err,
               {"serving": launches_gru, "training": train_launches[0],
-               "training_dien": fd[0], "serving_dien": serve_launches[0]}),
+               "training_dien": fd[0], "serving_dien": serve_launches[0]},
+              sources=[cuda_gru.PROJ_SOURCE, cuda_gru.SOURCE],
+              projection_ms=proj_rows[0][2],
+              projection_max_err_over_max_abs=proj_err_max),
         entry("gru_scan_bwd", cuda_gru.BWD_SOURCE, cuda_gru.BWD_REPLACES,
               (gb[3], gb[4], gb[5], gb[6], gb[7]), bwd_abs,
               {"training": train_launches[1], "training_dien": fd[1]},

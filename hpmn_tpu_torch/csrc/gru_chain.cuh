@@ -2,7 +2,8 @@
 // K1-scale, gru_scan_bwd.cu K2 and K2-scale, gru_scan_stride_fwd.cu K3,
 // gru_scan_stride_bwd.cu K4): the stream conversions, the projections and
 // the gate chain, so that a backward recomputes (or replays) its forward's
-// gates bit for bit; the strided scan's step; one step's gate gradients,
+// gates bit for bit; the launcher of K1's input projection
+// (gru_input_proj.cu); the strided scan's step; one step's gate gradients,
 // with or without the AUGRU gate scale, and the warp sum of its dscale; and
 // the shared-memory pieces of the two backward kernels.
 //
@@ -33,6 +34,14 @@ constexpr int kDm = 32;  // hidden width: one lane per hidden unit
 constexpr int kG = 3 * kDm;  // the r, z and c blocks
 constexpr int kMaxChunks = 3;  // d_in <= 96: x_t in up to three 32-chunks
 constexpr unsigned kFull = 0xffffffffu;
+
+// K1's input projection, xp [T, B, 96] = x [T, B, d_in] @ wx + b in f32
+// (x at time stride x_tstride, rows contiguous), each output an fmaf chain
+// from 0 over k = 0 ... d_in-1, then + b: the bits of project()'s x part
+// plus the bias. Launches on `stream`; returns cudaGetLastError().
+int launch_input_proj(const float* x, long long x_tstride, const float* wx,
+                      const float* b, float* xp, int T, int B, int d_in,
+                      cudaStream_t stream);
 
 template <typename S>
 constexpr bool kIsBf16 = std::is_same<S, __nv_bfloat16>::value;
@@ -149,15 +158,34 @@ struct Gates {
   float gc;       // h @ wh_c: the candidate's h part, as the backward uses it
 };
 
+// f32 chain: one step's gates from the input projection with its bias,
+// xp_* = x_t @ wx_* + b_* (K1 computes it ahead of the recurrence,
+// gru_input_proj.cu; the others as p.a* + b_*, the same bits), and the h
+// projection g_* = h @ wh_*. The expressions are written once, here, so
+// that nvcc contracts r * g_c + xp_c into one fma wherever they run.
+__device__ __forceinline__ Gates gates_f32_xp(float xp_r, float xp_z,
+                                              float xp_c, float g_r,
+                                              float g_z, float g_c) {
+  Gates g;
+  g.r = sigmoid_f32(xp_r + g_r);
+  g.z = sigmoid_f32(xp_z + g_z);
+  g.c = tanhf(xp_c + g.r * g_c);
+  g.gc = g_c;
+  return g;
+}
+
 // f32 chain: one step's gates from the projections and the bias b_*.
 __device__ __forceinline__ Gates gates_f32(const Proj& p, float b_r,
                                            float b_z, float b_c) {
-  Gates g;
-  g.r = sigmoid_f32((p.ar + b_r) + p.gr);
-  g.z = sigmoid_f32((p.az + b_z) + p.gz);
-  g.c = tanhf((p.ac + b_c) + g.r * p.gc);
-  g.gc = p.gc;
-  return g;
+  return gates_f32_xp(p.ar + b_r, p.az + b_z, p.ac + b_c, p.gr, p.gz, p.gc);
+}
+
+// f32 chain: the dense forward's update, h_cell = h + zs*(c - h) (zs = z,
+// or z*a_t in the AUGRU), then h + m*(h_cell - h) (m = 1 with no mask).
+__device__ __forceinline__ float update_f32(float zs, float c, float h,
+                                            float m) {
+  const float h_cell = h + zs * (c - h);
+  return h + m * (h_cell - h);
 }
 
 struct GatesB {

@@ -1,47 +1,68 @@
-// GRU scan forward for Hopper (sm_90a): one launch scans one whole layer.
+// GRU scan forward for Hopper (sm_90a): one call scans one whole layer.
 //
 // Replaces hpmn_tpu/ops/pallas_gru.py::_fwd_kernel (its mask and no-mask
 // forms, with and without the AUGRU gate scale), in both of its chains:
-// f32 (K1, hpmn_gru_scan_fwd; K1-scale, hpmn_gru_scan_fwd_scale) and
+// f32 (K1, hpmn_gru_scan_fwd_ws; K1-scale, hpmn_gru_scan_fwd_scale) and
 // dtype=bfloat16 (K1-bf16, hpmn_gru_scan_fwd_bf16; K1-scale-bf16,
 // hpmn_gru_scan_fwd_scale_bf16; the chain is described in gru_chain.cuh).
 // Per step, for batch row b:
 //
-//   xp = x_t @ wx + b          (input projection, computed here as in the
-//                               TPU kernel, not hoisted out to a library)
+//   xp = x_t @ wx + b          (input projection)
 //   g  = h @ wh
 //   r = sigmoid(xp_r + g_r);  z = sigmoid(xp_z + g_z)
 //   c = tanh(xp_c + r * g_c)  (linear before reset)
 //   zs = z * a_t               (the scale forms: DIEN's AUGRU; else zs = z)
 //   h_cell = h + zs * (c - h); h' = h + m_t * (h_cell - h)
 //
-// With no mask, the f32 form takes m_t = 1 and the bf16 form h' = h_cell, as
-// the TPU kernel's has_mask=False does (in bf16 the two can differ by a
-// rounding). The scale is a compile-time flag (kScale): without it the
-// instantiations are the code of K1 and K1-bf16 as they were, bit for bit.
-// a [T, B] is read like the mask, one value per row and step, loaded
-// before the step's projections so that its latency hides behind them;
-// zs adds one multiply to the step's chain.
+// With no mask, the f32 forms take m_t = 1 and the bf16 forms h' = h_cell,
+// as the TPU kernel's has_mask=False does (in bf16 the two can differ by a
+// rounding).
 //
 // What bounds it: the recurrence. Step t needs h_{t-1}, so one row's T steps
-// run one after another and the work per step is small (d_m = 32: 192 FMAs
-// per hidden unit for both projections). The kernel is latency-bound, not
-// bound by bytes (x and h_seq stream once: 256 B per row and step in f32,
-// 128 B in bf16) or FLOPs. The bf16 form moves half the bytes, which are
-// not on that chain, and adds to the chain: its gate ops are bf16 ops
-// (one native instruction each, gru_chain.cuh) with conversions around
-// the three tanhf and the four pre-activation roundings. On the H100 it
-// takes longer than the f32 form (PERF.md).
+// run one after another and the work per step is small (d_m = 32). The
+// kernels are latency-bound, not bound by bytes (x and h_seq stream once:
+// 256 B per row and step in f32, 128 B in bf16) or FLOPs. What every form
+// does about it: the whole time loop runs inside one launch, with the carry
+// in registers, so no launch or device-memory round trip sits between
+// steps; one warp owns one batch row and lane j owns hidden unit j, so a
+// step needs no block barrier. h_seq is written at [t, b, :], one
+// contiguous row per warp and step.
 //
-// What the design does about it: the whole time loop runs inside the
-// kernel, with the carry in registers, so no launch or device-memory round
-// trip sits between steps. One warp owns one batch row and lane j owns hidden
-// unit j, so a step needs no block barrier: x_t and h_{t-1} reach every lane
-// through __shfl_sync, and wx and wh sit in shared memory (as f32, converted
-// once from the bf16 weights in the bf16 form), where lane j reads column j
-// of each block (consecutive words, no bank conflicts). The next step's x
-// row is loaded one step ahead to hide its latency. h_seq is written at
-// [t, b, :], one contiguous row per warp and step.
+// K1 (f32, no scale) runs in two kernels per chunk of time steps:
+//
+// 1. gru_input_proj.cu computes xp = x @ wx + b for the chunk into an f32
+//    workspace [Tc, B, 96] that the caller allocates: the half of the
+//    step's products that does not depend on h, as one tiled pass bound by
+//    bytes. Each output is K1's fmaf chain, so xp_r is the first form's
+//    p.ar + b_r bit for bit.
+// 2. gru_scan_fwd_xp_kernel runs the recurrence: lane j holds its 96
+//    weights wh[:, j], wh[:, 32+j], wh[:, 64+j] in registers, loaded once,
+//    so a step makes no shared-memory weight load; h_{t-1} reaches every
+//    lane through 32 __shfl_sync (one store per lane, __syncwarp and 8
+//    broadcast 16-byte shared-memory loads took 9% longer on the H100,
+//    PERF.md); g = h @ wh is fmaf from 0.0f over k = 0 ... 31, K1's order;
+//    xp and the mask are loaded kAhead steps ahead into a ring of
+//    registers, since a step is now shorter than a load from device memory.
+//    The gates and the update are gru_chain.cuh's gates_f32_xp and
+//    update_f32, the same expressions as K1-scale's, K2's and K4's.
+//
+// The chunks run one after another on the caller's stream; chunk i starts
+// from the last row of chunk i-1's h_seq (the carry, stored in f32, so the
+// result does not depend on the chunk length). The workspace's size is the
+// caller's choice (ops/cuda_gru.py caps it).
+//
+// The scale and bf16 forms run one kernel (gru_scan_fwd_kernel): x_t and
+// h_{t-1} reach every lane through __shfl_sync, wx and wh sit in shared
+// memory (as f32, converted once from the bf16 weights in the bf16 form),
+// where lane j reads column j of each block (consecutive words, no bank
+// conflicts), and the next step's x row is loaded one step ahead. The scale
+// is a compile-time flag (kScale). a [T, B] is read like the mask, one
+// value per row and step, loaded before the step's projections so that its
+// latency hides behind them; zs adds one multiply to the step's chain. The
+// bf16 form's gate ops are bf16 ops (one native instruction each,
+// gru_chain.cuh) with conversions around the three tanhf and the four
+// pre-activation roundings; on the H100 it takes longer than the f32 form
+// (PERF.md).
 //
 // The TPU kernel's packed [wx_r|wx_z|wx_c|0] / [wh_r|wh_z|0|wh_c] weights
 // (a 128-lane trick), its padding of T to a multiple of 8 and its boundary
@@ -56,11 +77,17 @@
 namespace {
 
 using hpmn::kDm;
+using hpmn::kG;
 using hpmn::kMaxChunks;  // d_in <= 96: weights fit 48 KB of smem
 constexpr int kWarps = 4;  // batch rows per block
+// K1's recurrence: batch rows per block, and steps of xp loaded ahead
+// (PERF.md has the times of 2 and 8 of each).
+constexpr int kRecWarps = 4;
+constexpr int kAhead = 4;
 
-// S: the stream type, float (K1) or __nv_bfloat16 (K1-bf16). kScale: the
-// AUGRU forms, reading scale [T, B] (time stride s_tstride).
+// K1-scale, K1-bf16 and K1-scale-bf16 (K1 itself is the two kernels
+// below). S: the stream type, float or __nv_bfloat16. kScale: the AUGRU
+// forms, reading scale [T, B] (time stride s_tstride).
 template <typename S, bool kScale>
 __global__ void __launch_bounds__(kWarps * 32)
 gru_scan_fwd_kernel(const S* __restrict__ x, long long x_tstride,
@@ -138,9 +165,7 @@ gru_scan_fwd_kernel(const S* __restrict__ x, long long x_tstride,
       *h_out = hb;
     } else {
       const hpmn::Gates g = hpmn::gates_f32(p, b_r, b_z, b_c);
-      const float zs = kScale ? g.z * a : g.z;
-      const float h_cell = h + zs * (g.c - h);
-      h = h + m * (h_cell - h);
+      h = hpmn::update_f32(kScale ? g.z * a : g.z, g.c, h, m);
       hpmn::store_f(h_out, h);
     }
 #pragma unroll
@@ -166,21 +191,120 @@ int launch(const S* x, long long x_tstride, const S* mask, long long m_tstride,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// x [T,B,d_in] (time stride x_tstride, rows contiguous), mask [T,B] (time
-// stride m_tstride) or null, wx [d_in,96], wh [32,96], b [96], h0 [B,32] or
-// null, hseq [T,B,32] contiguous, all of one type: float for K1, bf16 for
-// K1-bf16. Launches on `stream`; returns cudaGetLastError() after the launch.
-extern "C" int hpmn_gru_scan_fwd(const float* x, long long x_tstride,
-                                 const float* mask, long long m_tstride,
-                                 const float* wx, const float* wh,
-                                 const float* b, const float* h0, float* hseq,
-                                 int T, int B, int d_in, void* stream) {
-  return launch<float, false>(x, x_tstride, mask, m_tstride, nullptr, 0, wx,
-                              wh, b, h0, hseq, T, B, d_in, stream);
+// One step's xp (r, z, c blocks at lane j) and, with kMasked, mask value
+// for K1's recurrence ring, from xp [T, B, 96] and mask [T, B]. The loads
+// have no condition: the caller clamps t to the chunk's last step. A load
+// under a condition becomes a load and a select that keeps the old value,
+// and the select waits for the load in the step that issues it.
+template <bool kMasked>
+__device__ __forceinline__ void load_xp(float (&r)[4], const float* xp,
+                                        const float* mask, long long m_tstride,
+                                        int t, int B, int row, int lane) {
+  const float* p = xp + ((long long)t * B + row) * kG + lane;
+#pragma unroll
+  for (int g = 0; g < 3; ++g) r[g] = p[g * kDm];
+  if constexpr (kMasked) r[3] = mask[(long long)t * m_tstride + row];
 }
 
+// K1's recurrence over one chunk: xp [T, B, 96] contiguous (x @ wx + b, from
+// gru_input_proj.cu), mask [T, B] (time stride m_tstride; read only with
+// kMasked, else m = 1), wh [32, 96], h0 [B, 32] or null, hseq [T, B, 32]
+// contiguous.
+template <bool kMasked>
+__global__ void __launch_bounds__(kRecWarps * 32)
+gru_scan_fwd_xp_kernel(const float* __restrict__ xp,
+                       const float* __restrict__ mask, long long m_tstride,
+                       const float* __restrict__ wh,
+                       const float* __restrict__ h0, float* __restrict__ hseq,
+                       int T, int B) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * kRecWarps + warp;
+  if (row >= B) return;  // whole warps leave; no block barrier follows
+
+  float w_r[kDm], w_z[kDm], w_c[kDm];
+#pragma unroll
+  for (int k = 0; k < kDm; ++k) {
+    w_r[k] = wh[k * kG + lane];
+    w_z[k] = wh[k * kG + kDm + lane];
+    w_c[k] = wh[k * kG + 2 * kDm + lane];
+  }
+  float h = h0 != nullptr ? h0[(long long)row * kDm + lane] : 0.0f;
+
+  float ring[kAhead][4];
+#pragma unroll
+  for (int s = 0; s < kAhead; ++s)
+    load_xp<kMasked>(ring[s], xp, mask, m_tstride, s < T ? s : T - 1, B, row,
+                     lane);
+  for (int t0 = 0; t0 < T; t0 += kAhead) {
+#pragma unroll
+    for (int s = 0; s < kAhead; ++s) {
+      const int t = t0 + s;
+      if (t >= T) break;
+      const float xp_r = ring[s][0], xp_z = ring[s][1], xp_c = ring[s][2];
+      const float m = kMasked ? ring[s][3] : 1.0f;
+      load_xp<kMasked>(ring[s], xp, mask, m_tstride,
+                       t + kAhead < T ? t + kAhead : T - 1, B, row, lane);
+
+      float g_r = 0.0f, g_z = 0.0f, g_c = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kDm; ++k) {
+        const float hk = __shfl_sync(hpmn::kFull, h, k);
+        g_r = fmaf(hk, w_r[k], g_r);
+        g_z = fmaf(hk, w_z[k], g_z);
+        g_c = fmaf(hk, w_c[k], g_c);
+      }
+      const hpmn::Gates g = hpmn::gates_f32_xp(xp_r, xp_z, xp_c, g_r, g_z,
+                                               g_c);
+      h = hpmn::update_f32(g.z, g.c, h, m);
+      hseq[((long long)t * B + row) * kDm + lane] = h;
+    }
+  }
+}
+
+}  // namespace
+
+// K1: x [T,B,d_in] (time stride x_tstride, rows contiguous), mask [T,B]
+// (time stride m_tstride) or null, wx [d_in,96], wh [32,96], b [96], h0
+// [B,32] or null, hseq [T,B,32] contiguous, and the workspace ws [t_chunk,
+// B, 96] contiguous, all float32. Runs the chunks of t_chunk steps (the
+// last one shorter), each a projection into ws then the recurrence, on
+// `stream`; returns the first nonzero cudaGetLastError() after a launch, or
+// 0.
+extern "C" int hpmn_gru_scan_fwd_ws(const float* x, long long x_tstride,
+                                    const float* mask, long long m_tstride,
+                                    const float* wx, const float* wh,
+                                    const float* b, const float* h0,
+                                    float* hseq, float* ws, int t_chunk,
+                                    int T, int B, int d_in, void* stream) {
+  if (d_in < 1 || d_in > 32 * kMaxChunks || B < 1 || T < 1 || t_chunk < 1
+      || ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int grid = (B + kRecWarps - 1) / kRecWarps;
+  for (int t0 = 0; t0 < T; t0 += t_chunk) {
+    const int n = t_chunk < T - t0 ? t_chunk : T - t0;
+    int code = hpmn::launch_input_proj(x + t0 * x_tstride, x_tstride, wx, b,
+                                       ws, n, B, d_in, st);
+    if (code != 0) return code;
+    const float* h_in =
+        t0 == 0 ? h0 : hseq + ((long long)(t0 - 1) * B) * kDm;
+    float* h_out = hseq + (long long)t0 * B * kDm;
+    if (mask != nullptr)
+      gru_scan_fwd_xp_kernel<true><<<grid, kRecWarps * 32, 0, st>>>(
+          ws, mask + t0 * m_tstride, m_tstride, wh, h_in, h_out, n, B);
+    else
+      gru_scan_fwd_xp_kernel<false><<<grid, kRecWarps * 32, 0, st>>>(
+          ws, nullptr, 0, wh, h_in, h_out, n, B);
+    code = (int)cudaGetLastError();
+    if (code != 0) return code;
+  }
+  return 0;
+}
+
+// K1-bf16: x [T,B,d_in] (time stride x_tstride, rows contiguous), mask
+// [T,B] (time stride m_tstride) or null, wx [d_in,96], wh [32,96], b [96],
+// h0 [B,32] or null, hseq [T,B,32] contiguous, all bf16. Launches on
+// `stream`; returns cudaGetLastError() after the launch.
 extern "C" int hpmn_gru_scan_fwd_bf16(
     const __nv_bfloat16* x, long long x_tstride, const __nv_bfloat16* mask,
     long long m_tstride, const __nv_bfloat16* wx, const __nv_bfloat16* wh,

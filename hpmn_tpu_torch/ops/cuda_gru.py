@@ -14,7 +14,11 @@ inside the kernel and the carry in registers, one warp per batch row with
 lane j owning hidden unit j. The recurrence bounds both (each step waits
 for the last); keeping the whole loop in one launch, with no barrier or
 device-memory round trip between steps, is what the design does about
-that. See the sources' headers for the rest.
+that. K1 (f32, no scale) is two kernels: ``csrc/gru_input_proj.cu``
+computes x @ wx + b for a chunk of steps into a workspace this module
+allocates (at most :data:`WORKSPACE_BYTES`), then the recurrence reads it;
+one C call runs every chunk, and one K1 call counts one launch. See the
+sources' headers for the rest.
 
 :class:`GRUScan` is the ``torch.autograd.Function`` that mirrors the
 custom_vjp: on CUDA tensors its forward launches K1 and its backward K2;
@@ -36,11 +40,13 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .gru import (GRUParams, GRUWeights, gru_scan_tm, gru_scan_tm_bf16,
-                  gru_scan_tm_bwd, gru_scan_tm_bwd_bf16)
+from .gru import (GRUParams, GRUWeights, gru_input_proj, gru_scan_tm,
+                  gru_scan_tm_bf16, gru_scan_tm_bwd, gru_scan_tm_bwd_bf16)
 
 SOURCE = "hpmn_tpu_torch/csrc/gru_scan_fwd.cu"
 REPLACES = "hpmn_tpu/ops/pallas_gru.py:127"
+# K1's first kernel, the input projection (with SOURCE's recurrence).
+PROJ_SOURCE = "hpmn_tpu_torch/csrc/gru_input_proj.cu"
 BWD_SOURCE = "hpmn_tpu_torch/csrc/gru_scan_bwd.cu"
 BWD_REPLACES = "hpmn_tpu/ops/pallas_gru.py:209"
 # K1-bf16 and K2-bf16: the same sources' bf16 instantiations, in place of
@@ -63,13 +69,20 @@ launches_scale = 0
 bwd_launches_scale = 0
 launches_scale_bf16 = 0
 bwd_launches_scale_bf16 = 0
+#: Launches of K1's projection on its own (:func:`input_proj`); K1's own
+#: projections count in ``launches``.
+proj_launches = 0
+
+#: The cap on K1's f32 workspace xp [Tc, B, 96]: Tc is the most steps that
+#: fit (at least 1), and K1 runs ceil(T / Tc) chunks of projection then
+#: recurrence in one C call. 64 MiB: Tc = 341 at B = 512, 27 at B = 6400.
+WORKSPACE_BYTES = 64 << 20
 
 _D_M = 32
 _MAX_D_IN = 96
 # The C entry points by (stream dtype, scale): the f32 chain and the bf16
-# one, without and with the AUGRU scale.
-_FWD_ENTRY = {(torch.float32, False): "hpmn_gru_scan_fwd",
-              (torch.bfloat16, False): "hpmn_gru_scan_fwd_bf16",
+# one, without and with the AUGRU scale (K1's own is _ws_fn's).
+_FWD_ENTRY = {(torch.bfloat16, False): "hpmn_gru_scan_fwd_bf16",
               (torch.float32, True): "hpmn_gru_scan_fwd_scale",
               (torch.bfloat16, True): "hpmn_gru_scan_fwd_scale_bf16"}
 _BWD_ENTRY = {(torch.float32, False): "hpmn_gru_scan_bwd",
@@ -93,6 +106,32 @@ def _kernel_fn(dtype: torch.dtype, scaled: bool = False):
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _ws_fn():
+    fn = _build.load_library().hpmn_gru_scan_fwd_ws
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _proj_fn():
+    fn = _build.load_library().hpmn_gru_input_proj
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def workspace_steps(T: int, B: int) -> int:
+    """K1's chunk: the steps of xp [., B, 96] in f32 that fit
+    :data:`WORKSPACE_BYTES`, at least 1 and at most T."""
+    return max(1, min(T, WORKSPACE_BYTES // (B * 3 * _D_M * 4)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -155,6 +194,19 @@ def _tstride(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.stride(0)
 
 
+def _k1(w, x_tm, mask_tm, h0, hseq, stream) -> int:
+    """K1's C call: the workspace, then every chunk's projection and
+    recurrence; -> the cudaError_t code."""
+    T, B, d_in = x_tm.shape
+    t_chunk = workspace_steps(T, B)
+    ws = torch.empty(t_chunk, B, 3 * _D_M, dtype=torch.float32,
+                     device=x_tm.device)
+    return _ws_fn()(x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm),
+                    _tstride(mask_tm), w.wx.data_ptr(), w.wh.data_ptr(),
+                    w.b.data_ptr(), _ptr(h0), hseq.data_ptr(), ws.data_ptr(),
+                    t_chunk, T, B, d_in, stream)
+
+
 def _launch(w, x_tm, mask_tm, h0, scale_tm=None) -> torch.Tensor:
     """K1 (float32) or K1-bf16 (bfloat16), K1-scale or K1-scale-bf16 with
     a scale_tm: -> h_seq [T, B, 32], x's dtype."""
@@ -164,13 +216,16 @@ def _launch(w, x_tm, mask_tm, h0, scale_tm=None) -> torch.Tensor:
     _check_cuda_args(w, x_tm, mask_tm, h0, name, scale_tm)
     hseq = torch.empty(T, B, _D_M, dtype=x_tm.dtype, device=x_tm.device)
     stream = torch.cuda.current_stream(x_tm.device).cuda_stream
-    streams = [x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm),
-               _tstride(mask_tm)]
-    if scaled:
-        streams += [scale_tm.data_ptr(), scale_tm.stride(0)]
-    code = _kernel_fn(x_tm.dtype, scaled)(
-        *streams, w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
-        _ptr(h0), hseq.data_ptr(), T, B, d_in, stream)
+    if x_tm.dtype == torch.float32 and not scaled:
+        code = _k1(w, x_tm, mask_tm, h0, hseq, stream)
+    else:
+        streams = [x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm),
+                   _tstride(mask_tm)]
+        if scaled:
+            streams += [scale_tm.data_ptr(), scale_tm.stride(0)]
+        code = _kernel_fn(x_tm.dtype, scaled)(
+            *streams, w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
+            _ptr(h0), hseq.data_ptr(), T, B, d_in, stream)
     _build.check_launch(code, name)
     _count(name)
     return hseq
@@ -217,6 +272,31 @@ def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq, scale_tm=None):
     _count(name)
     out = (dx, dwx.sum(0), dwh.sum(0), db.sum(0), dh0)
     return out + (dscale,) if scaled else out
+
+
+def input_proj(params: GRUParams, x_tm: torch.Tensor) -> torch.Tensor:
+    """K1's input projection alone: x_tm [T, B, d_in] (any time stride,
+    rows contiguous) -> xp [T, B, 96] = x_tm @ wx + b in float32, by the
+    kernel on CUDA tensors (float32 only), by ``gru_input_proj`` on CPU
+    tensors."""
+    if x_tm.device.type == "cpu":
+        return gru_input_proj(params, x_tm)
+    if x_tm.device.type != "cuda":
+        raise ValueError(f"input_proj runs on cpu or cuda, not "
+                         f"{x_tm.device}")
+    global proj_launches
+    _check_cuda_args(params, x_tm, None, None, "gru_input_proj")
+    if x_tm.dtype != torch.float32:
+        raise ValueError(f"gru_input_proj takes float32 tensors; got "
+                         f"{x_tm.dtype}")
+    T, B, d_in = x_tm.shape
+    xp = torch.empty(T, B, 3 * _D_M, dtype=torch.float32, device=x_tm.device)
+    code = _proj_fn()(x_tm.data_ptr(), x_tm.stride(0), params.wx.data_ptr(),
+                      params.b.data_ptr(), xp.data_ptr(), T, B, d_in,
+                      torch.cuda.current_stream(x_tm.device).cuda_stream)
+    _build.check_launch(code, "gru_input_proj")
+    proj_launches += 1
+    return xp
 
 
 def gru_scan_bwd(params: GRUParams, x_tm: torch.Tensor,

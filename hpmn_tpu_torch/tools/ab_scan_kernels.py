@@ -15,11 +15,16 @@ mask; for the strided kernels period 3 and random cotangents of the
 strided rows and of h_T; for the AUGRU kernels a scale in [0, 1), with
 and without the mask. Exits nonzero if an output differs or there is no
 card.
+
+A tree whose K1 (f32, no scale) predates the two-kernel form has no
+``hpmn_gru_scan_fwd_ws``; its K1 is then called through its one-kernel
+entry point ``hpmn_gru_scan_fwd``, with that entry point's arguments.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import os
 import subprocess
@@ -33,23 +38,45 @@ from ..ops.gru import GRUParams
 T, B, D_IN = 1000, 512, 32
 PERIOD = 3
 REPS = 20
-_CACHES = (cuda_gru._kernel_fn, cuda_gru._bwd_fns, cuda_gru_stride.chunk,
-           cuda_gru_stride._fwd_fn, cuda_gru_stride._bwd_fns)
+_CACHES = (cuda_gru._kernel_fn, cuda_gru._ws_fn, cuda_gru._bwd_fns,
+           cuda_gru_stride.chunk, cuda_gru_stride._fwd_fn,
+           cuda_gru_stride._bwd_fns)
+
+
+def _one_kernel_k1(w, x_tm, mask_tm, h0, hseq, stream) -> int:
+    """K1 of a tree without the two-kernel form: its hpmn_gru_scan_fwd."""
+    fn = _build.load_library().hpmn_gru_scan_fwd
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    T, B, d_in = x_tm.shape
+    return fn(x_tm.data_ptr(), x_tm.stride(0), cuda_gru._ptr(mask_tm),
+              cuda_gru._tstride(mask_tm), w.wx.data_ptr(), w.wh.data_ptr(),
+              w.b.data_ptr(), cuda_gru._ptr(h0), hseq.data_ptr(), T, B, d_in,
+              stream)
 
 
 @contextlib.contextmanager
 def _kernels_of(csrc: str):
     """Route the scan wrappers to the library built from ``csrc``."""
-    load = _build.load_library
+    load, k1 = _build.load_library, cuda_gru._k1
     _build.load_library = functools.partial(load, csrc)
+    if not _has_ws(csrc):
+        cuda_gru._k1 = _one_kernel_k1
     for cache in _CACHES:
         cache.cache_clear()
     try:
         yield
     finally:
-        _build.load_library = load
+        _build.load_library, cuda_gru._k1 = load, k1
         for cache in _CACHES:
             cache.cache_clear()
+
+
+def _has_ws(csrc: str) -> bool:
+    with open(os.path.join(csrc, "gru_scan_fwd.cu")) as f:
+        return "hpmn_gru_scan_fwd_ws" in f.read()
 
 
 def _has_stride(csrc: str) -> bool:

@@ -24,6 +24,13 @@ tolerances, its backward run from K3's own boundary states; K3-bf16's rows
 equal K1-bf16's strided rows bit for bit (the same ops on the same
 values).
 
+K1 runs as two kernels, the input projection into a workspace and the
+recurrence, over chunks of steps: the projection alone is held to the
+plain projection computed in float64, within 1e-6 of its max abs (each
+output is one fmaf chain over d_in <= 96 terms, about sqrt(d_in) roundings
+of half an ulp), and K1 over several chunks equals K1 over one chunk bit
+for bit (each chunk starts from the last f32 row of h_seq).
+
 The AUGRU forms (K1-scale, K2-scale and their bf16 forms) are held to the
 plain scaled scans at the tolerances of their unscaled forms, dscale
 among the backward's outputs; the DIEN step's kernel path to its plain
@@ -40,7 +47,8 @@ from hpmn_tpu_torch.data.schema import batch_from_numpy
 from hpmn_tpu_torch.models.model import init_model, loss_fn
 from hpmn_tpu_torch.models.readout import Readout, attention_readout
 from hpmn_tpu_torch.ops import cuda_gru, cuda_gru_stride, cuda_readout
-from hpmn_tpu_torch.ops.gru import (GRUParams, GRUWeights, gru_scan_stride_tm,
+from hpmn_tpu_torch.ops.gru import (GRUParams, GRUWeights, gru_input_proj,
+                                    gru_scan_stride_tm,
                                     gru_scan_stride_tm_bf16,
                                     gru_scan_stride_tm_bwd,
                                     gru_scan_stride_tm_bwd_bf16, gru_scan_tm,
@@ -52,6 +60,7 @@ from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
 pytestmark = pytest.mark.cuda
 
 TOL_GRU, TOL_READOUT, TOL_GRAD = 1e-4, 1e-5, 1e-4
+TOL_PROJ = 1e-6
 TOL_GRU_BF16, TOL_GRAD_BF16 = 3e-2, 1e-2
 TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16 = 1e-4, 2e-2
 BF16 = torch.bfloat16
@@ -82,7 +91,9 @@ def _mask(T, B, dev, seed=0):
 
 @pytest.mark.parametrize("T,B,d_in,masked", [
     (1, 3, 32, False), (7, 33, 32, True), (100, 64, 32, False),
-    (100, 64, 32, True), (50, 10, 70, True), (20, 5, 5, False)])
+    (100, 64, 32, True), (50, 10, 70, True), (20, 5, 5, False),
+    (1, 1, 1, True), (9, 5, 31, True), (12, 513, 33, False),
+    (30, 513, 96, True), (6, 2, 96, False), (40, 1, 33, True)])
 def test_gru_kernel_matches_plain(dev, T, B, d_in, masked):
     p = _gru(d_in, dev)
     x = torch.randn(T, B, d_in, generator=torch.Generator().manual_seed(T)
@@ -99,12 +110,54 @@ def test_gru_kernel_matches_plain(dev, T, B, d_in, masked):
 
 
 def test_gru_kernel_takes_strided_time_views(dev):
-    p = _gru(32, dev)
-    h = torch.randn(100, 16, 32, device=dev)
-    mask = _mask(100, 16, dev)
-    h_k, _ = cuda_gru.gru_sequence_tm(p, h[2::3], mask[2::3])
-    h_p, _ = gru_scan_tm(p, h[2::3].contiguous(), mask[2::3].contiguous())
-    assert (h_k - h_p).abs().max().item() <= TOL_GRU
+    for d_in, B in ((32, 16), (1, 5), (33, 513), (96, 5)):
+        p = _gru(d_in, dev)
+        h = torch.randn(100, B, d_in, device=dev)
+        mask = _mask(100, B, dev)
+        h_k, _ = cuda_gru.gru_sequence_tm(p, h[2::3], mask[2::3])
+        h_p, _ = gru_scan_tm(p, h[2::3].contiguous(), mask[2::3].contiguous())
+        assert (h_k - h_p).abs().max().item() <= TOL_GRU, (d_in, B)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("steps", [1, 7])
+def test_gru_kernel_chunks_match_one_chunk(dev, monkeypatch, masked, steps):
+    """K1 over workspace chunks of `steps` steps (the last one shorter) ==
+    K1 over one chunk, bit for bit, from h0 on a strided time view."""
+    T, B, d_in = 50, 5, 33
+    p = _gru(d_in, dev)
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(3 * T, B, d_in, generator=g).to(dev)[2::3]
+    mask = _mask(T, B, dev) if masked else None
+    h0 = torch.randn(B, 32, generator=g).to(dev)
+    assert cuda_gru.workspace_steps(T, B) == T
+    one = cuda_gru.gru_sequence_tm(p, x, mask, h0)
+    monkeypatch.setattr(cuda_gru, "WORKSPACE_BYTES", steps * B * 96 * 4)
+    assert cuda_gru.workspace_steps(T, B) == steps
+    n = cuda_gru.launches
+    chunked = cuda_gru.gru_sequence_tm(p, x, mask, h0)
+    torch.cuda.synchronize()
+    assert cuda_gru.launches == n + 1
+    assert torch.equal(chunked[0], one[0]) and torch.equal(chunked[1], one[1])
+
+
+@pytest.mark.parametrize("d_in", [1, 31, 32, 33, 96])
+@pytest.mark.parametrize("B", [1, 5, 513])
+def test_input_proj_kernel_matches_plain(dev, d_in, B):
+    """K1's projection alone, on a strided time view, against the plain
+    projection in float64."""
+    p = _gru(d_in, dev)
+    T = 9
+    x = torch.randn(3 * T, B, d_in, generator=torch.Generator().manual_seed(
+        d_in + B)).to(dev)[1::3]
+    n = cuda_gru.proj_launches
+    xp = cuda_gru.input_proj(p, x)
+    want = gru_input_proj(GRUWeights(p.wx.double(), p.wh.double(),
+                                     p.b.double()), x.double())
+    torch.cuda.synchronize()
+    assert cuda_gru.proj_launches == n + 1
+    assert xp.shape == (T, B, 96) and xp.dtype == torch.float32
+    assert _rel_err(xp.double(), want) <= TOL_PROJ
 
 
 def test_gru_kernel_rejects_what_it_does_not_take(dev):

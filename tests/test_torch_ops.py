@@ -20,6 +20,7 @@ import hpmn_tpu.ops.pallas_gru as pg
 import hpmn_tpu.ops.pallas_readout as pr
 from hpmn_tpu.models.readout import attention_readout as j_attention_readout
 from hpmn_tpu.ops.gru import GRUParams as JGRUParams
+from hpmn_tpu.ops.gru import gru_input_proj as j_gru_input_proj
 from hpmn_tpu.ops.gru import gru_sequence as j_gru_sequence
 from hpmn_tpu_torch.models.readout import Readout, attention_readout
 from hpmn_tpu_torch.ops import cuda_gru, cuda_readout
@@ -123,6 +124,31 @@ def test_cuda_gru_wrapper_takes_a_strided_time_view(interpret):
     h_t, _ = cuda_gru.gru_sequence_tm(tp, torch.from_numpy(x_tm)[2::3],
                                       torch.from_numpy(mask_tm)[2::3])
     _close(h_t, h_j)
+
+
+@pytest.mark.parametrize("d_in", [1, 6, 33])
+def test_input_proj_wrapper_on_cpu_matches_jax(d_in):
+    """K1's projection wrapper on CPU tensors (its plain version, on a
+    strided time view) == the JAX package's hoisted projection."""
+    rng = np.random.default_rng(4)
+    T, B, d_m = 7, 3, 32
+    jp, tp = _gru(rng, d_in, d_m)
+    x_tm = rng.standard_normal((3 * T, B, d_in)).astype(np.float32)
+    launches = cuda_gru.proj_launches
+    xp_t = cuda_gru.input_proj(tp, torch.from_numpy(x_tm)[2::3])
+    assert cuda_gru.proj_launches == launches  # CPU tensors: plain version
+    assert xp_t.shape == (T, B, 3 * d_m)
+    _close(xp_t, j_gru_input_proj(jp, jnp.asarray(x_tm[2::3])))
+
+
+def test_k1_workspace_steps(monkeypatch):
+    """K1's chunk of steps: as many as fit the workspace cap, 1 to T."""
+    assert cuda_gru.workspace_steps(1000, 512) == 341
+    assert cuda_gru.workspace_steps(300, 6400) == 27
+    assert cuda_gru.workspace_steps(20, 512) == 20
+    assert cuda_gru.workspace_steps(5, 10 ** 6) == 1
+    monkeypatch.setattr(cuda_gru, "WORKSPACE_BYTES", 7 * 5 * 96 * 4 + 1)
+    assert cuda_gru.workspace_steps(50, 5) == 7
 
 
 @pytest.mark.parametrize("B,L", [(8, 6), (3, 1), (5, 4)])
