@@ -15,7 +15,10 @@ before the last line):
    time of the one PyTorch call that computes the same (cuDNN's GRU for the
    scans), and the least time the card could take (bound); before each K1
    line, K1's input projection alone (its first kernel), against the plain
-   projection, with its time and share of K1's; the bf16 scan
+   projection, with its time and share of K1's; before each K2 and
+   K2-bf16 line, their second kernel alone (dx and the weight gradients
+   from gate gradients), against its plain version, with its time and
+   share of theirs; the bf16 scan
    kernels in bf16, with their drift from the f32 kernels; the strided
    scan kernels (K3, K4 and their bf16 forms), with their difference from
    the dense kernels' strided rows and gradients; the AUGRU scan kernels
@@ -198,6 +201,16 @@ def kernel_label(name):
                                               "")[:56]
 
 
+def bwd_pass_work(T, B, d_in, es=4):
+    """K2's pass: dx, dWx and dWh per row-step; x, h_prev and the gate
+    gradients (128 per row-step) read and dx written (es bytes per
+    element), the weight-gradient sums written (f32)."""
+    flops = 2 * T * B * 96 * (2 * d_in + 32)
+    n_bytes = (es * (T * B * (2 * d_in + 32 + 128) + d_in * 96)
+               + 4 * (d_in + 33) * 96)
+    return flops, n_bytes
+
+
 def readout_work(B, L, d_q):
     """K5: memory and query through wm, wq and the scores; memory and query
     read, the read written."""
@@ -227,8 +240,8 @@ def main():
         from hpmn_tpu_torch.ops import (_build, cuda_gru, cuda_gru_stride,
                                         cuda_readout)
         from hpmn_tpu_torch.ops.gru import (
-            GRUWeights, gru_scan_stride_tm, gru_scan_stride_tm_bf16,
-            gru_input_proj, gru_scan_stride_tm_bwd,
+            GRUWeights, gru_bwd_pass, gru_scan_stride_tm,
+            gru_scan_stride_tm_bf16, gru_input_proj, gru_scan_stride_tm_bwd,
             gru_scan_stride_tm_bwd_bf16, gru_scan_tm, gru_scan_tm_bf16,
             gru_scan_tm_bwd, gru_scan_tm_bwd_bf16)
         from hpmn_tpu_torch.serving.history import HistoryStore
@@ -332,6 +345,10 @@ def main():
     gru_err, gru_rows = 0.0, []
     proj_err_max, proj_rows = 0.0, []  # K1's projection: (T, err, ms)
     bwd_err, bwd_abs, bwd_rows = 0.0, 0.0, []
+    # K2's pass alone, by dtype: worst error over max abs, and the first
+    # layer's (err, ms, plain ms, bound ms, bound by).
+    pass_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    pass_first = {}
     bf_err, bf_rows, bf_drift = 0.0, [], 0.0
     bfb_err, bfb_abs, bfb_rows, bfb_drift = 0.0, 0.0, [], 0.0
     period = m.hpmn_period
@@ -395,6 +412,54 @@ def main():
         proj_ms = cuda_ms(lambda: cuda_gru.input_proj(layer, x), 10)
         proj_err_max = max(proj_err_max, proj_err)
         proj_rows.append((T, proj_err, proj_ms))
+        # K2's (and K2-bf16's) second kernel alone: dx and the weight
+        # gradients from gate gradients of the backward's shape, against
+        # gru_bwd_pass.
+        gg = torch.randn(4, T, B_SCAN, 32, generator=gen, device=dev)
+        hp = torch.rand(T, B_SCAN, 32, generator=gen, device=dev) * 2 - 1
+        pass_now = {}
+        for dt in (torch.float32, torch.bfloat16):
+            bf = dt == torch.bfloat16
+            xs, hs, wxd = x.to(dt), hp.to(dt), layer.wx.to(dt)
+            gs = gg.to(dt)
+            dpx = torch.cat([gs[0], gs[1], gs[2]], -1)
+            dph = torch.cat([gs[0], gs[1], gs[3]], -1)
+            got_p = cuda_gru.bwd_pass(wxd, xs, hs, dpx, dph)
+            want_p = gru_bwd_pass(xs, hs, dpx, dph, wxd)
+            torch.cuda.synchronize()
+            check(all(a.shape == b.shape and a.dtype == b.dtype
+                      and torch.isfinite(a.float()).all().item()
+                      for a, b in zip(got_p, want_p)),
+                  f"K2's pass {dt} T={T}: shape, dtype or non-finite")
+            rel = max(((a.float() - b.float()).abs().max()
+                       / b.float().abs().max().clamp_min(1e-30)).item()
+                      for a, b in zip(got_p, want_p))
+            tol = TOL_GRAD_BF16 if bf else TOL_GRAD
+            check(rel <= tol, f"K2's pass {dt} T={T}: max err over max abs "
+                  f"{rel:.3e} > {tol}")
+            del got_p, want_p
+            p_ms = cuda_ms(lambda: cuda_gru.bwd_pass(wxd, xs, hs, dpx, dph),
+                           10)
+            p_plain = cuda_ms(lambda: gru_bwd_pass(xs, hs, dpx, dph, wxd), 2)
+            b_ms, b_by = bound(*bwd_pass_work(T, B_SCAN, d_in, 2 if bf else 4),
+                               PEAK_BF16_FLOPS if bf else PEAK_FP32_FLOPS)
+            pass_err[dt] = max(pass_err[dt], rel)
+            pass_now[dt] = (rel, p_ms, p_plain, b_ms, b_by)
+            pass_first.setdefault(dt, pass_now[dt])
+        del gg, hp, xs, hs, gs, dpx, dph
+
+        def pass_line(dt, k2_ms, masked):
+            rel, p_ms, p_plain, b_ms, b_by = pass_now[dt]
+            bf = dt == torch.bfloat16
+            print(f"phase 3 kernel gru_bwd_pass{'_bf16' if bf else ''} "
+                  f"T={T} B={B_SCAN} d_in={d_in}: max err over max abs "
+                  f"{rel:.3e} against gru_bwd_pass (tol "
+                  f"{TOL_GRAD_BF16 if bf else TOL_GRAD}) | kernel "
+                  f"{p_ms:.4f} ms, {100 * p_ms / k2_ms:.1f}% of "
+                  f"K2{'-bf16' if bf else ''}'s {k2_ms:.4f} ms "
+                  f"(mask={masked}) | plain {p_plain:.4f} ms | bound "
+                  f"{b_ms:.4f} ms ({b_by})", flush=True)
+
         for masked in (False, True):
             mask = left_pad_mask(T, B_SCAN) if masked else None
             h_k, hT_k = cuda_gru.gru_sequence_tm(layer, x, mask)
@@ -448,6 +513,7 @@ def main():
             bwd_err, bwd_abs = max(bwd_err, rel), max(bwd_abs, absd)
             bwd_rows.append((T, masked, absd, ms, plain_ms, lib_t, b_ms,
                              b_by))
+            pass_line(torch.float32, ms, masked)
             print(f"phase 3 kernel gru_scan_bwd T={T} B={B_SCAN} d_in={d_in} "
                   f"mask={masked}: max_abs_err {absd:.3e}, over max abs "
                   f"{rel:.3e} (tol {TOL_GRAD}) | kernel {ms:.4f} ms | plain "
@@ -515,6 +581,7 @@ def main():
             bfb_drift = max(bfb_drift, drift)
             bfb_rows.append((T, masked, absd, ms, plain_ms, lib_t, b_ms,
                              b_by))
+            pass_line(torch.bfloat16, ms, masked)
             print(f"phase 3 kernel gru_scan_bwd_bf16 T={T} B={B_SCAN} "
                   f"d_in={d_in} mask={masked}: max_abs_err {absd:.3e}, over "
                   f"max abs {rel:.3e} (tol {TOL_GRAD_BF16}) | vs f32 kernel "
@@ -1008,9 +1075,15 @@ def main():
                        and not getattr(a, "is_user_annotation", False)
                        and a.self_device_time_total > 0), reverse=True)
         dev_ms = sum(t for t, _, _ in kern) / 1e3 / n
-        # K1 is two kernels: its projection and its recurrence.
-        k1 = [sum(t for t, _, name in kern if part in name) / 1e3 / n
-              for part in ("input_proj_kernel", "gru_scan_fwd_xp_kernel")]
+        # K1 is two kernels: its projection and its recurrence; K2 and
+        # K2-bf16 three: the recurrence, the pass and the partials.
+        def dev_ms_of(parts):
+            return [sum(t for t, _, name in kern if part in name) / 1e3 / n
+                    for part in parts]
+
+        k1 = dev_ms_of(("input_proj_kernel", "gru_scan_fwd_xp_kernel"))
+        k2 = dev_ms_of(("gru_scan_bwd_rec_kernel", "gru_bwd_pass_kernel",
+                        "wgrad_partials_kernel"))
         if dev_ms > 0:
             top = ", ".join(f"{kernel_label(name)} {t / 1e3 / n:.3f} ms "
                             f"({c / n:g}/{unit})" for t, c, name in kern[:10])
@@ -1018,7 +1091,9 @@ def main():
                   f"ms per {unit} of {wall_ms:.3f} ms wall: busy "
                   f"{dev_ms / wall_ms:.1%}, idle {1 - dev_ms / wall_ms:.1%} "
                   f"| K1 {sum(k1):.3f} ms (projection {k1[0]:.3f}, "
-                  f"recurrence {k1[1]:.3f}) | top: {top}", flush=True)
+                  f"recurrence {k1[1]:.3f}) | K2 {sum(k2):.3f} ms "
+                  f"(recurrence {k2[0]:.3f}, pass {k2[1]:.3f}, partials "
+                  f"{k2[2]:.3f}) | top: {top}", flush=True)
         else:
             print(f"phase {phase} profile: the profiler saw no device time; "
                   "device busy share not measured", flush=True)
@@ -1343,7 +1418,10 @@ def main():
         entry("gru_scan_bwd", cuda_gru.BWD_SOURCE, cuda_gru.BWD_REPLACES,
               (gb[3], gb[4], gb[5], gb[6], gb[7]), bwd_abs,
               {"training": train_launches[1], "training_dien": fd[1]},
-              max_err_over_max_abs=bwd_err),
+              sources=[cuda_gru.BWD_SOURCE, cuda_gru.PASS_SOURCE],
+              max_err_over_max_abs=bwd_err,
+              pass_ms=pass_first[torch.float32][1],
+              pass_max_err_over_max_abs=pass_err[torch.float32]),
         entry("readout_fwd", cuda_readout.SOURCE, cuda_readout.REPLACES,
               (r[2], r[3], None, r[4], r[5]), ro_err,
               {"serving": launches_ro, "training": train_launches[4],
@@ -1359,8 +1437,11 @@ def main():
               (gb16[3], gb16[4], gb16[5], gb16[6], gb16[7]), bfb_abs,
               {"training_bf16": bf16_launches[3],
                "training_dien_bf16": bd[3]},
+              sources=[cuda_gru.BWD_SOURCE_BF16, cuda_gru.PASS_SOURCE],
               max_err_over_max_abs=bfb_err,
-              diff_from_f32_kernel_over_max_abs=bfb_drift),
+              diff_from_f32_kernel_over_max_abs=bfb_drift,
+              pass_ms=pass_first[torch.bfloat16][1],
+              pass_max_err_over_max_abs=pass_err[torch.bfloat16]),
         *(entry(f"gru_stride_{name}",
                 cuda_gru_stride.BWD_SOURCE if "bwd" in name
                 else cuda_gru_stride.SOURCE,

@@ -2,10 +2,12 @@
 // K1-scale, gru_scan_bwd.cu K2 and K2-scale, gru_scan_stride_fwd.cu K3,
 // gru_scan_stride_bwd.cu K4): the stream conversions, the projections and
 // the gate chain, so that a backward recomputes (or replays) its forward's
-// gates bit for bit; the launcher of K1's input projection
-// (gru_input_proj.cu); the strided scan's step; one step's gate gradients,
-// with or without the AUGRU gate scale, and the warp sum of its dscale; and
-// the shared-memory pieces of the two backward kernels.
+// gates bit for bit; the launchers of K1's input projection
+// (gru_input_proj.cu) and of K2's dx and weight-gradient pass
+// (gru_bwd_pass.cu); the strided scan's step; one step's gate gradients,
+// with or without the AUGRU gate scale, the warp sum of its dscale, and the
+// dh carry's products; and the shared-memory pieces of the backward
+// kernels.
 //
 // Two chains, as hpmn_tpu/ops/pallas_gru.py has them:
 //
@@ -42,6 +44,27 @@ constexpr unsigned kFull = 0xffffffffu;
 int launch_input_proj(const float* x, long long x_tstride, const float* wx,
                       const float* b, float* xp, int T, int B, int d_in,
                       cudaStream_t stream);
+
+// K2's and K2-bf16's second kernel (gru_bwd_pass.cu), per chunk of steps
+// [t0, t0 + n): from x (time stride x_tstride, rows contiguous), wx [d_in,
+// 96], h_prev (hseq[t-1], or h0, or zeros at t = 0) and the recurrence's
+// gate gradients dg [n, B, 32, 4] (lane k: dr, dz, dc, dc*r), writes dx
+// [T, B, d_in] and carries each row's weight-gradient sums in acc [B,
+// acc_floats(d_in_pad)] (f32; `first`: start them at zero). S is float or
+// __nv_bfloat16. Launches on `stream`; returns cudaGetLastError().
+template <typename S>
+int launch_bwd_pass(const S* x, long long x_tstride, const S* wx,
+                    const S* h0, const S* hseq, const S* dg, S* dx,
+                    float* acc, int t0, int n, bool first, int B, int d_in,
+                    cudaStream_t stream);
+
+// After the last chunk: one f32 partial per group of `rows` batch rows,
+// 0.0f + row 0 + row 1 + ..., into dwx_part [d_in][96], dwh_part [32][96]
+// and db_part [96] at the group's index (the parent one-kernel K2's
+// write_wgrad_partials, with its blocks' rows). Returns cudaGetLastError().
+int launch_wgrad_partials(const float* acc, int rows, int B, int d_in,
+                          float* dwx_part, float* dwh_part, float* db_part,
+                          cudaStream_t stream);
 
 template <typename S>
 constexpr bool kIsBf16 = std::is_same<S, __nv_bfloat16>::value;
@@ -360,6 +383,54 @@ __device__ __forceinline__ BwdSmem load_bwd_smem(float* smem, const S* wx,
     acc0[i] = 0.0f;
   __syncthreads();
   return s;
+}
+
+// dh_prev = carry + [dr|dz|dc*r] @ wh^T alone, from the transposed wh
+// (s_whT [96][32]): backprop_step's chain of dh, the same fmaf order over k
+// (dr, dz, dc*r interleaved); in bf16 the carry's term is added after the
+// f32 sum of the products.
+template <typename S>
+__device__ __forceinline__ float carry_step(const StepGrad& sg,
+                                            const float* s_whT, int lane) {
+  constexpr bool kBf16 = kIsBf16<S>;
+  float dh_new = kBf16 ? 0.0f : sg.carry;
+#pragma unroll
+  for (int k = 0; k < kDm; ++k) {
+    const float drk = __shfl_sync(kFull, sg.dr, k);
+    const float dzk = __shfl_sync(kFull, sg.dz, k);
+    const float dcrk = __shfl_sync(kFull, sg.dcr, k);
+    dh_new = fmaf(drk, s_whT[k * kDm + lane], dh_new);
+    dh_new = fmaf(dzk, s_whT[(kDm + k) * kDm + lane], dh_new);
+    dh_new = fmaf(dcrk, s_whT[(2 * kDm + k) * kDm + lane], dh_new);
+  }
+  if (kBf16) dh_new = sg.carry + dh_new;
+  return dh_new;
+}
+
+// Four stream values at p (16 bytes in f32, 8 in bf16; p aligned to that).
+// The bf16 chain's gate gradients are bf16 values, so their rounding is
+// exact.
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
+                                       float c, float d) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  uint2 v;
+  v.x = *reinterpret_cast<unsigned*>(&lo);
+  v.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = v;
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 lo = __bfloat1622float2(q[0]);
+  const float2 hi = __bfloat1622float2(q[1]);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 // dh_prev = carry + [dr|dz|dc*r] @ wh^T and dx_t = [dr|dz|dc] @ wx^T, from

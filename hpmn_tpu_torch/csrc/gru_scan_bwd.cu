@@ -1,10 +1,9 @@
-// GRU scan backward for Hopper (sm_90a): one launch sweeps one whole layer
-// in reverse.
+// GRU scan backward for Hopper (sm_90a).
 //
 // Replaces hpmn_tpu/ops/pallas_gru.py::_bwd_kernel (its mask and no-mask
 // forms, with and without the AUGRU gate scale), in both of its chains: f32
-// (K2, hpmn_gru_scan_bwd; K2-scale, hpmn_gru_scan_bwd_scale) and
-// dtype=bfloat16 (K2-bf16, hpmn_gru_scan_bwd_bf16; K2-scale-bf16,
+// (K2, hpmn_gru_scan_bwd_ws; K2-scale, hpmn_gru_scan_bwd_scale) and
+// dtype=bfloat16 (K2-bf16, hpmn_gru_scan_bwd_bf16_ws; K2-scale-bf16,
 // hpmn_gru_scan_bwd_scale_bf16). Per step t = T-1 .. 0, for batch row b,
 // with m_t = 1 when there is no mask, a_t = 1 and zs = z in the no-scale
 // forms:
@@ -23,13 +22,7 @@
 //                                   gradient, pallas_gru.py:255)
 //
 // (gtot - gcell) is the pass-through of a masked step: a padded step carries
-// h unchanged, so its gradient flows to h_prev untouched. The scale is a
-// compile-time flag (kScale): without it the instantiations are K2's and
-// K2-bf16's code as they were, bit for bit. With it, a_t is loaded a step
-// ahead with the step's other inputs, and dscale's sum over the 32 hidden
-// units is a __shfl_xor_sync tree (gru_chain.cuh's warp_sum) that reads
-// only the step's gate gradients, beside the dh carry's chain; lane 0
-// writes dscale[t, b] in the stream type. Shared memory is unchanged.
+// h unchanged, so its gradient flows to h_prev untouched.
 //
 // The bf16 chain rounds where the TPU kernel's does: x, h_seq, dh_seq and
 // the mask are bf16 and dx is written as bf16; the dh carry stays f32, and
@@ -40,34 +33,47 @@
 // of bf16 values, written as f32 partials; rounding them to the weights'
 // bf16 is the wrapper's (as pallas_gru.py's _bwd does after its tile sum).
 // The bf16 ops are native bf16 instructions (gru_chain.cuh); the weights
-// stay f32 in shared memory, so the layout and the rows per block are the
-// f32 form's.
+// stay f32 in shared memory, so the layout is the f32 form's.
 //
-// What bounds it: the recurrence, as in the forward. Each step needs the dh
-// of the step after it, and per step and row the work is small: about 36k
-// FLOPs in five 32-wide products (recompute x@wx and h@wh, dh, dx, the two
-// weight-gradient outer products). Per row and step it streams 128 B of x,
-// h_seq and dh_seq each in and 128 B of dx out (half that in bf16).
-// Latency and issue bound it.
+// What bounds it: the recurrence. Each step needs the dh of the step after
+// it; per step and row the work is small (about 36k FLOPs in five 32-wide
+// products: the recompute's x@wx and h@wh, dh, dx and the two weight-
+// gradient outer products), and only the recompute, the gate gradients and
+// dh's product are on the chain from one step to the next. dx and the
+// weight gradients read only the step's gate gradients.
 //
-// What the design does about it. The layout is the forward's: the whole
-// reverse loop in one launch, one warp per batch row, lane j owning hidden
-// unit j, the dh carry in a register, operands broadcast with __shfl_sync,
-// the next step's loads issued one step ahead.
+// K2 and K2-bf16 (no scale) are therefore two kernels per chunk of steps,
+// run by one C entry point from the last chunk to the first:
 //
-// - The transposed products (dh and dx read wh and wx along rows: lane j
-//   needs w[j][g*32+k] for a k shared by the warp, a 32-way bank conflict)
-//   read transposed copies of wh and wx kept in shared memory beside the
-//   row-major ones the recompute reads, so every read is conflict-free.
-// - The weight gradients are accumulated in shared memory, one slice per
-//   warp, where lane j owns column j of each gate block: no atomics, no
-//   bank conflicts, and no 195 register accumulators per lane. At the end
-//   the block sums its warps' slices and writes one partial per block; the
-//   wrapper sums the partials (as the TPU kernel emits one per batch tile).
+// - the recurrence (gru_scan_bwd_rec_kernel, here): one warp per batch row,
+//   lane j owning hidden unit j, the dh carry in a register, operands
+//   broadcast with __shfl_sync, the next step's loads issued one step
+//   ahead. Per step it recomputes the gates, takes the gate gradients and
+//   dh's product (carry_step: wh^T read from a transposed copy in shared
+//   memory, conflict-free), and writes the gate gradients [dr, dz, dc,
+//   dc*r] of lane k as 4 values into a workspace dg [Tc, B, 32, 4] of the
+//   stream type (in bf16 they are bf16 values, so storing them is exact).
+//   The carry crosses a chunk boundary through dh0 [B, 32] (f32), which
+//   holds dh0 after the first chunk.
+// - the pass (gru_bwd_pass.cu): dx and each row's weight-gradient sums from
+//   x, h_prev and dg, in parallel over rows and steps, each sum in the
+//   recurrence's own order (see there); after the last chunk, one partial
+//   per group of rows_per_block(d_in) rows.
 //
-// The step's gate gradients, the dh/dx products, the weight-gradient
-// accumulation and the shared-memory layout live in gru_chain.cuh, shared
-// with the strided backward K4 (gru_scan_stride_bwd.cu).
+// Every output is the one-kernel form's bit for bit, whatever the chunk:
+// the carry and the sums cross chunks in f32, unrounded.
+//
+// The scale forms (K2-scale, K2-scale-bf16) keep the one-kernel loop
+// (gru_scan_bwd_kernel): the whole reverse sweep in one launch, dx, the
+// weight gradients and dscale in the loop. The weight gradients are
+// accumulated in shared memory, one slice per warp, where lane j owns
+// column j of each gate block: no atomics, no bank conflicts; at the end
+// the block sums its warps' slices and writes one partial per block. a_t
+// is loaded a step ahead with the step's other inputs, and dscale's sum
+// over the 32 hidden units is a __shfl_xor_sync tree (gru_chain.cuh's
+// warp_sum) beside the dh carry's chain; lane 0 writes dscale[t, b] in the
+// stream type. The wrapper sums the partials (as the TPU kernel emits one
+// per batch tile).
 //
 // The port's forward keeps the whole h_seq, so the backward reads h_{t-1}
 // from it: it needs no boundary states and no padding of T to 8.
@@ -84,6 +90,9 @@ using hpmn::kMaxChunks;  // d_in <= 96
 using hpmn::load_f;
 constexpr int kMaxWarps = 4;  // batch rows per block, at most
 
+// Batch rows per block of the one-kernel loop (its shared memory holds a
+// weight-gradient slice per row), and the group of rows that each weight-
+// gradient partial sums in every form.
 int rows_per_block(int d_in) {
   const int d_in_pad = (d_in + 31) / 32 * 32;
   const size_t free_bytes =
@@ -134,9 +143,10 @@ __device__ __forceinline__ void load_step(
   }
 }
 
-// S: the stream type, float (K2) or __nv_bfloat16 (K2-bf16). kScale: the
-// AUGRU forms, reading scale [T, B] (time stride s_tstride) and writing
-// dscale [T, B] (contiguous).
+// The one-kernel loop. S: the stream type, float or __nv_bfloat16. kScale:
+// the AUGRU forms, reading scale [T, B] (time stride s_tstride) and writing
+// dscale [T, B] (contiguous); only they run it. Without kScale it is the
+// one-kernel K2 (K2-bf16) whose bits the two-kernel form keeps.
 template <typename S, bool kScale>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 gru_scan_bwd_kernel(const S* __restrict__ x, long long x_tstride,
@@ -216,12 +226,83 @@ gru_scan_bwd_kernel(const S* __restrict__ x, long long x_tstride,
                              db_part);
 }
 
+// The recurrence of K2 (S = float) and K2-bf16 (S = __nv_bfloat16) over the
+// chunk [t0, t0 + n): gru_scan_bwd_kernel's loop without kScale, with dx,
+// the weight-gradient sums and db taken out. Per step it writes the gate
+// gradients into dg [n, B, 32, 4] (S) at (t - t0, row, lane). dh [B, 32]
+// (f32) carries dh in (`carry_in`; else it starts at zero) and out.
+constexpr int kRecWarps = 4;  // batch rows per block
+
+template <typename S>
+__global__ void __launch_bounds__(kRecWarps * 32)
+gru_scan_bwd_rec_kernel(const S* __restrict__ x, long long x_tstride,
+                        const S* __restrict__ mask, long long m_tstride,
+                        const S* __restrict__ wx, const S* __restrict__ wh,
+                        const S* __restrict__ bias,
+                        const S* __restrict__ h0,
+                        const S* __restrict__ hseq,
+                        const S* __restrict__ dhseq, S* __restrict__ dg,
+                        float* __restrict__ dh, int t0, int n,
+                        bool carry_in, int B, int d_in) {
+  extern __shared__ float smem[];
+  const int n_chunks = (d_in + 31) / 32;
+  const int d_in_pad = n_chunks * 32;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kRecWarps + (threadIdx.x >> 5);
+  float* s_wx = smem;                        // [d_in_pad][96], zero past d_in
+  float* s_wh = s_wx + d_in_pad * hpmn::kG;  // [32][96]
+  float* s_whT = s_wh + kDm * hpmn::kG;      // [96][32]
+  for (int i = threadIdx.x; i < d_in_pad * hpmn::kG; i += blockDim.x)
+    s_wx[i] = i / hpmn::kG < d_in ? load_f(wx + i) : 0.0f;
+  for (int i = threadIdx.x; i < kDm * hpmn::kG; i += blockDim.x) {
+    const int r = i / hpmn::kG, col = i - r * hpmn::kG;
+    const float w = load_f(wh + i);
+    s_wh[i] = w;
+    s_whT[col * kDm + r] = w;
+  }
+  __syncthreads();
+  if (row >= B) return;  // whole warps leave; no block barrier follows
+
+  const float b_r = load_f(bias + lane);
+  const float b_z = load_f(bias + kDm + lane);
+  const float b_c = load_f(bias + 2 * kDm + lane);
+  float dhc = carry_in ? dh[(long long)row * kDm + lane] : 0.0f;
+  StepIn cur;
+  load_step<S, false>(cur, t0 + n - 1, row, lane, B, d_in, n_chunks, x,
+                      x_tstride, mask, m_tstride, nullptr, 0, h0, hseq,
+                      dhseq);
+  for (int t = t0 + n - 1; t >= t0; --t) {
+    StepIn nxt;  // step t-1, loaded before this step's math
+    if (t > t0)
+      load_step<S, false>(nxt, t - 1, row, lane, B, d_in, n_chunks, x,
+                          x_tstride, mask, m_tstride, nullptr, 0, h0, hseq,
+                          dhseq);
+
+    // Recompute the forward's gates (gru_scan_fwd.cu, the same order).
+    const hpmn::Proj p =
+        hpmn::project(cur.x, n_chunks, cur.hp, s_wx, s_wh, lane);
+    hpmn::StepGrad sg;
+    if constexpr (hpmn::kIsBf16<S>)
+      sg = hpmn::step_grad_bf16(hpmn::gates_bf16(p, b_r, b_z, b_c), cur.hpb,
+                                hpmn::to_b(cur.dhs + dhc), cur.mb,
+                                mask != nullptr);
+    else
+      sg = hpmn::step_grad_f32(hpmn::gates_f32(p, b_r, b_z, b_c), cur.hp,
+                               cur.dhs + dhc, cur.m);
+    hpmn::store4(dg + (((long long)(t - t0) * B + row) * kDm + lane) * 4,
+                 sg.dr, sg.dz, sg.dc, sg.dcr);
+    dhc = hpmn::carry_step<S>(sg, s_whT, lane);
+    if (t > t0) cur = nxt;
+  }
+  dh[(long long)row * kDm + lane] = dhc;
+}
+
 // x [T,B,d_in] (time stride x_tstride, rows contiguous), mask [T,B] (time
 // stride m_tstride) or null, scale [T,B] (time stride s_tstride; the scale
 // forms only, not null), wx [d_in,96], wh [32,96], b [96], h0 [B,32] or
-// null, hseq and dhseq [T,B,32] contiguous, all of one type S: float for K2,
-// bf16 for K2-bf16. Writes dx [T,B,d_in] (S), dscale [T,B] (S; the scale
-// forms) and dh0 [B,32] (f32, the carry), all contiguous, and per block the
+// null, hseq and dhseq [T,B,32] contiguous, all of one type S: float for
+// K2-scale, bf16 for K2-scale-bf16. Writes dx [T,B,d_in] (S), dscale [T,B]
+// (S) and dh0 [B,32] (f32, the carry), all contiguous, and per block the
 // f32 partials dwx_part [d_in,96], dwh_part [32,96] and db_part [96].
 // Launches on `stream`; returns cudaGetLastError().
 template <typename S, bool kScale>
@@ -253,42 +334,98 @@ int launch(const S* x, long long x_tstride, const S* mask, long long m_tstride,
 
 }  // namespace
 
-// Batch rows per block for this d_in: the wrapper allocates one weight-
-// gradient partial per block, ceil(B / rows) of them.
+// Batch rows per weight-gradient partial for this d_in: the wrapper
+// allocates ceil(B / rows) partials.
 extern "C" int hpmn_gru_scan_bwd_rows_per_block(int d_in) {
   if (d_in < 1 || d_in > 32 * kMaxChunks) return 0;
   return rows_per_block(d_in);
 }
 
-extern "C" int hpmn_gru_scan_bwd(const float* x, long long x_tstride,
-                                 const float* mask, long long m_tstride,
-                                 const float* wx, const float* wh,
-                                 const float* b, const float* h0,
-                                 const float* hseq, const float* dhseq,
-                                 float* dx, float* dh0, float* dwx_part,
-                                 float* dwh_part, float* db_part, int T,
-                                 int B, int d_in, void* stream) {
-  return launch<float, false>(x, x_tstride, mask, m_tstride, nullptr, 0, wx,
-                              wh, b, h0, hseq, dhseq, dx, nullptr, dh0,
-                              dwx_part, dwh_part, db_part, T, B, d_in,
-                              stream);
+namespace {
+
+// K2 and K2-bf16: every chunk of t_chunk steps from the last (the chunk at
+// t = 0 the shorter), the recurrence then the pass, then the partials.
+template <typename S>
+int launch_ws(const S* x, long long x_tstride, const S* mask,
+              long long m_tstride, const S* wx, const S* wh, const S* b,
+              const S* h0, const S* hseq, const S* dhseq, S* dx, float* dh0,
+              float* dwx_part, float* dwh_part, float* db_part, S* dg,
+              float* acc, int t_chunk, int T, int B, int d_in,
+              void* stream) {
+  if (d_in < 1 || d_in > 32 * kMaxChunks || B < 1 || T < 1 || t_chunk < 1
+      || dg == nullptr || acc == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int d_in_pad = (d_in + 31) / 32 * 32;
+  const size_t smem = (size_t)(d_in_pad + 2 * kDm) * hpmn::kG * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_scan_bwd_rec_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (B + kRecWarps - 1) / kRecWarps;
+  for (int hi = T; hi > 0;) {
+    const int n = t_chunk < hi ? t_chunk : hi;
+    const int t0 = hi - n;
+    gru_scan_bwd_rec_kernel<S><<<grid, kRecWarps * 32, smem, st>>>(
+        x, x_tstride, mask, m_tstride, wx, wh, b, h0, hseq, dhseq, dg, dh0,
+        t0, n, hi < T, B, d_in);
+    int code = (int)cudaGetLastError();
+    if (code != 0) return code;
+    code = hpmn::launch_bwd_pass<S>(x, x_tstride, wx, h0, hseq, dg, dx, acc,
+                                    t0, n, hi == T, B, d_in, st);
+    if (code != 0) return code;
+    hi = t0;
+  }
+  return hpmn::launch_wgrad_partials(acc, rows_per_block(d_in), B, d_in,
+                                     dwx_part, dwh_part, db_part, st);
 }
 
-extern "C" int hpmn_gru_scan_bwd_bf16(
+}  // namespace
+
+// K2: x [T,B,d_in] (time stride x_tstride, rows contiguous), mask [T,B]
+// (time stride m_tstride) or null, wx [d_in,96], wh [32,96], b [96], h0
+// [B,32] or null, hseq and dhseq [T,B,32] contiguous, all float32. Writes
+// dx [T,B,d_in] and dh0 [B,32], and one f32 partial per group of
+// hpmn_gru_scan_bwd_rows_per_block(d_in) rows: dwx_part [d_in,96],
+// dwh_part [32,96], db_part [96]. Workspaces: dg [t_chunk,B,128] (float32)
+// and acc [B, (d_in_pad + 33) * 96] (f32, d_in_pad = d_in rounded up to
+// 32). Runs on `stream`; returns the first nonzero cudaGetLastError()
+// after a launch, or 0.
+extern "C" int hpmn_gru_scan_bwd_ws(const float* x, long long x_tstride,
+                                    const float* mask, long long m_tstride,
+                                    const float* wx, const float* wh,
+                                    const float* b, const float* h0,
+                                    const float* hseq, const float* dhseq,
+                                    float* dx, float* dh0, float* dwx_part,
+                                    float* dwh_part, float* db_part,
+                                    float* dg, float* acc, int t_chunk,
+                                    int T, int B, int d_in, void* stream) {
+  return launch_ws<float>(x, x_tstride, mask, m_tstride, wx, wh, b, h0, hseq,
+                          dhseq, dx, dh0, dwx_part, dwh_part, db_part, dg,
+                          acc, t_chunk, T, B, d_in, stream);
+}
+
+// K2-bf16: as K2, with x, mask, the weights, h0, hseq, dhseq, dx and dg in
+// bf16 (dh0, the partials and acc f32).
+extern "C" int hpmn_gru_scan_bwd_bf16_ws(
     const __nv_bfloat16* x, long long x_tstride, const __nv_bfloat16* mask,
     long long m_tstride, const __nv_bfloat16* wx, const __nv_bfloat16* wh,
     const __nv_bfloat16* b, const __nv_bfloat16* h0,
     const __nv_bfloat16* hseq, const __nv_bfloat16* dhseq,
     __nv_bfloat16* dx, float* dh0, float* dwx_part, float* dwh_part,
-    float* db_part, int T, int B, int d_in, void* stream) {
-  return launch<__nv_bfloat16, false>(
-      x, x_tstride, mask, m_tstride, nullptr, 0, wx, wh, b, h0, hseq, dhseq,
-      dx, nullptr, dh0, dwx_part, dwh_part, db_part, T, B, d_in, stream);
+    float* db_part, __nv_bfloat16* dg, float* acc, int t_chunk, int T, int B,
+    int d_in, void* stream) {
+  return launch_ws<__nv_bfloat16>(x, x_tstride, mask, m_tstride, wx, wh, b,
+                                  h0, hseq, dhseq, dx, dh0, dwx_part,
+                                  dwh_part, db_part, dg, acc, t_chunk, T, B,
+                                  d_in, stream);
 }
 
-// K2-scale and K2-scale-bf16: as above, plus scale [T,B] (time stride
-// s_tstride, unit batch stride; not null), the AUGRU's a_t, and its
-// gradient dscale [T,B] (contiguous, not null), of the stream type.
+// K2-scale and K2-scale-bf16: the one-kernel loop (launch's arguments
+// above): scale [T,B] (time stride s_tstride, unit batch stride; not null)
+// is the AUGRU's a_t, and its gradient dscale [T,B] (contiguous, not null)
+// is of the stream type; one partial per block of rows_per_block(d_in)
+// rows.
 extern "C" int hpmn_gru_scan_bwd_scale(
     const float* x, long long x_tstride, const float* mask,
     long long m_tstride, const float* scale, long long s_tstride,

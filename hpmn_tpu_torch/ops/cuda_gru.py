@@ -17,8 +17,12 @@ device-memory round trip between steps, is what the design does about
 that. K1 (f32, no scale) is two kernels: ``csrc/gru_input_proj.cu``
 computes x @ wx + b for a chunk of steps into a workspace this module
 allocates (at most :data:`WORKSPACE_BYTES`), then the recurrence reads it;
-one C call runs every chunk, and one K1 call counts one launch. See the
-sources' headers for the rest.
+one C call runs every chunk, and one K1 call counts one launch. K2 and
+K2-bf16 (no scale) are two kernels too, run from the last chunk of steps
+to the first: the reverse recurrence writes each step's gate gradients
+into a workspace (at most :data:`WORKSPACE_BYTES`), then
+``csrc/gru_bwd_pass.cu`` computes dx and the weight gradients from them;
+one C call, one counted launch. See the sources' headers for the rest.
 
 :class:`GRUScan` is the ``torch.autograd.Function`` that mirrors the
 custom_vjp: on CUDA tensors its forward launches K1 and its backward K2;
@@ -40,8 +44,9 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .gru import (GRUParams, GRUWeights, gru_input_proj, gru_scan_tm,
-                  gru_scan_tm_bf16, gru_scan_tm_bwd, gru_scan_tm_bwd_bf16)
+from .gru import (GRUParams, GRUWeights, gru_bwd_pass, gru_input_proj,
+                  gru_scan_tm, gru_scan_tm_bf16, gru_scan_tm_bwd,
+                  gru_scan_tm_bwd_bf16)
 
 SOURCE = "hpmn_tpu_torch/csrc/gru_scan_fwd.cu"
 REPLACES = "hpmn_tpu/ops/pallas_gru.py:127"
@@ -49,6 +54,8 @@ REPLACES = "hpmn_tpu/ops/pallas_gru.py:127"
 PROJ_SOURCE = "hpmn_tpu_torch/csrc/gru_input_proj.cu"
 BWD_SOURCE = "hpmn_tpu_torch/csrc/gru_scan_bwd.cu"
 BWD_REPLACES = "hpmn_tpu/ops/pallas_gru.py:209"
+# K2's (and K2-bf16's) second kernel, dx and the weight gradients.
+PASS_SOURCE = "hpmn_tpu_torch/csrc/gru_bwd_pass.cu"
 # K1-bf16 and K2-bf16: the same sources' bf16 instantiations, in place of
 # the same Pallas kernels run with dtype=bfloat16; K1-scale and K2-scale
 # (and their bf16 forms): their has_scale instantiations.
@@ -69,13 +76,17 @@ launches_scale = 0
 bwd_launches_scale = 0
 launches_scale_bf16 = 0
 bwd_launches_scale_bf16 = 0
-#: Launches of K1's projection on its own (:func:`input_proj`); K1's own
-#: projections count in ``launches``.
+#: Launches of K1's projection on its own (:func:`input_proj`) and of K2's
+#: pass on its own (:func:`bwd_pass`); K1's and K2's own count in
+#: ``launches`` and ``bwd_launches`` (and their bf16 forms').
 proj_launches = 0
+pass_launches = 0
 
-#: The cap on K1's f32 workspace xp [Tc, B, 96]: Tc is the most steps that
-#: fit (at least 1), and K1 runs ceil(T / Tc) chunks of projection then
-#: recurrence in one C call. 64 MiB: Tc = 341 at B = 512, 27 at B = 6400.
+#: The cap on K1's f32 workspace xp [Tc, B, 96], and on K2's gate
+#: gradients dg [Tc, B, 128] in x's dtype: Tc is the most steps that fit
+#: (at least 1), and the kernel runs ceil(T / Tc) chunks in one C call.
+#: 64 MiB: K1's Tc = 341 at B = 512, 27 at B = 6400; K2's 256 at B = 512
+#: (512 in bf16).
 WORKSPACE_BYTES = 64 << 20
 
 _D_M = 32
@@ -85,8 +96,8 @@ _MAX_D_IN = 96
 _FWD_ENTRY = {(torch.bfloat16, False): "hpmn_gru_scan_fwd_bf16",
               (torch.float32, True): "hpmn_gru_scan_fwd_scale",
               (torch.bfloat16, True): "hpmn_gru_scan_fwd_scale_bf16"}
-_BWD_ENTRY = {(torch.float32, False): "hpmn_gru_scan_bwd",
-              (torch.bfloat16, False): "hpmn_gru_scan_bwd_bf16",
+_BWD_ENTRY = {(torch.float32, False): "hpmn_gru_scan_bwd_ws",
+              (torch.bfloat16, False): "hpmn_gru_scan_bwd_bf16_ws",
               (torch.float32, True): "hpmn_gru_scan_bwd_scale",
               (torch.bfloat16, True): "hpmn_gru_scan_bwd_scale_bf16"}
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -134,18 +145,49 @@ def workspace_steps(T: int, B: int) -> int:
     return max(1, min(T, WORKSPACE_BYTES // (B * 3 * _D_M * 4)))
 
 
+def bwd_workspace_steps(T: int, B: int, dtype: torch.dtype) -> int:
+    """K2's chunk: the steps of dg [., B, 128] in ``dtype`` that fit
+    :data:`WORKSPACE_BYTES`, at least 1 and at most T."""
+    es = torch.empty(0, dtype=dtype).element_size()
+    return max(1, min(T, WORKSPACE_BYTES // (B * 4 * _D_M * es)))
+
+
+def _acc_floats(d_in: int) -> int:
+    """The pass's f32 sums per batch row: [x rows padded to 32 | 32 h
+    rows][96], then db [96]."""
+    return (-(-d_in // 32) * 32 + _D_M + 1) * 3 * _D_M
+
+
 @functools.lru_cache(maxsize=None)
-def _bwd_fns(dtype: torch.dtype, scaled: bool = False):
-    lib = _build.load_library()
-    rows = lib.hpmn_gru_scan_bwd_rows_per_block
-    rows.argtypes = [ctypes.c_int]
-    rows.restype = ctypes.c_int
-    fn = getattr(lib, _BWD_ENTRY[dtype, scaled])
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * (3 if scaled else 2)
-                   + [ctypes.c_void_p] * (12 if scaled else 11)
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+def _rows_fn():
+    """d_in -> the batch rows that one weight-gradient partial sums."""
+    fn = _build.load_library().hpmn_gru_scan_bwd_rows_per_block
+    fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
-    return rows, fn
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_fn(dtype: torch.dtype, scaled: bool = False):
+    fn = getattr(_build.load_library(), _BWD_ENTRY[dtype, scaled])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * (3 if scaled else 2)
+                   + [ctypes.c_void_p] * (12 if scaled else 13)
+                   + [ctypes.c_int] * (3 if scaled else 4)
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _pass_fn(dtype: torch.dtype):
+    lib = _build.load_library()
+    fn = getattr(lib, "hpmn_gru_bwd_pass" + (
+        "_bf16" if dtype == torch.bfloat16 else ""))
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check_cuda_args(w, x_tm, mask_tm, h0, name, scale_tm=None):
@@ -231,6 +273,23 @@ def _launch(w, x_tm, mask_tm, h0, scale_tm=None) -> torch.Tensor:
     return hseq
 
 
+def _k2(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream) -> int:
+    """K2's (K2-bf16's) C call: the workspaces, then every chunk's
+    recurrence and pass, then the partials; outs = (dx, dh0, dwx, dwh, db)
+    -> the cudaError_t code."""
+    T, B, d_in = x_tm.shape
+    t_chunk = bwd_workspace_steps(T, B, x_tm.dtype)
+    dg = torch.empty(t_chunk, B, 4 * _D_M, dtype=x_tm.dtype,
+                     device=x_tm.device)
+    acc = torch.empty(B, _acc_floats(d_in), dtype=torch.float32,
+                      device=x_tm.device)
+    return _bwd_fn(x_tm.dtype)(
+        x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm), _tstride(mask_tm),
+        w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), _ptr(h0),
+        hseq.data_ptr(), dhseq.data_ptr(), *(t.data_ptr() for t in outs),
+        dg.data_ptr(), acc.data_ptr(), t_chunk, T, B, d_in, stream)
+
+
 def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq, scale_tm=None):
     """K2 (float32) or K2-bf16 (bfloat16), K2-scale or K2-scale-bf16 with a
     scale_tm: -> (dx in x's dtype, dwx, dwh, db, dh0 in float32), and
@@ -246,8 +305,7 @@ def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq, scale_tm=None):
             raise ValueError("h_seq and dh_seq must be contiguous "
                              f"[T, B, {_D_M}] tensors of x's dtype on x's "
                              "device")
-    rows_fn, fn = _bwd_fns(x_tm.dtype, scaled)
-    n_blocks = -(-B // rows_fn(d_in))
+    n_blocks = -(-B // _rows_fn()(d_in))
     dev = x_tm.device
     dx = torch.empty(T, B, d_in, dtype=x_tm.dtype, device=dev)
     dscale = (torch.empty(T, B, dtype=x_tm.dtype, device=dev) if scaled
@@ -259,15 +317,17 @@ def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq, scale_tm=None):
                       device=dev)
     db = torch.empty(n_blocks, 3 * _D_M, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    streams = [x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm),
-               _tstride(mask_tm)]
     if scaled:
-        streams += [scale_tm.data_ptr(), scale_tm.stride(0)]
-    outs = [dx.data_ptr()] + ([dscale.data_ptr()] if scaled else [])
-    code = fn(*streams, w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
-              _ptr(h0), hseq.data_ptr(), dhseq.data_ptr(), *outs,
-              dh0.data_ptr(), dwx.data_ptr(), dwh.data_ptr(), db.data_ptr(),
-              T, B, d_in, stream)
+        code = _bwd_fn(x_tm.dtype, True)(
+            x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm), _tstride(mask_tm),
+            scale_tm.data_ptr(), scale_tm.stride(0), w.wx.data_ptr(),
+            w.wh.data_ptr(), w.b.data_ptr(), _ptr(h0), hseq.data_ptr(),
+            dhseq.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+            dh0.data_ptr(), dwx.data_ptr(), dwh.data_ptr(), db.data_ptr(), T,
+            B, d_in, stream)
+    else:
+        code = _k2(w, x_tm, mask_tm, h0, hseq, dhseq,
+                   (dx, dh0, dwx, dwh, db), stream)
     _build.check_launch(code, name)
     _count(name)
     out = (dx, dwx.sum(0), dwh.sum(0), db.sum(0), dh0)
@@ -297,6 +357,62 @@ def input_proj(params: GRUParams, x_tm: torch.Tensor) -> torch.Tensor:
     _build.check_launch(code, "gru_input_proj")
     proj_launches += 1
     return xp
+
+
+def bwd_pass(wx: torch.Tensor, x_tm: torch.Tensor, h_prev: torch.Tensor,
+             dpre_x: torch.Tensor, dpre_h: torch.Tensor,
+             ) -> Tuple[torch.Tensor, ...]:
+    """K2's pass alone: x_tm [T, B, d_in] (any time stride, rows
+    contiguous), h_prev [T, B, 32] (the state before each step), the gate
+    gradients dpre_x = [dr|dz|dc] and dpre_h = [dr|dz|dc*r] [T, B, 96]
+    (their r and z blocks the same, as the scan's are: the kernel reads
+    them once) -> (dx in x's dtype, dwx, dwh, db in float32), by the kernel
+    on CUDA tensors (float32 or bfloat16, one dtype), by ``gru_bwd_pass``
+    on CPU tensors."""
+    if x_tm.device.type == "cpu":
+        return gru_bwd_pass(x_tm, h_prev, dpre_x, dpre_h, wx)
+    if x_tm.device.type != "cuda":
+        raise ValueError(f"bwd_pass runs on cpu or cuda, not {x_tm.device}")
+    global pass_launches
+    T, B, d_in = x_tm.shape
+    if not 1 <= d_in <= _MAX_D_IN or x_tm.dtype not in _DTYPES:
+        raise ValueError(f"gru_bwd_pass takes d_in <= {_MAX_D_IN} and "
+                         f"float32 or bfloat16; got d_in={d_in}, "
+                         f"{x_tm.dtype}")
+    for t in (wx, h_prev, dpre_x, dpre_h):
+        if t.dtype != x_tm.dtype or t.device != x_tm.device:
+            raise ValueError("gru_bwd_pass takes tensors of one dtype on one "
+                             "device")
+    if x_tm.stride(2) != 1 or x_tm.stride(1) != d_in:
+        raise ValueError("x_tm rows must be contiguous (any time stride)")
+    g = 3 * _D_M
+    if (wx.shape != (d_in, g) or h_prev.shape != (T, B, _D_M)
+            or dpre_x.shape != (T, B, g) or dpre_h.shape != (T, B, g)):
+        raise ValueError("gru_bwd_pass: wx [d_in, 96], h_prev [T, B, 32], "
+                         "dpre_x and dpre_h [T, B, 96]")
+    dev = x_tm.device
+    wx, h_prev = wx.contiguous(), h_prev.contiguous()
+    # dg [T, B, 32, 4]: lane k's dr, dz, dc and dc*r side by side.
+    dg = torch.stack([dpre_x[..., :_D_M], dpre_x[..., _D_M:2 * _D_M],
+                      dpre_x[..., 2 * _D_M:], dpre_h[..., 2 * _D_M:]], -1
+                     ).contiguous()
+    rows = _rows_fn()(d_in)
+    n_blocks = -(-B // rows)
+    dx = torch.empty(T, B, d_in, dtype=x_tm.dtype, device=dev)
+    acc = torch.empty(B, _acc_floats(d_in), dtype=torch.float32, device=dev)
+    dwx = torch.empty(n_blocks, d_in, g, dtype=torch.float32, device=dev)
+    dwh = torch.empty(n_blocks, _D_M, g, dtype=torch.float32, device=dev)
+    db = torch.empty(n_blocks, g, dtype=torch.float32, device=dev)
+    # h_prev[t] is hseq[t-1] for t >= 1 (hseq = h_prev[1:]) and h0 at t = 0.
+    hseq = h_prev[1:] if T > 1 else h_prev
+    code = _pass_fn(x_tm.dtype)(
+        x_tm.data_ptr(), x_tm.stride(0), wx.data_ptr(), h_prev[0].data_ptr(),
+        hseq.data_ptr(), dg.data_ptr(), dx.data_ptr(), acc.data_ptr(),
+        dwx.data_ptr(), dwh.data_ptr(), db.data_ptr(), rows, T, B, d_in,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(code, "gru_bwd_pass")
+    pass_launches += 1
+    return dx, dwx.sum(0), dwh.sum(0), db.sum(0)
 
 
 def gru_scan_bwd(params: GRUParams, x_tm: torch.Tensor,

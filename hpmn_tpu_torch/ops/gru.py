@@ -140,7 +140,8 @@ def gru_scan_tm_bwd(params: GRUParams, x_tm: torch.Tensor,
         dscale_t = sum_j dz_s z
 
     and dx_t = [dr|dz|dc] @ wx^T, dwx += x_t^T [dr|dz|dc], dwh += h_prev^T
-    [dr|dz|dc r], db += sum [dr|dz|dc]."""
+    [dr|dz|dc r], db += sum [dr|dz|dc]: those after the sweep, from all
+    its steps' gate gradients (:func:`gru_bwd_pass`)."""
     h0 = x_tm.new_zeros(x_tm.shape[1], params.wh.shape[0]) if h0 is None \
         else h0
     h_prev = torch.cat([h0[None], h_seq[:-1]])  # [T, B, d_m]
@@ -176,11 +177,26 @@ def _bwd_sweep(params, x_tm, mask_tm, h_prev, cotangent, scale_tm=None):
         dpre_x[t] = torch.cat([dr, dz, dc], dim=-1)
         dpre_h[t] = torch.cat([dr, dz, dc * r], dim=-1)
         dh = gcell * (1.0 - zs) + (gtot - gcell) + dpre_h[t] @ params.wh.T
-    dx = dpre_x @ params.wx.T
-    dwx = torch.einsum("tbi,tbj->ij", x_tm, dpre_x)
-    dwh = torch.einsum("tbi,tbj->ij", h_prev, dpre_h)
-    out = (dx, dwx, dwh, dpre_x.sum(dim=(0, 1)), dh)
+    out = gru_bwd_pass(x_tm, h_prev, dpre_x, dpre_h, params.wx) + (dh,)
     return out if dscale is None else out + (dscale,)
+
+
+def gru_bwd_pass(x_tm: torch.Tensor, h_prev: torch.Tensor,
+                 dpre_x: torch.Tensor, dpre_h: torch.Tensor,
+                 wx: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The scan backward's products that read only the gate gradients, after
+    its reverse sweep (the plain version of csrc/gru_bwd_pass.cu): x_tm
+    [T, B, d_in], h_prev [T, B, d_m], dpre_x = [dr|dz|dc] and dpre_h =
+    [dr|dz|dc r] [T, B, 3*d_m], wx [d_in, 3*d_m] -> (dx = dpre_x @ wx^T,
+    dwx = sum x_t^T dpre_x, dwh = sum h_prev^T dpre_h, db = sum dpre_x).
+    bf16 tensors are summed in f32 (products of bf16 values) and dx is
+    rounded to bf16 once; the weight gradients stay f32."""
+    ct = torch.float32 if x_tm.dtype == torch.bfloat16 else x_tm.dtype
+    dpx = dpre_x.to(ct)
+    dx = (dpx @ wx.to(ct).T).to(x_tm.dtype)
+    dwx = torch.einsum("tbi,tbj->ij", x_tm.to(ct), dpx)
+    dwh = torch.einsum("tbi,tbj->ij", h_prev.to(ct), dpre_h.to(ct))
+    return dx, dwx, dwh, dpx.sum(dim=(0, 1))
 
 
 # The bf16 chain: where ``hpmn_tpu/ops/pallas_gru.py`` with dtype=bfloat16
@@ -273,8 +289,8 @@ def _bwd_sweep_bf16(params, x_tm, mask_tm, h_prev, cotangent, scale_tm=None):
     its f32 sum."""
     T, B, _ = x_tm.shape
     d_m = params.wh.shape[0]
-    wxf, whf, bf = params.wx.float(), params.wh.float(), params.b.float()
-    xw = x_tm.float() @ wxf
+    whf, bf = params.wh.float(), params.b.float()
+    xw = x_tm.float() @ params.wx.float()
     dpre_x = x_tm.new_empty(T, B, 3 * d_m)  # [dr | dz | dc]
     dpre_h = x_tm.new_empty(T, B, 3 * d_m)  # [dr | dz | dc * r]
     dscale = None if scale_tm is None else x_tm.new_empty(T, B)
@@ -298,10 +314,7 @@ def _bwd_sweep_bf16(params, x_tm, mask_tm, h_prev, cotangent, scale_tm=None):
         dpre_x[t] = torch.cat([dr, dz, dc], dim=-1)
         dpre_h[t] = torch.cat([dr, dz, dc * r], dim=-1)
         dh = carry.float() + dpre_h[t].float() @ whf.T
-    dx = (dpre_x.float() @ wxf.T).bfloat16()
-    dwx = torch.einsum("tbi,tbj->ij", x_tm.float(), dpre_x.float())
-    dwh = torch.einsum("tbi,tbj->ij", h_prev.float(), dpre_h.float())
-    out = (dx, dwx, dwh, dpre_x.float().sum(dim=(0, 1)), dh)
+    out = gru_bwd_pass(x_tm, h_prev, dpre_x, dpre_h, params.wx) + (dh,)
     return out if dscale is None else out + (dscale,)
 
 

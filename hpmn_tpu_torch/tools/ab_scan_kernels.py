@@ -19,6 +19,10 @@ card.
 A tree whose K1 (f32, no scale) predates the two-kernel form has no
 ``hpmn_gru_scan_fwd_ws``; its K1 is then called through its one-kernel
 entry point ``hpmn_gru_scan_fwd``, with that entry point's arguments.
+Likewise a tree without ``hpmn_gru_scan_bwd_ws`` (K2 and K2-bf16 as one
+kernel): its ``hpmn_gru_scan_bwd`` and ``hpmn_gru_scan_bwd_bf16``. This
+tree's K2 in the default chunks (``cuda_gru.WORKSPACE_BYTES``) is also
+held, bit for bit, to itself in one chunk of all T steps.
 """
 
 from __future__ import annotations
@@ -38,9 +42,9 @@ from ..ops.gru import GRUParams
 T, B, D_IN = 1000, 512, 32
 PERIOD = 3
 REPS = 20
-_CACHES = (cuda_gru._kernel_fn, cuda_gru._ws_fn, cuda_gru._bwd_fns,
-           cuda_gru_stride.chunk, cuda_gru_stride._fwd_fn,
-           cuda_gru_stride._bwd_fns)
+_CACHES = (cuda_gru._kernel_fn, cuda_gru._ws_fn, cuda_gru._rows_fn,
+           cuda_gru._bwd_fn, cuda_gru._pass_fn, cuda_gru_stride.chunk,
+           cuda_gru_stride._fwd_fn, cuda_gru_stride._bwd_fns)
 
 
 def _one_kernel_k1(w, x_tm, mask_tm, h0, hseq, stream) -> int:
@@ -57,35 +61,54 @@ def _one_kernel_k1(w, x_tm, mask_tm, h0, hseq, stream) -> int:
               stream)
 
 
+def _one_kernel_k2(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream) -> int:
+    """K2 (K2-bf16) of a tree without the two-kernel form: its
+    hpmn_gru_scan_bwd (hpmn_gru_scan_bwd_bf16); outs = (dx, dh0, dwx, dwh,
+    db)."""
+    bf16 = x_tm.dtype == torch.bfloat16
+    fn = getattr(_build.load_library(),
+                 "hpmn_gru_scan_bwd" + ("_bf16" if bf16 else ""))
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    T, B, d_in = x_tm.shape
+    return fn(x_tm.data_ptr(), x_tm.stride(0), cuda_gru._ptr(mask_tm),
+              cuda_gru._tstride(mask_tm), w.wx.data_ptr(), w.wh.data_ptr(),
+              w.b.data_ptr(), cuda_gru._ptr(h0), hseq.data_ptr(),
+              dhseq.data_ptr(), *(t.data_ptr() for t in outs), T, B, d_in,
+              stream)
+
+
 @contextlib.contextmanager
 def _kernels_of(csrc: str):
     """Route the scan wrappers to the library built from ``csrc``."""
-    load, k1 = _build.load_library, cuda_gru._k1
+    load, k1, k2 = _build.load_library, cuda_gru._k1, cuda_gru._k2
     _build.load_library = functools.partial(load, csrc)
-    if not _has_ws(csrc):
+    if not _has(csrc, "gru_scan_fwd.cu", "hpmn_gru_scan_fwd_ws"):
         cuda_gru._k1 = _one_kernel_k1
+    if not _has(csrc, "gru_scan_bwd.cu", "hpmn_gru_scan_bwd_ws"):
+        cuda_gru._k2 = _one_kernel_k2
     for cache in _CACHES:
         cache.cache_clear()
     try:
         yield
     finally:
-        _build.load_library, cuda_gru._k1 = load, k1
+        _build.load_library, cuda_gru._k1, cuda_gru._k2 = load, k1, k2
         for cache in _CACHES:
             cache.cache_clear()
 
 
-def _has_ws(csrc: str) -> bool:
-    with open(os.path.join(csrc, "gru_scan_fwd.cu")) as f:
-        return "hpmn_gru_scan_fwd_ws" in f.read()
+def _has(csrc: str, source: str, symbol: str) -> bool:
+    """Whether the tree's ``source`` names ``symbol``."""
+    with open(os.path.join(csrc, source)) as f:
+        return symbol in f.read()
 
 
 def _has_stride(csrc: str) -> bool:
     return os.path.isfile(os.path.join(csrc, "gru_scan_stride_fwd.cu"))
 
 
-def _has_scale(csrc: str) -> bool:
-    with open(os.path.join(csrc, "gru_scan_fwd.cu")) as f:
-        return "hpmn_gru_scan_fwd_scale" in f.read()
 
 
 def _ms(fn) -> float:
@@ -128,7 +151,8 @@ def main(argv=None) -> int:
     dhT = torch.randn(B, 32, generator=gen).to(dev, dtype)
     a = torch.rand(T, B, generator=gen).to(dev, dtype)
     strided = all(_has_stride(c) for c in trees.values())
-    scaled = all(_has_scale(c) for c in trees.values())
+    scaled = all(_has(c, "gru_scan_fwd.cu", "hpmn_gru_scan_fwd_scale")
+                 for c in trees.values())
 
     outs = {}
     for tree, csrc in trees.items():
@@ -148,6 +172,19 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             outs[tree] = res
     same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
+    # This tree's K2 in one chunk of all T steps against its default chunks
+    # (the no-mask and masked outputs above).
+    cap = cuda_gru.WORKSPACE_BYTES
+    cuda_gru.WORKSPACE_BYTES = T * B * 128 * x.element_size()
+    try:
+        one = []
+        for m in (None, mask):
+            h = cuda_gru.gru_sequence_tm(p, x, m)[0]
+            one += [h, *cuda_gru.gru_scan_bwd(p, x, m, h, dh)]
+    finally:
+        cuda_gru.WORKSPACE_BYTES = cap
+    chunks = -(-T // cuda_gru.bwd_workspace_steps(T, B, dtype))
+    one_chunk = all(torch.equal(a, b) for a, b in zip(one, outs["this"]))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
@@ -155,7 +192,8 @@ def main(argv=None) -> int:
           f"forward and backward outputs, mask and no mask"
           f"{', and the strided kernels' if strided else ''}"
           f"{', and the AUGRU kernels' if scaled else ''}, bit for bit "
-          f"the same: {same}")
+          f"the same: {same} | this tree's K2 in {chunks} chunks and in one: "
+          f"bit for bit the same: {one_chunk}")
     h = outs["this"][0]
     bounds = outs["this"][14] if strided else None
     for tree in ("other", "this", "this", "other"):
@@ -180,7 +218,7 @@ def main(argv=None) -> int:
         print(f"ab_scan_kernels: {tree} ({trees[tree]}): forward {fwd:.4f} "
               f"ms | backward {bwd:.4f} ms{st} (mean of {REPS}, no mask, "
               f"{name})")
-    return 0 if same else 1
+    return 0 if same and one_chunk else 1
 
 
 if __name__ == "__main__":

@@ -31,6 +31,16 @@ output is one fmaf chain over d_in <= 96 terms, about sqrt(d_in) roundings
 of half an ulp), and K1 over several chunks equals K1 over one chunk bit
 for bit (each chunk starts from the last f32 row of h_seq).
 
+K2 and K2-bf16 run as two kernels too, the reverse recurrence into a
+workspace of gate gradients and the dx and weight-gradient pass, over
+chunks of steps from the last: the pass alone is held to its plain
+version ``gru_bwd_pass`` (1e-4 of max abs in f32; 1e-2 in bf16, where dx
+is rounded to bf16 after sums in another order), K2 over several chunks
+equals K2 over one chunk bit for bit (the dh carry and each row's
+weight-gradient sums cross chunks in f32), and K2 holds to the plain
+backward where B is not a multiple of the rows that one weight-gradient
+partial sums (4, or 2 at d_in > 64).
+
 The AUGRU forms (K1-scale, K2-scale and their bf16 forms) are held to the
 plain scaled scans at the tolerances of their unscaled forms, dscale
 among the backward's outputs; the DIEN step's kernel path to its plain
@@ -47,8 +57,8 @@ from hpmn_tpu_torch.data.schema import batch_from_numpy
 from hpmn_tpu_torch.models.model import init_model, loss_fn
 from hpmn_tpu_torch.models.readout import Readout, attention_readout
 from hpmn_tpu_torch.ops import cuda_gru, cuda_gru_stride, cuda_readout
-from hpmn_tpu_torch.ops.gru import (GRUParams, GRUWeights, gru_input_proj,
-                                    gru_scan_stride_tm,
+from hpmn_tpu_torch.ops.gru import (GRUParams, GRUWeights, gru_bwd_pass,
+                                    gru_input_proj, gru_scan_stride_tm,
                                     gru_scan_stride_tm_bf16,
                                     gru_scan_stride_tm_bwd,
                                     gru_scan_stride_tm_bwd_bf16, gru_scan_tm,
@@ -288,6 +298,88 @@ def test_gru_bf16_kernels_match_plain(dev, T, B, d_in, masked, strided):
     for name, a, b in zip(("dx", "dwx", "dwh", "db", "dh0"), got, want):
         assert a.shape == b.shape and a.dtype == b.dtype, name
         assert _rel_err(a.float(), b.float()) <= TOL_GRAD_BF16, name
+
+
+@pytest.mark.parametrize("d_in", [1, 32, 33, 96])
+@pytest.mark.parametrize("B", [1, 5, 513])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_bwd_pass_kernel_matches_plain(dev, d_in, B, dtype):
+    """K2's pass alone, on a strided time view, against gru_bwd_pass."""
+    T = 37  # a tile of 32 steps and a shorter one
+    g = torch.Generator().manual_seed(d_in + B)
+    x = torch.randn(3 * T, B, d_in, generator=g).to(dev, dtype)[1::3]
+    h_prev = torch.rand(T, B, 32, generator=g).mul(2).sub(1).to(dev, dtype)
+    dr, dz, dc, dcr = torch.randn(4, T, B, 32, generator=g).to(dev, dtype)
+    wx = _gru(d_in, dev).wx.to(dtype)
+    dpx, dph = torch.cat([dr, dz, dc], -1), torch.cat([dr, dz, dcr], -1)
+    n = cuda_gru.pass_launches
+    got = cuda_gru.bwd_pass(wx, x, h_prev, dpx, dph)
+    want = gru_bwd_pass(x, h_prev, dpx, dph, wx)
+    torch.cuda.synchronize()
+    assert cuda_gru.pass_launches == n + 1
+    tol = TOL_GRAD_BF16 if dtype == BF16 else TOL_GRAD
+    for name, a, b in zip(("dx", "dwx", "dwh", "db"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel_err(a.float(), b.float()) <= tol, name
+
+
+@pytest.mark.parametrize("T,B,d_in", [(50, 5, 33), (23, 5, 96), (40, 8, 1)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("steps", [1, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_gru_bwd_kernel_chunks_match_one_chunk(dev, monkeypatch, T, B, d_in,
+                                               masked, steps, dtype):
+    """K2 (K2-bf16) over workspace chunks of `steps` steps (the one at t = 0
+    shorter) == K2 over one chunk, bit for bit, from h0 on a strided time
+    view."""
+    p = _gru(d_in, dev)
+    w = _bf16(p) if dtype == BF16 else p
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(3 * T, B, d_in, generator=g).to(dev, dtype)[2::3]
+    mask = _mask(T, B, dev).to(dtype) if masked else None
+    h0 = torch.randn(B, 32, generator=g).to(dev, dtype)
+    dh_seq = torch.randn(T, B, 32, generator=g).to(dev, dtype)
+    h_seq = cuda_gru.gru_sequence_tm(w, x, mask, h0)[0]
+    assert cuda_gru.bwd_workspace_steps(T, B, dtype) == T
+    one = cuda_gru.gru_scan_bwd(w, x, mask, h_seq, dh_seq, h0)
+    es = 2 if dtype == BF16 else 4
+    monkeypatch.setattr(cuda_gru, "WORKSPACE_BYTES", steps * B * 128 * es)
+    assert cuda_gru.bwd_workspace_steps(T, B, dtype) == steps
+    counter = "bwd_launches_bf16" if dtype == BF16 else "bwd_launches"
+    n = getattr(cuda_gru, counter)
+    chunked = cuda_gru.gru_scan_bwd(w, x, mask, h_seq, dh_seq, h0)
+    torch.cuda.synchronize()
+    assert getattr(cuda_gru, counter) == n + 1
+    for name, a, b in zip(("dx", "dwx", "dwh", "db", "dh0"), chunked, one):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("T,B,d_in,masked", [
+    (13, 5, 96, True), (13, 7, 32, False), (13, 1, 96, False),
+    (300, 513, 33, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_gru_bwd_kernel_row_groups(dev, T, B, d_in, masked, dtype):
+    """K2 and K2-bf16 against the plain backward where B is odd or not a
+    multiple of the rows of a weight-gradient partial (4; 2 at d_in = 96),
+    and at T = 300, B = 513, where the default workspace takes 2 chunks in
+    f32."""
+    p = _gru(d_in, dev)
+    bf = dtype == BF16
+    w = _bf16(p) if bf else p
+    g = torch.Generator().manual_seed(T + B + d_in)
+    x = torch.randn(T, B, d_in, generator=g).to(dev, dtype)
+    mask = _mask(T, B, dev).to(dtype) if masked else None
+    h0 = torch.randn(B, 32, generator=g).to(dev, dtype) if B % 2 else None
+    dh_seq = torch.randn(T, B, 32, generator=g).to(dev, dtype)
+    h_seq = cuda_gru.gru_sequence_tm(w, x, mask, h0)[0]
+    got = cuda_gru.gru_scan_bwd(w, x, mask, h_seq, dh_seq, h0)
+    want = (gru_scan_tm_bwd_bf16 if bf else gru_scan_tm_bwd)(
+        w, x, mask, h_seq, dh_seq, h0)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "dwx", "dwh", "db", "dh0"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel_err(a.float(), b.float()) <= (
+            TOL_GRAD_BF16 if bf else TOL_GRAD), name
 
 
 def test_gru_kernels_refuse_dtype_mixes(dev):
