@@ -63,12 +63,15 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 32;                      // steps staged at a time
 constexpr int kStepsPerWarp = kTile / kWarps;  // dx: steps per thread
 
-// Shared memory in floats: wx^T [96][d_in_pad], the tile's u [kTile][R]
-// (R = d_in_pad + 32) and dg [kTile][32][4].
+// Shared memory in floats: wx^T [96][d_in_pad], then two buffers of a
+// tile's u [kTile][R] (R = d_in_pad + 32) and dg [kTile][32][4].
 template <int NC>
-constexpr size_t smem_floats() {
-  return (size_t)kG * 32 * NC + (size_t)kTile * (32 * NC + kDm)
-         + (size_t)kTile * 4 * kDm;
+__host__ __device__ constexpr size_t tile_floats() {
+  return (size_t)kTile * (32 * NC + kDm) + (size_t)kTile * 4 * kDm;
+}
+template <int NC>
+__host__ __device__ constexpr size_t smem_floats() {
+  return (size_t)kG * 32 * NC + 2 * tile_floats<NC>();
 }
 
 // NC: d_in's 32-chunks, 1 to 3. dg [n, B, 32, 4] holds the chunk's steps;
@@ -86,13 +89,58 @@ gru_bwd_pass_kernel(const S* __restrict__ x, long long x_tstride,
   constexpr int RW = R / kWarps;  // rows per warp: 8, 12 or 16
   constexpr int kXRows = 4 * NC;  // ii < kXRows: x's rows
   extern __shared__ __align__(16) float smem[];
+  constexpr int kUPer = kTile * R / kThreads;    // u values per thread
+  constexpr int kGPer = kTile * kDm / kThreads;  // dg float4 per thread
   float* s_wxT = smem;
-  float* s_u = s_wxT + kG * kPad;
-  float4* s_dg = reinterpret_cast<float4*>(s_u + kTile * R);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long row = blockIdx.x;
   float* acc_row = acc + row * (R + 1) * kG;
 
+  // A tile's staging: fetch() issues every global load of steps [lo, lo +
+  // ts) into registers, commit() stores them into one of the two buffers.
+  // The next tile's loads are in flight while this tile is computed.
+  float pu[kUPer];
+  float4 pg[kGPer];
+  auto fetch = [&](int lo, int ts) {
+#pragma unroll
+    for (int i = 0; i < kUPer; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int s = e / R, rho = e - s * R, t = lo + s;
+      float v = 0.0f;
+      if (s < ts) {
+        if (rho < kPad) {
+          if (rho < d_in) v = load_f(x + t * x_tstride + row * d_in + rho);
+        } else if (t > 0) {
+          v = load_f(hseq + ((long long)(t - 1) * B + row) * kDm + rho
+                     - kPad);
+        } else if (h0 != nullptr) {
+          v = load_f(h0 + row * kDm + rho - kPad);
+        }
+      }
+      pu[i] = v;
+    }
+#pragma unroll
+    for (int i = 0; i < kGPer; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int s = e / kDm, k = e - s * kDm;
+      pg[i] = s < ts ? hpmn::load4(dg + (((long long)(lo + s - t0) * B + row)
+                                         * kDm + k) * 4)
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  };
+  auto commit = [&](float* s_u, float4* s_dg) {
+#pragma unroll
+    for (int i = 0; i < kUPer; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int s = e / R, rho = e - s * R;
+      s_u[s * R + (rho & 7) * RW + (rho >> 3)] = pu[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kGPer; ++i) s_dg[threadIdx.x + i * kThreads] = pg[i];
+  };
+
+  int hi = t0 + n, lo = hi - kTile > t0 ? hi - kTile : t0;
+  fetch(lo, hi - lo);
   for (int i = threadIdx.x; i < kPad * kG; i += kThreads) {
     const int r = i / kG, col = i - r * kG;
     s_wxT[col * kPad + r] = r < d_in ? load_f(wx + i) : 0.0f;
@@ -108,27 +156,18 @@ gru_bwd_pass_kernel(const S* __restrict__ x, long long x_tstride,
   for (int g = 0; g < 3; ++g)
     db[g] = first ? 0.0f : acc_row[R * kG + g * kDm + lane];
 
-  for (int hi = t0 + n; hi > t0; hi -= kTile) {
-    const int lo = hi - kTile > t0 ? hi - kTile : t0;
+  for (int buf = 0; hi > t0; buf ^= 1) {
     const int ts = hi - lo;
-    __syncthreads();  // the last tile's reads are done
-    for (int e = threadIdx.x; e < ts * R; e += kThreads) {
-      const int s = e / R, rho = e - s * R, t = lo + s;
-      float v;
-      if (rho < kPad)
-        v = rho < d_in ? load_f(x + t * x_tstride + row * d_in + rho) : 0.0f;
-      else if (t > 0)
-        v = load_f(hseq + ((long long)(t - 1) * B + row) * kDm + rho - kPad);
-      else
-        v = h0 != nullptr ? load_f(h0 + row * kDm + rho - kPad) : 0.0f;
-      s_u[s * R + (rho & 7) * RW + (rho >> 3)] = v;
-    }
-    for (int e = threadIdx.x; e < ts * kDm; e += kThreads) {
-      const int s = e / kDm, k = e - s * kDm;
-      s_dg[e] = hpmn::load4(dg + (((long long)(lo + s - t0) * B + row) * kDm
-                                  + k) * 4);
-    }
+    float* s_u = s_wxT + kG * kPad + buf * tile_floats<NC>();
+    float4* s_dg = reinterpret_cast<float4*>(s_u + kTile * R);
+    commit(s_u, s_dg);
+    // This buffer is whole, and every thread is done with the tile that
+    // used it last (two tiles ago).
     __syncthreads();
+    const int tile_lo = lo;
+    hi = lo;
+    lo = hi - kTile > t0 ? hi - kTile : t0;
+    if (hi > t0) fetch(lo, hi - lo);
 
     // dx: the tile's steps warp + 8*s (past ts: computed, not stored).
     float o[kStepsPerWarp][NC];
@@ -163,8 +202,8 @@ gru_bwd_pass_kernel(const S* __restrict__ x, long long x_tstride,
       for (int c = 0; c < NC; ++c) {
         const int i = 32 * c + lane;
         if (sl < ts && i < d_in)
-          hpmn::store_f(dx + ((long long)(lo + sl) * B + row) * d_in + i,
-                        o[s][c]);
+          hpmn::store_f(
+              dx + ((long long)(tile_lo + sl) * B + row) * d_in + i, o[s][c]);
       }
     }
 

@@ -231,7 +231,7 @@ gru_scan_bwd_kernel(const S* __restrict__ x, long long x_tstride,
 // the weight-gradient sums and db taken out. Per step it writes the gate
 // gradients into dg [n, B, 32, 4] (S) at (t - t0, row, lane). dh [B, 32]
 // (f32) carries dh in (`carry_in`; else it starts at zero) and out.
-constexpr int kRecWarps = 4;  // batch rows per block
+constexpr int kRecWarps = 1;  // batch rows per block
 
 template <typename S>
 __global__ void __launch_bounds__(kRecWarps * 32)
