@@ -35,9 +35,13 @@
 // written), 448 in bf16: about the card's 20 FLOPs per byte of HBM in f32,
 // operations in bf16. What the design does about it: one block of 8 warps
 // per batch row and chunk, walking the chunk's steps down in tiles of
-// kTile, each tile staged in shared memory (u = [x_t | h_prev] in f32, dg
-// as one float4 per step and k) behind one barrier; the operands of the
-// FMAs come from registers and from 16-byte shared-memory loads.
+// kTile. A tile is staged in shared memory (u = [x_t | h_prev] in f32, dg
+// as one float4 per step and k), one of two buffers, behind one barrier:
+// the next tile's global loads are issued into registers before this tile
+// is computed and stored after it, so their latency hides behind the FMAs
+// (loaded and stored one by one they took 1.47 ms alone at T = 1000,
+// PERF.md). The operands of the FMAs come from registers and from 16-byte
+// shared-memory loads.
 //
 // - Weight gradients: thread (warp w, lane j) owns rows rho = 8*ii + w of u
 //   (d_in_pad + 32 rows) and columns j, 32+j, 64+j, 3*RW accumulators in

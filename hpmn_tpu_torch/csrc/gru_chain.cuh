@@ -5,9 +5,9 @@
 // gates bit for bit; the launchers of K1's input projection
 // (gru_input_proj.cu) and of K2's dx and weight-gradient pass
 // (gru_bwd_pass.cu); the strided scan's step; one step's gate gradients,
-// with or without the AUGRU gate scale, the warp sum of its dscale, and the
-// dh carry's products; and the shared-memory pieces of the backward
-// kernels.
+// with or without the AUGRU gate scale, and the warp sum of its dscale;
+// four-value loads and stores of the stream type; and the shared-memory
+// pieces of the backward kernels.
 //
 // Two chains, as hpmn_tpu/ops/pallas_gru.py has them:
 //
@@ -383,28 +383,6 @@ __device__ __forceinline__ BwdSmem load_bwd_smem(float* smem, const S* wx,
     acc0[i] = 0.0f;
   __syncthreads();
   return s;
-}
-
-// dh_prev = carry + [dr|dz|dc*r] @ wh^T alone, from the transposed wh
-// (s_whT [96][32]): backprop_step's chain of dh, the same fmaf order over k
-// (dr, dz, dc*r interleaved); in bf16 the carry's term is added after the
-// f32 sum of the products.
-template <typename S>
-__device__ __forceinline__ float carry_step(const StepGrad& sg,
-                                            const float* s_whT, int lane) {
-  constexpr bool kBf16 = kIsBf16<S>;
-  float dh_new = kBf16 ? 0.0f : sg.carry;
-#pragma unroll
-  for (int k = 0; k < kDm; ++k) {
-    const float drk = __shfl_sync(kFull, sg.dr, k);
-    const float dzk = __shfl_sync(kFull, sg.dz, k);
-    const float dcrk = __shfl_sync(kFull, sg.dcr, k);
-    dh_new = fmaf(drk, s_whT[k * kDm + lane], dh_new);
-    dh_new = fmaf(dzk, s_whT[(kDm + k) * kDm + lane], dh_new);
-    dh_new = fmaf(dcrk, s_whT[(2 * kDm + k) * kDm + lane], dh_new);
-  }
-  if (kBf16) dh_new = sg.carry + dh_new;
-  return dh_new;
 }
 
 // Four stream values at p (16 bytes in f32, 8 in bf16; p aligned to that).

@@ -45,12 +45,11 @@
 // K2 and K2-bf16 (no scale) are therefore two kernels per chunk of steps,
 // run by one C entry point from the last chunk to the first:
 //
-// - the recurrence (gru_scan_bwd_rec_kernel, here): one warp per batch row,
-//   lane j owning hidden unit j, the dh carry in a register, operands
-//   broadcast with __shfl_sync, the next step's loads issued one step
-//   ahead. Per step it recomputes the gates, takes the gate gradients and
-//   dh's product (carry_step: wh^T read from a transposed copy in shared
-//   memory, conflict-free), and writes the gate gradients [dr, dz, dc,
+// - the recurrence (gru_scan_bwd_rec_kernel, here): one warp per batch row
+//   and block, lane j owning hidden unit j, the dh carry in a register, wh
+//   in registers in both of its layouts, the next step's loads issued one
+//   step ahead. Per step it recomputes the gates, takes the gate gradients
+//   and dh's product with wh^T, and writes the gate gradients [dr, dz, dc,
 //   dc*r] of lane k as 4 values into a workspace dg [Tc, B, 32, 4] of the
 //   stream type (in bf16 they are bf16 values, so storing them is exact).
 //   The carry crosses a chunk boundary through dh0 [B, 32] (f32), which
@@ -231,10 +230,17 @@ gru_scan_bwd_kernel(const S* __restrict__ x, long long x_tstride,
 // the weight-gradient sums and db taken out. Per step it writes the gate
 // gradients into dg [n, B, 32, 4] (S) at (t - t0, row, lane). dh [B, 32]
 // (f32) carries dh in (`carry_in`; else it starts at zero) and out.
-constexpr int kRecWarps = 1;  // batch rows per block
-
+//
+// One warp, one batch row, per block (4 rows per block took 1.37x as long
+// in f32; PERF.md). Both of the step's products with wh read it from
+// registers: the recompute's h @ wh (lane j: wh[k][32g + j]) and dh's
+// [dr|dz|dc*r] @ wh^T (lane j: wh[j][32g + k]), 192 floats a lane; x_t
+// and h_prev, and the gate gradients, are broadcast through shared memory
+// as float4s (one 16-byte load for 4 of k) instead of one __shfl_sync per
+// value; wx stays in shared memory. The fmaf orders are project()'s and
+// backprop_step()'s, so the bits are the one-kernel loop's.
 template <typename S>
-__global__ void __launch_bounds__(kRecWarps * 32)
+__global__ void __launch_bounds__(32)
 gru_scan_bwd_rec_kernel(const S* __restrict__ x, long long x_tstride,
                         const S* __restrict__ mask, long long m_tstride,
                         const S* __restrict__ wx, const S* __restrict__ wh,
@@ -244,24 +250,25 @@ gru_scan_bwd_rec_kernel(const S* __restrict__ x, long long x_tstride,
                         const S* __restrict__ dhseq, S* __restrict__ dg,
                         float* __restrict__ dh, int t0, int n,
                         bool carry_in, int B, int d_in) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int n_chunks = (d_in + 31) / 32;
   const int d_in_pad = n_chunks * 32;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRecWarps + (threadIdx.x >> 5);
-  float* s_wx = smem;                        // [d_in_pad][96], zero past d_in
-  float* s_wh = s_wx + d_in_pad * hpmn::kG;  // [32][96]
-  float* s_whT = s_wh + kDm * hpmn::kG;      // [96][32]
-  for (int i = threadIdx.x; i < d_in_pad * hpmn::kG; i += blockDim.x)
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
+  float* s_wx = smem;                         // [d_in_pad][96], zero past d_in
+  float* s_xh = s_wx + d_in_pad * hpmn::kG;   // x_t [d_in_pad], h_prev [32]
+  float4* s_g = reinterpret_cast<float4*>(s_xh + d_in_pad + kDm);  // [32]
+  for (int i = lane; i < d_in_pad * hpmn::kG; i += 32)
     s_wx[i] = i / hpmn::kG < d_in ? load_f(wx + i) : 0.0f;
-  for (int i = threadIdx.x; i < kDm * hpmn::kG; i += blockDim.x) {
-    const int r = i / hpmn::kG, col = i - r * hpmn::kG;
-    const float w = load_f(wh + i);
-    s_wh[i] = w;
-    s_whT[col * kDm + r] = w;
-  }
-  __syncthreads();
-  if (row >= B) return;  // whole warps leave; no block barrier follows
+  float wh_k[3][kDm];  // wh[k][32g + lane]: the recompute's h @ wh
+  float wh_t[3][kDm];  // wh[lane][32g + k]: dh's products with wh^T
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int k = 0; k < kDm; ++k) {
+      wh_k[g][k] = load_f(wh + k * hpmn::kG + g * kDm + lane);
+      wh_t[g][k] = load_f(wh + lane * hpmn::kG + g * kDm + k);
+    }
 
   const float b_r = load_f(bias + lane);
   const float b_z = load_f(bias + kDm + lane);
@@ -278,9 +285,47 @@ gru_scan_bwd_rec_kernel(const S* __restrict__ x, long long x_tstride,
                           x_tstride, mask, m_tstride, nullptr, 0, h0, hseq,
                           dhseq);
 
-    // Recompute the forward's gates (gru_scan_fwd.cu, the same order).
-    const hpmn::Proj p =
-        hpmn::project(cur.x, n_chunks, cur.hp, s_wx, s_wh, lane);
+    // Recompute the forward's gates: project()'s sums, the same order.
+    __syncwarp();  // every lane is done with the last step's broadcasts
+#pragma unroll
+    for (int c = 0; c < kMaxChunks; ++c)
+      if (c < n_chunks) s_xh[32 * c + lane] = cur.x[c];
+    s_xh[d_in_pad + lane] = cur.hp;
+    __syncwarp();
+    hpmn::Proj p;
+    p.ar = p.az = p.ac = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kMaxChunks; ++c) {
+      if (c < n_chunks) {
+#pragma unroll
+        for (int k4 = 0; k4 < 8; ++k4) {
+          const float4 q =
+              *reinterpret_cast<const float4*>(s_xh + 32 * c + 4 * k4);
+          const float xq[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float* w = s_wx + (32 * c + 4 * k4 + e) * hpmn::kG;
+            p.ar = fmaf(xq[e], w[lane], p.ar);
+            p.az = fmaf(xq[e], w[kDm + lane], p.az);
+            p.ac = fmaf(xq[e], w[2 * kDm + lane], p.ac);
+          }
+        }
+      }
+    }
+    p.gr = p.gz = p.gc = 0.0f;
+#pragma unroll
+    for (int k4 = 0; k4 < 8; ++k4) {
+      const float4 q =
+          *reinterpret_cast<const float4*>(s_xh + d_in_pad + 4 * k4);
+      const float hq[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 4 * k4 + e;
+        p.gr = fmaf(hq[e], wh_k[0][k], p.gr);
+        p.gz = fmaf(hq[e], wh_k[1][k], p.gz);
+        p.gc = fmaf(hq[e], wh_k[2][k], p.gc);
+      }
+    }
     hpmn::StepGrad sg;
     if constexpr (hpmn::kIsBf16<S>)
       sg = hpmn::step_grad_bf16(hpmn::gates_bf16(p, b_r, b_z, b_c), cur.hpb,
@@ -291,7 +336,21 @@ gru_scan_bwd_rec_kernel(const S* __restrict__ x, long long x_tstride,
                                cur.dhs + dhc, cur.m);
     hpmn::store4(dg + (((long long)(t - t0) * B + row) * kDm + lane) * 4,
                  sg.dr, sg.dz, sg.dc, sg.dcr);
-    dhc = hpmn::carry_step<S>(sg, s_whT, lane);
+
+    // dh_prev = carry + [dr|dz|dc*r] @ wh^T: backprop_step()'s chain over k
+    // (dr, dz, dc*r interleaved); in bf16 the carry's term is added after
+    // the f32 sum of the products.
+    s_g[lane] = make_float4(sg.dr, sg.dz, sg.dc, sg.dcr);
+    __syncwarp();
+    float dh_new = hpmn::kIsBf16<S> ? 0.0f : sg.carry;
+#pragma unroll
+    for (int k = 0; k < kDm; ++k) {
+      const float4 d = s_g[k];
+      dh_new = fmaf(d.x, wh_t[0][k], dh_new);
+      dh_new = fmaf(d.y, wh_t[1][k], dh_new);
+      dh_new = fmaf(d.w, wh_t[2][k], dh_new);
+    }
+    dhc = hpmn::kIsBf16<S> ? sg.carry + dh_new : dh_new;
     if (t > t0) cur = nxt;
   }
   dh[(long long)row * kDm + lane] = dhc;
@@ -357,16 +416,16 @@ int launch_ws(const S* x, long long x_tstride, const S* mask,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int d_in_pad = (d_in + 31) / 32 * 32;
-  const size_t smem = (size_t)(d_in_pad + 2 * kDm) * hpmn::kG * 4;
+  const size_t smem =
+      ((size_t)d_in_pad * hpmn::kG + d_in_pad + kDm + 4 * kDm) * 4;
   cudaError_t err = cudaFuncSetAttribute(
       gru_scan_bwd_rec_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (B + kRecWarps - 1) / kRecWarps;
   for (int hi = T; hi > 0;) {
     const int n = t_chunk < hi ? t_chunk : hi;
     const int t0 = hi - n;
-    gru_scan_bwd_rec_kernel<S><<<grid, kRecWarps * 32, smem, st>>>(
+    gru_scan_bwd_rec_kernel<S><<<B, 32, smem, st>>>(
         x, x_tstride, mask, m_tstride, wx, wh, b, h0, hseq, dhseq, dg, dh0,
         t0, n, hi < T, B, d_in);
     int code = (int)cudaGetLastError();
