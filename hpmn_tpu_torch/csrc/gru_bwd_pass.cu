@@ -19,11 +19,11 @@
 // then, after the last chunk (launch_wgrad_partials), one f32 partial per
 // group of rows.
 //
-// Bits: every output is the one-kernel K2's (gru_scan_bwd_kernel without
-// kScale). dx[t, b, i] is its fmaf chain from 0.0f over k = 0..31 of
-// dr_k*wx[i][k], dz_k*wx[i][32+k], dc_k*wx[i][64+k]. A row's sums are its
-// warp's accumulators there: acc = fmaf(u, d, acc) from 0.0f over t
-// descending, no step skipped (a masked step adds its zero gradients); db
+// Bits: every output is the one-kernel loop's (gru_scan_bwd_kernel, as it
+// ran without the scale). dx[t, b, i] is its fmaf chain from 0.0f over k =
+// 0..31 of dr_k*wx[i][k], dz_k*wx[i][32+k], dc_k*wx[i][64+k]. A row's sums
+// are its warp's accumulators there: acc = fmaf(u, d, acc) from 0.0f over
+// t descending, no step skipped (a masked step adds its zero gradients); db
 // a plain add. They cross chunks in f32, in `acc`. The partials sum the
 // rows of one of that kernel's blocks in its warp order, 0.0f + row 0 + row
 // 1 + ...; a row past B adds nothing (its slice there was zeros, and a sum

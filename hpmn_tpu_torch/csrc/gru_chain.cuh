@@ -60,8 +60,8 @@ int launch_bwd_pass(const S* x, long long x_tstride, const S* wx,
 
 // After the last chunk: one f32 partial per group of `rows` batch rows,
 // 0.0f + row 0 + row 1 + ..., into dwx_part [d_in][96], dwh_part [32][96]
-// and db_part [96] at the group's index (the parent one-kernel K2's
-// write_wgrad_partials, with its blocks' rows). Returns cudaGetLastError().
+// and db_part [96] at the group's index (write_wgrad_partials' sums over
+// the one-kernel loop's blocks of rows). Returns cudaGetLastError().
 int launch_wgrad_partials(const float* acc, int rows, int B, int d_in,
                           float* dwx_part, float* dwh_part, float* db_part,
                           cudaStream_t stream);
@@ -325,13 +325,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ---- The backward kernels' shared memory (K2 and K4), per block: the
-// weights row-major (the recompute reads them) and transposed (dh and dx
-// read them along rows: lane j needs w[j][g*32+k] for a k shared by the
-// warp, a 32-way bank conflict in the row-major copy), then per warp the
-// weight-gradient accumulators dWx [d_in_pad][96], dWh [32][96], db [96],
-// where lane j owns column j of each gate block: no atomics, no bank
-// conflicts. The block sums its warps' slices into one f32 partial; the
+// ---- The one-kernel backward loops' shared memory (K2-scale and K4), per
+// block: the weights row-major (the recompute reads them) and transposed
+// (dh and dx read them along rows: lane j needs w[j][g*32+k] for a k shared
+// by the warp, a 32-way bank conflict in the row-major copy), then per
+// warp the weight-gradient accumulators dWx [d_in_pad][96], dWh [32][96],
+// db [96], where lane j owns column j of each gate block: no atomics, no
+// bank conflicts. The block sums its warps' slices into one f32 partial; the
 // wrapper sums the partials (as the TPU kernel emits one per batch tile).
 constexpr size_t kMaxSmem = 232448;  // a block's shared-memory limit
 

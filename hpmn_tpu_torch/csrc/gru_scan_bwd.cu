@@ -142,11 +142,12 @@ __device__ __forceinline__ void load_step(
   }
 }
 
-// The one-kernel loop. S: the stream type, float or __nv_bfloat16. kScale:
-// the AUGRU forms, reading scale [T, B] (time stride s_tstride) and writing
-// dscale [T, B] (contiguous); only they run it. Without kScale it is the
-// one-kernel K2 (K2-bf16) whose bits the two-kernel form keeps.
-template <typename S, bool kScale>
+// The one-kernel loop of the AUGRU forms (K2-scale, K2-scale-bf16). S: the
+// stream type, float or __nv_bfloat16. Reads scale [T, B] (time stride
+// s_tstride) and writes dscale [T, B] (contiguous). Without the scale, the
+// same loop was the one-kernel K2 (K2-bf16) whose bits the two-kernel form
+// keeps.
+template <typename S>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 gru_scan_bwd_kernel(const S* __restrict__ x, long long x_tstride,
                     const S* __restrict__ mask, long long m_tstride,
@@ -177,13 +178,13 @@ gru_scan_bwd_kernel(const S* __restrict__ x, long long x_tstride,
     float dh = 0.0f;
     float db_r = 0.0f, db_z = 0.0f, db_c = 0.0f;
     StepIn cur;
-    load_step<S, kScale>(cur, T - 1, row, lane, B, d_in, n_chunks, x,
+    load_step<S, true>(cur, T - 1, row, lane, B, d_in, n_chunks, x,
                          x_tstride, mask, m_tstride, scale, s_tstride, h0,
                          hseq, dhseq);
     for (int t = T - 1; t >= 0; --t) {
       StepIn nxt;  // step t-1, loaded before this step's math
       if (t > 0)
-        load_step<S, kScale>(nxt, t - 1, row, lane, B, d_in, n_chunks, x,
+        load_step<S, true>(nxt, t - 1, row, lane, B, d_in, n_chunks, x,
                              x_tstride, mask, m_tstride, scale, s_tstride,
                              h0, hseq, dhseq);
 
@@ -192,11 +193,11 @@ gru_scan_bwd_kernel(const S* __restrict__ x, long long x_tstride,
           hpmn::project(cur.x, n_chunks, cur.hp, sm.wx, sm.wh, lane);
       hpmn::StepGrad sg;
       if constexpr (hpmn::kIsBf16<S>)
-        sg = hpmn::step_grad_bf16<kScale>(
+        sg = hpmn::step_grad_bf16<true>(
             hpmn::gates_bf16(p, b_r, b_z, b_c), cur.hpb,
             hpmn::to_b(cur.dhs + dh), cur.mb, mask != nullptr, cur.ab);
       else
-        sg = hpmn::step_grad_f32<kScale>(hpmn::gates_f32(p, b_r, b_z, b_c),
+        sg = hpmn::step_grad_f32<true>(hpmn::gates_f32(p, b_r, b_z, b_c),
                                          cur.hp, cur.dhs + dh, cur.m, cur.a);
 
       const float dh_new = hpmn::backprop_step(
@@ -204,10 +205,8 @@ gru_scan_bwd_kernel(const S* __restrict__ x, long long x_tstride,
           dx + ((long long)t * B + row) * d_in);
       hpmn::accumulate_wgrad(cur.x, cur.hp, sg, sm, n_chunks, d_in_pad,
                              lane);
-      if constexpr (kScale) {
-        const float da = hpmn::warp_sum(sg.da);
-        if (lane == 0) hpmn::store_f(dscale + (long long)t * B + row, da);
-      }
+      const float da = hpmn::warp_sum(sg.da);
+      if (lane == 0) hpmn::store_f(dscale + (long long)t * B + row, da);
       db_r += sg.dr;
       db_z += sg.dz;
       db_c += sg.dc;
@@ -226,8 +225,8 @@ gru_scan_bwd_kernel(const S* __restrict__ x, long long x_tstride,
 }
 
 // The recurrence of K2 (S = float) and K2-bf16 (S = __nv_bfloat16) over the
-// chunk [t0, t0 + n): gru_scan_bwd_kernel's loop without kScale, with dx,
-// the weight-gradient sums and db taken out. Per step it writes the gate
+// chunk [t0, t0 + n): gru_scan_bwd_kernel's loop without the scale, with
+// dx, the weight-gradient sums and db taken out. Per step it writes the gate
 // gradients into dg [n, B, 32, 4] (S) at (t - t0, row, lane). dh [B, 32]
 // (f32) carries dh in (`carry_in`; else it starts at zero) and out.
 //
@@ -357,21 +356,21 @@ gru_scan_bwd_rec_kernel(const S* __restrict__ x, long long x_tstride,
 }
 
 // x [T,B,d_in] (time stride x_tstride, rows contiguous), mask [T,B] (time
-// stride m_tstride) or null, scale [T,B] (time stride s_tstride; the scale
-// forms only, not null), wx [d_in,96], wh [32,96], b [96], h0 [B,32] or
+// stride m_tstride) or null, scale [T,B] (time stride s_tstride, not
+// null), wx [d_in,96], wh [32,96], b [96], h0 [B,32] or
 // null, hseq and dhseq [T,B,32] contiguous, all of one type S: float for
 // K2-scale, bf16 for K2-scale-bf16. Writes dx [T,B,d_in] (S), dscale [T,B]
 // (S) and dh0 [B,32] (f32, the carry), all contiguous, and per block the
 // f32 partials dwx_part [d_in,96], dwh_part [32,96] and db_part [96].
 // Launches on `stream`; returns cudaGetLastError().
-template <typename S, bool kScale>
+template <typename S>
 int launch(const S* x, long long x_tstride, const S* mask, long long m_tstride,
            const S* scale, long long s_tstride, const S* wx, const S* wh,
            const S* b, const S* h0, const S* hseq, const S* dhseq, S* dx,
            S* dscale, float* dh0, float* dwx_part, float* dwh_part,
            float* db_part, int T, int B, int d_in, void* stream) {
   if (d_in < 1 || d_in > 32 * kMaxChunks || B < 1 || T < 1
-      || (kScale && (scale == nullptr || dscale == nullptr)))
+      || scale == nullptr || dscale == nullptr)
     return (int)cudaErrorInvalidValue;
   const int d_in_pad = (d_in + 31) / 32 * 32;
   const int warps = rows_per_block(d_in);
@@ -379,11 +378,11 @@ int launch(const S* x, long long x_tstride, const S* mask, long long m_tstride,
       (hpmn::weights_floats(d_in_pad) + warps * hpmn::acc_floats(d_in_pad)) *
       4;
   cudaError_t err = cudaFuncSetAttribute(
-      gru_scan_bwd_kernel<S, kScale>,
+      gru_scan_bwd_kernel<S>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + warps - 1) / warps;
-  gru_scan_bwd_kernel<S, kScale>
+  gru_scan_bwd_kernel<S>
       <<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
           x, x_tstride, mask, m_tstride, scale, s_tstride, wx, wh, b, h0,
           hseq, dhseq, dx, dscale, dh0, dwx_part, dwh_part, db_part, T, B,
@@ -492,7 +491,7 @@ extern "C" int hpmn_gru_scan_bwd_scale(
     const float* hseq, const float* dhseq, float* dx, float* dscale,
     float* dh0, float* dwx_part, float* dwh_part, float* db_part, int T,
     int B, int d_in, void* stream) {
-  return launch<float, true>(x, x_tstride, mask, m_tstride, scale, s_tstride,
+  return launch<float>(x, x_tstride, mask, m_tstride, scale, s_tstride,
                              wx, wh, b, h0, hseq, dhseq, dx, dscale, dh0,
                              dwx_part, dwh_part, db_part, T, B, d_in, stream);
 }
@@ -505,7 +504,7 @@ extern "C" int hpmn_gru_scan_bwd_scale_bf16(
     const __nv_bfloat16* dhseq, __nv_bfloat16* dx, __nv_bfloat16* dscale,
     float* dh0, float* dwx_part, float* dwh_part, float* db_part, int T,
     int B, int d_in, void* stream) {
-  return launch<__nv_bfloat16, true>(
+  return launch<__nv_bfloat16>(
       x, x_tstride, mask, m_tstride, scale, s_tstride, wx, wh, b, h0, hseq,
       dhseq, dx, dscale, dh0, dwx_part, dwh_part, db_part, T, B, d_in,
       stream);
