@@ -14,8 +14,9 @@ before the last line):
    the paths' shapes, with its tolerance, its time, the plain time, the
    time of the one PyTorch call that computes the same (cuDNN's GRU for the
    scans), and the least time the card could take (bound); before each K1
-   line, K1's input projection alone (its first kernel), against the plain
-   projection, with its time and share of K1's; before each K2 and
+   and K1-bf16 line, its input projection alone (its first kernel),
+   against the plain projection, with its time and share of the scan's;
+   before each K2 and
    K2-bf16 line, their second kernel alone (dx and the weight gradients
    from gate gradients), against its plain version, with its time and
    share of theirs; the bf16 scan
@@ -77,6 +78,11 @@ TOL_SLICE = 1e-4
 # is one f32 fmaf chain over d_in = 32 terms, about sqrt(32) roundings of
 # half an ulp of the partial sums: 1e-6.
 TOL_PROJ = 1e-6
+# K1-bf16's projection: its r and z blocks are such chains over bf16 values
+# (TOL_PROJ); its c block is the chain plus b_c rounded to bf16: the bf16
+# rounding of the float64 sum, up to that f32 error (TOL_PROJ of max abs),
+# which moves it by one bf16 ulp at most unless the sum cancels far below
+# its terms.
 # The scan backward (K2) and the training step's gradients: max abs
 # difference over each tensor's max abs. Weight gradients sum over T*B =
 # 512k row-steps, in the kernel per warp, then per block, then over blocks,
@@ -209,6 +215,18 @@ def bwd_pass_work(T, B, d_in, es=4):
     n_bytes = (es * (T * B * (2 * d_in + 32 + 128) + d_in * 96)
                + 4 * (d_in + 33) * 96)
     return flops, n_bytes
+
+
+def bf16_reach(got, want, delta):
+    """got against float64 sums want: (the share of values that differ from
+    want's bf16 rounding, whether every value is a bf16 value between the
+    bf16 roundings of want - delta and want + delta)."""
+    g = got.double()
+    w, lo, hi = ((want + d).float().bfloat16().double()
+                 for d in (0.0, -delta, delta))
+    is_bf16 = g == got.bfloat16().double()
+    return ((g != w).double().mean().item(),
+            bool((is_bf16 & (g >= lo) & (g <= hi)).all().item()))
 
 
 def readout_work(B, L, d_q):
@@ -344,6 +362,10 @@ def main():
         T_l.append(T_l[-1] // m.hpmn_period)
     gru_err, gru_rows = 0.0, []
     proj_err_max, proj_rows = 0.0, []  # K1's projection: (T, err, ms)
+    # K1-bf16's projection: worst r/z error over max abs and share of c
+    # values off the float64 sum's rounding, and per layer (T, err, share,
+    # ms).
+    proj16_err_max, proj16_off_max, proj16_rows = 0.0, 0.0, []
     bwd_err, bwd_abs, bwd_rows = 0.0, 0.0, []
     # K2's pass alone, by dtype: worst error over max abs, and the first
     # layer's (err, ms, plain ms, bound ms, bound by).
@@ -412,6 +434,27 @@ def main():
         proj_ms = cuda_ms(lambda: cuda_gru.input_proj(layer, x), 10)
         proj_err_max = max(proj_err_max, proj_err)
         proj_rows.append((T, proj_err, proj_ms))
+        # K1-bf16's first kernel alone: the bf16 projection of the whole x,
+        # against float64 sums of the same bf16 values.
+        xp16_k = cuda_gru.input_proj(w16, x16)
+        xw64 = x16.double() @ w16.wx.double()
+        torch.cuda.synchronize()
+        check(torch.isfinite(xp16_k).all().item(), f"K1-bf16's projection "
+              f"non-finite T={T}")
+        proj16_err = ((xp16_k[..., :64].double() - xw64[..., :64]).abs().max()
+                      / xw64[..., :64].abs().max()).item()
+        want_c = xw64[..., 64:] + w16.b[64:].double()
+        proj16_off, reach = bf16_reach(xp16_k[..., 64:], want_c,
+                                       TOL_PROJ * want_c.abs().max())
+        check(proj16_err <= TOL_PROJ, f"K1-bf16's projection T={T}: r and z "
+              f"max err over max abs {proj16_err:.3e} > {TOL_PROJ}")
+        check(reach, f"K1-bf16's projection T={T}: a c value off the bf16 "
+              f"rounding of the float64 sum by more than the f32 sum error")
+        del xp16_k, xw64, want_c
+        proj16_ms = cuda_ms(lambda: cuda_gru.input_proj(w16, x16), 10)
+        proj16_err_max = max(proj16_err_max, proj16_err)
+        proj16_off_max = max(proj16_off_max, proj16_off)
+        proj16_rows.append((T, proj16_err, proj16_off, proj16_ms))
         # K2's (and K2-bf16's) second kernel alone: dx and the weight
         # gradients from gate gradients of the backward's shape, against
         # gru_bwd_pass.
@@ -546,6 +589,13 @@ def main():
                                PEAK_BF16_FLOPS)
             bf_err, bf_drift = max(bf_err, err), max(bf_drift, drift)
             bf_rows.append((T, masked, err, ms, plain_ms, lib_t, b_ms, b_by))
+            print(f"phase 3 kernel gru_input_proj_bf16 T={T} B={B_SCAN} "
+                  f"d_in={d_in}: r and z max err over max abs "
+                  f"{proj16_err:.3e} against float64 sums (tol {TOL_PROJ}), "
+                  f"c {100 * proj16_off:.4f}% of values off the float64 "
+                  f"sum's bf16 rounding, all within its f32 error | kernel "
+                  f"{proj16_ms:.4f} ms, {100 * proj16_ms / ms:.1f}% of "
+                  f"K1-bf16's {ms:.4f} ms (mask={masked})", flush=True)
             print(f"phase 3 kernel gru_scan_fwd_bf16 T={T} B={B_SCAN} "
                   f"d_in={d_in} mask={masked}: max_abs_err {err:.3e} (tol "
                   f"{TOL_GRU_BF16}) | vs f32 kernel {drift:.3e} (tol "
@@ -1075,13 +1125,16 @@ def main():
                        and not getattr(a, "is_user_annotation", False)
                        and a.self_device_time_total > 0), reverse=True)
         dev_ms = sum(t for t, _, _ in kern) / 1e3 / n
-        # K1 is two kernels: its projection and its recurrence; K2 and
+        # K1 and K1-bf16 are two kernels: the projection and the
+        # recurrence, told apart by their template's stream type; K2 and
         # K2-bf16 three: the recurrence, the pass and the partials.
-        def dev_ms_of(parts):
-            return [sum(t for t, _, name in kern if part in name) / 1e3 / n
+        def dev_ms_of(parts, bf16=None):
+            return [sum(t for t, _, name in kern if part in name and (
+                bf16 is None or ("bfloat16" in name) == bf16)) / 1e3 / n
                     for part in parts]
 
-        k1 = dev_ms_of(("input_proj_kernel", "gru_scan_fwd_xp_kernel"))
+        k1_parts = ("input_proj_kernel", "gru_scan_fwd_xp_kernel")
+        k1, k1b = dev_ms_of(k1_parts, False), dev_ms_of(k1_parts, True)
         k2 = dev_ms_of(("gru_scan_bwd_rec_kernel", "gru_bwd_pass_kernel",
                         "wgrad_partials_kernel"))
         if dev_ms > 0:
@@ -1091,7 +1144,9 @@ def main():
                   f"ms per {unit} of {wall_ms:.3f} ms wall: busy "
                   f"{dev_ms / wall_ms:.1%}, idle {1 - dev_ms / wall_ms:.1%} "
                   f"| K1 {sum(k1):.3f} ms (projection {k1[0]:.3f}, "
-                  f"recurrence {k1[1]:.3f}) | K2 {sum(k2):.3f} ms "
+                  f"recurrence {k1[1]:.3f}) | K1-bf16 {sum(k1b):.3f} ms "
+                  f"(projection {k1b[0]:.3f}, recurrence {k1b[1]:.3f}) "
+                  f"| K2 {sum(k2):.3f} ms "
                   f"(recurrence {k2[0]:.3f}, pass {k2[1]:.3f}, partials "
                   f"{k2[2]:.3f}) | top: {top}", flush=True)
         else:
@@ -1431,6 +1486,10 @@ def main():
               (g16[3], g16[4], g16[5], g16[6], g16[7]), bf_err,
               {"training_bf16": bf16_launches[2],
                "training_dien_bf16": bd[2]},
+              sources=[cuda_gru.PROJ_SOURCE, cuda_gru.SOURCE_BF16],
+              projection_ms=proj16_rows[0][3],
+              projection_max_err_over_max_abs=proj16_err_max,
+              projection_c_share_off_rounding=proj16_off_max,
               max_abs_diff_from_f32_kernel=bf_drift),
         entry("gru_scan_bwd_bf16", cuda_gru.BWD_SOURCE_BF16,
               cuda_gru.BWD_REPLACES_BF16,

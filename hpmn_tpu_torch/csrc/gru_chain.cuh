@@ -2,12 +2,12 @@
 // K1-scale, gru_scan_bwd.cu K2 and K2-scale, gru_scan_stride_fwd.cu K3,
 // gru_scan_stride_bwd.cu K4): the stream conversions, the projections and
 // the gate chain, so that a backward recomputes (or replays) its forward's
-// gates bit for bit; the launchers of K1's input projection
+// gates bit for bit; the launchers of K1's and K1-bf16's input projection
 // (gru_input_proj.cu) and of K2's dx and weight-gradient pass
 // (gru_bwd_pass.cu); the strided scan's step; one step's gate gradients,
 // with or without the AUGRU gate scale, and the warp sum of its dscale;
-// four-value loads and stores of the stream type; and the shared-memory
-// pieces of the backward kernels.
+// four-value loads and stores of the stream type; cp.async copies; and
+// the shared-memory pieces of the backward kernels.
 //
 // Two chains, as hpmn_tpu/ops/pallas_gru.py has them:
 //
@@ -37,12 +37,17 @@ constexpr int kG = 3 * kDm;  // the r, z and c blocks
 constexpr int kMaxChunks = 3;  // d_in <= 96: x_t in up to three 32-chunks
 constexpr unsigned kFull = 0xffffffffu;
 
-// K1's input projection, xp [T, B, 96] = x [T, B, d_in] @ wx + b in f32
-// (x at time stride x_tstride, rows contiguous), each output an fmaf chain
-// from 0 over k = 0 ... d_in-1, then + b: the bits of project()'s x part
-// plus the bias. Launches on `stream`; returns cudaGetLastError().
-int launch_input_proj(const float* x, long long x_tstride, const float* wx,
-                      const float* b, float* xp, int T, int B, int d_in,
+// K1's and K1-bf16's input projection into the f32 workspace xp [T, B, 96]
+// (x at time stride x_tstride, rows contiguous; S is float or
+// __nv_bfloat16), each output an fmaf chain from 0 over k = 0 ... d_in-1:
+// the bits of project()'s x part. In f32 every block then gets + b (xp =
+// x @ wx + b, what gates_f32_xp reads); in bf16 the r and z blocks stay
+// without the bias (the chain sums (x@wx + h@wh) + b) and the c block is
+// ac + b_c rounded to bf16, held as f32 (gates_bf16_xp's pre_c). Launches
+// on `stream`; returns cudaGetLastError().
+template <typename S>
+int launch_input_proj(const S* x, long long x_tstride, const S* wx,
+                      const S* b, float* xp, int T, int B, int d_in,
                       cudaStream_t stream);
 
 // K2's and K2-bf16's second kernel (gru_bwd_pass.cu), per chunk of steps
@@ -68,6 +73,25 @@ int launch_wgrad_partials(const float* acc, int rows, int B, int d_in,
 
 template <typename S>
 constexpr bool kIsBf16 = std::is_same<S, __nv_bfloat16>::value;
+
+// cp.async: one 4-byte copy from device to shared memory, issued without
+// waiting; a commit closes this thread's copies so far into a group, and
+// copy_async_wait<N> returns when at most N of its groups are pending. The
+// "memory" clobbers keep the compiler from moving other memory accesses
+// across them.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // Streams in device memory are S (float or bf16); registers hold float.
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
@@ -216,16 +240,28 @@ struct GatesB {
 };
 
 // bf16 chain: the same from f32 sums of bf16 products; each block rounded
-// once, in the TPU kernel's order (x@wx4 + h@wh4) + b4.
-__device__ __forceinline__ GatesB gates_bf16(const Proj& p, float b_r,
-                                             float b_z, float b_c) {
+// once, in the TPU kernel's order (x@wx4 + h@wh4) + b4. From the x parts
+// a_r = x_t @ wx_r and a_z (without the bias), the candidate's x part with
+// its bias xp_c = a_c + b_c (K1-bf16 reads it already rounded, from
+// gru_input_proj.cu; rounding it again changes nothing), the h parts g_*
+// and the r and z biases. Written once, here, for every bf16 kernel.
+__device__ __forceinline__ GatesB gates_bf16_xp(float a_r, float a_z,
+                                                float xp_c, float g_r,
+                                                float g_z, float g_c,
+                                                float b_r, float b_z) {
   GatesB g;
-  const B pre_c = to_b(p.ac + b_c);
-  g.gc = to_b(p.gc);
-  g.r = sigmoid_bf16(to_b((p.ar + p.gr) + b_r));
-  g.z = sigmoid_bf16(to_b((p.az + p.gz) + b_z));
+  const B pre_c = to_b(xp_c);
+  g.gc = to_b(g_c);
+  g.r = sigmoid_bf16(to_b((a_r + g_r) + b_r));
+  g.z = sigmoid_bf16(to_b((a_z + g_z) + b_z));
   g.c = to_b(tanhf(to_f(add_b(pre_c, mul_b(g.r, g.gc)))));
   return g;
+}
+
+// bf16 chain: one step's gates from the projections and the bias b_*.
+__device__ __forceinline__ GatesB gates_bf16(const Proj& p, float b_r,
+                                             float b_z, float b_c) {
+  return gates_bf16_xp(p.ar, p.az, p.ac + b_c, p.gr, p.gz, p.gc, b_r, b_z);
 }
 
 // The strided scan's chunk: K3 writes the state at the start of every

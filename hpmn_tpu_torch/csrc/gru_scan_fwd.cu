@@ -3,7 +3,7 @@
 // Replaces hpmn_tpu/ops/pallas_gru.py::_fwd_kernel (its mask and no-mask
 // forms, with and without the AUGRU gate scale), in both of its chains:
 // f32 (K1, hpmn_gru_scan_fwd_ws; K1-scale, hpmn_gru_scan_fwd_scale) and
-// dtype=bfloat16 (K1-bf16, hpmn_gru_scan_fwd_bf16; K1-scale-bf16,
+// dtype=bfloat16 (K1-bf16, hpmn_gru_scan_fwd_bf16_ws; K1-scale-bf16,
 // hpmn_gru_scan_fwd_scale_bf16; the chain is described in gru_chain.cuh).
 // Per step, for batch row b:
 //
@@ -28,41 +28,48 @@
 // step needs no block barrier. h_seq is written at [t, b, :], one
 // contiguous row per warp and step.
 //
-// K1 (f32, no scale) runs in two kernels per chunk of time steps:
+// K1 and K1-bf16 (no scale) run in two kernels per chunk of time steps:
 //
-// 1. gru_input_proj.cu computes xp = x @ wx + b for the chunk into an f32
-//    workspace [Tc, B, 96] that the caller allocates: the half of the
-//    step's products that does not depend on h, as one tiled pass bound by
-//    bytes. Each output is K1's fmaf chain, so xp_r is the first form's
-//    p.ar + b_r bit for bit.
+// 1. gru_input_proj.cu computes the x half of the step's products for the
+//    chunk into an f32 workspace [Tc, B, 96] that the caller allocates:
+//    the half that does not depend on h, as one tiled pass bound by bytes.
+//    Each output is K1's fmaf chain: in f32 xp = x @ wx + b, so xp_r is
+//    the first form's p.ar + b_r bit for bit; in bf16 the r and z blocks
+//    are x @ wx without the bias (the chain sums (x@wx + h@wh) + b) and the
+//    c block the chain's pre_c, ac + b_c rounded to bf16.
 // 2. gru_scan_fwd_xp_kernel runs the recurrence: lane j holds its 96
-//    weights wh[:, j], wh[:, 32+j], wh[:, 64+j] in registers, loaded once,
-//    so a step makes no shared-memory weight load; h_{t-1} reaches every
-//    lane through 32 __shfl_sync (one store per lane, __syncwarp and 8
-//    broadcast 16-byte shared-memory loads took 9% longer on the H100,
-//    PERF.md); g = h @ wh is fmaf from 0.0f over k = 0 ... 31, K1's order;
-//    xp and the mask are loaded kAhead steps ahead into a ring of
-//    registers, since a step is now shorter than a load from device memory.
-//    The gates and the update are gru_chain.cuh's gates_f32_xp and
-//    update_f32, the same expressions as K1-scale's, K2's and K4's.
+//    weights wh[:, j], wh[:, 32+j], wh[:, 64+j] in registers (as f32, from
+//    bf16 in K1-bf16), loaded once, so a step makes no shared-memory weight
+//    load; h_{t-1} reaches every lane through 32 __shfl_sync in f32 (one
+//    store per lane, __syncwarp and 8 broadcast 16-byte shared-memory
+//    loads took 9% longer on the H100, PERF.md) and, in bf16, where 4 such
+//    loads carry all 32 values, through shared memory (3-16% faster than
+//    shuffles), converted to f32 (an exact shift); g = h @ wh is fmaf from
+//    0.0f over k = 0 ... 31, K1's order. A step is shorter than a load
+//    from device memory, so xp is fetched kAhead steps ahead into a ring in
+//    shared memory by cp.async, and the step waits on its own group only
+//    (a ring of register loads, each waited on by the step that uses it,
+//    took K1 and K1-bf16 about 40% and 60% longer, PERF.md); the mask, in
+//    the stream type, converted where it is used, rides a ring of
+//    registers. The gates and the update are gru_chain.cuh's gates_f32_xp and
+//    update_f32 in f32, gates_bf16_xp and the bf16 ops in bf16: the same
+//    expressions as K1-scale's, K2's and K4's (and their bf16 forms').
 //
 // The chunks run one after another on the caller's stream; chunk i starts
-// from the last row of chunk i-1's h_seq (the carry, stored in f32, so the
-// result does not depend on the chunk length). The workspace's size is the
-// caller's choice (ops/cuda_gru.py caps it).
+// from the last row of chunk i-1's h_seq, which is the carry itself (f32 in
+// K1, bf16 in K1-bf16), so the result does not depend on the chunk length.
+// The workspace's size is the caller's choice (ops/cuda_gru.py caps it).
 //
-// The scale and bf16 forms run one kernel (gru_scan_fwd_kernel): x_t and
-// h_{t-1} reach every lane through __shfl_sync, wx and wh sit in shared
-// memory (as f32, converted once from the bf16 weights in the bf16 form),
-// where lane j reads column j of each block (consecutive words, no bank
-// conflicts), and the next step's x row is loaded one step ahead. The scale
-// is a compile-time flag (kScale). a [T, B] is read like the mask, one
-// value per row and step, loaded before the step's projections so that its
-// latency hides behind them; zs adds one multiply to the step's chain. The
-// bf16 form's gate ops are bf16 ops (one native instruction each,
-// gru_chain.cuh) with conversions around the three tanhf and the four
-// pre-activation roundings; on the H100 it takes longer than the f32 form
-// (PERF.md).
+// The scale forms run one kernel (gru_scan_fwd_kernel): x_t and h_{t-1}
+// reach every lane through __shfl_sync, wx and wh sit in shared memory (as
+// f32, converted once from the bf16 weights in the bf16 form), where lane j
+// reads column j of each block (consecutive words, no bank conflicts), and
+// the next step's x row is loaded one step ahead. a [T, B] is read like the
+// mask, one value per row and step, loaded before the step's projections
+// so that its latency hides behind them; zs adds one multiply to the
+// step's chain. The bf16 gate ops are bf16 ops (one native instruction
+// each, gru_chain.cuh) with conversions around the three tanhf and the four
+// pre-activation roundings.
 //
 // The TPU kernel's packed [wx_r|wx_z|wx_c|0] / [wh_r|wh_z|0|wh_c] weights
 // (a 128-lane trick), its padding of T to a multiple of 8 and its boundary
@@ -85,10 +92,10 @@ constexpr int kWarps = 4;  // batch rows per block
 constexpr int kRecWarps = 4;
 constexpr int kAhead = 4;
 
-// K1-scale, K1-bf16 and K1-scale-bf16 (K1 itself is the two kernels
-// below). S: the stream type, float or __nv_bfloat16. kScale: the AUGRU
-// forms, reading scale [T, B] (time stride s_tstride).
-template <typename S, bool kScale>
+// K1-scale and K1-scale-bf16 (K1 and K1-bf16 are the two kernels below),
+// reading scale [T, B] (time stride s_tstride). S: the stream type, float
+// or __nv_bfloat16.
+template <typename S>
 __global__ void __launch_bounds__(kWarps * 32)
 gru_scan_fwd_kernel(const S* __restrict__ x, long long x_tstride,
                     const S* __restrict__ mask, long long m_tstride,
@@ -141,15 +148,13 @@ gru_scan_fwd_kernel(const S* __restrict__ x, long long x_tstride,
     const S* m_ptr = mask + (long long)t * m_tstride + row;
     const float m = mask != nullptr ? load_f(m_ptr) : 1.0f;  // f32 chain
     const hpmn::B mb = mask != nullptr ? hpmn::load_b(m_ptr) : hpmn::one_b();
+    const S* a_ptr = scale + (long long)t * s_tstride + row;
     float a = 1.0f;  // the scale, f32 chain
     hpmn::B ab = hpmn::one_b();  // the scale, bf16 chain
-    if constexpr (kScale) {
-      const S* a_ptr = scale + (long long)t * s_tstride + row;
-      if constexpr (hpmn::kIsBf16<S>)
-        ab = hpmn::load_b(a_ptr);
-      else
-        a = load_f(a_ptr);
-    }
+    if constexpr (hpmn::kIsBf16<S>)
+      ab = hpmn::load_b(a_ptr);
+    else
+      a = load_f(a_ptr);
 
     const hpmn::Proj p = hpmn::project(xv, n_chunks, h, s_wx, s_wh, lane);
     S* h_out = hseq + ((long long)t * B + row) * kDm + lane;
@@ -158,14 +163,14 @@ gru_scan_fwd_kernel(const S* __restrict__ x, long long x_tstride,
       using hpmn::mul_b;
       using hpmn::sub_b;
       const hpmn::GatesB g = hpmn::gates_bf16(p, b_r, b_z, b_c);
-      const hpmn::B zs = kScale ? mul_b(g.z, ab) : g.z;
+      const hpmn::B zs = mul_b(g.z, ab);
       const hpmn::B h_cell = add_b(hb, mul_b(zs, sub_b(g.c, hb)));
       hb = mask != nullptr ? add_b(hb, mul_b(mb, sub_b(h_cell, hb))) : h_cell;
       h = hpmn::to_f(hb);
       *h_out = hb;
     } else {
       const hpmn::Gates g = hpmn::gates_f32(p, b_r, b_z, b_c);
-      h = hpmn::update_f32(kScale ? g.z * a : g.z, g.c, h, m);
+      h = hpmn::update_f32(g.z * a, g.c, h, m);
       hpmn::store_f(h_out, h);
     }
 #pragma unroll
@@ -173,50 +178,56 @@ gru_scan_fwd_kernel(const S* __restrict__ x, long long x_tstride,
   }
 }
 
-template <typename S, bool kScale>
-int launch(const S* x, long long x_tstride, const S* mask, long long m_tstride,
-           const S* scale, long long s_tstride, const S* wx, const S* wh,
-           const S* b, const S* h0, S* hseq, int T, int B, int d_in,
-           void* stream) {
+template <typename S>
+int launch_scale(const S* x, long long x_tstride, const S* mask,
+                 long long m_tstride, const S* scale, long long s_tstride,
+                 const S* wx, const S* wh, const S* b, const S* h0, S* hseq,
+                 int T, int B, int d_in, void* stream) {
   if (d_in < 1 || d_in > 32 * kMaxChunks || B < 1 || T < 1
-      || (kScale && scale == nullptr))
+      || scale == nullptr)
     return (int)cudaErrorInvalidValue;
   const int d_in_pad = (d_in + 31) / 32 * 32;
   const size_t smem = (size_t)(d_in_pad + kDm) * 3 * kDm * sizeof(float);
   const int grid = (B + kWarps - 1) / kWarps;
-  gru_scan_fwd_kernel<S, kScale>
-      <<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-          x, x_tstride, mask, m_tstride, scale, s_tstride, wx, wh, b, h0,
-          hseq, T, B, d_in);
+  gru_scan_fwd_kernel<S><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+      x, x_tstride, mask, m_tstride, scale, s_tstride, wx, wh, b, h0, hseq, T,
+      B, d_in);
   return (int)cudaGetLastError();
 }
 
-// One step's xp (r, z, c blocks at lane j) and, with kMasked, mask value
-// for K1's recurrence ring, from xp [T, B, 96] and mask [T, B]. The loads
-// have no condition: the caller clamps t to the chunk's last step. A load
-// under a condition becomes a load and a select that keeps the old value,
-// and the select waits for the load in the step that issues it.
-template <bool kMasked>
-__device__ __forceinline__ void load_xp(float (&r)[4], const float* xp,
-                                        const float* mask, long long m_tstride,
-                                        int t, int B, int row, int lane) {
+// One step's xp row (r, z, c blocks at lane j) into `slot` [96] of this
+// warp's ring in shared memory, by cp.async in a group of its own: each
+// lane copies, and later reads, only its own three words, so no barrier
+// orders them. With kMasked, the step's mask value (in the stream type,
+// unconverted) into m. The caller clamps t to the chunk's last step.
+template <typename S, bool kMasked>
+__device__ __forceinline__ void fetch_xp(float* slot, S& m, const float* xp,
+                                         const S* mask, long long m_tstride,
+                                         int t, int B, int row, int lane) {
   const float* p = xp + ((long long)t * B + row) * kG + lane;
 #pragma unroll
-  for (int g = 0; g < 3; ++g) r[g] = p[g * kDm];
-  if constexpr (kMasked) r[3] = mask[(long long)t * m_tstride + row];
+  for (int g = 0; g < 3; ++g)
+    hpmn::copy_async(slot + g * kDm + lane, p + g * kDm);
+  hpmn::copy_async_commit();
+  if constexpr (kMasked) m = mask[(long long)t * m_tstride + row];
 }
 
-// K1's recurrence over one chunk: xp [T, B, 96] contiguous (x @ wx + b, from
-// gru_input_proj.cu), mask [T, B] (time stride m_tstride; read only with
-// kMasked, else m = 1), wh [32, 96], h0 [B, 32] or null, hseq [T, B, 32]
-// contiguous.
-template <bool kMasked>
+// K1's and K1-bf16's recurrence over one chunk: xp [T, B, 96] contiguous
+// (from gru_input_proj.cu, in the chain's layout), mask [T, B] (time stride
+// m_tstride; read only with kMasked), wh [32, 96], bias [96] (read in bf16
+// only: the r and z blocks' biases, which the bf16 layout leaves out), h0
+// [B, 32] or null, hseq [T, B, 32] contiguous; S is the stream type.
+template <typename S, bool kMasked>
 __global__ void __launch_bounds__(kRecWarps * 32)
 gru_scan_fwd_xp_kernel(const float* __restrict__ xp,
-                       const float* __restrict__ mask, long long m_tstride,
-                       const float* __restrict__ wh,
-                       const float* __restrict__ h0, float* __restrict__ hseq,
+                       const S* __restrict__ mask, long long m_tstride,
+                       const S* __restrict__ wh, const S* __restrict__ bias,
+                       const S* __restrict__ h0, S* __restrict__ hseq,
                        int T, int B) {
+  using hpmn::load_f;
+  constexpr bool kBf16 = hpmn::kIsBf16<S>;
+  __shared__ float s_xp[kRecWarps][kAhead][kG];  // the xp ring
+  __shared__ __align__(16) hpmn::B s_h[kRecWarps][2][kDm];  // bf16 only
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row = blockIdx.x * kRecWarps + warp;
   if (row >= B) return;  // whole warps leave; no block barrier follows
@@ -224,58 +235,106 @@ gru_scan_fwd_xp_kernel(const float* __restrict__ xp,
   float w_r[kDm], w_z[kDm], w_c[kDm];
 #pragma unroll
   for (int k = 0; k < kDm; ++k) {
-    w_r[k] = wh[k * kG + lane];
-    w_z[k] = wh[k * kG + kDm + lane];
-    w_c[k] = wh[k * kG + 2 * kDm + lane];
+    w_r[k] = load_f(wh + k * kG + lane);
+    w_z[k] = load_f(wh + k * kG + kDm + lane);
+    w_c[k] = load_f(wh + k * kG + 2 * kDm + lane);
   }
-  float h = h0 != nullptr ? h0[(long long)row * kDm + lane] : 0.0f;
+  float b_r = 0.0f, b_z = 0.0f;
+  if constexpr (kBf16) {
+    b_r = load_f(bias + lane);
+    b_z = load_f(bias + kDm + lane);
+  }
+  // The carry: h in f32, hb in bf16 (from a bf16 h0, exact).
+  float h = h0 != nullptr ? load_f(h0 + (long long)row * kDm + lane) : 0.0f;
+  hpmn::B hb = hpmn::to_b(h);
 
-  float ring[kAhead][4];
+  // The ring: step t's xp in slot t % kAhead, fetched kAhead steps ahead.
+  float* ring = &s_xp[warp][0][0];
+  S ring_m[kAhead] = {};  // the mask's ring (unread without kMasked)
 #pragma unroll
   for (int s = 0; s < kAhead; ++s)
-    load_xp<kMasked>(ring[s], xp, mask, m_tstride, s < T ? s : T - 1, B, row,
-                     lane);
+    fetch_xp<S, kMasked>(ring + s * kG, ring_m[s], xp, mask, m_tstride,
+                         s < T ? s : T - 1, B, row, lane);
   for (int t0 = 0; t0 < T; t0 += kAhead) {
 #pragma unroll
     for (int s = 0; s < kAhead; ++s) {
       const int t = t0 + s;
       if (t >= T) break;
-      const float xp_r = ring[s][0], xp_z = ring[s][1], xp_c = ring[s][2];
-      const float m = kMasked ? ring[s][3] : 1.0f;
-      load_xp<kMasked>(ring[s], xp, mask, m_tstride,
-                       t + kAhead < T ? t + kAhead : T - 1, B, row, lane);
+      hpmn::copy_async_wait<kAhead - 1>();  // step t's group has landed
+      const float xp_r = ring[s * kG + lane];
+      const float xp_z = ring[s * kG + kDm + lane];
+      const float xp_c = ring[s * kG + 2 * kDm + lane];
+      const S m = ring_m[s];
 
       float g_r = 0.0f, g_z = 0.0f, g_c = 0.0f;
+      if constexpr (kBf16) {
+        // h_{t-1}: each lane stores its bf16 carry, and four broadcast
+        // 16-byte loads read all 32 (16 __shfl_sync of bf16 pairs took 3%
+        // longer, 32 of f32 16% longer, PERF.md). Two buffers, so that
+        // one __syncwarp a step orders this step's stores after the last
+        // step's loads. A bf16 is the high half of its f32.
+        hpmn::B* sh = s_h[warp][t & 1];
+        sh[lane] = hb;
+        __syncwarp();
+        const uint4* q = reinterpret_cast<const uint4*>(sh);
 #pragma unroll
-      for (int k = 0; k < kDm; ++k) {
-        const float hk = __shfl_sync(hpmn::kFull, h, k);
-        g_r = fmaf(hk, w_r[k], g_r);
-        g_z = fmaf(hk, w_z[k], g_z);
-        g_c = fmaf(hk, w_c[k], g_c);
+        for (int v = 0; v < kDm / 8; ++v) {
+          const uint4 u = q[v];
+          const unsigned wd[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int j = 4 * v + i;  // h_2j and h_2j+1
+            const float h_lo = __uint_as_float(wd[i] << 16);
+            const float h_hi = __uint_as_float(wd[i] & 0xffff0000u);
+            g_r = fmaf(h_lo, w_r[2 * j], g_r);
+            g_z = fmaf(h_lo, w_z[2 * j], g_z);
+            g_c = fmaf(h_lo, w_c[2 * j], g_c);
+            g_r = fmaf(h_hi, w_r[2 * j + 1], g_r);
+            g_z = fmaf(h_hi, w_z[2 * j + 1], g_z);
+            g_c = fmaf(h_hi, w_c[2 * j + 1], g_c);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kDm; ++k) {
+          const float hk = __shfl_sync(hpmn::kFull, h, k);
+          g_r = fmaf(hk, w_r[k], g_r);
+          g_z = fmaf(hk, w_z[k], g_z);
+          g_c = fmaf(hk, w_c[k], g_c);
+        }
       }
-      const hpmn::Gates g = hpmn::gates_f32_xp(xp_r, xp_z, xp_c, g_r, g_z,
-                                               g_c);
-      h = hpmn::update_f32(g.z, g.c, h, m);
-      hseq[((long long)t * B + row) * kDm + lane] = h;
+      S* h_out = hseq + ((long long)t * B + row) * kDm + lane;
+      if constexpr (kBf16) {
+        using hpmn::add_b;
+        using hpmn::mul_b;
+        using hpmn::sub_b;
+        const hpmn::GatesB g = hpmn::gates_bf16_xp(xp_r, xp_z, xp_c, g_r,
+                                                   g_z, g_c, b_r, b_z);
+        const hpmn::B h_cell = add_b(hb, mul_b(g.z, sub_b(g.c, hb)));
+        hb = kMasked ? add_b(hb, mul_b(m, sub_b(h_cell, hb))) : h_cell;
+        *h_out = hb;
+      } else {
+        const hpmn::Gates g = hpmn::gates_f32_xp(xp_r, xp_z, xp_c, g_r, g_z,
+                                                 g_c);
+        h = hpmn::update_f32(g.z, g.c, h, kMasked ? m : 1.0f);
+        *h_out = h;
+      }
+      // The slot's words were read above (their values are used), so it
+      // takes step t + kAhead.
+      fetch_xp<S, kMasked>(ring + s * kG, ring_m[s], xp, mask, m_tstride,
+                           t + kAhead < T ? t + kAhead : T - 1, B, row,
+                           lane);
     }
   }
 }
 
-}  // namespace
-
-// K1: x [T,B,d_in] (time stride x_tstride, rows contiguous), mask [T,B]
-// (time stride m_tstride) or null, wx [d_in,96], wh [32,96], b [96], h0
-// [B,32] or null, hseq [T,B,32] contiguous, and the workspace ws [t_chunk,
-// B, 96] contiguous, all float32. Runs the chunks of t_chunk steps (the
-// last one shorter), each a projection into ws then the recurrence, on
-// `stream`; returns the first nonzero cudaGetLastError() after a launch, or
-// 0.
-extern "C" int hpmn_gru_scan_fwd_ws(const float* x, long long x_tstride,
-                                    const float* mask, long long m_tstride,
-                                    const float* wx, const float* wh,
-                                    const float* b, const float* h0,
-                                    float* hseq, float* ws, int t_chunk,
-                                    int T, int B, int d_in, void* stream) {
+// K1 and K1-bf16: the chunks of t_chunk steps (the last one shorter), each
+// a projection into ws then the recurrence, on `stream`.
+template <typename S>
+int scan_fwd_ws(const S* x, long long x_tstride, const S* mask,
+                long long m_tstride, const S* wx, const S* wh, const S* b,
+                const S* h0, S* hseq, float* ws, int t_chunk, int T, int B,
+                int d_in, void* stream) {
   if (d_in < 1 || d_in > 32 * kMaxChunks || B < 1 || T < 1 || t_chunk < 1
       || ws == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -286,45 +345,62 @@ extern "C" int hpmn_gru_scan_fwd_ws(const float* x, long long x_tstride,
     int code = hpmn::launch_input_proj(x + t0 * x_tstride, x_tstride, wx, b,
                                        ws, n, B, d_in, st);
     if (code != 0) return code;
-    const float* h_in =
-        t0 == 0 ? h0 : hseq + ((long long)(t0 - 1) * B) * kDm;
-    float* h_out = hseq + (long long)t0 * B * kDm;
+    const S* h_in = t0 == 0 ? h0 : hseq + ((long long)(t0 - 1) * B) * kDm;
+    S* h_out = hseq + (long long)t0 * B * kDm;
     if (mask != nullptr)
-      gru_scan_fwd_xp_kernel<true><<<grid, kRecWarps * 32, 0, st>>>(
-          ws, mask + t0 * m_tstride, m_tstride, wh, h_in, h_out, n, B);
+      gru_scan_fwd_xp_kernel<S, true><<<grid, kRecWarps * 32, 0, st>>>(
+          ws, mask + t0 * m_tstride, m_tstride, wh, b, h_in, h_out, n, B);
     else
-      gru_scan_fwd_xp_kernel<false><<<grid, kRecWarps * 32, 0, st>>>(
-          ws, nullptr, 0, wh, h_in, h_out, n, B);
+      gru_scan_fwd_xp_kernel<S, false><<<grid, kRecWarps * 32, 0, st>>>(
+          ws, nullptr, 0, wh, b, h_in, h_out, n, B);
     code = (int)cudaGetLastError();
     if (code != 0) return code;
   }
   return 0;
 }
 
-// K1-bf16: x [T,B,d_in] (time stride x_tstride, rows contiguous), mask
-// [T,B] (time stride m_tstride) or null, wx [d_in,96], wh [32,96], b [96],
-// h0 [B,32] or null, hseq [T,B,32] contiguous, all bf16. Launches on
-// `stream`; returns cudaGetLastError() after the launch.
-extern "C" int hpmn_gru_scan_fwd_bf16(
+}  // namespace
+
+// K1: x [T,B,d_in] (time stride x_tstride, rows contiguous), mask [T,B]
+// (time stride m_tstride) or null, wx [d_in,96], wh [32,96], b [96], h0
+// [B,32] or null, hseq [T,B,32] contiguous, all float32, and the f32
+// workspace ws [t_chunk, B, 96] contiguous. Runs the chunks of t_chunk
+// steps (the last one shorter), each a projection into ws then the
+// recurrence, on `stream`; returns the first nonzero cudaGetLastError()
+// after a launch, or 0.
+extern "C" int hpmn_gru_scan_fwd_ws(const float* x, long long x_tstride,
+                                    const float* mask, long long m_tstride,
+                                    const float* wx, const float* wh,
+                                    const float* b, const float* h0,
+                                    float* hseq, float* ws, int t_chunk,
+                                    int T, int B, int d_in, void* stream) {
+  return scan_fwd_ws(x, x_tstride, mask, m_tstride, wx, wh, b, h0, hseq, ws,
+                     t_chunk, T, B, d_in, stream);
+}
+
+// K1-bf16: as K1, every tensor bf16 but the workspace, which stays f32.
+extern "C" int hpmn_gru_scan_fwd_bf16_ws(
     const __nv_bfloat16* x, long long x_tstride, const __nv_bfloat16* mask,
     long long m_tstride, const __nv_bfloat16* wx, const __nv_bfloat16* wh,
     const __nv_bfloat16* b, const __nv_bfloat16* h0, __nv_bfloat16* hseq,
-    int T, int B, int d_in, void* stream) {
-  return launch<__nv_bfloat16, false>(x, x_tstride, mask, m_tstride, nullptr,
-                                      0, wx, wh, b, h0, hseq, T, B, d_in,
-                                      stream);
+    float* ws, int t_chunk, int T, int B, int d_in, void* stream) {
+  return scan_fwd_ws(x, x_tstride, mask, m_tstride, wx, wh, b, h0, hseq, ws,
+                     t_chunk, T, B, d_in, stream);
 }
 
-// K1-scale and K1-scale-bf16: as above, plus scale [T,B] (time stride
-// s_tstride, unit batch stride; not null), the AUGRU's a_t, of the same
-// type.
+// K1-scale and K1-scale-bf16: x [T,B,d_in] (time stride x_tstride, rows
+// contiguous), mask [T,B] (time stride m_tstride) or null, scale [T,B]
+// (time stride s_tstride, unit batch stride; not null), the AUGRU's a_t,
+// wx [d_in,96], wh [32,96], b [96], h0 [B,32] or null, hseq [T,B,32]
+// contiguous, all float32 or all bf16. Launches on `stream`; returns
+// cudaGetLastError() after the launch.
 extern "C" int hpmn_gru_scan_fwd_scale(
     const float* x, long long x_tstride, const float* mask,
     long long m_tstride, const float* scale, long long s_tstride,
     const float* wx, const float* wh, const float* b, const float* h0,
     float* hseq, int T, int B, int d_in, void* stream) {
-  return launch<float, true>(x, x_tstride, mask, m_tstride, scale, s_tstride,
-                             wx, wh, b, h0, hseq, T, B, d_in, stream);
+  return launch_scale(x, x_tstride, mask, m_tstride, scale, s_tstride, wx,
+                      wh, b, h0, hseq, T, B, d_in, stream);
 }
 
 extern "C" int hpmn_gru_scan_fwd_scale_bf16(
@@ -333,7 +409,6 @@ extern "C" int hpmn_gru_scan_fwd_scale_bf16(
     const __nv_bfloat16* wx, const __nv_bfloat16* wh, const __nv_bfloat16* b,
     const __nv_bfloat16* h0, __nv_bfloat16* hseq, int T, int B, int d_in,
     void* stream) {
-  return launch<__nv_bfloat16, true>(x, x_tstride, mask, m_tstride, scale,
-                                     s_tstride, wx, wh, b, h0, hseq, T, B,
-                                     d_in, stream);
+  return launch_scale(x, x_tstride, mask, m_tstride, scale, s_tstride, wx,
+                      wh, b, h0, hseq, T, B, d_in, stream);
 }

@@ -14,9 +14,10 @@ inside the kernel and the carry in registers, one warp per batch row with
 lane j owning hidden unit j. The recurrence bounds both (each step waits
 for the last); keeping the whole loop in one launch, with no barrier or
 device-memory round trip between steps, is what the design does about
-that. K1 (f32, no scale) is two kernels: ``csrc/gru_input_proj.cu``
-computes x @ wx + b for a chunk of steps into a workspace this module
-allocates (at most :data:`WORKSPACE_BYTES`), then the recurrence reads it;
+that. K1 and K1-bf16 (no scale) are two kernels: ``csrc/gru_input_proj.cu``
+computes the x half of the products for a chunk of steps into an f32
+workspace this module allocates (at most :data:`WORKSPACE_BYTES`; in bf16
+in the chain's layout, :func:`input_proj`), then the recurrence reads it;
 one C call runs every chunk, and one K1 call counts one launch. K2 and
 K2-bf16 (no scale) are two kernels too, run from the last chunk of steps
 to the first: the reverse recurrence writes each step's gate gradients
@@ -45,12 +46,13 @@ import torch
 
 from . import _build
 from .gru import (GRUParams, GRUWeights, gru_bwd_pass, gru_input_proj,
-                  gru_scan_tm, gru_scan_tm_bf16, gru_scan_tm_bwd,
-                  gru_scan_tm_bwd_bf16)
+                  gru_input_proj_bf16, gru_scan_tm, gru_scan_tm_bf16,
+                  gru_scan_tm_bwd, gru_scan_tm_bwd_bf16)
 
 SOURCE = "hpmn_tpu_torch/csrc/gru_scan_fwd.cu"
 REPLACES = "hpmn_tpu/ops/pallas_gru.py:127"
-# K1's first kernel, the input projection (with SOURCE's recurrence).
+# K1's and K1-bf16's first kernel, the input projection (with SOURCE's
+# recurrence).
 PROJ_SOURCE = "hpmn_tpu_torch/csrc/gru_input_proj.cu"
 BWD_SOURCE = "hpmn_tpu_torch/csrc/gru_scan_bwd.cu"
 BWD_REPLACES = "hpmn_tpu/ops/pallas_gru.py:209"
@@ -76,26 +78,32 @@ launches_scale = 0
 bwd_launches_scale = 0
 launches_scale_bf16 = 0
 bwd_launches_scale_bf16 = 0
-#: Launches of K1's projection on its own (:func:`input_proj`) and of K2's
-#: pass on its own (:func:`bwd_pass`); K1's and K2's own count in
-#: ``launches`` and ``bwd_launches`` (and their bf16 forms').
+#: Launches of the projection on its own (:func:`input_proj`, either dtype)
+#: and of K2's pass on its own (:func:`bwd_pass`); K1's and K2's own count
+#: in ``launches`` and ``bwd_launches`` (and their bf16 forms').
 proj_launches = 0
 pass_launches = 0
 
-#: The cap on K1's f32 workspace xp [Tc, B, 96], and on K2's gate
-#: gradients dg [Tc, B, 128] in x's dtype: Tc is the most steps that fit
-#: (at least 1), and the kernel runs ceil(T / Tc) chunks in one C call.
+#: The cap on K1's (and K1-bf16's) f32 workspace xp [Tc, B, 96], and on
+#: K2's gate gradients dg [Tc, B, 128] in x's dtype: Tc is the most steps
+#: that fit (at least 1), and the kernel runs ceil(T / Tc) chunks in one C
+#: call.
 #: 64 MiB: K1's Tc = 341 at B = 512, 27 at B = 6400; K2's 256 at B = 512
 #: (512 in bf16).
 WORKSPACE_BYTES = 64 << 20
 
 _D_M = 32
 _MAX_D_IN = 96
-# The C entry points by (stream dtype, scale): the f32 chain and the bf16
-# one, without and with the AUGRU scale (K1's own is _ws_fn's).
-_FWD_ENTRY = {(torch.bfloat16, False): "hpmn_gru_scan_fwd_bf16",
-              (torch.float32, True): "hpmn_gru_scan_fwd_scale",
-              (torch.bfloat16, True): "hpmn_gru_scan_fwd_scale_bf16"}
+# The forward's C entry points by stream dtype (the f32 chain and the bf16
+# one): K1 and K1-bf16 (projection and recurrence over a workspace), their
+# AUGRU scale forms, and the projection alone; the backward's by dtype and
+# scale.
+_WS_ENTRY = {torch.float32: "hpmn_gru_scan_fwd_ws",
+             torch.bfloat16: "hpmn_gru_scan_fwd_bf16_ws"}
+_SCALE_ENTRY = {torch.float32: "hpmn_gru_scan_fwd_scale",
+                torch.bfloat16: "hpmn_gru_scan_fwd_scale_bf16"}
+_PROJ_ENTRY = {torch.float32: "hpmn_gru_input_proj",
+               torch.bfloat16: "hpmn_gru_input_proj_bf16"}
 _BWD_ENTRY = {(torch.float32, False): "hpmn_gru_scan_bwd_ws",
               (torch.bfloat16, False): "hpmn_gru_scan_bwd_bf16_ws",
               (torch.float32, True): "hpmn_gru_scan_bwd_scale",
@@ -110,9 +118,10 @@ def _kernel_name(dtype: torch.dtype, scaled: bool, bwd: bool) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(dtype: torch.dtype, scaled: bool = False):
-    fn = getattr(_build.load_library(), _FWD_ENTRY[dtype, scaled])
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * (3 if scaled else 2)
+def _scale_fn(dtype: torch.dtype):
+    """K1-scale's (K1-scale-bf16's) C entry point."""
+    fn = getattr(_build.load_library(), _SCALE_ENTRY[dtype])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 3
                    + [ctypes.c_void_p] * 5
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -120,8 +129,9 @@ def _kernel_fn(dtype: torch.dtype, scaled: bool = False):
 
 
 @functools.lru_cache(maxsize=None)
-def _ws_fn():
-    fn = _build.load_library().hpmn_gru_scan_fwd_ws
+def _ws_fn(dtype: torch.dtype):
+    """K1's (K1-bf16's) C entry point."""
+    fn = getattr(_build.load_library(), _WS_ENTRY[dtype])
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 2
                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
@@ -130,8 +140,8 @@ def _ws_fn():
 
 
 @functools.lru_cache(maxsize=None)
-def _proj_fn():
-    fn = _build.load_library().hpmn_gru_input_proj
+def _proj_fn(dtype: torch.dtype):
+    fn = getattr(_build.load_library(), _PROJ_ENTRY[dtype])
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
@@ -140,8 +150,8 @@ def _proj_fn():
 
 
 def workspace_steps(T: int, B: int) -> int:
-    """K1's chunk: the steps of xp [., B, 96] in f32 that fit
-    :data:`WORKSPACE_BYTES`, at least 1 and at most T."""
+    """K1's (and K1-bf16's) chunk: the steps of xp [., B, 96] in f32 that
+    fit :data:`WORKSPACE_BYTES`, at least 1 and at most T."""
     return max(1, min(T, WORKSPACE_BYTES // (B * 3 * _D_M * 4)))
 
 
@@ -237,16 +247,16 @@ def _tstride(t: Optional[torch.Tensor]) -> int:
 
 
 def _k1(w, x_tm, mask_tm, h0, hseq, stream) -> int:
-    """K1's C call: the workspace, then every chunk's projection and
-    recurrence; -> the cudaError_t code."""
+    """K1's (K1-bf16's) C call: the f32 workspace, then every chunk's
+    projection and recurrence; -> the cudaError_t code."""
     T, B, d_in = x_tm.shape
     t_chunk = workspace_steps(T, B)
     ws = torch.empty(t_chunk, B, 3 * _D_M, dtype=torch.float32,
                      device=x_tm.device)
-    return _ws_fn()(x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm),
-                    _tstride(mask_tm), w.wx.data_ptr(), w.wh.data_ptr(),
-                    w.b.data_ptr(), _ptr(h0), hseq.data_ptr(), ws.data_ptr(),
-                    t_chunk, T, B, d_in, stream)
+    return _ws_fn(x_tm.dtype)(
+        x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm), _tstride(mask_tm),
+        w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), _ptr(h0),
+        hseq.data_ptr(), ws.data_ptr(), t_chunk, T, B, d_in, stream)
 
 
 def _launch(w, x_tm, mask_tm, h0, scale_tm=None) -> torch.Tensor:
@@ -258,16 +268,14 @@ def _launch(w, x_tm, mask_tm, h0, scale_tm=None) -> torch.Tensor:
     _check_cuda_args(w, x_tm, mask_tm, h0, name, scale_tm)
     hseq = torch.empty(T, B, _D_M, dtype=x_tm.dtype, device=x_tm.device)
     stream = torch.cuda.current_stream(x_tm.device).cuda_stream
-    if x_tm.dtype == torch.float32 and not scaled:
+    if not scaled:
         code = _k1(w, x_tm, mask_tm, h0, hseq, stream)
     else:
-        streams = [x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm),
-                   _tstride(mask_tm)]
-        if scaled:
-            streams += [scale_tm.data_ptr(), scale_tm.stride(0)]
-        code = _kernel_fn(x_tm.dtype, scaled)(
-            *streams, w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
-            _ptr(h0), hseq.data_ptr(), T, B, d_in, stream)
+        code = _scale_fn(x_tm.dtype)(
+            x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm), _tstride(mask_tm),
+            scale_tm.data_ptr(), scale_tm.stride(0), w.wx.data_ptr(),
+            w.wh.data_ptr(), w.b.data_ptr(), _ptr(h0), hseq.data_ptr(), T, B,
+            d_in, stream)
     _build.check_launch(code, name)
     _count(name)
     return hseq
@@ -335,26 +343,30 @@ def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq, scale_tm=None):
 
 
 def input_proj(params: GRUParams, x_tm: torch.Tensor) -> torch.Tensor:
-    """K1's input projection alone: x_tm [T, B, d_in] (any time stride,
-    rows contiguous) -> xp [T, B, 96] = x_tm @ wx + b in float32, by the
-    kernel on CUDA tensors (float32 only), by ``gru_input_proj`` on CPU
-    tensors."""
+    """K1's or K1-bf16's input projection alone: x_tm [T, B, d_in] (any
+    time stride, rows contiguous) -> xp [T, B, 96] in float32, by the
+    kernel on CUDA tensors, by the plain version on CPU tensors. Float32
+    tensors give x_tm @ wx + b (``gru_input_proj``). Bfloat16 tensors give
+    the bf16 chain's layout (``gru_input_proj_bf16``): the r and z blocks
+    x_tm @ wx summed in f32, without the bias, and the c block x_tm @ wx_c
+    + b_c rounded to bf16, held as f32."""
+    bf16 = x_tm.dtype == torch.bfloat16
     if x_tm.device.type == "cpu":
-        return gru_input_proj(params, x_tm)
+        plain = gru_input_proj_bf16 if bf16 else gru_input_proj
+        return plain(params, x_tm)
     if x_tm.device.type != "cuda":
         raise ValueError(f"input_proj runs on cpu or cuda, not "
                          f"{x_tm.device}")
     global proj_launches
-    _check_cuda_args(params, x_tm, None, None, "gru_input_proj")
-    if x_tm.dtype != torch.float32:
-        raise ValueError(f"gru_input_proj takes float32 tensors; got "
-                         f"{x_tm.dtype}")
+    name = "gru_input_proj" + ("_bf16" if bf16 else "")
+    _check_cuda_args(params, x_tm, None, None, name)
     T, B, d_in = x_tm.shape
     xp = torch.empty(T, B, 3 * _D_M, dtype=torch.float32, device=x_tm.device)
-    code = _proj_fn()(x_tm.data_ptr(), x_tm.stride(0), params.wx.data_ptr(),
-                      params.b.data_ptr(), xp.data_ptr(), T, B, d_in,
-                      torch.cuda.current_stream(x_tm.device).cuda_stream)
-    _build.check_launch(code, "gru_input_proj")
+    code = _proj_fn(x_tm.dtype)(
+        x_tm.data_ptr(), x_tm.stride(0), params.wx.data_ptr(),
+        params.b.data_ptr(), xp.data_ptr(), T, B, d_in,
+        torch.cuda.current_stream(x_tm.device).cuda_stream)
+    _build.check_launch(code, name)
     proj_launches += 1
     return xp
 

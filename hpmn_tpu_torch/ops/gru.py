@@ -212,13 +212,26 @@ def _sigmoid_tanh(v: torch.Tensor) -> torch.Tensor:
     return 0.5 * torch.tanh(0.5 * v) + 0.5
 
 
-def _bf16_gates(xw_t, h, whf, bf):
-    """One step's r, z, c, g_c (bf16) from xw_t = x_t @ wx [B, 3*d_m] (f32,
-    no bias), h [B, d_m] (bf16) and the f32 copies of wh and b."""
+def gru_input_proj_bf16(params: GRUParams, x: torch.Tensor) -> torch.Tensor:
+    """The bf16 chain's input projection (the plain version of K1-bf16's
+    first kernel, csrc/gru_input_proj.cu): x [..., d_in] bf16 -> f32 [...,
+    3*d_m] holding x @ wx for the r and z blocks, without the bias (the
+    chain adds it after the h part), and the candidate's pre_c = bf16(x @
+    wx_c + b_c), rounded, as f32. Sums in f32 of bf16 values."""
+    d_m = params.wh.shape[0]
+    xw = x.float() @ params.wx.float()
+    pre_c = (xw[..., 2 * d_m:] + params.b[2 * d_m:].float()).bfloat16()
+    return torch.cat([xw[..., :2 * d_m], pre_c.float()], dim=-1)
+
+
+def _bf16_gates(xp_t, h, whf, bf):
+    """One step's r, z, c, g_c (bf16) from xp_t [B, 3*d_m], one step of
+    :func:`gru_input_proj_bf16`, h [B, d_m] (bf16) and the f32 copies of wh
+    and b."""
     d_m = h.shape[-1]
     g = h.float() @ whf
-    pre = ((xw_t[:, :2 * d_m] + g[:, :2 * d_m]) + bf[:2 * d_m]).bfloat16()
-    pre_c = (xw_t[:, 2 * d_m:] + bf[2 * d_m:]).bfloat16()
+    pre = ((xp_t[:, :2 * d_m] + g[:, :2 * d_m]) + bf[:2 * d_m]).bfloat16()
+    pre_c = xp_t[:, 2 * d_m:].bfloat16()
     g_c = g[:, 2 * d_m:].bfloat16()
     r = _sigmoid_tanh(pre[:, :d_m])
     z = _sigmoid_tanh(pre[:, d_m:])
@@ -240,10 +253,10 @@ def gru_scan_tm_bf16(params: GRUParams, x_tm: torch.Tensor,
     d_m = params.wh.shape[0]
     whf, bf = params.wh.float(), params.b.float()
     h = (x_tm.new_zeros(B, d_m) if h0 is None else h0)
-    xw = x_tm.float() @ params.wx.float()  # [T, B, 3*d_m], f32
+    xp = gru_input_proj_bf16(params, x_tm)  # [T, B, 3*d_m], f32
     hs = []
     for t in range(T):
-        r, z, c, _ = _bf16_gates(xw[t], h, whf, bf)
+        r, z, c, _ = _bf16_gates(xp[t], h, whf, bf)
         zs = z if scale_tm is None else z * scale_tm[t][:, None]
         h_cell = h + zs * (c - h)
         h = (h_cell if mask_tm is None
@@ -290,14 +303,14 @@ def _bwd_sweep_bf16(params, x_tm, mask_tm, h_prev, cotangent, scale_tm=None):
     T, B, _ = x_tm.shape
     d_m = params.wh.shape[0]
     whf, bf = params.wh.float(), params.b.float()
-    xw = x_tm.float() @ params.wx.float()
+    xp = gru_input_proj_bf16(params, x_tm)
     dpre_x = x_tm.new_empty(T, B, 3 * d_m)  # [dr | dz | dc]
     dpre_h = x_tm.new_empty(T, B, 3 * d_m)  # [dr | dz | dc * r]
     dscale = None if scale_tm is None else x_tm.new_empty(T, B)
     dh = x_tm.new_zeros(B, d_m, dtype=torch.float32)
     for t in reversed(range(T)):
         hp = h_prev[t]
-        r, z, c, g_c = _bf16_gates(xw[t], hp, whf, bf)
+        r, z, c, g_c = _bf16_gates(xp[t], hp, whf, bf)
         gtot = cotangent(t, dh)
         gcell = gtot if mask_tm is None else gtot * mask_tm[t][:, None]
         a = None if scale_tm is None else scale_tm[t][:, None]

@@ -19,10 +19,13 @@ card.
 A tree whose K1 (f32, no scale) predates the two-kernel form has no
 ``hpmn_gru_scan_fwd_ws``; its K1 is then called through its one-kernel
 entry point ``hpmn_gru_scan_fwd``, with that entry point's arguments.
-Likewise a tree without ``hpmn_gru_scan_bwd_ws`` (K2 and K2-bf16 as one
-kernel): its ``hpmn_gru_scan_bwd`` and ``hpmn_gru_scan_bwd_bf16``. This
-tree's K2 in the default chunks (``cuda_gru.WORKSPACE_BYTES``) is also
-held, bit for bit, to itself in one chunk of all T steps.
+Likewise a tree without ``hpmn_gru_scan_fwd_bf16_ws`` (K1-bf16 as one
+kernel): its ``hpmn_gru_scan_fwd_bf16``; and a tree without
+``hpmn_gru_scan_bwd_ws`` (K2 and K2-bf16 as one kernel): its
+``hpmn_gru_scan_bwd`` and ``hpmn_gru_scan_bwd_bf16``. This tree's K1 and
+K2 (or K1-bf16 and K2-bf16) in the default chunks
+(``cuda_gru.WORKSPACE_BYTES``) are also held, bit for bit, to themselves
+in one chunk of all T steps.
 """
 
 from __future__ import annotations
@@ -42,14 +45,18 @@ from ..ops.gru import GRUParams
 T, B, D_IN = 1000, 512, 32
 PERIOD = 3
 REPS = 20
-_CACHES = (cuda_gru._kernel_fn, cuda_gru._ws_fn, cuda_gru._rows_fn,
-           cuda_gru._bwd_fn, cuda_gru._pass_fn, cuda_gru_stride.chunk,
-           cuda_gru_stride._fwd_fn, cuda_gru_stride._bwd_fns)
+_CACHES = (cuda_gru._scale_fn, cuda_gru._ws_fn, cuda_gru._proj_fn,
+           cuda_gru._rows_fn, cuda_gru._bwd_fn, cuda_gru._pass_fn,
+           cuda_gru_stride.chunk, cuda_gru_stride._fwd_fn,
+           cuda_gru_stride._bwd_fns)
 
 
 def _one_kernel_k1(w, x_tm, mask_tm, h0, hseq, stream) -> int:
-    """K1 of a tree without the two-kernel form: its hpmn_gru_scan_fwd."""
-    fn = _build.load_library().hpmn_gru_scan_fwd
+    """K1 (K1-bf16) of a tree without the two-kernel form: its
+    hpmn_gru_scan_fwd (hpmn_gru_scan_fwd_bf16)."""
+    bf16 = x_tm.dtype == torch.bfloat16
+    fn = getattr(_build.load_library(),
+                 "hpmn_gru_scan_fwd" + ("_bf16" if bf16 else ""))
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 2
                    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
@@ -85,8 +92,12 @@ def _kernels_of(csrc: str):
     """Route the scan wrappers to the library built from ``csrc``."""
     load, k1, k2 = _build.load_library, cuda_gru._k1, cuda_gru._k2
     _build.load_library = functools.partial(load, csrc)
-    if not _has(csrc, "gru_scan_fwd.cu", "hpmn_gru_scan_fwd_ws"):
-        cuda_gru._k1 = _one_kernel_k1
+    two = {torch.float32: "hpmn_gru_scan_fwd_ws",
+           torch.bfloat16: "hpmn_gru_scan_fwd_bf16_ws"}
+    two = {dt: _has(csrc, "gru_scan_fwd.cu", sym) for dt, sym in two.items()}
+    if not all(two.values()):
+        cuda_gru._k1 = lambda w, x_tm, *a: (k1 if two[x_tm.dtype]
+                                            else _one_kernel_k1)(w, x_tm, *a)
     if not _has(csrc, "gru_scan_bwd.cu", "hpmn_gru_scan_bwd_ws"):
         cuda_gru._k2 = _one_kernel_k2
     for cache in _CACHES:
@@ -172,10 +183,12 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             outs[tree] = res
     same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
-    # This tree's K2 in one chunk of all T steps against its default chunks
-    # (the no-mask and masked outputs above).
+    # This tree's K1 and K2 in one chunk of all T steps against their
+    # default chunks (the no-mask and masked outputs above): a cap that
+    # holds K1's f32 workspace and K2's in x's dtype.
     cap = cuda_gru.WORKSPACE_BYTES
-    cuda_gru.WORKSPACE_BYTES = T * B * 128 * x.element_size()
+    k1_chunks = -(-T // cuda_gru.workspace_steps(T, B))
+    cuda_gru.WORKSPACE_BYTES = T * B * max(96 * 4, 128 * x.element_size())
     try:
         one = []
         for m in (None, mask):
@@ -192,8 +205,9 @@ def main(argv=None) -> int:
           f"forward and backward outputs, mask and no mask"
           f"{', and the strided kernels' if strided else ''}"
           f"{', and the AUGRU kernels' if scaled else ''}, bit for bit "
-          f"the same: {same} | this tree's K2 in {chunks} chunks and in one: "
-          f"bit for bit the same: {one_chunk}")
+          f"the same: {same} | this tree's K1 in {k1_chunks} chunks and K2 "
+          f"in {chunks}, and both in one: bit for bit the same: "
+          f"{one_chunk}")
     h = outs["this"][0]
     bounds = outs["this"][14] if strided else None
     for tree in ("other", "this", "this", "other"):

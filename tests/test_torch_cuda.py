@@ -24,12 +24,14 @@ tolerances, its backward run from K3's own boundary states; K3-bf16's rows
 equal K1-bf16's strided rows bit for bit (the same ops on the same
 values).
 
-K1 runs as two kernels, the input projection into a workspace and the
-recurrence, over chunks of steps: the projection alone is held to the
-plain projection computed in float64, within 1e-6 of its max abs (each
+K1 and K1-bf16 run as two kernels, the input projection into a workspace
+and the recurrence, over chunks of steps: the projection alone is held to
+the plain projection computed in float64, within 1e-6 of its max abs (each
 output is one fmaf chain over d_in <= 96 terms, about sqrt(d_in) roundings
-of half an ulp), and K1 over several chunks equals K1 over one chunk bit
-for bit (each chunk starts from the last f32 row of h_seq).
+of half an ulp; in bf16 the r and z blocks so, and the c block, rounded to
+bf16, the float64 sum's rounding up to that f32 error), and K1 over
+several chunks equals K1 over one chunk bit for bit (each chunk starts
+from the last row of h_seq, the carry itself, f32 or bf16).
 
 K2 and K2-bf16 run as two kernels too, the reverse recurrence into a
 workspace of gate gradients and the dx and weight-gradient pass, over
@@ -127,39 +129,71 @@ def test_gru_kernel_takes_strided_time_views(dev):
         h_k, _ = cuda_gru.gru_sequence_tm(p, h[2::3], mask[2::3])
         h_p, _ = gru_scan_tm(p, h[2::3].contiguous(), mask[2::3].contiguous())
         assert (h_k - h_p).abs().max().item() <= TOL_GRU, (d_in, B)
+    # K1-bf16 on a bf16 view.
+    p = _bf16(_gru(33, dev))
+    h = torch.randn(100, 7, 33, device=dev).to(BF16)
+    mask = _mask(100, 7, dev).to(BF16)
+    h_k, _ = cuda_gru.gru_sequence_tm(p, h[2::3], mask[2::3])
+    h_p, _ = gru_scan_tm_bf16(p, h[2::3].contiguous(),
+                              mask[2::3].contiguous())
+    assert (h_k.float() - h_p.float()).abs().max().item() <= TOL_GRU_BF16
 
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("steps", [1, 7])
-def test_gru_kernel_chunks_match_one_chunk(dev, monkeypatch, masked, steps):
-    """K1 over workspace chunks of `steps` steps (the last one shorter) ==
-    K1 over one chunk, bit for bit, from h0 on a strided time view."""
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_gru_kernel_chunks_match_one_chunk(dev, monkeypatch, masked, steps,
+                                           dtype):
+    """K1 (K1-bf16) over workspace chunks of `steps` steps (the last one
+    shorter) == over one chunk, bit for bit, from h0 on a strided time
+    view."""
     T, B, d_in = 50, 5, 33
     p = _gru(d_in, dev)
+    p = _bf16(p) if dtype == BF16 else p
     g = torch.Generator().manual_seed(7)
-    x = torch.randn(3 * T, B, d_in, generator=g).to(dev)[2::3]
-    mask = _mask(T, B, dev) if masked else None
-    h0 = torch.randn(B, 32, generator=g).to(dev)
+    x = torch.randn(3 * T, B, d_in, generator=g).to(dev, dtype)[2::3]
+    mask = _mask(T, B, dev).to(dtype) if masked else None
+    h0 = torch.randn(B, 32, generator=g).to(dev, dtype)
     assert cuda_gru.workspace_steps(T, B) == T
     one = cuda_gru.gru_sequence_tm(p, x, mask, h0)
     monkeypatch.setattr(cuda_gru, "WORKSPACE_BYTES", steps * B * 96 * 4)
     assert cuda_gru.workspace_steps(T, B) == steps
-    n = cuda_gru.launches
+    counter = "launches_bf16" if dtype == BF16 else "launches"
+    n = getattr(cuda_gru, counter)
     chunked = cuda_gru.gru_sequence_tm(p, x, mask, h0)
     torch.cuda.synchronize()
-    assert cuda_gru.launches == n + 1
+    assert getattr(cuda_gru, counter) == n + 1
+    assert chunked[0].dtype == dtype
     assert torch.equal(chunked[0], one[0]) and torch.equal(chunked[1], one[1])
+
+
+def _bf16_in_reach(got, want, delta):
+    """Whether every value of got is a bf16 value between the bf16
+    roundings of want - delta and want + delta (want float64): the bf16
+    rounding of want, moved at most by a sum error of delta. Where delta is
+    below half a bf16 ulp that is want's rounding or its neighbour."""
+    lo = (want - delta).float().to(BF16).double()
+    hi = (want + delta).float().to(BF16).double()
+    g = got.double()
+    is_bf16 = g == got.to(BF16).double()
+    return bool((is_bf16 & (g >= lo) & (g <= hi)).all())
 
 
 @pytest.mark.parametrize("d_in", [1, 31, 32, 33, 96])
 @pytest.mark.parametrize("B", [1, 5, 513])
-def test_input_proj_kernel_matches_plain(dev, d_in, B):
-    """K1's projection alone, on a strided time view, against the plain
-    projection in float64."""
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_input_proj_kernel_matches_plain(dev, d_in, B, dtype):
+    """K1's (K1-bf16's) projection alone, on a strided time view, against
+    the plain projection in float64: in bf16 the r and z blocks x @ wx
+    without the bias, the c block x @ wx_c + b_c rounded to bf16: the
+    rounding of the float64 sum, up to the f32 sum's error (TOL_PROJ of max
+    abs, as r and z), which moves it by more than one bf16 ulp only where
+    the sum cancels far below its terms."""
     p = _gru(d_in, dev)
+    p = _bf16(p) if dtype == BF16 else p
     T = 9
     x = torch.randn(3 * T, B, d_in, generator=torch.Generator().manual_seed(
-        d_in + B)).to(dev)[1::3]
+        d_in + B)).to(dev, dtype)[1::3]
     n = cuda_gru.proj_launches
     xp = cuda_gru.input_proj(p, x)
     want = gru_input_proj(GRUWeights(p.wx.double(), p.wh.double(),
@@ -167,7 +201,14 @@ def test_input_proj_kernel_matches_plain(dev, d_in, B):
     torch.cuda.synchronize()
     assert cuda_gru.proj_launches == n + 1
     assert xp.shape == (T, B, 96) and xp.dtype == torch.float32
-    assert _rel_err(xp.double(), want) <= TOL_PROJ
+    if dtype == BF16:
+        xw = x.double() @ p.wx.double()[:, :64]
+        assert _rel_err(xp[..., :64].double(), xw) <= TOL_PROJ
+        want_c = want[..., 64:]
+        assert _bf16_in_reach(xp[..., 64:], want_c,
+                              TOL_PROJ * want_c.abs().max())
+    else:
+        assert _rel_err(xp.double(), want) <= TOL_PROJ
 
 
 def test_gru_kernel_rejects_what_it_does_not_take(dev):
@@ -270,7 +311,10 @@ def _bf16(p):
 @pytest.mark.parametrize("T,B,d_in,masked,strided", [
     (1, 3, 32, False, False), (7, 33, 32, True, False),
     (100, 64, 32, False, True), (100, 64, 32, True, True),
-    (50, 10, 70, True, False), (20, 5, 5, False, False)])
+    (50, 10, 70, True, False), (20, 5, 5, False, False),
+    (1, 1, 1, True, False), (9, 5, 31, True, True),
+    (12, 513, 33, False, False), (30, 513, 96, True, False),
+    (1, 5, 96, False, True)])
 def test_gru_bf16_kernels_match_plain(dev, T, B, d_in, masked, strided):
     """K1-bf16 and K2-bf16 against gru_scan_tm_bf16 and
     gru_scan_tm_bwd_bf16 on the same bf16 inputs; no f32 kernel runs."""

@@ -24,8 +24,8 @@ from hpmn_tpu.ops.gru import gru_input_proj as j_gru_input_proj
 from hpmn_tpu.ops.gru import gru_sequence as j_gru_sequence
 from hpmn_tpu_torch.models.readout import Readout, attention_readout
 from hpmn_tpu_torch.ops import cuda_gru, cuda_readout
-from hpmn_tpu_torch.ops.gru import (GRUParams, gru_scan_tm, gru_scan_tm_bwd,
-                                    gru_sequence)
+from hpmn_tpu_torch.ops.gru import (GRUParams, GRUWeights, gru_scan_tm,
+                                    gru_scan_tm_bwd, gru_sequence)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -139,6 +139,50 @@ def test_input_proj_wrapper_on_cpu_matches_jax(d_in):
     assert cuda_gru.proj_launches == launches  # CPU tensors: plain version
     assert xp_t.shape == (T, B, 3 * d_m)
     _close(xp_t, j_gru_input_proj(jp, jnp.asarray(x_tm[2::3])))
+
+
+def _bf16_in_reach(got, want, delta):
+    """Whether every value of got is a bf16 value between the bf16
+    roundings of want - delta and want + delta: the bf16 rounding of the
+    f32 sum want, moved at most by another order's sum error delta."""
+    def bf16(v):
+        return np.asarray(jnp.asarray(v, jnp.float32).astype(jnp.bfloat16),
+                          np.float64)
+    g = np.asarray(got, np.float64)
+    return bool(np.all((g == bf16(g)) & (g >= bf16(want - delta))
+                       & (g <= bf16(want + delta))))
+
+
+@pytest.mark.parametrize("d_in", [1, 32, 33, 96])
+def test_input_proj_bf16_wrapper_on_cpu_matches_jax(d_in):
+    """K1-bf16's projection wrapper on bf16 CPU tensors (its plain version,
+    on a strided time view) against JAX on the same bf16 values: the r and
+    z blocks x @ wx without the bias, within 1e-6 of their max abs (f32
+    sums in another order); the c block bf16(x @ wx_c + b_c), JAX's
+    rounding up to that sum error (one bf16 ulp at most, unless the sum
+    cancels far below its terms)."""
+    rng = np.random.default_rng(5)
+    T, B, d_m = 5, 3, 32
+    _, tp = _gru(rng, d_in, d_m)
+    w16 = GRUWeights(tp.wx.bfloat16(), tp.wh.bfloat16(), tp.b.bfloat16())
+    x16 = torch.from_numpy(
+        rng.standard_normal((3 * T, B, d_in)).astype(np.float32)).bfloat16()
+    launches = cuda_gru.proj_launches
+    xp = cuda_gru.input_proj(w16, x16[2::3])
+    assert cuda_gru.proj_launches == launches  # CPU tensors: plain version
+    assert xp.shape == (T, B, 3 * d_m) and xp.dtype == torch.float32
+
+    def j(t):
+        return jnp.asarray(t.float().numpy(), jnp.bfloat16)
+
+    dot = np.asarray(jnp.dot(j(x16[2::3]), j(w16.wx),
+                             preferred_element_type=jnp.float32))
+    rz = xp[..., :2 * d_m].numpy()
+    assert (np.abs(rz - dot[..., :2 * d_m]).max()
+            / np.abs(dot[..., :2 * d_m]).max()) <= 1e-6
+    want_c = dot[..., 2 * d_m:] + w16.b[2 * d_m:].float().numpy()
+    assert _bf16_in_reach(xp[..., 2 * d_m:].numpy(), want_c,
+                          1e-6 * np.abs(want_c).max())
 
 
 def test_k1_workspace_steps(monkeypatch):
