@@ -22,7 +22,10 @@ before the last line):
    share of theirs; the bf16 scan
    kernels in bf16, with their drift from the f32 kernels; the strided
    scan kernels (K3, K4 and their bf16 forms), with their difference from
-   the dense kernels' strided rows and gradients; the AUGRU scan kernels
+   the dense kernels' strided rows and gradients, and before each K4 and
+   K4-bf16 line its recurrence's gate gradients and h_prev against the
+   plain sweep's, and its h_prev against the forward's states bit for
+   bit; the AUGRU scan kernels
    (K1-scale, K2-scale and their bf16 forms) at DIEN's shape.
 4. serving: a ``UserMemoryStore`` on the card at the full width of
    xlong_hpmn (random seeded weights) ingests histories, takes updates,
@@ -260,7 +263,8 @@ def main():
         from hpmn_tpu_torch.ops.gru import (
             GRUWeights, gru_bwd_pass, gru_scan_stride_tm,
             gru_scan_stride_tm_bf16, gru_input_proj, gru_scan_stride_tm_bwd,
-            gru_scan_stride_tm_bwd_bf16, gru_scan_tm, gru_scan_tm_bf16,
+            gru_scan_stride_tm_bwd_bf16, gru_scan_stride_tm_sweep,
+            gru_scan_stride_tm_sweep_bf16, gru_scan_tm, gru_scan_tm_bf16,
             gru_scan_tm_bwd, gru_scan_tm_bwd_bf16)
         from hpmn_tpu_torch.serving.history import HistoryStore
         from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
@@ -382,6 +386,10 @@ def main():
     st_err = dict.fromkeys(st_rows, 0.0)
     st_abs = dict.fromkeys(st_rows, 0.0)
     st_vs_dense = dict.fromkeys(st_rows, 0.0)
+    # K4's (K4-bf16's) recurrence seen whole against the plain sweep: worst
+    # gate-gradient error over max abs and h_prev max abs error, by name.
+    rec_err = {n: 0.0 for n in ("bwd", "bwd_bf16")}
+    rec_h_err = dict.fromkeys(rec_err, 0.0)
     for l, T in enumerate(T_l):
         layer = model.encoder.layers[l]
         d_in = layer.wx.shape[0]
@@ -707,6 +715,51 @@ def main():
                   f"{plain_ms:.4f} ms | library {fmt(lib_t)} ms (dense "
                   f"nn.GRU) | bound {b_ms:.4f} ms ({b_by})", flush=True)
 
+            # K4's recurrence alone, over all T in one workspace chunk:
+            # its gate gradients and h_prev against the plain sweep's.
+            rec_k = cuda_gru_stride.stride_bwd_gates(w, xs, period, bounds,
+                                                     d_s, d_T)
+            rec_p = (gru_scan_stride_tm_sweep_bf16 if bf else
+                     gru_scan_stride_tm_sweep)(w, xs, period, d_s, d_T)
+            torch.cuda.synchronize()
+            check(all(a.shape == b.shape and a.dtype == b.dtype
+                      and torch.isfinite(a.float()).all().item()
+                      for a, b in zip(rec_k, rec_p)),
+                  f"K4{sfx}'s recurrence T={T}: shape, dtype or non-finite")
+            g_err = max(((a.float() - b.float()).abs().max()
+                         / b.float().abs().max().clamp_min(1e-30)).item()
+                        for a, b in ((rec_k[i], rec_p[i]) for i in (0, 1, 3)))
+            h_err = (rec_k[2].float() - rec_p[2].float()).abs().max().item()
+            check(g_err <= tol_g, f"K4{sfx}'s recurrence T={T}: gate "
+                  f"gradients or dh0, max err over max abs {g_err:.3e} > "
+                  f"{tol_g}")
+            check(h_err <= tol_h, f"K4{sfx}'s recurrence T={T}: h_prev max "
+                  f"abs err {h_err:.3e} > {tol_h}")
+            # The recurrence replays K3's steps, so h_prev is K3's states
+            # bit for bit: zeros at t = 0, K3's strided rows at t = k *
+            # period; in bf16 every row is K1-bf16's (K3-bf16's rows are,
+            # checked above).
+            hp = rec_k[2]
+            h_bits = (not hp[0].any().item() and torch.equal(
+                hp[period::period], hs_k[:(T - 1) // period]))
+            if bf:
+                h_bits = h_bits and torch.equal(hp[1:], hd[:-1])
+            check(h_bits, f"K4{sfx}'s recurrence T={T}: h_prev not K3"
+                  f"{sfx.replace('_', '-')}'s states bit for bit")
+            del hp, rec_k, rec_p
+            name = "bwd" + sfx
+            rec_err[name] = max(rec_err[name], g_err)
+            rec_h_err[name] = max(rec_h_err[name], h_err)
+            n_ws = -(-T // cuda_gru_stride.bwd_workspace_steps(
+                T, B_SCAN, xs.dtype, chunk))
+            print(f"phase 3 kernel gru_stride_bwd_rec{sfx} T={T} B={B_SCAN} "
+                  f"d_in={d_in} period={period}: gate gradients and dh0 max "
+                  f"err over max abs {g_err:.3e} (tol {tol_g}), h_prev max "
+                  f"abs err {h_err:.3e} (tol {tol_h}) against the plain sweep "
+                  f"| h_prev bit for bit the forward's states | "
+                  f"K4{sfx.replace('_', '-')} runs it in {n_ws} workspace "
+                  f"chunks", flush=True)
+
             got = cuda_gru_stride.stride_bwd(w, xs, period, bounds, d_s, d_T)
             want = p_bwd(w, xs, period, d_s, d_T)
             dense = cuda_gru.gru_scan_bwd(w, xs, None, hd,
@@ -731,7 +784,6 @@ def main():
             lib_t = lib16_st_bwd if bf else lib_st_bwd
             b_ms, b_by = bound(*scan_stride_bwd_work(T, B_SCAN, d_in, period,
                                                      chunk, es), peak)
-            name = "bwd" + sfx
             st_err[name] = max(st_err[name], rel)
             st_abs[name] = max(st_abs[name], absd)
             st_vs_dense[name] = max(st_vs_dense[name], vs)
@@ -1127,7 +1179,10 @@ def main():
         dev_ms = sum(t for t, _, _ in kern) / 1e3 / n
         # K1 and K1-bf16 are two kernels: the projection and the
         # recurrence, told apart by their template's stream type; K2 and
-        # K2-bf16 three: the recurrence, the pass and the partials.
+        # K2-bf16 three: the recurrence, the pass and the partials; K4 and
+        # K4-bf16 four: K1's projection, their recurrence, K2's pass and
+        # partials. A step runs K1 and K2 or K4, so the shared kernels'
+        # times are the one family's.
         def dev_ms_of(parts, bf16=None):
             return [sum(t for t, _, name in kern if part in name and (
                 bf16 is None or ("bfloat16" in name) == bf16)) / 1e3 / n
@@ -1137,18 +1192,18 @@ def main():
         k1, k1b = dev_ms_of(k1_parts, False), dev_ms_of(k1_parts, True)
         k2 = dev_ms_of(("gru_scan_bwd_rec_kernel", "gru_bwd_pass_kernel",
                         "wgrad_partials_kernel"))
+        k4_rec = dev_ms_of(("gru_scan_stride_bwd_rec_kernel",))[0]
         if dev_ms > 0:
             top = ", ".join(f"{kernel_label(name)} {t / 1e3 / n:.3f} ms "
                             f"({c / n:g}/{unit})" for t, c, name in kern[:10])
             print(f"phase {phase} profile: device kernel time {dev_ms:.3f} "
                   f"ms per {unit} of {wall_ms:.3f} ms wall: busy "
                   f"{dev_ms / wall_ms:.1%}, idle {1 - dev_ms / wall_ms:.1%} "
-                  f"| K1 {sum(k1):.3f} ms (projection {k1[0]:.3f}, "
-                  f"recurrence {k1[1]:.3f}) | K1-bf16 {sum(k1b):.3f} ms "
-                  f"(projection {k1b[0]:.3f}, recurrence {k1b[1]:.3f}) "
-                  f"| K2 {sum(k2):.3f} ms "
-                  f"(recurrence {k2[0]:.3f}, pass {k2[1]:.3f}, partials "
-                  f"{k2[2]:.3f}) | top: {top}", flush=True)
+                  f"| projection (K1 or K4) {k1[0]:.3f} ms f32, "
+                  f"{k1b[0]:.3f} bf16 | recurrence K1 {k1[1]:.3f}, K1-bf16 "
+                  f"{k1b[1]:.3f}, K2 {k2[0]:.3f}, K4 {k4_rec:.3f} | pass "
+                  f"(K2 or K4) {k2[1]:.3f} | partials {k2[2]:.3f} | top: "
+                  f"{top}", flush=True)
         else:
             print(f"phase {phase} profile: the profiler saw no device time; "
                   "device busy share not measured", flush=True)
@@ -1511,7 +1566,13 @@ def main():
                  stride_launches["bf16" if "bf16" in name else "f32"][
                      5 + ("bwd" in name) + 2 * ("bf16" in name)]},
                 max_err_over_max_abs=st_err[name],
-                diff_from_dense_kernel=st_vs_dense[name])
+                diff_from_dense_kernel=st_vs_dense[name],
+                **({"sources": [cuda_gru_stride.PROJ_SOURCE,
+                                cuda_gru_stride.BWD_SOURCE,
+                                cuda_gru_stride.PASS_SOURCE],
+                    "recurrence_max_err_over_max_abs": rec_err[name],
+                    "recurrence_h_prev_max_abs_err": rec_h_err[name]}
+                   if "bwd" in name else {}))
           for name in ("fwd", "bwd", "fwd_bf16", "bwd_bf16")),
         # The AUGRU kernels at their path's form: f32 masked (the DIEN
         # config's default), bf16 without a mask (the flagship).

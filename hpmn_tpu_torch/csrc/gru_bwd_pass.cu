@@ -1,16 +1,18 @@
-// K2's and K2-bf16's dx and weight-gradient pass for Hopper (sm_90a): the
-// products of the scan backward that read only a step's gate gradients,
-// taken out of its reverse loop (gru_scan_bwd.cu's recurrence writes those
-// gradients, chunk by chunk, into the workspace this pass reads).
+// The dx and weight-gradient pass of K2 and K4 (and of their bf16 forms)
+// for Hopper (sm_90a): the products of the scan backward that read only a
+// step's gate gradients, taken out of its reverse loop (the recurrences of
+// gru_scan_bwd.cu and gru_scan_stride_bwd.cu write those gradients, chunk
+// by chunk, into the workspace this pass reads).
 //
-// Replaces, with that recurrence, hpmn_tpu/ops/pallas_gru.py::_bwd_kernel
-// without the gate scale, in f32 and with dtype=bfloat16: the TPU kernel
-// computes dx and the weight gradients inside its time loop. Its plain
-// version is ops/gru.py::gru_bwd_pass.
+// Replaces, with those recurrences, hpmn_tpu/ops/pallas_gru.py::_bwd_kernel
+// without the gate scale and ::_bwd_stride_kernel, in f32 and with
+// dtype=bfloat16: the TPU kernels compute dx and the weight gradients
+// inside their time loops. Its plain version is ops/gru.py::gru_bwd_pass.
 //
 // Per chunk [t0, t0 + n) and batch row b, from the gate gradients dg[t, b]
-// (lane k's dr, dz, dc and dc*r side by side), x_t, and h_prev =
-// h_seq[t-1] (h0, or zeros, at t = 0):
+// (lane k's dr, dz, dc and dc*r side by side), x_t, and h_prev (K2:
+// h_seq[t-1], h0 or zeros at t = 0; K4: the h_prev its recurrence wrote
+// beside dg):
 //
 //   dx_t = [dr|dz|dc] @ wx^T                     (stream type, rounded once)
 //   dWx_b += x_t^T [dr|dz|dc];  dWh_b += h_prev^T [dr|dz|dc*r];
@@ -20,7 +22,9 @@
 // group of rows.
 //
 // Bits: every output is the one-kernel loop's (gru_scan_bwd_kernel, as it
-// ran without the scale). dx[t, b, i] is its fmaf chain from 0.0f over k =
+// ran without the scale; for K4, gru_scan_stride_bwd_kernel, whose
+// products and sums are the same, grouped by its own rows per block).
+// dx[t, b, i] is its fmaf chain from 0.0f over k =
 // 0..31 of dr_k*wx[i][k], dz_k*wx[i][32+k], dc_k*wx[i][64+k]. A row's sums
 // are its warp's accumulators there: acc = fmaf(u, d, acc) from 0.0f over
 // t descending, no step skipped (a masked step adds its zero gradients); db
@@ -79,15 +83,18 @@ __host__ __device__ constexpr size_t smem_floats() {
 }
 
 // NC: d_in's 32-chunks, 1 to 3. dg [n, B, 32, 4] holds the chunk's steps;
-// acc [B, (d_in_pad + 33) * 96]: per row, [rho][96] for rho < d_in_pad + 32
-// (x's rows, zero past d_in, then h_prev's), then db [96].
+// h_prev of step t >= hp_t0 is hprev[t - hp_t0] ([., B, 32]), of an
+// earlier step h0 (or zeros); acc [B, (d_in_pad + 33) * 96]: per row,
+// [rho][96] for rho < d_in_pad + 32 (x's rows, zero past d_in, then
+// h_prev's), then db [96].
 template <typename S, int NC>
 __global__ void __launch_bounds__(kThreads)
 gru_bwd_pass_kernel(const S* __restrict__ x, long long x_tstride,
                     const S* __restrict__ wx, const S* __restrict__ h0,
-                    const S* __restrict__ hseq, const S* __restrict__ dg,
-                    S* __restrict__ dx, float* __restrict__ acc, int t0,
-                    int n, bool first, int B, int d_in) {
+                    const S* __restrict__ hprev, int hp_t0,
+                    const S* __restrict__ dg, S* __restrict__ dx,
+                    float* __restrict__ acc, int t0, int n, bool first,
+                    int B, int d_in) {
   constexpr int kPad = 32 * NC;   // d_in_pad
   constexpr int R = kPad + kDm;   // rows of u
   constexpr int RW = R / kWarps;  // rows per warp: 8, 12 or 16
@@ -114,8 +121,8 @@ gru_bwd_pass_kernel(const S* __restrict__ x, long long x_tstride,
       if (s < ts) {
         if (rho < kPad) {
           if (rho < d_in) v = load_f(x + t * x_tstride + row * d_in + rho);
-        } else if (t > 0) {
-          v = load_f(hseq + ((long long)(t - 1) * B + row) * kDm + rho
+        } else if (t >= hp_t0) {
+          v = load_f(hprev + ((long long)(t - hp_t0) * B + row) * kDm + rho
                      - kPad);
         } else if (h0 != nullptr) {
           v = load_f(h0 + row * kDm + rho - kPad);
@@ -282,15 +289,17 @@ wgrad_partials_kernel(const float* __restrict__ acc, int rows, int B,
 
 template <typename S, int NC>
 int launch_nc(const S* x, long long x_tstride, const S* wx, const S* h0,
-              const S* hseq, const S* dg, S* dx, float* acc, int t0, int n,
-              bool first, int B, int d_in, cudaStream_t stream) {
+              const S* hprev, int hp_t0, const S* dg, S* dx, float* acc,
+              int t0, int n, bool first, int B, int d_in,
+              cudaStream_t stream) {
   const size_t smem = smem_floats<NC>() * sizeof(float);
   const cudaError_t e = cudaFuncSetAttribute(
       gru_bwd_pass_kernel<S, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   gru_bwd_pass_kernel<S, NC><<<B, kThreads, smem, stream>>>(
-      x, x_tstride, wx, h0, hseq, dg, dx, acc, t0, n, first, B, d_in);
+      x, x_tstride, wx, h0, hprev, hp_t0, dg, dx, acc, t0, n, first, B,
+      d_in);
   return (int)cudaGetLastError();
 }
 
@@ -300,31 +309,31 @@ namespace hpmn {
 
 template <typename S>
 int launch_bwd_pass(const S* x, long long x_tstride, const S* wx,
-                    const S* h0, const S* hseq, const S* dg, S* dx,
-                    float* acc, int t0, int n, bool first, int B, int d_in,
-                    cudaStream_t stream) {
+                    const S* h0, const S* hprev, int hp_t0, const S* dg,
+                    S* dx, float* acc, int t0, int n, bool first, int B,
+                    int d_in, cudaStream_t stream) {
   if (d_in < 1 || d_in > 32 * kMaxChunks || B < 1 || n < 1 || t0 < 0)
     return (int)cudaErrorInvalidValue;
   switch ((d_in + 31) / 32) {
     case 1:
-      return launch_nc<S, 1>(x, x_tstride, wx, h0, hseq, dg, dx, acc, t0, n,
-                             first, B, d_in, stream);
+      return launch_nc<S, 1>(x, x_tstride, wx, h0, hprev, hp_t0, dg, dx, acc,
+                             t0, n, first, B, d_in, stream);
     case 2:
-      return launch_nc<S, 2>(x, x_tstride, wx, h0, hseq, dg, dx, acc, t0, n,
-                             first, B, d_in, stream);
+      return launch_nc<S, 2>(x, x_tstride, wx, h0, hprev, hp_t0, dg, dx, acc,
+                             t0, n, first, B, d_in, stream);
     default:
-      return launch_nc<S, 3>(x, x_tstride, wx, h0, hseq, dg, dx, acc, t0, n,
-                             first, B, d_in, stream);
+      return launch_nc<S, 3>(x, x_tstride, wx, h0, hprev, hp_t0, dg, dx, acc,
+                             t0, n, first, B, d_in, stream);
   }
 }
 
 template int launch_bwd_pass<float>(const float*, long long, const float*,
-                                    const float*, const float*, const float*,
-                                    float*, float*, int, int, bool, int, int,
-                                    cudaStream_t);
+                                    const float*, const float*, int,
+                                    const float*, float*, float*, int, int,
+                                    bool, int, int, cudaStream_t);
 template int launch_bwd_pass<__nv_bfloat16>(
     const __nv_bfloat16*, long long, const __nv_bfloat16*,
-    const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
+    const __nv_bfloat16*, const __nv_bfloat16*, int, const __nv_bfloat16*,
     __nv_bfloat16*, float*, int, int, bool, int, int, cudaStream_t);
 
 int launch_wgrad_partials(const float* acc, int rows, int B, int d_in,
@@ -347,8 +356,9 @@ int pass_alone(const S* x, long long x_tstride, const S* wx, const S* h0,
                float* dwx_part, float* dwh_part, float* db_part, int rows,
                int T, int B, int d_in, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const int code = hpmn::launch_bwd_pass<S>(x, x_tstride, wx, h0, hseq, dg,
-                                            dx, acc, 0, T, true, B, d_in, st);
+  const int code = hpmn::launch_bwd_pass<S>(x, x_tstride, wx, h0, hseq, 1,
+                                            dg, dx, acc, 0, T, true, B, d_in,
+                                            st);
   if (code != 0) return code;
   return hpmn::launch_wgrad_partials(acc, rows, B, d_in, dwx_part, dwh_part,
                                      db_part, st);

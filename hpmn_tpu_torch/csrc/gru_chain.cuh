@@ -3,7 +3,7 @@
 // gru_scan_stride_bwd.cu K4): the stream conversions, the projections and
 // the gate chain, so that a backward recomputes (or replays) its forward's
 // gates bit for bit; the launchers of K1's and K1-bf16's input projection
-// (gru_input_proj.cu) and of K2's dx and weight-gradient pass
+// (gru_input_proj.cu) and of K2's and K4's dx and weight-gradient pass
 // (gru_bwd_pass.cu); the strided scan's step; one step's gate gradients,
 // with or without the AUGRU gate scale, and the warp sum of its dscale;
 // four-value loads and stores of the stream type; cp.async copies; and
@@ -50,18 +50,20 @@ int launch_input_proj(const S* x, long long x_tstride, const S* wx,
                       const S* b, float* xp, int T, int B, int d_in,
                       cudaStream_t stream);
 
-// K2's and K2-bf16's second kernel (gru_bwd_pass.cu), per chunk of steps
-// [t0, t0 + n): from x (time stride x_tstride, rows contiguous), wx [d_in,
-// 96], h_prev (hseq[t-1], or h0, or zeros at t = 0) and the recurrence's
-// gate gradients dg [n, B, 32, 4] (lane k: dr, dz, dc, dc*r), writes dx
-// [T, B, d_in] and carries each row's weight-gradient sums in acc [B,
-// acc_floats(d_in_pad)] (f32; `first`: start them at zero). S is float or
+// The second kernel of K2 and K4 and their bf16 forms (gru_bwd_pass.cu),
+// per chunk of steps [t0, t0 + n): from x (time stride x_tstride, rows
+// contiguous), wx [d_in, 96], h_prev and the recurrence's gate gradients dg
+// [n, B, 32, 4] (lane k: dr, dz, dc, dc*r), writes dx [T, B, d_in] and
+// carries each row's weight-gradient sums in acc [B, acc_floats(d_in_pad)]
+// (f32; `first`: start them at zero). h_prev of step t is hprev[t - hp_t0]
+// ([., B, 32] contiguous) for t >= hp_t0, else h0 (or zeros): K2 passes
+// h_seq and 1, K4 its h_prev workspace and t0. S is float or
 // __nv_bfloat16. Launches on `stream`; returns cudaGetLastError().
 template <typename S>
 int launch_bwd_pass(const S* x, long long x_tstride, const S* wx,
-                    const S* h0, const S* hseq, const S* dg, S* dx,
-                    float* acc, int t0, int n, bool first, int B, int d_in,
-                    cudaStream_t stream);
+                    const S* h0, const S* hprev, int hp_t0, const S* dg,
+                    S* dx, float* acc, int t0, int n, bool first, int B,
+                    int d_in, cudaStream_t stream);
 
 // After the last chunk: one f32 partial per group of `rows` batch rows,
 // 0.0f + row 0 + row 1 + ..., into dwx_part [d_in][96], dwh_part [32][96]

@@ -429,8 +429,8 @@ int launch_ws(const S* x, long long x_tstride, const S* mask,
         t0, n, hi < T, B, d_in);
     int code = (int)cudaGetLastError();
     if (code != 0) return code;
-    code = hpmn::launch_bwd_pass<S>(x, x_tstride, wx, h0, hseq, dg, dx, acc,
-                                    t0, n, hi == T, B, d_in, st);
+    code = hpmn::launch_bwd_pass<S>(x, x_tstride, wx, h0, hseq, 1, dg, dx,
+                                    acc, t0, n, hi == T, B, d_in, st);
     if (code != 0) return code;
     hi = t0;
   }

@@ -10,7 +10,13 @@ tensors' dtype). The kernels are ``csrc/gru_scan_stride_fwd.cu`` and
 layer reads, h_seq[period-1::period], and h_T; the forward keeps the state
 at the start of every chunk of 16 steps for the backward, which replays
 each chunk from it and then sweeps it in reverse. No dense h_seq is
-written or read. See the sources' headers for the design.
+written or read. K4 and K4-bf16 run, per chunk of steps, K1's input
+projection (``csrc/gru_input_proj.cu``) into a workspace, then a replay
+and reverse sweep that write each step's gate gradients and h_prev into
+two more, then K2's ``csrc/gru_bwd_pass.cu`` computes dx and the weight
+gradients from them; the workspaces, which this module allocates, share
+``cuda_gru.WORKSPACE_BYTES`` (:func:`bwd_workspace_steps`). One C call,
+one counted launch. See the sources' headers for the design.
 
 :class:`GRUStrideScan` is the ``torch.autograd.Function`` that mirrors the
 custom_vjp: on CUDA tensors its forward launches K3 and its backward K4; on
@@ -32,12 +38,17 @@ import torch
 from . import _build, cuda_gru
 from .gru import (GRUParams, GRUWeights, gru_scan_stride_tm,
                   gru_scan_stride_tm_bf16, gru_scan_stride_tm_bwd,
-                  gru_scan_stride_tm_bwd_bf16)
+                  gru_scan_stride_tm_bwd_bf16, gru_scan_stride_tm_sweep,
+                  gru_scan_stride_tm_sweep_bf16)
 
 SOURCE = "hpmn_tpu_torch/csrc/gru_scan_stride_fwd.cu"
 REPLACES = "hpmn_tpu/ops/pallas_gru.py:434"
 BWD_SOURCE = "hpmn_tpu_torch/csrc/gru_scan_stride_bwd.cu"
 BWD_REPLACES = "hpmn_tpu/ops/pallas_gru.py:465"
+# K4's (and K4-bf16's) other kernels: K1's input projection and K2's dx and
+# weight-gradient pass.
+PROJ_SOURCE = cuda_gru.PROJ_SOURCE
+PASS_SOURCE = cuda_gru.PASS_SOURCE
 
 #: Kernel launches so far in this process: K3, K4, K3-bf16 and K4-bf16.
 #: Callers may reset them to 0.
@@ -49,8 +60,8 @@ bwd_launches_bf16 = 0
 _D_M = cuda_gru._D_M
 _FWD_ENTRY = {torch.float32: "hpmn_gru_scan_stride_fwd",
               torch.bfloat16: "hpmn_gru_scan_stride_fwd_bf16"}
-_BWD_ENTRY = {torch.float32: "hpmn_gru_scan_stride_bwd",
-              torch.bfloat16: "hpmn_gru_scan_stride_bwd_bf16"}
+_BWD_ENTRY = {torch.float32: "hpmn_gru_scan_stride_bwd_ws",
+              torch.bfloat16: "hpmn_gru_scan_stride_bwd_bf16_ws"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,17 +86,37 @@ def _fwd_fn(dtype: torch.dtype):
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_fns(dtype: torch.dtype):
-    lib = _build.load_library()
-    rows = lib.hpmn_gru_scan_stride_bwd_rows_per_block
-    rows.argtypes = [ctypes.c_int]
-    rows.restype = ctypes.c_int
-    fn = getattr(lib, _BWD_ENTRY[dtype])
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 11
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+def _rows_fn():
+    """d_in -> the batch rows that one of K4's weight-gradient partials
+    sums."""
+    fn = _build.load_library().hpmn_gru_scan_stride_bwd_rows_per_block
+    fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
-    return rows, fn
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_fn(dtype: torch.dtype):
+    """K4's (K4-bf16's) C entry point."""
+    fn = getattr(_build.load_library(), _BWD_ENTRY[dtype])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 15
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_workspace_steps(T: int, B: int, dtype: torch.dtype,
+                        chunk_steps: int) -> int:
+    """K4's workspace chunk: the most steps, a multiple of ``chunk_steps``
+    (:func:`chunk`, so that no replayed chunk straddles two), whose input
+    projection xp [., B, 96] in float32 and gate gradients dg [., B, 128]
+    and h_prev [., B, 32] in ``dtype`` fit ``cuda_gru.WORKSPACE_BYTES``
+    together; at least one chunk, at most the chunks that cover T."""
+    es = torch.empty(0, dtype=dtype).element_size()
+    fit = cuda_gru.WORKSPACE_BYTES // (B * (5 * _D_M * es + 3 * _D_M * 4))
+    whole = -(-T // chunk_steps) * chunk_steps
+    return max(chunk_steps, min(whole, fit // chunk_steps * chunk_steps))
 
 
 def _check_args(w, x_tm, h0, period, name):
@@ -125,39 +156,60 @@ def _launch(w, x_tm, h0, period):
     return hs, h_T, bounds
 
 
-def _launch_bwd(w, x_tm, period, bounds, dhs, dhT):
+def _k4(w, x_tm, period, bounds, dhs, dhT, outs, stream, t_chunk=None):
+    """K4's (K4-bf16's) C call: the workspaces of t_chunk steps (default
+    :func:`bwd_workspace_steps`), then every chunk's projection,
+    recurrence and pass, then the partials; outs = (dx, dh0, dwx, dwh,
+    db) -> (the cudaError_t code, dg [n, B, 32, 4], h_prev [n, B, 32]):
+    the gate gradients and h_prev of the first n = min(t_chunk, T)
+    steps."""
+    T, B, d_in = x_tm.shape
+    if t_chunk is None:
+        t_chunk = bwd_workspace_steps(T, B, x_tm.dtype, chunk())
+    n = min(t_chunk, T)
+    dev = x_tm.device
+    dg = torch.empty(n, B, _D_M, 4, dtype=x_tm.dtype, device=dev)
+    hprev = torch.empty(n, B, _D_M, dtype=x_tm.dtype, device=dev)
+    f32 = functools.partial(torch.empty, dtype=torch.float32, device=dev)
+    xp, acc = f32(n, B, 3 * _D_M), f32(B, cuda_gru._acc_floats(d_in))
+    code = _bwd_fn(x_tm.dtype)(
+        x_tm.data_ptr(), x_tm.stride(0), w.wx.data_ptr(), w.wh.data_ptr(),
+        w.b.data_ptr(), bounds.data_ptr(), cuda_gru._ptr(dhs),
+        cuda_gru._ptr(dhT), *(t.data_ptr() for t in outs), dg.data_ptr(),
+        hprev.data_ptr(), xp.data_ptr(), acc.data_ptr(), t_chunk, T, B, d_in,
+        period, stream)
+    return code, dg, hprev
+
+
+def _launch_bwd(w, x_tm, period, bounds, dhs, dhT, t_chunk=None):
     """K4 (float32) or K4-bf16 (bfloat16): -> (dx in x's dtype, dwx, dwh,
     db, dh0 in float32), the weight gradients summed over the kernel's
-    per-block partials."""
+    per-group partials, then the workspaces (dg, h_prev) of :func:`_k4`."""
     global bwd_launches, bwd_launches_bf16
     T, B, d_in = x_tm.shape
     _check_args(w, x_tm, None, period, "gru_scan_stride_bwd")
-    rows_fn, fn = _bwd_fns(x_tm.dtype)
     _check_rows("the boundaries", bounds, (-(-T // chunk()), B, _D_M), x_tm)
     if dhs is not None:
         _check_rows("dh_stride", dhs, (T // period, B, _D_M), x_tm)
     if dhT is not None:
         _check_rows("dh_T", dhT, (B, _D_M), x_tm)
-    n_blocks = -(-B // rows_fn(d_in))
+    n_blocks = -(-B // _rows_fn()(d_in))
     dev = x_tm.device
     f32 = functools.partial(torch.empty, dtype=torch.float32, device=dev)
     dx = torch.empty(T, B, d_in, dtype=x_tm.dtype, device=dev)
     dh0 = f32(B, _D_M)
     dwx, dwh = f32(n_blocks, d_in, 3 * _D_M), f32(n_blocks, _D_M, 3 * _D_M)
     db = f32(n_blocks, 3 * _D_M)
-    code = fn(x_tm.data_ptr(), x_tm.stride(0), w.wx.data_ptr(),
-              w.wh.data_ptr(), w.b.data_ptr(), bounds.data_ptr(),
-              None if dhs is None else dhs.data_ptr(),
-              None if dhT is None else dhT.data_ptr(), dx.data_ptr(),
-              dh0.data_ptr(), dwx.data_ptr(), dwh.data_ptr(), db.data_ptr(),
-              T, B, d_in, period, torch.cuda.current_stream(dev).cuda_stream)
+    code, dg, hprev = _k4(w, x_tm, period, bounds, dhs, dhT,
+                          (dx, dh0, dwx, dwh, db),
+                          torch.cuda.current_stream(dev).cuda_stream, t_chunk)
     if x_tm.dtype == torch.bfloat16:
         _build.check_launch(code, "gru_scan_stride_bwd_bf16")
         bwd_launches_bf16 += 1
     else:
         _build.check_launch(code, "gru_scan_stride_bwd")
         bwd_launches += 1
-    return dx, dwx.sum(0), dwh.sum(0), db.sum(0), dh0
+    return (dx, dwx.sum(0), dwh.sum(0), db.sum(0), dh0), (dg, hprev)
 
 
 def _on(x_tm, name):
@@ -193,7 +245,34 @@ def stride_bwd(params: GRUParams, x_tm: torch.Tensor, period: int,
         return plain(params, x_tm, period, dhs, dhT, h0)
     return _launch_bwd(params, x_tm, period, bounds,
                        None if dhs is None else dhs.contiguous(),
-                       None if dhT is None else dhT.contiguous())
+                       None if dhT is None else dhT.contiguous())[0]
+
+
+def stride_bwd_gates(params: GRUParams, x_tm: torch.Tensor, period: int,
+                     bounds: Optional[torch.Tensor],
+                     dhs: Optional[torch.Tensor], dhT: Optional[torch.Tensor],
+                     h0: Optional[torch.Tensor] = None,
+                     ) -> Tuple[torch.Tensor, ...]:
+    """K4's (K4-bf16's) recurrence, seen whole: its gate gradients and
+    h_prev over all T steps (K4 run in one workspace chunk, on CUDA
+    tensors) or those of the plain sweep ``gru_scan_stride_tm_sweep``
+    (``_bf16``) on CPU tensors -> (dpre_x = [dr|dz|dc], dpre_h =
+    [dr|dz|dc*r] [T, B, 96] and h_prev [T, B, 32] in x's dtype, dh0 in
+    float32)."""
+    if _on(x_tm, "stride_bwd_gates") == "cpu":
+        plain = (gru_scan_stride_tm_sweep_bf16
+                 if x_tm.dtype == torch.bfloat16
+                 else gru_scan_stride_tm_sweep)
+        return plain(params, x_tm, period, dhs, dhT, h0)
+    T = x_tm.shape[0]
+    outs, (dg, hprev) = _launch_bwd(
+        params, x_tm, period, bounds,
+        None if dhs is None else dhs.contiguous(),
+        None if dhT is None else dhT.contiguous(),
+        t_chunk=-(-T // chunk()) * chunk())
+    return (torch.cat([dg[..., 0], dg[..., 1], dg[..., 2]], -1),
+            torch.cat([dg[..., 0], dg[..., 1], dg[..., 3]], -1), hprev,
+            outs[4])
 
 
 class GRUStrideScan(torch.autograd.Function):

@@ -145,15 +145,24 @@ def gru_scan_tm_bwd(params: GRUParams, x_tm: torch.Tensor,
     h0 = x_tm.new_zeros(x_tm.shape[1], params.wh.shape[0]) if h0 is None \
         else h0
     h_prev = torch.cat([h0[None], h_seq[:-1]])  # [T, B, d_m]
-    return _bwd_sweep(params, x_tm, mask_tm, h_prev,
-                      lambda t, dh: dh_seq[t] + dh, scale_tm)
+    return _with_pass(params, x_tm, h_prev, *_gate_sweep(
+        params, x_tm, mask_tm, h_prev, lambda t, dh: dh_seq[t] + dh,
+        scale_tm))
 
 
-def _bwd_sweep(params, x_tm, mask_tm, h_prev, cotangent, scale_tm=None):
+def _with_pass(params, x_tm, h_prev, dpre_x, dpre_h, dh0, dscale=None):
+    """A gate sweep's results, then :func:`gru_bwd_pass` on them -> (dx,
+    dwx, dwh, db, dh0), and dscale after them when given."""
+    out = gru_bwd_pass(x_tm, h_prev, dpre_x, dpre_h, params.wx) + (dh0,)
+    return out if dscale is None else out + (dscale,)
+
+
+def _gate_sweep(params, x_tm, mask_tm, h_prev, cotangent, scale_tm=None):
     """The reverse sweep of the f32 scan backward kernels (K2, K2-scale,
     K4): the gates from h_prev [T, B, d_m] (the state before each step),
     the cotangent gtot = cotangent(t, dh) that reaches h_t, the formulas of
-    :func:`gru_scan_tm_bwd`."""
+    :func:`gru_scan_tm_bwd` -> (dpre_x = [dr|dz|dc], dpre_h = [dr|dz|dc r]
+    [T, B, 3*d_m], dh0, dscale or None)."""
     T, B, _ = x_tm.shape
     d_m = params.wh.shape[0]
     xp = gru_input_proj(params, x_tm)  # the forward's projection
@@ -177,8 +186,7 @@ def _bwd_sweep(params, x_tm, mask_tm, h_prev, cotangent, scale_tm=None):
         dpre_x[t] = torch.cat([dr, dz, dc], dim=-1)
         dpre_h[t] = torch.cat([dr, dz, dc * r], dim=-1)
         dh = gcell * (1.0 - zs) + (gtot - gcell) + dpre_h[t] @ params.wh.T
-    out = gru_bwd_pass(x_tm, h_prev, dpre_x, dpre_h, params.wx) + (dh,)
-    return out if dscale is None else out + (dscale,)
+    return dpre_x, dpre_h, dh, dscale
 
 
 def gru_bwd_pass(x_tm: torch.Tensor, h_prev: torch.Tensor,
@@ -290,16 +298,17 @@ def gru_scan_tm_bwd_bf16(params: GRUParams, x_tm: torch.Tensor,
     h0 = x_tm.new_zeros(x_tm.shape[1], params.wh.shape[0]) if h0 is None \
         else h0
     h_prev = torch.cat([h0[None], h_seq[:-1]])  # [T, B, d_m]
-    return _bwd_sweep_bf16(
+    return _with_pass(params, x_tm, h_prev, *_gate_sweep_bf16(
         params, x_tm, mask_tm, h_prev,
-        lambda t, dh: (dh_seq[t].float() + dh).bfloat16(), scale_tm)
+        lambda t, dh: (dh_seq[t].float() + dh).bfloat16(), scale_tm))
 
 
-def _bwd_sweep_bf16(params, x_tm, mask_tm, h_prev, cotangent, scale_tm=None):
+def _gate_sweep_bf16(params, x_tm, mask_tm, h_prev, cotangent,
+                     scale_tm=None):
     """The reverse sweep of the bf16 scan backward kernels (K2-bf16,
-    K2-scale-bf16, K4-bf16), as :func:`_bwd_sweep` with the bf16 chain's
-    roundings; cotangent(t, dh) returns gtot, already rounded to bf16 from
-    its f32 sum."""
+    K2-scale-bf16, K4-bf16), as :func:`_gate_sweep` with the bf16 chain's
+    roundings (the gate gradients bf16, dh0 f32); cotangent(t, dh) returns
+    gtot, already rounded to bf16 from its f32 sum."""
     T, B, _ = x_tm.shape
     d_m = params.wh.shape[0]
     whf, bf = params.wh.float(), params.b.float()
@@ -327,8 +336,7 @@ def _bwd_sweep_bf16(params, x_tm, mask_tm, h_prev, cotangent, scale_tm=None):
         dpre_x[t] = torch.cat([dr, dz, dc], dim=-1)
         dpre_h[t] = torch.cat([dr, dz, dc * r], dim=-1)
         dh = carry.float() + dpre_h[t].float() @ whf.T
-    out = gru_bwd_pass(x_tm, h_prev, dpre_x, dpre_h, params.wx) + (dh,)
-    return out if dscale is None else out + (dscale,)
+    return dpre_x, dpre_h, dh, dscale
 
 
 # The strided-output scan (pallas_gru.py's pallas_gru_stride_tm, the
@@ -377,6 +385,25 @@ def _stride_cotangent(period, T, dhs, dhT, to_f=lambda v: v):
     return cot
 
 
+def gru_scan_stride_tm_sweep(params: GRUParams, x_tm: torch.Tensor,
+                             period: int, dhs: Optional[torch.Tensor],
+                             dhT: Optional[torch.Tensor],
+                             h0: Optional[torch.Tensor] = None,
+                             ) -> Tuple[torch.Tensor, ...]:
+    """The gate sweep of :func:`gru_scan_stride_tm_bwd` (the plain version
+    of K4's recurrence, csrc/gru_scan_stride_bwd.cu): dhs [T // period, B,
+    d_m] and dhT [B, d_m] the outputs' cotangents (None: zero) -> (dpre_x
+    = [dr|dz|dc], dpre_h = [dr|dz|dc r] [T, B, 3*d_m], h_prev [T, B, d_m],
+    dh0). The states are recomputed from x."""
+    T, B, _ = x_tm.shape
+    h0 = x_tm.new_zeros(B, params.wh.shape[0]) if h0 is None else h0
+    h_seq, _ = _stride_states(params, x_tm, h0)
+    h_prev = torch.cat([h0[None], h_seq[:-1]])
+    dpre_x, dpre_h, dh, _ = _gate_sweep(
+        params, x_tm, None, h_prev, _stride_cotangent(period, T, dhs, dhT))
+    return dpre_x, dpre_h, h_prev, dh
+
+
 def gru_scan_stride_tm_bwd(params: GRUParams, x_tm: torch.Tensor,
                            period: int, dhs: Optional[torch.Tensor],
                            dhT: Optional[torch.Tensor],
@@ -384,13 +411,11 @@ def gru_scan_stride_tm_bwd(params: GRUParams, x_tm: torch.Tensor,
                            ) -> Tuple[torch.Tensor, ...]:
     """Backward of :func:`gru_scan_stride_tm` by hand (the plain K4): dhs
     [T // period, B, d_m] and dhT [B, d_m] the outputs' cotangents (None:
-    zero) -> (dx, dwx, dwh, db, dh0). The states are recomputed from x."""
-    T, B, _ = x_tm.shape
-    h0 = x_tm.new_zeros(B, params.wh.shape[0]) if h0 is None else h0
-    h_seq, _ = _stride_states(params, x_tm, h0)
-    h_prev = torch.cat([h0[None], h_seq[:-1]])
-    return _bwd_sweep(params, x_tm, None, h_prev,
-                      _stride_cotangent(period, T, dhs, dhT))
+    zero) -> (dx, dwx, dwh, db, dh0): :func:`gru_scan_stride_tm_sweep`,
+    then :func:`gru_bwd_pass`."""
+    dpre_x, dpre_h, h_prev, dh0 = gru_scan_stride_tm_sweep(
+        params, x_tm, period, dhs, dhT, h0)
+    return _with_pass(params, x_tm, h_prev, dpre_x, dpre_h, dh0)
 
 
 def gru_scan_stride_tm_bf16(params: GRUParams, x_tm: torch.Tensor,
@@ -403,22 +428,37 @@ def gru_scan_stride_tm_bf16(params: GRUParams, x_tm: torch.Tensor,
     return h_seq[period - 1::period], h_T
 
 
-def gru_scan_stride_tm_bwd_bf16(params: GRUParams, x_tm: torch.Tensor,
-                                period: int, dhs: Optional[torch.Tensor],
-                                dhT: Optional[torch.Tensor],
-                                h0: Optional[torch.Tensor] = None,
-                                ) -> Tuple[torch.Tensor, ...]:
-    """:func:`gru_scan_stride_tm_bwd` in the bf16 chain: bf16 inputs -> (dx
-    bf16, dwx, dwh, db, dh0 f32). The cotangents meet the f32 dh carry in
-    f32, (dh + dhs[s]) + dhT, and the sum is rounded to bf16 once (where the
+def gru_scan_stride_tm_sweep_bf16(params: GRUParams, x_tm: torch.Tensor,
+                                  period: int, dhs: Optional[torch.Tensor],
+                                  dhT: Optional[torch.Tensor],
+                                  h0: Optional[torch.Tensor] = None,
+                                  ) -> Tuple[torch.Tensor, ...]:
+    """:func:`gru_scan_stride_tm_sweep` in the bf16 chain (the plain
+    version of K4-bf16's recurrence): bf16 inputs -> (dpre_x, dpre_h,
+    h_prev bf16, dh0 f32). The cotangents meet the f32 dh carry in f32,
+    (dh + dhs[s]) + dhT, and the sum is rounded to bf16 once (where the
     dense path would sum dhs[s] and dhT in bf16 first)."""
     T, B, _ = x_tm.shape
     h0 = x_tm.new_zeros(B, params.wh.shape[0]) if h0 is None else h0
     h_seq, _ = gru_scan_tm_bf16(params, x_tm, None, h0)
     h_prev = torch.cat([h0[None], h_seq[:-1]])
     cot = _stride_cotangent(period, T, dhs, dhT, lambda v: v.float())
-    return _bwd_sweep_bf16(params, x_tm, None, h_prev,
-                           lambda t, dh: cot(t, dh).bfloat16())
+    dpre_x, dpre_h, dh, _ = _gate_sweep_bf16(
+        params, x_tm, None, h_prev, lambda t, dh: cot(t, dh).bfloat16())
+    return dpre_x, dpre_h, h_prev, dh
+
+
+def gru_scan_stride_tm_bwd_bf16(params: GRUParams, x_tm: torch.Tensor,
+                                period: int, dhs: Optional[torch.Tensor],
+                                dhT: Optional[torch.Tensor],
+                                h0: Optional[torch.Tensor] = None,
+                                ) -> Tuple[torch.Tensor, ...]:
+    """:func:`gru_scan_stride_tm_bwd` in the bf16 chain: bf16 inputs -> (dx
+    bf16, dwx, dwh, db, dh0 f32): :func:`gru_scan_stride_tm_sweep_bf16`,
+    then :func:`gru_bwd_pass`."""
+    dpre_x, dpre_h, h_prev, dh0 = gru_scan_stride_tm_sweep_bf16(
+        params, x_tm, period, dhs, dhT, h0)
+    return _with_pass(params, x_tm, h_prev, dpre_x, dpre_h, dh0)
 
 
 def gru_sequence(params: GRUParams, x: torch.Tensor,

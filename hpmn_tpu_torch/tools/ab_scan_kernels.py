@@ -7,10 +7,10 @@ events.
 
     git archive <commit> | tar -x -C build/other      # a gitignored place
     python3 -m hpmn_tpu_torch.tools.ab_scan_kernels \\
-        build/other/hpmn_tpu_torch/csrc [bfloat16]
+        build/other/hpmn_tpu_torch/csrc [float32|bfloat16] [D_IN]
 
-Inputs: the xlong_hpmn layer-0 shape (T = 1000, B = 512, d_in = 32), the
-port's seeded GRU init, random x and dh_seq, no mask and a left-padded
+Inputs: the xlong_hpmn layer-0 shape (T = 1000, B = 512, d_in = 32; D_IN,
+1 to 96, sets another d_in), the port's seeded GRU init, random x and dh_seq, no mask and a left-padded
 mask; for the strided kernels period 3 and random cotangents of the
 strided rows and of h_T; for the AUGRU kernels a scale in [0, 1), with
 and without the mask. Exits nonzero if an output differs or there is no
@@ -22,10 +22,12 @@ entry point ``hpmn_gru_scan_fwd``, with that entry point's arguments.
 Likewise a tree without ``hpmn_gru_scan_fwd_bf16_ws`` (K1-bf16 as one
 kernel): its ``hpmn_gru_scan_fwd_bf16``; and a tree without
 ``hpmn_gru_scan_bwd_ws`` (K2 and K2-bf16 as one kernel): its
-``hpmn_gru_scan_bwd`` and ``hpmn_gru_scan_bwd_bf16``. This tree's K1 and
-K2 (or K1-bf16 and K2-bf16) in the default chunks
-(``cuda_gru.WORKSPACE_BYTES``) are also held, bit for bit, to themselves
-in one chunk of all T steps.
+``hpmn_gru_scan_bwd`` and ``hpmn_gru_scan_bwd_bf16``; and a tree without
+``hpmn_gru_scan_stride_bwd_ws`` (K4 and K4-bf16 as one kernel): its
+``hpmn_gru_scan_stride_bwd`` and ``hpmn_gru_scan_stride_bwd_bf16``. This
+tree's K1 and K2 (or K1-bf16 and K2-bf16), and K4 (K4-bf16), in the
+default chunks (``cuda_gru.WORKSPACE_BYTES``) are also held, bit for bit,
+to themselves in one chunk of all T steps.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ REPS = 20
 _CACHES = (cuda_gru._scale_fn, cuda_gru._ws_fn, cuda_gru._proj_fn,
            cuda_gru._rows_fn, cuda_gru._bwd_fn, cuda_gru._pass_fn,
            cuda_gru_stride.chunk, cuda_gru_stride._fwd_fn,
-           cuda_gru_stride._bwd_fns)
+           cuda_gru_stride._rows_fn, cuda_gru_stride._bwd_fn)
 
 
 def _one_kernel_k1(w, x_tm, mask_tm, h0, hseq, stream) -> int:
@@ -66,6 +68,27 @@ def _one_kernel_k1(w, x_tm, mask_tm, h0, hseq, stream) -> int:
               cuda_gru._tstride(mask_tm), w.wx.data_ptr(), w.wh.data_ptr(),
               w.b.data_ptr(), cuda_gru._ptr(h0), hseq.data_ptr(), T, B, d_in,
               stream)
+
+
+def one_kernel_k4(w, x_tm, period, bounds, dhs, dhT, outs, stream,
+                  t_chunk=None):
+    """K4 (K4-bf16) through its one-kernel entry point
+    hpmn_gru_scan_stride_bwd (hpmn_gru_scan_stride_bwd_bf16), in
+    ``cuda_gru_stride._k4``'s place; outs = (dx, dh0, dwx, dwh, db) -> (the
+    cudaError_t code, None, None): no workspaces."""
+    bf16 = x_tm.dtype == torch.bfloat16
+    fn = getattr(_build.load_library(),
+                 "hpmn_gru_scan_stride_bwd" + ("_bf16" if bf16 else ""))
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    T, B, d_in = x_tm.shape
+    code = fn(x_tm.data_ptr(), x_tm.stride(0), w.wx.data_ptr(),
+              w.wh.data_ptr(), w.b.data_ptr(), bounds.data_ptr(),
+              cuda_gru._ptr(dhs), cuda_gru._ptr(dhT),
+              *(t.data_ptr() for t in outs), T, B, d_in, period, stream)
+    return code, None, None
 
 
 def _one_kernel_k2(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream) -> int:
@@ -91,6 +114,7 @@ def _one_kernel_k2(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream) -> int:
 def _kernels_of(csrc: str):
     """Route the scan wrappers to the library built from ``csrc``."""
     load, k1, k2 = _build.load_library, cuda_gru._k1, cuda_gru._k2
+    k4 = cuda_gru_stride._k4
     _build.load_library = functools.partial(load, csrc)
     two = {torch.float32: "hpmn_gru_scan_fwd_ws",
            torch.bfloat16: "hpmn_gru_scan_fwd_bf16_ws"}
@@ -100,12 +124,16 @@ def _kernels_of(csrc: str):
                                             else _one_kernel_k1)(w, x_tm, *a)
     if not _has(csrc, "gru_scan_bwd.cu", "hpmn_gru_scan_bwd_ws"):
         cuda_gru._k2 = _one_kernel_k2
+    if (_has_stride(csrc) and not _has(csrc, "gru_scan_stride_bwd.cu",
+                                       "hpmn_gru_scan_stride_bwd_ws")):
+        cuda_gru_stride._k4 = one_kernel_k4
     for cache in _CACHES:
         cache.cache_clear()
     try:
         yield
     finally:
         _build.load_library, cuda_gru._k1, cuda_gru._k2 = load, k1, k2
+        cuda_gru_stride._k4 = k4
         for cache in _CACHES:
             cache.cache_clear()
 
@@ -138,23 +166,26 @@ def _ms(fn) -> float:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    if (len(argv) not in (1, 2) or not os.path.isdir(argv[0])
-            or argv[1:] and argv[1] not in dtypes):
+    if (len(argv) not in (1, 2, 3) or not os.path.isdir(argv[0])
+            or argv[1:] and argv[1] not in dtypes
+            or argv[2:] and not (argv[2].isdigit()
+                                 and 1 <= int(argv[2]) <= 96)):
         print("usage: python3 -m hpmn_tpu_torch.tools.ab_scan_kernels "
-              "OTHER_TREE/hpmn_tpu_torch/csrc [float32|bfloat16]")
+              "OTHER_TREE/hpmn_tpu_torch/csrc [float32|bfloat16] [D_IN]")
         return 2
     name = argv[1] if argv[1:] else "float32"
     dtype = dtypes[name]
+    d_in = int(argv[2]) if argv[2:] else D_IN
     if not torch.cuda.is_available():
         print("FAIL no CUDA device")
         return 1
     trees = {"other": os.path.abspath(argv[0]), "this": _build.CSRC}
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
-    p = GRUParams(D_IN, 32)
+    p = GRUParams(d_in, 32)
     p.reset_parameters(gen)
     p = p.requires_grad_(False).to(dev, dtype)
-    x = torch.randn(T, B, D_IN, generator=gen).to(dev, dtype)
+    x = torch.randn(T, B, d_in, generator=gen).to(dev, dtype)
     dh = torch.randn(T, B, 32, generator=gen).to(dev, dtype)
     lens = torch.randint(1, T + 1, (B,), generator=gen)
     mask = (torch.arange(T)[:, None] >= T - lens[None, :]).to(dev, dtype)
@@ -183,31 +214,39 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             outs[tree] = res
     same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
-    # This tree's K1 and K2 in one chunk of all T steps against their
-    # default chunks (the no-mask and masked outputs above): a cap that
-    # holds K1's f32 workspace and K2's in x's dtype.
+    # This tree's K1 and K2 (and K4) in one chunk of all T steps against
+    # their default chunks (the no-mask and masked outputs above): a cap
+    # that holds K1's f32 workspace, K2's in x's dtype and K4's three.
     cap = cuda_gru.WORKSPACE_BYTES
     k1_chunks = -(-T // cuda_gru.workspace_steps(T, B))
-    cuda_gru.WORKSPACE_BYTES = T * B * max(96 * 4, 128 * x.element_size())
+    chunks = -(-T // cuda_gru.bwd_workspace_steps(T, B, dtype))
+    step = cuda_gru_stride.chunk() if strided else 1
+    k4_chunks = -(-T // cuda_gru_stride.bwd_workspace_steps(
+        T, B, dtype, step)) if strided else 0
+    cuda_gru.WORKSPACE_BYTES = (-(-T // step) * step * B
+                                * (96 * 4 + 160 * x.element_size()))
     try:
         one = []
         for m in (None, mask):
             h = cuda_gru.gru_sequence_tm(p, x, m)[0]
             one += [h, *cuda_gru.gru_scan_bwd(p, x, m, h, dh)]
+        if strided:
+            one += outs["this"][12:15] + list(cuda_gru_stride.stride_bwd(
+                p, x, PERIOD, outs["this"][14], dhs, dhT))
+        torch.cuda.synchronize()
     finally:
         cuda_gru.WORKSPACE_BYTES = cap
-    chunks = -(-T // cuda_gru.bwd_workspace_steps(T, B, dtype))
     one_chunk = all(torch.equal(a, b) for a, b in zip(one, outs["this"]))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    print(f"ab_scan_kernels: {smi} | T={T} B={B} d_in={D_IN} {name} | "
+    print(f"ab_scan_kernels: {smi} | T={T} B={B} d_in={d_in} {name} | "
           f"forward and backward outputs, mask and no mask"
           f"{', and the strided kernels' if strided else ''}"
           f"{', and the AUGRU kernels' if scaled else ''}, bit for bit "
-          f"the same: {same} | this tree's K1 in {k1_chunks} chunks and K2 "
-          f"in {chunks}, and both in one: bit for bit the same: "
-          f"{one_chunk}")
+          f"the same: {same} | this tree's K1 in {k1_chunks} chunks, K2 "
+          f"in {chunks}{f' and K4 in {k4_chunks}' if strided else ''}, and "
+          f"each in one: bit for bit the same: {one_chunk}")
     h = outs["this"][0]
     bounds = outs["this"][14] if strided else None
     for tree in ("other", "this", "this", "other"):
@@ -231,7 +270,7 @@ def main(argv=None) -> int:
                        f"{sc_bwd:.4f} ms")
         print(f"ab_scan_kernels: {tree} ({trees[tree]}): forward {fwd:.4f} "
               f"ms | backward {bwd:.4f} ms{st} (mean of {REPS}, no mask, "
-              f"{name})")
+              f"{name}, d_in={d_in})")
     return 0 if same and one_chunk else 1
 
 

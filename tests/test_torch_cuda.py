@@ -22,7 +22,12 @@ outputs within 1e-2 of their max abs; the bf16 training step's loss within
 The strided scan (K3, K4 and their bf16 forms) is held to the same
 tolerances, its backward run from K3's own boundary states; K3-bf16's rows
 equal K1-bf16's strided rows bit for bit (the same ops on the same
-values).
+values). K4 and K4-bf16 run K1's projection, a replay-and-sweep
+recurrence into workspaces of gate gradients and h_prev, and K2's pass:
+over workspace chunks of 16 and 48 steps they equal one chunk bit for
+bit, they equal the one-kernel form (``hpmn_gru_scan_stride_bwd[_bf16]``)
+bit for bit, and the recurrence's gate gradients and h_prev are held to
+the plain sweep at the backward's and the forward's tolerances.
 
 K1 and K1-bf16 run as two kernels, the input projection into a workspace
 and the recurrence, over chunks of steps: the projection alone is held to
@@ -564,6 +569,125 @@ def test_stride_kernels_refuse_what_they_do_not_take(dev):
                                    torch.zeros(3, 2, 32, device=dev), None)
     with pytest.raises(ValueError, match="boundaries"):
         cuda_gru_stride.stride_bwd(p, x, 3, bounds[:0], None, None)
+
+
+def _stride_case(T, period, B, d_in, dt, dev, seed=0, cotangents="both"):
+    p = _gru(d_in, dev)
+    p = GRUWeights(p.wx.to(dt), p.wh.to(dt), p.b.to(dt))
+    g = torch.Generator().manual_seed(T + B + period + seed)
+    x = torch.randn(3 * T, B, d_in, generator=g).to(dev, dt)[1::3]
+    h0 = torch.randn(B, 32, generator=g).to(dev, dt) if B % 2 else None
+    dhs = torch.randn(T // period, B, 32, generator=g).to(dev, dt)
+    dhT = torch.randn(B, 32, generator=g).to(dev, dt)
+    bounds = cuda_gru_stride.stride_fwd(p, x, period, h0)[2]
+    return (p, x, h0, bounds, None if cotangents == "last" else dhs,
+            None if cotangents == "strided" else dhT)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("steps", [16, 48])
+@pytest.mark.parametrize("T,period,B,d_in", [
+    (100, 3, 5, 33), (97, 2, 8, 96), (250, 3, 37, 32)])
+def test_stride_bwd_chunks_match_one_chunk(dev, monkeypatch, dtype, steps,
+                                           T, period, B, d_in):
+    """K4 (K4-bf16) over workspace chunks of `steps` steps (the last in time
+    shorter) == K4 over one chunk, bit for bit, on a strided time view of
+    x, from K3's boundaries (with an h0 for odd B)."""
+    p, x, _, bounds, dhs, dhT = _stride_case(T, period, B, d_in, dtype, dev)
+    row = 160 * (2 if dtype == BF16 else 4) + 384  # bytes per row-step
+    whole = -(-T // 16) * 16
+    monkeypatch.setattr(cuda_gru, "WORKSPACE_BYTES", whole * B * row)
+    assert cuda_gru_stride.bwd_workspace_steps(T, B, dtype, 16) == whole
+    one = cuda_gru_stride.stride_bwd(p, x, period, bounds, dhs, dhT)
+    monkeypatch.setattr(cuda_gru, "WORKSPACE_BYTES", steps * B * row)
+    assert cuda_gru_stride.bwd_workspace_steps(T, B, dtype, 16) == steps
+    counter = "bwd_launches_bf16" if dtype == BF16 else "bwd_launches"
+    n = getattr(cuda_gru_stride, counter)
+    chunked = cuda_gru_stride.stride_bwd(p, x, period, bounds, dhs, dhT)
+    torch.cuda.synchronize()
+    assert getattr(cuda_gru_stride, counter) == n + 1
+    for name, a, b in zip(("dx", "dwx", "dwh", "db", "dh0"), chunked, one):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("T,period,B,d_in,cotangents", [
+    (1000, 3, 512, 32, "both"), (37, 3, 513, 32, "both"),
+    (19, 4, 37, 70, "strided"), (23, 2, 6, 96, "last"), (5, 3, 1, 5, "both"),
+    (300, 3, 7, 96, "both")])
+def test_stride_bwd_matches_the_one_kernel_form(dev, monkeypatch, dtype, T,
+                                                period, B, d_in, cotangents):
+    """K4 (K4-bf16), the recurrence plus K2's pass, == the one-kernel form
+    (hpmn_gru_scan_stride_bwd[_bf16]) on the same inputs, every output bit
+    for bit: B not a multiple of the rows of a partial (4; 2 at d_in = 70,
+    1 at 96), ragged T, either cotangent absent."""
+    from hpmn_tpu_torch.tools.ab_scan_kernels import one_kernel_k4
+    p, x, _, bounds, dhs, dhT = _stride_case(T, period, B, d_in, dtype, dev,
+                                             cotangents=cotangents)
+    two = cuda_gru_stride.stride_bwd(p, x, period, bounds, dhs, dhT)
+    monkeypatch.setattr(cuda_gru_stride, "_k4", one_kernel_k4)
+    one = cuda_gru_stride.stride_bwd(p, x, period, bounds, dhs, dhT)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "dwx", "dwh", "db", "dh0"), two, one):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("T,period,B,d_in", [
+    (37, 3, 33, 32), (250, 2, 8, 96), (1000, 3, 64, 32)])
+def test_stride_rec_gates_match_plain_sweep(dev, dtype, T, period, B, d_in):
+    """K4's recurrence, seen whole (stride_bwd_gates): its gate gradients,
+    h_prev and dh0 against the plain sweep gru_scan_stride_tm_sweep
+    (_bf16): the gate gradients and dh0 within TOL_GRAD (TOL_GRAD_BF16) of
+    their max abs, h_prev within TOL_GRU (TOL_GRU_BF16)."""
+    p, x, h0, bounds, dhs, dhT = _stride_case(T, period, B, d_in, dtype, dev)
+    n = (cuda_gru_stride.bwd_launches, cuda_gru_stride.bwd_launches_bf16)
+    got = cuda_gru_stride.stride_bwd_gates(p, x, period, bounds, dhs, dhT)
+    want = cuda_gru_stride.stride_bwd_gates(
+        GRUWeights(*(t.cpu() for t in p)), x.cpu(), period, None, dhs.cpu(),
+        dhT.cpu(), None if h0 is None else h0.cpu())
+    torch.cuda.synchronize()
+    bf = dtype == BF16
+    assert (cuda_gru_stride.bwd_launches, cuda_gru_stride.bwd_launches_bf16
+            ) == (n[0] + (not bf), n[1] + bf)
+    tol_h, tol_g = ((TOL_GRU_BF16, TOL_GRAD_BF16) if bf
+                    else (TOL_GRU, TOL_GRAD))
+    for name, a, b in zip(("dpre_x", "dpre_h", "h_prev", "dh0"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        a, b = a.float().cpu(), b.float()
+        if name == "h_prev":
+            assert (a - b).abs().max().item() <= tol_h, name
+        else:
+            assert _rel_err(a, b) <= tol_g, name
+    assert torch.equal(got[0][..., :64], got[1][..., :64])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_gradient_through_the_stride_function_on_the_card(dev, dtype):
+    """autograd through GRUStrideScan (K3 forward, K4 backward) on a
+    strided view with an h0 == the CPU Function (plain forward and
+    backward), at the strided kernels' tolerances."""
+    g = torch.Generator().manual_seed(4)
+    x_all = torch.randn(3 * 200, 16, 32, generator=g)
+    h0_all = torch.randn(16, 32, generator=g)
+    dhs = torch.randn(200 // 3, 16, 32, generator=g)
+    dhT = torch.randn(16, 32, generator=g)
+    grads = []
+    for d in ("cpu", dev):
+        p = _gru(32, d)
+        ws = [t.to(dtype).requires_grad_(True) for t in (p.wx, p.wh, p.b)]
+        x_leaf = x_all.to(d, dtype).requires_grad_(True)
+        h0 = h0_all.to(d, dtype).requires_grad_(True)
+        hs, hT = cuda_gru_stride.GRUStrideScan.apply(x_leaf[2::3], h0, *ws,
+                                                     3)
+        loss = ((hs.float() * dhs.to(d)).sum()
+                + (hT.float() * dhT.to(d)).sum())
+        grads.append([t.float().cpu() for t in torch.autograd.grad(
+            loss, [x_leaf, h0, *ws])])
+    tol = TOL_GRAD_BF16 if dtype == BF16 else TOL_GRAD
+    for name, a, b in zip(("dx", "dh0", "dwx", "dwh", "db"), grads[1],
+                          grads[0]):
+        assert _rel_err(a, b) <= tol, name
 
 
 @pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16"])
