@@ -22,7 +22,9 @@ before the last line):
    share of theirs; the bf16 scan
    kernels in bf16, with their drift from the f32 kernels; the strided
    scan kernels (K3, K4 and their bf16 forms), with their difference from
-   the dense kernels' strided rows and gradients, and before each K4 and
+   the dense kernels' strided rows and gradients, K3 (K3-bf16) bit for bit
+   against its one-kernel form and after its input projection's time and
+   share of K3's (its first kernel, K1's), and before each K4 and
    K4-bf16 line its recurrence's gate gradients and h_prev against the
    plain sweep's, and its h_prev against the forward's states bit for
    bit; the AUGRU scan kernels
@@ -41,7 +43,9 @@ before the last line):
    and the f32 step's loss, then timed, counted and profiled as phase 5.
 7. strided training: the step with ``pallas_stride_outputs=True`` (K3 and
    K4), f32 then bf16, held against its plain path and the dense step's
-   loss, then timed, counted and profiled as phase 5.
+   loss, then timed, counted and profiled as phase 5; the profile gives
+   the strided forward's device time (K3's projection and recurrence)
+   apart from K4's projection.
 8. DIEN training: the taobao_dien step at B = 512, T = 300 with the
    kernels, f32 on left-padded histories (the config's default: K1, K2,
    K1-scale, K2-scale) and bf16 on full ones (the bench flagship: their
@@ -268,6 +272,7 @@ def main():
             gru_scan_tm_bwd, gru_scan_tm_bwd_bf16)
         from hpmn_tpu_torch.serving.history import HistoryStore
         from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
+        from hpmn_tpu_torch.tools.ab_scan_kernels import one_kernel_k3
         from hpmn_tpu_torch.train.train import (make_multistep_train,
                                                 make_optimizer)
     except ImportError as e:
@@ -698,6 +703,18 @@ def main():
             if bf:
                 check(bits, f"K3-bf16 T={T}: strided rows not K1-bf16's bit "
                       f"for bit ({vs:.3e})")
+            # K3's two kernels against its first, one-kernel form.
+            one = (torch.empty_like(hs_k), torch.empty_like(bounds),
+                   torch.empty_like(hT_k))
+            _build.check_launch(one_kernel_k3(
+                w, xs, None, period, one,
+                torch.cuda.current_stream(dev).cuda_stream),
+                f"gru_scan_stride_fwd{sfx} (one kernel)")
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(
+                one, (hs_k, bounds, hT_k))), f"K3{sfx} T={T}: not its "
+                f"one-kernel form's bit for bit")
+            del one
             ms = cuda_ms(lambda: cuda_gru_stride.stride_fwd(w, xs, period),
                          10)
             plain_ms = cuda_ms(lambda: p_fwd(w, xs, period), 2)
@@ -708,10 +725,20 @@ def main():
             st_err[name] = st_abs[name] = max(st_err[name], err)
             st_vs_dense[name] = max(st_vs_dense[name], vs)
             st_rows[name].append((T, err, ms, plain_ms, lib_t, b_ms, b_by))
+            p_ms = proj16_ms if bf else proj_ms
+            print(f"phase 3 kernel gru_input_proj{sfx} (K3{sfx.replace('_', '-')}"
+                  f"'s first kernel) T={T} B={B_SCAN} d_in={d_in}: kernel "
+                  f"{p_ms:.4f} ms over all T (checked above), "
+                  f"{100 * p_ms / ms:.1f}% of K3{sfx.replace('_', '-')}'s "
+                  f"{ms:.4f} ms (phase 7's profile has the recurrence "
+                  f"apart) | workspace chunks: "
+                  f"{-(-T // cuda_gru.workspace_steps(T, B_SCAN))}",
+                  flush=True)
             print(f"phase 3 kernel gru_stride_fwd{sfx} T={T} B={B_SCAN} "
                   f"d_in={d_in} period={period}: max_abs_err {err:.3e} (tol "
                   f"{tol_h}) | vs dense kernel's strided rows {vs:.3e} (bit "
-                  f"for bit: {bits}) | kernel {ms:.4f} ms | plain "
+                  f"for bit: {bits}) | bit for bit the one-kernel form | "
+                  f"kernel {ms:.4f} ms | plain "
                   f"{plain_ms:.4f} ms | library {fmt(lib_t)} ms (dense "
                   f"nn.GRU) | bound {b_ms:.4f} ms ({b_by})", flush=True)
 
@@ -1178,32 +1205,61 @@ def main():
                        and a.self_device_time_total > 0), reverse=True)
         dev_ms = sum(t for t, _, _ in kern) / 1e3 / n
         # K1 and K1-bf16 are two kernels: the projection and the
-        # recurrence, told apart by their template's stream type; K2 and
-        # K2-bf16 three: the recurrence, the pass and the partials; K4 and
-        # K4-bf16 four: K1's projection, their recurrence, K2's pass and
-        # partials. A step runs K1 and K2 or K4, so the shared kernels'
-        # times are the one family's.
-        def dev_ms_of(parts, bf16=None):
-            return [sum(t for t, _, name in kern if part in name and (
-                bf16 is None or ("bfloat16" in name) == bf16)) / 1e3 / n
-                    for part in parts]
+        # recurrence (gru_scan_fwd_xp_kernel with DenseOut); K3 and K3-bf16
+        # the same two (StrideOut); K2 and K2-bf16 three: the recurrence,
+        # the pass and the partials; K4 and K4-bf16 four: K1's projection,
+        # their recurrence, K2's pass and partials. The stream type tells
+        # the dtypes apart. A step runs K1 and K2 or K3 and K4, so the pass
+        # and the partials are the one family's; the projection is K3's and
+        # K4's both, so each projection launch counts for the recurrence
+        # that follows it on the stream, which reads its workspace.
+        def dev_ms_of(*parts, bf16=None):
+            return sum(t for t, _, name in kern
+                       if all(part in name for part in parts)
+                       and (bf16 is None or ("bfloat16" in name) == bf16)
+                       ) / 1e3 / n
 
-        k1_parts = ("input_proj_kernel", "gru_scan_fwd_xp_kernel")
-        k1, k1b = dev_ms_of(k1_parts, False), dev_ms_of(k1_parts, True)
-        k2 = dev_ms_of(("gru_scan_bwd_rec_kernel", "gru_bwd_pass_kernel",
-                        "wgrad_partials_kernel"))
-        k4_rec = dev_ms_of(("gru_scan_stride_bwd_rec_kernel",))[0]
+        proj = {}  # (K1, K3 or K4, bf16) -> device ms per unit
+        owner = None
+        for e in sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start, reverse=True):
+            if "gru_scan_fwd_xp_kernel" in e.name:
+                owner = "K3" if "StrideOut" in e.name else "K1"
+            elif "gru_scan_stride_bwd_rec_kernel" in e.name:
+                owner = "K4"
+            elif "input_proj_kernel" in e.name and owner is not None:
+                key = (owner, "bfloat16" in e.name)
+                proj[key] = (proj.get(key, 0.0)
+                             + e.time_range.elapsed_us() / 1e3 / n)
+
+        def fam(f):
+            """f(bf16) for f32 and bf16, printed."""
+            return f"{f(False):.3f} f32, {f(True):.3f} bf16"
+
+        xp_rec = "gru_scan_fwd_xp_kernel"
+        k3_fwd = sum(proj.get(("K3", b), 0.0)
+                     + dev_ms_of(xp_rec, "StrideOut", bf16=b)
+                     for b in (False, True))
         if dev_ms > 0:
             top = ", ".join(f"{kernel_label(name)} {t / 1e3 / n:.3f} ms "
                             f"({c / n:g}/{unit})" for t, c, name in kern[:10])
             print(f"phase {phase} profile: device kernel time {dev_ms:.3f} "
                   f"ms per {unit} of {wall_ms:.3f} ms wall: busy "
                   f"{dev_ms / wall_ms:.1%}, idle {1 - dev_ms / wall_ms:.1%} "
-                  f"| projection (K1 or K4) {k1[0]:.3f} ms f32, "
-                  f"{k1b[0]:.3f} bf16 | recurrence K1 {k1[1]:.3f}, K1-bf16 "
-                  f"{k1b[1]:.3f}, K2 {k2[0]:.3f}, K4 {k4_rec:.3f} | pass "
-                  f"(K2 or K4) {k2[1]:.3f} | partials {k2[2]:.3f} | top: "
-                  f"{top}", flush=True)
+                  f"| projection K1 "
+                  f"{fam(lambda b: proj.get(('K1', b), 0.0))}, K3 "
+                  f"{fam(lambda b: proj.get(('K3', b), 0.0))}, K4 "
+                  f"{fam(lambda b: proj.get(('K4', b), 0.0))} | recurrence "
+                  f"K1 {fam(lambda b: dev_ms_of(xp_rec, 'DenseOut', bf16=b))}"
+                  f", K3 {fam(lambda b: dev_ms_of(xp_rec, 'StrideOut', bf16=b))}"
+                  f", K2 {dev_ms_of('gru_scan_bwd_rec_kernel'):.3f}, K4 "
+                  f"{dev_ms_of('gru_scan_stride_bwd_rec_kernel'):.3f} | "
+                  f"strided forward (K3: projection and recurrence) "
+                  f"{k3_fwd:.3f} | pass (K2 or K4) "
+                  f"{dev_ms_of('gru_bwd_pass_kernel'):.3f} | partials "
+                  f"{dev_ms_of('wgrad_partials_kernel'):.3f} | top: {top}",
+                  flush=True)
         else:
             print(f"phase {phase} profile: the profiler saw no device time; "
                   "device busy share not measured", flush=True)
@@ -1572,7 +1628,11 @@ def main():
                                 cuda_gru_stride.PASS_SOURCE],
                     "recurrence_max_err_over_max_abs": rec_err[name],
                     "recurrence_h_prev_max_abs_err": rec_h_err[name]}
-                   if "bwd" in name else {}))
+                   if "bwd" in name else
+                   {"sources": [cuda_gru_stride.PROJ_SOURCE,
+                                cuda_gru_stride.SOURCE],
+                    "projection_ms": (proj16_rows if "bf16" in name
+                                      else proj_rows)[0][-1]}))
           for name in ("fwd", "bwd", "fwd_bf16", "bwd_bf16")),
         # The AUGRU kernels at their path's form: f32 masked (the DIEN
         # config's default), bf16 without a mask (the flagship).

@@ -1,9 +1,10 @@
-// Device code shared by the GRU scan kernels (gru_scan_fwd.cu K1 and
-// K1-scale, gru_scan_bwd.cu K2 and K2-scale, gru_scan_stride_fwd.cu K3,
-// gru_scan_stride_bwd.cu K4): the stream conversions, the projections and
-// the gate chain, so that a backward recomputes (or replays) its forward's
-// gates bit for bit; the launchers of K1's and K1-bf16's input projection
-// (gru_input_proj.cu) and of K2's and K4's dx and weight-gradient pass
+// Device code shared by the GRU scan kernels (gru_scan_fwd.cu K1, K1-scale
+// and K3, gru_scan_bwd.cu K2 and K2-scale, gru_scan_stride_fwd.cu K3's
+// one-kernel form, gru_scan_stride_bwd.cu K4): the stream conversions, the
+// projections and the gate chain, so that a backward recomputes (or
+// replays) its forward's gates bit for bit; the launchers of the input
+// projection of K1, K3 and K4 (gru_input_proj.cu) and of K2's and K4's dx
+// and weight-gradient pass
 // (gru_bwd_pass.cu); the strided scan's step; one step's gate gradients,
 // with or without the AUGRU gate scale, and the warp sum of its dscale;
 // four-value loads and stores of the stream type; cp.async copies; and

@@ -5,6 +5,10 @@
 // f32 (K1, hpmn_gru_scan_fwd_ws; K1-scale, hpmn_gru_scan_fwd_scale) and
 // dtype=bfloat16 (K1-bf16, hpmn_gru_scan_fwd_bf16_ws; K1-scale-bf16,
 // hpmn_gru_scan_fwd_scale_bf16; the chain is described in gru_chain.cuh).
+// Its recurrence also runs the strided forward, which replaces
+// _fwd_stride_kernel (K3, hpmn_gru_scan_stride_fwd_ws; K3-bf16,
+// hpmn_gru_scan_stride_fwd_bf16_ws; gru_scan_stride_fwd.cu has what it
+// writes).
 // Per step, for batch row b:
 //
 //   xp = x_t @ wx + b          (input projection)
@@ -59,6 +63,18 @@
 // from the last row of chunk i-1's h_seq, which is the carry itself (f32 in
 // K1, bf16 in K1-bf16), so the result does not depend on the chunk length.
 // The workspace's size is the caller's choice (ops/cuda_gru.py caps it).
+//
+// K3 and K3-bf16 are the same two kernels per chunk: the projection, then
+// the recurrence with the StrideOut policy (one loop, the output a
+// compile-time choice), which writes the strided rows, the boundary states
+// and h_T in place of h_seq, counted from the absolute step, and updates h
+// with stride_update (in bf16 that is K1-bf16's no-mask h_cell, so
+// K3-bf16's rows are K1-bf16's bit for bit). Chunk i starts from h_T,
+// where chunk i-1 left its carry in the stream type, so the outputs do not
+// depend on the chunk length either. The projection's and the gates' bits
+// are project()'s and gates_*'s, which K4's replay has shown on the card,
+// so K3's outputs are its one-kernel form's (gru_scan_stride_fwd.cu) bit
+// for bit.
 //
 // The scale forms run one kernel (gru_scan_fwd_kernel): x_t and h_{t-1}
 // reach every lane through __shfl_sync, wx and wh sit in shared memory (as
@@ -212,18 +228,47 @@ __device__ __forceinline__ void fetch_xp(float* slot, S& m, const float* xp,
   if constexpr (kMasked) m = mask[(long long)t * m_tstride + row];
 }
 
-// K1's and K1-bf16's recurrence over one chunk: xp [T, B, 96] contiguous
-// (from gru_input_proj.cu, in the chain's layout), mask [T, B] (time stride
+// Where the recurrence writes its states, a compile-time policy of one
+// loop. DenseOut (K1, K1-bf16): every state, hseq [T, B, 32] contiguous
+// (the chunk's rows).
+template <typename S>
+struct DenseOut {
+  static constexpr bool kStrided = false;
+  S* hseq;
+};
+
+// StrideOut (K3, K3-bf16; gru_scan_stride_fwd.cu has the outputs' meaning):
+// hs [T/period, B, 32], hbound [ceil(T/kStrideChunk), B, 32] and hT [B,
+// 32], contiguous, for the whole layer, indexed by the absolute step
+// t_first + t of the chunk's step t: hs[(t_first+t+1)/period - 1] after a
+// step where (t_first+t+1) % period == 0, hbound[(t_first+t)/kStrideChunk]
+// before a step where (t_first+t) % kStrideChunk == 0, and hT after the
+// chunk's last step (the next chunk's h0).
+template <typename S>
+struct StrideOut {
+  static constexpr bool kStrided = true;
+  S* hs;
+  S* hbound;
+  S* hT;
+  int t_first;
+  int period;
+};
+
+// K1's and K1-bf16's recurrence over one chunk, and K3's and K3-bf16's
+// (Out = StrideOut: no mask): xp [T, B, 96] contiguous (from
+// gru_input_proj.cu, in the chain's layout), mask [T, B] (time stride
 // m_tstride; read only with kMasked), wh [32, 96], bias [96] (read in bf16
 // only: the r and z blocks' biases, which the bf16 layout leaves out), h0
-// [B, 32] or null, hseq [T, B, 32] contiguous; S is the stream type.
-template <typename S, bool kMasked>
+// [B, 32] or null (K3's later chunks pass out.hT: each lane reads its own
+// word before it writes it), and the outputs `out`; S is the stream type.
+// K3's f32 update is stride_update's h + z*(c - h), K1's update_f32's h +
+// 1*(h_cell - h) (they differ by ulps); in bf16 both are h_cell, op by op.
+template <typename S, bool kMasked, typename Out>
 __global__ void __launch_bounds__(kRecWarps * 32)
 gru_scan_fwd_xp_kernel(const float* __restrict__ xp,
                        const S* __restrict__ mask, long long m_tstride,
                        const S* __restrict__ wh, const S* __restrict__ bias,
-                       const S* __restrict__ h0, S* __restrict__ hseq,
-                       int T, int B) {
+                       const S* h0, Out out, int T, int B) {
   using hpmn::load_f;
   constexpr bool kBf16 = hpmn::kIsBf16<S>;
   __shared__ float s_xp[kRecWarps][kAhead][kG];  // the xp ring
@@ -248,6 +293,24 @@ gru_scan_fwd_xp_kernel(const float* __restrict__ xp,
   float h = h0 != nullptr ? load_f(h0 + (long long)row * kDm + lane) : 0.0f;
   hpmn::B hb = hpmn::to_b(h);
 
+  // K3's outputs: this row's word, and the strided rows' countdown.
+  const long long out_off = (long long)row * kDm + lane;
+  const long long row_stride = (long long)B * kDm;
+  S* hs_out = nullptr;
+  int to_fire = 0;
+  if constexpr (Out::kStrided) {
+    hs_out = out.hs + (long long)(out.t_first / out.period) * row_stride +
+             out_off;
+    to_fire = out.period - out.t_first % out.period;
+  }
+  // The carry in the stream type (bf16: hb, exact; f32: h).
+  auto state = [&]() -> S {
+    if constexpr (kBf16)
+      return hb;
+    else
+      return h;
+  };
+
   // The ring: step t's xp in slot t % kAhead, fetched kAhead steps ahead.
   float* ring = &s_xp[warp][0][0];
   S ring_m[kAhead] = {};  // the mask's ring (unread without kMasked)
@@ -260,6 +323,12 @@ gru_scan_fwd_xp_kernel(const float* __restrict__ xp,
     for (int s = 0; s < kAhead; ++s) {
       const int t = t0 + s;
       if (t >= T) break;
+      if constexpr (Out::kStrided) {
+        const int ta = out.t_first + t;
+        if (ta % hpmn::kStrideChunk == 0)
+          out.hbound[(long long)(ta / hpmn::kStrideChunk) * row_stride +
+                     out_off] = state();
+      }
       hpmn::copy_async_wait<kAhead - 1>();  // step t's group has landed
       const float xp_r = ring[s * kG + lane];
       const float xp_z = ring[s * kG + kDm + lane];
@@ -303,7 +372,6 @@ gru_scan_fwd_xp_kernel(const float* __restrict__ xp,
           g_c = fmaf(hk, w_c[k], g_c);
         }
       }
-      S* h_out = hseq + ((long long)t * B + row) * kDm + lane;
       if constexpr (kBf16) {
         using hpmn::add_b;
         using hpmn::mul_b;
@@ -312,12 +380,22 @@ gru_scan_fwd_xp_kernel(const float* __restrict__ xp,
                                                    g_z, g_c, b_r, b_z);
         const hpmn::B h_cell = add_b(hb, mul_b(g.z, sub_b(g.c, hb)));
         hb = kMasked ? add_b(hb, mul_b(m, sub_b(h_cell, hb))) : h_cell;
-        *h_out = hb;
       } else {
         const hpmn::Gates g = hpmn::gates_f32_xp(xp_r, xp_z, xp_c, g_r, g_z,
                                                  g_c);
-        h = hpmn::update_f32(g.z, g.c, h, kMasked ? m : 1.0f);
-        *h_out = h;
+        if constexpr (Out::kStrided)
+          h = hpmn::stride_update(g, h);
+        else
+          h = hpmn::update_f32(g.z, g.c, h, kMasked ? m : 1.0f);
+      }
+      if constexpr (Out::kStrided) {
+        if (--to_fire == 0) {
+          *hs_out = state();
+          hs_out += row_stride;
+          to_fire = out.period;
+        }
+      } else {
+        out.hseq[((long long)t * B + row) * kDm + lane] = state();
       }
       // The slot's words were read above (their values are used), so it
       // takes step t + kAhead.
@@ -326,6 +404,7 @@ gru_scan_fwd_xp_kernel(const float* __restrict__ xp,
                            lane);
     }
   }
+  if constexpr (Out::kStrided) out.hT[out_off] = state();
 }
 
 // K1 and K1-bf16: the chunks of t_chunk steps (the last one shorter), each
@@ -347,12 +426,44 @@ int scan_fwd_ws(const S* x, long long x_tstride, const S* mask,
     if (code != 0) return code;
     const S* h_in = t0 == 0 ? h0 : hseq + ((long long)(t0 - 1) * B) * kDm;
     S* h_out = hseq + (long long)t0 * B * kDm;
+    const DenseOut<S> out{h_out};
     if (mask != nullptr)
-      gru_scan_fwd_xp_kernel<S, true><<<grid, kRecWarps * 32, 0, st>>>(
-          ws, mask + t0 * m_tstride, m_tstride, wh, b, h_in, h_out, n, B);
+      gru_scan_fwd_xp_kernel<S, true, DenseOut<S> >
+          <<<grid, kRecWarps * 32, 0, st>>>(ws, mask + t0 * m_tstride,
+                                            m_tstride, wh, b, h_in, out, n,
+                                            B);
     else
-      gru_scan_fwd_xp_kernel<S, false><<<grid, kRecWarps * 32, 0, st>>>(
-          ws, nullptr, 0, wh, b, h_in, h_out, n, B);
+      gru_scan_fwd_xp_kernel<S, false, DenseOut<S> >
+          <<<grid, kRecWarps * 32, 0, st>>>(ws, nullptr, 0, wh, b, h_in, out,
+                                            n, B);
+    code = (int)cudaGetLastError();
+    if (code != 0) return code;
+  }
+  return 0;
+}
+
+// K3 and K3-bf16: the chunks of t_chunk steps (the last one shorter), each
+// a projection into ws then the recurrence with the strided outputs, on
+// `stream`. Chunk i starts from h_T, where chunk i-1 left its last state.
+template <typename S>
+int scan_stride_fwd_ws(const S* x, long long x_tstride, const S* wx,
+                       const S* wh, const S* b, const S* h0, S* hs,
+                       S* hbound, S* hT, float* ws, int t_chunk, int T, int B,
+                       int d_in, int period, void* stream) {
+  if (d_in < 1 || d_in > 32 * kMaxChunks || B < 1 || T < 1 || t_chunk < 1
+      || period < 2 || ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int grid = (B + kRecWarps - 1) / kRecWarps;
+  for (int t0 = 0; t0 < T; t0 += t_chunk) {
+    const int n = t_chunk < T - t0 ? t_chunk : T - t0;
+    int code = hpmn::launch_input_proj(x + t0 * x_tstride, x_tstride, wx, b,
+                                       ws, n, B, d_in, st);
+    if (code != 0) return code;
+    const StrideOut<S> out{hs, hbound, hT, t0, period};
+    gru_scan_fwd_xp_kernel<S, false, StrideOut<S> >
+        <<<grid, kRecWarps * 32, 0, st>>>(ws, nullptr, 0, wh, b,
+                                          t0 == 0 ? h0 : hT, out, n, B);
     code = (int)cudaGetLastError();
     if (code != 0) return code;
   }
@@ -386,6 +497,33 @@ extern "C" int hpmn_gru_scan_fwd_bf16_ws(
     float* ws, int t_chunk, int T, int B, int d_in, void* stream) {
   return scan_fwd_ws(x, x_tstride, mask, m_tstride, wx, wh, b, h0, hseq, ws,
                      t_chunk, T, B, d_in, stream);
+}
+
+// K3: x [T,B,d_in] (time stride x_tstride, rows contiguous), wx [d_in,96],
+// wh [32,96], b [96], h0 [B,32] or null, all float32, and the f32
+// workspace ws [t_chunk, B, 96] contiguous. Writes hs [T/period,B,32],
+// hbound [ceil(T/hpmn_gru_scan_stride_chunk()),B,32] and hT [B,32],
+// contiguous float32 (gru_scan_stride_fwd.cu has their meaning), period >=
+// 2. Runs the chunks of t_chunk steps (the last one shorter), each a
+// projection into ws then the recurrence, on `stream`; returns the first
+// nonzero cudaGetLastError() after a launch, or 0.
+extern "C" int hpmn_gru_scan_stride_fwd_ws(
+    const float* x, long long x_tstride, const float* wx, const float* wh,
+    const float* b, const float* h0, float* hs, float* hbound, float* hT,
+    float* ws, int t_chunk, int T, int B, int d_in, int period,
+    void* stream) {
+  return scan_stride_fwd_ws(x, x_tstride, wx, wh, b, h0, hs, hbound, hT, ws,
+                            t_chunk, T, B, d_in, period, stream);
+}
+
+// K3-bf16: as K3, every tensor bf16 but the workspace, which stays f32.
+extern "C" int hpmn_gru_scan_stride_fwd_bf16_ws(
+    const __nv_bfloat16* x, long long x_tstride, const __nv_bfloat16* wx,
+    const __nv_bfloat16* wh, const __nv_bfloat16* b, const __nv_bfloat16* h0,
+    __nv_bfloat16* hs, __nv_bfloat16* hbound, __nv_bfloat16* hT, float* ws,
+    int t_chunk, int T, int B, int d_in, int period, void* stream) {
+  return scan_stride_fwd_ws(x, x_tstride, wx, wh, b, h0, hs, hbound, hT, ws,
+                            t_chunk, T, B, d_in, period, stream);
 }
 
 // K1-scale and K1-scale-bf16: x [T,B,d_in] (time stride x_tstride, rows

@@ -1,11 +1,16 @@
-// Strided-output GRU scan forward for Hopper (sm_90a): one launch scans one
-// whole layer and writes only what the next HPMN layer and the backward
-// read.
+// Strided-output GRU scan forward for Hopper (sm_90a): what the next HPMN
+// layer and the backward read, and nothing else.
 //
 // Replaces hpmn_tpu/ops/pallas_gru.py::_fwd_stride_kernel in both of its
-// chains: f32 (K3, hpmn_gru_scan_stride_fwd) and dtype=bfloat16 (K3-bf16,
-// hpmn_gru_scan_stride_fwd_bf16). No mask (the full-sequence path). Per
-// step t, for batch row b, with K1's gates (gru_chain.cuh):
+// chains: f32 (K3) and dtype=bfloat16 (K3-bf16). No mask (the
+// full-sequence path). K3 and K3-bf16 run as K1 does, two kernels per
+// workspace chunk (K1's input projection, then K1's recurrence with a
+// strided output policy), from hpmn_gru_scan_stride_fwd_ws and
+// hpmn_gru_scan_stride_fwd_bf16_ws in gru_scan_fwd.cu. This file keeps
+// their first, one-kernel form (hpmn_gru_scan_stride_fwd[_bf16]), which a
+// comparison of the two forms calls (the two agree bit for bit), and the
+// boundary chunk's length. Per step t, for batch row b, with K1's gates
+// (gru_chain.cuh):
 //
 //   h_t = h_{t-1} + z * (c - h_{t-1})     (gru_chain.cuh::stride_update)
 //
@@ -31,11 +36,11 @@
 //
 // What bounds it: the recurrence, as K1 (gru_scan_fwd.cu): each step waits
 // for the last, and the work per step is small. It writes a third of K1's
-// rows at period 3, which are not on that chain. The design is K1's: the
-// whole time loop in one launch, one warp per batch row, lane j owning
-// hidden unit j, the carry in a register, weights in shared memory, x
-// prefetched a step ahead, kept in the stream type until its step (which
-// K1 does not do: in bf16 K1 waits on that load every step).
+// rows at period 3, which are not on that chain. The one-kernel form is
+// K1's first design: the whole time loop in one launch, one warp per batch
+// row, lane j owning hidden unit j, the carry in a register, weights in
+// shared memory, x @ wx inside the loop, x prefetched a step ahead, kept
+// in the stream type until its step.
 
 #include "gru_chain.cuh"
 
@@ -134,11 +139,12 @@ int launch(const S* x, long long x_tstride, const S* wx, const S* wh,
 // ceil(T / chunk) of them.
 extern "C" int hpmn_gru_scan_stride_chunk() { return kStrideChunk; }
 
-// x [T,B,d_in] (time stride x_tstride, rows contiguous), wx [d_in,96], wh
-// [32,96], b [96], h0 [B,32] or null, all of one type: float for K3, bf16
-// for K3-bf16. Writes hs [T/period,B,32], hbound [ceil(T/chunk),B,32] and
-// hT [B,32], contiguous, of the same type. period >= 2. Launches on
-// `stream`; returns cudaGetLastError() after the launch.
+// The one-kernel form of K3 and K3-bf16: x [T,B,d_in] (time stride
+// x_tstride, rows contiguous), wx [d_in,96], wh [32,96], b [96], h0 [B,32]
+// or null, all of one type: float for K3, bf16 for K3-bf16. Writes hs
+// [T/period,B,32], hbound [ceil(T/chunk),B,32] and hT [B,32], contiguous,
+// of the same type. period >= 2. Launches on `stream`; returns
+// cudaGetLastError() after the launch.
 extern "C" int hpmn_gru_scan_stride_fwd(const float* x, long long x_tstride,
                                         const float* wx, const float* wh,
                                         const float* b, const float* h0,

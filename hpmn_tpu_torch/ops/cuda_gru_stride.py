@@ -5,13 +5,18 @@ Replaces ``hpmn_tpu/ops/pallas_gru.py``'s ``_fwd_stride_kernel`` (K3) and
 ``_bwd_stride_kernel`` (K4), reached there through ``pallas_gru_stride_tm``
 and the ``jax.custom_vjp`` of ``_make_stride_core``, in the f32 chain and
 in the bf16 one (``dtype=bfloat16``: K3-bf16 and K4-bf16, chosen by the
-tensors' dtype). The kernels are ``csrc/gru_scan_stride_fwd.cu`` and
-``csrc/gru_scan_stride_bwd.cu``. A layer emits only the rows the next HPMN
-layer reads, h_seq[period-1::period], and h_T; the forward keeps the state
-at the start of every chunk of 16 steps for the backward, which replays
-each chunk from it and then sweeps it in reverse. No dense h_seq is
-written or read. K4 and K4-bf16 run, per chunk of steps, K1's input
-projection (``csrc/gru_input_proj.cu``) into a workspace, then a replay
+tensors' dtype). A layer emits only the rows the next HPMN layer reads,
+h_seq[period-1::period], and h_T; the forward keeps the state at the
+start of every chunk of 16 steps for the backward, which replays each
+chunk from it and then sweeps it in reverse. No dense h_seq is written or
+read. K3 and K3-bf16 run K1's two kernels per chunk of steps: the input
+projection (``csrc/gru_input_proj.cu``) into an f32 workspace of
+``cuda_gru.workspace_steps`` steps, then K1's recurrence
+(``csrc/gru_scan_fwd.cu``) with a strided output policy, which writes the
+strided rows, the boundaries and h_T; one C call runs every chunk, one
+counted launch (``csrc/gru_scan_stride_fwd.cu`` keeps their one-kernel
+form for comparisons, which ``_k3`` is the seam for). K4 and K4-bf16 run,
+per chunk of steps, K1's input projection into a workspace, then a replay
 and reverse sweep that write each step's gate gradients and h_prev into
 two more, then K2's ``csrc/gru_bwd_pass.cu`` computes dx and the weight
 gradients from them; the workspaces, which this module allocates, share
@@ -41,12 +46,13 @@ from .gru import (GRUParams, GRUWeights, gru_scan_stride_tm,
                   gru_scan_stride_tm_bwd_bf16, gru_scan_stride_tm_sweep,
                   gru_scan_stride_tm_sweep_bf16)
 
-SOURCE = "hpmn_tpu_torch/csrc/gru_scan_stride_fwd.cu"
+# K3's (and K3-bf16's) recurrence and C entry points, after K1's projection.
+SOURCE = cuda_gru.SOURCE
 REPLACES = "hpmn_tpu/ops/pallas_gru.py:434"
 BWD_SOURCE = "hpmn_tpu_torch/csrc/gru_scan_stride_bwd.cu"
 BWD_REPLACES = "hpmn_tpu/ops/pallas_gru.py:465"
-# K4's (and K4-bf16's) other kernels: K1's input projection and K2's dx and
-# weight-gradient pass.
+# K3's and K4's (and their bf16 forms') other kernels: K1's input
+# projection and K2's dx and weight-gradient pass.
 PROJ_SOURCE = cuda_gru.PROJ_SOURCE
 PASS_SOURCE = cuda_gru.PASS_SOURCE
 
@@ -58,8 +64,8 @@ launches_bf16 = 0
 bwd_launches_bf16 = 0
 
 _D_M = cuda_gru._D_M
-_FWD_ENTRY = {torch.float32: "hpmn_gru_scan_stride_fwd",
-              torch.bfloat16: "hpmn_gru_scan_stride_fwd_bf16"}
+_FWD_ENTRY = {torch.float32: "hpmn_gru_scan_stride_fwd_ws",
+              torch.bfloat16: "hpmn_gru_scan_stride_fwd_bf16_ws"}
 _BWD_ENTRY = {torch.float32: "hpmn_gru_scan_stride_bwd_ws",
               torch.bfloat16: "hpmn_gru_scan_stride_bwd_bf16_ws"}
 
@@ -77,10 +83,11 @@ def chunk() -> int:
 
 @functools.lru_cache(maxsize=None)
 def _fwd_fn(dtype: torch.dtype):
+    """K3's (K3-bf16's) C entry point."""
     fn = getattr(_build.load_library(), _FWD_ENTRY[dtype])
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -132,21 +139,32 @@ def _check_rows(name, t, shape, x_tm):
                          "of x's dtype on x's device")
 
 
+def _k3(w, x_tm, h0, period, outs, stream) -> int:
+    """K3's (K3-bf16's) C call: the f32 workspace of
+    ``cuda_gru.workspace_steps`` steps, then every chunk's projection and
+    recurrence; outs = (h_stride, boundaries, h_T) -> the cudaError_t
+    code."""
+    T, B, d_in = x_tm.shape
+    t_chunk = cuda_gru.workspace_steps(T, B)
+    ws = torch.empty(t_chunk, B, 3 * _D_M, dtype=torch.float32,
+                     device=x_tm.device)
+    return _fwd_fn(x_tm.dtype)(
+        x_tm.data_ptr(), x_tm.stride(0), w.wx.data_ptr(), w.wh.data_ptr(),
+        w.b.data_ptr(), cuda_gru._ptr(h0), *(t.data_ptr() for t in outs),
+        ws.data_ptr(), t_chunk, T, B, d_in, period, stream)
+
+
 def _launch(w, x_tm, h0, period):
     """K3 (float32) or K3-bf16 (bfloat16): -> (h_stride [T // period, B,
     32], h_T [B, 32], boundaries [ceil(T / chunk), B, 32]), x's dtype."""
     global launches, launches_bf16
     T, B, d_in = x_tm.shape
     _check_args(w, x_tm, h0, period, "gru_scan_stride_fwd")
-    fn = _fwd_fn(x_tm.dtype)
     new = functools.partial(torch.empty, dtype=x_tm.dtype, device=x_tm.device)
     hs, h_T = new(T // period, B, _D_M), new(B, _D_M)
     bounds = new(-(-T // chunk()), B, _D_M)
-    code = fn(x_tm.data_ptr(), x_tm.stride(0), w.wx.data_ptr(),
-              w.wh.data_ptr(), w.b.data_ptr(),
-              None if h0 is None else h0.data_ptr(), hs.data_ptr(),
-              bounds.data_ptr(), h_T.data_ptr(), T, B, d_in, period,
-              torch.cuda.current_stream(x_tm.device).cuda_stream)
+    code = _k3(w, x_tm, h0, period, (hs, bounds, h_T),
+               torch.cuda.current_stream(x_tm.device).cuda_stream)
     if x_tm.dtype == torch.bfloat16:
         _build.check_launch(code, "gru_scan_stride_fwd_bf16")
         launches_bf16 += 1

@@ -257,11 +257,17 @@ def gru_scan_tm_bf16(params: GRUParams, x_tm: torch.Tensor,
     is h_cell = h + zs * (c - h) with zs = z * a_t (one bf16 mul) or z; with
     a mask the step is h + m * (h_cell - h), rounded op by op; without one
     it is h_cell."""
-    T, B, _ = x_tm.shape
+    return _scan_xp_bf16(params, gru_input_proj_bf16(params, x_tm), mask_tm,
+                         h0, scale_tm)
+
+
+def _scan_xp_bf16(params, xp, mask_tm, h0, scale_tm):
+    """:func:`gru_scan_tm_bf16` from its input projection xp [T, B, 3*d_m]
+    (:func:`gru_input_proj_bf16`, f32)."""
+    T, B, _ = xp.shape
     d_m = params.wh.shape[0]
     whf, bf = params.wh.float(), params.b.float()
-    h = (x_tm.new_zeros(B, d_m) if h0 is None else h0)
-    xp = gru_input_proj_bf16(params, x_tm)  # [T, B, 3*d_m], f32
+    h = xp.new_zeros(B, d_m, dtype=params.wh.dtype) if h0 is None else h0
     hs = []
     for t in range(T):
         r, z, c, _ = _bf16_gates(xp[t], h, whf, bf)
@@ -271,7 +277,7 @@ def gru_scan_tm_bf16(params: GRUParams, x_tm: torch.Tensor,
              else h + mask_tm[t][:, None] * (h_cell - h))
         hs.append(h)
     if not hs:
-        return x_tm.new_zeros(0, B, d_m), h
+        return h.new_zeros(0, B, d_m), h
     return torch.stack(hs), h
 
 
@@ -342,27 +348,87 @@ def _gate_sweep_bf16(params, x_tm, mask_tm, h_prev, cotangent,
 # The strided-output scan (pallas_gru.py's pallas_gru_stride_tm, the
 # full-sequence path of model.pallas_stride_outputs): no mask; the layer
 # emits only h_seq[period-1::period] (T // period rows) and h_T. The plain
-# versions of K3/K4 (and of their bf16 forms): the backward recomputes the
-# states from x (no boundaries) and takes the strided rows' and h_T's
+# versions of K3/K4 (and of their bf16 forms; K3's recurrence alone, from
+# its input projection, is gru_scan_stride_tm_xp): the backward recomputes
+# the states from x (no boundaries) and takes the strided rows' and h_T's
 # cotangents where they enter, at the firing steps (t+1) % period == 0 and
 # at t = T-1, in the TPU kernel's order: (dh + dhs[s]) + dhT.
 
 
-def _stride_states(params: GRUParams, x_tm: torch.Tensor,
-                   h0: Optional[torch.Tensor],
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The strided scan's states, f32, with the TPU stride kernel's update
+#: The kernels' boundary chunk: K3 keeps the state at the start of every
+#: chunk of this many steps (csrc/gru_chain.cuh's kStrideChunk).
+STRIDE_CHUNK = 16
+
+
+def _stride_states_xp(params: GRUParams, xp: torch.Tensor,
+                      h0: Optional[torch.Tensor],
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The strided scan's states, f32, from the input projection xp [T, B,
+    3*d_m] (:func:`gru_input_proj`), with the TPU stride kernel's update
     h + z * (c - h): -> (h_seq [T, B, d_m], h_T)."""
-    T, B, _ = x_tm.shape
+    T, B, _ = xp.shape
     d_m = params.wh.shape[0]
-    h = x_tm.new_zeros(B, d_m) if h0 is None else h0
-    xp = gru_input_proj(params, x_tm)
+    h = xp.new_zeros(B, d_m) if h0 is None else h0
     hs = []
     for t in range(T):
         _, z, c, _ = _gates(params, xp[t], h)
         h = h + z * (c - h)
         hs.append(h)
-    return (torch.stack(hs) if hs else x_tm.new_zeros(0, B, d_m)), h
+    return (torch.stack(hs) if hs else xp.new_zeros(0, B, d_m)), h
+
+
+def _stride_states(params: GRUParams, x_tm: torch.Tensor,
+                   h0: Optional[torch.Tensor],
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_stride_states_xp` from x_tm [T, B, d_in]."""
+    return _stride_states_xp(params, gru_input_proj(params, x_tm), h0)
+
+
+def _stride_outputs(h_seq, h0, h_T, period, t_first):
+    """A chunk's strided outputs from its states h_seq [T, B, d_m] (steps
+    t_first ... t_first + T - 1) and the state before them h0: (the rows
+    h_seq[t] where (t_first + t + 1) % period == 0, h_T, the states before
+    the steps where (t_first + t) % STRIDE_CHUNK == 0)."""
+    t = torch.arange(t_first, t_first + h_seq.shape[0])
+    h_prev = torch.cat([h0[None], h_seq[:-1]])
+    return h_seq[(t + 1) % period == 0], h_T, h_prev[t % STRIDE_CHUNK == 0]
+
+
+def gru_scan_stride_tm_xp(params: GRUParams, xp: torch.Tensor, period: int,
+                          h0: Optional[torch.Tensor] = None,
+                          t_first: int = 0) -> Tuple[torch.Tensor, ...]:
+    """The strided scan's recurrence from its input projection (the plain
+    version of K3's second kernel, csrc/gru_scan_fwd.cu's StrideOut
+    policy), f32: xp [T, B, 3*d_m] = x @ wx + b (:func:`gru_input_proj`)
+    of the steps t_first ... t_first + T - 1, h0 [B, d_m] or None (zeros)
+    the state before them -> (h_stride, h_T, boundaries): the strided rows
+    h_seq[t] of the steps with (t+1) % period == 0, in order (those of
+    h_seq[period-1::period] that fall in the chunk), the last state, and
+    the states before the steps with t % STRIDE_CHUNK == 0 (those of K3's
+    boundaries that fall in the chunk). Steps are counted from 0 over the
+    whole scan, so chunks run one after another, each from the last one's
+    h_T, give the whole scan's outputs when their rows are concatenated."""
+    d_m = params.wh.shape[0]
+    if h0 is None:
+        h0 = xp.new_zeros(xp.shape[1], d_m)
+    h_seq, h_T = _stride_states_xp(params, xp, h0)
+    return _stride_outputs(h_seq, h0, h_T, period, t_first)
+
+
+def gru_scan_stride_tm_xp_bf16(params: GRUParams, xp: torch.Tensor,
+                               period: int,
+                               h0: Optional[torch.Tensor] = None,
+                               t_first: int = 0) -> Tuple[torch.Tensor, ...]:
+    """:func:`gru_scan_stride_tm_xp` in the bf16 chain (the plain version of
+    K3-bf16's second kernel): xp from :func:`gru_input_proj_bf16` (f32),
+    the weights and h0 bf16 -> (h_stride, h_T, boundaries), bf16. The
+    stride kernel's h + z * (c - h), rounded op by op, is the no-mask step
+    of :func:`gru_scan_tm_bf16`."""
+    d_m = params.wh.shape[0]
+    if h0 is None:
+        h0 = xp.new_zeros(xp.shape[1], d_m, dtype=torch.bfloat16)
+    h_seq, h_T = _scan_xp_bf16(params, xp, None, h0, None)
+    return _stride_outputs(h_seq, h0, h_T, period, t_first)
 
 
 def gru_scan_stride_tm(params: GRUParams, x_tm: torch.Tensor, period: int,

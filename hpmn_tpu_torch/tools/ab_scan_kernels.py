@@ -24,10 +24,13 @@ kernel): its ``hpmn_gru_scan_fwd_bf16``; and a tree without
 ``hpmn_gru_scan_bwd_ws`` (K2 and K2-bf16 as one kernel): its
 ``hpmn_gru_scan_bwd`` and ``hpmn_gru_scan_bwd_bf16``; and a tree without
 ``hpmn_gru_scan_stride_bwd_ws`` (K4 and K4-bf16 as one kernel): its
-``hpmn_gru_scan_stride_bwd`` and ``hpmn_gru_scan_stride_bwd_bf16``. This
-tree's K1 and K2 (or K1-bf16 and K2-bf16), and K4 (K4-bf16), in the
-default chunks (``cuda_gru.WORKSPACE_BYTES``) are also held, bit for bit,
-to themselves in one chunk of all T steps.
+``hpmn_gru_scan_stride_bwd`` and ``hpmn_gru_scan_stride_bwd_bf16``; and a
+tree without ``hpmn_gru_scan_stride_fwd_ws`` (K3 and K3-bf16 as one
+kernel): its ``hpmn_gru_scan_stride_fwd`` and
+``hpmn_gru_scan_stride_fwd_bf16``. This tree's K1 and K2 (or K1-bf16 and
+K2-bf16), and K3 and K4 (K3-bf16 and K4-bf16), in the default chunks
+(``cuda_gru.WORKSPACE_BYTES``) are also held, bit for bit, to themselves
+in one chunk of all T steps.
 """
 
 from __future__ import annotations
@@ -68,6 +71,24 @@ def _one_kernel_k1(w, x_tm, mask_tm, h0, hseq, stream) -> int:
               cuda_gru._tstride(mask_tm), w.wx.data_ptr(), w.wh.data_ptr(),
               w.b.data_ptr(), cuda_gru._ptr(h0), hseq.data_ptr(), T, B, d_in,
               stream)
+
+
+def one_kernel_k3(w, x_tm, h0, period, outs, stream) -> int:
+    """K3 (K3-bf16) through its one-kernel entry point
+    hpmn_gru_scan_stride_fwd (hpmn_gru_scan_stride_fwd_bf16), in
+    ``cuda_gru_stride._k3``'s place; outs = (h_stride, boundaries, h_T)
+    -> the cudaError_t code."""
+    bf16 = x_tm.dtype == torch.bfloat16
+    fn = getattr(_build.load_library(),
+                 "hpmn_gru_scan_stride_fwd" + ("_bf16" if bf16 else ""))
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    T, B, d_in = x_tm.shape
+    return fn(x_tm.data_ptr(), x_tm.stride(0), w.wx.data_ptr(),
+              w.wh.data_ptr(), w.b.data_ptr(), cuda_gru._ptr(h0),
+              *(t.data_ptr() for t in outs), T, B, d_in, period, stream)
 
 
 def one_kernel_k4(w, x_tm, period, bounds, dhs, dhT, outs, stream,
@@ -114,7 +135,7 @@ def _one_kernel_k2(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream) -> int:
 def _kernels_of(csrc: str):
     """Route the scan wrappers to the library built from ``csrc``."""
     load, k1, k2 = _build.load_library, cuda_gru._k1, cuda_gru._k2
-    k4 = cuda_gru_stride._k4
+    k3, k4 = cuda_gru_stride._k3, cuda_gru_stride._k4
     _build.load_library = functools.partial(load, csrc)
     two = {torch.float32: "hpmn_gru_scan_fwd_ws",
            torch.bfloat16: "hpmn_gru_scan_fwd_bf16_ws"}
@@ -127,13 +148,16 @@ def _kernels_of(csrc: str):
     if (_has_stride(csrc) and not _has(csrc, "gru_scan_stride_bwd.cu",
                                        "hpmn_gru_scan_stride_bwd_ws")):
         cuda_gru_stride._k4 = one_kernel_k4
+    if (_has_stride(csrc) and not _has(csrc, "gru_scan_fwd.cu",
+                                       "hpmn_gru_scan_stride_fwd_ws")):
+        cuda_gru_stride._k3 = one_kernel_k3
     for cache in _CACHES:
         cache.cache_clear()
     try:
         yield
     finally:
         _build.load_library, cuda_gru._k1, cuda_gru._k2 = load, k1, k2
-        cuda_gru_stride._k4 = k4
+        cuda_gru_stride._k3, cuda_gru_stride._k4 = k3, k4
         for cache in _CACHES:
             cache.cache_clear()
 
@@ -214,9 +238,10 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             outs[tree] = res
     same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
-    # This tree's K1 and K2 (and K4) in one chunk of all T steps against
-    # their default chunks (the no-mask and masked outputs above): a cap
-    # that holds K1's f32 workspace, K2's in x's dtype and K4's three.
+    # This tree's K1 and K2 (and K3 and K4) in one chunk of all T steps
+    # against their default chunks (the no-mask and masked outputs above):
+    # a cap that holds K1's (and K3's) f32 workspace, K2's in x's dtype and
+    # K4's three.
     cap = cuda_gru.WORKSPACE_BYTES
     k1_chunks = -(-T // cuda_gru.workspace_steps(T, B))
     chunks = -(-T // cuda_gru.bwd_workspace_steps(T, B, dtype))
@@ -231,8 +256,9 @@ def main(argv=None) -> int:
             h = cuda_gru.gru_sequence_tm(p, x, m)[0]
             one += [h, *cuda_gru.gru_scan_bwd(p, x, m, h, dh)]
         if strided:
-            one += outs["this"][12:15] + list(cuda_gru_stride.stride_bwd(
-                p, x, PERIOD, outs["this"][14], dhs, dhT))
+            hs, hT, bounds = cuda_gru_stride.stride_fwd(p, x, PERIOD)
+            one += [hs, hT, bounds, *cuda_gru_stride.stride_bwd(
+                p, x, PERIOD, bounds, dhs, dhT)]
         torch.cuda.synchronize()
     finally:
         cuda_gru.WORKSPACE_BYTES = cap
@@ -245,8 +271,9 @@ def main(argv=None) -> int:
           f"{', and the strided kernels' if strided else ''}"
           f"{', and the AUGRU kernels' if scaled else ''}, bit for bit "
           f"the same: {same} | this tree's K1 in {k1_chunks} chunks, K2 "
-          f"in {chunks}{f' and K4 in {k4_chunks}' if strided else ''}, and "
-          f"each in one: bit for bit the same: {one_chunk}")
+          f"in {chunks}"
+          f"{f', K3 in {k1_chunks} and K4 in {k4_chunks}' if strided else ''}"
+          f", and each in one: bit for bit the same: {one_chunk}")
     h = outs["this"][0]
     bounds = outs["this"][14] if strided else None
     for tree in ("other", "this", "this", "other"):
@@ -258,8 +285,8 @@ def main(argv=None) -> int:
                 st_fwd = _ms(lambda: cuda_gru_stride.stride_fwd(p, x, PERIOD))
                 st_bwd = _ms(lambda: cuda_gru_stride.stride_bwd(
                     p, x, PERIOD, bounds, dhs, dhT))
-                st = (f" | strided forward {st_fwd:.4f} ms | strided backward "
-                      f"{st_bwd:.4f} ms (period {PERIOD})")
+                st = (f" | strided forward (K3) {st_fwd:.4f} ms | strided "
+                      f"backward (K4) {st_bwd:.4f} ms (period {PERIOD})")
             if scaled:
                 h_a = cuda_gru.gru_sequence_tm(p, x, None, scale_tm=a)[0]
                 sc_fwd = _ms(lambda: cuda_gru.gru_sequence_tm(

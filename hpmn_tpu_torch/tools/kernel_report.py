@@ -5,7 +5,9 @@ kernels, from the CUDA toolkit's own reports, on a machine with nvcc.
 
 For each ``csrc/*.cu`` of the tree (this package's by default): nvcc with
 ``_build.NVCC_FLAGS`` plus ``-Xptxas -v``, whose lines give each kernel's
-registers, shared memory and spills. Then ``cuobjdump -sass`` of the
+registers, shared memory and spills; an entry line names the scan kernel
+it compiles where its mangled name says (:data:`LABELS`: K3's recurrence
+is ``gru_scan_fwd_xp_kernel`` with the ``StrideOut`` policy). Then ``cuobjdump -sass`` of the
 library built from that tree and, per kernel, the static count of the
 instructions that load shared memory (LDS), shuffle (SHFL), load or store
 device memory (LDG, STG), store shared memory (STS), fuse a multiply-add
@@ -27,6 +29,13 @@ import sys
 from ..ops import _build
 
 OPS = ("LDS", "SHFL", "LDG", "STG", "STS", "FFMA", "MUFU")
+# (substrings of a mangled kernel name, all present) -> which kernel it is.
+LABELS = ((("gru_scan_fwd_xp_kernel", "StrideOut"), "K3 recurrence"),
+          (("gru_scan_fwd_xp_kernel", "DenseOut"), "K1 recurrence"),
+          (("input_proj_kernel",), "K1/K3/K4 projection"),
+          (("gru_scan_stride_bwd_rec_kernel",), "K4 recurrence"),
+          (("gru_scan_bwd_rec_kernel",), "K2 recurrence"),
+          (("gru_bwd_pass_kernel",), "K2/K4 pass"))
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_]+)")
 
 
@@ -47,7 +56,10 @@ def ptxas_report(csrc: str) -> None:
              "-c", "-o", os.devnull, src], capture_output=True, text=True)
         for line in res.stderr.splitlines():
             if any(k in line for k in ("Compiling entry", "Used", "spill")):
-                print(f"ptxas {os.path.basename(src)}: {line.strip()}")
+                label = next((f" [{name}]" for parts, name in LABELS
+                              if "Compiling entry" in line
+                              and all(p in line for p in parts)), "")
+                print(f"ptxas {os.path.basename(src)}: {line.strip()}{label}")
         if res.returncode != 0:
             print(res.stderr)
             raise SystemExit(f"nvcc failed on {src}")

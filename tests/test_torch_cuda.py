@@ -22,7 +22,12 @@ outputs within 1e-2 of their max abs; the bf16 training step's loss within
 The strided scan (K3, K4 and their bf16 forms) is held to the same
 tolerances, its backward run from K3's own boundary states; K3-bf16's rows
 equal K1-bf16's strided rows bit for bit (the same ops on the same
-values). K4 and K4-bf16 run K1's projection, a replay-and-sweep
+values). K3 and K3-bf16 run K1's projection and K1's recurrence with the
+strided output policy, over workspace chunks: they equal their one-kernel
+form (``hpmn_gru_scan_stride_fwd[_bf16]``) bit for bit, every output, and
+over chunks of 1, 7 and 16 steps they equal one chunk bit for bit (each
+chunk starts from h_T, the carry in the stream type). K4 and K4-bf16 run
+K1's projection, a replay-and-sweep
 recurrence into workspaces of gate gradients and h_prev, and K2's pass:
 over workspace chunks of 16 and 48 steps they equal one chunk bit for
 bit, they equal the one-kernel form (``hpmn_gru_scan_stride_bwd[_bf16]``)
@@ -548,6 +553,65 @@ def test_stride_rows_against_the_dense_kernel(dev, dtype):
     else:
         assert (hs - h_seq[2::3]).abs().max().item() <= TOL_GRU
         assert (hT - h_T).abs().max().item() <= TOL_GRU
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 1000])
+@pytest.mark.parametrize("d_in", [32, 96])
+def test_stride_fwd_matches_the_one_kernel_form(dev, monkeypatch, dtype, T,
+                                                d_in):
+    """K3 (K3-bf16), the projection plus the recurrence, == the one-kernel
+    form (hpmn_gru_scan_stride_fwd[_bf16]) on the same inputs, h_stride,
+    h_T and the boundaries bit for bit: period 2 and 3, h0 absent and
+    given, a strided time view of x; at T = 1000 B = 512, three workspace
+    chunks."""
+    from hpmn_tpu_torch.tools.ab_scan_kernels import one_kernel_k3
+    B = 512 if T == 1000 else 37
+    p = _gru(d_in, dev)
+    p = GRUWeights(p.wx.to(dtype), p.wh.to(dtype), p.b.to(dtype))
+    g = torch.Generator().manual_seed(T + d_in)
+    x = torch.randn(3 * T, B, d_in, generator=g).to(dev, dtype)[1::3]
+    h0 = torch.randn(B, 32, generator=g).to(dev, dtype)
+    for period in (2, 3):
+        for h in (None, h0):
+            two = cuda_gru_stride.stride_fwd(p, x, period, h)
+            with monkeypatch.context() as m:
+                m.setattr(cuda_gru_stride, "_k3", one_kernel_k3)
+                one = cuda_gru_stride.stride_fwd(p, x, period, h)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("h_stride", "h_T", "boundaries"), two,
+                                  one):
+                assert a.shape == b.shape and a.dtype == b.dtype, name
+                assert torch.equal(a, b), (name, period, h is None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("steps", [1, 7, 16])
+@pytest.mark.parametrize("T,period,B,d_in", [
+    (100, 3, 5, 33), (97, 2, 8, 96), (250, 3, 37, 32)])
+def test_stride_fwd_chunks_match_one_chunk(dev, monkeypatch, dtype, steps,
+                                           T, period, B, d_in):
+    """K3 (K3-bf16) over workspace chunks of `steps` steps (the last one
+    shorter) == K3 over one chunk, bit for bit, every output, on a strided
+    time view of x (with an h0 for odd B); one counted launch."""
+    p = _gru(d_in, dev)
+    p = GRUWeights(p.wx.to(dtype), p.wh.to(dtype), p.b.to(dtype))
+    g = torch.Generator().manual_seed(T + B + steps)
+    x = torch.randn(3 * T, B, d_in, generator=g).to(dev, dtype)[1::3]
+    h0 = torch.randn(B, 32, generator=g).to(dev, dtype) if B % 2 else None
+    row = 96 * 4  # the f32 workspace's bytes per row-step
+    monkeypatch.setattr(cuda_gru, "WORKSPACE_BYTES", T * B * row)
+    assert cuda_gru.workspace_steps(T, B) == T
+    one = cuda_gru_stride.stride_fwd(p, x, period, h0)
+    monkeypatch.setattr(cuda_gru, "WORKSPACE_BYTES", steps * B * row)
+    assert cuda_gru.workspace_steps(T, B) == steps
+    counter = "launches_bf16" if dtype == BF16 else "launches"
+    n = getattr(cuda_gru_stride, counter)
+    chunked = cuda_gru_stride.stride_fwd(p, x, period, h0)
+    torch.cuda.synchronize()
+    assert getattr(cuda_gru_stride, counter) == n + 1
+    for name, a, b in zip(("h_stride", "h_T", "boundaries"), chunked, one):
+        assert torch.equal(a, b), name
 
 
 def test_stride_kernels_refuse_what_they_do_not_take(dev):
