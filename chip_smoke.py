@@ -28,7 +28,10 @@ before the last line):
    K4-bf16 line its recurrence's gate gradients and h_prev against the
    plain sweep's, and its h_prev against the forward's states bit for
    bit; the AUGRU scan kernels
-   (K1-scale, K2-scale and their bf16 forms) at DIEN's shape.
+   (K1-scale, K2-scale and their bf16 forms) at DIEN's shape, before each
+   K2-scale and K2-scale-bf16 line its recurrence's gate gradients and
+   dscale against the plain sweep's, and its second kernel's (the pass's)
+   time and share of its time.
 4. serving: a ``UserMemoryStore`` on the card at the full width of
    xlong_hpmn (random seeded weights) ingests histories, takes updates,
    predicts and ranks; launch counters prove the path ran the kernels, and
@@ -269,7 +272,8 @@ def main():
             gru_scan_stride_tm_bf16, gru_input_proj, gru_scan_stride_tm_bwd,
             gru_scan_stride_tm_bwd_bf16, gru_scan_stride_tm_sweep,
             gru_scan_stride_tm_sweep_bf16, gru_scan_tm, gru_scan_tm_bf16,
-            gru_scan_tm_bwd, gru_scan_tm_bwd_bf16)
+            gru_scan_tm_bwd, gru_scan_tm_bwd_bf16, gru_scan_tm_sweep,
+            gru_scan_tm_sweep_bf16)
         from hpmn_tpu_torch.serving.history import HistoryStore
         from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
         from hpmn_tpu_torch.tools.ab_scan_kernels import one_kernel_k3
@@ -866,6 +870,8 @@ def main():
     sc_rows = {n: [] for n in ("fwd", "bwd", "fwd_bf16", "bwd_bf16")}
     sc_err = dict.fromkeys(sc_rows, 0.0)   # fwd: abs; bwd: of max abs
     sc_abs = dict.fromkeys(sc_rows, 0.0)
+    sc_rec_err = {"bwd": 0.0, "bwd_bf16": 0.0}  # the recurrence alone
+    sc_pass = {}  # (name, masked) -> the pass's ms
     for bf in (False, True):
         sfx = "_bf16" if bf else ""
         dt = torch.bfloat16 if bf else torch.float32
@@ -874,8 +880,9 @@ def main():
         es, peak = (2, PEAK_BF16_FLOPS) if bf else (4, PEAK_FP32_FLOPS)
         tol_h, tol_g = ((TOL_GRU_BF16, TOL_GRAD_BF16) if bf
                         else (TOL_GRU, TOL_GRAD))
-        p_fwd, p_bwd = ((gru_scan_tm_bf16, gru_scan_tm_bwd_bf16) if bf
-                        else (gru_scan_tm, gru_scan_tm_bwd))
+        p_fwd, p_bwd, p_sweep = (
+            (gru_scan_tm_bf16, gru_scan_tm_bwd_bf16, gru_scan_tm_sweep_bf16)
+            if bf else (gru_scan_tm, gru_scan_tm_bwd, gru_scan_tm_sweep))
         for masked in (False, True):
             mask = left_pad_mask(T_d, B_SCAN).to(dt) if masked else None
             h_k, hT_k = cuda_gru.gru_sequence_tm(w, xs, mask, scale_tm=a_s)
@@ -901,6 +908,42 @@ def main():
                   f" library - (nn.GRU has no gate scale) | bound "
                   f"{b_ms:.4f} ms ({b_by})", flush=True)
 
+            # K2-scale's recurrence alone, over all T in one workspace
+            # chunk: its gate gradients (dg), dh0 and dscale against the
+            # plain sweep's.
+            rec_k = cuda_gru.bwd_gates(w, xs, mask, h_k, dhs_, scale_tm=a_s)
+            sw = p_sweep(w, xs, mask, h_k, dhs_, None, a_s)
+            rec_p = (cuda_gru.gate_layout(sw[0], sw[1]), sw[3], sw[4])
+            h_prev = sw[2]
+            torch.cuda.synchronize()
+            check(all(u.shape == v.shape and u.dtype == v.dtype
+                      and torch.isfinite(u.float()).all().item()
+                      for u, v in zip(rec_k, rec_p)),
+                  f"K2-scale{sfx}'s recurrence mask={masked}: shape, dtype "
+                  "or non-finite")
+            r_err = max(((u.float() - v.float()).abs().max()
+                         / v.float().abs().max().clamp_min(1e-30)).item()
+                        for u, v in zip(rec_k, rec_p))
+            check(r_err <= tol_g, f"K2-scale{sfx}'s recurrence mask={masked}:"
+                  f" dg, dh0 or dscale max err over max abs {r_err:.3e} > "
+                  f"{tol_g}")
+            # The pass alone (K2's second kernel, one launch over all T) on
+            # the recurrence's own dg.
+            dg_k = rec_k[0]
+            pass_ms = cuda_ms(lambda: cuda_gru.bwd_pass_dg(w.wx, xs, h_prev,
+                                                           dg_k), 10)
+            del rec_k, rec_p, sw, dg_k
+            name = "bwd" + sfx
+            sc_rec_err[name] = max(sc_rec_err[name], r_err)
+            sc_pass[name, masked] = pass_ms
+            n_ws = -(-T_d // cuda_gru.bwd_workspace_steps(T_d, B_SCAN, dt))
+            print(f"phase 3 kernel gru_scan_bwd_scale_rec{sfx} T={T_d} "
+                  f"B={B_SCAN} d_in=32 mask={masked}: gate gradients, dh0 "
+                  f"and dscale max err over max abs {r_err:.3e} (tol "
+                  f"{tol_g}) against the plain sweep | "
+                  f"K2-scale{sfx.replace('_', '-')} runs it in {n_ws} "
+                  f"workspace chunks", flush=True)
+
             got = cuda_gru.gru_scan_bwd(w, xs, mask, h_k, dhs_, scale_tm=a_s)
             want = p_bwd(w, xs, mask, h_k, dhs_, None, a_s)
             torch.cuda.synchronize()
@@ -923,17 +966,21 @@ def main():
                                              a_s), 2)
             b_ms, b_by = bound(*scan_bwd_work(T_d, B_SCAN, 32, masked, es,
                                               scaled=True), peak)
-            name = "bwd" + sfx
             sc_err[name] = max(sc_err[name], rel)
             sc_abs[name] = max(sc_abs[name], absd)
             sc_rows[name].append((masked, absd, ms, plain_ms, b_ms, b_by))
+            print(f"phase 3 kernel gru_bwd_pass{sfx} (K2-scale"
+                  f"{sfx.replace('_', '-')}'s second kernel) T={T_d} "
+                  f"B={B_SCAN} d_in=32 mask={masked}: kernel {pass_ms:.4f} "
+                  f"ms, {100 * pass_ms / ms:.1f}% of K2-scale"
+                  f"{sfx.replace('_', '-')}'s {ms:.4f} ms", flush=True)
             print(f"phase 3 kernel gru_scan_bwd_scale{sfx} T={T_d} B={B_SCAN}"
                   f" d_in=32 mask={masked}: max_abs_err {absd:.3e}, over max "
                   f"abs {rel:.3e} (tol {tol_g}; dscale among the outputs) | "
                   f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | library - "
                   f"(nn.GRU has no gate scale) | bound {b_ms:.4f} ms "
                   f"({b_by})", flush=True)
-    del x, a, dh_seq, h_k, h_p, got, want
+    del x, a, dh_seq, h_k, h_p, got, want, h_prev
 
     # ----------------------------------------------------------- 4. slice --
     full = make_ctr_dataset(XLONG, N_FULL_USERS, seed=1, min_len_frac=1.0)
@@ -1206,13 +1253,17 @@ def main():
         dev_ms = sum(t for t, _, _ in kern) / 1e3 / n
         # K1 and K1-bf16 are two kernels: the projection and the
         # recurrence (gru_scan_fwd_xp_kernel with DenseOut); K3 and K3-bf16
-        # the same two (StrideOut); K2 and K2-bf16 three: the recurrence,
-        # the pass and the partials; K4 and K4-bf16 four: K1's projection,
-        # their recurrence, K2's pass and partials. The stream type tells
-        # the dtypes apart. A step runs K1 and K2 or K3 and K4, so the pass
-        # and the partials are the one family's; the projection is K3's and
-        # K4's both, so each projection launch counts for the recurrence
-        # that follows it on the stream, which reads its workspace.
+        # the same two (StrideOut); K2, K2-scale and their bf16 forms three:
+        # the recurrence (gru_scan_bwd_rec_kernel, its template argument
+        # kScale false or true), the pass and the partials; K4 and K4-bf16
+        # four: K1's projection, their recurrence, K2's pass and partials.
+        # The stream type tells the dtypes apart. One step may run several
+        # families on the same kernels (a DIEN step runs K2 and K2-scale; a
+        # strided step runs the projection for K3 and K4), so each launch
+        # counts for a recurrence by its place on the stream: a projection
+        # for the recurrence that follows it, which reads its workspace; a
+        # pass or a partials launch for the backward recurrence before it,
+        # whose gate gradients it reads.
         def dev_ms_of(*parts, bf16=None):
             return sum(t for t, _, name in kern
                        if all(part in name for part in parts)
@@ -1221,9 +1272,10 @@ def main():
 
         proj = {}  # (K1, K3 or K4, bf16) -> device ms per unit
         owner = None
-        for e in sorted((e for e in prof.events()
-                         if e.device_type == DeviceType.CUDA),
-                        key=lambda e: e.time_range.start, reverse=True):
+        on_stream = sorted((e for e in prof.events()
+                            if e.device_type == DeviceType.CUDA),
+                           key=lambda e: e.time_range.start)
+        for e in reversed(on_stream):
             if "gru_scan_fwd_xp_kernel" in e.name:
                 owner = "K3" if "StrideOut" in e.name else "K1"
             elif "gru_scan_stride_bwd_rec_kernel" in e.name:
@@ -1232,6 +1284,30 @@ def main():
                 key = (owner, "bfloat16" in e.name)
                 proj[key] = (proj.get(key, 0.0)
                              + e.time_range.elapsed_us() / 1e3 / n)
+        bwd = {}  # (K2, K2-scale or K4, part) -> device ms per unit
+        owner = None
+        for e in on_stream:
+            if "gru_scan_bwd_rec_kernel" in e.name:
+                owner = "K2-scale" if ", true>" in e.name else "K2"
+                part = "recurrence"
+            elif "gru_scan_stride_bwd_rec_kernel" in e.name:
+                owner, part = "K4", "recurrence"
+            elif "gru_bwd_pass_kernel" in e.name:
+                part = "pass"
+            elif "wgrad_partials_kernel" in e.name:
+                part = "partials"
+            else:
+                continue
+            if owner is not None:
+                bwd[owner, part] = (bwd.get((owner, part), 0.0)
+                                    + e.time_range.elapsed_us() / 1e3 / n)
+
+        def bwd_split(fam_):
+            """A backward family's recurrence, pass and partials, printed."""
+            parts = [bwd.get((fam_, p_), 0.0)
+                     for p_ in ("recurrence", "pass", "partials")]
+            return f"{fam_} {sum(parts):.3f}: " + ", ".join(
+                f"{t:.3f}" for t in parts)
 
         def fam(f):
             """f(bf16) for f32 and bf16, printed."""
@@ -1253,13 +1329,10 @@ def main():
                   f"{fam(lambda b: proj.get(('K4', b), 0.0))} | recurrence "
                   f"K1 {fam(lambda b: dev_ms_of(xp_rec, 'DenseOut', bf16=b))}"
                   f", K3 {fam(lambda b: dev_ms_of(xp_rec, 'StrideOut', bf16=b))}"
-                  f", K2 {dev_ms_of('gru_scan_bwd_rec_kernel'):.3f}, K4 "
-                  f"{dev_ms_of('gru_scan_stride_bwd_rec_kernel'):.3f} | "
-                  f"strided forward (K3: projection and recurrence) "
-                  f"{k3_fwd:.3f} | pass (K2 or K4) "
-                  f"{dev_ms_of('gru_bwd_pass_kernel'):.3f} | partials "
-                  f"{dev_ms_of('wgrad_partials_kernel'):.3f} | top: {top}",
-                  flush=True)
+                  f" | strided forward (K3: projection and recurrence) "
+                  f"{k3_fwd:.3f} | backward, recurrence, pass, partials: "
+                  f"{bwd_split('K2')}; {bwd_split('K2-scale')}; "
+                  f"{bwd_split('K4')} | top: {top}", flush=True)
         else:
             print(f"phase {phase} profile: the profiler saw no device time; "
                   "device busy share not measured", flush=True)
@@ -1584,7 +1657,7 @@ def main():
         entry("gru_scan_bwd", cuda_gru.BWD_SOURCE, cuda_gru.BWD_REPLACES,
               (gb[3], gb[4], gb[5], gb[6], gb[7]), bwd_abs,
               {"training": train_launches[1], "training_dien": fd[1]},
-              sources=[cuda_gru.BWD_SOURCE, cuda_gru.PASS_SOURCE],
+              sources=list(cuda_gru.BWD_SOURCES),
               max_err_over_max_abs=bwd_err,
               pass_ms=pass_first[torch.float32][1],
               pass_max_err_over_max_abs=pass_err[torch.float32]),
@@ -1607,7 +1680,7 @@ def main():
               (gb16[3], gb16[4], gb16[5], gb16[6], gb16[7]), bfb_abs,
               {"training_bf16": bf16_launches[3],
                "training_dien_bf16": bd[3]},
-              sources=[cuda_gru.BWD_SOURCE_BF16, cuda_gru.PASS_SOURCE],
+              sources=list(cuda_gru.BWD_SOURCES),
               max_err_over_max_abs=bfb_err,
               diff_from_f32_kernel_over_max_abs=bfb_drift,
               pass_ms=pass_first[torch.bfloat16][1],
@@ -1647,8 +1720,11 @@ def main():
                  else {"training_dien": fd[9 + idx], **(
                      {"serving_dien": serve_launches[9]} if idx == 0
                      else {})}),
-                **({"max_err_over_max_abs": sc_err[name]} if "bwd" in name
-                   else {}), masked=row[0])
+                **({"max_err_over_max_abs": sc_err[name],
+                    "sources": list(cuda_gru.BWD_SOURCES),
+                    "pass_ms": sc_pass[name, row[0]],
+                    "recurrence_max_err_over_max_abs": sc_rec_err[name]}
+                   if "bwd" in name else {}), masked=row[0])
           for idx, name in enumerate(("fwd", "bwd", "fwd_bf16", "bwd_bf16"))
           for row in [sc_rows[name][0 if "bf16" in name else 1]]),
     ]}), flush=True)

@@ -1,13 +1,14 @@
-// The dx and weight-gradient pass of K2 and K4 (and of their bf16 forms)
-// for Hopper (sm_90a): the products of the scan backward that read only a
-// step's gate gradients, taken out of its reverse loop (the recurrences of
-// gru_scan_bwd.cu and gru_scan_stride_bwd.cu write those gradients, chunk
-// by chunk, into the workspace this pass reads).
+// The dx and weight-gradient pass of K2, K2-scale and K4 (and of their
+// bf16 forms) for Hopper (sm_90a): the products of the scan backward that
+// read only a step's gate gradients, taken out of its reverse loop (the
+// recurrences of gru_scan_bwd.cu and gru_scan_stride_bwd.cu write those
+// gradients, chunk by chunk, into the workspace this pass reads).
 //
 // Replaces, with those recurrences, hpmn_tpu/ops/pallas_gru.py::_bwd_kernel
-// without the gate scale and ::_bwd_stride_kernel, in f32 and with
-// dtype=bfloat16: the TPU kernels compute dx and the weight gradients
-// inside their time loops. Its plain version is ops/gru.py::gru_bwd_pass.
+// (with and without the gate scale: the scale forms' dz carries a_t
+// already) and ::_bwd_stride_kernel, in f32 and with dtype=bfloat16: the
+// TPU kernels compute dx and the weight gradients inside their time loops.
+// Its plain version is ops/gru.py::gru_bwd_pass.
 //
 // Per chunk [t0, t0 + n) and batch row b, from the gate gradients dg[t, b]
 // (lane k's dr, dz, dc and dc*r side by side), x_t, and h_prev (K2:
@@ -21,9 +22,9 @@
 // then, after the last chunk (launch_wgrad_partials), one f32 partial per
 // group of rows.
 //
-// Bits: every output is the one-kernel loop's (gru_scan_bwd_kernel, as it
-// ran without the scale; for K4, gru_scan_stride_bwd_kernel, whose
-// products and sums are the same, grouped by its own rows per block).
+// Bits: every output is the one-kernel loop's (the loop that K2 and
+// K2-scale once ran; for K4, gru_scan_stride_bwd_kernel, whose products
+// and sums are the same, grouped by its own rows per block).
 // dx[t, b, i] is its fmaf chain from 0.0f over k =
 // 0..31 of dr_k*wx[i][k], dz_k*wx[i][32+k], dc_k*wx[i][64+k]. A row's sums
 // are its warp's accumulators there: acc = fmaf(u, d, acc) from 0.0f over

@@ -51,7 +51,8 @@ int launch_input_proj(const S* x, long long x_tstride, const S* wx,
                       const S* b, float* xp, int T, int B, int d_in,
                       cudaStream_t stream);
 
-// The second kernel of K2 and K4 and their bf16 forms (gru_bwd_pass.cu),
+// The second kernel of K2, K2-scale and K4 and their bf16 forms
+// (gru_bwd_pass.cu),
 // per chunk of steps [t0, t0 + n): from x (time stride x_tstride, rows
 // contiguous), wx [d_in, 96], h_prev and the recurrence's gate gradients dg
 // [n, B, 32, 4] (lane k: dr, dz, dc, dc*r), writes dx [T, B, d_in] and
@@ -364,8 +365,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ---- The one-kernel backward loops' shared memory (K2-scale and K4), per
-// block: the weights row-major (the recompute reads them) and transposed
+// ---- The one-kernel backward loop's shared memory (K4's one-kernel form,
+// kept for comparisons), per block: the weights row-major (the recompute reads them) and transposed
 // (dh and dx read them along rows: lane j needs w[j][g*32+k] for a k shared
 // by the warp, a 32-way bank conflict in the row-major copy), then per
 // warp the weight-gradient accumulators dWx [d_in_pad][96], dWh [32][96],

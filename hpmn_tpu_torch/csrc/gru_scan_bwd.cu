@@ -2,9 +2,9 @@
 //
 // Replaces hpmn_tpu/ops/pallas_gru.py::_bwd_kernel (its mask and no-mask
 // forms, with and without the AUGRU gate scale), in both of its chains: f32
-// (K2, hpmn_gru_scan_bwd_ws; K2-scale, hpmn_gru_scan_bwd_scale) and
+// (K2, hpmn_gru_scan_bwd_ws; K2-scale, hpmn_gru_scan_bwd_scale_ws) and
 // dtype=bfloat16 (K2-bf16, hpmn_gru_scan_bwd_bf16_ws; K2-scale-bf16,
-// hpmn_gru_scan_bwd_scale_bf16). Per step t = T-1 .. 0, for batch row b,
+// hpmn_gru_scan_bwd_scale_bf16_ws). Per step t = T-1 .. 0, for batch row b,
 // with m_t = 1 when there is no mask, a_t = 1 and zs = z in the no-scale
 // forms:
 //
@@ -40,45 +40,42 @@
 // products: the recompute's x@wx and h@wh, dh, dx and the two weight-
 // gradient outer products), and only the recompute, the gate gradients and
 // dh's product are on the chain from one step to the next. dx and the
-// weight gradients read only the step's gate gradients.
+// weight gradients read only the step's gate gradients, and dscale only
+// the step's gate values.
 //
-// K2 and K2-bf16 (no scale) are therefore two kernels per chunk of steps,
-// run by one C entry point from the last chunk to the first:
+// Every form is therefore two kernels per chunk of steps, run by one C
+// entry point from the last chunk to the first:
 //
-// - the recurrence (gru_scan_bwd_rec_kernel, here): one warp per batch row
-//   and block, lane j owning hidden unit j, the dh carry in a register, wh
-//   in registers in both of its layouts, the next step's loads issued one
-//   step ahead. Per step it recomputes the gates, takes the gate gradients
-//   and dh's product with wh^T, and writes the gate gradients [dr, dz, dc,
-//   dc*r] of lane k as 4 values into a workspace dg [Tc, B, 32, 4] of the
-//   stream type (in bf16 they are bf16 values, so storing them is exact).
-//   The carry crosses a chunk boundary through dh0 [B, 32] (f32), which
-//   holds dh0 after the first chunk.
-// - the pass (gru_bwd_pass.cu): dx and each row's weight-gradient sums from
-//   x, h_prev and dg, in parallel over rows and steps, each sum in the
-//   recurrence's own order (see there); after the last chunk, one partial
-//   per group of rows_per_block(d_in) rows.
+// - the recurrence (gru_scan_bwd_rec_kernel, here; kScale for the scale
+//   forms): one warp per batch row and block, lane j owning hidden unit j,
+//   the dh carry in a register, wh in registers in both of its layouts, the
+//   next step's loads (a_t among them) issued one step ahead. Per step it
+//   recomputes the gates, takes the gate gradients and dh's product with
+//   wh^T, and writes the gate gradients [dr, dz, dc, dc*r] of lane k as 4
+//   values into a workspace dg [Tc, B, 32, 4] of the stream type (in bf16
+//   they are bf16 values, so storing them is exact); the scale forms'
+//   dz carries a_t already, so dg's layout is the same. The carry crosses a
+//   chunk boundary through dh0 [B, 32] (f32), which holds dh0 after the
+//   first chunk. In the scale forms dscale[t, b] is a __shfl_xor_sync tree
+//   over the 32 hidden units (gru_chain.cuh's warp_sum) beside the dh
+//   carry's chain; lane 0 writes it in the stream type.
+// - the pass (gru_bwd_pass.cu), the same for every form: dx and each row's
+//   weight-gradient sums from x, h_prev and dg, in parallel over rows and
+//   steps, each sum in the recurrence's own order (see there); after the
+//   last chunk, one partial per group of rows_per_block(d_in) rows. The
+//   wrapper sums the partials (as the TPU kernel emits one per batch tile).
 //
-// Every output is the one-kernel form's bit for bit, whatever the chunk:
-// the carry and the sums cross chunks in f32, unrounded.
-//
-// The scale forms (K2-scale, K2-scale-bf16) keep the one-kernel loop
-// (gru_scan_bwd_kernel): the whole reverse sweep in one launch, dx, the
-// weight gradients and dscale in the loop. The weight gradients are
-// accumulated in shared memory, one slice per warp, where lane j owns
-// column j of each gate block: no atomics, no bank conflicts; at the end
-// the block sums its warps' slices and writes one partial per block. a_t
-// is loaded a step ahead with the step's other inputs, and dscale's sum
-// over the 32 hidden units is a __shfl_xor_sync tree (gru_chain.cuh's
-// warp_sum) beside the dh carry's chain; lane 0 writes dscale[t, b] in the
-// stream type. The wrapper sums the partials (as the TPU kernel emits one
-// per batch tile).
+// Every output is that of the one-kernel loop that every form once was (dx
+// and the weight gradients inside the reverse loop), bit for bit, whatever
+// the chunk: the carry and the sums cross chunks in f32, unrounded, and
+// dscale's tree is the loop's.
 //
 // The port's forward keeps the whole h_seq, so the backward reads h_{t-1}
 // from it: it needs no boundary states and no padding of T to 8.
 //
-// x and mask are read with a time stride (the next HPMN layer's input is the
-// view h_seq[period-1::period]); h_seq, dh_seq and dx are contiguous.
+// x, mask and scale are read with a time stride (the next HPMN layer's input
+// is the view h_seq[period-1::period]); h_seq, dh_seq, dx and dscale are
+// contiguous.
 
 #include "gru_chain.cuh"
 
@@ -87,11 +84,12 @@ namespace {
 using hpmn::kDm;
 using hpmn::kMaxChunks;  // d_in <= 96
 using hpmn::load_f;
-constexpr int kMaxWarps = 4;  // batch rows per block, at most
+constexpr int kMaxWarps = 4;  // batch rows per group, at most
 
-// Batch rows per block of the one-kernel loop (its shared memory holds a
-// weight-gradient slice per row), and the group of rows that each weight-
-// gradient partial sums in every form.
+// The group of batch rows that each weight-gradient partial sums: the rows
+// per block of the one-kernel loop that K2 and K2-scale once were (its
+// shared memory held a weight-gradient slice per row), whose partials'
+// bits every form keeps.
 int rows_per_block(int d_in) {
   const int d_in_pad = (d_in + 31) / 32 * 32;
   const size_t free_bytes =
@@ -142,93 +140,18 @@ __device__ __forceinline__ void load_step(
   }
 }
 
-// The one-kernel loop of the AUGRU forms (K2-scale, K2-scale-bf16). S: the
-// stream type, float or __nv_bfloat16. Reads scale [T, B] (time stride
-// s_tstride) and writes dscale [T, B] (contiguous). Without the scale, the
-// same loop was the one-kernel K2 (K2-bf16) whose bits the two-kernel form
-// keeps.
-template <typename S>
-__global__ void __launch_bounds__(kMaxWarps * 32)
-gru_scan_bwd_kernel(const S* __restrict__ x, long long x_tstride,
-                    const S* __restrict__ mask, long long m_tstride,
-                    const S* __restrict__ scale, long long s_tstride,
-                    const S* __restrict__ wx, const S* __restrict__ wh,
-                    const S* __restrict__ bias,
-                    const S* __restrict__ h0,
-                    const S* __restrict__ hseq,
-                    const S* __restrict__ dhseq,
-                    S* __restrict__ dx, S* __restrict__ dscale,
-                    float* __restrict__ dh0,
-                    float* __restrict__ dwx_part, float* __restrict__ dwh_part,
-                    float* __restrict__ db_part, int T, int B, int d_in) {
-  extern __shared__ float smem[];
-  const int n_chunks = (d_in + 31) / 32;
-  const int d_in_pad = n_chunks * 32;
-  const int warps = blockDim.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * warps + warp;
-  const hpmn::BwdSmem sm =
-      hpmn::load_bwd_smem(smem, wx, wh, d_in, d_in_pad, warps, warp);
-
-  if (row < B) {  // a warp past the last row skips to the block sum
-    const float b_r = load_f(bias + lane);
-    const float b_z = load_f(bias + kDm + lane);
-    const float b_c = load_f(bias + 2 * kDm + lane);
-    float dh = 0.0f;
-    float db_r = 0.0f, db_z = 0.0f, db_c = 0.0f;
-    StepIn cur;
-    load_step<S, true>(cur, T - 1, row, lane, B, d_in, n_chunks, x,
-                         x_tstride, mask, m_tstride, scale, s_tstride, h0,
-                         hseq, dhseq);
-    for (int t = T - 1; t >= 0; --t) {
-      StepIn nxt;  // step t-1, loaded before this step's math
-      if (t > 0)
-        load_step<S, true>(nxt, t - 1, row, lane, B, d_in, n_chunks, x,
-                             x_tstride, mask, m_tstride, scale, s_tstride,
-                             h0, hseq, dhseq);
-
-      // Recompute the forward's gates (gru_scan_fwd.cu, the same order).
-      const hpmn::Proj p =
-          hpmn::project(cur.x, n_chunks, cur.hp, sm.wx, sm.wh, lane);
-      hpmn::StepGrad sg;
-      if constexpr (hpmn::kIsBf16<S>)
-        sg = hpmn::step_grad_bf16<true>(
-            hpmn::gates_bf16(p, b_r, b_z, b_c), cur.hpb,
-            hpmn::to_b(cur.dhs + dh), cur.mb, mask != nullptr, cur.ab);
-      else
-        sg = hpmn::step_grad_f32<true>(hpmn::gates_f32(p, b_r, b_z, b_c),
-                                         cur.hp, cur.dhs + dh, cur.m, cur.a);
-
-      const float dh_new = hpmn::backprop_step(
-          sg, sm, n_chunks, d_in, d_in_pad, lane,
-          dx + ((long long)t * B + row) * d_in);
-      hpmn::accumulate_wgrad(cur.x, cur.hp, sg, sm, n_chunks, d_in_pad,
-                             lane);
-      const float da = hpmn::warp_sum(sg.da);
-      if (lane == 0) hpmn::store_f(dscale + (long long)t * B + row, da);
-      db_r += sg.dr;
-      db_z += sg.dz;
-      db_c += sg.dc;
-      dh = dh_new;
-      if (t > 0) cur = nxt;
-    }
-    dh0[(long long)row * kDm + lane] = dh;
-    float* acc_b = sm.acc + (d_in_pad + kDm) * hpmn::kG;
-    acc_b[lane] = db_r;
-    acc_b[kDm + lane] = db_z;
-    acc_b[2 * kDm + lane] = db_c;
-  }
-  __syncthreads();
-  hpmn::write_wgrad_partials(sm, warps, d_in, d_in_pad, dwx_part, dwh_part,
-                             db_part);
-}
-
 // The recurrence of K2 (S = float) and K2-bf16 (S = __nv_bfloat16) over the
-// chunk [t0, t0 + n): gru_scan_bwd_kernel's loop without the scale, with
-// dx, the weight-gradient sums and db taken out. Per step it writes the gate
+// chunk [t0, t0 + n), and with kScale that of K2-scale and K2-scale-bf16:
+// the one-kernel loop that K2 and the scale forms once were, with dx, the
+// weight-gradient sums and db taken out. Per step it writes the gate
 // gradients into dg [n, B, 32, 4] (S) at (t - t0, row, lane). dh [B, 32]
-// (f32) carries dh in (`carry_in`; else it starts at zero) and out.
+// (f32) carries dh in (`carry_in`; else it starts at zero) and out. With
+// kScale it reads scale [T, B] (time stride s_tstride) with the step's other
+// loads, one step ahead; dz already carries the factor a_t
+// (step_grad_*<true>), so dg keeps its layout and the pass is K2's; and lane
+// 0 writes dscale[t, row] (S), the warp_sum of the step's da over the 32
+// hidden units, the one-kernel loop's shuffle tree. dscale reads only the
+// step's own gate values, so nothing of it crosses a chunk.
 //
 // One warp, one batch row, per block (4 rows per block took 1.37x as long
 // in f32; PERF.md). Both of the step's products with wh read it from
@@ -238,17 +161,18 @@ gru_scan_bwd_kernel(const S* __restrict__ x, long long x_tstride,
 // as float4s (one 16-byte load for 4 of k) instead of one __shfl_sync per
 // value; wx stays in shared memory. The fmaf orders are project()'s and
 // backprop_step()'s, so the bits are the one-kernel loop's.
-template <typename S>
+template <typename S, bool kScale>
 __global__ void __launch_bounds__(32)
 gru_scan_bwd_rec_kernel(const S* __restrict__ x, long long x_tstride,
                         const S* __restrict__ mask, long long m_tstride,
+                        const S* __restrict__ scale, long long s_tstride,
                         const S* __restrict__ wx, const S* __restrict__ wh,
                         const S* __restrict__ bias,
                         const S* __restrict__ h0,
                         const S* __restrict__ hseq,
                         const S* __restrict__ dhseq, S* __restrict__ dg,
-                        float* __restrict__ dh, int t0, int n,
-                        bool carry_in, int B, int d_in) {
+                        S* __restrict__ dscale, float* __restrict__ dh,
+                        int t0, int n, bool carry_in, int B, int d_in) {
   extern __shared__ __align__(16) float smem[];
   const int n_chunks = (d_in + 31) / 32;
   const int d_in_pad = n_chunks * 32;
@@ -274,15 +198,15 @@ gru_scan_bwd_rec_kernel(const S* __restrict__ x, long long x_tstride,
   const float b_c = load_f(bias + 2 * kDm + lane);
   float dhc = carry_in ? dh[(long long)row * kDm + lane] : 0.0f;
   StepIn cur;
-  load_step<S, false>(cur, t0 + n - 1, row, lane, B, d_in, n_chunks, x,
-                      x_tstride, mask, m_tstride, nullptr, 0, h0, hseq,
-                      dhseq);
+  load_step<S, kScale>(cur, t0 + n - 1, row, lane, B, d_in, n_chunks, x,
+                       x_tstride, mask, m_tstride, scale, s_tstride, h0,
+                       hseq, dhseq);
   for (int t = t0 + n - 1; t >= t0; --t) {
     StepIn nxt;  // step t-1, loaded before this step's math
     if (t > t0)
-      load_step<S, false>(nxt, t - 1, row, lane, B, d_in, n_chunks, x,
-                          x_tstride, mask, m_tstride, nullptr, 0, h0, hseq,
-                          dhseq);
+      load_step<S, kScale>(nxt, t - 1, row, lane, B, d_in, n_chunks, x,
+                           x_tstride, mask, m_tstride, scale, s_tstride, h0,
+                           hseq, dhseq);
 
     // Recompute the forward's gates: project()'s sums, the same order.
     __syncwarp();  // every lane is done with the last step's broadcasts
@@ -327,12 +251,12 @@ gru_scan_bwd_rec_kernel(const S* __restrict__ x, long long x_tstride,
     }
     hpmn::StepGrad sg;
     if constexpr (hpmn::kIsBf16<S>)
-      sg = hpmn::step_grad_bf16(hpmn::gates_bf16(p, b_r, b_z, b_c), cur.hpb,
-                                hpmn::to_b(cur.dhs + dhc), cur.mb,
-                                mask != nullptr);
+      sg = hpmn::step_grad_bf16<kScale>(
+          hpmn::gates_bf16(p, b_r, b_z, b_c), cur.hpb,
+          hpmn::to_b(cur.dhs + dhc), cur.mb, mask != nullptr, cur.ab);
     else
-      sg = hpmn::step_grad_f32(hpmn::gates_f32(p, b_r, b_z, b_c), cur.hp,
-                               cur.dhs + dhc, cur.m);
+      sg = hpmn::step_grad_f32<kScale>(hpmn::gates_f32(p, b_r, b_z, b_c),
+                                       cur.hp, cur.dhs + dhc, cur.m, cur.a);
     hpmn::store4(dg + (((long long)(t - t0) * B + row) * kDm + lane) * 4,
                  sg.dr, sg.dz, sg.dc, sg.dcr);
 
@@ -349,45 +273,14 @@ gru_scan_bwd_rec_kernel(const S* __restrict__ x, long long x_tstride,
       dh_new = fmaf(d.y, wh_t[1][k], dh_new);
       dh_new = fmaf(d.w, wh_t[2][k], dh_new);
     }
+    if constexpr (kScale) {
+      const float da = hpmn::warp_sum(sg.da);
+      if (lane == 0) hpmn::store_f(dscale + (long long)t * B + row, da);
+    }
     dhc = hpmn::kIsBf16<S> ? sg.carry + dh_new : dh_new;
     if (t > t0) cur = nxt;
   }
   dh[(long long)row * kDm + lane] = dhc;
-}
-
-// x [T,B,d_in] (time stride x_tstride, rows contiguous), mask [T,B] (time
-// stride m_tstride) or null, scale [T,B] (time stride s_tstride, not
-// null), wx [d_in,96], wh [32,96], b [96], h0 [B,32] or
-// null, hseq and dhseq [T,B,32] contiguous, all of one type S: float for
-// K2-scale, bf16 for K2-scale-bf16. Writes dx [T,B,d_in] (S), dscale [T,B]
-// (S) and dh0 [B,32] (f32, the carry), all contiguous, and per block the
-// f32 partials dwx_part [d_in,96], dwh_part [32,96] and db_part [96].
-// Launches on `stream`; returns cudaGetLastError().
-template <typename S>
-int launch(const S* x, long long x_tstride, const S* mask, long long m_tstride,
-           const S* scale, long long s_tstride, const S* wx, const S* wh,
-           const S* b, const S* h0, const S* hseq, const S* dhseq, S* dx,
-           S* dscale, float* dh0, float* dwx_part, float* dwh_part,
-           float* db_part, int T, int B, int d_in, void* stream) {
-  if (d_in < 1 || d_in > 32 * kMaxChunks || B < 1 || T < 1
-      || scale == nullptr || dscale == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const int d_in_pad = (d_in + 31) / 32 * 32;
-  const int warps = rows_per_block(d_in);
-  const size_t smem =
-      (hpmn::weights_floats(d_in_pad) + warps * hpmn::acc_floats(d_in_pad)) *
-      4;
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_scan_bwd_kernel<S>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (B + warps - 1) / warps;
-  gru_scan_bwd_kernel<S>
-      <<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
-          x, x_tstride, mask, m_tstride, scale, s_tstride, wx, wh, b, h0,
-          hseq, dhseq, dx, dscale, dh0, dwx_part, dwh_part, db_part, T, B,
-          d_in);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -401,32 +294,35 @@ extern "C" int hpmn_gru_scan_bwd_rows_per_block(int d_in) {
 
 namespace {
 
-// K2 and K2-bf16: every chunk of t_chunk steps from the last (the chunk at
-// t = 0 the shorter), the recurrence then the pass, then the partials.
-template <typename S>
+// K2, K2-bf16 and, with kScale, K2-scale and K2-scale-bf16: every chunk of
+// t_chunk steps from the last (the chunk at t = 0 the shorter), the
+// recurrence then the pass, then the partials.
+template <typename S, bool kScale>
 int launch_ws(const S* x, long long x_tstride, const S* mask,
-              long long m_tstride, const S* wx, const S* wh, const S* b,
-              const S* h0, const S* hseq, const S* dhseq, S* dx, float* dh0,
-              float* dwx_part, float* dwh_part, float* db_part, S* dg,
-              float* acc, int t_chunk, int T, int B, int d_in,
+              long long m_tstride, const S* scale, long long s_tstride,
+              const S* wx, const S* wh, const S* b, const S* h0,
+              const S* hseq, const S* dhseq, S* dx, float* dh0,
+              float* dwx_part, float* dwh_part, float* db_part, S* dscale,
+              S* dg, float* acc, int t_chunk, int T, int B, int d_in,
               void* stream) {
   if (d_in < 1 || d_in > 32 * kMaxChunks || B < 1 || T < 1 || t_chunk < 1
-      || dg == nullptr || acc == nullptr)
+      || dg == nullptr || acc == nullptr
+      || (kScale && (scale == nullptr || dscale == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int d_in_pad = (d_in + 31) / 32 * 32;
   const size_t smem =
       ((size_t)d_in_pad * hpmn::kG + d_in_pad + kDm + 4 * kDm) * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      gru_scan_bwd_rec_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      gru_scan_bwd_rec_kernel<S, kScale>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   for (int hi = T; hi > 0;) {
     const int n = t_chunk < hi ? t_chunk : hi;
     const int t0 = hi - n;
-    gru_scan_bwd_rec_kernel<S><<<B, 32, smem, st>>>(
-        x, x_tstride, mask, m_tstride, wx, wh, b, h0, hseq, dhseq, dg, dh0,
-        t0, n, hi < T, B, d_in);
+    gru_scan_bwd_rec_kernel<S, kScale><<<B, 32, smem, st>>>(
+        x, x_tstride, mask, m_tstride, scale, s_tstride, wx, wh, b, h0,
+        hseq, dhseq, dg, dscale, dh0, t0, n, hi < T, B, d_in);
     int code = (int)cudaGetLastError();
     if (code != 0) return code;
     code = hpmn::launch_bwd_pass<S>(x, x_tstride, wx, h0, hseq, 1, dg, dx,
@@ -458,9 +354,10 @@ extern "C" int hpmn_gru_scan_bwd_ws(const float* x, long long x_tstride,
                                     float* dwh_part, float* db_part,
                                     float* dg, float* acc, int t_chunk,
                                     int T, int B, int d_in, void* stream) {
-  return launch_ws<float>(x, x_tstride, mask, m_tstride, wx, wh, b, h0, hseq,
-                          dhseq, dx, dh0, dwx_part, dwh_part, db_part, dg,
-                          acc, t_chunk, T, B, d_in, stream);
+  return launch_ws<float, false>(x, x_tstride, mask, m_tstride, nullptr, 0,
+                                 wx, wh, b, h0, hseq, dhseq, dx, dh0,
+                                 dwx_part, dwh_part, db_part, nullptr, dg,
+                                 acc, t_chunk, T, B, d_in, stream);
 }
 
 // K2-bf16: as K2, with x, mask, the weights, h0, hseq, dhseq, dx and dg in
@@ -473,39 +370,41 @@ extern "C" int hpmn_gru_scan_bwd_bf16_ws(
     __nv_bfloat16* dx, float* dh0, float* dwx_part, float* dwh_part,
     float* db_part, __nv_bfloat16* dg, float* acc, int t_chunk, int T, int B,
     int d_in, void* stream) {
-  return launch_ws<__nv_bfloat16>(x, x_tstride, mask, m_tstride, wx, wh, b,
-                                  h0, hseq, dhseq, dx, dh0, dwx_part,
-                                  dwh_part, db_part, dg, acc, t_chunk, T, B,
-                                  d_in, stream);
+  return launch_ws<__nv_bfloat16, false>(
+      x, x_tstride, mask, m_tstride, nullptr, 0, wx, wh, b, h0, hseq, dhseq,
+      dx, dh0, dwx_part, dwh_part, db_part, nullptr, dg, acc, t_chunk, T, B,
+      d_in, stream);
 }
 
-// K2-scale and K2-scale-bf16: the one-kernel loop (launch's arguments
-// above): scale [T,B] (time stride s_tstride, unit batch stride; not null)
-// is the AUGRU's a_t, and its gradient dscale [T,B] (contiguous, not null)
-// is of the stream type; one partial per block of rows_per_block(d_in)
-// rows.
-extern "C" int hpmn_gru_scan_bwd_scale(
+// K2-scale: as K2, with scale [T,B] (time stride s_tstride, unit batch
+// stride; not null), the AUGRU's a_t, after the mask; and its gradient
+// dscale [T,B] (contiguous, not null) after the partials.
+extern "C" int hpmn_gru_scan_bwd_scale_ws(
     const float* x, long long x_tstride, const float* mask,
     long long m_tstride, const float* scale, long long s_tstride,
     const float* wx, const float* wh, const float* b, const float* h0,
-    const float* hseq, const float* dhseq, float* dx, float* dscale,
-    float* dh0, float* dwx_part, float* dwh_part, float* db_part, int T,
-    int B, int d_in, void* stream) {
-  return launch<float>(x, x_tstride, mask, m_tstride, scale, s_tstride,
-                             wx, wh, b, h0, hseq, dhseq, dx, dscale, dh0,
-                             dwx_part, dwh_part, db_part, T, B, d_in, stream);
+    const float* hseq, const float* dhseq, float* dx, float* dh0,
+    float* dwx_part, float* dwh_part, float* db_part, float* dscale,
+    float* dg, float* acc, int t_chunk, int T, int B, int d_in,
+    void* stream) {
+  return launch_ws<float, true>(x, x_tstride, mask, m_tstride, scale,
+                                s_tstride, wx, wh, b, h0, hseq, dhseq, dx,
+                                dh0, dwx_part, dwh_part, db_part, dscale, dg,
+                                acc, t_chunk, T, B, d_in, stream);
 }
 
-extern "C" int hpmn_gru_scan_bwd_scale_bf16(
+// K2-scale-bf16: as K2-bf16, with the scale and dscale of K2-scale in bf16.
+extern "C" int hpmn_gru_scan_bwd_scale_bf16_ws(
     const __nv_bfloat16* x, long long x_tstride, const __nv_bfloat16* mask,
     long long m_tstride, const __nv_bfloat16* scale, long long s_tstride,
     const __nv_bfloat16* wx, const __nv_bfloat16* wh, const __nv_bfloat16* b,
     const __nv_bfloat16* h0, const __nv_bfloat16* hseq,
-    const __nv_bfloat16* dhseq, __nv_bfloat16* dx, __nv_bfloat16* dscale,
-    float* dh0, float* dwx_part, float* dwh_part, float* db_part, int T,
-    int B, int d_in, void* stream) {
-  return launch<__nv_bfloat16>(
+    const __nv_bfloat16* dhseq, __nv_bfloat16* dx, float* dh0,
+    float* dwx_part, float* dwh_part, float* db_part, __nv_bfloat16* dscale,
+    __nv_bfloat16* dg, float* acc, int t_chunk, int T, int B, int d_in,
+    void* stream) {
+  return launch_ws<__nv_bfloat16, true>(
       x, x_tstride, mask, m_tstride, scale, s_tstride, wx, wh, b, h0, hseq,
-      dhseq, dx, dscale, dh0, dwx_part, dwh_part, db_part, T, B, d_in,
-      stream);
+      dhseq, dx, dh0, dwx_part, dwh_part, db_part, dscale, dg, acc, t_chunk,
+      T, B, d_in, stream);
 }

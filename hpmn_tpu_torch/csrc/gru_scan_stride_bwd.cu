@@ -61,7 +61,7 @@
 //
 // The one-kernel form (gru_scan_stride_bwd_kernel: the replay, then the
 // sweep with dx and the weight gradients inside it, into per-warp
-// shared-memory slices, K2-scale's layout) is kept behind its own entry
+// shared-memory slices, gru_chain.cuh's BwdSmem layout) is kept behind its own entry
 // points (hpmn_gru_scan_stride_bwd[_bf16]), which a comparison of the two
 // forms calls; the wrappers call the three-kernel form.
 

@@ -8,22 +8,25 @@ tensors' dtype), with and without the AUGRU gate scale (``has_scale``:
 K1-scale and K2-scale and their bf16 forms, chosen by a ``scale_tm``; the
 backward then also returns dscale). The kernels are
 ``csrc/gru_scan_fwd.cu`` and
-``csrc/gru_scan_bwd.cu``, each one template for both chains: one
-launch scans a whole layer (forward, or backward in reverse), the time loop
-inside the kernel and the carry in registers, one warp per batch row with
-lane j owning hidden unit j. The recurrence bounds both (each step waits
-for the last); keeping the whole loop in one launch, with no barrier or
-device-memory round trip between steps, is what the design does about
-that. K1 and K1-bf16 (no scale) are two kernels: ``csrc/gru_input_proj.cu``
+``csrc/gru_scan_bwd.cu``, each one template for both chains: a
+recurrence launch scans its steps (forward, or backward in reverse) with
+the time loop inside the kernel and the carry in registers, one warp per
+batch row with lane j owning hidden unit j. The recurrence bounds both
+(each step waits for the last); keeping the loop in one launch, with no
+barrier or device-memory round trip between steps, is what the design
+does about that. K1-scale (and K1-scale-bf16) is that one launch alone.
+K1 and K1-bf16 (no scale) are two kernels: ``csrc/gru_input_proj.cu``
 computes the x half of the products for a chunk of steps into an f32
 workspace this module allocates (at most :data:`WORKSPACE_BYTES`; in bf16
 in the chain's layout, :func:`input_proj`), then the recurrence reads it;
 one C call runs every chunk, and one K1 call counts one launch. K2 and
-K2-bf16 (no scale) are two kernels too, run from the last chunk of steps
-to the first: the reverse recurrence writes each step's gate gradients
-into a workspace (at most :data:`WORKSPACE_BYTES`), then
-``csrc/gru_bwd_pass.cu`` computes dx and the weight gradients from them;
-one C call, one counted launch. See the sources' headers for the rest.
+K2-bf16, and their scale forms, are two kernels too, run from the last
+chunk of steps to the first: the reverse recurrence writes each step's
+gate gradients (and, with the scale, dscale) into a workspace (at most
+:data:`WORKSPACE_BYTES`), then ``csrc/gru_bwd_pass.cu`` computes dx and
+the weight gradients from them; one C call, one counted launch
+(:func:`bwd_gates` runs it in one chunk and returns the workspace). See
+the sources' headers for the rest.
 
 :class:`GRUScan` is the ``torch.autograd.Function`` that mirrors the
 custom_vjp: on CUDA tensors its forward launches K1 and its backward K2;
@@ -47,7 +50,8 @@ import torch
 from . import _build
 from .gru import (GRUParams, GRUWeights, gru_bwd_pass, gru_input_proj,
                   gru_input_proj_bf16, gru_scan_tm, gru_scan_tm_bf16,
-                  gru_scan_tm_bwd, gru_scan_tm_bwd_bf16)
+                  gru_scan_tm_bwd, gru_scan_tm_bwd_bf16, gru_scan_tm_sweep,
+                  gru_scan_tm_sweep_bf16)
 
 SOURCE = "hpmn_tpu_torch/csrc/gru_scan_fwd.cu"
 REPLACES = "hpmn_tpu/ops/pallas_gru.py:127"
@@ -56,7 +60,8 @@ REPLACES = "hpmn_tpu/ops/pallas_gru.py:127"
 PROJ_SOURCE = "hpmn_tpu_torch/csrc/gru_input_proj.cu"
 BWD_SOURCE = "hpmn_tpu_torch/csrc/gru_scan_bwd.cu"
 BWD_REPLACES = "hpmn_tpu/ops/pallas_gru.py:209"
-# K2's (and K2-bf16's) second kernel, dx and the weight gradients.
+# K2's (and K2-bf16's, K2-scale's and K2-scale-bf16's) second kernel, dx
+# and the weight gradients.
 PASS_SOURCE = "hpmn_tpu_torch/csrc/gru_bwd_pass.cu"
 # K1-bf16 and K2-bf16: the same sources' bf16 instantiations, in place of
 # the same Pallas kernels run with dtype=bfloat16; K1-scale and K2-scale
@@ -65,6 +70,8 @@ SOURCE_BF16, REPLACES_BF16 = SOURCE, REPLACES
 BWD_SOURCE_BF16, BWD_REPLACES_BF16 = BWD_SOURCE, BWD_REPLACES
 SOURCE_SCALE, REPLACES_SCALE = SOURCE, REPLACES
 BWD_SOURCE_SCALE, BWD_REPLACES_SCALE = BWD_SOURCE, BWD_REPLACES
+# Every form of K2 is two sources: its recurrence, then the pass.
+BWD_SOURCES = (BWD_SOURCE, PASS_SOURCE)
 
 #: Kernel launches so far in this process (a run's proof that it went
 #: through the kernels): K1, K2, K1-bf16, K2-bf16, and the scale forms
@@ -79,17 +86,18 @@ bwd_launches_scale = 0
 launches_scale_bf16 = 0
 bwd_launches_scale_bf16 = 0
 #: Launches of the projection on its own (:func:`input_proj`, either dtype)
-#: and of K2's pass on its own (:func:`bwd_pass`); K1's and K2's own count
-#: in ``launches`` and ``bwd_launches`` (and their bf16 forms').
+#: and of K2's pass on its own (:func:`bwd_pass`, :func:`bwd_pass_dg`); K1's
+#: and K2's own count in ``launches`` and ``bwd_launches`` (and their other
+#: forms').
 proj_launches = 0
 pass_launches = 0
 
 #: The cap on K1's (and K1-bf16's) f32 workspace xp [Tc, B, 96], and on
-#: K2's gate gradients dg [Tc, B, 128] in x's dtype: Tc is the most steps
+#: the gate gradients dg [Tc, B, 128] of K2 (every form) in x's dtype: Tc is the most steps
 #: that fit (at least 1), and the kernel runs ceil(T / Tc) chunks in one C
 #: call.
 #: 64 MiB: K1's Tc = 341 at B = 512, 27 at B = 6400; K2's 256 at B = 512
-#: (512 in bf16).
+#: (512 in bf16: DIEN's T = 300 is 2 chunks in f32, 1 in bf16).
 WORKSPACE_BYTES = 64 << 20
 
 _D_M = 32
@@ -106,8 +114,8 @@ _PROJ_ENTRY = {torch.float32: "hpmn_gru_input_proj",
                torch.bfloat16: "hpmn_gru_input_proj_bf16"}
 _BWD_ENTRY = {(torch.float32, False): "hpmn_gru_scan_bwd_ws",
               (torch.bfloat16, False): "hpmn_gru_scan_bwd_bf16_ws",
-              (torch.float32, True): "hpmn_gru_scan_bwd_scale",
-              (torch.bfloat16, True): "hpmn_gru_scan_bwd_scale_bf16"}
+              (torch.float32, True): "hpmn_gru_scan_bwd_scale_ws",
+              (torch.bfloat16, True): "hpmn_gru_scan_bwd_scale_bf16_ws"}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -156,7 +164,7 @@ def workspace_steps(T: int, B: int) -> int:
 
 
 def bwd_workspace_steps(T: int, B: int, dtype: torch.dtype) -> int:
-    """K2's chunk: the steps of dg [., B, 128] in ``dtype`` that fit
+    """K2's chunk (every form's): the steps of dg [., B, 128] in ``dtype`` that fit
     :data:`WORKSPACE_BYTES`, at least 1 and at most T."""
     es = torch.empty(0, dtype=dtype).element_size()
     return max(1, min(T, WORKSPACE_BYTES // (B * 4 * _D_M * es)))
@@ -179,11 +187,12 @@ def _rows_fn():
 
 @functools.lru_cache(maxsize=None)
 def _bwd_fn(dtype: torch.dtype, scaled: bool = False):
+    """K2's C entry point by dtype and scale (the scale forms: the scale
+    after the mask, dscale after the partials)."""
     fn = getattr(_build.load_library(), _BWD_ENTRY[dtype, scaled])
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * (3 if scaled else 2)
-                   + [ctypes.c_void_p] * (12 if scaled else 13)
-                   + [ctypes.c_int] * (3 if scaled else 4)
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * (14 if scaled else 13)
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -281,28 +290,38 @@ def _launch(w, x_tm, mask_tm, h0, scale_tm=None) -> torch.Tensor:
     return hseq
 
 
-def _k2(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream) -> int:
-    """K2's (K2-bf16's) C call: the workspaces, then every chunk's
-    recurrence and pass, then the partials; outs = (dx, dh0, dwx, dwh, db)
-    -> the cudaError_t code."""
+def _k2(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream, scale_tm=None,
+        t_chunk=None):
+    """K2's (K2-bf16's; with a scale_tm K2-scale's or K2-scale-bf16's) C
+    call: the workspaces of t_chunk steps (default
+    :func:`bwd_workspace_steps`), then every chunk's recurrence and pass,
+    then the partials; outs = (dx, dh0, dwx, dwh, db), and dscale after
+    them with a scale_tm -> (the cudaError_t code, dg [n, B, 32, 4]): the
+    gate gradients of the first n = min(t_chunk, T) steps."""
     T, B, d_in = x_tm.shape
-    t_chunk = bwd_workspace_steps(T, B, x_tm.dtype)
-    dg = torch.empty(t_chunk, B, 4 * _D_M, dtype=x_tm.dtype,
-                     device=x_tm.device)
-    acc = torch.empty(B, _acc_floats(d_in), dtype=torch.float32,
-                      device=x_tm.device)
-    return _bwd_fn(x_tm.dtype)(
+    if t_chunk is None:
+        t_chunk = bwd_workspace_steps(T, B, x_tm.dtype)
+    dev = x_tm.device
+    dg = torch.empty(min(t_chunk, T), B, _D_M, 4, dtype=x_tm.dtype,
+                     device=dev)
+    acc = torch.empty(B, _acc_floats(d_in), dtype=torch.float32, device=dev)
+    scale = (() if scale_tm is None
+             else (scale_tm.data_ptr(), scale_tm.stride(0)))
+    code = _bwd_fn(x_tm.dtype, scale_tm is not None)(
         x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm), _tstride(mask_tm),
-        w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), _ptr(h0),
+        *scale, w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), _ptr(h0),
         hseq.data_ptr(), dhseq.data_ptr(), *(t.data_ptr() for t in outs),
         dg.data_ptr(), acc.data_ptr(), t_chunk, T, B, d_in, stream)
+    return code, dg
 
 
-def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq, scale_tm=None):
+def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq, scale_tm=None,
+                t_chunk=None):
     """K2 (float32) or K2-bf16 (bfloat16), K2-scale or K2-scale-bf16 with a
-    scale_tm: -> (dx in x's dtype, dwx, dwh, db, dh0 in float32), and
-    dscale [T, B] in x's dtype after them with a scale_tm; the weight
-    gradients summed over the kernel's per-block partials."""
+    scale_tm: -> ((dx in x's dtype, dwx, dwh, db, dh0 in float32, and
+    dscale [T, B] in x's dtype after them with a scale_tm), the workspace
+    dg of :func:`_k2`); the weight gradients summed over the kernel's
+    per-group partials."""
     T, B, d_in = x_tm.shape
     scaled = scale_tm is not None
     name = _kernel_name(x_tm.dtype, scaled, bwd=True)
@@ -316,30 +335,21 @@ def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq, scale_tm=None):
     n_blocks = -(-B // _rows_fn()(d_in))
     dev = x_tm.device
     dx = torch.empty(T, B, d_in, dtype=x_tm.dtype, device=dev)
-    dscale = (torch.empty(T, B, dtype=x_tm.dtype, device=dev) if scaled
-              else None)
+    dscale = (torch.empty(T, B, dtype=x_tm.dtype, device=dev),) if scaled \
+        else ()
     dh0 = torch.empty(B, _D_M, dtype=torch.float32, device=dev)
     dwx = torch.empty(n_blocks, d_in, 3 * _D_M, dtype=torch.float32,
                       device=dev)
     dwh = torch.empty(n_blocks, _D_M, 3 * _D_M, dtype=torch.float32,
                       device=dev)
     db = torch.empty(n_blocks, 3 * _D_M, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if scaled:
-        code = _bwd_fn(x_tm.dtype, True)(
-            x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm), _tstride(mask_tm),
-            scale_tm.data_ptr(), scale_tm.stride(0), w.wx.data_ptr(),
-            w.wh.data_ptr(), w.b.data_ptr(), _ptr(h0), hseq.data_ptr(),
-            dhseq.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
-            dh0.data_ptr(), dwx.data_ptr(), dwh.data_ptr(), db.data_ptr(), T,
-            B, d_in, stream)
-    else:
-        code = _k2(w, x_tm, mask_tm, h0, hseq, dhseq,
-                   (dx, dh0, dwx, dwh, db), stream)
+    code, dg = _k2(w, x_tm, mask_tm, h0, hseq, dhseq,
+                   (dx, dh0, dwx, dwh, db) + dscale,
+                   torch.cuda.current_stream(dev).cuda_stream,
+                   scale_tm=scale_tm, t_chunk=t_chunk)
     _build.check_launch(code, name)
     _count(name)
-    out = (dx, dwx.sum(0), dwh.sum(0), db.sum(0), dh0)
-    return out + (dscale,) if scaled else out
+    return (dx, dwx.sum(0), dwh.sum(0), db.sum(0), dh0) + dscale, dg
 
 
 def input_proj(params: GRUParams, x_tm: torch.Tensor) -> torch.Tensor:
@@ -371,6 +381,23 @@ def input_proj(params: GRUParams, x_tm: torch.Tensor) -> torch.Tensor:
     return xp
 
 
+def gate_layout(dpre_x: torch.Tensor, dpre_h: torch.Tensor) -> torch.Tensor:
+    """The gate gradients dpre_x = [dr|dz|dc] and dpre_h = [dr|dz|dc*r]
+    [T, B, 96] in the recurrence's layout dg [T, B, 32, 4]: lane k's dr,
+    dz, dc and dc*r side by side (contiguous)."""
+    d = _D_M
+    return torch.stack([dpre_x[..., :d], dpre_x[..., d:2 * d],
+                        dpre_x[..., 2 * d:], dpre_h[..., 2 * d:]], -1
+                       ).contiguous()
+
+
+def gate_blocks(dg: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gate_layout`'s inverse: dg [T, B, 32, 4] -> (dpre_x,
+    dpre_h) [T, B, 96]."""
+    return (torch.cat([dg[..., 0], dg[..., 1], dg[..., 2]], -1),
+            torch.cat([dg[..., 0], dg[..., 1], dg[..., 3]], -1))
+
+
 def bwd_pass(wx: torch.Tensor, x_tm: torch.Tensor, h_prev: torch.Tensor,
              dpre_x: torch.Tensor, dpre_h: torch.Tensor,
              ) -> Tuple[torch.Tensor, ...]:
@@ -379,10 +406,23 @@ def bwd_pass(wx: torch.Tensor, x_tm: torch.Tensor, h_prev: torch.Tensor,
     gradients dpre_x = [dr|dz|dc] and dpre_h = [dr|dz|dc*r] [T, B, 96]
     (their r and z blocks the same, as the scan's are: the kernel reads
     them once) -> (dx in x's dtype, dwx, dwh, db in float32), by the kernel
-    on CUDA tensors (float32 or bfloat16, one dtype), by ``gru_bwd_pass``
-    on CPU tensors."""
+    on CUDA tensors (float32 or bfloat16, one dtype; :func:`bwd_pass_dg`
+    on :func:`gate_layout`), by ``gru_bwd_pass`` on CPU tensors."""
     if x_tm.device.type == "cpu":
         return gru_bwd_pass(x_tm, h_prev, dpre_x, dpre_h, wx)
+    T, B, _ = x_tm.shape
+    if dpre_x.shape != (T, B, 3 * _D_M) or dpre_h.shape != dpre_x.shape:
+        raise ValueError("gru_bwd_pass: dpre_x and dpre_h [T, B, 96]")
+    return bwd_pass_dg(wx, x_tm, h_prev, gate_layout(dpre_x, dpre_h))
+
+
+def bwd_pass_dg(wx: torch.Tensor, x_tm: torch.Tensor, h_prev: torch.Tensor,
+                dg: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """:func:`bwd_pass` from the gate gradients in the recurrence's own
+    layout dg [T, B, 32, 4] (:func:`gate_layout`; what :func:`bwd_gates`
+    returns), which the kernel reads as they are."""
+    if x_tm.device.type == "cpu":
+        return gru_bwd_pass(x_tm, h_prev, *gate_blocks(dg), wx)
     if x_tm.device.type != "cuda":
         raise ValueError(f"bwd_pass runs on cpu or cuda, not {x_tm.device}")
     global pass_launches
@@ -391,7 +431,7 @@ def bwd_pass(wx: torch.Tensor, x_tm: torch.Tensor, h_prev: torch.Tensor,
         raise ValueError(f"gru_bwd_pass takes d_in <= {_MAX_D_IN} and "
                          f"float32 or bfloat16; got d_in={d_in}, "
                          f"{x_tm.dtype}")
-    for t in (wx, h_prev, dpre_x, dpre_h):
+    for t in (wx, h_prev, dg):
         if t.dtype != x_tm.dtype or t.device != x_tm.device:
             raise ValueError("gru_bwd_pass takes tensors of one dtype on one "
                              "device")
@@ -399,15 +439,11 @@ def bwd_pass(wx: torch.Tensor, x_tm: torch.Tensor, h_prev: torch.Tensor,
         raise ValueError("x_tm rows must be contiguous (any time stride)")
     g = 3 * _D_M
     if (wx.shape != (d_in, g) or h_prev.shape != (T, B, _D_M)
-            or dpre_x.shape != (T, B, g) or dpre_h.shape != (T, B, g)):
+            or dg.shape != (T, B, _D_M, 4)):
         raise ValueError("gru_bwd_pass: wx [d_in, 96], h_prev [T, B, 32], "
-                         "dpre_x and dpre_h [T, B, 96]")
+                         "dg [T, B, 32, 4]")
     dev = x_tm.device
-    wx, h_prev = wx.contiguous(), h_prev.contiguous()
-    # dg [T, B, 32, 4]: lane k's dr, dz, dc and dc*r side by side.
-    dg = torch.stack([dpre_x[..., :_D_M], dpre_x[..., _D_M:2 * _D_M],
-                      dpre_x[..., 2 * _D_M:], dpre_h[..., 2 * _D_M:]], -1
-                     ).contiguous()
+    wx, h_prev, dg = wx.contiguous(), h_prev.contiguous(), dg.contiguous()
     rows = _rows_fn()(d_in)
     n_blocks = -(-B // rows)
     dx = torch.empty(T, B, d_in, dtype=x_tm.dtype, device=dev)
@@ -427,6 +463,12 @@ def bwd_pass(wx: torch.Tensor, x_tm: torch.Tensor, h_prev: torch.Tensor,
     return dx, dwx.sum(0), dwh.sum(0), db.sum(0)
 
 
+def _on(x_tm, name):
+    if x_tm.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {x_tm.device}")
+    return x_tm.device.type
+
+
 def gru_scan_bwd(params: GRUParams, x_tm: torch.Tensor,
                  mask_tm: Optional[torch.Tensor], h_seq: torch.Tensor,
                  dh_seq: torch.Tensor, h0: Optional[torch.Tensor] = None,
@@ -437,15 +479,35 @@ def gru_scan_bwd(params: GRUParams, x_tm: torch.Tensor,
     (``gru_scan_tm_bwd_bf16``; same arguments and results) on CPU tensors.
     The weight gradients and dh0 come back in float32, dx (and dscale
     [T, B], after dh0, with a scale_tm) in x's dtype."""
-    if x_tm.device.type == "cpu":
+    if _on(x_tm, "gru_scan_bwd") == "cpu":
         plain = (gru_scan_tm_bwd_bf16 if x_tm.dtype == torch.bfloat16
                  else gru_scan_tm_bwd)
         return plain(params, x_tm, mask_tm, h_seq, dh_seq, h0, scale_tm)
-    if x_tm.device.type != "cuda":
-        raise ValueError(f"gru_scan_bwd runs on cpu or cuda, not "
-                         f"{x_tm.device}")
     return _launch_bwd(params, x_tm, mask_tm, h0, h_seq, dh_seq.contiguous(),
-                       scale_tm)
+                       scale_tm)[0]
+
+
+def bwd_gates(params: GRUParams, x_tm: torch.Tensor,
+              mask_tm: Optional[torch.Tensor], h_seq: torch.Tensor,
+              dh_seq: torch.Tensor, h0: Optional[torch.Tensor] = None,
+              scale_tm: Optional[torch.Tensor] = None,
+              ) -> Tuple[Optional[torch.Tensor], ...]:
+    """K2's recurrence (of whichever form :func:`gru_scan_bwd` runs), seen
+    whole: its gate gradients over all T steps (K2 run in one workspace
+    chunk, on CUDA tensors) or those of the plain sweep
+    ``gru_scan_tm_sweep`` (``_bf16``) on CPU tensors -> (dg [T, B, 32, 4]
+    in x's dtype (:func:`gate_layout`), dh0 in float32, dscale [T, B] in
+    x's dtype or None without a scale_tm)."""
+    if _on(x_tm, "bwd_gates") == "cpu":
+        sweep = (gru_scan_tm_sweep_bf16 if x_tm.dtype == torch.bfloat16
+                 else gru_scan_tm_sweep)
+        dpre_x, dpre_h, _, dh0, dscale = sweep(params, x_tm, mask_tm, h_seq,
+                                               dh_seq, h0, scale_tm)
+        return gate_layout(dpre_x, dpre_h), dh0, dscale
+    out, dg = _launch_bwd(params, x_tm, mask_tm, h0, h_seq,
+                          dh_seq.contiguous(), scale_tm,
+                          t_chunk=x_tm.shape[0])
+    return dg, out[4], out[5] if scale_tm is not None else None
 
 
 class GRUScan(torch.autograd.Function):
@@ -494,9 +556,7 @@ def gru_sequence_tm(params: GRUParams, x_tm: torch.Tensor,
     x_tm may be a leading-axis strided view (``h_seq[period-1::period]`` of
     the layer below): both kernels take the time stride, so nothing is
     copied. Likewise mask_tm and scale_tm."""
-    if x_tm.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"gru_sequence_tm runs on cpu or cuda, not "
-                         f"{x_tm.device}")
+    _on(x_tm, "gru_sequence_tm")
     T, B, _ = x_tm.shape
     if T == 0:
         d_m = params.wh.shape[0]

@@ -230,19 +230,13 @@ def _launch_bwd(w, x_tm, period, bounds, dhs, dhT, t_chunk=None):
     return (dx, dwx.sum(0), dwh.sum(0), db.sum(0), dh0), (dg, hprev)
 
 
-def _on(x_tm, name):
-    if x_tm.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cpu or cuda, not {x_tm.device}")
-    return x_tm.device.type
-
-
 def stride_fwd(params: GRUParams, x_tm: torch.Tensor, period: int,
                h0: Optional[torch.Tensor] = None):
     """The strided scan forward: K3 (K3-bf16 on bfloat16 tensors) on CUDA
     tensors, -> (h_stride, h_T, boundaries for :func:`stride_bwd`);
     ``gru_scan_stride_tm`` (``_bf16``) on CPU tensors, with no
     boundaries (None)."""
-    if _on(x_tm, "stride_fwd") == "cpu":
+    if cuda_gru._on(x_tm, "stride_fwd") == "cpu":
         plain = (gru_scan_stride_tm_bf16 if x_tm.dtype == torch.bfloat16
                  else gru_scan_stride_tm)
         return (*plain(params, x_tm, period, h0), None)
@@ -257,7 +251,7 @@ def stride_bwd(params: GRUParams, x_tm: torch.Tensor, period: int,
     boundaries (which hold h0); ``gru_scan_stride_tm_bwd`` (``_bf16``) on
     CPU tensors, from h0. dhs and dhT may be None (zero). -> (dx in x's
     dtype, dwx, dwh, db, dh0 in float32)."""
-    if _on(x_tm, "stride_bwd") == "cpu":
+    if cuda_gru._on(x_tm, "stride_bwd") == "cpu":
         plain = (gru_scan_stride_tm_bwd_bf16 if x_tm.dtype == torch.bfloat16
                  else gru_scan_stride_tm_bwd)
         return plain(params, x_tm, period, dhs, dhT, h0)
@@ -277,7 +271,7 @@ def stride_bwd_gates(params: GRUParams, x_tm: torch.Tensor, period: int,
     (``_bf16``) on CPU tensors -> (dpre_x = [dr|dz|dc], dpre_h =
     [dr|dz|dc*r] [T, B, 96] and h_prev [T, B, 32] in x's dtype, dh0 in
     float32)."""
-    if _on(x_tm, "stride_bwd_gates") == "cpu":
+    if cuda_gru._on(x_tm, "stride_bwd_gates") == "cpu":
         plain = (gru_scan_stride_tm_sweep_bf16
                  if x_tm.dtype == torch.bfloat16
                  else gru_scan_stride_tm_sweep)
@@ -288,9 +282,7 @@ def stride_bwd_gates(params: GRUParams, x_tm: torch.Tensor, period: int,
         None if dhs is None else dhs.contiguous(),
         None if dhT is None else dhT.contiguous(),
         t_chunk=-(-T // chunk()) * chunk())
-    return (torch.cat([dg[..., 0], dg[..., 1], dg[..., 2]], -1),
-            torch.cat([dg[..., 0], dg[..., 1], dg[..., 3]], -1), hprev,
-            outs[4])
+    return (*cuda_gru.gate_blocks(dg), hprev, outs[4])
 
 
 class GRUStrideScan(torch.autograd.Function):
@@ -330,6 +322,6 @@ def gru_stride_tm(params: GRUParams, x_tm: torch.Tensor, period: int,
     h_stride."""
     if period <= 1:
         return cuda_gru.gru_sequence_tm(params, x_tm)
-    _on(x_tm, "gru_stride_tm")
+    cuda_gru._on(x_tm, "gru_stride_tm")
     return GRUStrideScan.apply(x_tm, None, params.wx, params.wh, params.b,
                                period)

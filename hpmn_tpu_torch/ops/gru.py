@@ -140,17 +140,32 @@ def gru_scan_tm_bwd(params: GRUParams, x_tm: torch.Tensor,
         dscale_t = sum_j dz_s z
 
     and dx_t = [dr|dz|dc] @ wx^T, dwx += x_t^T [dr|dz|dc], dwh += h_prev^T
-    [dr|dz|dc r], db += sum [dr|dz|dc]: those after the sweep, from all
-    its steps' gate gradients (:func:`gru_bwd_pass`)."""
+    [dr|dz|dc r], db += sum [dr|dz|dc]: those after the sweep
+    (:func:`gru_scan_tm_sweep`), from all its steps' gate gradients
+    (:func:`gru_bwd_pass`)."""
+    return _with_pass(params, x_tm, *gru_scan_tm_sweep(
+        params, x_tm, mask_tm, h_seq, dh_seq, h0, scale_tm))
+
+
+def gru_scan_tm_sweep(params: GRUParams, x_tm: torch.Tensor,
+                      mask_tm: Optional[torch.Tensor], h_seq: torch.Tensor,
+                      dh_seq: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                      scale_tm: Optional[torch.Tensor] = None,
+                      ) -> Tuple[torch.Tensor, ...]:
+    """The reverse sweep of :func:`gru_scan_tm_bwd` (the plain version of
+    the recurrence of K2 and K2-scale, csrc/gru_scan_bwd.cu), its arguments
+    -> (dpre_x = [dr|dz|dc], dpre_h = [dr|dz|dc r] [T, B, 3*d_m], h_prev
+    [T, B, d_m], dh0, dscale [T, B] or None)."""
     h0 = x_tm.new_zeros(x_tm.shape[1], params.wh.shape[0]) if h0 is None \
         else h0
     h_prev = torch.cat([h0[None], h_seq[:-1]])  # [T, B, d_m]
-    return _with_pass(params, x_tm, h_prev, *_gate_sweep(
+    dpre_x, dpre_h, dh0, dscale = _gate_sweep(
         params, x_tm, mask_tm, h_prev, lambda t, dh: dh_seq[t] + dh,
-        scale_tm))
+        scale_tm)
+    return dpre_x, dpre_h, h_prev, dh0, dscale
 
 
-def _with_pass(params, x_tm, h_prev, dpre_x, dpre_h, dh0, dscale=None):
+def _with_pass(params, x_tm, dpre_x, dpre_h, h_prev, dh0, dscale=None):
     """A gate sweep's results, then :func:`gru_bwd_pass` on them -> (dx,
     dwx, dwh, db, dh0), and dscale after them when given."""
     out = gru_bwd_pass(x_tm, h_prev, dpre_x, dpre_h, params.wx) + (dh0,)
@@ -301,12 +316,26 @@ def gru_scan_tm_bwd_bf16(params: GRUParams, x_tm: torch.Tensor,
     where the sum runs in f32 and the product's bf16 rounding is elided.
     The weight gradients are f32 sums of bf16 products; rounding them to
     the weights' dtype is the caller's (``cuda_gru.GRUScan``)."""
+    return _with_pass(params, x_tm, *gru_scan_tm_sweep_bf16(
+        params, x_tm, mask_tm, h_seq, dh_seq, h0, scale_tm))
+
+
+def gru_scan_tm_sweep_bf16(params: GRUParams, x_tm: torch.Tensor,
+                           mask_tm: Optional[torch.Tensor],
+                           h_seq: torch.Tensor, dh_seq: torch.Tensor,
+                           h0: Optional[torch.Tensor] = None,
+                           scale_tm: Optional[torch.Tensor] = None,
+                           ) -> Tuple[torch.Tensor, ...]:
+    """:func:`gru_scan_tm_sweep` in the bf16 chain (the plain version of the
+    recurrence of K2-bf16 and K2-scale-bf16): bf16 inputs -> (dpre_x,
+    dpre_h, h_prev bf16, dh0 f32, dscale bf16 or None)."""
     h0 = x_tm.new_zeros(x_tm.shape[1], params.wh.shape[0]) if h0 is None \
         else h0
     h_prev = torch.cat([h0[None], h_seq[:-1]])  # [T, B, d_m]
-    return _with_pass(params, x_tm, h_prev, *_gate_sweep_bf16(
+    dpre_x, dpre_h, dh0, dscale = _gate_sweep_bf16(
         params, x_tm, mask_tm, h_prev,
-        lambda t, dh: (dh_seq[t].float() + dh).bfloat16(), scale_tm))
+        lambda t, dh: (dh_seq[t].float() + dh).bfloat16(), scale_tm)
+    return dpre_x, dpre_h, h_prev, dh0, dscale
 
 
 def _gate_sweep_bf16(params, x_tm, mask_tm, h_prev, cotangent,
@@ -479,9 +508,8 @@ def gru_scan_stride_tm_bwd(params: GRUParams, x_tm: torch.Tensor,
     [T // period, B, d_m] and dhT [B, d_m] the outputs' cotangents (None:
     zero) -> (dx, dwx, dwh, db, dh0): :func:`gru_scan_stride_tm_sweep`,
     then :func:`gru_bwd_pass`."""
-    dpre_x, dpre_h, h_prev, dh0 = gru_scan_stride_tm_sweep(
-        params, x_tm, period, dhs, dhT, h0)
-    return _with_pass(params, x_tm, h_prev, dpre_x, dpre_h, dh0)
+    return _with_pass(params, x_tm, *gru_scan_stride_tm_sweep(
+        params, x_tm, period, dhs, dhT, h0))
 
 
 def gru_scan_stride_tm_bf16(params: GRUParams, x_tm: torch.Tensor,
@@ -522,9 +550,8 @@ def gru_scan_stride_tm_bwd_bf16(params: GRUParams, x_tm: torch.Tensor,
     """:func:`gru_scan_stride_tm_bwd` in the bf16 chain: bf16 inputs -> (dx
     bf16, dwx, dwh, db, dh0 f32): :func:`gru_scan_stride_tm_sweep_bf16`,
     then :func:`gru_bwd_pass`."""
-    dpre_x, dpre_h, h_prev, dh0 = gru_scan_stride_tm_sweep_bf16(
-        params, x_tm, period, dhs, dhT, h0)
-    return _with_pass(params, x_tm, h_prev, dpre_x, dpre_h, dh0)
+    return _with_pass(params, x_tm, *gru_scan_stride_tm_sweep_bf16(
+        params, x_tm, period, dhs, dhT, h0))
 
 
 def gru_sequence(params: GRUParams, x: torch.Tensor,

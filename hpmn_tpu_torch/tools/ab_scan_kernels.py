@@ -7,14 +7,15 @@ events.
 
     git archive <commit> | tar -x -C build/other      # a gitignored place
     python3 -m hpmn_tpu_torch.tools.ab_scan_kernels \\
-        build/other/hpmn_tpu_torch/csrc [float32|bfloat16] [D_IN]
+        build/other/hpmn_tpu_torch/csrc [float32|bfloat16] [D_IN] [T]
 
 Inputs: the xlong_hpmn layer-0 shape (T = 1000, B = 512, d_in = 32; D_IN,
-1 to 96, sets another d_in), the port's seeded GRU init, random x and dh_seq, no mask and a left-padded
-mask; for the strided kernels period 3 and random cotangents of the
-strided rows and of h_T; for the AUGRU kernels a scale in [0, 1), with
-and without the mask. Exits nonzero if an output differs or there is no
-card.
+1 to 96, sets another d_in, and T another length: 300 is taobao_dien's,
+where the AUGRU kernels run), the port's seeded GRU init, random x and
+dh_seq, no mask and a left-padded mask; for the strided kernels period 3
+and random cotangents of the strided rows and of h_T; for the AUGRU
+kernels a scale in [0, 1), with and without the mask. Exits nonzero if an
+output differs or there is no card.
 
 A tree whose K1 (f32, no scale) predates the two-kernel form has no
 ``hpmn_gru_scan_fwd_ws``; its K1 is then called through its one-kernel
@@ -27,10 +28,14 @@ kernel): its ``hpmn_gru_scan_fwd_bf16``; and a tree without
 ``hpmn_gru_scan_stride_bwd`` and ``hpmn_gru_scan_stride_bwd_bf16``; and a
 tree without ``hpmn_gru_scan_stride_fwd_ws`` (K3 and K3-bf16 as one
 kernel): its ``hpmn_gru_scan_stride_fwd`` and
-``hpmn_gru_scan_stride_fwd_bf16``. This tree's K1 and K2 (or K1-bf16 and
-K2-bf16), and K3 and K4 (K3-bf16 and K4-bf16), in the default chunks
-(``cuda_gru.WORKSPACE_BYTES``) are also held, bit for bit, to themselves
-in one chunk of all T steps.
+``hpmn_gru_scan_stride_fwd_bf16``; and a tree without
+``hpmn_gru_scan_bwd_scale_ws`` (K2-scale and K2-scale-bf16 as one kernel):
+its ``hpmn_gru_scan_bwd_scale`` and ``hpmn_gru_scan_bwd_scale_bf16``,
+through :func:`one_kernel_k2_scale` in ``cuda_gru._k2``'s place for the
+scaled calls. This tree's K1 and K2 (or K1-bf16 and K2-bf16), K3 and K4
+(K3-bf16 and K4-bf16), and K2-scale (K2-scale-bf16), dscale included, in
+the default chunks (``cuda_gru.WORKSPACE_BYTES``) are also held, bit for
+bit, to themselves in one chunk of all T steps.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ import torch
 from ..ops import _build, cuda_gru, cuda_gru_stride
 from ..ops.gru import GRUParams
 
-T, B, D_IN = 1000, 512, 32
+T_DEFAULT, B, D_IN = 1000, 512, 32
 PERIOD = 3
 REPS = 20
 _CACHES = (cuda_gru._scale_fn, cuda_gru._ws_fn, cuda_gru._proj_fn,
@@ -112,10 +117,11 @@ def one_kernel_k4(w, x_tm, period, bounds, dhs, dhT, outs, stream,
     return code, None, None
 
 
-def _one_kernel_k2(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream) -> int:
+def _one_kernel_k2(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream,
+                   scale_tm=None, t_chunk=None):
     """K2 (K2-bf16) of a tree without the two-kernel form: its
     hpmn_gru_scan_bwd (hpmn_gru_scan_bwd_bf16); outs = (dx, dh0, dwx, dwh,
-    db)."""
+    db) -> (the cudaError_t code, None): no workspace."""
     bf16 = x_tm.dtype == torch.bfloat16
     fn = getattr(_build.load_library(),
                  "hpmn_gru_scan_bwd" + ("_bf16" if bf16 else ""))
@@ -124,11 +130,37 @@ def _one_kernel_k2(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream) -> int:
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     T, B, d_in = x_tm.shape
-    return fn(x_tm.data_ptr(), x_tm.stride(0), cuda_gru._ptr(mask_tm),
+    code = fn(x_tm.data_ptr(), x_tm.stride(0), cuda_gru._ptr(mask_tm),
               cuda_gru._tstride(mask_tm), w.wx.data_ptr(), w.wh.data_ptr(),
               w.b.data_ptr(), cuda_gru._ptr(h0), hseq.data_ptr(),
               dhseq.data_ptr(), *(t.data_ptr() for t in outs), T, B, d_in,
               stream)
+    return code, None
+
+
+def one_kernel_k2_scale(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream,
+                        scale_tm, t_chunk=None):
+    """K2-scale (K2-scale-bf16) of a tree without its two-kernel form: its
+    hpmn_gru_scan_bwd_scale (hpmn_gru_scan_bwd_scale_bf16), in
+    ``cuda_gru._k2``'s place; outs = (dx, dh0, dwx, dwh, db, dscale) ->
+    (the cudaError_t code, None): no workspace."""
+    bf16 = x_tm.dtype == torch.bfloat16
+    fn = getattr(_build.load_library(),
+                 "hpmn_gru_scan_bwd_scale" + ("_bf16" if bf16 else ""))
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 3
+                   + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    T, B, d_in = x_tm.shape
+    dx, dh0, dwx, dwh, db, dscale = outs
+    code = fn(x_tm.data_ptr(), x_tm.stride(0), cuda_gru._ptr(mask_tm),
+              cuda_gru._tstride(mask_tm), scale_tm.data_ptr(),
+              scale_tm.stride(0), w.wx.data_ptr(), w.wh.data_ptr(),
+              w.b.data_ptr(), cuda_gru._ptr(h0), hseq.data_ptr(),
+              dhseq.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+              dh0.data_ptr(), dwx.data_ptr(), dwh.data_ptr(), db.data_ptr(),
+              T, B, d_in, stream)
+    return code, None
 
 
 @contextlib.contextmanager
@@ -143,8 +175,16 @@ def _kernels_of(csrc: str):
     if not all(two.values()):
         cuda_gru._k1 = lambda w, x_tm, *a: (k1 if two[x_tm.dtype]
                                             else _one_kernel_k1)(w, x_tm, *a)
-    if not _has(csrc, "gru_scan_bwd.cu", "hpmn_gru_scan_bwd_ws"):
-        cuda_gru._k2 = _one_kernel_k2
+    k2_two = _has(csrc, "gru_scan_bwd.cu", "hpmn_gru_scan_bwd_ws")
+    k2s_two = _has(csrc, "gru_scan_bwd.cu", "hpmn_gru_scan_bwd_scale_ws")
+    if not (k2_two and k2s_two):
+        def routed_k2(*args, scale_tm=None, t_chunk=None):
+            if scale_tm is None:
+                fn = k2 if k2_two else _one_kernel_k2
+            else:
+                fn = k2 if k2s_two else one_kernel_k2_scale
+            return fn(*args, scale_tm=scale_tm, t_chunk=t_chunk)
+        cuda_gru._k2 = routed_k2
     if (_has_stride(csrc) and not _has(csrc, "gru_scan_stride_bwd.cu",
                                        "hpmn_gru_scan_stride_bwd_ws")):
         cuda_gru_stride._k4 = one_kernel_k4
@@ -190,16 +230,18 @@ def _ms(fn) -> float:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    if (len(argv) not in (1, 2, 3) or not os.path.isdir(argv[0])
+    if (len(argv) not in (1, 2, 3, 4) or not os.path.isdir(argv[0])
             or argv[1:] and argv[1] not in dtypes
             or argv[2:] and not (argv[2].isdigit()
-                                 and 1 <= int(argv[2]) <= 96)):
+                                 and 1 <= int(argv[2]) <= 96)
+            or argv[3:] and not (argv[3].isdigit() and int(argv[3]) >= 1)):
         print("usage: python3 -m hpmn_tpu_torch.tools.ab_scan_kernels "
-              "OTHER_TREE/hpmn_tpu_torch/csrc [float32|bfloat16] [D_IN]")
+              "OTHER_TREE/hpmn_tpu_torch/csrc [float32|bfloat16] [D_IN] [T]")
         return 2
     name = argv[1] if argv[1:] else "float32"
     dtype = dtypes[name]
     d_in = int(argv[2]) if argv[2:] else D_IN
+    T = int(argv[3]) if argv[3:] else T_DEFAULT
     if not torch.cuda.is_available():
         print("FAIL no CUDA device")
         return 1
@@ -238,10 +280,10 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             outs[tree] = res
     same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
-    # This tree's K1 and K2 (and K3 and K4) in one chunk of all T steps
-    # against their default chunks (the no-mask and masked outputs above):
-    # a cap that holds K1's (and K3's) f32 workspace, K2's in x's dtype and
-    # K4's three.
+    # This tree's K1 and K2 (and K3 and K4, and the AUGRU forms) in one
+    # chunk of all T steps against their default chunks (the no-mask and
+    # masked outputs above): a cap that holds K1's (and K3's) f32
+    # workspace, K2's (and K2-scale's) in x's dtype and K4's three.
     cap = cuda_gru.WORKSPACE_BYTES
     k1_chunks = -(-T // cuda_gru.workspace_steps(T, B))
     chunks = -(-T // cuda_gru.bwd_workspace_steps(T, B, dtype))
@@ -259,6 +301,9 @@ def main(argv=None) -> int:
             hs, hT, bounds = cuda_gru_stride.stride_fwd(p, x, PERIOD)
             one += [hs, hT, bounds, *cuda_gru_stride.stride_bwd(
                 p, x, PERIOD, bounds, dhs, dhT)]
+        for m in (None, mask) if scaled else ():
+            h = cuda_gru.gru_sequence_tm(p, x, m, scale_tm=a)[0]
+            one += [h, *cuda_gru.gru_scan_bwd(p, x, m, h, dh, scale_tm=a)]
         torch.cuda.synchronize()
     finally:
         cuda_gru.WORKSPACE_BYTES = cap
@@ -273,6 +318,7 @@ def main(argv=None) -> int:
           f"the same: {same} | this tree's K1 in {k1_chunks} chunks, K2 "
           f"in {chunks}"
           f"{f', K3 in {k1_chunks} and K4 in {k4_chunks}' if strided else ''}"
+          f"{f', K2-scale in {chunks}' if scaled else ''}"
           f", and each in one: bit for bit the same: {one_chunk}")
     h = outs["this"][0]
     bounds = outs["this"][14] if strided else None
@@ -289,12 +335,16 @@ def main(argv=None) -> int:
                       f"backward (K4) {st_bwd:.4f} ms (period {PERIOD})")
             if scaled:
                 h_a = cuda_gru.gru_sequence_tm(p, x, None, scale_tm=a)[0]
+                h_am = cuda_gru.gru_sequence_tm(p, x, mask, scale_tm=a)[0]
                 sc_fwd = _ms(lambda: cuda_gru.gru_sequence_tm(
                     p, x, None, scale_tm=a))
                 sc_bwd = _ms(lambda: cuda_gru.gru_scan_bwd(
                     p, x, None, h_a, dh, scale_tm=a))
+                sc_bwd_m = _ms(lambda: cuda_gru.gru_scan_bwd(
+                    p, x, mask, h_am, dh, scale_tm=a))
                 st += (f" | AUGRU forward {sc_fwd:.4f} ms | AUGRU backward "
-                       f"{sc_bwd:.4f} ms")
+                       f"(K2-scale) {sc_bwd:.4f} ms, masked {sc_bwd_m:.4f} "
+                       f"ms")
         print(f"ab_scan_kernels: {tree} ({trees[tree]}): forward {fwd:.4f} "
               f"ms | backward {bwd:.4f} ms{st} (mean of {REPS}, no mask, "
               f"{name}, d_in={d_in})")

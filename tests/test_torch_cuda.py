@@ -55,7 +55,12 @@ partial sums (4, or 2 at d_in > 64).
 
 The AUGRU forms (K1-scale, K2-scale and their bf16 forms) are held to the
 plain scaled scans at the tolerances of their unscaled forms, dscale
-among the backward's outputs; the DIEN step's kernel path to its plain
+among the backward's outputs. K2-scale and K2-scale-bf16 run K2's two
+kernels (the recurrence with the scale, which also writes dscale, then
+the pass): over workspace chunks of 1, 7 and 64 steps they equal one
+chunk bit for bit, dscale included, and the recurrence's gate gradients,
+dh0 and dscale (``cuda_gru.bwd_gates``) are held to the plain sweep at
+the backward's tolerances. The DIEN step's kernel path to its plain
 path (``plain=True``) as the hpmn steps; the DIEN HistoryStore on the card
 to the same store on the CPU at 1e-4 (scores through two scans)."""
 
@@ -75,7 +80,8 @@ from hpmn_tpu_torch.ops.gru import (GRUParams, GRUWeights, gru_bwd_pass,
                                     gru_scan_stride_tm_bwd,
                                     gru_scan_stride_tm_bwd_bf16, gru_scan_tm,
                                     gru_scan_tm_bf16, gru_scan_tm_bwd,
-                                    gru_scan_tm_bwd_bf16)
+                                    gru_scan_tm_bwd_bf16, gru_scan_tm_sweep,
+                                    gru_scan_tm_sweep_bf16)
 from hpmn_tpu_torch.serving.history import HistoryStore
 from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
 
@@ -884,6 +890,79 @@ def test_scale_kernels_match_plain(dev, T, B, strided, masked, dtype):
         assert u.shape == v.shape and u.dtype == v.dtype, name
         assert torch.isfinite(u.float()).all(), name
         assert _rel_err(u.float(), v.float()) <= tol_g, name
+
+
+def _scale_case(T, B, masked, dt, dev, seed=0):
+    """AUGRU weights, x and the scale on strided time views, a mask, an h0
+    for odd B, dh_seq, and K1-scale's h_seq."""
+    p = _gru(32, dev)
+    p = GRUWeights(p.wx.to(dt), p.wh.to(dt), p.b.to(dt))
+    g = torch.Generator().manual_seed(T + B + masked + seed)
+    x = torch.randn(3 * T, B, 32, generator=g).to(dev, dt)[1::3]
+    a = torch.rand(2 * T, B, generator=g).to(dev, dt)[1::2]
+    mask = _mask(T, B, dev, seed=T).to(dt) if masked else None
+    h0 = torch.randn(B, 32, generator=g).to(dev, dt) if B % 2 else None
+    dh_seq = torch.randn(T, B, 32, generator=g).to(dev, dt)
+    h_seq = cuda_gru.gru_sequence_tm(p, x, mask, h0, scale_tm=a)[0]
+    return p, x, a, mask, h0, dh_seq, h_seq
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("steps", [1, 7, 64])
+@pytest.mark.parametrize("T", [300, 1000])
+def test_scale_bwd_chunks_match_one_chunk(dev, monkeypatch, T, steps,
+                                          masked, dtype):
+    """K2-scale (K2-scale-bf16) over workspace chunks of `steps` steps (the
+    one at t = 0 shorter) == K2-scale over one chunk, bit for bit, every
+    output and dscale, on strided time views of x and the scale, from an
+    h0."""
+    p, x, a, mask, h0, dh_seq, h_seq = _scale_case(T, 5, masked, dtype, dev)
+    es = 2 if dtype == BF16 else 4
+    monkeypatch.setattr(cuda_gru, "WORKSPACE_BYTES", T * 5 * 128 * es)
+    assert cuda_gru.bwd_workspace_steps(T, 5, dtype) == T
+    one = cuda_gru.gru_scan_bwd(p, x, mask, h_seq, dh_seq, h0, scale_tm=a)
+    monkeypatch.setattr(cuda_gru, "WORKSPACE_BYTES", steps * 5 * 128 * es)
+    assert cuda_gru.bwd_workspace_steps(T, 5, dtype) == steps
+    counter = ("bwd_launches_scale_bf16" if dtype == BF16
+               else "bwd_launches_scale")
+    n = getattr(cuda_gru, counter)
+    chunked = cuda_gru.gru_scan_bwd(p, x, mask, h_seq, dh_seq, h0,
+                                    scale_tm=a)
+    torch.cuda.synchronize()
+    assert getattr(cuda_gru, counter) == n + 1
+    assert len(chunked) == len(one) == 6
+    for name, u, v in zip(("dx", "dwx", "dwh", "db", "dh0", "dscale"),
+                          chunked, one):
+        assert torch.equal(u, v), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("T,B", [(37, 33), (300, 512)])
+def test_scale_rec_gates_match_plain_sweep(dev, T, B, masked, dtype):
+    """K2-scale's (K2-scale-bf16's) recurrence, seen whole (bwd_gates):
+    its gate gradients dg, dh0 and dscale against the plain sweep
+    gru_scan_tm_sweep (_bf16) within TOL_GRAD (TOL_GRAD_BF16) of their max
+    abs; the pass on the kernel's dg against gru_bwd_pass likewise."""
+    p, x, a, mask, h0, dh_seq, h_seq = _scale_case(T, B, masked, dtype, dev)
+    bf = dtype == BF16
+    counter = "bwd_launches_scale_bf16" if bf else "bwd_launches_scale"
+    n = getattr(cuda_gru, counter)
+    got = cuda_gru.bwd_gates(p, x, mask, h_seq, dh_seq, h0, scale_tm=a)
+    sweep = gru_scan_tm_sweep_bf16 if bf else gru_scan_tm_sweep
+    dpx, dph, h_prev, dh0, dscale = sweep(p, x, mask, h_seq, dh_seq, h0, a)
+    want = (cuda_gru.gate_layout(dpx, dph), dh0, dscale)
+    got_pass = cuda_gru.bwd_pass_dg(p.wx, x, h_prev, got[0])
+    want_pass = gru_bwd_pass(x, h_prev, *cuda_gru.gate_blocks(got[0]), p.wx)
+    torch.cuda.synchronize()
+    assert getattr(cuda_gru, counter) == n + 1
+    tol = TOL_GRAD_BF16 if bf else TOL_GRAD
+    for name, u, v in zip(("dg", "dh0", "dscale", "dx", "dwx", "dwh", "db"),
+                          got + got_pass, want + want_pass):
+        assert u.shape == v.shape and u.dtype == v.dtype, name
+        assert torch.isfinite(u.float()).all(), name
+        assert _rel_err(u.float(), v.float()) <= tol, name
 
 
 def test_scale_kernels_refuse_what_they_do_not_take(dev):
