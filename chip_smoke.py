@@ -29,9 +29,11 @@ before the last line):
    plain sweep's, and its h_prev against the forward's states bit for
    bit; the AUGRU scan kernels
    (K1-scale, K2-scale and their bf16 forms) at DIEN's shape, before each
-   K2-scale and K2-scale-bf16 line its recurrence's gate gradients and
-   dscale against the plain sweep's, and its second kernel's (the pass's)
-   time and share of its time.
+   K1-scale and K1-scale-bf16 line its input projection alone (its first
+   kernel, K1's), against the plain projection, with its time and share of
+   K1-scale's, and before each K2-scale and K2-scale-bf16 line its
+   recurrence's gate gradients and dscale against the plain sweep's, and
+   its second kernel's (the pass's) time and share of its time.
 4. serving: a ``UserMemoryStore`` on the card at the full width of
    xlong_hpmn (random seeded weights) ingests histories, takes updates,
    predicts and ranks; launch counters prove the path ran the kernels, and
@@ -872,6 +874,7 @@ def main():
     sc_abs = dict.fromkeys(sc_rows, 0.0)
     sc_rec_err = {"bwd": 0.0, "bwd_bf16": 0.0}  # the recurrence alone
     sc_pass = {}  # (name, masked) -> the pass's ms
+    sc_proj = {}  # fwd name -> (the projection's err, its ms)
     for bf in (False, True):
         sfx = "_bf16" if bf else ""
         dt = torch.bfloat16 if bf else torch.float32
@@ -883,6 +886,32 @@ def main():
         p_fwd, p_bwd, p_sweep = (
             (gru_scan_tm_bf16, gru_scan_tm_bwd_bf16, gru_scan_tm_sweep_bf16)
             if bf else (gru_scan_tm, gru_scan_tm_bwd, gru_scan_tm_sweep))
+        # K1-scale's first kernel alone (K1's projection) on the AUGRU's
+        # x and weights, against float64 sums: in f32 every block, in bf16
+        # the r and z blocks (the c block within bf16_reach of its sum).
+        xp_k = cuda_gru.input_proj(w, xs)
+        xw64 = xs.double() @ w.wx.double()
+        torch.cuda.synchronize()
+        check(torch.isfinite(xp_k).all().item(), f"K1-scale{sfx}'s "
+              "projection non-finite")
+        if bf:
+            want_c = xw64[..., 64:] + w.b[64:].double()
+            reach = bf16_reach(xp_k[..., 64:], want_c,
+                               TOL_PROJ * want_c.abs().max())[1]
+            check(reach, f"K1-scale{sfx}'s projection: a c value off the "
+                  "bf16 rounding of the float64 sum by more than the f32 "
+                  "sum error")
+            del want_c
+            xp_k, xw64 = xp_k[..., :64], xw64[..., :64]
+        else:
+            xw64 = xw64 + w.b.double()
+        sp_err = ((xp_k.double() - xw64).abs().max()
+                  / xw64.abs().max()).item()
+        check(sp_err <= TOL_PROJ, f"K1-scale{sfx}'s projection: max err over"
+              f" max abs {sp_err:.3e} > {TOL_PROJ}")
+        del xp_k, xw64
+        sc_proj["fwd" + sfx] = (sp_err, cuda_ms(
+            lambda: cuda_gru.input_proj(w, xs), 10))
         for masked in (False, True):
             mask = left_pad_mask(T_d, B_SCAN).to(dt) if masked else None
             h_k, hT_k = cuda_gru.gru_sequence_tm(w, xs, mask, scale_tm=a_s)
@@ -902,6 +931,14 @@ def main():
             name = "fwd" + sfx
             sc_err[name] = sc_abs[name] = max(sc_err[name], err)
             sc_rows[name].append((masked, err, ms, plain_ms, b_ms, b_by))
+            sp_err, sp_ms = sc_proj[name]
+            print(f"phase 3 kernel gru_input_proj{sfx} (K1-scale"
+                  f"{sfx.replace('_', '-')}'s first kernel) T={T_d} "
+                  f"B={B_SCAN} d_in=32: max err over max abs {sp_err:.3e} "
+                  f"against the plain projection in float64 (tol {TOL_PROJ})"
+                  f" | kernel {sp_ms:.4f} ms, {100 * sp_ms / ms:.1f}% of "
+                  f"K1-scale{sfx.replace('_', '-')}'s {ms:.4f} ms "
+                  f"(mask={masked})", flush=True)
             print(f"phase 3 kernel gru_scan_fwd_scale{sfx} T={T_d} B={B_SCAN}"
                   f" d_in=32 mask={masked}: max_abs_err {err:.3e} (tol "
                   f"{tol_h}) | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms |"
@@ -1251,33 +1288,39 @@ def main():
                        and not getattr(a, "is_user_annotation", False)
                        and a.self_device_time_total > 0), reverse=True)
         dev_ms = sum(t for t, _, _ in kern) / 1e3 / n
-        # K1 and K1-bf16 are two kernels: the projection and the
-        # recurrence (gru_scan_fwd_xp_kernel with DenseOut); K3 and K3-bf16
-        # the same two (StrideOut); K2, K2-scale and their bf16 forms three:
-        # the recurrence (gru_scan_bwd_rec_kernel, its template argument
-        # kScale false or true), the pass and the partials; K4 and K4-bf16
-        # four: K1's projection, their recurrence, K2's pass and partials.
-        # The stream type tells the dtypes apart. One step may run several
-        # families on the same kernels (a DIEN step runs K2 and K2-scale; a
-        # strided step runs the projection for K3 and K4), so each launch
-        # counts for a recurrence by its place on the stream: a projection
-        # for the recurrence that follows it, which reads its workspace; a
-        # pass or a partials launch for the backward recurrence before it,
-        # whose gate gradients it reads.
-        def dev_ms_of(*parts, bf16=None):
-            return sum(t for t, _, name in kern
-                       if all(part in name for part in parts)
-                       and (bf16 is None or ("bfloat16" in name) == bf16)
-                       ) / 1e3 / n
+        # Every form of K1 (K1, K1-scale and their bf16 forms) is two
+        # kernels: the projection and the recurrence
+        # (gru_scan_fwd_xp_kernel with DenseOut, its last template argument
+        # kScale false or true); K3 and K3-bf16 the same two (StrideOut);
+        # K2, K2-scale and their bf16 forms three: the recurrence
+        # (gru_scan_bwd_rec_kernel, its template argument kScale false or
+        # true), the pass and the partials; K4 and K4-bf16 four: K1's
+        # projection, their recurrence, K2's pass and partials. The stream
+        # type tells the dtypes apart. One step may run several families
+        # on the same kernels (a DIEN step runs K1 and K1-scale, K2 and
+        # K2-scale; a strided step runs the projection for K3 and K4), so
+        # each launch counts for a recurrence by its place on the stream: a
+        # projection for the recurrence that follows it, which reads its
+        # workspace; a pass or a partials launch for the backward
+        # recurrence before it, whose gate gradients it reads.
+        def fwd_family(name):
+            """K1, K1-scale or K3, from a forward recurrence's name."""
+            if "StrideOut" in name:
+                return "K3"
+            return "K1-scale" if ", true>" in name else "K1"
 
-        proj = {}  # (K1, K3 or K4, bf16) -> device ms per unit
+        proj, rec = {}, {}  # (K1, K1-scale, K3 or K4, bf16) -> ms per unit
+        for t, _, name in kern:
+            if "gru_scan_fwd_xp_kernel" in name:
+                key = (fwd_family(name), "bfloat16" in name)
+                rec[key] = rec.get(key, 0.0) + t / 1e3 / n
         owner = None
         on_stream = sorted((e for e in prof.events()
                             if e.device_type == DeviceType.CUDA),
                            key=lambda e: e.time_range.start)
         for e in reversed(on_stream):
             if "gru_scan_fwd_xp_kernel" in e.name:
-                owner = "K3" if "StrideOut" in e.name else "K1"
+                owner = fwd_family(e.name)
             elif "gru_scan_stride_bwd_rec_kernel" in e.name:
                 owner = "K4"
             elif "input_proj_kernel" in e.name and owner is not None:
@@ -1302,6 +1345,16 @@ def main():
                 bwd[owner, part] = (bwd.get((owner, part), 0.0)
                                     + e.time_range.elapsed_us() / 1e3 / n)
 
+        def fwd_split(fam_):
+            """A forward family's projection + recurrence, f32 and bf16,
+            printed."""
+            return f"{fam_} " + ", ".join(
+                f"{pr + rc:.3f} = {pr:.3f} + {rc:.3f} "
+                f"{'bf16' if b else 'f32'}"
+                for b in (False, True)
+                for pr, rc in [(proj.get((fam_, b), 0.0),
+                                rec.get((fam_, b), 0.0))])
+
         def bwd_split(fam_):
             """A backward family's recurrence, pass and partials, printed."""
             parts = [bwd.get((fam_, p_), 0.0)
@@ -1309,28 +1362,17 @@ def main():
             return f"{fam_} {sum(parts):.3f}: " + ", ".join(
                 f"{t:.3f}" for t in parts)
 
-        def fam(f):
-            """f(bf16) for f32 and bf16, printed."""
-            return f"{f(False):.3f} f32, {f(True):.3f} bf16"
-
-        xp_rec = "gru_scan_fwd_xp_kernel"
-        k3_fwd = sum(proj.get(("K3", b), 0.0)
-                     + dev_ms_of(xp_rec, "StrideOut", bf16=b)
-                     for b in (False, True))
         if dev_ms > 0:
             top = ", ".join(f"{kernel_label(name)} {t / 1e3 / n:.3f} ms "
                             f"({c / n:g}/{unit})" for t, c, name in kern[:10])
             print(f"phase {phase} profile: device kernel time {dev_ms:.3f} "
                   f"ms per {unit} of {wall_ms:.3f} ms wall: busy "
                   f"{dev_ms / wall_ms:.1%}, idle {1 - dev_ms / wall_ms:.1%} "
-                  f"| projection K1 "
-                  f"{fam(lambda b: proj.get(('K1', b), 0.0))}, K3 "
-                  f"{fam(lambda b: proj.get(('K3', b), 0.0))}, K4 "
-                  f"{fam(lambda b: proj.get(('K4', b), 0.0))} | recurrence "
-                  f"K1 {fam(lambda b: dev_ms_of(xp_rec, 'DenseOut', bf16=b))}"
-                  f", K3 {fam(lambda b: dev_ms_of(xp_rec, 'StrideOut', bf16=b))}"
-                  f" | strided forward (K3: projection and recurrence) "
-                  f"{k3_fwd:.3f} | backward, recurrence, pass, partials: "
+                  f"| forward, projection + recurrence: {fwd_split('K1')}; "
+                  f"{fwd_split('K1-scale')}; {fwd_split('K3')} | K4's "
+                  f"projection {proj.get(('K4', False), 0.0):.3f} f32, "
+                  f"{proj.get(('K4', True), 0.0):.3f} bf16 | backward, "
+                  f"recurrence, pass, partials: "
                   f"{bwd_split('K2')}; {bwd_split('K2-scale')}; "
                   f"{bwd_split('K4')} | top: {top}", flush=True)
         else:
@@ -1651,7 +1693,7 @@ def main():
               (g[3], g[4], g[5], g[6], g[7]), gru_err,
               {"serving": launches_gru, "training": train_launches[0],
                "training_dien": fd[0], "serving_dien": serve_launches[0]},
-              sources=[cuda_gru.PROJ_SOURCE, cuda_gru.SOURCE],
+              sources=list(cuda_gru.FWD_SOURCES),
               projection_ms=proj_rows[0][2],
               projection_max_err_over_max_abs=proj_err_max),
         entry("gru_scan_bwd", cuda_gru.BWD_SOURCE, cuda_gru.BWD_REPLACES,
@@ -1670,7 +1712,7 @@ def main():
               (g16[3], g16[4], g16[5], g16[6], g16[7]), bf_err,
               {"training_bf16": bf16_launches[2],
                "training_dien_bf16": bd[2]},
-              sources=[cuda_gru.PROJ_SOURCE, cuda_gru.SOURCE_BF16],
+              sources=list(cuda_gru.FWD_SOURCES),
               projection_ms=proj16_rows[0][3],
               projection_max_err_over_max_abs=proj16_err_max,
               projection_c_share_off_rounding=proj16_off_max,
@@ -1724,7 +1766,11 @@ def main():
                     "sources": list(cuda_gru.BWD_SOURCES),
                     "pass_ms": sc_pass[name, row[0]],
                     "recurrence_max_err_over_max_abs": sc_rec_err[name]}
-                   if "bwd" in name else {}), masked=row[0])
+                   if "bwd" in name else
+                   {"sources": list(cuda_gru.FWD_SOURCES),
+                    "projection_ms": sc_proj[name][1],
+                    "projection_max_err_over_max_abs": sc_proj[name][0]}),
+                masked=row[0])
           for idx, name in enumerate(("fwd", "bwd", "fwd_bf16", "bwd_bf16"))
           for row in [sc_rows[name][0 if "bf16" in name else 1]]),
     ]}), flush=True)

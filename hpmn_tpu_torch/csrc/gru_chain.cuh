@@ -38,7 +38,8 @@ constexpr int kG = 3 * kDm;  // the r, z and c blocks
 constexpr int kMaxChunks = 3;  // d_in <= 96: x_t in up to three 32-chunks
 constexpr unsigned kFull = 0xffffffffu;
 
-// K1's and K1-bf16's input projection into the f32 workspace xp [T, B, 96]
+// The input projection of K1, K1-scale, K3 and K4 (and of their bf16
+// forms) into the f32 workspace xp [T, B, 96]
 // (x at time stride x_tstride, rows contiguous; S is float or
 // __nv_bfloat16), each output an fmaf chain from 0 over k = 0 ... d_in-1:
 // the bits of project()'s x part. In f32 every block then gets + b (xp =
@@ -117,10 +118,6 @@ __device__ __forceinline__ float to_f(B v) { return __bfloat162float(v); }
 __device__ __forceinline__ B mul_b(B a, B b) { return __hmul_rn(a, b); }
 __device__ __forceinline__ B add_b(B a, B b) { return __hadd_rn(a, b); }
 __device__ __forceinline__ B sub_b(B a, B b) { return __hsub_rn(a, b); }
-// A mask element as B (from an f32 stream: rounded; the f32 kernels never
-// use it).
-__device__ __forceinline__ B load_b(const float* p) { return to_b(*p); }
-__device__ __forceinline__ B load_b(const __nv_bfloat16* p) { return *p; }
 __device__ __forceinline__ B half_b() { return __ushort_as_bfloat16(0x3F00); }
 __device__ __forceinline__ B one_b() { return __ushort_as_bfloat16(0x3F80); }
 

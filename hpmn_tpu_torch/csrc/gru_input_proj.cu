@@ -1,11 +1,12 @@
-// K1's and K1-bf16's input projection for Hopper (sm_90a): xp[t, b, :] =
-// x[t, b, :] @ wx (+ b) into an f32 workspace [T, B, 96], the half of the
-// per-step work that does not depend on h, taken out of the recurrence
-// (gru_scan_fwd.cu).
+// The input projection of K1, K1-scale and their bf16 forms for Hopper
+// (sm_90a): xp[t, b, :] = x[t, b, :] @ wx (+ b) into an f32 workspace
+// [T, B, 96], the half of the per-step work that does not depend on h,
+// taken out of the recurrence (gru_scan_fwd.cu).
 //
 // Replaces, with the recurrence it feeds, hpmn_tpu/ops/pallas_gru.py::
-// _fwd_kernel with has_scale=False, in f32 (K1) and with dtype=bfloat16
-// (K1-bf16), whose x @ wx4 the TPU kernel computes inside its time loop.
+// _fwd_kernel, with and without has_scale, in f32 (K1, K1-scale) and with
+// dtype=bfloat16 (K1-bf16, K1-scale-bf16), whose x @ wx4 the TPU kernel
+// computes inside its time loop.
 // Its plain versions are ops/gru.py::gru_input_proj and
 // gru_input_proj_bf16.
 //

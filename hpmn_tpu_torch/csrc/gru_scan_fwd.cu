@@ -2,11 +2,11 @@
 //
 // Replaces hpmn_tpu/ops/pallas_gru.py::_fwd_kernel (its mask and no-mask
 // forms, with and without the AUGRU gate scale), in both of its chains:
-// f32 (K1, hpmn_gru_scan_fwd_ws; K1-scale, hpmn_gru_scan_fwd_scale) and
+// f32 (K1, hpmn_gru_scan_fwd_ws; K1-scale, hpmn_gru_scan_fwd_scale_ws) and
 // dtype=bfloat16 (K1-bf16, hpmn_gru_scan_fwd_bf16_ws; K1-scale-bf16,
-// hpmn_gru_scan_fwd_scale_bf16; the chain is described in gru_chain.cuh).
-// Its recurrence also runs the strided forward, which replaces
-// _fwd_stride_kernel (K3, hpmn_gru_scan_stride_fwd_ws; K3-bf16,
+// hpmn_gru_scan_fwd_scale_bf16_ws; the chain is described in
+// gru_chain.cuh). Its recurrence also runs the strided forward, which
+// replaces _fwd_stride_kernel (K3, hpmn_gru_scan_stride_fwd_ws; K3-bf16,
 // hpmn_gru_scan_stride_fwd_bf16_ws; gru_scan_stride_fwd.cu has what it
 // writes).
 // Per step, for batch row b:
@@ -32,37 +32,42 @@
 // step needs no block barrier. h_seq is written at [t, b, :], one
 // contiguous row per warp and step.
 //
-// K1 and K1-bf16 (no scale) run in two kernels per chunk of time steps:
+// Every form runs in two kernels per chunk of time steps:
 //
 // 1. gru_input_proj.cu computes the x half of the step's products for the
 //    chunk into an f32 workspace [Tc, B, 96] that the caller allocates:
 //    the half that does not depend on h, as one tiled pass bound by bytes.
-//    Each output is K1's fmaf chain: in f32 xp = x @ wx + b, so xp_r is
-//    the first form's p.ar + b_r bit for bit; in bf16 the r and z blocks
+//    Each output is the fmaf chain of project()'s x part: in f32 xp = x @
+//    wx + b, so xp_r is p.ar + b_r bit for bit; in bf16 the r and z blocks
 //    are x @ wx without the bias (the chain sums (x@wx + h@wh) + b) and the
 //    c block the chain's pre_c, ac + b_c rounded to bf16.
 // 2. gru_scan_fwd_xp_kernel runs the recurrence: lane j holds its 96
 //    weights wh[:, j], wh[:, 32+j], wh[:, 64+j] in registers (as f32, from
-//    bf16 in K1-bf16), loaded once, so a step makes no shared-memory weight
-//    load; h_{t-1} reaches every lane through 32 __shfl_sync in f32 (one
-//    store per lane, __syncwarp and 8 broadcast 16-byte shared-memory
+//    bf16 in the bf16 forms), loaded once, so a step makes no shared-memory
+//    weight load; h_{t-1} reaches every lane through 32 __shfl_sync in f32
+//    (one store per lane, __syncwarp and 8 broadcast 16-byte shared-memory
 //    loads took 9% longer on the H100, PERF.md) and, in bf16, where 4 such
 //    loads carry all 32 values, through shared memory (3-16% faster than
 //    shuffles), converted to f32 (an exact shift); g = h @ wh is fmaf from
-//    0.0f over k = 0 ... 31, K1's order. A step is shorter than a load
-//    from device memory, so xp is fetched kAhead steps ahead into a ring in
-//    shared memory by cp.async, and the step waits on its own group only
-//    (a ring of register loads, each waited on by the step that uses it,
-//    took K1 and K1-bf16 about 40% and 60% longer, PERF.md); the mask, in
-//    the stream type, converted where it is used, rides a ring of
-//    registers. The gates and the update are gru_chain.cuh's gates_f32_xp and
-//    update_f32 in f32, gates_bf16_xp and the bf16 ops in bf16: the same
-//    expressions as K1-scale's, K2's and K4's (and their bf16 forms').
+//    0.0f over k = 0 ... 31, project()'s order. A step is shorter than a
+//    load from device memory, so xp is fetched kAhead steps ahead into a
+//    ring in shared memory by cp.async, and the step waits on its own group
+//    only (a ring of register loads, each waited on by the step that uses
+//    it, took K1 and K1-bf16 about 40% and 60% longer, PERF.md); the mask
+//    and, in the scale forms (kScale), the gate scale a_t [T, B], each in
+//    the stream type, converted where it is used, ride rings of registers
+//    (a bf16 value is below cp.async's 4-byte minimum). The gates and the
+//    update are gru_chain.cuh's gates_f32_xp and update_f32 in f32,
+//    gates_bf16_xp and the bf16 ops in bf16: the same expressions as K2's
+//    and K4's (and their bf16 forms'), so a backward recomputes these
+//    gates bit for bit. The scale adds one multiply to the step's chain:
+//    zs = z * a_t in f32, zs = mul_b(z, a_t) in bf16.
 //
 // The chunks run one after another on the caller's stream; chunk i starts
 // from the last row of chunk i-1's h_seq, which is the carry itself (f32 in
-// K1, bf16 in K1-bf16), so the result does not depend on the chunk length.
-// The workspace's size is the caller's choice (ops/cuda_gru.py caps it).
+// K1 and K1-scale, bf16 in their bf16 forms), so the result does not depend
+// on the chunk length. The workspace's size is the caller's choice
+// (ops/cuda_gru.py caps it).
 //
 // K3 and K3-bf16 are the same two kernels per chunk: the projection, then
 // the recurrence with the StrideOut policy (one loop, the output a
@@ -74,26 +79,15 @@
 // depend on the chunk length either. The projection's and the gates' bits
 // are project()'s and gates_*'s, which K4's replay has shown on the card,
 // so K3's outputs are its one-kernel form's (gru_scan_stride_fwd.cu) bit
-// for bit.
-//
-// The scale forms run one kernel (gru_scan_fwd_kernel): x_t and h_{t-1}
-// reach every lane through __shfl_sync, wx and wh sit in shared memory (as
-// f32, converted once from the bf16 weights in the bf16 form), where lane j
-// reads column j of each block (consecutive words, no bank conflicts), and
-// the next step's x row is loaded one step ahead. a [T, B] is read like the
-// mask, one value per row and step, loaded before the step's projections
-// so that its latency hides behind them; zs adds one multiply to the
-// step's chain. The bf16 gate ops are bf16 ops (one native instruction
-// each, gru_chain.cuh) with conversions around the three tanhf and the four
-// pre-activation roundings.
+// for bit. K3 has no scale form.
 //
 // The TPU kernel's packed [wx_r|wx_z|wx_c|0] / [wh_r|wh_z|0|wh_c] weights
 // (a 128-lane trick), its padding of T to a multiple of 8 and its boundary
 // states (inputs of the backward kernel only) are not carried over.
 //
-// Time strides: x and mask are read at x + t*x_tstride and mask +
-// t*m_tstride, so the next HPMN layer's input h_seq[period-1::period] is
-// passed as a strided view with no copy.
+// Time strides: x, the mask and the scale are read at x + t*x_tstride,
+// mask + t*m_tstride and scale + t*s_tstride, so the next HPMN layer's
+// input h_seq[period-1::period] is passed as a strided view with no copy.
 
 #include "gru_chain.cuh"
 
@@ -101,135 +95,35 @@ namespace {
 
 using hpmn::kDm;
 using hpmn::kG;
-using hpmn::kMaxChunks;  // d_in <= 96: weights fit 48 KB of smem
-constexpr int kWarps = 4;  // batch rows per block
-// K1's recurrence: batch rows per block, and steps of xp loaded ahead
+using hpmn::kMaxChunks;  // d_in <= 96: x_t in up to three 32-chunks
+// The recurrence: batch rows per block, and steps of xp loaded ahead
 // (PERF.md has the times of 2 and 8 of each).
 constexpr int kRecWarps = 4;
 constexpr int kAhead = 4;
 
-// K1-scale and K1-scale-bf16 (K1 and K1-bf16 are the two kernels below),
-// reading scale [T, B] (time stride s_tstride). S: the stream type, float
-// or __nv_bfloat16.
-template <typename S>
-__global__ void __launch_bounds__(kWarps * 32)
-gru_scan_fwd_kernel(const S* __restrict__ x, long long x_tstride,
-                    const S* __restrict__ mask, long long m_tstride,
-                    const S* __restrict__ scale, long long s_tstride,
-                    const S* __restrict__ wx, const S* __restrict__ wh,
-                    const S* __restrict__ bias,
-                    const S* __restrict__ h0, S* __restrict__ hseq,
-                    int T, int B, int d_in) {
-  using hpmn::load_f;
-  extern __shared__ float smem[];
-  const int n_chunks = (d_in + 31) / 32;
-  const int d_in_pad = n_chunks * 32;
-  float* s_wx = smem;                        // [d_in_pad][3*kDm], zero rows
-  float* s_wh = smem + d_in_pad * 3 * kDm;   // [kDm][3*kDm]
-  for (int i = threadIdx.x; i < d_in_pad * 3 * kDm; i += blockDim.x)
-    s_wx[i] = i < d_in * 3 * kDm ? load_f(wx + i) : 0.0f;
-  for (int i = threadIdx.x; i < kDm * 3 * kDm; i += blockDim.x)
-    s_wh[i] = load_f(wh + i);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= B) return;  // whole warps leave; no barrier follows
-
-  const float b_r = load_f(bias + lane);
-  const float b_z = load_f(bias + kDm + lane);
-  const float b_c = load_f(bias + 2 * kDm + lane);
-  float h = h0 != nullptr ? load_f(h0 + (long long)row * kDm + lane) : 0.0f;
-  hpmn::B hb = hpmn::to_b(h);  // the bf16 chain's carry (h is its f32 copy)
-
-  // x_t of this row, lane k of chunk c holding element 32*c + k.
-  float xv[kMaxChunks];
-  const S* x_row = x + (long long)row * d_in;
-#pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    const int k = 32 * c + lane;
-    xv[c] = (c < n_chunks && k < d_in && T > 0) ? load_f(x_row + k) : 0.0f;
-  }
-
-  for (int t = 0; t < T; ++t) {
-    // Issue the next step's loads before this step's math.
-    float xn[kMaxChunks];
-    const bool more = t + 1 < T;
-    const S* x_next = x_row + (long long)(t + 1) * x_tstride;
-#pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
-      const int k = 32 * c + lane;
-      xn[c] = (more && c < n_chunks && k < d_in) ? load_f(x_next + k) : 0.0f;
-    }
-    const S* m_ptr = mask + (long long)t * m_tstride + row;
-    const float m = mask != nullptr ? load_f(m_ptr) : 1.0f;  // f32 chain
-    const hpmn::B mb = mask != nullptr ? hpmn::load_b(m_ptr) : hpmn::one_b();
-    const S* a_ptr = scale + (long long)t * s_tstride + row;
-    float a = 1.0f;  // the scale, f32 chain
-    hpmn::B ab = hpmn::one_b();  // the scale, bf16 chain
-    if constexpr (hpmn::kIsBf16<S>)
-      ab = hpmn::load_b(a_ptr);
-    else
-      a = load_f(a_ptr);
-
-    const hpmn::Proj p = hpmn::project(xv, n_chunks, h, s_wx, s_wh, lane);
-    S* h_out = hseq + ((long long)t * B + row) * kDm + lane;
-    if constexpr (hpmn::kIsBf16<S>) {
-      using hpmn::add_b;
-      using hpmn::mul_b;
-      using hpmn::sub_b;
-      const hpmn::GatesB g = hpmn::gates_bf16(p, b_r, b_z, b_c);
-      const hpmn::B zs = mul_b(g.z, ab);
-      const hpmn::B h_cell = add_b(hb, mul_b(zs, sub_b(g.c, hb)));
-      hb = mask != nullptr ? add_b(hb, mul_b(mb, sub_b(h_cell, hb))) : h_cell;
-      h = hpmn::to_f(hb);
-      *h_out = hb;
-    } else {
-      const hpmn::Gates g = hpmn::gates_f32(p, b_r, b_z, b_c);
-      h = hpmn::update_f32(g.z * a, g.c, h, m);
-      hpmn::store_f(h_out, h);
-    }
-#pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) xv[c] = xn[c];
-  }
-}
-
-template <typename S>
-int launch_scale(const S* x, long long x_tstride, const S* mask,
-                 long long m_tstride, const S* scale, long long s_tstride,
-                 const S* wx, const S* wh, const S* b, const S* h0, S* hseq,
-                 int T, int B, int d_in, void* stream) {
-  if (d_in < 1 || d_in > 32 * kMaxChunks || B < 1 || T < 1
-      || scale == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const int d_in_pad = (d_in + 31) / 32 * 32;
-  const size_t smem = (size_t)(d_in_pad + kDm) * 3 * kDm * sizeof(float);
-  const int grid = (B + kWarps - 1) / kWarps;
-  gru_scan_fwd_kernel<S><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      x, x_tstride, mask, m_tstride, scale, s_tstride, wx, wh, b, h0, hseq, T,
-      B, d_in);
-  return (int)cudaGetLastError();
-}
-
 // One step's xp row (r, z, c blocks at lane j) into `slot` [96] of this
 // warp's ring in shared memory, by cp.async in a group of its own: each
 // lane copies, and later reads, only its own three words, so no barrier
-// orders them. With kMasked, the step's mask value (in the stream type,
-// unconverted) into m. The caller clamps t to the chunk's last step.
-template <typename S, bool kMasked>
-__device__ __forceinline__ void fetch_xp(float* slot, S& m, const float* xp,
-                                         const S* mask, long long m_tstride,
-                                         int t, int B, int row, int lane) {
+// orders them. With kMasked, the step's mask value into m, and with kScale
+// its gate scale into a (each in the stream type, unconverted). The caller
+// clamps t to the chunk's last step.
+template <typename S, bool kMasked, bool kScale>
+__device__ __forceinline__ void fetch_xp(float* slot, S& m, S& a,
+                                         const float* xp, const S* mask,
+                                         long long m_tstride, const S* scale,
+                                         long long s_tstride, int t, int B,
+                                         int row, int lane) {
   const float* p = xp + ((long long)t * B + row) * kG + lane;
 #pragma unroll
   for (int g = 0; g < 3; ++g)
     hpmn::copy_async(slot + g * kDm + lane, p + g * kDm);
   hpmn::copy_async_commit();
   if constexpr (kMasked) m = mask[(long long)t * m_tstride + row];
+  if constexpr (kScale) a = scale[(long long)t * s_tstride + row];
 }
 
 // Where the recurrence writes its states, a compile-time policy of one
-// loop. DenseOut (K1, K1-bf16): every state, hseq [T, B, 32] contiguous
+// loop. DenseOut (K1, K1-bf16, K1-scale, K1-scale-bf16): every state, hseq [T, B, 32] contiguous
 // (the chunk's rows).
 template <typename S>
 struct DenseOut {
@@ -254,21 +148,25 @@ struct StrideOut {
   int period;
 };
 
-// K1's and K1-bf16's recurrence over one chunk, and K3's and K3-bf16's
-// (Out = StrideOut: no mask): xp [T, B, 96] contiguous (from
-// gru_input_proj.cu, in the chain's layout), mask [T, B] (time stride
-// m_tstride; read only with kMasked), wh [32, 96], bias [96] (read in bf16
-// only: the r and z blocks' biases, which the bf16 layout leaves out), h0
-// [B, 32] or null (K3's later chunks pass out.hT: each lane reads its own
-// word before it writes it), and the outputs `out`; S is the stream type.
-// K3's f32 update is stride_update's h + z*(c - h), K1's update_f32's h +
-// 1*(h_cell - h) (they differ by ulps); in bf16 both are h_cell, op by op.
-template <typename S, bool kMasked, typename Out>
+// K1's and K1-bf16's recurrence over one chunk, with kScale K1-scale's
+// and K1-scale-bf16's, and K3's and K3-bf16's (Out = StrideOut: no mask,
+// no scale): xp [T, B, 96] contiguous (from gru_input_proj.cu, in the
+// chain's layout), mask [T, B] (time stride m_tstride; read only with
+// kMasked), scale [T, B] (time stride s_tstride, unit batch stride; read
+// only with kScale), wh [32, 96], bias [96] (read in bf16 only: the r and z
+// blocks' biases, which the bf16 layout leaves out), h0 [B, 32] or null
+// (K3's later chunks pass out.hT: each lane reads its own word before it
+// writes it), and the outputs `out`; S is the stream type. K3's f32 update
+// is stride_update's h + z*(c - h), K1's update_f32's h + 1*(h_cell - h)
+// (they differ by ulps); in bf16 both are h_cell, op by op.
+template <typename S, bool kMasked, typename Out, bool kScale>
 __global__ void __launch_bounds__(kRecWarps * 32)
 gru_scan_fwd_xp_kernel(const float* __restrict__ xp,
                        const S* __restrict__ mask, long long m_tstride,
+                       const S* __restrict__ scale, long long s_tstride,
                        const S* __restrict__ wh, const S* __restrict__ bias,
                        const S* h0, Out out, int T, int B) {
+  static_assert(!(kScale && Out::kStrided), "K3 has no scale form");
   using hpmn::load_f;
   constexpr bool kBf16 = hpmn::kIsBf16<S>;
   __shared__ float s_xp[kRecWarps][kAhead][kG];  // the xp ring
@@ -314,10 +212,12 @@ gru_scan_fwd_xp_kernel(const float* __restrict__ xp,
   // The ring: step t's xp in slot t % kAhead, fetched kAhead steps ahead.
   float* ring = &s_xp[warp][0][0];
   S ring_m[kAhead] = {};  // the mask's ring (unread without kMasked)
+  S ring_a[kAhead] = {};  // the scale's ring (unread without kScale)
 #pragma unroll
   for (int s = 0; s < kAhead; ++s)
-    fetch_xp<S, kMasked>(ring + s * kG, ring_m[s], xp, mask, m_tstride,
-                         s < T ? s : T - 1, B, row, lane);
+    fetch_xp<S, kMasked, kScale>(ring + s * kG, ring_m[s], ring_a[s], xp,
+                                 mask, m_tstride, scale, s_tstride,
+                                 s < T ? s : T - 1, B, row, lane);
   for (int t0 = 0; t0 < T; t0 += kAhead) {
 #pragma unroll
     for (int s = 0; s < kAhead; ++s) {
@@ -334,6 +234,7 @@ gru_scan_fwd_xp_kernel(const float* __restrict__ xp,
       const float xp_z = ring[s * kG + kDm + lane];
       const float xp_c = ring[s * kG + 2 * kDm + lane];
       const S m = ring_m[s];
+      const S a = ring_a[s];
 
       float g_r = 0.0f, g_z = 0.0f, g_c = 0.0f;
       if constexpr (kBf16) {
@@ -378,13 +279,16 @@ gru_scan_fwd_xp_kernel(const float* __restrict__ xp,
         using hpmn::sub_b;
         const hpmn::GatesB g = hpmn::gates_bf16_xp(xp_r, xp_z, xp_c, g_r,
                                                    g_z, g_c, b_r, b_z);
-        const hpmn::B h_cell = add_b(hb, mul_b(g.z, sub_b(g.c, hb)));
+        const hpmn::B zs = kScale ? mul_b(g.z, a) : g.z;
+        const hpmn::B h_cell = add_b(hb, mul_b(zs, sub_b(g.c, hb)));
         hb = kMasked ? add_b(hb, mul_b(m, sub_b(h_cell, hb))) : h_cell;
       } else {
         const hpmn::Gates g = hpmn::gates_f32_xp(xp_r, xp_z, xp_c, g_r, g_z,
                                                  g_c);
         if constexpr (Out::kStrided)
           h = hpmn::stride_update(g, h);
+        else if constexpr (kScale)
+          h = hpmn::update_f32(g.z * a, g.c, h, kMasked ? m : 1.0f);
         else
           h = hpmn::update_f32(g.z, g.c, h, kMasked ? m : 1.0f);
       }
@@ -399,23 +303,26 @@ gru_scan_fwd_xp_kernel(const float* __restrict__ xp,
       }
       // The slot's words were read above (their values are used), so it
       // takes step t + kAhead.
-      fetch_xp<S, kMasked>(ring + s * kG, ring_m[s], xp, mask, m_tstride,
-                           t + kAhead < T ? t + kAhead : T - 1, B, row,
-                           lane);
+      fetch_xp<S, kMasked, kScale>(ring + s * kG, ring_m[s], ring_a[s], xp,
+                                   mask, m_tstride, scale, s_tstride,
+                                   t + kAhead < T ? t + kAhead : T - 1, B,
+                                   row, lane);
     }
   }
   if constexpr (Out::kStrided) out.hT[out_off] = state();
 }
 
-// K1 and K1-bf16: the chunks of t_chunk steps (the last one shorter), each
-// a projection into ws then the recurrence, on `stream`.
-template <typename S>
+// K1 and K1-bf16, with kScale K1-scale and K1-scale-bf16: the chunks of
+// t_chunk steps (the last one shorter), each a projection into ws then the
+// recurrence, on `stream`.
+template <typename S, bool kScale>
 int scan_fwd_ws(const S* x, long long x_tstride, const S* mask,
-                long long m_tstride, const S* wx, const S* wh, const S* b,
-                const S* h0, S* hseq, float* ws, int t_chunk, int T, int B,
-                int d_in, void* stream) {
+                long long m_tstride, const S* scale, long long s_tstride,
+                const S* wx, const S* wh, const S* b, const S* h0, S* hseq,
+                float* ws, int t_chunk, int T, int B, int d_in,
+                void* stream) {
   if (d_in < 1 || d_in > 32 * kMaxChunks || B < 1 || T < 1 || t_chunk < 1
-      || ws == nullptr)
+      || ws == nullptr || (kScale && scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int grid = (B + kRecWarps - 1) / kRecWarps;
@@ -427,15 +334,16 @@ int scan_fwd_ws(const S* x, long long x_tstride, const S* mask,
     const S* h_in = t0 == 0 ? h0 : hseq + ((long long)(t0 - 1) * B) * kDm;
     S* h_out = hseq + (long long)t0 * B * kDm;
     const DenseOut<S> out{h_out};
+    const S* a_in = kScale ? scale + t0 * s_tstride : nullptr;
     if (mask != nullptr)
-      gru_scan_fwd_xp_kernel<S, true, DenseOut<S> >
+      gru_scan_fwd_xp_kernel<S, true, DenseOut<S>, kScale>
           <<<grid, kRecWarps * 32, 0, st>>>(ws, mask + t0 * m_tstride,
-                                            m_tstride, wh, b, h_in, out, n,
-                                            B);
+                                            m_tstride, a_in, s_tstride, wh,
+                                            b, h_in, out, n, B);
     else
-      gru_scan_fwd_xp_kernel<S, false, DenseOut<S> >
-          <<<grid, kRecWarps * 32, 0, st>>>(ws, nullptr, 0, wh, b, h_in, out,
-                                            n, B);
+      gru_scan_fwd_xp_kernel<S, false, DenseOut<S>, kScale>
+          <<<grid, kRecWarps * 32, 0, st>>>(ws, nullptr, 0, a_in, s_tstride,
+                                            wh, b, h_in, out, n, B);
     code = (int)cudaGetLastError();
     if (code != 0) return code;
   }
@@ -461,8 +369,8 @@ int scan_stride_fwd_ws(const S* x, long long x_tstride, const S* wx,
                                        ws, n, B, d_in, st);
     if (code != 0) return code;
     const StrideOut<S> out{hs, hbound, hT, t0, period};
-    gru_scan_fwd_xp_kernel<S, false, StrideOut<S> >
-        <<<grid, kRecWarps * 32, 0, st>>>(ws, nullptr, 0, wh, b,
+    gru_scan_fwd_xp_kernel<S, false, StrideOut<S>, false>
+        <<<grid, kRecWarps * 32, 0, st>>>(ws, nullptr, 0, nullptr, 0, wh, b,
                                           t0 == 0 ? h0 : hT, out, n, B);
     code = (int)cudaGetLastError();
     if (code != 0) return code;
@@ -485,8 +393,9 @@ extern "C" int hpmn_gru_scan_fwd_ws(const float* x, long long x_tstride,
                                     const float* b, const float* h0,
                                     float* hseq, float* ws, int t_chunk,
                                     int T, int B, int d_in, void* stream) {
-  return scan_fwd_ws(x, x_tstride, mask, m_tstride, wx, wh, b, h0, hseq, ws,
-                     t_chunk, T, B, d_in, stream);
+  return scan_fwd_ws<float, false>(x, x_tstride, mask, m_tstride, nullptr,
+                                   0, wx, wh, b, h0, hseq, ws, t_chunk, T, B,
+                                   d_in, stream);
 }
 
 // K1-bf16: as K1, every tensor bf16 but the workspace, which stays f32.
@@ -495,8 +404,9 @@ extern "C" int hpmn_gru_scan_fwd_bf16_ws(
     long long m_tstride, const __nv_bfloat16* wx, const __nv_bfloat16* wh,
     const __nv_bfloat16* b, const __nv_bfloat16* h0, __nv_bfloat16* hseq,
     float* ws, int t_chunk, int T, int B, int d_in, void* stream) {
-  return scan_fwd_ws(x, x_tstride, mask, m_tstride, wx, wh, b, h0, hseq, ws,
-                     t_chunk, T, B, d_in, stream);
+  return scan_fwd_ws<__nv_bfloat16, false>(x, x_tstride, mask, m_tstride,
+                                           nullptr, 0, wx, wh, b, h0, hseq,
+                                           ws, t_chunk, T, B, d_in, stream);
 }
 
 // K3: x [T,B,d_in] (time stride x_tstride, rows contiguous), wx [d_in,96],
@@ -526,27 +436,28 @@ extern "C" int hpmn_gru_scan_stride_fwd_bf16_ws(
                             t_chunk, T, B, d_in, period, stream);
 }
 
-// K1-scale and K1-scale-bf16: x [T,B,d_in] (time stride x_tstride, rows
-// contiguous), mask [T,B] (time stride m_tstride) or null, scale [T,B]
+// K1-scale and K1-scale-bf16: K1's arguments (K1-bf16's), plus scale [T,B]
 // (time stride s_tstride, unit batch stride; not null), the AUGRU's a_t,
-// wx [d_in,96], wh [32,96], b [96], h0 [B,32] or null, hseq [T,B,32]
-// contiguous, all float32 or all bf16. Launches on `stream`; returns
-// cudaGetLastError() after the launch.
-extern "C" int hpmn_gru_scan_fwd_scale(
+// of the stream type. Runs K1's chunks, the recurrence with the scale.
+extern "C" int hpmn_gru_scan_fwd_scale_ws(
     const float* x, long long x_tstride, const float* mask,
     long long m_tstride, const float* scale, long long s_tstride,
     const float* wx, const float* wh, const float* b, const float* h0,
-    float* hseq, int T, int B, int d_in, void* stream) {
-  return launch_scale(x, x_tstride, mask, m_tstride, scale, s_tstride, wx,
-                      wh, b, h0, hseq, T, B, d_in, stream);
+    float* hseq, float* ws, int t_chunk, int T, int B, int d_in,
+    void* stream) {
+  return scan_fwd_ws<float, true>(x, x_tstride, mask, m_tstride, scale,
+                                  s_tstride, wx, wh, b, h0, hseq, ws, t_chunk,
+                                  T, B, d_in, stream);
 }
 
-extern "C" int hpmn_gru_scan_fwd_scale_bf16(
+extern "C" int hpmn_gru_scan_fwd_scale_bf16_ws(
     const __nv_bfloat16* x, long long x_tstride, const __nv_bfloat16* mask,
     long long m_tstride, const __nv_bfloat16* scale, long long s_tstride,
     const __nv_bfloat16* wx, const __nv_bfloat16* wh, const __nv_bfloat16* b,
-    const __nv_bfloat16* h0, __nv_bfloat16* hseq, int T, int B, int d_in,
-    void* stream) {
-  return launch_scale(x, x_tstride, mask, m_tstride, scale, s_tstride, wx,
-                      wh, b, h0, hseq, T, B, d_in, stream);
+    const __nv_bfloat16* h0, __nv_bfloat16* hseq, float* ws, int t_chunk,
+    int T, int B, int d_in, void* stream) {
+  return scan_fwd_ws<__nv_bfloat16, true>(x, x_tstride, mask, m_tstride,
+                                          scale, s_tstride, wx, wh, b, h0,
+                                          hseq, ws, t_chunk, T, B, d_in,
+                                          stream);
 }

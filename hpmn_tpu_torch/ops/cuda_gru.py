@@ -14,12 +14,13 @@ the time loop inside the kernel and the carry in registers, one warp per
 batch row with lane j owning hidden unit j. The recurrence bounds both
 (each step waits for the last); keeping the loop in one launch, with no
 barrier or device-memory round trip between steps, is what the design
-does about that. K1-scale (and K1-scale-bf16) is that one launch alone.
-K1 and K1-bf16 (no scale) are two kernels: ``csrc/gru_input_proj.cu``
-computes the x half of the products for a chunk of steps into an f32
-workspace this module allocates (at most :data:`WORKSPACE_BYTES`; in bf16
-in the chain's layout, :func:`input_proj`), then the recurrence reads it;
-one C call runs every chunk, and one K1 call counts one launch. K2 and
+does about that. K1 and K1-bf16, and their scale forms, are two kernels:
+``csrc/gru_input_proj.cu`` computes the x half of the products for a
+chunk of steps into an f32 workspace this module allocates (at most
+:data:`WORKSPACE_BYTES`; in bf16 in the chain's layout,
+:func:`input_proj`), then the recurrence reads it (with the scale, a_t
+beside the mask); one C call runs every chunk, and one K1 call counts one
+launch. K2 and
 K2-bf16, and their scale forms, are two kernels too, run from the last
 chunk of steps to the first: the reverse recurrence writes each step's
 gate gradients (and, with the scale, dscale) into a workspace (at most
@@ -55,8 +56,8 @@ from .gru import (GRUParams, GRUWeights, gru_bwd_pass, gru_input_proj,
 
 SOURCE = "hpmn_tpu_torch/csrc/gru_scan_fwd.cu"
 REPLACES = "hpmn_tpu/ops/pallas_gru.py:127"
-# K1's and K1-bf16's first kernel, the input projection (with SOURCE's
-# recurrence).
+# The first kernel of K1, K1-bf16, K1-scale and K1-scale-bf16, the input
+# projection (with SOURCE's recurrence).
 PROJ_SOURCE = "hpmn_tpu_torch/csrc/gru_input_proj.cu"
 BWD_SOURCE = "hpmn_tpu_torch/csrc/gru_scan_bwd.cu"
 BWD_REPLACES = "hpmn_tpu/ops/pallas_gru.py:209"
@@ -70,7 +71,9 @@ SOURCE_BF16, REPLACES_BF16 = SOURCE, REPLACES
 BWD_SOURCE_BF16, BWD_REPLACES_BF16 = BWD_SOURCE, BWD_REPLACES
 SOURCE_SCALE, REPLACES_SCALE = SOURCE, REPLACES
 BWD_SOURCE_SCALE, BWD_REPLACES_SCALE = BWD_SOURCE, BWD_REPLACES
-# Every form of K2 is two sources: its recurrence, then the pass.
+# Every form of K1 is two sources: the projection, then its recurrence;
+# every form of K2 two: its recurrence, then the pass.
+FWD_SOURCES = (PROJ_SOURCE, SOURCE)
 BWD_SOURCES = (BWD_SOURCE, PASS_SOURCE)
 
 #: Kernel launches so far in this process (a run's proof that it went
@@ -92,24 +95,24 @@ bwd_launches_scale_bf16 = 0
 proj_launches = 0
 pass_launches = 0
 
-#: The cap on K1's (and K1-bf16's) f32 workspace xp [Tc, B, 96], and on
-#: the gate gradients dg [Tc, B, 128] of K2 (every form) in x's dtype: Tc is the most steps
-#: that fit (at least 1), and the kernel runs ceil(T / Tc) chunks in one C
-#: call.
-#: 64 MiB: K1's Tc = 341 at B = 512, 27 at B = 6400; K2's 256 at B = 512
-#: (512 in bf16: DIEN's T = 300 is 2 chunks in f32, 1 in bf16).
+#: The cap on the f32 workspace xp [Tc, B, 96] of K1 (every form), and on
+#: the gate gradients dg [Tc, B, 128] of K2 (every form) in x's dtype: Tc
+#: is the most steps that fit (at least 1), and the kernel runs
+#: ceil(T / Tc) chunks in one C call.
+#: 64 MiB: K1's Tc = 341 at B = 512 (DIEN's T = 300 is 1 chunk), 27 at
+#: B = 6400, 21 at B = 8192; K2's 256 at B = 512 (512 in bf16: DIEN's T =
+#: 300 is 2 chunks in f32, 1 in bf16).
 WORKSPACE_BYTES = 64 << 20
 
 _D_M = 32
 _MAX_D_IN = 96
-# The forward's C entry points by stream dtype (the f32 chain and the bf16
-# one): K1 and K1-bf16 (projection and recurrence over a workspace), their
-# AUGRU scale forms, and the projection alone; the backward's by dtype and
-# scale.
-_WS_ENTRY = {torch.float32: "hpmn_gru_scan_fwd_ws",
-             torch.bfloat16: "hpmn_gru_scan_fwd_bf16_ws"}
-_SCALE_ENTRY = {torch.float32: "hpmn_gru_scan_fwd_scale",
-                torch.bfloat16: "hpmn_gru_scan_fwd_scale_bf16"}
+# The C entry points by stream dtype (the f32 chain and the bf16 one) and
+# AUGRU scale: K1's (projection and recurrence over a workspace) and K2's;
+# and the projection alone's by dtype.
+_WS_ENTRY = {(torch.float32, False): "hpmn_gru_scan_fwd_ws",
+             (torch.bfloat16, False): "hpmn_gru_scan_fwd_bf16_ws",
+             (torch.float32, True): "hpmn_gru_scan_fwd_scale_ws",
+             (torch.bfloat16, True): "hpmn_gru_scan_fwd_scale_bf16_ws"}
 _PROJ_ENTRY = {torch.float32: "hpmn_gru_input_proj",
                torch.bfloat16: "hpmn_gru_input_proj_bf16"}
 _BWD_ENTRY = {(torch.float32, False): "hpmn_gru_scan_bwd_ws",
@@ -126,21 +129,11 @@ def _kernel_name(dtype: torch.dtype, scaled: bool, bwd: bool) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _scale_fn(dtype: torch.dtype):
-    """K1-scale's (K1-scale-bf16's) C entry point."""
-    fn = getattr(_build.load_library(), _SCALE_ENTRY[dtype])
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 3
-                   + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _ws_fn(dtype: torch.dtype):
-    """K1's (K1-bf16's) C entry point."""
-    fn = getattr(_build.load_library(), _WS_ENTRY[dtype])
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 2
+def _ws_fn(dtype: torch.dtype, scaled: bool = False):
+    """K1's C entry point by dtype and scale (the scale forms: the scale
+    after the mask)."""
+    fn = getattr(_build.load_library(), _WS_ENTRY[dtype, scaled])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * (3 if scaled else 2)
                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -158,7 +151,7 @@ def _proj_fn(dtype: torch.dtype):
 
 
 def workspace_steps(T: int, B: int) -> int:
-    """K1's (and K1-bf16's) chunk: the steps of xp [., B, 96] in f32 that
+    """K1's chunk (every form's): the steps of xp [., B, 96] in f32 that
     fit :data:`WORKSPACE_BYTES`, at least 1 and at most T."""
     return max(1, min(T, WORKSPACE_BYTES // (B * 3 * _D_M * 4)))
 
@@ -255,36 +248,33 @@ def _tstride(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.stride(0)
 
 
-def _k1(w, x_tm, mask_tm, h0, hseq, stream) -> int:
-    """K1's (K1-bf16's) C call: the f32 workspace, then every chunk's
-    projection and recurrence; -> the cudaError_t code."""
+def _k1(w, x_tm, mask_tm, h0, hseq, stream, scale_tm=None) -> int:
+    """K1's (K1-bf16's; with a scale_tm K1-scale's or K1-scale-bf16's) C
+    call: the f32 workspace, then every chunk's projection and recurrence;
+    -> the cudaError_t code."""
     T, B, d_in = x_tm.shape
     t_chunk = workspace_steps(T, B)
     ws = torch.empty(t_chunk, B, 3 * _D_M, dtype=torch.float32,
                      device=x_tm.device)
-    return _ws_fn(x_tm.dtype)(
+    scale = (() if scale_tm is None
+             else (scale_tm.data_ptr(), scale_tm.stride(0)))
+    return _ws_fn(x_tm.dtype, scale_tm is not None)(
         x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm), _tstride(mask_tm),
-        w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), _ptr(h0),
+        *scale, w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), _ptr(h0),
         hseq.data_ptr(), ws.data_ptr(), t_chunk, T, B, d_in, stream)
 
 
 def _launch(w, x_tm, mask_tm, h0, scale_tm=None) -> torch.Tensor:
     """K1 (float32) or K1-bf16 (bfloat16), K1-scale or K1-scale-bf16 with
     a scale_tm: -> h_seq [T, B, 32], x's dtype."""
-    T, B, d_in = x_tm.shape
+    T, B, _ = x_tm.shape
     scaled = scale_tm is not None
     name = _kernel_name(x_tm.dtype, scaled, bwd=False)
     _check_cuda_args(w, x_tm, mask_tm, h0, name, scale_tm)
     hseq = torch.empty(T, B, _D_M, dtype=x_tm.dtype, device=x_tm.device)
-    stream = torch.cuda.current_stream(x_tm.device).cuda_stream
-    if not scaled:
-        code = _k1(w, x_tm, mask_tm, h0, hseq, stream)
-    else:
-        code = _scale_fn(x_tm.dtype)(
-            x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm), _tstride(mask_tm),
-            scale_tm.data_ptr(), scale_tm.stride(0), w.wx.data_ptr(),
-            w.wh.data_ptr(), w.b.data_ptr(), _ptr(h0), hseq.data_ptr(), T, B,
-            d_in, stream)
+    code = _k1(w, x_tm, mask_tm, h0, hseq,
+               torch.cuda.current_stream(x_tm.device).cuda_stream,
+               scale_tm=scale_tm)
     _build.check_launch(code, name)
     _count(name)
     return hseq
@@ -353,7 +343,8 @@ def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq, scale_tm=None,
 
 
 def input_proj(params: GRUParams, x_tm: torch.Tensor) -> torch.Tensor:
-    """K1's or K1-bf16's input projection alone: x_tm [T, B, d_in] (any
+    """The input projection alone of K1 or K1-bf16 (and of their scale
+    forms): x_tm [T, B, d_in] (any
     time stride, rows contiguous) -> xp [T, B, 96] in float32, by the
     kernel on CUDA tensors, by the plain version on CPU tensors. Float32
     tensors give x_tm @ wx + b (``gru_input_proj``). Bfloat16 tensors give

@@ -15,7 +15,8 @@ the CUDA scan kernels (ops/cuda_gru.py) are held against: ``gru_scan_tm``
 for the forward, ``gru_scan_tm_bwd`` for the backward, and
 ``gru_scan_tm_bf16``/``gru_scan_tm_bwd_bf16`` for the bf16 chain of the
 TPU kernel's ``dtype=bfloat16`` form (see there), each with and without
-the scale.
+the scale; and, for the forward's two kernels, ``gru_input_proj``
+(``_bf16``) then ``gru_scan_tm_xp`` (``_bf16``).
 """
 
 from __future__ import annotations
@@ -102,18 +103,30 @@ def gru_scan_tm(params: GRUParams, x_tm: torch.Tensor,
     """Time-major scan: x_tm [T, B, d_in], mask_tm [T, B] or None, h0
     [B, d_m] or None, scale_tm [T, B] or None (the AUGRU gate scale) ->
     (h_seq [T, B, d_m], h_T [B, d_m])."""
-    T, B, _ = x_tm.shape
+    return gru_scan_tm_xp(params, gru_input_proj(params, x_tm), mask_tm, h0,
+                          scale_tm)
+
+
+def gru_scan_tm_xp(params: GRUParams, xp: torch.Tensor,
+                   mask_tm: Optional[torch.Tensor] = None,
+                   h0: Optional[torch.Tensor] = None,
+                   scale_tm: Optional[torch.Tensor] = None,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gru_scan_tm` from its input projection xp [T, B, 3*d_m] = x
+    @ wx + b (:func:`gru_input_proj`, one matmul): the plain version of the
+    recurrence of K1 and K1-scale (csrc/gru_scan_fwd.cu, after
+    csrc/gru_input_proj.cu) -> (h_seq [T, B, d_m], h_T [B, d_m])."""
+    T, B, _ = xp.shape
     d_m = params.wh.shape[0]
-    h = (torch.zeros(B, d_m, dtype=x_tm.dtype, device=x_tm.device)
+    h = (torch.zeros(B, d_m, dtype=xp.dtype, device=xp.device)
          if h0 is None else h0)
-    xp = gru_input_proj(params, x_tm)  # [T, B, 3*d_m], one matmul
     hs = []
     for t in range(T):
         h = gru_step(params, xp[t], h, None if mask_tm is None else mask_tm[t],
                      None if scale_tm is None else scale_tm[t])
         hs.append(h)
     if not hs:
-        return x_tm.new_zeros(0, B, d_m), h
+        return xp.new_zeros(0, B, d_m), h
     return torch.stack(hs), h
 
 
@@ -272,13 +285,18 @@ def gru_scan_tm_bf16(params: GRUParams, x_tm: torch.Tensor,
     is h_cell = h + zs * (c - h) with zs = z * a_t (one bf16 mul) or z; with
     a mask the step is h + m * (h_cell - h), rounded op by op; without one
     it is h_cell."""
-    return _scan_xp_bf16(params, gru_input_proj_bf16(params, x_tm), mask_tm,
-                         h0, scale_tm)
+    return gru_scan_tm_xp_bf16(params, gru_input_proj_bf16(params, x_tm),
+                               mask_tm, h0, scale_tm)
 
 
-def _scan_xp_bf16(params, xp, mask_tm, h0, scale_tm):
+def gru_scan_tm_xp_bf16(params: GRUParams, xp: torch.Tensor,
+                        mask_tm: Optional[torch.Tensor] = None,
+                        h0: Optional[torch.Tensor] = None,
+                        scale_tm: Optional[torch.Tensor] = None,
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`gru_scan_tm_bf16` from its input projection xp [T, B, 3*d_m]
-    (:func:`gru_input_proj_bf16`, f32)."""
+    (:func:`gru_input_proj_bf16`, f32): the plain version of the
+    recurrence of K1-bf16 and K1-scale-bf16 -> (h_seq, h_T), bf16."""
     T, B, _ = xp.shape
     d_m = params.wh.shape[0]
     whf, bf = params.wh.float(), params.b.float()
@@ -456,7 +474,7 @@ def gru_scan_stride_tm_xp_bf16(params: GRUParams, xp: torch.Tensor,
     d_m = params.wh.shape[0]
     if h0 is None:
         h0 = xp.new_zeros(xp.shape[1], d_m, dtype=torch.bfloat16)
-    h_seq, h_T = _scan_xp_bf16(params, xp, None, h0, None)
+    h_seq, h_T = gru_scan_tm_xp_bf16(params, xp, None, h0)
     return _stride_outputs(h_seq, h0, h_T, period, t_first)
 
 

@@ -7,11 +7,12 @@ events.
 
     git archive <commit> | tar -x -C build/other      # a gitignored place
     python3 -m hpmn_tpu_torch.tools.ab_scan_kernels \\
-        build/other/hpmn_tpu_torch/csrc [float32|bfloat16] [D_IN] [T]
+        build/other/hpmn_tpu_torch/csrc [float32|bfloat16] [D_IN] [T] [B]
 
 Inputs: the xlong_hpmn layer-0 shape (T = 1000, B = 512, d_in = 32; D_IN,
-1 to 96, sets another d_in, and T another length: 300 is taobao_dien's,
-where the AUGRU kernels run), the port's seeded GRU init, random x and
+1 to 96, sets another d_in, T another length: 300 is taobao_dien's,
+where the AUGRU kernels run, and B another batch: 6400 is a DIEN rank
+call's 64 users x 100 candidates), the port's seeded GRU init, random x and
 dh_seq, no mask and a left-padded mask; for the strided kernels period 3
 and random cotangents of the strided rows and of h_T; for the AUGRU
 kernels a scale in [0, 1), with and without the mask. Exits nonzero if an
@@ -32,10 +33,14 @@ kernel): its ``hpmn_gru_scan_stride_fwd`` and
 ``hpmn_gru_scan_bwd_scale_ws`` (K2-scale and K2-scale-bf16 as one kernel):
 its ``hpmn_gru_scan_bwd_scale`` and ``hpmn_gru_scan_bwd_scale_bf16``,
 through :func:`one_kernel_k2_scale` in ``cuda_gru._k2``'s place for the
-scaled calls. This tree's K1 and K2 (or K1-bf16 and K2-bf16), K3 and K4
-(K3-bf16 and K4-bf16), and K2-scale (K2-scale-bf16), dscale included, in
-the default chunks (``cuda_gru.WORKSPACE_BYTES``) are also held, bit for
-bit, to themselves in one chunk of all T steps.
+scaled calls; and a tree without ``hpmn_gru_scan_fwd_scale_ws`` (K1-scale
+and K1-scale-bf16 as one kernel): its ``hpmn_gru_scan_fwd_scale`` and
+``hpmn_gru_scan_fwd_scale_bf16``, through :func:`one_kernel_k1_scale` in
+``cuda_gru._k1``'s place for the scaled calls. This tree's K1 and K2 (or
+K1-bf16 and K2-bf16), K3 and K4 (K3-bf16 and K4-bf16), and K1-scale and
+K2-scale (their bf16 forms), dscale included, in the default chunks
+(``cuda_gru.WORKSPACE_BYTES``) are also held, bit for bit, to themselves
+in one chunk of all T steps.
 """
 
 from __future__ import annotations
@@ -52,16 +57,16 @@ import torch
 from ..ops import _build, cuda_gru, cuda_gru_stride
 from ..ops.gru import GRUParams
 
-T_DEFAULT, B, D_IN = 1000, 512, 32
+T_DEFAULT, B_DEFAULT, D_IN = 1000, 512, 32
 PERIOD = 3
 REPS = 20
-_CACHES = (cuda_gru._scale_fn, cuda_gru._ws_fn, cuda_gru._proj_fn,
+_CACHES = (cuda_gru._ws_fn, cuda_gru._proj_fn,
            cuda_gru._rows_fn, cuda_gru._bwd_fn, cuda_gru._pass_fn,
            cuda_gru_stride.chunk, cuda_gru_stride._fwd_fn,
            cuda_gru_stride._rows_fn, cuda_gru_stride._bwd_fn)
 
 
-def _one_kernel_k1(w, x_tm, mask_tm, h0, hseq, stream) -> int:
+def _one_kernel_k1(w, x_tm, mask_tm, h0, hseq, stream, scale_tm=None) -> int:
     """K1 (K1-bf16) of a tree without the two-kernel form: its
     hpmn_gru_scan_fwd (hpmn_gru_scan_fwd_bf16)."""
     bf16 = x_tm.dtype == torch.bfloat16
@@ -74,6 +79,26 @@ def _one_kernel_k1(w, x_tm, mask_tm, h0, hseq, stream) -> int:
     T, B, d_in = x_tm.shape
     return fn(x_tm.data_ptr(), x_tm.stride(0), cuda_gru._ptr(mask_tm),
               cuda_gru._tstride(mask_tm), w.wx.data_ptr(), w.wh.data_ptr(),
+              w.b.data_ptr(), cuda_gru._ptr(h0), hseq.data_ptr(), T, B, d_in,
+              stream)
+
+
+def one_kernel_k1_scale(w, x_tm, mask_tm, h0, hseq, stream,
+                        scale_tm) -> int:
+    """K1-scale (K1-scale-bf16) of a tree without its two-kernel form: its
+    hpmn_gru_scan_fwd_scale (hpmn_gru_scan_fwd_scale_bf16), in
+    ``cuda_gru._k1``'s place -> the cudaError_t code: no workspace."""
+    bf16 = x_tm.dtype == torch.bfloat16
+    fn = getattr(_build.load_library(),
+                 "hpmn_gru_scan_fwd_scale" + ("_bf16" if bf16 else ""))
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 3
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    T, B, d_in = x_tm.shape
+    return fn(x_tm.data_ptr(), x_tm.stride(0), cuda_gru._ptr(mask_tm),
+              cuda_gru._tstride(mask_tm), scale_tm.data_ptr(),
+              scale_tm.stride(0), w.wx.data_ptr(), w.wh.data_ptr(),
               w.b.data_ptr(), cuda_gru._ptr(h0), hseq.data_ptr(), T, B, d_in,
               stream)
 
@@ -172,9 +197,15 @@ def _kernels_of(csrc: str):
     two = {torch.float32: "hpmn_gru_scan_fwd_ws",
            torch.bfloat16: "hpmn_gru_scan_fwd_bf16_ws"}
     two = {dt: _has(csrc, "gru_scan_fwd.cu", sym) for dt, sym in two.items()}
-    if not all(two.values()):
-        cuda_gru._k1 = lambda w, x_tm, *a: (k1 if two[x_tm.dtype]
-                                            else _one_kernel_k1)(w, x_tm, *a)
+    k1s_two = _has(csrc, "gru_scan_fwd.cu", "hpmn_gru_scan_fwd_scale_ws")
+    if not (all(two.values()) and k1s_two):
+        def routed_k1(w, x_tm, *args, scale_tm=None):
+            if scale_tm is None:
+                fn = k1 if two[x_tm.dtype] else _one_kernel_k1
+            else:
+                fn = k1 if k1s_two else one_kernel_k1_scale
+            return fn(w, x_tm, *args, scale_tm=scale_tm)
+        cuda_gru._k1 = routed_k1
     k2_two = _has(csrc, "gru_scan_bwd.cu", "hpmn_gru_scan_bwd_ws")
     k2s_two = _has(csrc, "gru_scan_bwd.cu", "hpmn_gru_scan_bwd_scale_ws")
     if not (k2_two and k2s_two):
@@ -230,18 +261,20 @@ def _ms(fn) -> float:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    if (len(argv) not in (1, 2, 3, 4) or not os.path.isdir(argv[0])
+    if (len(argv) not in (1, 2, 3, 4, 5) or not os.path.isdir(argv[0])
             or argv[1:] and argv[1] not in dtypes
             or argv[2:] and not (argv[2].isdigit()
                                  and 1 <= int(argv[2]) <= 96)
-            or argv[3:] and not (argv[3].isdigit() and int(argv[3]) >= 1)):
+            or not all(a.isdigit() and int(a) >= 1 for a in argv[3:])):
         print("usage: python3 -m hpmn_tpu_torch.tools.ab_scan_kernels "
-              "OTHER_TREE/hpmn_tpu_torch/csrc [float32|bfloat16] [D_IN] [T]")
+              "OTHER_TREE/hpmn_tpu_torch/csrc [float32|bfloat16] [D_IN] [T] "
+              "[B]")
         return 2
     name = argv[1] if argv[1:] else "float32"
     dtype = dtypes[name]
     d_in = int(argv[2]) if argv[2:] else D_IN
     T = int(argv[3]) if argv[3:] else T_DEFAULT
+    B = int(argv[4]) if argv[4:] else B_DEFAULT
     if not torch.cuda.is_available():
         print("FAIL no CUDA device")
         return 1
@@ -318,6 +351,7 @@ def main(argv=None) -> int:
           f"the same: {same} | this tree's K1 in {k1_chunks} chunks, K2 "
           f"in {chunks}"
           f"{f', K3 in {k1_chunks} and K4 in {k4_chunks}' if strided else ''}"
+          f"{f', K1-scale in {k1_chunks}' if scaled else ''}"
           f"{f', K2-scale in {chunks}' if scaled else ''}"
           f", and each in one: bit for bit the same: {one_chunk}")
     h = outs["this"][0]
@@ -338,13 +372,15 @@ def main(argv=None) -> int:
                 h_am = cuda_gru.gru_sequence_tm(p, x, mask, scale_tm=a)[0]
                 sc_fwd = _ms(lambda: cuda_gru.gru_sequence_tm(
                     p, x, None, scale_tm=a))
+                sc_fwd_m = _ms(lambda: cuda_gru.gru_sequence_tm(
+                    p, x, mask, scale_tm=a))
                 sc_bwd = _ms(lambda: cuda_gru.gru_scan_bwd(
                     p, x, None, h_a, dh, scale_tm=a))
                 sc_bwd_m = _ms(lambda: cuda_gru.gru_scan_bwd(
                     p, x, mask, h_am, dh, scale_tm=a))
-                st += (f" | AUGRU forward {sc_fwd:.4f} ms | AUGRU backward "
-                       f"(K2-scale) {sc_bwd:.4f} ms, masked {sc_bwd_m:.4f} "
-                       f"ms")
+                st += (f" | AUGRU forward (K1-scale) {sc_fwd:.4f} ms, masked "
+                       f"{sc_fwd_m:.4f} ms | AUGRU backward (K2-scale) "
+                       f"{sc_bwd:.4f} ms, masked {sc_bwd_m:.4f} ms")
         print(f"ab_scan_kernels: {tree} ({trees[tree]}): forward {fwd:.4f} "
               f"ms | backward {bwd:.4f} ms{st} (mean of {REPS}, no mask, "
               f"{name}, d_in={d_in})")

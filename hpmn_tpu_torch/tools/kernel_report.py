@@ -7,7 +7,9 @@ For each ``csrc/*.cu`` of the tree (this package's by default): nvcc with
 ``_build.NVCC_FLAGS`` plus ``-Xptxas -v``, whose lines give each kernel's
 registers, shared memory and spills; an entry line names the scan kernel
 it compiles where its mangled name says (:data:`LABELS`: K3's recurrence
-is ``gru_scan_fwd_xp_kernel`` with the ``StrideOut`` policy). Then ``cuobjdump -sass`` of the
+is ``gru_scan_fwd_xp_kernel`` with the ``StrideOut`` policy, K1-scale's
+the ``DenseOut`` one with ``kScale``, its last template argument, true).
+Then ``cuobjdump -sass`` of the
 library built from that tree and, per kernel, the static count of the
 instructions that load shared memory (LDS), shuffle (SHFL), load or store
 device memory (LDG, STG), store shared memory (STS), fuse a multiply-add
@@ -29,10 +31,14 @@ import sys
 from ..ops import _build
 
 OPS = ("LDS", "SHFL", "LDG", "STG", "STS", "FFMA", "MUFU")
-# (substrings of a mangled kernel name, all present) -> which kernel it is.
+# (substrings of a mangled kernel name, all present) -> which kernel it is;
+# the first that matches. "Lb1EEEv" closes a template argument list whose
+# last argument is the bool true.
 LABELS = ((("gru_scan_fwd_xp_kernel", "StrideOut"), "K3 recurrence"),
+          (("gru_scan_fwd_xp_kernel", "DenseOut", "Lb1EEEv"),
+           "K1-scale recurrence"),
           (("gru_scan_fwd_xp_kernel", "DenseOut"), "K1 recurrence"),
-          (("input_proj_kernel",), "K1/K3/K4 projection"),
+          (("input_proj_kernel",), "K1/K1-scale/K3/K4 projection"),
           (("gru_scan_stride_bwd_rec_kernel",), "K4 recurrence"),
           (("gru_scan_bwd_rec_kernel",), "K2 recurrence"),
           (("gru_bwd_pass_kernel",), "K2/K4 pass"))

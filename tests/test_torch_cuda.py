@@ -55,7 +55,10 @@ partial sums (4, or 2 at d_in > 64).
 
 The AUGRU forms (K1-scale, K2-scale and their bf16 forms) are held to the
 plain scaled scans at the tolerances of their unscaled forms, dscale
-among the backward's outputs. K2-scale and K2-scale-bf16 run K2's two
+among the backward's outputs. K1-scale and K1-scale-bf16 run K1's two
+kernels (the recurrence with the scale beside the mask): over workspace
+chunks of 1 and 7 steps they equal one chunk bit for bit, the scale a
+strided time view. K2-scale and K2-scale-bf16 run K2's two
 kernels (the recurrence with the scale, which also writes dscale, then
 the pass): over workspace chunks of 1, 7 and 64 steps they equal one
 chunk bit for bit, dscale included, and the recurrence's gate gradients,
@@ -155,14 +158,16 @@ def test_gru_kernel_takes_strided_time_views(dev):
     assert (h_k.float() - h_p.float()).abs().max().item() <= TOL_GRU_BF16
 
 
+@pytest.mark.parametrize("scaled", [False, True])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("steps", [1, 7])
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 def test_gru_kernel_chunks_match_one_chunk(dev, monkeypatch, masked, steps,
-                                           dtype):
-    """K1 (K1-bf16) over workspace chunks of `steps` steps (the last one
-    shorter) == over one chunk, bit for bit, from h0 on a strided time
-    view."""
+                                           dtype, scaled):
+    """K1 (K1-bf16; with `scaled` K1-scale or K1-scale-bf16, the scale a
+    strided time view too) over workspace chunks of `steps` steps (the
+    last one shorter) == over one chunk, bit for bit, from h0 on a strided
+    time view; one call counts one launch."""
     T, B, d_in = 50, 5, 33
     p = _gru(d_in, dev)
     p = _bf16(p) if dtype == BF16 else p
@@ -170,13 +175,16 @@ def test_gru_kernel_chunks_match_one_chunk(dev, monkeypatch, masked, steps,
     x = torch.randn(3 * T, B, d_in, generator=g).to(dev, dtype)[2::3]
     mask = _mask(T, B, dev).to(dtype) if masked else None
     h0 = torch.randn(B, 32, generator=g).to(dev, dtype)
+    a = (torch.rand(2 * T, B, generator=g).to(dev, dtype)[1::2] if scaled
+         else None)
     assert cuda_gru.workspace_steps(T, B) == T
-    one = cuda_gru.gru_sequence_tm(p, x, mask, h0)
+    one = cuda_gru.gru_sequence_tm(p, x, mask, h0, scale_tm=a)
     monkeypatch.setattr(cuda_gru, "WORKSPACE_BYTES", steps * B * 96 * 4)
     assert cuda_gru.workspace_steps(T, B) == steps
-    counter = "launches_bf16" if dtype == BF16 else "launches"
+    counter = (("launches_scale" if scaled else "launches")
+               + ("_bf16" if dtype == BF16 else ""))
     n = getattr(cuda_gru, counter)
-    chunked = cuda_gru.gru_sequence_tm(p, x, mask, h0)
+    chunked = cuda_gru.gru_sequence_tm(p, x, mask, h0, scale_tm=a)
     torch.cuda.synchronize()
     assert getattr(cuda_gru, counter) == n + 1
     assert chunked[0].dtype == dtype
