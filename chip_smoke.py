@@ -33,7 +33,12 @@ before the last line):
    kernel, K1's), against the plain projection, with its time and share of
    K1-scale's, and before each K2-scale and K2-scale-bf16 line its
    recurrence's gate gradients and dscale against the plain sweep's, and
-   its second kernel's (the pass's) time and share of its time.
+   its second kernel's (the pass's) time and share of its time; the
+   readout (K5) at B = 512 and 6400 with its device time (torch.profiler's
+   kernel durations over 220 launches), its call time (CUDA events over
+   50 calls through ``fused_attention_readout``) and the host's enqueue
+   time per call (1000 calls, no synchronize). The phase 5-9 profiles
+   print K5's device time per step or request.
 4. serving: a ``UserMemoryStore`` on the card at the full width of
    xlong_hpmn (random seeded weights) ingests histories, takes updates,
    predicts and ranks; launch counters prove the path ran the kernels, and
@@ -142,6 +147,11 @@ REQUEST_REPS = 5  # predict and rank calls, timed one by one
 STEPS_PER_DISPATCH = 8
 WARMUP_DISPATCHES, TIMED_DISPATCHES = 2, 3
 N_TRAIN_BATCHES = 4  # distinct batches, cycled as bench.py does
+# K5's device time: the profiled launches, and how many of them the
+# profiler must see (its first profile in a process can miss a few: 198
+# of 200 once).
+READOUT_DEVICE_LAUNCHES, READOUT_DEVICE_MIN = 220, 200
+READOUT_HOST_CALLS = 1000  # K5's host enqueue time: calls
 
 
 def fail(msg):
@@ -278,6 +288,7 @@ def main():
             gru_scan_tm_sweep_bf16)
         from hpmn_tpu_torch.serving.history import HistoryStore
         from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
+        from hpmn_tpu_torch.tools.ab_readout import device_ms
         from hpmn_tpu_torch.tools.ab_scan_kernels import one_kernel_k3
         from hpmn_tpu_torch.train.train import (make_multistep_train,
                                                 make_optimizer)
@@ -321,6 +332,19 @@ def main():
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / reps
+
+    def enqueue_us(fn, n):
+        """Host microseconds per fn() over n calls without a synchronize
+        (after one call and a synchronize): the host's cost of the call
+        path."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e6 * (t1 - t0) / n
 
     def left_pad_mask(T, B):
         lens = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
@@ -841,17 +865,29 @@ def main():
         err = (r_k - r_p).abs().max().item()
         check(err <= TOL_READOUT, f"K5 B={B}: max abs err {err:.3e} > "
               f"{TOL_READOUT}")
-        ms = cuda_ms(lambda: cuda_readout.fused_attention_readout(
-            model.readout, mem, q), 50, warmup=3)
+        def run_k5():
+            return cuda_readout.fused_attention_readout(model.readout, mem,
+                                                        q)
+
+        dev_ms, n_dev = device_ms(run_k5, READOUT_DEVICE_LAUNCHES)
+        check(n_dev >= READOUT_DEVICE_MIN, f"K5 B={B}: the profiler saw "
+              f"{n_dev} of {READOUT_DEVICE_LAUNCHES} launches")
+        call_ms = cuda_ms(run_k5, 50, warmup=3)
+        host_us = enqueue_us(run_k5, READOUT_HOST_CALLS)
         plain_ms = cuda_ms(lambda: attention_readout(model.readout, mem, q),
                            50, warmup=3)
         b_ms, b_by = bound(*readout_work(B, m.hpmn_layers, 2 * m.emb_dim))
         ro_err = max(ro_err, err)
-        ro_rows.append((B, err, ms, plain_ms, b_ms, b_by))
+        ro_rows.append((B, err, dev_ms, plain_ms, b_ms, b_by, call_ms,
+                        host_us))
         print(f"phase 3 kernel readout_fwd B={B} L={m.hpmn_layers}: "
-              f"max_abs_err {err:.3e} (tol {TOL_READOUT}) | kernel "
-              f"{ms:.4f} ms | plain {plain_ms:.4f} ms | library - | bound "
-              f"{b_ms:.5f} ms ({b_by})", flush=True)
+              f"max_abs_err {err:.3e} (tol {TOL_READOUT}) | device "
+              f"{dev_ms:.5f} ms (torch.profiler kernel durations, mean of "
+              f"{n_dev} launches) | call {call_ms:.4f} ms (CUDA events, 50 "
+              f"calls through fused_attention_readout) | host enqueue "
+              f"{host_us:.2f} us per call ({READOUT_HOST_CALLS} calls, no "
+              f"synchronize) | plain {plain_ms:.4f} ms | library - | bound "
+              f"{b_ms:.5f} ms ({b_by}) | {card}", flush=True)
 
     # The AUGRU kernels (K1-scale, K2-scale and their bf16 forms) at
     # DIEN's shape (T = 300, B = 512, d_in = 32: taobao_dien's AUGRU, whose
@@ -1362,6 +1398,9 @@ def main():
             return f"{fam_} {sum(parts):.3f}: " + ", ".join(
                 f"{t:.3f}" for t in parts)
 
+        ro = [(t, c) for t, c, name in kern if "readout_fwd_kernel" in name]
+        ro_us = sum(t for t, _ in ro) / n
+        ro_n = sum(c for _, c in ro) / n
         if dev_ms > 0:
             top = ", ".join(f"{kernel_label(name)} {t / 1e3 / n:.3f} ms "
                             f"({c / n:g}/{unit})" for t, c, name in kern[:10])
@@ -1374,7 +1413,8 @@ def main():
                   f"{proj.get(('K4', True), 0.0):.3f} bf16 | backward, "
                   f"recurrence, pass, partials: "
                   f"{bwd_split('K2')}; {bwd_split('K2-scale')}; "
-                  f"{bwd_split('K4')} | top: {top}", flush=True)
+                  f"{bwd_split('K4')} | readout (K5) {ro_us:.2f} us per "
+                  f"{unit} ({ro_n:g} launches) | top: {top}", flush=True)
         else:
             print(f"phase {phase} profile: the profiler saw no device time; "
                   "device busy share not measured", flush=True)
@@ -1687,7 +1727,8 @@ def main():
     g = gru_rows[0]   # T=1000, no mask: the heaviest scan of both paths
     gb = bwd_rows[0]
     g16, gb16 = bf_rows[0], bfb_rows[0]
-    r = ro_rows[0]    # B=512: predict's and the training step's shape
+    r = ro_rows[0]    # B=512: predict's and the training step's shape;
+    # ro_rows[1]: a rank chunk's 6400 rows
     print(json.dumps({"kernels": [
         entry("gru_scan_fwd", cuda_gru.SOURCE, cuda_gru.REPLACES,
               (g[3], g[4], g[5], g[6], g[7]), gru_err,
@@ -1706,7 +1747,13 @@ def main():
         entry("readout_fwd", cuda_readout.SOURCE, cuda_readout.REPLACES,
               (r[2], r[3], None, r[4], r[5]), ro_err,
               {"serving": launches_ro, "training": train_launches[4],
-               "training_bf16": bf16_launches[4]}),
+               "training_bf16": bf16_launches[4],
+               "training_stride": stride_launches["f32"][4],
+               "training_stride_bf16": stride_launches["bf16"][4]},
+              call_ms=r[6], host_us=r[7], device_ms_rank=ro_rows[1][2],
+              call_ms_rank=ro_rows[1][6], host_us_rank=ro_rows[1][7],
+              device_ms_from=f"torch.profiler kernel durations, mean "
+                             f"over {READOUT_DEVICE_LAUNCHES} launches"),
         entry("gru_scan_fwd_bf16", cuda_gru.SOURCE_BF16,
               cuda_gru.REPLACES_BF16,
               (g16[3], g16[4], g16[5], g16[6], g16[7]), bf_err,

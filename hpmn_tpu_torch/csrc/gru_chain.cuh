@@ -7,8 +7,9 @@
 // and weight-gradient pass
 // (gru_bwd_pass.cu); the strided scan's step; one step's gate gradients,
 // with or without the AUGRU gate scale, and the warp sum of its dscale;
-// four-value loads and stores of the stream type; cp.async copies; and
-// the shared-memory pieces of the backward kernels.
+// four-value loads and stores of the stream type; cp.async copies (also
+// readout_fwd.cu's, K5's); and the shared-memory pieces of the backward
+// kernels.
 //
 // Two chains, as hpmn_tpu/ops/pallas_gru.py has them:
 //

@@ -4,9 +4,12 @@ Replaces ``hpmn_tpu/ops/pallas_readout.py::_kernel`` (reached there through
 ``pallas_attention_readout``): f32, no slot mask. The kernel is
 ``csrc/readout_fwd.cu``: one warp per row, lane a owning attention unit a,
 the scores a warp sum, the max-subtracted softmax over the L slots in
-registers. Bytes bound it (about 16 FLOP per byte read); one pass that keeps
-the [B, L, A] activations out of device memory is what the design does
-about that. See the source's header for the rest.
+registers. L is a template argument (1 to 16); each lane holds its columns
+of the weights in registers and reads the row, staged in shared memory by
+``cp.async``, as broadcast float4s; persistent blocks stage the weights
+once. Bytes bound it in the limit (about 16 FLOP per byte read), the launch
+and the instructions per row at the paths' sizes. See the source's header
+for the rest.
 
 :func:`fused_attention_readout` goes through :class:`AttentionReadout`,
 a ``torch.autograd.Function``: its forward launches the kernel for CUDA

@@ -54,7 +54,7 @@ import sys
 
 import torch
 
-from ..ops import _build, cuda_gru, cuda_gru_stride
+from ..ops import _build, cuda_gru, cuda_gru_stride, cuda_readout
 from ..ops.gru import GRUParams
 
 T_DEFAULT, B_DEFAULT, D_IN = 1000, 512, 32
@@ -63,7 +63,8 @@ REPS = 20
 _CACHES = (cuda_gru._ws_fn, cuda_gru._proj_fn,
            cuda_gru._rows_fn, cuda_gru._bwd_fn, cuda_gru._pass_fn,
            cuda_gru_stride.chunk, cuda_gru_stride._fwd_fn,
-           cuda_gru_stride._rows_fn, cuda_gru_stride._bwd_fn)
+           cuda_gru_stride._rows_fn, cuda_gru_stride._bwd_fn,
+           cuda_readout._kernel_fn)
 
 
 def _one_kernel_k1(w, x_tm, mask_tm, h0, hseq, stream, scale_tm=None) -> int:
@@ -190,7 +191,8 @@ def one_kernel_k2_scale(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream,
 
 @contextlib.contextmanager
 def _kernels_of(csrc: str):
-    """Route the scan wrappers to the library built from ``csrc``."""
+    """Route the kernels' wrappers (the scans', and K5's through
+    ``cuda_readout``) to the library built from ``csrc``."""
     load, k1, k2 = _build.load_library, cuda_gru._k1, cuda_gru._k2
     k3, k4 = cuda_gru_stride._k3, cuda_gru_stride._k4
     _build.load_library = functools.partial(load, csrc)

@@ -41,7 +41,8 @@ LABELS = ((("gru_scan_fwd_xp_kernel", "StrideOut"), "K3 recurrence"),
           (("input_proj_kernel",), "K1/K1-scale/K3/K4 projection"),
           (("gru_scan_stride_bwd_rec_kernel",), "K4 recurrence"),
           (("gru_scan_bwd_rec_kernel",), "K2 recurrence"),
-          (("gru_bwd_pass_kernel",), "K2/K4 pass"))
+          (("gru_bwd_pass_kernel",), "K2/K4 pass"),
+          (("readout_fwd_kernel",), "K5"))
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_]+)")
 
 

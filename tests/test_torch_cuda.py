@@ -802,8 +802,14 @@ def test_train_step_stride_kernel_path_matches_plain_path(dev, scan_dtype):
         assert _rel_err(p.grad, p_p[name].grad) <= tol_grad, name
 
 
-@pytest.mark.parametrize("B,L,d_q", [(1, 1, 32), (512, 6, 32), (37, 16, 40),
-                                     (6400, 6, 32)])
+@pytest.mark.parametrize("B,L,d_q", [
+    (1, 1, 32), (512, 6, 32), (37, 16, 40), (6400, 6, 32),
+    # every instantiation of the slot count (d_q <= 32: wq in registers)
+    *((37, L, 32) for L in range(1, 17)),
+    # wq in 64 registers, wq from shared memory (d_q > 64), the widest
+    # query, and the most rows a predict or rank chunk takes
+    (37, 6, 64), (37, 6, 65), (512, 6, 256), (37, 16, 256), (8192, 6, 32),
+    (8192, 16, 256)])
 def test_readout_kernel_matches_plain(dev, B, L, d_q):
     r = Readout(32, d_q, 32)
     r.reset_parameters(torch.Generator().manual_seed(B))

@@ -195,10 +195,18 @@ def test_k1_workspace_steps(monkeypatch):
     assert cuda_gru.workspace_steps(50, 5) == 7
 
 
-@pytest.mark.parametrize("B,L", [(8, 6), (3, 1), (5, 4)])
-def test_cuda_readout_wrapper_on_cpu_matches_pallas(interpret, B, L):
+@pytest.mark.parametrize("B,L,d_m,d_q,A", [
+    pytest.param(8, 6, 8, 6, 5, id="8-6"),
+    pytest.param(3, 1, 8, 6, 5, id="3-1"),
+    pytest.param(5, 4, 8, 6, 5, id="5-4"),
+    # the kernel's own widths: d_m = A = 32, d_q 32 (every config) and 256
+    # (its widest), L from 1 to its 16
+    *(pytest.param(B, L, 32, d_q, 32, id=f"{B}-{L}-d_q{d_q}")
+      for B, L, d_q in ((16, 1, 32), (37, 6, 32), (16, 16, 32),
+                        (16, 1, 256), (16, 6, 256), (37, 16, 256)))])
+def test_cuda_readout_wrapper_on_cpu_matches_pallas(interpret, B, L, d_m,
+                                                    d_q, A):
     rng = np.random.default_rng(3)
-    d_m, d_q, A = 8, 6, 5
     jp, tp = _readout(rng, d_m, d_q, A)
     mem = rng.standard_normal((B, L, d_m)).astype(np.float32)
     q = rng.standard_normal((B, d_q)).astype(np.float32)
@@ -208,6 +216,35 @@ def test_cuda_readout_wrapper_on_cpu_matches_pallas(interpret, B, L):
                                                torch.from_numpy(q))
     assert cuda_readout.launches == launches
     _close(r_t, r_j)
+
+
+def test_ab_readout_refuses_without_a_tree_or_a_card(tmp_path, capsys,
+                                                    monkeypatch):
+    """The readout A/B exits nonzero and prints no timing where it cannot
+    compare: no other tree, or no card."""
+    from hpmn_tpu_torch.tools import ab_readout
+    assert ab_readout.main([]) == 2
+    assert ab_readout.main([str(tmp_path / "missing")]) == 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert ab_readout.main([str(tmp_path)]) == 1
+    out = capsys.readouterr().out
+    assert "FAIL no CUDA device" in out and "device time" not in out
+
+
+def test_ab_readout_case_inputs_are_seeded():
+    """Both trees of the readout A/B get the same inputs: each case's
+    weights, memory and query come from its own seed, at the case's
+    shape, with a nonzero bias."""
+    from hpmn_tpu_torch.tools import ab_readout
+    a, b = (ab_readout.case_inputs(37, 6, 40, 4.0, "cpu") for _ in range(2))
+    other = ab_readout.case_inputs(37, 6, 40, 1.0, "cpu")
+    (r_a, m_a, q_a), (r_b, m_b, q_b) = a, b
+    assert m_a.shape == (37, 6, 32) and q_a.shape == (37, 40)
+    assert r_a.wq.shape == (40, 32) and r_a.b.abs().max() > 0
+    assert torch.equal(m_a, m_b) and torch.equal(q_a, q_b)
+    for name in ("wm", "wq", "b", "v"):
+        assert torch.equal(getattr(r_a, name), getattr(r_b, name))
+    assert not torch.equal(m_a, other[1])
 
 
 def test_attention_readout_slot_mask_matches_jax():
