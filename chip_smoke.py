@@ -37,7 +37,8 @@ before the last line):
    readout (K5) at B = 512 and 6400 with its device time (torch.profiler's
    kernel durations over 220 launches), its call time (CUDA events over
    50 calls through ``fused_attention_readout``) and the host's enqueue
-   time per call (1000 calls, no synchronize). The phase 5-9 profiles
+   time per call (1000 calls, no synchronize), that last in turns with
+   and without the launch's device context. The phase 5-9 profiles
    print K5's device time per step or request.
 4. serving: a ``UserMemoryStore`` on the card at the full width of
    xlong_hpmn (random seeded weights) ingests histories, takes updates,
@@ -64,6 +65,18 @@ before the last line):
 9. DIEN serving: a ``HistoryStore`` on the card ingests 8192 histories,
    takes updates, predicts and ranks (K1 and K1-scale per scoring call),
    checked against the plain path and against the same store on the CPU.
+10. the training driver, ``train()`` (what ``python -m
+   hpmn_tpu_torch.train.train`` runs): (a) amazon_hpmn, 200 steps at B =
+   64 with the kernels (K1 and K5 per train step and per eval batch, K2
+   per train step, counted), against the same run on the CPU (the plain
+   versions) from the same seeded weights: best val AUC and test AUC
+   within 0.02, test log-loss within 1e-5 and the step-200 parameters
+   within 1e-4 of their max abs; (b) xlong_hpmn at full width (B 512,
+   T 1000, six layers; 6144 examples), 16 steps with warmup, cosine,
+   clipping and EMA and a checkpoint at each improving eval, then a fresh
+   run resumed from the step-8 snapshot: its step-16 parameters against the uninterrupted
+   run's (bit for bit, or within 1e-5 of max abs; it prints which), and
+   the driver's ex/s, eval and checkpoint seconds and goodput.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -71,11 +84,14 @@ or away from the repo, it exits nonzero and prints no result. Imports
 nothing of JAX.
 """
 
+import contextlib
 import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -152,6 +168,21 @@ N_TRAIN_BATCHES = 4  # distinct batches, cycled as bench.py does
 # of 200 once).
 READOUT_DEVICE_LAUNCHES, READOUT_DEVICE_MIN = 220, 200
 READOUT_HOST_CALLS = 1000  # K5's host enqueue time: calls
+# Phase 10: the driver's xlong_hpmn examples (the config's 20000 cut so
+# that 16 steps of B = 512 and two evals fit the script's time), and the
+# tolerances: the amazon run on the card against the CPU run, on
+# best_val_auc and test auc (tests/test_train.py's golden tolerance: two
+# trajectories whose steps differ by the kernels' 1e-6 drift apart over 200
+# steps of Adam), on the test log-loss (absolute), and on the step-200
+# parameters (over their max abs): the model is near chance on this data,
+# so the AUCs alone cannot tell a wrong kernel from a right one; the
+# resumed run's step-16 parameters against the uninterrupted run's, over
+# their max abs, when the path is not deterministic.
+XLONG_EXAMPLES = 6144
+TOL_DRIVER = 0.02
+TOL_DRIVER_LOG_LOSS = 1e-5
+TOL_DRIVER_PARAMS = 1e-4
+TOL_RESUME = 1e-5
 
 
 def fail(msg):
@@ -267,7 +298,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from hpmn_tpu_torch.configs import get_config
-        from hpmn_tpu_torch.data.synthetic import (TAOBAO, XLONG,
+        from hpmn_tpu_torch.data.synthetic import (AMAZON, TAOBAO, XLONG,
                                                    make_ctr_dataset)
         from hpmn_tpu_torch.models.embedding import dense_lookup
         from hpmn_tpu_torch.models.hpmn import (encode_hierarchical_tm,
@@ -290,6 +321,7 @@ def main():
         from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
         from hpmn_tpu_torch.tools.ab_readout import device_ms
         from hpmn_tpu_torch.tools.ab_scan_kernels import one_kernel_k3
+        from hpmn_tpu_torch.train import train as driver
         from hpmn_tpu_torch.train.train import (make_multistep_train,
                                                 make_optimizer)
     except ImportError as e:
@@ -874,6 +906,17 @@ def main():
               f"{n_dev} of {READOUT_DEVICE_LAUNCHES} launches")
         call_ms = cuda_ms(run_k5, 50, warmup=3)
         host_us = enqueue_us(run_k5, READOUT_HOST_CALLS)
+        # The enqueue again with the launch's device context
+        # (_build.on_device) made a null context, in turns with it: the
+        # host's cost of selecting the tensor's device per launch.
+        on_device = _build.on_device
+        _build.on_device = lambda t: contextlib.nullcontext()
+        try:
+            no_ctx_us = [enqueue_us(run_k5, READOUT_HOST_CALLS)
+                         for _ in range(2)]
+        finally:
+            _build.on_device = on_device
+        ctx_us = [host_us, enqueue_us(run_k5, READOUT_HOST_CALLS)]
         plain_ms = cuda_ms(lambda: attention_readout(model.readout, mem, q),
                            50, warmup=3)
         b_ms, b_by = bound(*readout_work(B, m.hpmn_layers, 2 * m.emb_dim))
@@ -886,8 +929,11 @@ def main():
               f"{n_dev} launches) | call {call_ms:.4f} ms (CUDA events, 50 "
               f"calls through fused_attention_readout) | host enqueue "
               f"{host_us:.2f} us per call ({READOUT_HOST_CALLS} calls, no "
-              f"synchronize) | plain {plain_ms:.4f} ms | library - | bound "
-              f"{b_ms:.5f} ms ({b_by}) | {card}", flush=True)
+              f"synchronize) | device context: host enqueue with "
+              f"{ctx_us[0]:.2f}, {ctx_us[1]:.2f} us, without "
+              f"{no_ctx_us[0]:.2f}, {no_ctx_us[1]:.2f} us (in turns: with, "
+              f"without, without, with) | plain {plain_ms:.4f} ms | library "
+              f"- | bound {b_ms:.5f} ms ({b_by}) | {card}", flush=True)
 
     # The AUGRU kernels (K1-scale, K2-scale and their bf16 forms) at
     # DIEN's shape (T = 300, B = 512, d_in = 32: taobao_dien's AUGRU, whose
@@ -1715,6 +1761,199 @@ def main():
     del stores, store_d, model_cpu
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------ 10. training driver --
+    # The user's entry point, train() (python -m hpmn_tpu_torch.train.train):
+    # data, loader, optimizer, eval, checkpoints, on the card with the
+    # kernels. (a) amazon_hpmn on tests/test_train.py's _small_cfg settings
+    # with use_pallas, against the same train() on the CPU (the kernels'
+    # plain versions) from the same seeded weights. (b) xlong_hpmn at full
+    # width (B 512, T 1000, six layers), n_examples cut to XLONG_EXAMPLES,
+    # 16 steps with warmup, cosine, clipping and EMA, a checkpoint at each
+    # improving eval; then a fresh train() resumed from the step-8 snapshot,
+    # held to the uninterrupted run.
+    driver_launches = {}
+
+    def driver_run(name, c_t, device, log_to=None, capture_at=None):
+        """train(c_t) on device, the counters set to 0 just before and read
+        just after -> (result, log lines, the parameters when step
+        capture_at's loss is logged, launches, seconds)."""
+        lines, held, captured = [], {}, {}
+
+        def init(c_i, spec_i, device_i):
+            held["model"] = init_model(c_i, spec_i.n_items, spec_i.n_cats,
+                                       device=device_i)
+            return held["model"]
+
+        def log(line):
+            lines.append(line)
+            words = line.split()
+            if capture_at is not None and words[:3] == [
+                    "step", str(capture_at), "loss"]:
+                captured.update({n: p.detach().clone() for n, p in
+                                 held["model"].named_parameters()})
+            if log_to is not None:
+                log_to(line)
+
+        seam = driver.init_model_for
+        driver.init_model_for = init
+        try:
+            if device != "cpu":
+                torch.cuda.synchronize()
+            zero_counters()
+            t0 = time.perf_counter()
+            res = driver.train(c_t, log=log, device=device)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = counters()
+        finally:
+            driver.init_model_for = seam
+        if device != "cpu":
+            driver_launches[name] = launches
+        return res, lines, captured, launches, secs
+
+    def eval_batches(c_e):
+        """Eval batches of one VAL eval and of the TEST eval of c_e."""
+        _, val_a, test_a, _ = driver.make_datasets(c_e)
+        return tuple(-(-len(a["label"]) // c_e.eval_batch_size)
+                     for a in (val_a, test_a))
+
+    def expect(c_e, steps, evals, layers):
+        """The launch counters of a run: K1 per layer and K5 once per
+        train step and per eval batch, K2 per layer per train step."""
+        n_val, n_test = eval_batches(c_e)
+        n_eval = evals * n_val + n_test
+        return ((layers * (steps + n_eval), layers * steps, 0, 0,
+                 steps + n_eval) + (0,) * 8)
+
+    cfg_a = driver.apply_overrides(get_config("amazon_hpmn"), [
+        "n_examples=3000", "train.batch_size=64", "train.max_steps=200",
+        "train.eval_every=100", "train.log_every=100",
+        "train.early_stop_patience=100", "train.steps_per_dispatch=1",
+        "eval_steps_per_dispatch=1", "model.use_pallas=true"])
+    res_k, lines_k, _, launches_a, secs_k = driver_run(
+        "driver_amazon", cfg_a, "cuda")
+    res_p, _, _, _, secs_p = driver_run("driver_amazon_cpu", cfg_a, "cpu")
+    want = expect(cfg_a, 200, 2, cfg_a.model.hpmn_layers)
+    check(launches_a == want, f"phase 10 amazon driver launches "
+          f"{launches_a}, expected {want} (K1, K2, K1-bf16, K2-bf16, K5, ...)")
+    gaps = {"best_val_auc": abs(res_k["best_val_auc"] - res_p["best_val_auc"]),
+            "test_auc": abs(res_k["test"]["auc"] - res_p["test"]["auc"]),
+            "test_log_loss": abs(res_k["test"]["log_loss"]
+                                 - res_p["test"]["log_loss"])}
+    tols = {"best_val_auc": TOL_DRIVER, "test_auc": TOL_DRIVER,
+            "test_log_loss": TOL_DRIVER_LOG_LOSS}
+    for key, gap in gaps.items():
+        check(np.isfinite(gap) and gap < tols[key], f"phase 10 amazon "
+              f"driver: {key} on the card vs the CPU differ by {gap} (tol "
+              f"{tols[key]})")
+    check(res_k["params"].keys() == res_p["params"].keys(),
+          "phase 10 amazon driver: the card and CPU runs' parameters differ "
+          "in names")
+    param_err = max((res_k["params"][n].cpu() - res_p["params"][n]
+                     ).abs().max().item() for n in res_p["params"])
+    param_max = max(p.abs().max().item() for p in res_p["params"].values())
+    check(param_err <= TOL_DRIVER_PARAMS * param_max, f"phase 10 amazon "
+          f"driver: step-200 parameters on the card vs the CPU off by "
+          f"{param_err:.3e} (max abs {param_max:.3e}, tol "
+          f"{TOL_DRIVER_PARAMS} of it)")
+    eps_a = [float(line.split()[7]) for line in lines_k
+             if line.split()[2:3] == ["loss"]]
+    print(f"phase 10 driver amazon_hpmn B=64 T={AMAZON.seq_len} L="
+          f"{cfg_a.model.hpmn_layers} 200 steps use_pallas: card "
+          f"best_val_auc {res_k['best_val_auc']:.4f} test auc "
+          f"{res_k['test']['auc']:.4f} log_loss "
+          f"{res_k['test']['log_loss']:.4f} | CPU (plain) "
+          f"{res_p['best_val_auc']:.4f} {res_p['test']['auc']:.4f} "
+          f"{res_p['test']['log_loss']:.4f} | gaps "
+          + ", ".join(f"{k_} {v:.2e} (tol {tols[k_]})"
+                      for k_, v in gaps.items())
+          + f" | step-200 parameters {param_err:.3e} of max abs "
+          f"{param_max:.3e} ({param_err / param_max:.2e}, tol "
+          f"{TOL_DRIVER_PARAMS}) | driver ex/s "
+          + ", ".join(f"{e:.1f}" for e in eps_a)
+          + f" | wall card {secs_k:.1f} s, CPU {secs_p:.1f} s | launches "
+          f"gru_scan_fwd {launches_a[0]} gru_scan_bwd {launches_a[1]} "
+          f"readout_fwd {launches_a[4]} (= expected) | "
+          + " | ".join(line for line in lines_k
+                       if line.startswith(("goodput", "eval "))),
+          flush=True)
+    del res_k, res_p
+    torch.cuda.empty_cache()
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        cfg_x = driver.apply_overrides(get_config("xlong_hpmn"), [
+            f"n_examples={XLONG_EXAMPLES}", "train.max_steps=16",
+            "train.eval_every=8", "train.log_every=4",
+            "train.early_stop_patience=100", "train.steps_per_dispatch=1",
+            "eval_steps_per_dispatch=1", "eval_batch_size=256",
+            "model.use_pallas=true", "train.lr_schedule=cosine",
+            "train.warmup_steps=4", "train.grad_clip_norm=1.0",
+            "train.ema_decay=0.9",
+            f"train.ckpt_dir={os.path.join(work, 'whole')}"])
+        L_x = cfg_x.model.hpmn_layers
+
+        def show(line):
+            print(f"phase 10 driver xlong_hpmn | {line}", flush=True)
+
+        res_w, lines_w, params_w, launches_w, secs_w = driver_run(
+            "driver_xlong", cfg_x, "cuda", log_to=show, capture_at=16)
+        check(launches_w == expect(cfg_x, 16, 2, L_x),
+              f"phase 10 xlong driver launches {launches_w}, expected "
+              f"{expect(cfg_x, 16, 2, L_x)}")
+        check(os.path.isdir(os.path.join(work, "whole", "8")),
+              "phase 10: no step-8 checkpoint")
+        shutil.copytree(os.path.join(work, "whole", "8"),
+                        os.path.join(work, "resumed", "8"))
+        cfg_r = driver.apply_overrides(cfg_x, [
+            f"train.ckpt_dir={os.path.join(work, 'resumed')}"])
+        res_r, lines_r, params_r, launches_r, secs_r = driver_run(
+            "driver_xlong_resumed", cfg_r, "cuda", capture_at=16)
+        check("resumed from step 8" in lines_r, "phase 10: the fresh "
+              "train() did not resume from step 8")
+        check(launches_r == expect(cfg_x, 8, 1, L_x),
+              f"phase 10 resumed launches {launches_r}, expected "
+              f"{expect(cfg_x, 8, 1, L_x)}")
+        check(params_w.keys() == params_r.keys() and len(params_w) > 0,
+              "phase 10: the step-16 parameters were not captured")
+        same = all(torch.equal(params_w[n], params_r[n]) for n in params_w)
+        resume_err = max((params_w[n] - params_r[n]).abs().max().item()
+                         for n in params_w)
+        max_abs = max(p.abs().max().item() for p in params_w.values())
+        ema_err = max((res_w["ema_params"][n] - res_r["ema_params"][n]
+                       ).abs().max().item() for n in params_w)
+        check(same or resume_err <= TOL_RESUME * max_abs,
+              f"phase 10: resumed step-16 parameters off by {resume_err:.3e}"
+              f" (max abs {max_abs:.3e}, tol {TOL_RESUME} of it)")
+        for res_ in (res_w, res_r):
+            check(all(np.isfinite(res_["test"][k_]) for k_ in
+                      ("auc", "log_loss")) and res_["best_step"] in (8, 16),
+                  f"phase 10 xlong: test metrics {res_['test']}")
+        eps_x = [float(line.split()[7]) for line in lines_w
+                 if line.split()[2:3] == ["loss"]]
+        good = next(line for line in lines_w if line.startswith("goodput"))
+        pauses = next(line for line in lines_w if line.startswith("eval "))
+        print(f"phase 10 driver xlong_hpmn B={cfg_x.train.batch_size} "
+              f"T={XLONG.seq_len} L={L_x} n_examples={XLONG_EXAMPLES} 16 "
+              f"steps (warmup 4, cosine, clip 1.0, EMA 0.9, checkpoints): "
+              f"driver ex/s " + ", ".join(f"{e:.1f}" for e in eps_x)
+              + f" (steps 4, 8, 12, 16) | {good} | {pauses} | wall "
+              f"{secs_w:.1f} s | test auc {res_w['test']['auc']:.4f} "
+              f"log_loss {res_w['test']['log_loss']:.4f} | resumed from step"
+              f" 8: step-16 parameters "
+              + ("bit for bit" if same else
+                 f"within {resume_err:.3e} (not bit for bit; tol "
+                 f"{TOL_RESUME} of max abs {max_abs:.3e})")
+              + f", EMA max abs diff {ema_err:.3e}, test auc "
+              f"{res_r['test']['auc']:.4f} | launches gru_scan_fwd "
+              f"{launches_w[0]} gru_scan_bwd {launches_w[1]} readout_fwd "
+              f"{launches_w[4]}; resumed {launches_r[0]}, {launches_r[1]}, "
+              f"{launches_r[4]} (= expected)", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     def entry(name, src, rep, row, err, by_path, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1733,13 +1972,15 @@ def main():
         entry("gru_scan_fwd", cuda_gru.SOURCE, cuda_gru.REPLACES,
               (g[3], g[4], g[5], g[6], g[7]), gru_err,
               {"serving": launches_gru, "training": train_launches[0],
-               "training_dien": fd[0], "serving_dien": serve_launches[0]},
+               "training_dien": fd[0], "serving_dien": serve_launches[0],
+               **{k_: v[0] for k_, v in driver_launches.items()}},
               sources=list(cuda_gru.FWD_SOURCES),
               projection_ms=proj_rows[0][2],
               projection_max_err_over_max_abs=proj_err_max),
         entry("gru_scan_bwd", cuda_gru.BWD_SOURCE, cuda_gru.BWD_REPLACES,
               (gb[3], gb[4], gb[5], gb[6], gb[7]), bwd_abs,
-              {"training": train_launches[1], "training_dien": fd[1]},
+              {"training": train_launches[1], "training_dien": fd[1],
+               **{k_: v[1] for k_, v in driver_launches.items()}},
               sources=list(cuda_gru.BWD_SOURCES),
               max_err_over_max_abs=bwd_err,
               pass_ms=pass_first[torch.float32][1],
@@ -1749,7 +1990,8 @@ def main():
               {"serving": launches_ro, "training": train_launches[4],
                "training_bf16": bf16_launches[4],
                "training_stride": stride_launches["f32"][4],
-               "training_stride_bf16": stride_launches["bf16"][4]},
+               "training_stride_bf16": stride_launches["bf16"][4],
+               **{k_: v[4] for k_, v in driver_launches.items()}},
               call_ms=r[6], host_us=r[7], device_ms_rank=ro_rows[1][2],
               call_ms_rank=ro_rows[1][6], host_us_rank=ro_rows[1][7],
               device_ms_from=f"torch.profiler kernel durations, mean "

@@ -2,10 +2,17 @@
 dataclasses.
 
 Counterpart of ``hpmn_tpu/configs/base.py``, which builds
-``ml_collections.ConfigDict``s. Only the fields the forward, serving and
-training-step paths read are carried; their names and values are the JAX
-config's, so a config dict saved by the JAX package maps onto these one to
-one.
+``ml_collections.ConfigDict``s. Only the fields the forward, serving,
+training-step and training-driver paths read are carried; their names and
+values are the JAX config's, so a config dict saved by the JAX package maps
+onto these one to one. ``train.train.apply_overrides`` applies the JAX
+CLI's dotted ``key=value`` overrides to them.
+
+Fields the driver takes but does not run yet raise ``NotImplementedError``
+in ``train.train.train`` when they are set: ``data_dir``,
+``train.log_dir``, ``train.debug_nans`` and every mesh layout but one
+device (ROADMAP.md). Not carried: ``train.compilation_cache_dir`` (no
+compile cache to keep) and ``train.compact_transfer``.
 """
 
 from __future__ import annotations
@@ -53,26 +60,62 @@ class LossConfig:
 class TrainConfig:
     batch_size: int = 128
     lr: float = 1e-3
-    # Optimizer extras of the JAX make_optimizer. Only the defaults (plain
-    # Adam) are ported; train.make_optimizer raises on the others.
-    lr_schedule: str = "constant"
-    warmup_steps: int = 0
-    grad_clip_norm: float = 0.0
-    weight_decay: float = 0.0
-    grad_accum: int = 1
-    ema_decay: float = 0.0
-    # Steps per dispatch of the JAX driver (0 = its startup probe). The
-    # port's make_multistep_train takes k from the batches it is given.
+    # Optimizer options (train/optim.py); the defaults are plain Adam.
+    lr_schedule: str = "constant"  # constant | cosine | exponential
+    warmup_steps: int = 0  # linear 0 -> lr over this many updates
+    decay_steps: int = 0  # schedule horizon; 0 = max_steps
+    lr_min_ratio: float = 0.0  # end-of-decay lr as a fraction of lr
+    grad_clip_norm: float = 0.0  # global-norm clip; 0 = off
+    weight_decay: float = 0.0  # decoupled (adamw)
+    grad_accum: int = 1  # micro-batches per parameter update
+    ema_decay: float = 0.0  # >0: evaluate with an EMA shadow of the params
+    max_steps: int = 2000
+    eval_every: int = 200
+    early_stop_patience: int = 5  # evals without a val-AUC improvement
+    log_every: int = 50
+    ckpt_dir: str = ""
+    log_dir: str = ""  # tensorboard event files: not ported
+    keep_best_k: int = 3
+    async_checkpoint: bool = False  # write snapshots on a thread
+    profile_steps: int = 0  # >0: a torch.profiler trace of that many steps
+    debug_nans: bool = False  # not ported
+    # Train steps per driver dispatch. 0 is the JAX driver's startup probe,
+    # which the port reads as 1. The port's multistep is a Python loop, so
+    # k changes only the grouping of steps (log and eval boundaries).
     steps_per_dispatch: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The JAX mesh fields the driver reads: the port trains on one device,
+    so anything else raises (ROADMAP.md). ``enable`` is taken so that the
+    JAX command lines' ``--set mesh.enable=false`` runs; the port is on
+    one device either way."""
+
+    enable: bool = True
+    model_parallel: int = 1
+    embedding_mode: str = "replicated"
+    seq_parallel: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
     seed: int = 0
-    dataset: str = "amazon"
+    dataset: str = "amazon"  # amazon | taobao | xlong
+    synthetic_task: str = "ctr"  # ctr | periodic (planted long-range task)
+    n_examples: int = 20000  # synthetic dataset size
+    data_dir: str = ""  # preprocessed real arrays: not ported
     model: ModelConfig = ModelConfig()
     loss: LossConfig = LossConfig()
     train: TrainConfig = TrainConfig()
+    mesh: MeshConfig = MeshConfig()
+    eval_batch_size: int = 256
+    # Eval batches per call in the JAX driver; the port scores batch by
+    # batch for any value, with the same numbers.
+    eval_steps_per_dispatch: int = 0
+    eval_streaming_bins: int = 0  # >0: bounded-memory histogram AUC/GAUC
+    eval_gauc_bins: int = 256  # streaming GAUC's per-user bins; 0 = off
+    eval_gauc_max_users: int = 0  # >0: hash-cap the streaming GAUC's users
 
     def with_model(self, **changes) -> "Config":
         """A copy with ``model`` fields replaced."""

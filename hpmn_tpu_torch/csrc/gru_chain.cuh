@@ -8,8 +8,8 @@
 // (gru_bwd_pass.cu); the strided scan's step; one step's gate gradients,
 // with or without the AUGRU gate scale, and the warp sum of its dscale;
 // four-value loads and stores of the stream type; cp.async copies (also
-// readout_fwd.cu's, K5's); and the shared-memory pieces of the backward
-// kernels.
+// readout_fwd.cu's, K5's); the per-device SM count (K1's projection's and
+// K5's grids); and the shared-memory pieces of the backward kernels.
 //
 // Two chains, as hpmn_tpu/ops/pallas_gru.py has them:
 //
@@ -38,6 +38,22 @@ constexpr int kDm = 32;  // hidden width: one lane per hidden unit
 constexpr int kG = 3 * kDm;  // the r, z and c blocks
 constexpr int kMaxChunks = 3;  // d_in <= 96: x_t in up to three 32-chunks
 constexpr unsigned kFull = 0xffffffffu;
+
+// The SM count of the current device, looked up once per device (the
+// launchers size their grids by it; the Python wrappers make the tensors'
+// device current around every launch). Devices past kMaxDevices are looked
+// up on every call.
+constexpr int kMaxDevices = 64;
+inline int sm_count() {
+  static int n_sm[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < kMaxDevices && n_sm[dev] > 0) return n_sm[dev];
+  int n = 0;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (dev >= 0 && dev < kMaxDevices) n_sm[dev] = n;
+  return n;
+}
 
 // The input projection of K1, K1-scale, K3 and K4 (and of their bf16
 // forms) into the f32 workspace xp [T, B, 96]

@@ -232,12 +232,7 @@ int launch_input_proj(const S* x, long long x_tstride, const S* wx,
   if (d_in < 1 || d_in > kMaxDin || B < 1 || T < 1
       || (long long)T * B > 0x7fffffffLL - kRows)
     return (int)cudaErrorInvalidValue;
-  static int n_sm = 0;
-  if (n_sm == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  }
+  const int n_sm = hpmn::sm_count();
   const size_t smem = smem_bytes(d_in);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(

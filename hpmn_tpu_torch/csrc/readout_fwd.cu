@@ -218,12 +218,7 @@ template <int L, int kQ>
 int launch(const float* memory, const float* query, const float* wm,
            const float* wq, const float* b, const float* v, float* out,
            int B, int d_q, cudaStream_t stream) {
-  static int n_sm = 0;
-  if (n_sm == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  }
+  const int n_sm = hpmn::sm_count();
   const int q = q_floats(kQ, d_q);
   int warps = B / (n_sm > 0 ? n_sm : 1);
   warps = warps < 1 ? 1 : warps > kMaxWarps ? kMaxWarps : warps;

@@ -1,1 +1,2 @@
-"""Data: numpy synthetic generators and the tensor batch schema."""
+"""Data: numpy synthetic generators, the tensor batch schema and the
+batch loader."""

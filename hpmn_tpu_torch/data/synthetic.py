@@ -5,8 +5,9 @@ Copied rather than imported: the JAX package's ``data/__init__.py`` imports
 generator's arithmetic and draw order, so the same spec and seed give the
 same arrays as the JAX package (tests/test_torch_model.py).
 
-Only :func:`make_ctr_dataset` and what it needs are carried; the planted
-long-range task and the split helper wait for the training slice.
+Carried: :func:`make_ctr_dataset`, the planted long-range task
+:func:`make_periodic_dataset` and the driver's split
+:func:`train_val_test_split`.
 """
 
 from __future__ import annotations
@@ -116,3 +117,63 @@ def make_ctr_dataset(spec: DatasetSpec, n_examples: int, seed: int = 0,
     neg_item = rng.integers(1, spec.n_items, size=n_examples).astype(np.int32)
     target_item = np.where(label > 0.5, pos_item, neg_item).astype(np.int32)
     return _finalize(spec, rng, uid, item_seq, seq_mask, target_item, label)
+
+
+def make_periodic_dataset(spec: DatasetSpec, n_examples: int, seed: int = 0,
+                          noise_window_frac: float = 0.3,
+                          k_interests: int = 3,
+                          signal_prob: float = 0.8) -> Dict[str, np.ndarray]:
+    """Planted long-range task: interests appear only before the trailing
+    noise window, and the label says whether the target's category is one
+    of them. A model must remember across the window's steps of pure noise
+    to solve it. Full histories (no padding)."""
+    rng = np.random.default_rng(seed)
+    T = spec.seq_len
+    W = max(1, int(T * noise_window_frac))
+    uid = rng.integers(0, spec.n_users, size=n_examples)
+    # Disjoint pools: interest candidates in [1, half), noise in
+    # [half, n_cats), so an interest category in the history is a signal.
+    half = max(2, spec.n_cats // 2)
+    interests = rng.integers(1, half,
+                             size=(n_examples, k_interests)).astype(np.int32)
+    pick = rng.integers(0, k_interests, size=(n_examples, T))
+    beh_cat = np.take_along_axis(interests, pick, axis=1)
+    u = rng.random((n_examples, T))
+    noise_cat = rng.integers(half, spec.n_cats, size=(n_examples, T))
+    is_late = np.arange(T)[None, :] >= (T - W)
+    beh_cat = np.where(is_late | (u >= signal_prob), noise_cat, beh_cat)
+    beh_cat = beh_cat.astype(np.int32)
+    item_seq = _sample_items_for_cats(rng, beh_cat, spec.n_items, spec.n_cats)
+    seq_mask = np.ones((n_examples, T), dtype=np.float32)
+    # Positive target: an item of an interest; negative: an item of an
+    # interest candidate that is not among this example's interests.
+    label = (rng.random(n_examples) < 0.5).astype(np.float32)
+    pos_cat = np.take_along_axis(
+        interests, rng.integers(0, k_interests, size=(n_examples, 1)),
+        axis=1)[:, 0]
+    neg_cat = rng.integers(1, half, size=n_examples).astype(np.int32)
+    for _ in range(16):  # redraw the negatives that hit an interest
+        clash = (neg_cat[:, None] == interests).any(axis=1)
+        if not clash.any():
+            break
+        neg_cat = np.where(clash, rng.integers(1, half, size=n_examples),
+                           neg_cat).astype(np.int32)
+    tcat = np.where(label > 0.5, pos_cat, neg_cat).astype(np.int32)
+    target_item = _sample_items_for_cats(rng, tcat, spec.n_items, spec.n_cats)
+    return _finalize(spec, rng, uid, item_seq, seq_mask, target_item, label)
+
+
+def train_val_test_split(arrays: Dict[str, np.ndarray], val_frac: float = 0.1,
+                         test_frac: float = 0.1):
+    """-> (train, val, test): the first examples train, then val, then
+    test (views, by example index)."""
+    n = arrays["label"].shape[0]
+    n_test = int(n * test_frac)
+    n_val = int(n * val_frac)
+    n_train = n - n_val - n_test
+
+    def slice_all(lo, hi):
+        return {k: v[lo:hi] for k, v in arrays.items()}
+
+    return (slice_all(0, n_train), slice_all(n_train, n_train + n_val),
+            slice_all(n_train + n_val, n))

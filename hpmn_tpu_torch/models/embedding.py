@@ -2,9 +2,12 @@
 ``hpmn_tpu/models/embedding.py``.
 
 The behaviour embedding is concat(item emb, cat emb). The forward is a plain
-row gather (``hpmn_tpu/ops/embedding_agg.py::take_rows``'s forward), and its
-backward is autograd's own index backward (a scatter-add of the row
-gradients into the table).
+row gather (``hpmn_tpu/ops/embedding_agg.py::take_rows``'s forward) through
+``F.embedding``, whose backward sums each table row's gradients in a fixed
+order, so that a training run repeats bit for bit (and a resumed run
+continues the interrupted one). Indexing the table instead
+(``table[ids]``) would give the index backward, whose scatter-add on the
+CPU adds a repeated row's gradients in its threads' order.
 
 Not ported: the one-hot matmul aggregation of ``take_rows``' backward
 (``hpmn_tpu/ops/embedding_agg.py``). It works around XLA's sort-based
@@ -15,6 +18,7 @@ scatter-add of its own.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -37,5 +41,5 @@ class Embedding(nn.Module):
 def dense_lookup(emb: Embedding, item_ids: torch.Tensor,
                  cat_ids: torch.Tensor) -> torch.Tensor:
     """ids [...] (int32 or int64) -> behaviour embedding [..., 2*emb_dim]."""
-    return torch.cat([emb.item[item_ids.long()], emb.cat[cat_ids.long()]],
-                     dim=-1)
+    return torch.cat([F.embedding(item_ids.long(), emb.item),
+                      F.embedding(cat_ids.long(), emb.cat)], dim=-1)

@@ -15,6 +15,7 @@ machines they run on have no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import functools
@@ -23,6 +24,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -118,3 +121,14 @@ def check_launch(code: int, kernel: str) -> None:
     if code != 0:
         msg = load_library().hpmn_cuda_error_string(code).decode()
         raise RuntimeError(f"{kernel} launch failed: cudaError {code}: {msg}")
+
+
+def on_device(t: torch.Tensor):
+    """The context of one launch: ``t``'s device made current
+    (``torch.cuda.device``), so that the C launcher's kernels run there and
+    size their grids by that device's SM count, whichever device was
+    current before. A CPU tensor (a seam test's stand-in for the card's)
+    gets a context that does nothing."""
+    if t.device.type == "cpu":
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)

@@ -258,10 +258,12 @@ def _k1(w, x_tm, mask_tm, h0, hseq, stream, scale_tm=None) -> int:
                      device=x_tm.device)
     scale = (() if scale_tm is None
              else (scale_tm.data_ptr(), scale_tm.stride(0)))
-    return _ws_fn(x_tm.dtype, scale_tm is not None)(
-        x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm), _tstride(mask_tm),
-        *scale, w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), _ptr(h0),
-        hseq.data_ptr(), ws.data_ptr(), t_chunk, T, B, d_in, stream)
+    with _build.on_device(x_tm):
+        return _ws_fn(x_tm.dtype, scale_tm is not None)(
+            x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm),
+            _tstride(mask_tm), *scale, w.wx.data_ptr(), w.wh.data_ptr(),
+            w.b.data_ptr(), _ptr(h0), hseq.data_ptr(), ws.data_ptr(),
+            t_chunk, T, B, d_in, stream)
 
 
 def _launch(w, x_tm, mask_tm, h0, scale_tm=None) -> torch.Tensor:
@@ -297,11 +299,13 @@ def _k2(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream, scale_tm=None,
     acc = torch.empty(B, _acc_floats(d_in), dtype=torch.float32, device=dev)
     scale = (() if scale_tm is None
              else (scale_tm.data_ptr(), scale_tm.stride(0)))
-    code = _bwd_fn(x_tm.dtype, scale_tm is not None)(
-        x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm), _tstride(mask_tm),
-        *scale, w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), _ptr(h0),
-        hseq.data_ptr(), dhseq.data_ptr(), *(t.data_ptr() for t in outs),
-        dg.data_ptr(), acc.data_ptr(), t_chunk, T, B, d_in, stream)
+    with _build.on_device(x_tm):
+        code = _bwd_fn(x_tm.dtype, scale_tm is not None)(
+            x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm),
+            _tstride(mask_tm), *scale, w.wx.data_ptr(), w.wh.data_ptr(),
+            w.b.data_ptr(), _ptr(h0), hseq.data_ptr(), dhseq.data_ptr(),
+            *(t.data_ptr() for t in outs), dg.data_ptr(), acc.data_ptr(),
+            t_chunk, T, B, d_in, stream)
     return code, dg
 
 
@@ -363,10 +367,11 @@ def input_proj(params: GRUParams, x_tm: torch.Tensor) -> torch.Tensor:
     _check_cuda_args(params, x_tm, None, None, name)
     T, B, d_in = x_tm.shape
     xp = torch.empty(T, B, 3 * _D_M, dtype=torch.float32, device=x_tm.device)
-    code = _proj_fn(x_tm.dtype)(
-        x_tm.data_ptr(), x_tm.stride(0), params.wx.data_ptr(),
-        params.b.data_ptr(), xp.data_ptr(), T, B, d_in,
-        torch.cuda.current_stream(x_tm.device).cuda_stream)
+    with _build.on_device(x_tm):
+        code = _proj_fn(x_tm.dtype)(
+            x_tm.data_ptr(), x_tm.stride(0), params.wx.data_ptr(),
+            params.b.data_ptr(), xp.data_ptr(), T, B, d_in,
+            torch.cuda.current_stream(x_tm.device).cuda_stream)
     _build.check_launch(code, name)
     proj_launches += 1
     return xp
@@ -444,11 +449,13 @@ def bwd_pass_dg(wx: torch.Tensor, x_tm: torch.Tensor, h_prev: torch.Tensor,
     db = torch.empty(n_blocks, g, dtype=torch.float32, device=dev)
     # h_prev[t] is hseq[t-1] for t >= 1 (hseq = h_prev[1:]) and h0 at t = 0.
     hseq = h_prev[1:] if T > 1 else h_prev
-    code = _pass_fn(x_tm.dtype)(
-        x_tm.data_ptr(), x_tm.stride(0), wx.data_ptr(), h_prev[0].data_ptr(),
-        hseq.data_ptr(), dg.data_ptr(), dx.data_ptr(), acc.data_ptr(),
-        dwx.data_ptr(), dwh.data_ptr(), db.data_ptr(), rows, T, B, d_in,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with _build.on_device(x_tm):
+        code = _pass_fn(x_tm.dtype)(
+            x_tm.data_ptr(), x_tm.stride(0), wx.data_ptr(),
+            h_prev[0].data_ptr(), hseq.data_ptr(), dg.data_ptr(),
+            dx.data_ptr(), acc.data_ptr(), dwx.data_ptr(), dwh.data_ptr(),
+            db.data_ptr(), rows, T, B, d_in,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(code, "gru_bwd_pass")
     pass_launches += 1
     return dx, dwx.sum(0), dwh.sum(0), db.sum(0)

@@ -148,10 +148,12 @@ def _k3(w, x_tm, h0, period, outs, stream) -> int:
     t_chunk = cuda_gru.workspace_steps(T, B)
     ws = torch.empty(t_chunk, B, 3 * _D_M, dtype=torch.float32,
                      device=x_tm.device)
-    return _fwd_fn(x_tm.dtype)(
-        x_tm.data_ptr(), x_tm.stride(0), w.wx.data_ptr(), w.wh.data_ptr(),
-        w.b.data_ptr(), cuda_gru._ptr(h0), *(t.data_ptr() for t in outs),
-        ws.data_ptr(), t_chunk, T, B, d_in, period, stream)
+    with _build.on_device(x_tm):
+        return _fwd_fn(x_tm.dtype)(
+            x_tm.data_ptr(), x_tm.stride(0), w.wx.data_ptr(),
+            w.wh.data_ptr(), w.b.data_ptr(), cuda_gru._ptr(h0),
+            *(t.data_ptr() for t in outs), ws.data_ptr(), t_chunk, T, B,
+            d_in, period, stream)
 
 
 def _launch(w, x_tm, h0, period):
@@ -190,12 +192,14 @@ def _k4(w, x_tm, period, bounds, dhs, dhT, outs, stream, t_chunk=None):
     hprev = torch.empty(n, B, _D_M, dtype=x_tm.dtype, device=dev)
     f32 = functools.partial(torch.empty, dtype=torch.float32, device=dev)
     xp, acc = f32(n, B, 3 * _D_M), f32(B, cuda_gru._acc_floats(d_in))
-    code = _bwd_fn(x_tm.dtype)(
-        x_tm.data_ptr(), x_tm.stride(0), w.wx.data_ptr(), w.wh.data_ptr(),
-        w.b.data_ptr(), bounds.data_ptr(), cuda_gru._ptr(dhs),
-        cuda_gru._ptr(dhT), *(t.data_ptr() for t in outs), dg.data_ptr(),
-        hprev.data_ptr(), xp.data_ptr(), acc.data_ptr(), t_chunk, T, B, d_in,
-        period, stream)
+    with _build.on_device(x_tm):
+        code = _bwd_fn(x_tm.dtype)(
+            x_tm.data_ptr(), x_tm.stride(0), w.wx.data_ptr(),
+            w.wh.data_ptr(), w.b.data_ptr(), bounds.data_ptr(),
+            cuda_gru._ptr(dhs), cuda_gru._ptr(dhT),
+            *(t.data_ptr() for t in outs), dg.data_ptr(), hprev.data_ptr(),
+            xp.data_ptr(), acc.data_ptr(), t_chunk, T, B, d_in, period,
+            stream)
     return code, dg, hprev
 
 

@@ -61,6 +61,16 @@ class ReadoutWeights(NamedTuple):
     v: torch.Tensor
 
 
+def _k5(w, memory, query, out, stream) -> int:
+    """K5's C call, on memory's device -> the cudaError_t code."""
+    B, L, _ = memory.shape
+    with _build.on_device(memory):
+        return _kernel_fn()(memory.data_ptr(), query.data_ptr(),
+                            w.wm.data_ptr(), w.wq.data_ptr(), w.b.data_ptr(),
+                            w.v.data_ptr(), out.data_ptr(), B, L,
+                            query.shape[1], stream)
+
+
 def _launch(module, memory: torch.Tensor, query: torch.Tensor):
     global launches
     B, L, d_m = memory.shape
@@ -81,11 +91,8 @@ def _launch(module, memory: torch.Tensor, query: torch.Tensor):
     out = torch.empty(B, d_m, dtype=torch.float32, device=memory.device)
     if B == 0:
         return out
-    stream = torch.cuda.current_stream(memory.device).cuda_stream
-    code = _kernel_fn()(memory.data_ptr(), query.data_ptr(),
-                        module.wm.data_ptr(), module.wq.data_ptr(),
-                        module.b.data_ptr(), module.v.data_ptr(),
-                        out.data_ptr(), B, L, d_q, stream)
+    code = _k5(module, memory, query, out,
+               torch.cuda.current_stream(memory.device).cuda_stream)
     _build.check_launch(code, "readout_fwd")
     launches += 1
     return out

@@ -1,1 +1,2 @@
-"""Training: the optimizer and the training step (``train.train``)."""
+"""Training: the optimizer (``optim``), the training step and driver
+(``train``), the metrics and evaluation, and checkpoints."""

@@ -1,56 +1,74 @@
-"""The training step — counterpart of ``hpmn_tpu/train/train.py``'s
-``make_optimizer``, ``_raw_train_step``, ``fuse_steps`` and
-``make_multistep_train``.
+"""The training driver — counterpart of ``hpmn_tpu/train/train.py`` on one
+device: the optimizer, the training step, the data, evaluation,
+checkpoints, ``train()`` and the CLI.
 
-    opt = make_optimizer(cfg, model.parameters())
+    python -m hpmn_tpu_torch.train.train --config amazon_hpmn \\
+        --set n_examples=4000 train.max_steps=150 train.eval_every=50
+
+    opt = make_optimizer(cfg, model.parameters())   # train/optim.py
     step = make_train_step(cfg, model, opt)
-    metrics = step(batch)                 # one forward, backward, Adam step
+    metrics = step(batch)                 # one forward, backward, update
     multi = make_multistep_train(cfg, model, opt)
     metrics = multi(batches)              # k steps, the last step's metrics
+    result = train(cfg)                   # the whole run, on the card
 
-The step runs where the model and the batch are (the card, by the defaults
-of ``init_model`` and ``batch_from_numpy``). With ``use_pallas`` its scans go
-through the CUDA scan kernels forward and backward and its readout through
-the CUDA readout kernel. The ``train()`` driver, its CLI, eval and
-checkpoints wait (ROADMAP.md).
+The driver runs where ``device`` says, the card by default, and raises
+without one (``device="cpu"`` trains on the CPU). With ``use_pallas`` a
+training step runs the CUDA scan kernels forward and backward and the
+readout kernel forward, and an eval step the scan kernels forward and the
+readout kernel.
+
+Its loop is the JAX driver's single-device branch: log, eval and
+checkpoint boundaries crossed by ``step % every < k``, early stop on
+``early_stop_patience``, the best checkpoint restored before the test
+eval, a preemption snapshot on SIGTERM, the goodput line, and the JAX
+driver's log lines. Three differences: ``steps_per_dispatch`` 0 (the JAX
+startup probe) runs as 1, eval scores batch by batch whatever
+``eval_steps_per_dispatch`` says, and a snapshot saves the loader's
+position after the last batch trained on, not after the batches
+prefetched, so that a resumed run continues the interrupted one bit for
+bit.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Sequence
+import argparse
+import collections
+import copy
+import dataclasses
+import os
+import signal
+import tempfile
+import threading
+import time
+from typing import Callable, Dict, Iterable, Iterator, List, Sequence
 
 import torch
 
-from ..configs import Config
+from ..configs import Config, get_config
+from ..data import synthetic
+from ..data.loader import DataLoader
 from ..data.schema import Batch
-from ..models.model import HPMNModel, loss_fn
-
-_PLAIN_ADAM = dict(lr_schedule="constant", warmup_steps=0,
-                   grad_clip_norm=0.0, weight_decay=0.0, grad_accum=1,
-                   ema_decay=0.0)
-
-
-def make_optimizer(cfg: Config,
-                   params: Iterable[torch.Tensor]) -> torch.optim.Adam:
-    """Plain Adam at ``cfg.train.lr`` (b1 0.9, b2 0.999, eps 1e-8): the
-    update of ``optax.adam``, which the JAX config's defaults give. A
-    schedule, clipping, weight decay, accumulation or EMA raises."""
-    for field, plain in _PLAIN_ADAM.items():
-        value = getattr(cfg.train, field)
-        if value != plain:
-            raise NotImplementedError(
-                f"train.{field}={value!r} is not ported yet; only plain "
-                "Adam is (ROADMAP.md)")
-    return torch.optim.Adam(params, lr=cfg.train.lr, betas=(0.9, 0.999),
-                            eps=1e-8, fused=False, capturable=False)
+from ..models.model import apply_model, init_model, loss_fn
+from ..utils.asserts import validate_batch
+from .checkpoint import CheckpointManager
+from .evaluate import evaluate as run_evaluate
+from .optim import Optimizer
 
 
-def make_train_step(cfg: Config, model: HPMNModel,
-                    opt: torch.optim.Optimizer,
+def make_optimizer(cfg: Config, params: Iterable[torch.Tensor]) -> Optimizer:
+    """The JAX make_optimizer's transform on ``params`` (train/optim.py):
+    Adam, or AdamW, with the config's schedule, clipping, accumulation and
+    EMA."""
+    return Optimizer(cfg, params)
+
+
+def make_train_step(cfg: Config, model: torch.nn.Module, opt: Optimizer,
                     ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """-> step(batch) -> metrics (bce, cov_reg, l2, loss; detached tensors
-    on the model's device). One forward, backward and optimizer step, as
-    the JAX ``_raw_train_step``; the parameters are updated in place."""
+    on the model's device). One forward and backward and one optimizer
+    micro-step, as the JAX ``_raw_train_step``; the parameters are updated
+    in place."""
 
     def step(batch: Batch) -> Dict[str, torch.Tensor]:
         opt.zero_grad(set_to_none=True)
@@ -63,8 +81,7 @@ def make_train_step(cfg: Config, model: HPMNModel,
     return step
 
 
-def make_multistep_train(cfg: Config, model: HPMNModel,
-                         opt: torch.optim.Optimizer,
+def make_multistep_train(cfg: Config, model: torch.nn.Module, opt: Optimizer,
                          ) -> Callable[[Sequence[Batch]],
                                        Dict[str, torch.Tensor]]:
     """-> multistep(batches) -> the last step's metrics: k = len(batches)
@@ -80,3 +97,349 @@ def make_multistep_train(cfg: Config, model: HPMNModel,
         return metrics
 
     return multistep
+
+
+def make_datasets(cfg: Config):
+    """-> (train, val, test, spec): the synthetic task of
+    ``cfg.synthetic_task`` (``ctr`` or ``periodic``) at ``n_examples``
+    from ``cfg.seed``, split 80/10/10 by example index."""
+    if cfg.data_dir:
+        raise NotImplementedError(
+            "data_dir (preprocessed real data) is not ported yet "
+            "(ROADMAP.md)")
+    spec = synthetic.SPECS[cfg.dataset]
+    gen = (synthetic.make_periodic_dataset if cfg.synthetic_task == "periodic"
+           else synthetic.make_ctr_dataset)
+    arrays = gen(spec, cfg.n_examples, seed=cfg.seed)
+    return (*synthetic.train_val_test_split(arrays), spec)
+
+
+def place_batch(batch: Batch, device) -> Batch:
+    """Check a host batch's contract (``validate_batch``) and move it to
+    ``device``; to the card through pinned memory, without blocking."""
+    validate_batch(batch)
+    device = torch.device(device)
+    if device.type == "cpu":
+        return batch
+    return Batch(**{f.name: getattr(batch, f.name).pin_memory().to(
+        device, non_blocking=True) for f in dataclasses.fields(Batch)})
+
+
+def prefetch_to_device(iterator: Iterable, place: Callable,
+                       size: int = 2) -> Iterator:
+    """Keep ``size`` items placed ahead of the consumer, so each batch's
+    copy to the card is queued while the step before it runs."""
+    queue = collections.deque()
+    for item in iterator:
+        queue.append(place(item))
+        if len(queue) >= size:
+            yield queue.popleft()
+    while queue:
+        yield queue.popleft()
+
+
+def make_eval_step(cfg: Config, device) -> Callable:
+    """-> eval_step(model, host batch) -> logits [B] on ``device``: the
+    forward alone (``apply_model`` under ``torch.no_grad()``)."""
+
+    def eval_step(model, batch: Batch) -> torch.Tensor:
+        with torch.no_grad():
+            logits, _ = apply_model(model, cfg, place_batch(batch, device))
+        return logits
+
+    return eval_step
+
+
+def init_model_for(cfg: Config, spec: synthetic.DatasetSpec,
+                   device) -> torch.nn.Module:
+    """The driver's model at the start of a run: the port's seeded init
+    (``init_model``) for the dataset's vocab. The one place the driver
+    initialises a model, so a caller can start it from other weights (for
+    example the JAX package's, through ``convert.model_from_flat``)."""
+    return init_model(cfg, spec.n_items, spec.n_cats, device=device)
+
+
+def _check_supported(cfg: Config) -> None:
+    t, mesh = cfg.train, cfg.mesh
+    todo = {"train.log_dir (tensorboard event files)": t.log_dir,
+            "train.debug_nans": t.debug_nans,
+            "data_dir (preprocessed real data)": cfg.data_dir}
+    for what, value in todo.items():
+        if value:
+            raise NotImplementedError(f"{what} is not ported yet "
+                                      "(ROADMAP.md)")
+    if (mesh.model_parallel > 1 or mesh.seq_parallel > 1
+            or mesh.embedding_mode != "replicated"):
+        raise NotImplementedError(
+            "the port trains on one device: mesh.model_parallel, "
+            "mesh.seq_parallel and the psum/a2a embedding modes wait for "
+            "ROADMAP.md item 10")
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("train() runs on the card by default and "
+                           "torch.cuda.is_available() is false; pass "
+                           "device='cpu' (--device cpu) to train on the CPU")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"train() runs on cpu or cuda, not {device}")
+    return device
+
+
+def _with_position(loader: DataLoader) -> Iterator:
+    """(batch, the loader's state once that batch is taken) per batch."""
+    for batch in loader:
+        yield batch, loader.state_dict()
+
+
+def _grouped(items: Iterator, k: int) -> Iterator[List]:
+    buf = []
+    for item in items:
+        buf.append(item)
+        if len(buf) == k:
+            yield buf
+            buf = []
+
+
+def train(cfg: Config, log: Callable[[str], None] = print,
+          device="cuda") -> Dict:
+    """Run one config end to end on ``device``. -> {"test": the test
+    metrics, "best_val_auc", "best_step", "history": the VAL metrics per
+    eval, "params" and "ema_params" ({name: tensor}; None without EMA),
+    "goodput"}, and "preempted": True after a SIGTERM (the test metrics
+    nan)."""
+    _check_supported(cfg)
+    device = _resolve_device(device)
+    train_arrays, val_arrays, test_arrays, spec = make_datasets(cfg)
+    train_loader = DataLoader(train_arrays, cfg.train.batch_size,
+                              shuffle=True, seed=cfg.seed)
+    val_loader = DataLoader(val_arrays, cfg.eval_batch_size, shuffle=False)
+    test_loader = DataLoader(test_arrays, cfg.eval_batch_size, shuffle=False)
+
+    model = init_model_for(cfg, spec, device)
+    opt = make_optimizer(cfg, model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    ema_on = cfg.train.ema_decay > 0
+    eval_model = copy.deepcopy(model) if ema_on else model
+
+    def params_for_eval():
+        """The EMA shadow when EMA is on (the weights that would be
+        served), else the trained parameters."""
+        if ema_on:
+            with torch.no_grad():
+                for p, e in zip(eval_model.parameters(), opt.ema_params()):
+                    p.copy_(e)
+        return eval_model
+
+    k = cfg.train.steps_per_dispatch
+    if k == 0:
+        log("steps_per_dispatch=0 (the JAX startup probe) runs as 1 here")
+        k = 1
+    train_step = make_multistep_train(cfg, model, opt)
+    eval_step = make_eval_step(cfg, device)
+
+    def evaluate(loader):
+        return run_evaluate(eval_step, params_for_eval(), loader,
+                            cfg.eval_streaming_bins, cfg.eval_gauc_bins,
+                            cfg.eval_gauc_max_users)
+
+    mngr = None
+    start_step = 0
+    if cfg.train.ckpt_dir:
+        mngr = CheckpointManager(
+            cfg.train.ckpt_dir, cfg.train.keep_best_k,
+            async_checkpointing=cfg.train.async_checkpoint)
+        restored = mngr.restore()
+        if restored is not None:
+            model.load_state_dict(restored["params"])
+            opt.load_state_dict(restored["opt_state"])
+            train_loader.load_state_dict(restored["loader"])
+            start_step = int(restored["step"])
+            log(f"resumed from step {start_step}")
+
+    # Graceful preemption: on SIGTERM, snapshot at the next step boundary
+    # (without metrics, so the best-k rotation keeps it) and return.
+    stop_signal: list = []
+    prev_sigterm = None
+    if (mngr is not None
+            and threading.current_thread() is threading.main_thread()):
+        prev_sigterm = signal.signal(
+            signal.SIGTERM, lambda s, f: stop_signal.append(s))
+
+    best_auc, best_step, evals_since_best = -1.0, -1, 0
+    preempted = False
+    history = []
+    step = start_step
+    # Goodput: the share of the wall time spent training; eval and
+    # checkpoint pauses are the rest.
+    t_run_start = time.time()
+    nonproductive_s = eval_s = ckpt_s = 0.0
+    n_evals = n_saves = 0
+    t_last, n_since = time.time(), 0
+    position = train_loader.state_dict()
+
+    def place(group):
+        return ([place_batch(b, device) for b, _ in group], group[-1][1])
+
+    it = prefetch_to_device(_grouped(_with_position(train_loader), k), place)
+    profiler, profiled = None, False
+    trace_dir = os.path.join(cfg.train.ckpt_dir or tempfile.gettempdir(),
+                             "hpmn_torch_trace")
+
+    def save(metrics=None):
+        nonlocal ckpt_s, n_saves
+        t0 = time.time()
+        if metrics is None:
+            mngr.save_preemption(step, model.state_dict(), opt.state_dict(),
+                                 position)
+        else:
+            mngr.save(step, model.state_dict(), opt.state_dict(), position,
+                      metrics)
+        ckpt_s += time.time() - t0
+        n_saves += 1
+
+    try:
+        while step < cfg.train.max_steps:
+            batches, position = next(it)
+            if cfg.train.profile_steps and step >= 5 and profiler is None \
+                    and not profiled:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if device.type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                profiler = torch.profiler.profile(activities=activities)
+                profiler.start()
+            metrics = train_step(batches)
+            step += k
+            n_since += k
+            if stop_signal:
+                save()
+                log(f"SIGTERM: checkpoint saved at step {step}; exiting")
+                preempted = True
+                break
+            if profiler is not None and step >= 5 + cfg.train.profile_steps:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                profiler.stop()
+                os.makedirs(trace_dir, exist_ok=True)
+                profiler.export_chrome_trace(
+                    os.path.join(trace_dir, "trace.json"))
+                profiler, profiled = None, True
+                log(f"profile trace written to {trace_dir}")
+            if step % cfg.train.log_every < k:  # crossed a log boundary
+                loss_v = float(metrics["loss"])  # syncs before the clock
+                dt = time.time() - t_last
+                eps = n_since * cfg.train.batch_size / dt
+                log(f"step {step} loss {loss_v:.4f} "
+                    f"bce {float(metrics['bce']):.4f} ex/s {eps:.1f}")
+                t_last, n_since = time.time(), 0
+            if step % cfg.train.eval_every < k or step >= cfg.train.max_steps:
+                t_pause = time.time()
+                val = evaluate(val_loader)
+                eval_s += time.time() - t_pause
+                n_evals += 1
+                log(f"step {step} VAL auc {val['auc']:.4f} "
+                    f"gauc {val['gauc']:.4f} log_loss {val['log_loss']:.4f} "
+                    f"calib {val['calib']:.3f}")
+                history.append({"step": step, **val})
+                if val["auc"] > best_auc:
+                    best_auc, best_step, evals_since_best = val["auc"], step, 0
+                    if mngr is not None:
+                        save({"val_auc": val["auc"],
+                              "val_log_loss": val["log_loss"]})
+                else:
+                    evals_since_best += 1
+                    if evals_since_best >= cfg.train.early_stop_patience:
+                        log(f"early stop at step {step} (best {best_auc:.4f} "
+                            f"@ {best_step})")
+                        nonproductive_s += time.time() - t_pause
+                        break
+                nonproductive_s += time.time() - t_pause
+                t_last, n_since = time.time(), 0
+    finally:
+        if profiler is not None:
+            profiler.stop()
+        if prev_sigterm is not None:
+            signal.signal(signal.SIGTERM, prev_sigterm)
+    total_s = max(time.time() - t_run_start, 1e-9)
+    goodput = max(0.0, 1.0 - nonproductive_s / total_s)
+    if step > start_step:
+        log(f"goodput {100 * goodput:.1f}% (train "
+            f"{total_s - nonproductive_s:.1f}s, eval+ckpt "
+            f"{nonproductive_s:.1f}s of {total_s:.1f}s)")
+        log(f"eval {eval_s:.2f}s in {n_evals} evals, checkpoint "
+            f"{ckpt_s:.2f}s in {n_saves} saves")
+
+    def named(tensors):
+        return {n: t.detach() for n, t in zip(names, tensors)}
+
+    def ema_params():
+        return named(opt.ema_params()) if ema_on else None
+
+    if preempted:
+        # Fast exit: no test eval; the restarted run resumes from here.
+        mngr.close()
+        nan = float("nan")
+        return {"test": {"auc": nan, "gauc": nan, "log_loss": nan,
+                         "calib": nan, "n": 0.0},
+                "best_val_auc": best_auc, "best_step": best_step,
+                "history": history, "params": named(model.parameters()),
+                "preempted": True, "goodput": goodput,
+                "ema_params": ema_params()}
+
+    # The final test eval with the best checkpoint if there is one.
+    if mngr is not None and mngr.best_step() is not None:
+        restored = mngr.restore(mngr.best_step())
+        model.load_state_dict(restored["params"])
+        opt.load_state_dict(restored["opt_state"])  # carries the EMA shadow
+    test = evaluate(test_loader)
+    log(f"TEST auc {test['auc']:.4f} gauc {test['gauc']:.4f} "
+        f"log_loss {test['log_loss']:.4f} calib {test['calib']:.3f}")
+    if mngr is not None:
+        mngr.close()
+    return {"test": test, "best_val_auc": best_auc, "best_step": best_step,
+            "history": history, "params": named(model.parameters()),
+            "goodput": goodput, "ema_params": ema_params()}
+
+
+def _cast(old, val: str):
+    if isinstance(old, bool):
+        return val.lower() in ("1", "true", "yes")
+    if isinstance(old, tuple):
+        return tuple(int(x) for x in val.split(",") if x)
+    return (type(old) if old is not None else str)(val)
+
+
+def apply_overrides(cfg: Config, kvs: Sequence[str]) -> Config:
+    """Dotted ``key=value`` overrides (``train.max_steps=100``), each value
+    cast to the type of the one it replaces, as the JAX
+    ``apply_overrides`` does. -> a new Config (they are frozen)."""
+
+    def replace(obj, parts, val):
+        old = getattr(obj, parts[0])  # AttributeError names a wrong key
+        new = (_cast(old, val) if len(parts) == 1
+               else replace(old, parts[1:], val))
+        return dataclasses.replace(obj, **{parts[0]: new})
+
+    for kv in kvs:
+        key, val = kv.split("=", 1)
+        cfg = replace(cfg, key.split("."), val)
+    return cfg
+
+
+def main(argv=None):
+    """CLI: python -m hpmn_tpu_torch.train.train --config amazon_hpmn
+    [--device cuda|cpu|cuda:N] [--set key=value ...]."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--config", required=True)
+    p.add_argument("--device", default="cuda",
+                   help="where to train: cuda (default), cuda:N or cpu")
+    p.add_argument("--set", nargs="*", default=[],
+                   help="dotted config overrides, e.g. train.max_steps=100")
+    args = p.parse_args(argv)
+    return train(apply_overrides(get_config(args.config), args.set),
+                 device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1061,3 +1061,45 @@ def test_history_store_on_the_card_matches_the_cpu_store(dev):
     (p_cpu, r_cpu), (p_dev, r_dev) = scores
     np.testing.assert_allclose(p_dev, p_cpu, atol=TOL_GRU)
     np.testing.assert_allclose(r_dev, r_cpu, atol=TOL_GRU)
+
+
+def test_kernels_run_on_the_tensors_card(dev):
+    """K1, K2 and K5 on cuda:1 while cuda:0 is current == their plain
+    versions on the CPU: each wrapper makes its tensors' card current
+    around the launch (a kernel launched on cuda:0 with cuda:1's stream
+    and pointers would fail or read the wrong memory), and the SM count
+    that sizes K1's projection and K5 is cuda:1's own."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    other = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(40, 24, 32, generator=g)
+    mask = _mask(40, 24, torch.device("cpu"))
+    dh = torch.randn(40, 24, 32, generator=g)
+    outs = []
+    counts = (cuda_gru.launches, cuda_gru.bwd_launches)
+    for d in ("cpu", other):
+        p = _gru(32, d).requires_grad_(True)
+        x_leaf = x.to(d).requires_grad_(True)
+        h_seq, _ = cuda_gru.gru_sequence_tm(p, x_leaf, mask.to(d))
+        grads = torch.autograd.grad((h_seq * dh.to(d)).sum(),
+                                    [x_leaf, p.wx, p.wh, p.b])
+        outs.append([h_seq.detach().cpu()] + [t.cpu() for t in grads])
+    assert (cuda_gru.launches - counts[0], cuda_gru.bwd_launches
+            - counts[1]) == (1, 1)
+    assert (outs[1][0] - outs[0][0]).abs().max().item() <= TOL_GRU
+    for a, b in zip(outs[1][1:], outs[0][1:]):
+        assert _rel_err(a, b) <= TOL_GRAD
+    r = Readout(32, 32, 32)
+    r.reset_parameters(torch.Generator().manual_seed(12))
+    mem = torch.randn(600, 6, 32, generator=g)
+    q = torch.randn(600, 32, generator=g)
+    want = attention_readout(r, mem, q)
+    n = cuda_readout.launches
+    got = cuda_readout.fused_attention_readout(
+        r.requires_grad_(False).to(other), mem.to(other), q.to(other))
+    torch.cuda.synchronize(other)
+    assert cuda_readout.launches == n + 1 and got.device == other
+    assert (got.cpu() - want).abs().max().item() <= TOL_READOUT
+    assert torch.cuda.current_device() == 0

@@ -20,8 +20,6 @@ the bf16 scans' tolerances of tests/test_torch_bf16.py (a flipped bf16
 rounding runs on through the recurrences as a few bf16 ulps).
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -278,18 +276,6 @@ def test_train_step_uses_the_scan_and_readout_functions():
             cuda_readout.launches) == counts
     for name, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
-
-
-@pytest.mark.parametrize("change", [
-    dict(lr_schedule="cosine"), dict(warmup_steps=10),
-    dict(grad_clip_norm=1.0), dict(weight_decay=1e-4), dict(grad_accum=2),
-    dict(ema_decay=0.99)])
-def test_unported_optimizer_options_raise(change):
-    cfg = configs.get_config("xlong_hpmn")
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
-                                                             **change))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.make_optimizer(cfg, [torch.zeros(2, requires_grad=True)])
 
 
 def test_port_adam_is_optax_adam():
