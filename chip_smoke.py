@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's xlong_hpmn serving path and training step
-(f32 and bf16 scans, dense and strided-output), and the taobao_dien
-training step and HistoryStore serving, once on one GPU.
+(f32 and bf16 scans, dense and strided-output), the taobao_dien training
+step and HistoryStore serving, the training driver, and the real-data
+layer with the GRU4Rec and RUM baselines, once on one GPU.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a GPU
 
@@ -77,6 +78,19 @@ before the last line):
    run resumed from the step-8 snapshot: its step-16 parameters against the uninterrupted
    run's (bit for bit, or within 1e-5 of max abs; it prints which), and
    the driver's ex/s, eval and checkpoint seconds and goodput.
+11. real data and the baselines: (a) a seeded Amazon dump in the public
+   JSON-lines format through ``python -m hpmn_tpu_torch.data.process_amazon``,
+   then amazon_gru4rec (K1 per train step and eval batch, K2 per step,
+   counted) and amazon_rum trained 200 steps through ``train()`` on that
+   ``data_dir``, each against the same run on the CPU and beside a card
+   run from perturbed weights (see the tolerances below); (b) a ``UserMemoryStore``
+   per trained model ingests the test users (gru4rec: K1 once per batch),
+   its scores held to the training path's, to one event at a time and to
+   the same store on the CPU; (c) a seeded XLong CSV of about 3.4M rows
+   through ``process_xlong`` (the native parser, asserted), then
+   xlong_hpmn at full width 16 steps on it through the native batch
+   gather (counted), with the parser's rows/s, the gather's and numpy's
+   ms per batch and the driver's ex/s beside phase 5's.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -183,6 +197,41 @@ TOL_DRIVER = 0.02
 TOL_DRIVER_LOG_LOSS = 1e-5
 TOL_DRIVER_PARAMS = 1e-4
 TOL_RESUME = 1e-5
+# Phase 11: the seeded stand-ins for the public dumps. Amazon: the 5-core
+# reviews' shape (each reviewer 5-40 reviews) at 20000 reviewers, 20000
+# items and 400 categories (the amazon configs' vocab widths). XLong: 3072
+# users of 1001-1200 events (every history fills T = 1000), items 50000
+# and categories 800, about 3.4M rows. Each user prefers two categories
+# and draws 80% of its events from them, so the next behaviour is
+# predictable and AUC moves off 0.5.
+# A baseline that learns makes a 200-step run chaotic: a run from weights
+# perturbed by 1e-7 (relative) ends about 1e-4 apart in test log-loss and
+# 1e-2 of max abs apart in parameters, where at step 10 it is about 1e-6
+# apart (the phase prints the distances). So the card's run is held to
+# the CPU's where the two can agree: its step-10 parameters within
+# TOL_DRIVER_PARAMS of max abs and its step-50 VAL log-loss within
+# TOL_DRIVER_LOG_LOSS (phase 10's tolerances), the best VAL and the TEST
+# AUC within TOL_DRIVER; at step 200 its test log-loss and parameters to
+# within DIVERGENCE_FACTOR times the distance between the card run and a
+# card run from weights perturbed by PERTURB (measured in the phase; the
+# log-loss distance, a difference of two scalars, is the larger of the
+# TEST and the step-200 VAL log-loss's, and at least TOL_DRIVER_LOG_LOSS).
+# The same for rum, which has no kernel (its matmuls sum in other orders
+# on the two devices). The stores' scores: the training path's at 1e-5,
+# the CPU store's at TOL_GRU.
+PERTURB = 1e-7
+DIVERGENCE_FACTOR = 10
+CAPTURE_STEP, VAL_CHECK_STEP = 10, 50
+AMAZON_USERS, AMAZON_ITEMS, AMAZON_CATS = 20000, 20000, 400
+AMAZON_REVIEWS = (5, 40)
+XLONG_USERS, XLONG_EVENTS = 3072, (1001, 1200)
+XLONG_ITEMS, XLONG_CATS = 50000, 800
+PREFERRED_SHARE = 0.8
+BASELINE_STEPS = 200
+TOL_STORE = 1e-5
+STORE_BATCH = 512  # the stores' ingest batch
+ONE_BY_ONE_USERS = 32
+GATHER_REPS = 20  # native and numpy batch gathers, alternating
 
 
 def fail(msg):
@@ -290,6 +339,71 @@ def readout_work(B, L, d_q):
     return flops, n_bytes
 
 
+def preferred_events(rng, n_users, lengths, n_items, n_cats):
+    """Per-event (user, item, category) ids: each user has two preferred
+    categories and draws PREFERRED_SHARE of its events from them; item i
+    belongs to category i % n_cats."""
+    user = np.repeat(np.arange(n_users), lengths)
+    pref = rng.integers(0, n_cats, (n_users, 2))
+    cat = pref[user, rng.integers(0, 2, user.size)]
+    item = cat + n_cats * rng.integers(0, n_items // n_cats, user.size)
+    item = np.where(rng.random(user.size) < PREFERRED_SHARE, item,
+                    rng.integers(0, n_items, user.size))
+    return user, item, item % n_cats
+
+
+def event_times(rng, lengths, base, step):
+    """Increasing timestamps per user from a random start."""
+    start = np.repeat(rng.integers(0, 30_000_000, lengths.size), lengths)
+    first = np.repeat(np.cumsum(lengths) - lengths, lengths)
+    return base + start + step * (np.arange(lengths.sum()) - first)
+
+
+def write_amazon_dump(directory, seed):
+    """Seeded reviews and meta files in the public Amazon dump's JSON-lines
+    format (reviewerID, asin, unixReviewTime; asin, categories) -> the
+    number of reviews."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(AMAZON_REVIEWS[0], AMAZON_REVIEWS[1] + 1,
+                           AMAZON_USERS)
+    user, item, _ = preferred_events(rng, AMAZON_USERS, lengths,
+                                     AMAZON_ITEMS, AMAZON_CATS)
+    ts = event_times(rng, lengths, 1_300_000_000, 86_400)
+    with open(os.path.join(directory, "reviews.json"), "w") as f:
+        f.write("".join(
+            f'{{"reviewerID": "A{u:07d}", "asin": "B{i:09d}", '
+            f'"overall": 5.0, "unixReviewTime": {t}}}\n'
+            for u, i, t in zip(user.tolist(), item.tolist(), ts.tolist())))
+    with open(os.path.join(directory, "meta.json"), "w") as f:
+        f.write("".join(
+            f'{{"asin": "B{i:09d}", "categories": [["Electronics", '
+            f'"C{i % AMAZON_CATS:03d}"]]}}\n' for i in range(AMAZON_ITEMS)))
+    return int(lengths.sum())
+
+
+def write_xlong_csv(path, seed):
+    """A seeded XLong event log, ``user,item,category,timestamp`` rows with
+    zero-padded ids, written from numpy digits -> the number of rows."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(XLONG_EVENTS[0], XLONG_EVENTS[1] + 1, XLONG_USERS)
+    user, item, cat = preferred_events(rng, XLONG_USERS, lengths,
+                                       XLONG_ITEMS, XLONG_CATS)
+    ts = event_times(rng, lengths, 1_500_000_000, 60)
+    cols = ((user, 5), (item, 5), (cat, 3), (ts, 10))
+    width = sum(w + 1 for _, w in cols)
+    buf = np.empty((user.size, width), np.uint8)
+    at = 0
+    for values, w in cols:
+        pow10 = 10 ** np.arange(w - 1, -1, -1, dtype=np.int64)
+        buf[:, at:at + w] = values[:, None] // pow10 % 10 + ord("0")
+        buf[:, at + w] = ord(",")
+        at += w + 1
+    buf[:, -1] = ord("\n")
+    with open(path, "wb") as f:
+        f.write(buf.tobytes())
+    return int(user.size)
+
+
 def main():
     import torch
 
@@ -324,6 +438,7 @@ def main():
         from hpmn_tpu_torch.train import train as driver
         from hpmn_tpu_torch.train.train import (make_multistep_train,
                                                 make_optimizer)
+        from hpmn_tpu_torch.data import native, native_batcher, preprocess
     except ImportError as e:
         fail(f"cannot import the port ({e}): run from the repo root")
 
@@ -1773,15 +1888,24 @@ def main():
     # held to the uninterrupted run.
     driver_launches = {}
 
-    def driver_run(name, c_t, device, log_to=None, capture_at=None):
+    def driver_run(name, c_t, device, log_to=None, capture_at=None,
+                   perturb=0.0):
         """train(c_t) on device, the counters set to 0 just before and read
         just after -> (result, log lines, the parameters when step
-        capture_at's loss is logged, launches, seconds)."""
+        capture_at's loss is logged, launches, seconds). With ``perturb``,
+        every initial weight w becomes w * (1 + perturb * n), n a seeded
+        standard normal draw."""
         lines, held, captured = [], {}, {}
 
         def init(c_i, spec_i, device_i):
             held["model"] = init_model(c_i, spec_i.n_items, spec_i.n_cats,
                                        device=device_i)
+            if perturb:
+                g = torch.Generator().manual_seed(c_i.seed + 1)
+                with torch.no_grad():
+                    for p_ in held["model"].parameters():
+                        p_.mul_(1 + perturb * torch.randn(
+                            p_.shape, generator=g).to(p_.device))
             return held["model"]
 
         def log(line):
@@ -1954,6 +2078,309 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # ------------------------------- 11. real data and the baselines --
+    # The paper's Amazon comparison on preprocessed logs: (a) a seeded
+    # Amazon dump through python -m hpmn_tpu_torch.data.process_amazon, then
+    # amazon_gru4rec (K1, K2) and amazon_rum through train() on that
+    # data_dir, each against the same run on the CPU; (b) a store per
+    # trained model on the test split's histories; (c) a seeded XLong log
+    # of about 3.4M rows through process_xlong (the native parser), then
+    # xlong_hpmn at full width on it through the native batcher.
+    t11 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work11 = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        def cli(name, *args):
+            """python -m hpmn_tpu_torch.data.<name> args -> (its line,
+            seconds)."""
+            t0_ = time.perf_counter()
+            out_ = subprocess.run(
+                [sys.executable, "-m", f"hpmn_tpu_torch.data.{name}", *args],
+                cwd=repo, capture_output=True, text=True, timeout=300)
+            check(out_.returncode == 0, f"phase 11 {name} exited "
+                  f"{out_.returncode}: {out_.stderr[-2000:]}")
+            return out_.stdout.strip(), time.perf_counter() - t0_
+
+        t0 = time.perf_counter()
+        n_reviews = write_amazon_dump(work11, cfg.seed)
+        t_write = time.perf_counter() - t0
+        amazon_dir = os.path.join(work11, "amazon")
+        line_a, t_amazon = cli(
+            "process_amazon", "--reviews",
+            os.path.join(work11, "reviews.json"), "--meta",
+            os.path.join(work11, "meta.json"), "--out",
+            os.path.join(amazon_dir, "amazon.npz"))
+        print(f"phase 11 data amazon: {AMAZON_USERS} reviewers x "
+              f"{AMAZON_REVIEWS[0]}-{AMAZON_REVIEWS[1]} reviews "
+              f"({n_reviews} reviews, written in {t_write:.1f} s), "
+              f"{AMAZON_ITEMS} items, {AMAZON_CATS} categories | "
+              f"process_amazon {t_amazon:.1f} s: {line_a}", flush=True)
+
+        store_launches = {}
+        for family in ("gru4rec", "rum"):
+            c_b = driver.apply_overrides(get_config(f"amazon_{family}"), [
+                f"data_dir={amazon_dir}", f"train.max_steps={BASELINE_STEPS}",
+                f"train.eval_every={VAL_CHECK_STEP}",
+                f"train.log_every={CAPTURE_STEP}",
+                "train.early_stop_patience=100", "train.steps_per_dispatch=1",
+                "eval_steps_per_dispatch=1", "model.use_pallas=true"])
+            name_b = f"driver_amazon_{family}"
+            res_k, lines_k, early_k, launches_b, secs_k = driver_run(
+                name_b, c_b, "cuda", capture_at=CAPTURE_STEP)
+            res_p, _, early_p, _, secs_p = driver_run(
+                name_b + "_cpu", c_b, "cpu", capture_at=CAPTURE_STEP)
+            res_q, _, _, _, secs_q = driver_run(
+                name_b + "_perturbed", c_b, "cuda", perturb=PERTURB)
+            n_val, n_test = eval_batches(c_b)
+            n_eval = (BASELINE_STEPS // VAL_CHECK_STEP) * n_val + n_test
+            want_b = ((BASELINE_STEPS + n_eval, BASELINE_STEPS)
+                      if family == "gru4rec" else (0, 0)) + (0,) * 11
+            check(launches_b == want_b, f"phase 11 {name_b} launches "
+                  f"{launches_b}, expected {want_b}")
+
+            def param_gap(a_, b_):
+                return (max((a_[n].cpu() - b_[n].cpu()).abs().max().item()
+                            for n in b_)
+                        / max(p.abs().max().item() for p in b_.values()))
+
+            def loss_at(res_, step_):
+                return next(h["log_loss"] for h in res_["history"]
+                            if h["step"] == step_)
+
+            end_loss = abs(res_k["test"]["log_loss"]
+                           - res_p["test"]["log_loss"])
+            end_params = param_gap(res_k["params"], res_p["params"])
+            floor_loss = max(abs(res_q["test"]["log_loss"]
+                                 - res_k["test"]["log_loss"]),
+                             abs(loss_at(res_q, BASELINE_STEPS)
+                                 - loss_at(res_k, BASELINE_STEPS)))
+            floor_params = param_gap(res_q["params"], res_k["params"])
+            gaps = {"best_val_auc": (abs(res_k["best_val_auc"]
+                                         - res_p["best_val_auc"]), TOL_DRIVER),
+                    "test_auc": (abs(res_k["test"]["auc"]
+                                     - res_p["test"]["auc"]), TOL_DRIVER),
+                    f"step-{VAL_CHECK_STEP} val_log_loss": (abs(
+                        loss_at(res_k, VAL_CHECK_STEP)
+                        - loss_at(res_p, VAL_CHECK_STEP)),
+                        TOL_DRIVER_LOG_LOSS),
+                    f"step-{CAPTURE_STEP} parameters over max abs": (
+                        param_gap(early_k, early_p), TOL_DRIVER_PARAMS),
+                    "test_log_loss": (end_loss, DIVERGENCE_FACTOR * max(
+                        floor_loss, TOL_DRIVER_LOG_LOSS)),
+                    f"step-{BASELINE_STEPS} parameters over max abs": (
+                        end_params, DIVERGENCE_FACTOR * floor_params)}
+            for key, (gap, tol) in gaps.items():
+                check(np.isfinite(gap) and gap <= tol, f"phase 11 {name_b}: "
+                      f"{key} on the card vs the CPU differ by {gap:.3e} "
+                      f"(tol {tol:.3e}) | " + ", ".join(
+                          f"{k_} {v:.2e} (tol {t_:.2e})"
+                          for k_, (v, t_) in gaps.items()))
+            eps_b = sorted(float(line.split()[7]) for line in lines_k
+                           if line.split()[2:3] == ["loss"])
+            n_items_b = res_k["params"]["embedding.item"].shape[0]
+            print(f"phase 11 driver amazon_{family} data_dir B="
+                  f"{c_b.train.batch_size} T={AMAZON.seq_len} "
+                  f"{BASELINE_STEPS} steps use_pallas (tables sized from "
+                  f"the data: {n_items_b} items, "
+                  f"{res_k['params']['embedding.cat'].shape[0]} cats): card "
+                  f"best_val_auc {res_k['best_val_auc']:.4f} test auc "
+                  f"{res_k['test']['auc']:.4f} log_loss "
+                  f"{res_k['test']['log_loss']:.6f} | CPU "
+                  f"{res_p['best_val_auc']:.4f} {res_p['test']['auc']:.4f} "
+                  f"{res_p['test']['log_loss']:.6f} | card from weights "
+                  f"perturbed by {PERTURB}: {res_q['test']['auc']:.4f} "
+                  f"{res_q['test']['log_loss']:.6f}, its distance from the "
+                  f"card run: log-loss {floor_loss:.2e} (the larger of "
+                  f"TEST and step-{BASELINE_STEPS} VAL), parameters "
+                  f"{floor_params:.2e} of max abs | card vs CPU "
+                  + ", ".join(f"{k_} {v:.2e} (tol {t_:.2e})"
+                              for k_, (v, t_) in gaps.items())
+                  + f" | driver ex/s min {eps_b[0]:.1f} median "
+                  f"{eps_b[len(eps_b) // 2]:.1f} max {eps_b[-1]:.1f} over "
+                  f"{len(eps_b)} windows of {CAPTURE_STEP} steps | wall card "
+                  f"{secs_k:.1f} s and {secs_q:.1f} s, CPU {secs_p:.1f} s | "
+                  f"launches gru_scan_fwd {launches_b[0]} gru_scan_bwd "
+                  f"{launches_b[1]} (= expected)", flush=True)
+
+            # (b) the store of the trained model, on the test split.
+            _, _, test_b, spec_b = driver.make_datasets(c_b)
+            model_b = init_model(c_b, spec_b.n_items, spec_b.n_cats,
+                                 device=dev)
+            model_b.load_state_dict(res_k["params"])
+            model_c = copy.deepcopy(model_b).cpu()
+            first = test_b["label"] > 0.5  # one row per user
+            users = test_b["uid"][first]
+            hist = {f: test_b[f][first] for f in ("item_seq", "cat_seq",
+                                                  "seq_mask")}
+            check(len(np.unique(users)) == len(users), "phase 11: a test "
+                  "user with two positive rows")
+            stores = [UserMemoryStore(c_b, m_, device=m_.embedding.item.device)
+                      for m_ in (model_b, model_c)]
+            torch.cuda.synchronize()
+            zero_counters()
+            t0 = time.perf_counter()
+            for lo in range(0, len(users), STORE_BATCH):
+                sl = slice(lo, lo + STORE_BATCH)
+                stores[0].ingest_histories(users[sl], hist["item_seq"][sl],
+                                           hist["cat_seq"][sl],
+                                           masks=hist["seq_mask"][sl])
+            torch.cuda.synchronize()
+            t_ingest = time.perf_counter() - t0
+            ingest_l = counters()
+            n_batches = -(-len(users) // STORE_BATCH)
+            check(ingest_l[0] == (n_batches if family == "gru4rec" else 0)
+                  and sum(ingest_l) == ingest_l[0], f"phase 11 "
+                  f"{family} store ingest launches {ingest_l}, expected "
+                  f"K1 once per batch of {STORE_BATCH}")
+            store_launches[family] = ingest_l[0]
+            stores[1].ingest_histories(users, hist["item_seq"],
+                                       hist["cat_seq"],
+                                       masks=hist["seq_mask"])
+            got = stores[0].predict(test_b["uid"], test_b["target_item"],
+                                    test_b["target_cat"])
+            with torch.no_grad():
+                logits, _ = apply_model(model_b, c_b, batch_from_numpy(
+                    test_b, device=dev))
+            want_s = torch.sigmoid(logits).cpu().numpy()
+            err_train = float(np.abs(got - want_s).max())
+            check(err_train <= TOL_STORE, f"phase 11 {family} store scores "
+                  f"vs the training path's off by {err_train:.3e}")
+            got_cpu = stores[1].predict(test_b["uid"], test_b["target_item"],
+                                        test_b["target_cat"])
+            err_cpu = float(np.abs(got - got_cpu).max())
+            check(err_cpu <= TOL_GRU, f"phase 11 {family} store on the card"
+                  f" vs the CPU off by {err_cpu:.3e}")
+            # One event at a time for ONE_BY_ONE_USERS users, into fresh
+            # rows, against their ingested state.
+            one = np.arange(ONE_BY_ONE_USERS)
+            fresh = users[one] + 10 ** 7
+            for t_ in range(AMAZON.seq_len):
+                on = one[hist["seq_mask"][one, t_] > 0]
+                if on.size:
+                    stores[0].update(fresh[on], hist["item_seq"][on, t_],
+                                     hist["cat_seq"][on, t_])
+            m_i, c_i = stores[0]._gather(users[one])
+            m_u, c_u = stores[0]._gather(fresh)
+            err_one = (m_i - m_u).abs().max().item()
+            check(err_one <= TOL_STORE and torch.equal(c_i, c_u),
+                  f"phase 11 {family}: one-by-one updates vs the ingest off"
+                  f" by {err_one:.3e} (counters {torch.equal(c_i, c_u)})")
+            cands = test_b["target_item"][:100]
+            cand_i = np.tile(cands, (64, 1))
+            cand_c = np.tile(test_b["target_cat"][:100], (64, 1))
+            t0 = time.perf_counter()
+            ranked = stores[0].rank(users[:64], cand_i, cand_c)
+            t_rank = time.perf_counter() - t0
+            col0 = stores[0].predict(users[:64], cand_i[:, 0], cand_c[:, 0])
+            check(np.abs(ranked[:, 0] - col0).max() <= 1e-6, f"phase 11 "
+                  f"{family}: rank's column 0 vs predict")
+            print(f"phase 11 store amazon_{family}: {len(users)} test users "
+                  f"ingested in {n_batches} batches ({t_ingest:.3f} s; "
+                  f"gru_scan_fwd launches {ingest_l[0]}) | scores vs the "
+                  f"training path's logits {err_train:.2e} (tol {TOL_STORE})"
+                  f", vs the CPU store {err_cpu:.2e} (tol {TOL_GRU}) | "
+                  f"{ONE_BY_ONE_USERS} users one event at a time vs the "
+                  f"ingest {err_one:.2e}, counters equal | rank 64 x 100 "
+                  f"{1e3 * t_rank:.3f} ms", flush=True)
+            del res_k, res_p, res_q, stores, model_b, model_c
+        torch.cuda.empty_cache()
+
+        # (c) XLong through the native parser and batcher, at full width.
+        xlong_csv = os.path.join(work11, "xlong.csv")
+        t0 = time.perf_counter()
+        n_rows = write_xlong_csv(xlong_csv, cfg.seed)
+        t_write = time.perf_counter() - t0
+        xlong_dir = os.path.join(work11, "xlong")
+        line_x, t_xlong = cli("process_xlong", "--log", xlong_csv, "--out",
+                              os.path.join(xlong_dir, "xlong.npz"))
+        check(native.available(), "phase 11: the native parser is not "
+              "built")
+        t0 = time.perf_counter()
+        events = native.parse_csv(xlong_csv)
+        t_parse = time.perf_counter() - t0
+        check(len(events["uid"]) == n_rows, f"phase 11: the parser read "
+              f"{len(events['uid'])} of {n_rows} rows")
+        # The native route interns ids in first-seen order, process_log by
+        # frequency: the CLI's arrays equal the native pipeline's, so the
+        # CLI took the native parser.
+        native_arrays = preprocess.process_events(
+            events["uid"], events["item"], events["cat"], events["ts"],
+            XLONG.seq_len, min_events=1000)  # process_xlong's defaults
+        with np.load(os.path.join(xlong_dir, "xlong.npz")) as z:
+            same = all(np.array_equal(z[k_], v_)
+                       for k_, v_ in native_arrays.items()) and all(
+                int(z[f"_{k_}"]) == events[k_]
+                for k_ in ("n_items", "n_cats", "n_users"))
+        check(same, "phase 11: process_xlong's arrays are not the native "
+              "parser's (it took the Python route)")
+        del events, native_arrays
+        print(f"phase 11 data xlong: {XLONG_USERS} users x "
+              f"{XLONG_EVENTS[0]}-{XLONG_EVENTS[1]} events ({n_rows} rows, "
+              f"written in {t_write:.1f} s) | process_xlong {t_xlong:.1f} s "
+              f"through the native parser (its arrays = the native "
+              f"pipeline's): {line_x} | native.parse_csv "
+              f"{t_parse:.3f} s, {n_rows / t_parse:.1f} rows/s", flush=True)
+
+        c_xd = driver.apply_overrides(get_config("xlong_hpmn"), [
+            f"data_dir={xlong_dir}", "train.max_steps=16",
+            "train.eval_every=8", "train.log_every=4",
+            "train.early_stop_patience=100", "train.steps_per_dispatch=1",
+            "eval_steps_per_dispatch=1", "eval_batch_size=256",
+            "model.use_pallas=true"])
+        L_xd = c_xd.model.hpmn_layers
+        native_batcher.gathers = 0
+        res_xd, lines_xd, _, launches_xd, secs_xd = driver_run(
+            "driver_xlong_data_dir", c_xd, "cuda")
+        gathers = native_batcher.gathers
+        n_val, n_test = eval_batches(c_xd)
+        check(launches_xd == expect(c_xd, 16, 2, L_xd), f"phase 11 xlong "
+              f"driver launches {launches_xd}, expected "
+              f"{expect(c_xd, 16, 2, L_xd)}")
+        check(gathers >= 16 + 2 * n_val + n_test, f"phase 11: {gathers} "
+              f"native gathers for 16 train and {2 * n_val + n_test} eval "
+              "batches")
+        check(all(np.isfinite(res_xd["test"][k_]) for k_ in ("auc",
+                                                             "log_loss")),
+              f"phase 11 xlong: test metrics {res_xd['test']}")
+        train_x, _, _, spec_x = driver.make_datasets(c_xd)
+        fields = list(train_x)
+        rng11 = np.random.default_rng(cfg.seed)
+        t_native, t_numpy = [], []
+        for _ in range(GATHER_REPS):
+            idx = rng11.integers(0, len(train_x["label"]),
+                                 c_xd.train.batch_size)
+            t0 = time.perf_counter()
+            got_n = native_batcher.gather(train_x, idx)
+            t_native.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            got_p = {f: train_x[f][idx] for f in fields}
+            t_numpy.append(time.perf_counter() - t0)
+            check(all(np.array_equal(got_n[f], got_p[f]) for f in fields),
+                  "phase 11: the native gather differs from numpy's")
+        eps_xd = [float(line.split()[7]) for line in lines_xd
+                  if line.split()[2:3] == ["loss"]]
+        print(f"phase 11 driver xlong_hpmn data_dir B="
+              f"{c_xd.train.batch_size} T={XLONG.seq_len} L={L_xd} 16 steps "
+              f"use_pallas ({len(train_x['label'])} train examples; tables "
+              f"{spec_x.n_items} items, {spec_x.n_cats} cats from the data): "
+              f"driver ex/s " + ", ".join(f"{e:.1f}" for e in eps_xd)
+              + f" (steps 4, 8, 12, 16) beside phase 5's bare step "
+              f"{ex_per_s:.1f} | test auc {res_xd['test']['auc']:.4f} "
+              f"log_loss {res_xd['test']['log_loss']:.4f} | wall "
+              f"{secs_xd:.1f} s | native gathers {gathers} | batch of "
+              f"{c_xd.train.batch_size} on the host, median of "
+              f"{GATHER_REPS} alternating: native "
+              f"{1e3 * np.median(t_native):.3f} ms "
+              f"({native_batcher.n_threads()} threads), numpy "
+              f"{1e3 * np.median(t_numpy):.3f} ms | launches gru_scan_fwd "
+              f"{launches_xd[0]} gru_scan_bwd {launches_xd[1]} readout_fwd "
+              f"{launches_xd[4]} (= expected)", flush=True)
+        del res_xd, train_x
+    finally:
+        shutil.rmtree(work11, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 11 time: {time.perf_counter() - t11:.1f} s", flush=True)
+
     def entry(name, src, rep, row, err, by_path, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1973,7 +2400,8 @@ def main():
               (g[3], g[4], g[5], g[6], g[7]), gru_err,
               {"serving": launches_gru, "training": train_launches[0],
                "training_dien": fd[0], "serving_dien": serve_launches[0],
-               **{k_: v[0] for k_, v in driver_launches.items()}},
+               **{k_: v[0] for k_, v in driver_launches.items()},
+               "store_gru4rec": store_launches["gru4rec"]},
               sources=list(cuda_gru.FWD_SOURCES),
               projection_ms=proj_rows[0][2],
               projection_max_err_over_max_abs=proj_err_max),

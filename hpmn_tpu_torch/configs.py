@@ -1,18 +1,20 @@
-"""The hpmn and dien configs the port serves and trains, as frozen
-dataclasses.
+"""The hpmn, dien, gru4rec and rum configs the port serves and trains, as
+frozen dataclasses.
 
 Counterpart of ``hpmn_tpu/configs/base.py``, which builds
 ``ml_collections.ConfigDict``s. Only the fields the forward, serving,
 training-step and training-driver paths read are carried; their names and
 values are the JAX config's, so a config dict saved by the JAX package maps
 onto these one to one. ``train.train.apply_overrides`` applies the JAX
-CLI's dotted ``key=value`` overrides to them.
+CLI's dotted ``key=value`` overrides to them. ``data_dir`` names a
+directory of preprocessed ``<dataset>.npz`` files (the ``process_*`` CLIs
+write them); empty, the driver trains on the synthetic task.
 
 Fields the driver takes but does not run yet raise ``NotImplementedError``
-in ``train.train.train`` when they are set: ``data_dir``,
-``train.log_dir``, ``train.debug_nans`` and every mesh layout but one
-device (ROADMAP.md). Not carried: ``train.compilation_cache_dir`` (no
-compile cache to keep) and ``train.compact_transfer``.
+in ``train.train.train`` when they are set: ``train.log_dir``,
+``train.debug_nans`` and every mesh layout but one device (ROADMAP.md).
+Not carried: ``train.compilation_cache_dir`` (no compile cache to keep)
+and ``train.compact_transfer``.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ class ModelConfig:
     # DIEN: the auxiliary next-behaviour loss and its weight in the total.
     dien_use_aux_loss: bool = True
     aux_weight: float = 1.0
+    rum_slots: int = 8  # RUM's external memory slots
     use_user_emb: bool = False  # not ported
 
 
@@ -104,7 +107,7 @@ class Config:
     dataset: str = "amazon"  # amazon | taobao | xlong
     synthetic_task: str = "ctr"  # ctr | periodic (planted long-range task)
     n_examples: int = 20000  # synthetic dataset size
-    data_dir: str = ""  # preprocessed real arrays: not ported
+    data_dir: str = ""  # if set, load preprocessed real arrays from here
     model: ModelConfig = ModelConfig()
     loss: LossConfig = LossConfig()
     train: TrainConfig = TrainConfig()
@@ -159,11 +162,33 @@ def taobao_dien() -> Config:
                   train=TrainConfig(batch_size=512, steps_per_dispatch=0))
 
 
+def _amazon_baseline(name: str) -> Config:
+    """A target-independent baseline on Amazon, T=100 (hpmn_tpu
+    amazon_rum and amazon_gru4rec: the amazon base keeps its hpmn_layers 4
+    and period 4, which neither reads)."""
+    return Config(dataset="amazon",
+                  model=ModelConfig(name=name, hpmn_layers=4, hpmn_period=4),
+                  loss=LossConfig(l2_weight=1e-4),
+                  train=TrainConfig(steps_per_dispatch=0))
+
+
+def amazon_rum() -> Config:
+    """RUM, the external-memory baseline, on Amazon (hpmn_tpu amazon_rum)."""
+    return _amazon_baseline("rum")
+
+
+def amazon_gru4rec() -> Config:
+    """GRU4Rec, the RNN baseline, on Amazon (hpmn_tpu amazon_gru4rec)."""
+    return _amazon_baseline("gru4rec")
+
+
 _CONFIGS = {
     "amazon_hpmn": amazon_hpmn,
     "taobao_hpmn": taobao_hpmn,
     "xlong_hpmn": xlong_hpmn,
     "taobao_dien": taobao_dien,
+    "amazon_rum": amazon_rum,
+    "amazon_gru4rec": amazon_gru4rec,
 }
 
 

@@ -8,6 +8,8 @@ parameter names correspond one to one:
     ['embedding']['item']           embedding.item
     ['encoder']['layers'][0].wx     encoder.layers.0.wx   (GRUParams fields)
     ['encoder']['augru'].b          encoder.augru.b       (DIEN's GRUs)
+    ['encoder']['gru'].wh           encoder.gru.wh        (GRU4Rec's GRU)
+    ['encoder']['beta']             encoder.beta          (RUM's, 0-d)
     ['encoder']['attn']['b']        encoder.attn.b        (a dict entry)
     ['readout']['wm']               readout.wm
     ['tower']['layers'][0]['w']     tower.layers.0.w
@@ -32,8 +34,9 @@ from torch import nn
 from .configs import Config
 from .models.model import build_model
 
-# The port's GRU modules (GRUParams in JAX): HPMN's layers, DIEN's two GRUs.
-_GRU_MODULE = re.compile(r"encoder\.(layers\.\d+|gru1|augru)")
+# The port's GRU modules (GRUParams in JAX): HPMN's layers, DIEN's two
+# GRUs, GRU4Rec's one.
+_GRU_MODULE = re.compile(r"encoder\.(layers\.\d+|gru1|augru|gru)")
 
 
 def jax_key(name: str) -> str:

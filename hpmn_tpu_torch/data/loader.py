@@ -10,8 +10,9 @@
 - The position (``epoch``, ``step``, ``seed``, ``global_batch``) is state
   that a checkpoint saves and a resumed run loads.
 
-Batches are built on the host (CPU tensors viewing numpy rows); the driver
-moves them to the card.
+Batches are built on the host (CPU tensors over the rows that
+``batch_from_numpy`` gathers, natively where the core is built); the
+driver moves them to the card.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""The hpmn and dien models and their loss — counterpart of
-``hpmn_tpu/models/model.py`` for ``cfg.model.name`` "hpmn" and "dien".
+"""The hpmn, dien, gru4rec and rum models and their loss — counterpart of
+``hpmn_tpu/models/model.py`` for those values of ``cfg.model.name``.
 
     model = init_model(cfg, n_items, n_cats)             # on the card
     logits, aux = apply_model(model, cfg, batch)
@@ -18,12 +18,18 @@
 - the batch-major hierarchy of plain scans;
 - the masked single-scan oracle (``use_hierarchical_scan=False``).
 
-and the JAX function's two dien branches: with ``use_pallas`` the
+the JAX function's two dien branches: with ``use_pallas`` the
 time-major ``dien.encode_tm``, both scans through the CUDA scan kernels
 (``gru1``: K1 and K2; the AUGRU: K1-scale and K2-scale; or their bf16
 forms), the negatives gathered time-major too; otherwise the batch-major
 plain ``dien.encode``. DIEN has no readout and returns aux["aux_loss"],
 which ``total_loss`` weighs by ``aux_weight``.
+
+and its gru4rec and rum branches: gru4rec with ``use_pallas`` runs its GRU
+time-major through the CUDA scan kernels (K1 forward, K2 backward, or
+their bf16 forms), otherwise the batch-major plain ``gru4rec.encode``; rum
+is plain tensor ops in either case (``rum.encode``), as in JAX. Neither
+has a readout or an aux output: the tower reads [target embedding; state].
 
 Other families raise.
 """
@@ -42,7 +48,9 @@ from ..ops import cuda_gru, cuda_gru_stride, cuda_readout
 from ..ops.gru import (GRUWeights, gru_scan_stride_tm, gru_scan_stride_tm_bf16,
                        gru_scan_tm, gru_scan_tm_bf16)
 from . import dien as dien_mod
+from . import gru4rec as gru4rec_mod
 from . import hpmn as hpmn_mod
+from . import rum as rum_mod
 from .embedding import Embedding, dense_lookup
 from .losses import bce_with_logits, covariance_regularizer, l2_regularizer
 from .readout import Readout, attention_readout
@@ -79,7 +87,35 @@ class DIENModel(nn.Module):
         self.tower = Tower(d_beh + m.mem_dim, m.tower_hidden)
 
 
-_MODELS = {"hpmn": HPMNModel, "dien": DIENModel}
+class GRU4RecModel(nn.Module):
+    """embedding, encoder (``gru4rec.GRU4RecEncoder``) and tower; no
+    readout: the tower reads [target embedding; the GRU's final state]."""
+
+    def __init__(self, cfg: Config, n_items: int, n_cats: int):
+        super().__init__()
+        m = cfg.model
+        d_beh = 2 * m.emb_dim
+        self.embedding = Embedding(n_items, n_cats, m.emb_dim)
+        self.encoder = gru4rec_mod.GRU4RecEncoder(d_beh, m.mem_dim)
+        self.tower = Tower(d_beh + m.mem_dim, m.tower_hidden)
+
+
+class RUMModel(nn.Module):
+    """embedding, encoder (``rum.RUMEncoder``, ``rum_slots`` slots) and
+    tower; no readout: the tower reads [target embedding; the memory's
+    read]."""
+
+    def __init__(self, cfg: Config, n_items: int, n_cats: int):
+        super().__init__()
+        m = cfg.model
+        d_beh = 2 * m.emb_dim
+        self.embedding = Embedding(n_items, n_cats, m.emb_dim)
+        self.encoder = rum_mod.RUMEncoder(d_beh, m.mem_dim, m.rum_slots)
+        self.tower = Tower(d_beh + m.mem_dim, m.tower_hidden)
+
+
+_MODELS = {"hpmn": HPMNModel, "dien": DIENModel, "gru4rec": GRU4RecModel,
+           "rum": RUMModel}
 
 
 def check_supported(cfg: Config) -> None:
@@ -99,8 +135,9 @@ def check_supported(cfg: Config) -> None:
 
 
 def build_model(cfg: Config, n_items: int, n_cats: int) -> nn.Module:
-    """The model class of ``cfg.model.name`` (``HPMNModel`` or
-    ``DIENModel``), its parameters allocated on the CPU, not initialised."""
+    """The model class of ``cfg.model.name`` (``HPMNModel``, ``DIENModel``,
+    ``GRU4RecModel`` or ``RUMModel``), its parameters allocated on the
+    CPU, not initialised."""
     check_supported(cfg)
     return _MODELS[cfg.model.name](cfg, n_items, n_cats)
 
@@ -130,12 +167,13 @@ def _scan_weights(enc: hpmn_mod.HPMNEncoder, dtype: torch.dtype):
         for layer in enc.layers])
 
 
-def _dien_scan(dtype: torch.dtype, plain: bool):
-    """The use_pallas DIEN's scan: (params, x_tm, mask_tm, scale_tm=None)
-    -> (h_seq, h_T) in ``dtype``. x, the mask, the scale and the weights
-    are cast to it here, differentiably (as ``pallas_gru_sequence_tm``
-    casts them inside); then the CUDA scan (``cuda_gru.gru_sequence_tm``)
-    or, with ``plain``, its plain version under autograd."""
+def _tm_scan(dtype: torch.dtype, plain: bool):
+    """The use_pallas scan of DIEN and GRU4Rec: (params, x_tm, mask_tm,
+    scale_tm=None) -> (h_seq, h_T) in ``dtype``. x, the mask, the scale
+    and the weights are cast to it here, differentiably (as
+    ``pallas_gru_sequence_tm`` casts them inside); then the CUDA scan
+    (``cuda_gru.gru_sequence_tm``) or, with ``plain``, its plain version
+    under autograd."""
     plain_scan = gru_scan_tm_bf16 if dtype == torch.bfloat16 else gru_scan_tm
 
     def scan(p, x_tm, mask_tm, scale_tm=None):
@@ -166,7 +204,7 @@ def _apply_dien(model: DIENModel, cfg: Config, batch: Batch,
                    else batch.seq_mask.T.to(x_tm.dtype).contiguous())
         state, aux_loss = dien_mod.encode_tm(
             model.encoder, x_tm, mask_tm, q, x_neg_tm, aux_on,
-            gru_seq_tm_fn=_dien_scan(_SCAN_DTYPES[m.scan_dtype], plain))
+            gru_seq_tm_fn=_tm_scan(_SCAN_DTYPES[m.scan_dtype], plain))
         return state.float(), aux_loss
     x = dense_lookup(emb, batch.item_seq, batch.cat_seq)  # [B, T, 2d]
     x_neg = (dense_lookup(emb, batch.neg_item_seq, batch.neg_cat_seq)
@@ -175,18 +213,38 @@ def _apply_dien(model: DIENModel, cfg: Config, batch: Batch,
                            x_neg=x_neg, use_aux_loss=aux_on)
 
 
+def _apply_baseline(model: nn.Module, cfg: Config, batch: Batch,
+                    q: torch.Tensor, plain: bool) -> torch.Tensor:
+    """The gru4rec and rum branches of the JAX apply_model -> the state
+    [B, d_m] (float32) the tower reads beside q."""
+    m = cfg.model
+    emb = model.embedding
+    if m.name == "gru4rec" and m.use_pallas:
+        x_tm = dense_lookup(emb, batch.item_seq.T, batch.cat_seq.T)
+        mask_tm = (None if m.assume_full_mask
+                   else batch.seq_mask.T.to(x_tm.dtype).contiguous())
+        scan = _tm_scan(_SCAN_DTYPES[m.scan_dtype], plain)
+        _, state = scan(model.encoder.gru, x_tm, mask_tm)
+        return state.float()
+    x = dense_lookup(emb, batch.item_seq, batch.cat_seq)  # [B, T, 2d]
+    mask = batch.seq_mask.to(x.dtype)
+    if m.name == "gru4rec":
+        return gru4rec_mod.encode(model.encoder, x, mask)
+    return rum_mod.encode(model.encoder, x, mask, q)
+
+
 def apply_model(model: nn.Module, cfg: Config, batch: Batch,
                 plain: bool = False,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (logits [B], aux): for hpmn aux["memory"] is the slots [B, L,
     d_m] (float32) that the covariance regularizer reads; for dien
-    aux["aux_loss"] is the auxiliary loss.
+    aux["aux_loss"] is the auxiliary loss; gru4rec and rum return no aux.
 
     ``plain=True`` runs the ``use_pallas`` branch with the kernels' plain
     versions under autograd (``gru_scan_tm`` or ``gru_scan_tm_bf16``, with
     the scale for DIEN's AUGRU, the strided ``gru_scan_stride_tm``/``_bf16``,
-    the plain readout) on any device: the reference that chip_smoke.py
-    holds the kernel path to on the card."""
+    the plain readout; GRU4Rec's scan likewise) on any device: the
+    reference that chip_smoke.py holds the kernel path to on the card."""
     check_supported(cfg)
     m = cfg.model
     emb = model.embedding
@@ -195,6 +253,9 @@ def apply_model(model: nn.Module, cfg: Config, batch: Batch,
         state, aux_loss = _apply_dien(model, cfg, batch, q, plain)
         logits = apply_tower(model.tower, torch.cat([q, state], dim=-1))
         return logits, {"aux_loss": aux_loss}
+    if m.name in ("gru4rec", "rum"):
+        state = _apply_baseline(model, cfg, batch, q, plain)
+        return apply_tower(model.tower, torch.cat([q, state], dim=-1)), {}
     if m.use_pallas and m.use_hierarchical_scan:
         # Transposing the int32 ids, not the activations, gives time-major
         # embeddings. The scans run in scan_dtype: x, the mask and the

@@ -1,6 +1,7 @@
-"""Lifelong serving: per-user HPMN memory with O(1) updates per event —
+"""Lifelong serving: per-user encoder state with O(1) updates per event —
 counterpart of ``hpmn_tpu/serving/lifelong.py::UserMemoryStore`` in its
-device-resident form.
+device-resident form, for every family of ``protocol.O1_FAMILIES`` (hpmn,
+gru4rec, rum).
 
     store = UserMemoryStore(cfg, model)        # on the card, as the model
     store.ingest_histories(uids, item_seqs, cat_seqs)  # cold start, batched
@@ -8,7 +9,8 @@ device-resident form.
     scores = store.predict(uids, cand_items, cand_cats)           # [B]
     scores = store.rank(uids, cand_items_bc, cand_cats_bc)        # [B, C]
 
-The memory arena ``[capacity, L, d_m]`` (f32) and the event counters live on
+The state arena ``[capacity, K, d_m]`` (f32; K =
+``protocol.n_state_slots(cfg)``) and the event counters live on
 ``device``; the uid -> row index, the LRU clock and eviction stay on the
 host. A request moves ids up and scores down. Arena rows are updated in
 place. Save/load, bundles, the bf16 arena and user embeddings wait
@@ -26,7 +28,8 @@ from ..configs import Config
 from ..models.embedding import dense_lookup
 from ..models.model import check_supported
 from ..models.tower import apply_tower
-from .protocol import encode_full, read_state, update_state
+from .protocol import (O1_FAMILIES, encode_full, n_state_slots, read_state,
+                       update_state)
 
 
 class UserRows:
@@ -141,21 +144,24 @@ class UserRows:
 
 
 class UserMemoryStore(UserRows):
-    """Per-user HPMN memory (uid -> [L, d_m] slots + event counter) in a
-    device arena with amortized doubling growth. With ``max_users`` set,
-    a full store evicts the least recently touched quarter in one pass; an
-    evicted user who comes back starts from empty memory."""
+    """Per-user encoder state (uid -> [K, d_m] slots + event counter) in a
+    device arena with amortized doubling growth, for the families whose
+    encoder is a target-independent recurrence (``O1_FAMILIES``): hpmn's L
+    memory slots, gru4rec's GRU state, rum's K slots. With ``max_users``
+    set, a full store evicts the least recently touched quarter in one
+    pass; an evicted user who comes back starts from an empty state."""
 
     def __init__(self, cfg: Config, model, max_users: Optional[int] = None,
                  device="cuda"):
-        check_supported(cfg)
-        if cfg.model.name != "hpmn":
+        if cfg.model.name not in O1_FAMILIES:
             raise ValueError(
-                f"model family {cfg.model.name!r} has no target-independent"
-                " encoder recurrence, so there is no O(1) per-event state "
-                "update; UserMemoryStore serves ('hpmn',). Serve this family"
-                " with serving.history.HistoryStore (a bounded recent-history"
-                " window, re-encoded per request).")
+                f"model family {cfg.model.name!r} has no target-"
+                f"independent encoder recurrence, so there is no O(1) "
+                f"per-event state update; UserMemoryStore serves "
+                f"{O1_FAMILIES}. Serve this family with "
+                f"serving.history.HistoryStore (bounded recent-history "
+                f"window, batched re-encode per request).")
+        check_supported(cfg)
         self.device = torch.empty(0, device=device).device  # "cuda" -> cuda:i
         if model.embedding.item.device != self.device:
             raise ValueError(f"the model is on {model.embedding.item.device}"
@@ -163,7 +169,7 @@ class UserMemoryStore(UserRows):
         self.cfg = cfg
         self.model = model
         self.family = cfg.model.name
-        self.L = cfg.model.hpmn_layers
+        self.L = n_state_slots(cfg)
         self.d_m = cfg.model.mem_dim
         self.period = cfg.model.hpmn_period
         cap = self._init_rows(max_users)

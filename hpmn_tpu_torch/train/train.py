@@ -4,6 +4,8 @@ checkpoints, ``train()`` and the CLI.
 
     python -m hpmn_tpu_torch.train.train --config amazon_hpmn \\
         --set n_examples=4000 train.max_steps=150 train.eval_every=50
+    python -m hpmn_tpu_torch.train.train --config amazon_gru4rec \\
+        --set data_dir=data      # data/amazon.npz from process_amazon
 
     opt = make_optimizer(cfg, model.parameters())   # train/optim.py
     step = make_train_step(cfg, model, opt)
@@ -46,7 +48,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, Sequence
 import torch
 
 from ..configs import Config, get_config
-from ..data import synthetic
+from ..data import preprocess, synthetic
 from ..data.loader import DataLoader
 from ..data.schema import Batch
 from ..models.model import apply_model, init_model, loss_fn
@@ -100,17 +102,24 @@ def make_multistep_train(cfg: Config, model: torch.nn.Module, opt: Optimizer,
 
 
 def make_datasets(cfg: Config):
-    """-> (train, val, test, spec): the synthetic task of
-    ``cfg.synthetic_task`` (``ctr`` or ``periodic``) at ``n_examples``
-    from ``cfg.seed``, split 80/10/10 by example index."""
-    if cfg.data_dir:
-        raise NotImplementedError(
-            "data_dir (preprocessed real data) is not ported yet "
-            "(ROADMAP.md)")
+    """-> (train, val, test, spec), split 80/10/10 by example index. With
+    ``cfg.data_dir``, the preprocessed ``<data_dir>/<dataset>.npz``
+    (``preprocess.load_preprocessed``, memory-mapped where it is
+    uncompressed), and a spec that carries the data's own vocab sizes, so
+    that the tables are sized to the data; otherwise the synthetic task of
+    ``cfg.synthetic_task`` (``ctr`` or ``periodic``) at ``n_examples`` from
+    ``cfg.seed``."""
     spec = synthetic.SPECS[cfg.dataset]
-    gen = (synthetic.make_periodic_dataset if cfg.synthetic_task == "periodic"
-           else synthetic.make_ctr_dataset)
-    arrays = gen(spec, cfg.n_examples, seed=cfg.seed)
+    if cfg.data_dir:
+        arrays = preprocess.load_preprocessed(cfg.data_dir, spec)
+        spec = dataclasses.replace(spec, n_items=int(arrays.pop("_n_items")),
+                                   n_cats=int(arrays.pop("_n_cats")),
+                                   n_users=int(arrays.pop("_n_users")))
+    else:
+        gen = (synthetic.make_periodic_dataset
+               if cfg.synthetic_task == "periodic"
+               else synthetic.make_ctr_dataset)
+        arrays = gen(spec, cfg.n_examples, seed=cfg.seed)
     return (*synthetic.train_val_test_split(arrays), spec)
 
 
@@ -162,8 +171,7 @@ def init_model_for(cfg: Config, spec: synthetic.DatasetSpec,
 def _check_supported(cfg: Config) -> None:
     t, mesh = cfg.train, cfg.mesh
     todo = {"train.log_dir (tensorboard event files)": t.log_dir,
-            "train.debug_nans": t.debug_nans,
-            "data_dir (preprocessed real data)": cfg.data_dir}
+            "train.debug_nans": t.debug_nans}
     for what, value in todo.items():
         if value:
             raise NotImplementedError(f"{what} is not ported yet "

@@ -1103,3 +1103,80 @@ def test_kernels_run_on_the_tensors_card(dev):
     assert cuda_readout.launches == n + 1 and got.device == other
     assert (got.cpu() - want).abs().max().item() <= TOL_READOUT
     assert torch.cuda.current_device() == 0
+
+
+def _amazon_data(n=64, T=100, full_mask=False):
+    spec = synthetic.DatasetSpec("amazon", seq_len=T, n_items=500, n_cats=40,
+                                 n_users=50)
+    return synthetic.make_ctr_dataset(spec, n, seed=3,
+                                      min_len_frac=1.0 if full_mask else 0.3)
+
+
+@pytest.mark.parametrize("full_mask", [False, True])
+def test_gru4rec_step_kernel_path_matches_plain_path(dev, full_mask):
+    """amazon_gru4rec with use_pallas: one loss and gradient through K1 and
+    K2 (one launch each) == the same branch with the plain scan under
+    autograd (``plain=True``), from the same weights and batch."""
+    cfg = configs.get_config("amazon_gru4rec").with_model(
+        use_pallas=True, assume_full_mask=full_mask)
+    batch = batch_from_numpy(_amazon_data(full_mask=full_mask), device=dev)
+    out = []
+    for plain in (False, True):
+        model = init_model(cfg, 500, 40, seed=4, device=dev)
+        counts = (cuda_gru.launches, cuda_gru.bwd_launches)
+        loss, _ = loss_fn(model, cfg, batch, plain=plain)
+        loss.backward()
+        torch.cuda.synchronize()
+        ran = (cuda_gru.launches - counts[0], cuda_gru.bwd_launches
+               - counts[1])
+        out.append((loss.item(), dict(model.named_parameters()), ran))
+    (l_k, p_k, ran_k), (l_p, p_p, ran_p) = out
+    assert ran_k == (1, 1) and ran_p == (0, 0)
+    assert abs(l_k - l_p) <= 1e-5 * abs(l_p)
+    for name, p in p_k.items():
+        assert _rel_err(p.grad, p_p[name].grad) <= TOL_GRAD, name
+
+
+@pytest.mark.parametrize("family", ["gru4rec", "rum"])
+def test_baseline_store_on_the_card_matches_the_cpu_store(dev, family):
+    """The gru4rec and rum UserMemoryStores on the card == the same stores
+    on the CPU: full and left-padded ingests (gru4rec: K1 once per ingest),
+    updates, states, counters and rank's scores."""
+    cfg = configs.get_config(f"amazon_{family}").with_model(use_pallas=True)
+    data = _amazon_data(n=40)
+    items, cats, mask = data["item_seq"], data["cat_seq"], data["seq_mask"]
+    stores = [UserMemoryStore(cfg, init_model(cfg, 500, 40, device=d),
+                              device=d) for d in ("cpu", dev)]
+    n_gru = cuda_gru.launches
+    for s in stores:
+        s.ingest_histories(np.arange(20), items[:20], cats[:20])
+        s.ingest_histories(np.arange(20, 40), items[20:], cats[20:],
+                           masks=mask[20:])
+        s.update(np.arange(0, 40, 3), data["target_item"][::3],
+                 data["target_cat"][::3])
+    assert cuda_gru.launches == n_gru + 2 * (family == "gru4rec")
+    uids = np.arange(40)
+    m_cpu, c_cpu = stores[0]._gather(uids)
+    m_dev, c_dev = stores[1]._gather(uids)
+    assert (m_dev.cpu() - m_cpu).abs().max().item() <= TOL_GRU
+    assert torch.equal(c_dev.cpu(), c_cpu)
+    ci = data["item_seq"][:, -7:] % 499 + 1
+    np.testing.assert_allclose(stores[1].rank(uids, ci, ci % 40),
+                               stores[0].rank(uids, ci, ci % 40),
+                               atol=TOL_GRU)
+
+
+def test_native_batch_on_the_card_equals_numpy(dev):
+    """A batch the native gather assembles, placed on the card, == numpy's
+    rows of the same indices, field by field."""
+    from hpmn_tpu_torch.data import native_batcher
+
+    data = _amazon_data(n=300)
+    idx = np.random.default_rng(5).integers(0, 300, 128)
+    before = native_batcher.gathers
+    batch = batch_from_numpy(data, idx, device=dev)
+    assert native_batcher.gathers == before + 1
+    for name, a in data.items():
+        got = getattr(batch, name)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), torch.from_numpy(a[idx])), name

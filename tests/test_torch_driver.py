@@ -321,7 +321,7 @@ def test_train_runs_on_the_card_by_default(tiny, monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    "data_dir=/some/arrays", "train.log_dir=/some/events",
+    "model.name=bst", "train.log_dir=/some/events",
     "train.debug_nans=true", "model.dtype=bfloat16",
     "mesh.model_parallel=2", "mesh.seq_parallel=2",
     "mesh.embedding_mode=a2a"])

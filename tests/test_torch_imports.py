@@ -4,7 +4,9 @@
 or inside a function. Every module of the port is imported, the training
 driver's (``train.train``, ``train.optim``, ``train.checkpoint``,
 ``train.evaluate``, ``train.metrics``, ``data.loader``,
-``utils.asserts``) among them."""
+``utils.asserts``) and the real-data layer's and the baselines'
+(``data.preprocess``, ``data.native``, ``data.native_batcher``, the three
+``data.process_*`` CLIs, ``models.gru4rec``, ``models.rum``) among them."""
 
 import ast
 import pathlib
@@ -15,7 +17,10 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "ml_collections", "optax", "orbax", "chex",
              "hpmn_tpu")
 DRIVER = ("train.train", "train.optim", "train.checkpoint", "train.evaluate",
-          "train.metrics", "data.loader", "utils.asserts")
+          "train.metrics", "data.loader", "utils.asserts", "data.preprocess",
+          "data.native", "data.native_batcher", "data.process_amazon",
+          "data.process_taobao", "data.process_xlong", "models.gru4rec",
+          "models.rum")
 
 
 def _forbidden(module: str) -> bool:
@@ -37,7 +42,7 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 36  # every submodule was imported
+    assert int(out.stdout.split()[-1]) >= 44  # every submodule was imported
 
 
 def test_no_source_of_the_port_names_jax():
@@ -53,3 +58,38 @@ def test_no_source_of_the_port_names_jax():
             else:
                 continue
             assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_the_clis_run_without_jax(tmp_path):
+    """Each process_* CLI preprocesses a small log (taobao and xlong through
+    the native parser) in a process that then holds no module of JAX."""
+    with open(tmp_path / "reviews.json", "w") as f:
+        for u in range(3):
+            for t in range(6):
+                f.write(f'{{"reviewerID": "U{u}", "asin": "A{t % 4}", '
+                        f'"unixReviewTime": {t}}}\n')
+    with open(tmp_path / "log.csv", "w") as f:
+        for u in range(3):
+            for t in range(25):
+                f.write(f"u{u},i{t % 7},c{t % 3},pv,{t}\n")
+    code = (
+        "import sys\n"
+        "from hpmn_tpu_torch.data import (native, process_amazon,"
+        " process_taobao, process_xlong)\n"
+        f"d = {str(tmp_path)!r}\n"
+        "process_amazon.main(['--reviews', d + '/reviews.json', '--out',"
+        " d + '/amazon.npz'])\n"
+        "process_taobao.main(['--log', d + '/log.csv', '--out',"
+        " d + '/taobao.npz'])\n"
+        "process_xlong.main(['--log', d + '/log.csv', '--out',"
+        " d + '/xlong.npz', '--min_events', '20', '--no-native'])\n"
+        "assert native.available()\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert [line.split(":")[0].rsplit("/", 1)[-1]
+            for line in out.stdout.splitlines()] == [
+        "amazon.npz", "taobao.npz", "xlong.npz"]

@@ -151,9 +151,14 @@ def test_store_refuses_a_model_on_another_device():
 
 
 def test_other_families_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        protocol.update_state("gru4rec", None, torch.zeros(1, 1, 1),
+    """The protocol serves O1_FAMILIES; a target-dependent family (DIEN)
+    has no O(1) update, readout or batched encode."""
+    assert protocol.O1_FAMILIES == ("hpmn", "gru4rec", "rum")
+    with pytest.raises(ValueError, match="no O\\(1\\) update"):
+        protocol.update_state("dien", None, torch.zeros(1, 1, 1),
                               torch.zeros(1), torch.zeros(1, 1), 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        protocol.read_state("rum", None, torch.zeros(1, 1, 1),
+    with pytest.raises(ValueError, match="no readout"):
+        protocol.read_state("dien", None, torch.zeros(1, 1, 1),
                             torch.zeros(1, 1))
+    with pytest.raises(ValueError, match="no batched encode"):
+        protocol.encode_full("dien", None, torch.zeros(1, 1, 1), None, 1)
