@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's xlong_hpmn serving path and training step
 (f32 and bf16 scans, dense and strided-output), the taobao_dien training
-step and HistoryStore serving, the training driver, and the real-data
-layer with the GRU4Rec and RUM baselines, once on one GPU.
+step and HistoryStore serving, the training driver, the real-data
+layer with the GRU4Rec and RUM baselines, and the stores' persistence and
+bundles from train to serve, once on one GPU.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a GPU
 
@@ -91,6 +92,19 @@ before the last line):
    xlong_hpmn at full width 16 steps on it through the native batch
    gather (counted), with the parser's rows/s, the gather's and numpy's
    ms per batch and the driver's ex/s beside phase 5's.
+12. persistence and bundles: (a) phase 4's store through ``save_bundle``
+   and ``load_bundle`` (memories and predict/rank bit for bit, K5
+   counted), an int8 bundle (scores within 0.03, params.npz under 0.45 of
+   the f32 one), and a bf16-arena store over phase 4's ingest and updates
+   (within 3e-2 and 1e-2 of the f32 store; its rates beside phase 4's,
+   predict/rank in turns with the f32 store, the arena's bytes; saved f32
+   and restored bit for bit); (b) phase 9's DIEN store through a bundle
+   (scores bit for bit, K1 and K1-scale counted); (c) the xlong_hpmn step
+   with ``use_user_emb`` (4000 users) against its plain path at phase 5's
+   tolerances (K1 x 6, K2 x 6, K5); (d) phase 10's xlong checkpoint
+   through ``python -m hpmn_tpu_torch.tools.export_bundle --histories
+   --quantize`` and ``--ema``, then ``serve_batch --update``, as
+   subprocesses, with their seconds and bundle bytes.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -107,6 +121,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -232,6 +247,13 @@ TOL_STORE = 1e-5
 STORE_BATCH = 512  # the stores' ingest batch
 ONE_BY_ONE_USERS = 32
 GATHER_REPS = 20  # native and numpy batch gathers, alternating
+# Phase 12: an int8 bundle's scores against the f32 bundle's, and its
+# params.npz against the f32 one's (the JAX package's bounds,
+# tests/test_serving.py); the bf16 arena against the f32 arena, memories
+# and scores (the JAX package's bf16 bounds). A bundle round trip moves no
+# bit: its scores are compared for equality.
+TOL_Q8, Q8_SIZE = 0.03, 0.45
+TOL_ARENA_BF16_MEM, TOL_ARENA_BF16_SCORE = 3e-2, 1e-2
 
 
 def fail(msg):
@@ -402,6 +424,293 @@ def write_xlong_csv(path, seed):
     with open(path, "wb") as f:
         f.write(buf.tobytes())
     return int(user.size)
+
+
+def phase_12(p):
+    """Persistence and bundles on the card, from train to serve. ``p``
+    carries phase 4's store and requests, phase 9's DIEN store and
+    requests, phase 5's kernel config, batch and ``step_check``, phase
+    10's xlong checkpoint and the launch counters. -> the launches of its
+    in-process paths, by name (the counters' 13-tuples)."""
+    import torch
+
+    from hpmn_tpu_torch.serving import HistoryStore, UserMemoryStore
+    from hpmn_tpu_torch.serving import load_bundle
+    from hpmn_tpu_torch.train.checkpoint import CheckpointManager
+
+    dev, store, L = p.dev, p.store, p.cfg.model.hpmn_layers
+    t12 = time.perf_counter()
+    launches = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(fn, reps=REQUEST_REPS):
+        """-> (the last result, the median seconds of reps calls)."""
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            ts.append(time.perf_counter() - t0)
+        return out, float(np.median(ts))
+
+    def size(d, name):
+        return os.path.getsize(os.path.join(d, name))
+
+    def predict(s):
+        return s.predict(p.upd_uids, p.full["target_item"][:B_SCAN],
+                         p.full["target_cat"][:B_SCAN])
+
+    def rank(s):
+        return s.rank(p.rank_uids, p.rank_items, p.rank_cats)
+
+    # (a) phase 4's store (8192 full histories, 512 left-padded, updates)
+    # through a bundle, f32 and int8; then the bf16 arena.
+    d_f32, d_q8 = (os.path.join(p.work, n) for n in ("hpmn", "hpmn_q8"))
+    want_p, want_r = predict(store), rank(store)
+    t0 = time.perf_counter()
+    store.save_bundle(d_f32)
+    t_save = time.perf_counter() - t0
+    store.save_bundle(d_q8, quantize_embeddings=True)
+    t0 = time.perf_counter()
+    back = UserMemoryStore.load_bundle(d_f32, device=dev)
+    sync()
+    t_load = time.perf_counter() - t0
+    uids = np.sort(np.fromiter(store._row, np.int64))
+    (m_a, c_a), (m_b, c_b) = store._gather(uids), back._gather(uids)
+    check(back.n_users == store.n_users and torch.equal(m_a, m_b)
+          and torch.equal(c_a, c_b), "phase 12 hpmn bundle: the memories "
+          "or counters did not come back bit for bit")
+    sync()
+    p.zero_counters()
+    got_p, got_r = predict(back), rank(back)
+    launches["bundle_hpmn"] = p.counters()
+    check(np.array_equal(got_p, want_p) and np.array_equal(got_r, want_r),
+          f"phase 12 hpmn bundle: scores moved by "
+          f"{np.abs(got_p - want_p).max():.3e} (predict), "
+          f"{np.abs(got_r - want_r).max():.3e} (rank)")
+    lb = launches["bundle_hpmn"]
+    check(lb[4] >= 2 and sum(lb) == lb[4], f"phase 12 hpmn bundle launches "
+          f"{lb}: expected readout_fwd (K5) only, per predict and rank")
+    q8 = UserMemoryStore.load_bundle(d_q8, device=dev)
+    q8_err = max(float(np.abs(predict(q8) - want_p).max()),
+                 float(np.abs(rank(q8) - want_r).max()))
+    bytes_f32, bytes_q8 = size(d_f32, "params.npz"), size(d_q8, "params.npz")
+    check(0.0 < q8_err <= TOL_Q8, f"phase 12 int8 bundle: scores "
+          f"{q8_err:.3e} from the f32 bundle's (tol {TOL_Q8}, and not 0)")
+    check(bytes_q8 < Q8_SIZE * bytes_f32, f"phase 12 int8 params.npz "
+          f"{bytes_q8} B, f32 {bytes_f32} B")
+    del back, q8
+
+    b16 = UserMemoryStore(p.cfg, p.model, device=dev, arena_dtype="bfloat16")
+    n_full = len(p.full_uids)
+    sync()
+    p.zero_counters()
+    t0 = time.perf_counter()
+    for lo in range(0, n_full, B_SCAN):
+        sl = slice(lo, lo + B_SCAN)
+        b16.ingest_histories(p.full_uids[sl], p.full["item_seq"][sl],
+                             p.full["cat_seq"][sl])
+    sync()
+    t_ingest16 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for k in range(UPDATE_ROUNDS):
+        b16.update(p.upd_uids, p.upd_items[k], p.upd_cats[k])
+    sync()
+    t_update16 = time.perf_counter() - t0
+    # predict and rank of both arenas, in turns (f32, bf16, bf16, f32)
+    launches["store_bf16"] = p.counters()
+    ls = launches["store_bf16"]
+    n_batches = -(-n_full // B_SCAN)
+    check(ls == (L * n_batches,) + (0,) * 12, f"phase 12 bf16 store "
+          f"launches {ls}: expected gru_scan_fwd {L} per ingest batch")
+    # Both arenas in turns (f32, bf16, bf16, f32): the same update rounds
+    # on each, then predict and rank.
+    ms = {"f32": [], "bf16": []}
+    outs = {}
+    for name in ("f32", "bf16", "bf16", "f32"):
+        s = store if name == "f32" else b16
+        sync()
+        t0 = time.perf_counter()
+        for k in range(UPDATE_ROUNDS):
+            s.update(p.upd_uids, p.upd_items[k], p.upd_cats[k])
+        sync()
+        t_u = time.perf_counter() - t0
+        out_p, t_p = timed(lambda: predict(s))
+        out_r, t_r = timed(lambda: rank(s))
+        ms[name].append((t_u, t_p, t_r))
+        outs[name] = out_p, out_r
+    mem_err = (b16._gather(p.full_uids)[0]
+               - store._gather(p.full_uids)[0]).abs().max().item()
+    cnt_same = torch.equal(b16._gather(p.full_uids)[1],
+                           store._gather(p.full_uids)[1])
+    score_err = max(float(np.abs(a - b).max())
+                    for a, b in zip(outs["bf16"], outs["f32"]))
+    check(cnt_same and mem_err <= TOL_ARENA_BF16_MEM
+          and score_err <= TOL_ARENA_BF16_SCORE, f"phase 12 bf16 arena vs "
+          f"f32: memories {mem_err:.3e} (tol {TOL_ARENA_BF16_MEM}), scores "
+          f"{score_err:.3e} (tol {TOL_ARENA_BF16_SCORE}), counters equal "
+          f"{cnt_same}")
+    arena = {n: n_full * L * p.cfg.model.mem_dim * s._mem.element_size()
+             for n, s in (("f32", store), ("bf16", b16))}
+    d_b16 = os.path.join(p.work, "bf16")
+    b16.save(d_b16)
+    b16_back = UserMemoryStore.load(d_b16, p.cfg, p.model, device=dev,
+                                    arena_dtype="bfloat16")
+    with np.load(os.path.join(d_b16, "user_memory.npz")) as z:
+        saved_f32 = z["memory"].dtype == np.float32
+    check(saved_f32 and torch.equal(b16_back._gather(p.full_uids)[0],
+                                    b16._gather(p.full_uids)[0]),
+          "phase 12 bf16 arena: save/load is not f32 on disk and bit for "
+          "bit back")
+    del b16, b16_back
+    med = {n: [float(np.median([t[i] for t in v])) for i in range(3)]
+           for n, v in ms.items()}
+    print(f"phase 12 (a) hpmn bundle xlong_hpmn {store.n_users} users: "
+          f"save_bundle {t_save:.3f} s, load_bundle {t_load:.3f} s "
+          f"(params.npz {bytes_f32} B, user_memory.npz "
+          f"{size(d_f32, 'user_memory.npz')} B), memories and predict/rank "
+          f"bit for bit, launches {lb} | int8 params.npz {bytes_q8} B "
+          f"({bytes_q8 / bytes_f32:.3f} of f32, tol {Q8_SIZE}), scores "
+          f"{q8_err:.3e} from f32 (tol {TOL_Q8}) | bf16 arena: "
+          f"{arena['bf16']} B for {n_full} users (f32 {arena['f32']} B), "
+          f"ingest {n_full / t_ingest16:.1f} histories/s, update "
+          f"{UPDATE_ROUNDS * B_SCAN / t_update16:.1f} events/s (phase 4 f32:"
+          f" ingest {n_full / p.phase4['ingest']:.1f}, update "
+          f"{UPDATE_ROUNDS * B_SCAN / p.phase4['update']:.1f}); in turns "
+          f"with the f32 store, median of 2: update "
+          + ", ".join(f"{n} {UPDATE_ROUNDS * B_SCAN / med[n][0]:.1f}"
+                      for n in ("bf16", "f32"))
+          + " events/s, predict "
+          + ", ".join(f"{n} {1e3 * med[n][1]:.3f}" for n in ("bf16", "f32"))
+          + " ms, rank "
+          + ", ".join(f"{n} {1e3 * med[n][2]:.3f}" for n in ("bf16", "f32"))
+          + f" ms (phase 4: predict {1e3 * p.phase4['predict']:.3f}, rank "
+          f"{1e3 * p.phase4['rank']:.3f})"
+          f" | vs f32: memories {mem_err:.3e} (tol {TOL_ARENA_BF16_MEM}), "
+          f"scores {score_err:.3e} (tol {TOL_ARENA_BF16_SCORE}), counters "
+          f"equal; saved f32, restored bit for bit | launches {ls}",
+          flush=True)
+
+    # (b) phase 9's DIEN store through a bundle.
+    d_h = os.path.join(p.work, "dien")
+    sd = p.store_d
+    want_pd = sd.predict(p.h_uids[:B_SCAN], p.pr_i, p.pr_c)
+    want_rd = sd.rank(p.h_uids[:RANK_USERS], p.rk_i, p.rk_c)
+    t0 = time.perf_counter()
+    sd.save_bundle(d_h)
+    t_save_d = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back_d = HistoryStore.load_bundle(d_h, device=dev)
+    t_load_d = time.perf_counter() - t0
+    rows_a = sd._rows_for(p.h_uids, False)
+    rows_b = back_d._rows_for(p.h_uids, False)
+    check(back_d.window == sd.window and np.array_equal(
+        sd._items[rows_a], back_d._items[rows_b]) and np.array_equal(
+        sd._cnt[rows_a], back_d._cnt[rows_b]), "phase 12 DIEN bundle: the "
+        "windows did not come back")
+    sync()
+    p.zero_counters()
+    got_pd = back_d.predict(p.h_uids[:B_SCAN], p.pr_i, p.pr_c)
+    got_rd = back_d.rank(p.h_uids[:RANK_USERS], p.rk_i, p.rk_c)
+    launches["bundle_dien"] = p.counters()
+    ld = launches["bundle_dien"]
+    check(np.array_equal(got_pd, want_pd) and np.array_equal(got_rd,
+                                                             want_rd),
+          f"phase 12 DIEN bundle: scores moved by "
+          f"{np.abs(got_pd - want_pd).max():.3e}, "
+          f"{np.abs(got_rd - want_rd).max():.3e}")
+    want_l = (2,) + (0,) * 8 + (2, 0, 0, 0)
+    check(ld == want_l, f"phase 12 DIEN bundle launches {ld}, expected "
+          f"{want_l} (K1 and K1-scale once per scoring call)")
+    print(f"phase 12 (b) DIEN bundle taobao_dien W={back_d.window} "
+          f"{back_d.n_users} users: save_bundle {t_save_d:.3f} s, "
+          f"load_bundle {t_load_d:.3f} s (user_history.npz "
+          f"{size(d_h, 'user_history.npz')} B, params.npz "
+          f"{size(d_h, 'params.npz')} B) | predict and rank bit for bit | "
+          f"launches gru_scan_fwd {ld[0]} gru_scan_fwd_scale {ld[9]}",
+          flush=True)
+    del back_d
+
+    # (c) use_user_emb: the training step with the user table.
+    c_u = p.cfg_k.with_model(use_user_emb=True)
+    check(int(p.batch.uid.max()) < p.n_users, "phase 12: a uid beyond the "
+          "user table")
+    sync()
+    p.zero_counters()
+    p.step_check(12, "use_user_emb f32 full", c_u, p.batch,
+                 c_u.with_model(use_pallas=False), False, TOL_STEP_LOSS,
+                 TOL_STEP_GRAD)
+    launches["training_user_emb"] = p.counters()
+    want_l = (L, L, 0, 0, 1) + (0,) * 8
+    check(launches["training_user_emb"] == want_l, f"phase 12 use_user_emb "
+          f"step launches {launches['training_user_emb']}, expected "
+          f"{want_l}")
+
+    # (d) the CLIs, as subprocesses: phase 10's checkpoint -> bundles ->
+    # scores.
+    def tool(name, *args):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", f"hpmn_tpu_torch.tools.{name}", *args,
+             *p.cli_device], cwd=p.repo, capture_output=True, text=True,
+            timeout=300)
+        check(out.returncode == 0, f"phase 12 {name} exited "
+              f"{out.returncode}: {out.stderr[-2000:]}")
+        return out.stdout.strip(), time.perf_counter() - t0
+
+    hist = os.path.join(p.work, "hist.npz")
+    np.savez(hist, uids=p.full_uids[:B_SCAN],
+             item_seqs=p.full["item_seq"][:B_SCAN],
+             cat_seqs=p.full["cat_seq"][:B_SCAN])
+    d_cli, d_ema = (os.path.join(p.work, n) for n in ("cli", "cli_ema"))
+    common = ["--ckpt_dir", p.ckpt, "--config", "xlong_hpmn", "--set",
+              *p.ckpt_set]
+    line_q, t_q = tool("export_bundle", *common, "--out", d_cli,
+                       "--histories", hist, "--quantize")
+    check(f"n_users={B_SCAN}" in line_q and "quantized=True" in line_q,
+          f"phase 12 export_bundle: {line_q}")
+    line_e, t_e = tool("export_bundle", *common, "--out", d_ema, "--ema")
+    mngr = CheckpointManager(p.ckpt)
+    step = mngr.best_step()
+    state = mngr.restore(step)
+    check(f"exported step {step} " in line_e and "ema=True" in line_e,
+          f"phase 12 export_bundle --ema: {line_e}")
+    names = list(state["params"])
+    shadow = dict(zip(names, state["opt_state"]["ema"]))["embedding.item"]
+    ema_item = load_bundle(d_ema, device=dev).model.embedding.item
+    check(torch.equal(ema_item.cpu(), shadow) and not torch.equal(
+        shadow, state["params"]["embedding.item"]), "phase 12 --ema: the "
+        "bundle's item table is not the checkpoint's EMA shadow")
+    served = load_bundle(d_cli, device=dev)
+    req, out_npz = (os.path.join(p.work, n) for n in ("req.npz", "out.npz"))
+    ci, cc = p.full["target_item"][:B_SCAN], p.full["target_cat"][:B_SCAN]
+    np.savez(req, uids=p.full_uids[:B_SCAN], cand_items=ci, cand_cats=cc,
+             item_ids=p.upd_items[0], cat_ids=p.upd_cats[0])
+    line_s, t_s = tool("serve_batch", "--bundle", d_cli, "--requests", req,
+                       "--out", out_npz, "--update")
+    scores = np.load(out_npz)["scores"]
+    check(scores.shape == (B_SCAN,) and np.isfinite(scores).all()
+          and ((scores > 0) & (scores < 1)).all(), "phase 12 serve_batch: "
+          "scores not in (0, 1)")
+    served.update(p.full_uids[:B_SCAN], p.upd_items[0], p.upd_cats[0])
+    cli_err = float(np.abs(served.predict(p.full_uids[:B_SCAN], ci, cc)
+                           - scores).max())
+    check(cli_err <= TOL_STORE, f"phase 12 serve_batch vs the same "
+          f"requests in this process: {cli_err:.3e}")
+    cnt = load_bundle(d_cli, device=dev)._gather(p.full_uids[:B_SCAN])[1]
+    check(bool((cnt == p.full["seq_mask"].shape[1] + 1).all()),
+          "phase 12 serve_batch --update did not persist the counters")
+    print(f"phase 12 (d) CLIs on phase 10's xlong checkpoint (step {step}):"
+          f" export_bundle --histories ({B_SCAN} users) --quantize "
+          f"{t_q:.1f} s, params.npz {size(d_cli, 'params.npz')} B: {line_q}"
+          f" | --ema {t_e:.1f} s, params.npz {size(d_ema, 'params.npz')} B,"
+          f" the item table = the EMA shadow | serve_batch --update "
+          f"{t_s:.1f} s: {line_s}, scores in (0, 1), {cli_err:.2e} from "
+          f"this process's, counters +1 saved | phase 12 "
+          f"{time.perf_counter() - t12:.1f} s", flush=True)
+    return launches
 
 
 def main():
@@ -1354,10 +1663,10 @@ def main():
           f"{col_err:.2e}, T+1 {step_err:.2e}, oracle {oracle_err:.2e}, "
           f"plain hierarchy {hier_err:.2e}, plain scores {score_err:.2e}: ok",
           flush=True)
+    phase4 = {"ingest": t_ingest, "update": t_update,
+              "predict": np.median(t_predict), "rank": np.median(t_rank)}
 
     # -------------------------------------------------------- 5. training --
-    del store
-    torch.cuda.empty_cache()
     # bench.py's flags (use_pallas, use_hierarchical_scan, assume_full_mask)
     # and the config's f32 scan; the plain path is the batch-major hierarchy
     # of plain scans and the plain readout, under autograd.
@@ -1377,7 +1686,7 @@ def main():
         """-> (loss, parameters with their gradients, seconds, the peak
         device memory of the loss and its backward in MiB)."""
         model_g = init_model(c, spec.n_items, spec.n_cats, seed=cfg.seed,
-                             device=dev)
+                             device=dev, n_users=spec.n_users)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -1873,7 +2182,7 @@ def main():
                  1e3 * np.median(t_pred), 1, "predict")
     profile_work(9, lambda: store_d.rank(h_uids[:RANK_USERS], rk_i, rk_c),
                  1e3 * np.median(t_rank), 1, "rank")
-    del stores, store_d, model_cpu
+    del stores, model_cpu  # store_d serves again in phase 12
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ 10. training driver --
@@ -2006,6 +2315,7 @@ def main():
     torch.cuda.empty_cache()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    work12 = tempfile.mkdtemp(prefix="chip_smoke_bundles_")
     try:
         cfg_x = driver.apply_overrides(get_config("xlong_hpmn"), [
             f"n_examples={XLONG_EXAMPLES}", "train.max_steps=16",
@@ -2028,6 +2338,9 @@ def main():
               f"{expect(cfg_x, 16, 2, L_x)}")
         check(os.path.isdir(os.path.join(work, "whole", "8")),
               "phase 10: no step-8 checkpoint")
+        # the checkpoints of this run export to bundles in phase 12
+        shutil.copytree(os.path.join(work, "whole"),
+                        os.path.join(work12, "ckpt"))
         shutil.copytree(os.path.join(work, "whole", "8"),
                         os.path.join(work, "resumed", "8"))
         cfg_r = driver.apply_overrides(cfg_x, [
@@ -2381,6 +2694,27 @@ def main():
     torch.cuda.empty_cache()
     print(f"phase 11 time: {time.perf_counter() - t11:.1f} s", flush=True)
 
+    # ----------------------------------- 12. persistence and bundles --
+    # Train to serve: phase 4's store and phase 9's DIEN store through
+    # bundles (f32, int8) and the bf16 arena, the use_user_emb step, and
+    # phase 10's checkpoint through the export_bundle and serve_batch CLIs.
+    try:
+        launches12 = phase_12(SimpleNamespace(
+            dev=dev, cfg=cfg, model=model, store=store, full=full,
+            full_uids=full_uids, upd_uids=upd_uids, upd_items=upd_items,
+            upd_cats=upd_cats, rank_uids=rank_uids, rank_items=rank_items,
+            rank_cats=rank_cats, phase4=phase4, store_d=store_d,
+            h_uids=h_uids, pr_i=pr_i, pr_c=pr_c, rk_i=rk_i, rk_c=rk_c,
+            cfg_k=cfg_k, batch=batches[0], n_users=XLONG.n_users,
+            step_check=step_check, counters=counters,
+            zero_counters=zero_counters, work=work12,
+            ckpt=os.path.join(work12, "ckpt"),
+            ckpt_set=["model.use_pallas=true"], repo=repo, cli_device=[]))
+    finally:
+        shutil.rmtree(work12, ignore_errors=True)
+    del store, store_d
+    torch.cuda.empty_cache()
+
     def entry(name, src, rep, row, err, by_path, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2401,14 +2735,16 @@ def main():
               {"serving": launches_gru, "training": train_launches[0],
                "training_dien": fd[0], "serving_dien": serve_launches[0],
                **{k_: v[0] for k_, v in driver_launches.items()},
-               "store_gru4rec": store_launches["gru4rec"]},
+               "store_gru4rec": store_launches["gru4rec"],
+               **{k_: v[0] for k_, v in launches12.items()}},
               sources=list(cuda_gru.FWD_SOURCES),
               projection_ms=proj_rows[0][2],
               projection_max_err_over_max_abs=proj_err_max),
         entry("gru_scan_bwd", cuda_gru.BWD_SOURCE, cuda_gru.BWD_REPLACES,
               (gb[3], gb[4], gb[5], gb[6], gb[7]), bwd_abs,
               {"training": train_launches[1], "training_dien": fd[1],
-               **{k_: v[1] for k_, v in driver_launches.items()}},
+               **{k_: v[1] for k_, v in driver_launches.items()},
+               "training_user_emb": launches12["training_user_emb"][1]},
               sources=list(cuda_gru.BWD_SOURCES),
               max_err_over_max_abs=bwd_err,
               pass_ms=pass_first[torch.float32][1],
@@ -2419,7 +2755,9 @@ def main():
                "training_bf16": bf16_launches[4],
                "training_stride": stride_launches["f32"][4],
                "training_stride_bf16": stride_launches["bf16"][4],
-               **{k_: v[4] for k_, v in driver_launches.items()}},
+               **{k_: v[4] for k_, v in driver_launches.items()},
+               "bundle_hpmn": launches12["bundle_hpmn"][4],
+               "training_user_emb": launches12["training_user_emb"][4]},
               call_ms=r[6], host_us=r[7], device_ms_rank=ro_rows[1][2],
               call_ms_rank=ro_rows[1][6], host_us_rank=ro_rows[1][7],
               device_ms_from=f"torch.profiler kernel durations, mean "
@@ -2477,8 +2815,9 @@ def main():
                 (row[2], row[3], None, row[4], row[5]), sc_abs[name],
                 ({"training_dien_bf16": bd[9 + idx]} if "bf16" in name
                  else {"training_dien": fd[9 + idx], **(
-                     {"serving_dien": serve_launches[9]} if idx == 0
-                     else {})}),
+                     {"serving_dien": serve_launches[9],
+                      "bundle_dien": launches12["bundle_dien"][9]}
+                     if idx == 0 else {})}),
                 **({"max_err_over_max_abs": sc_err[name],
                     "sources": list(cuda_gru.BWD_SOURCES),
                     "pass_ms": sc_pass[name, row[0]],

@@ -6,7 +6,10 @@ Counterpart of ``hpmn_tpu/configs/base.py``, which builds
 training-step and training-driver paths read are carried; their names and
 values are the JAX config's, so a config dict saved by the JAX package maps
 onto these one to one. ``train.train.apply_overrides`` applies the JAX
-CLI's dotted ``key=value`` overrides to them. ``data_dir`` names a
+CLI's dotted ``key=value`` overrides to them, and :func:`config_to_dict`
+and :func:`config_from_dict` carry them to and from the dict a serving
+bundle's ``serving_config.json`` holds (JAX's ``cfg.to_dict()``).
+``data_dir`` names a
 directory of preprocessed ``<dataset>.npz`` files (the ``process_*`` CLIs
 write them); empty, the driver trains on the synthetic task.
 
@@ -20,7 +23,7 @@ and ``train.compact_transfer``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +53,9 @@ class ModelConfig:
     dien_use_aux_loss: bool = True
     aux_weight: float = 1.0
     rum_slots: int = 8  # RUM's external memory slots
-    use_user_emb: bool = False  # not ported
+    # A [n_users, emb_dim] user table whose row of batch.uid the tower
+    # reads after [target embedding; state].
+    use_user_emb: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,3 +206,42 @@ def get_config(name: str) -> Config:
         raise KeyError(f"unknown config {name!r}; available: {list_configs()}"
                        " (the other families wait, see ROADMAP.md)")
     return _CONFIGS[name]()
+
+
+def config_to_dict(cfg: Config) -> Dict[str, Any]:
+    """The config as nested dicts of the JAX field names, tuples as lists:
+    what ``serving_config.json`` holds, and what the JAX package's
+    ``ml_collections.ConfigDict`` reads back."""
+
+    def plain(v):
+        if dataclasses.is_dataclass(v):
+            return {f.name: plain(getattr(v, f.name))
+                    for f in dataclasses.fields(v)}
+        return list(v) if isinstance(v, tuple) else v
+
+    return plain(cfg)
+
+
+def _from_dict(cls, d: Dict[str, Any]):
+    """An instance of the dataclass ``cls`` from the fields of ``d`` it
+    carries, each cast to its default's type; the others are dropped."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        default, v = getattr(cls(), f.name), d[f.name]
+        if dataclasses.is_dataclass(default):
+            v = _from_dict(type(default), v)
+        elif isinstance(default, tuple):
+            v = tuple(int(x) for x in v)
+        elif isinstance(default, (bool, int, float, str)):
+            v = type(default)(v)
+        kw[f.name] = v
+    return cls(**kw)
+
+
+def config_from_dict(d: Dict[str, Any]) -> Config:
+    """A Config from a JAX ``cfg.to_dict()`` (or :func:`config_to_dict`):
+    the fields the port carries, each at its default where ``d`` lacks it;
+    the JAX fields the port does not carry are dropped."""
+    return _from_dict(Config, d)

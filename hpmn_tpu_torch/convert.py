@@ -1,4 +1,4 @@
-"""JAX parameters -> the port's modules.
+"""JAX parameters <-> the port's modules.
 
 The input is the flat ``{keystr: np.ndarray}`` mapping of the JAX param tree
 that ``hpmn_tpu/serving/lifelong.py::flatten_with_keys`` produces, which is
@@ -6,6 +6,7 @@ also what a serving bundle's ``params.npz`` holds. Keys and the port's
 parameter names correspond one to one:
 
     ['embedding']['item']           embedding.item
+    ['embedding']['user']           embedding.user        (use_user_emb)
     ['encoder']['layers'][0].wx     encoder.layers.0.wx   (GRUParams fields)
     ['encoder']['augru'].b          encoder.augru.b       (DIEN's GRUs)
     ['encoder']['gru'].wh           encoder.gru.wh        (GRU4Rec's GRU)
@@ -18,12 +19,12 @@ A GRU's weights are fields of the NamedTuple ``GRUParams``, so their keys
 are attributes; every other leaf is a dict entry, whatever its name.
 
 Every key must be consumed and every parameter filled, at its shape, or
-:func:`model_from_flat` raises.
+:func:`model_from_flat` raises. :func:`flat_from_model` is its inverse.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import re
 
@@ -57,10 +58,13 @@ def jax_key(name: str) -> str:
 def model_from_flat(cfg: Config, flat: Mapping[str, np.ndarray],
                     device="cuda") -> nn.Module:
     """Build the model of ``cfg`` (``build_model``) holding the JAX arrays
-    of ``flat``; the vocab sizes are read from the embedding tables."""
+    of ``flat``; the vocab sizes are read from the embedding tables (the
+    user table's, when there is one)."""
     n_items = np.shape(flat["['embedding']['item']"])[0]
     n_cats = np.shape(flat["['embedding']['cat']"])[0]
-    model = build_model(cfg, n_items, n_cats)
+    user = flat.get("['embedding']['user']")
+    n_users = 0 if user is None else np.shape(user)[0]
+    model = build_model(cfg, n_items, n_cats, n_users)
     left = dict(flat)
     with torch.no_grad():
         for name, param in model.named_parameters():
@@ -76,3 +80,11 @@ def model_from_flat(cfg: Config, flat: Mapping[str, np.ndarray],
         raise KeyError(f"JAX arrays the port has no parameter for: "
                        f"{sorted(left)}")
     return model.to(device)
+
+
+def flat_from_model(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The model's parameters as the flat ``{keystr: np.ndarray}`` mapping
+    of the JAX param tree (``flatten_with_keys``'s keys, f32 copies on the
+    host): the inverse of :func:`model_from_flat`."""
+    return {jax_key(name): p.detach().cpu().numpy().copy()
+            for name, p in model.named_parameters()}

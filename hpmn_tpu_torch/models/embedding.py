@@ -1,5 +1,5 @@
-"""Item and category embedding tables — counterpart of
-``hpmn_tpu/models/embedding.py``.
+"""Item and category embedding tables, and the optional user table
+(``use_user_emb``) — counterpart of ``hpmn_tpu/models/embedding.py``.
 
 The behaviour embedding is concat(item emb, cat emb). The forward is a plain
 row gather (``hpmn_tpu/ops/embedding_agg.py::take_rows``'s forward) through
@@ -23,19 +23,26 @@ from torch import nn
 
 
 class Embedding(nn.Module):
-    """item [n_items, emb_dim] and cat [n_cats, emb_dim] tables."""
+    """item [n_items, emb_dim] and cat [n_cats, emb_dim] tables, and with
+    ``n_users > 0`` a user table [n_users, emb_dim] (else ``user`` is
+    None)."""
 
-    def __init__(self, n_items: int, n_cats: int, emb_dim: int):
+    def __init__(self, n_items: int, n_cats: int, emb_dim: int,
+                 n_users: int = 0):
         super().__init__()
         self.item = nn.Parameter(torch.empty(n_items, emb_dim))
         self.cat = nn.Parameter(torch.empty(n_cats, emb_dim))
+        self.user = (nn.Parameter(torch.empty(n_users, emb_dim))
+                     if n_users > 0 else None)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Normal(0, 1/emb_dim) entries (as ``init_embedding``)."""
+        """Normal(0, 1/emb_dim) entries (as ``init_embedding``), drawn
+        item, cat, then user."""
         scale = self.item.shape[1] ** -0.5
-        for table in (self.item, self.cat):
-            table.normal_(0.0, scale, generator=generator)
+        for table in (self.item, self.cat, self.user):
+            if table is not None:
+                table.normal_(0.0, scale, generator=generator)
 
 
 def dense_lookup(emb: Embedding, item_ids: torch.Tensor,
@@ -43,3 +50,8 @@ def dense_lookup(emb: Embedding, item_ids: torch.Tensor,
     """ids [...] (int32 or int64) -> behaviour embedding [..., 2*emb_dim]."""
     return torch.cat([F.embedding(item_ids.long(), emb.item),
                       F.embedding(cat_ids.long(), emb.cat)], dim=-1)
+
+
+def user_lookup(emb: Embedding, uid: torch.Tensor) -> torch.Tensor:
+    """uid [B] -> the user table's rows [B, emb_dim]."""
+    return F.embedding(uid.long(), emb.user)

@@ -31,7 +31,9 @@ their bf16 forms), otherwise the batch-major plain ``gru4rec.encode``; rum
 is plain tensor ops in either case (``rum.encode``), as in JAX. Neither
 has a readout or an aux output: the tower reads [target embedding; state].
 
-Other families raise.
+With ``use_user_emb`` every family's tower reads the user table's row of
+``batch.uid`` after [target embedding; state], as in JAX. Other families
+raise.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ from . import dien as dien_mod
 from . import gru4rec as gru4rec_mod
 from . import hpmn as hpmn_mod
 from . import rum as rum_mod
-from .embedding import Embedding, dense_lookup
+from .embedding import Embedding, dense_lookup, user_lookup
 from .losses import bce_with_logits, covariance_regularizer, l2_regularizer
 from .readout import Readout, attention_readout
 from .tower import Tower, apply_tower
@@ -60,44 +62,63 @@ from .tower import Tower, apply_tower
 _SCAN_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _embedding(cfg: Config, n_items: int, n_cats: int,
+               n_users: int) -> Embedding:
+    """The tables of every family; the user table with use_user_emb."""
+    m = cfg.model
+    return Embedding(n_items, n_cats, m.emb_dim,
+                     n_users if m.use_user_emb else 0)
+
+
+def _tower(cfg: Config) -> Tower:
+    """The tower of every family, over [target embedding (2 emb_dim);
+    state (mem_dim)] and with use_user_emb the user embedding (emb_dim)."""
+    m = cfg.model
+    d_in = 2 * m.emb_dim + m.mem_dim + (m.emb_dim if m.use_user_emb else 0)
+    return Tower(d_in, m.tower_hidden)
+
+
 class HPMNModel(nn.Module):
     """embedding, encoder, readout and tower, each in the JAX layout (see
     ``convert.py`` for the parameter names on both sides)."""
 
-    def __init__(self, cfg: Config, n_items: int, n_cats: int):
+    def __init__(self, cfg: Config, n_items: int, n_cats: int,
+                 n_users: int = 0):
         super().__init__()
         m = cfg.model
         d_beh = 2 * m.emb_dim
-        self.embedding = Embedding(n_items, n_cats, m.emb_dim)
+        self.embedding = _embedding(cfg, n_items, n_cats, n_users)
         self.encoder = hpmn_mod.HPMNEncoder(d_beh, m.mem_dim, m.hpmn_layers)
         self.readout = Readout(m.mem_dim, d_beh, m.readout_dim)
-        self.tower = Tower(d_beh + m.mem_dim, m.tower_hidden)
+        self.tower = _tower(cfg)
 
 
 class DIENModel(nn.Module):
     """embedding, encoder (``dien.DIENEncoder``) and tower; no readout: the
     tower reads [target embedding; the evolved interest]."""
 
-    def __init__(self, cfg: Config, n_items: int, n_cats: int):
+    def __init__(self, cfg: Config, n_items: int, n_cats: int,
+                 n_users: int = 0):
         super().__init__()
         m = cfg.model
         d_beh = 2 * m.emb_dim
-        self.embedding = Embedding(n_items, n_cats, m.emb_dim)
+        self.embedding = _embedding(cfg, n_items, n_cats, n_users)
         self.encoder = dien_mod.DIENEncoder(d_beh, m.mem_dim, m.readout_dim)
-        self.tower = Tower(d_beh + m.mem_dim, m.tower_hidden)
+        self.tower = _tower(cfg)
 
 
 class GRU4RecModel(nn.Module):
     """embedding, encoder (``gru4rec.GRU4RecEncoder``) and tower; no
     readout: the tower reads [target embedding; the GRU's final state]."""
 
-    def __init__(self, cfg: Config, n_items: int, n_cats: int):
+    def __init__(self, cfg: Config, n_items: int, n_cats: int,
+                 n_users: int = 0):
         super().__init__()
         m = cfg.model
         d_beh = 2 * m.emb_dim
-        self.embedding = Embedding(n_items, n_cats, m.emb_dim)
+        self.embedding = _embedding(cfg, n_items, n_cats, n_users)
         self.encoder = gru4rec_mod.GRU4RecEncoder(d_beh, m.mem_dim)
-        self.tower = Tower(d_beh + m.mem_dim, m.tower_hidden)
+        self.tower = _tower(cfg)
 
 
 class RUMModel(nn.Module):
@@ -105,13 +126,14 @@ class RUMModel(nn.Module):
     tower; no readout: the tower reads [target embedding; the memory's
     read]."""
 
-    def __init__(self, cfg: Config, n_items: int, n_cats: int):
+    def __init__(self, cfg: Config, n_items: int, n_cats: int,
+                 n_users: int = 0):
         super().__init__()
         m = cfg.model
         d_beh = 2 * m.emb_dim
-        self.embedding = Embedding(n_items, n_cats, m.emb_dim)
+        self.embedding = _embedding(cfg, n_items, n_cats, n_users)
         self.encoder = rum_mod.RUMEncoder(d_beh, m.mem_dim, m.rum_slots)
-        self.tower = Tower(d_beh + m.mem_dim, m.tower_hidden)
+        self.tower = _tower(cfg)
 
 
 _MODELS = {"hpmn": HPMNModel, "dien": DIENModel, "gru4rec": GRU4RecModel,
@@ -125,8 +147,7 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             f"model family {m.name!r} is not ported yet (ROADMAP.md)")
     todo = {"dtype": m.dtype != "float32",
-            "scan_dtype": m.scan_dtype not in _SCAN_DTYPES,
-            "use_user_emb": m.use_user_emb}
+            "scan_dtype": m.scan_dtype not in _SCAN_DTYPES}
     for field, unsupported in todo.items():
         if unsupported:
             raise NotImplementedError(
@@ -134,23 +155,32 @@ def check_supported(cfg: Config) -> None:
                 "(ROADMAP.md)")
 
 
-def build_model(cfg: Config, n_items: int, n_cats: int) -> nn.Module:
+def build_model(cfg: Config, n_items: int, n_cats: int,
+                n_users: int = 0) -> nn.Module:
     """The model class of ``cfg.model.name`` (``HPMNModel``, ``DIENModel``,
     ``GRU4RecModel`` or ``RUMModel``), its parameters allocated on the
-    CPU, not initialised."""
+    CPU, not initialised. With ``use_user_emb`` it has a user table of
+    ``n_users`` rows (the dataset's user vocab), and raises when that is
+    not positive, as the JAX ``init_model`` does; without, ``n_users`` is
+    ignored."""
     check_supported(cfg)
-    return _MODELS[cfg.model.name](cfg, n_items, n_cats)
+    if cfg.model.use_user_emb and n_users <= 0:
+        raise ValueError("use_user_emb needs n_users > 0 passed to "
+                         "init_model (the dataset spec's user-vocab size)")
+    return _MODELS[cfg.model.name](cfg, n_items, n_cats, n_users)
 
 
 def init_model(cfg: Config, n_items: int, n_cats: int,
-               seed: Optional[int] = None, device="cuda") -> nn.Module:
+               seed: Optional[int] = None, device="cuda",
+               n_users: int = 0) -> nn.Module:
     """The port's own seeded init, drawn on the CPU from a
     ``torch.Generator`` (so the weights do not depend on the device), then
     moved to ``device``. Same distributions as the JAX init, other numbers;
     the parts are drawn in their order in the model (embedding, encoder,
-    readout where there is one, tower)."""
+    readout where there is one, tower). ``n_users`` as for
+    :func:`build_model`."""
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
-    model = build_model(cfg, n_items, n_cats)
+    model = build_model(cfg, n_items, n_cats, n_users)
     for part in model.children():
         part.reset_parameters(gen)
     return model.to(device)
@@ -233,6 +263,16 @@ def _apply_baseline(model: nn.Module, cfg: Config, batch: Batch,
     return rum_mod.encode(model.encoder, x, mask, q)
 
 
+def _logits(model: nn.Module, cfg: Config, batch: Batch, q: torch.Tensor,
+            state: torch.Tensor) -> torch.Tensor:
+    """The tower over [q; state], with use_user_emb [q; state; the user
+    embedding of batch.uid] (the JAX apply_model's tower_in)."""
+    parts = [q, state]
+    if cfg.model.use_user_emb:
+        parts.append(user_lookup(model.embedding, batch.uid))
+    return apply_tower(model.tower, torch.cat(parts, dim=-1))
+
+
 def apply_model(model: nn.Module, cfg: Config, batch: Batch,
                 plain: bool = False,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -251,11 +291,10 @@ def apply_model(model: nn.Module, cfg: Config, batch: Batch,
     q = dense_lookup(emb, batch.target_item, batch.target_cat)  # [B, 2d]
     if m.name == "dien":
         state, aux_loss = _apply_dien(model, cfg, batch, q, plain)
-        logits = apply_tower(model.tower, torch.cat([q, state], dim=-1))
-        return logits, {"aux_loss": aux_loss}
+        return _logits(model, cfg, batch, q, state), {"aux_loss": aux_loss}
     if m.name in ("gru4rec", "rum"):
         state = _apply_baseline(model, cfg, batch, q, plain)
-        return apply_tower(model.tower, torch.cat([q, state], dim=-1)), {}
+        return _logits(model, cfg, batch, q, state), {}
     if m.use_pallas and m.use_hierarchical_scan:
         # Transposing the int32 ids, not the activations, gives time-major
         # embeddings. The scans run in scan_dtype: x, the mask and the
@@ -297,8 +336,7 @@ def apply_model(model: nn.Module, cfg: Config, batch: Batch,
             memory = hpmn_mod.encode_oracle(model.encoder, x, mask,
                                             m.hpmn_period)
         state = attention_readout(model.readout, memory, q)
-    logits = apply_tower(model.tower, torch.cat([q, state], dim=-1))
-    return logits, {"memory": memory}
+    return _logits(model, cfg, batch, q, state), {"memory": memory}
 
 
 def total_loss(model: nn.Module, cfg: Config, logits: torch.Tensor,

@@ -1,13 +1,14 @@
 """Lifelong serving for a family whose encoder depends on the target
 (DIEN): a bounded window of each user's W most recent behaviours, re-encoded
 per request — counterpart of ``hpmn_tpu/serving/history.py::HistoryStore``
-(its serving core).
+and of its persistence and bundles.
 
     store = HistoryStore(cfg, model)            # on the card, as the model
     store.ingest_histories(uids, item_seqs, cat_seqs, masks)  # cold start
     store.update(uids, item_ids, cat_ids)       # one new behaviour per user
     scores = store.predict(uids, cand_items, cand_cats)           # [B]
     scores = store.rank(uids, cand_items_bc, cand_cats_bc)        # [B, C]
+    store.save_bundle(dir); store = HistoryStore.load_bundle(dir)
 
 DIEN's attention scores every step of the history against the candidate,
 so no per-user state summarizes the history (``UserMemoryStore`` refuses
@@ -26,22 +27,33 @@ negatives and never the logits): with ``use_pallas`` each scoring call
 runs K1 (the interest GRU, masked) and K1-scale (the AUGRU). A call scores at most
 ``max_score_rows`` (user, candidate) rows at a time, so a large ``rank``
 cannot take the device's memory; each row's score depends on that row
-alone, so the chunking changes no score. Save/load and bundles wait
-(ROADMAP.md).
+alone, so the chunking changes no score. With ``use_user_emb`` the
+tower reads the user's embedding through ``apply_model`` (the batch
+carries the uids).
+
+Persistence keeps the JAX package's files: ``save``/``load`` write and read
+``user_history.npz`` (uids, the windows' ids, the counts and W), and a
+bundle is that file plus ``lifelong.save_params_npz``'s params.npz and
+serving_config.json with ``store: "history"`` and the window; the
+module-level :func:`load_bundle` opens any bundle with its store's class.
+The AOT export waits (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..configs import Config
+from ..configs import Config, config_to_dict
 from ..data.schema import batch_from_numpy
 from ..data.synthetic import SPECS
 from ..models.model import apply_model, check_supported
-from .lifelong import UserRows
+from .lifelong import (UserMemoryStore, UserRows, _write_meta,
+                       check_user_ids, load_bundle_params, save_params_npz)
 
 
 class HistoryStore(UserRows):
@@ -136,6 +148,8 @@ class HistoryStore(UserRows):
     def _score_rows(self, uids, rows, cand_items, cand_cats) -> np.ndarray:
         """Scores of flat (user row, candidate) pairs, at most
         ``max_score_rows`` per call of the model."""
+        if self.cfg.model.use_user_emb:
+            check_user_ids(self.model, uids)
         n = len(rows)
         step = self.max_score_rows or max(n, 1)
         out = np.empty((n,), np.float32)
@@ -171,3 +185,81 @@ class HistoryStore(UserRows):
                                np.asarray(cand_cats, np.int32).reshape(-1))
         self._touch(rows[rows >= 0])
         return out.reshape(B, C)
+
+    # ------------------------------------------------------- persistence --
+    def save(self, directory: str) -> None:
+        """The live users' windows, counts and uids, and W, in
+        ``directory/user_history.npz``."""
+        os.makedirs(directory, exist_ok=True)
+        live = np.flatnonzero(self._row_uid >= 0)
+        np.savez(os.path.join(directory, "user_history.npz"),
+                 uids=self._row_uid[live], items=self._items[live],
+                 cats=self._cats[live], counts=self._cnt[live],
+                 window=np.int64(self.window))
+
+    def _restore(self, directory: str) -> None:
+        path = os.path.join(directory, "user_history.npz")
+        if not os.path.exists(path):
+            return
+        with np.load(path) as z:
+            uids = z["uids"]
+            if not len(uids):
+                return
+            if int(z["window"]) != self.window:
+                raise ValueError(f"bundle window {int(z['window'])} != "
+                                 f"store window {self.window}")
+            rows = self._rows_for(uids, create=True)
+            self._items[rows] = z["items"]
+            self._cats[rows] = z["cats"]
+            self._cnt[rows] = z["counts"]
+        self._touch(rows)
+
+    @classmethod
+    def load(cls, directory: str, cfg: Config, model,
+             window: Optional[int] = None, max_users: Optional[int] = None,
+             max_score_rows: int = 8192, device="cuda") -> "HistoryStore":
+        """A store of ``model`` holding the users of ``save``'s snapshot
+        in ``directory`` (empty without one)."""
+        store = cls(cfg, model, window=window, max_users=max_users,
+                    max_score_rows=max_score_rows, device=device)
+        store._restore(directory)
+        return store
+
+    def save_bundle(self, directory: str,
+                    quantize_embeddings: bool = False) -> None:
+        """The memory store's bundle layout, with ``store: "history"`` and
+        the window, so :func:`load_bundle` dispatches on it."""
+        self.save(directory)
+        save_params_npz(self.model, directory, quantize_embeddings)
+        _write_meta(directory, {"config": config_to_dict(self.cfg),
+                                "max_users": self.max_users,
+                                "store": "history", "window": self.window})
+
+    @classmethod
+    def load_bundle(cls, directory: str, max_score_rows: int = 8192,
+                    device="cuda") -> "HistoryStore":
+        """Restore a ``save_bundle`` artifact (the port's or the JAX
+        package's) on ``device``."""
+        meta, cfg, model = load_bundle_params(directory, device)
+        if meta.get("store", "memory") != "history":
+            raise ValueError(f"bundle at {directory} is not a history-store "
+                             f"artifact")
+        return cls.load(directory, cfg, model, window=meta.get("window"),
+                        max_users=meta.get("max_users"),
+                        max_score_rows=max_score_rows, device=device)
+
+
+def load_bundle(directory: str, device="cuda", **kwargs):
+    """Open any bundle with its store's class, from serving_config.json's
+    ``store`` ("memory", also a bundle without the field:
+    ``UserMemoryStore``; "history": ``HistoryStore``). ``kwargs`` go to
+    that class's ``load_bundle``; the other class's options are dropped
+    (``arena_dtype`` is the memory arena's, ``max_score_rows`` the history
+    store's)."""
+    with open(os.path.join(directory, "serving_config.json")) as f:
+        kind = json.load(f).get("store", "memory")
+    if kind == "history":
+        kwargs.pop("arena_dtype", None)
+        return HistoryStore.load_bundle(directory, device=device, **kwargs)
+    kwargs.pop("max_score_rows", None)
+    return UserMemoryStore.load_bundle(directory, device=device, **kwargs)

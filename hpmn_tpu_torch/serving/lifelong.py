@@ -8,28 +8,108 @@ gru4rec, rum).
     store.update(uids, item_ids, cat_ids)      # one new behaviour per user
     scores = store.predict(uids, cand_items, cand_cats)           # [B]
     scores = store.rank(uids, cand_items_bc, cand_cats_bc)        # [B, C]
+    store.save(dir); store = UserMemoryStore.load(dir, cfg, model)
+    store.save_bundle(dir); store = UserMemoryStore.load_bundle(dir)
 
-The state arena ``[capacity, K, d_m]`` (f32; K =
-``protocol.n_state_slots(cfg)``) and the event counters live on
-``device``; the uid -> row index, the LRU clock and eviction stay on the
-host. A request moves ids up and scores down. Arena rows are updated in
-place. Save/load, bundles, the bf16 arena and user embeddings wait
-(ROADMAP.md).
+The state arena ``[capacity, K, d_m]`` (K = ``protocol.n_state_slots(cfg)``)
+and the event counters live on ``device``; the uid -> row index, the LRU
+clock and eviction stay on the host. A request moves ids up and scores
+down. Arena rows are updated in place. The arena is f32, or with
+``arena_dtype="bfloat16"`` stored in bf16 (half the bytes per user):
+gathers upcast to f32, every request computes in f32 and write-backs
+round. With ``use_user_emb`` the tower reads the user's embedding too.
+
+Persistence keeps the JAX package's files, so a store moves between the
+two packages: ``save``/``load`` write and read ``user_memory.npz`` (f32
+whatever the arena's dtype; a bf16 store rounds once on load), and a
+deployment bundle (``save_bundle``/``load_bundle``) is that file plus
+``params.npz`` (the flat keystr arrays of ``convert.flat_from_model``, the
+2-D embedding tables optionally per-row symmetric int8) and
+``serving_config.json`` (the config, ``max_users``, ``store: "memory"``).
+The AOT export waits (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..configs import Config
-from ..models.embedding import dense_lookup
+from ..configs import Config, config_from_dict, config_to_dict
+from ..convert import flat_from_model, model_from_flat
+from ..models.embedding import dense_lookup, user_lookup
 from ..models.model import check_supported
 from ..models.tower import apply_tower
+from ..train.checkpoint import load_user_memory, save_user_memory
 from .protocol import (O1_FAMILIES, encode_full, n_state_slots, read_state,
                        update_state)
+
+
+_ARENA_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _bundle_array(z, key: str) -> np.ndarray:
+    """One parameter from a bundle's params.npz by keystr, dequantizing an
+    int8 table (``save_params_npz(quantize_embeddings=True)``) per row."""
+    if key in z.files:
+        return z[key]
+    q = z["__q8__" + key].astype(np.float32)
+    return q * z["__q8scale__" + key]
+
+
+def save_params_npz(model, directory: str,
+                    quantize_embeddings: bool = False) -> None:
+    """Write a bundle's params.npz (every store kind's): the model's
+    arrays by JAX keystr, the 2-D embedding tables optionally as per-row
+    symmetric int8 (scale = max |row| / 127, a zero row's scale 1) under
+    ``__q8__<key>`` with the f32 scales under ``__q8scale__<key>``, the
+    JAX package's arithmetic."""
+    arrays = {}
+    for key, a in flat_from_model(model).items():
+        if (quantize_embeddings and key.startswith("['embedding'][")
+                and a.ndim == 2):
+            scale = np.abs(a).max(axis=1, keepdims=True) / 127.0
+            scale[scale == 0] = 1.0
+            q = np.clip(np.rint(a / scale), -127, 127).astype(np.int8)
+            arrays["__q8__" + key] = q
+            arrays["__q8scale__" + key] = scale.astype(np.float32)
+        else:
+            arrays[key] = a
+    np.savez(os.path.join(directory, "params.npz"), **arrays)
+
+
+def load_bundle_params(directory: str, device="cuda"):
+    """-> (meta dict, cfg, model on ``device``) from any bundle, the
+    port's or the JAX package's: the config read from
+    serving_config.json (``config_from_dict``), the parameters placed by
+    keystr (``convert.model_from_flat``), int8 tables dequantized."""
+    with open(os.path.join(directory, "serving_config.json")) as f:
+        meta = json.load(f)
+    cfg = config_from_dict(meta["config"])
+    with np.load(os.path.join(directory, "params.npz")) as z:
+        keys = [k.replace("__q8__", "", 1) for k in z.files
+                if not k.startswith("__q8scale__")]
+        flat = {k: _bundle_array(z, k) for k in keys}
+    return meta, cfg, model_from_flat(cfg, flat, device=device)
+
+
+def check_user_ids(model, uids: np.ndarray) -> None:
+    """Raise unless every uid has a row in the model's user table: a
+    request's uids index it on the device, where a row out of range would
+    fault the card instead of raising."""
+    n = model.embedding.user.shape[0]
+    if len(uids) and (uids.min() < 0 or uids.max() >= n):
+        raise ValueError(f"uids must lie in [0, {n}), the user table's "
+                         f"rows (use_user_emb); got {uids.min()} to "
+                         f"{uids.max()}")
+
+
+def _write_meta(directory: str, meta: Dict) -> None:
+    with open(os.path.join(directory, "serving_config.json"), "w") as f:
+        json.dump(meta, f)
 
 
 class UserRows:
@@ -149,10 +229,17 @@ class UserMemoryStore(UserRows):
     encoder is a target-independent recurrence (``O1_FAMILIES``): hpmn's L
     memory slots, gru4rec's GRU state, rum's K slots. With ``max_users``
     set, a full store evicts the least recently touched quarter in one
-    pass; an evicted user who comes back starts from an empty state."""
+    pass; an evicted user who comes back starts from an empty state.
+    ``uid_to_memory`` ({uid: [K, d_m]}) and ``counters`` ({uid: n}) seed
+    it, as the JAX store's do."""
 
     def __init__(self, cfg: Config, model, max_users: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", arena_dtype: str = "float32",
+                 uid_to_memory: Optional[dict] = None,
+                 counters: Optional[dict] = None):
+        if arena_dtype not in _ARENA_DTYPES:
+            raise ValueError(f"arena_dtype {arena_dtype!r}: one of "
+                             f"{sorted(_ARENA_DTYPES)}")
         if cfg.model.name not in O1_FAMILIES:
             raise ValueError(
                 f"model family {cfg.model.name!r} has no target-"
@@ -172,9 +259,18 @@ class UserMemoryStore(UserRows):
         self.L = n_state_slots(cfg)
         self.d_m = cfg.model.mem_dim
         self.period = cfg.model.hpmn_period
+        self.arena_dtype = arena_dtype
         cap = self._init_rows(max_users)
-        self._mem = torch.zeros(cap, self.L, self.d_m, device=self.device)
+        self._mem = torch.zeros(cap, self.L, self.d_m, device=self.device,
+                                dtype=_ARENA_DTYPES[arena_dtype])
         self._cnt = torch.zeros(cap, dtype=torch.int64, device=self.device)
+        if uid_to_memory:
+            uids = np.fromiter(uid_to_memory, dtype=np.int64)
+            mem = np.stack([np.asarray(uid_to_memory[int(u)], np.float32)
+                            for u in uids])
+            cnt = np.array([(counters or {}).get(int(u), 0) for u in uids],
+                           np.int64)
+            self._set_rows(uids, mem, cnt)
 
     # ------------------------------------------------------------ arena --
     def _grow_rows(self, cap: int, new_cap: int) -> None:
@@ -189,22 +285,25 @@ class UserMemoryStore(UserRows):
         self._mem[fr] = 0.0
         self._cnt[fr] = 0
 
-    def _set_rows(self, uids: np.ndarray, mem: torch.Tensor,
-                  cnt: torch.Tensor) -> None:
+    def _set_rows(self, uids: np.ndarray, mem, cnt) -> None:
+        """Write f32 memories (tensors or arrays) into the arena, rounded
+        once to its dtype, and the counters."""
         rows = self._rows_for(uids, create=True)
         r = torch.as_tensor(rows, device=self.device)
-        self._mem[r] = mem.to(self._mem.dtype)
-        self._cnt[r] = cnt.to(self._cnt.dtype)
+        self._mem[r] = torch.as_tensor(mem, device=self.device).to(
+            self._mem.dtype)
+        self._cnt[r] = torch.as_tensor(cnt, device=self.device).to(
+            self._cnt.dtype)
         self._touch(rows)
 
     def _gather(self, uids: np.ndarray):
-        """(memory [B, L, d_m], counters [B]) of ``uids``; unknown users
-        read zeros (the cold-start state)."""
+        """(memory [B, L, d_m] f32, counters [B]) of ``uids``; unknown
+        users read zeros (the cold-start state)."""
         rows = torch.as_tensor(self._rows_for(uids, create=False),
                                device=self.device)
         known = rows >= 0
         safe = torch.where(known, rows, 0)
-        mem = torch.where(known[:, None, None], self._mem[safe], 0.0)
+        mem = torch.where(known[:, None, None], self._mem[safe].float(), 0.0)
         cnt = torch.where(known, self._cnt[safe], 0)
         return mem, cnt
 
@@ -234,33 +333,98 @@ class UserMemoryStore(UserRows):
         r = torch.as_tensor(rows, device=self.device)
         x = dense_lookup(self.model.embedding, self._ids(item_ids),
                          self._ids(cat_ids))
-        mem, cnt = update_state(self.family, self.model.encoder, self._mem[r],
-                                self._cnt[r], x, self.period)
-        self._mem[r] = mem
+        mem, cnt = update_state(self.family, self.model.encoder,
+                                self._mem[r].float(), self._cnt[r], x,
+                                self.period)
+        self._mem[r] = mem.to(self._mem.dtype)
         self._cnt[r] = cnt
         self._touch(rows)
 
+    def _user_emb(self, uids: np.ndarray) -> Optional[torch.Tensor]:
+        """The tower's user-embedding input [B, emb_dim] with use_user_emb,
+        else None."""
+        if not self.cfg.model.use_user_emb:
+            return None
+        check_user_ids(self.model, uids)
+        return user_lookup(self.model.embedding, self._ids(uids))
+
     def _scores(self, mem: torch.Tensor, items: torch.Tensor,
-                cats: torch.Tensor) -> torch.Tensor:
+                cats: torch.Tensor, user_emb: Optional[torch.Tensor]
+                ) -> torch.Tensor:
         q = dense_lookup(self.model.embedding, items, cats)
         read = read_state(self.family, self.model, mem, q)
-        logits = apply_tower(self.model.tower, torch.cat([q, read], dim=-1))
+        parts = [q, read] + ([] if user_emb is None else [user_emb])
+        logits = apply_tower(self.model.tower, torch.cat(parts, dim=-1))
         return torch.sigmoid(logits)
 
     @torch.no_grad()
     def predict(self, uids, cand_items, cand_cats) -> np.ndarray:
         """CTR scores sigmoid(logit) [B] for (user, candidate) pairs."""
-        mem, _ = self._gather(np.asarray(uids))
-        return self._scores(mem, self._ids(cand_items),
-                            self._ids(cand_cats)).cpu().numpy()
+        uids = np.asarray(uids)
+        mem, _ = self._gather(uids)
+        return self._scores(mem, self._ids(cand_items), self._ids(cand_cats),
+                            self._user_emb(uids)).cpu().numpy()
 
     @torch.no_grad()
     def rank(self, uids, cand_items, cand_cats) -> np.ndarray:
         """Scores [B, C] of C candidates per user in one call; column c
         equals ``predict(uids, cand_items[:, c], cand_cats[:, c])``."""
+        uids = np.asarray(uids)
         items, cats = self._ids(cand_items), self._ids(cand_cats)
         B, C = items.shape
-        mem, _ = self._gather(np.asarray(uids))
-        scores = self._scores(mem.repeat_interleave(C, dim=0),
-                              items.reshape(-1), cats.reshape(-1))
+        mem, _ = self._gather(uids)
+        user = self._user_emb(uids)
+        scores = self._scores(
+            mem.repeat_interleave(C, dim=0), items.reshape(-1),
+            cats.reshape(-1),
+            None if user is None else user.repeat_interleave(C, dim=0))
         return scores.reshape(B, C).cpu().numpy()
+
+    # ------------------------------------------------------- persistence --
+    def save(self, directory: str) -> None:
+        """The live users' memories (f32), counters and uids in
+        ``directory/user_memory.npz``."""
+        live = np.flatnonzero(self._row_uid >= 0)
+        r = torch.as_tensor(live, device=self.device)
+        save_user_memory(directory, self._row_uid[live],
+                         self._mem[r].float().cpu().numpy(),
+                         self._cnt[r].cpu().numpy())
+
+    @classmethod
+    def load(cls, directory: str, cfg: Config, model,
+             max_users: Optional[int] = None, device="cuda",
+             arena_dtype: str = "float32") -> "UserMemoryStore":
+        """A store of ``model`` holding the users of ``save``'s snapshot
+        in ``directory`` (empty without one)."""
+        uids, mem, cnt = load_user_memory(directory)
+        store = cls(cfg, model, max_users=max_users, device=device,
+                    arena_dtype=arena_dtype)
+        if len(uids):
+            store._set_rows(uids, mem, cnt)
+        return store
+
+    def save_bundle(self, directory: str,
+                    quantize_embeddings: bool = False) -> None:
+        """A self-contained serving artifact in ``directory``: the user
+        memories (``save``), params.npz (``save_params_npz``) and
+        serving_config.json. A serving host needs nothing else."""
+        self.save(directory)
+        save_params_npz(self.model, directory, quantize_embeddings)
+        _write_meta(directory, {"config": config_to_dict(self.cfg),
+                                "max_users": self.max_users,
+                                "store": "memory"})
+
+    @classmethod
+    def load_bundle(cls, directory: str, device="cuda",
+                    arena_dtype: str = "float32") -> "UserMemoryStore":
+        """Restore a ``save_bundle`` artifact (the port's or the JAX
+        package's) on ``device``."""
+        meta, cfg, model = load_bundle_params(directory, device)
+        kind = meta.get("store", "memory")
+        if kind != "memory":
+            raise ValueError(
+                f"bundle at {directory} is a {kind!r}-store artifact; load "
+                f"it with the matching store class (serving.load_bundle "
+                f"dispatches on it)")
+        return cls.load(directory, cfg, model, max_users=meta.get("max_users"),
+                        device=device, arena_dtype=arena_dtype)

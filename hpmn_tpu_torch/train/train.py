@@ -162,10 +162,12 @@ def make_eval_step(cfg: Config, device) -> Callable:
 def init_model_for(cfg: Config, spec: synthetic.DatasetSpec,
                    device) -> torch.nn.Module:
     """The driver's model at the start of a run: the port's seeded init
-    (``init_model``) for the dataset's vocab. The one place the driver
+    (``init_model``) for the dataset's vocab, the user table sized from
+    ``spec.n_users`` with ``use_user_emb``. The one place the driver
     initialises a model, so a caller can start it from other weights (for
     example the JAX package's, through ``convert.model_from_flat``)."""
-    return init_model(cfg, spec.n_items, spec.n_cats, device=device)
+    return init_model(cfg, spec.n_items, spec.n_cats, device=device,
+                      n_users=spec.n_users if cfg.model.use_user_emb else 0)
 
 
 def _check_supported(cfg: Config) -> None:
@@ -184,14 +186,17 @@ def _check_supported(cfg: Config) -> None:
             "ROADMAP.md item 10")
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device, what: str = "train()") -> torch.device:
+    """``device`` as a torch.device; a card that is absent raises (no
+    fallback to the CPU), and so does a device other than cpu or cuda.
+    ``what`` names the entry point in the message."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train() runs on the card by default and "
+        raise RuntimeError(f"{what} runs on the card by default and "
                            "torch.cuda.is_available() is false; pass "
-                           "device='cpu' (--device cpu) to train on the CPU")
+                           "device='cpu' (--device cpu) to run on the CPU")
     if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"train() runs on cpu or cuda, not {device}")
+        raise ValueError(f"{what} runs on cpu or cuda, not {device}")
     return device
 
 
@@ -218,7 +223,7 @@ def train(cfg: Config, log: Callable[[str], None] = print,
     "goodput"}, and "preempted": True after a SIGTERM (the test metrics
     nan)."""
     _check_supported(cfg)
-    device = _resolve_device(device)
+    device = resolve_device(device)
     train_arrays, val_arrays, test_arrays, spec = make_datasets(cfg)
     train_loader = DataLoader(train_arrays, cfg.train.batch_size,
                               shuffle=True, seed=cfg.seed)

@@ -1180,3 +1180,33 @@ def test_native_batch_on_the_card_equals_numpy(dev):
         got = getattr(batch, name)
         assert got.device.type == "cuda"
         assert torch.equal(got.cpu(), torch.from_numpy(a[idx])), name
+
+
+@pytest.mark.parametrize("arena_dtype", ["float32", "bfloat16"])
+def test_bundle_from_the_card_serves_on_both(dev, tmp_path, arena_dtype):
+    """A store on the card (xlong_hpmn with use_user_emb, 3 layers) saves a
+    bundle; restored on the card it scores bit for bit as before, restored
+    on the CPU its memories are the card's (f32 on disk; a bf16 arena
+    rounds them once on load) and its scores within 1e-4 of the card's."""
+    cfg = configs.get_config("xlong_hpmn").with_model(hpmn_layers=3,
+                                                       use_user_emb=True)
+    model = init_model(cfg, 500, 40, device=dev, n_users=64)
+    store = UserMemoryStore(cfg, model, device=dev, arena_dtype=arena_dtype)
+    rng = np.random.default_rng(1)
+    items = rng.integers(1, 500, size=(32, 40))
+    store.ingest_histories(np.arange(32), items, items % 40)
+    store.update(np.arange(0, 32, 2), items[:16, 0], items[:16, 1] % 40)
+    uids = np.arange(40)  # 32 known, 8 unknown
+    ci = rng.integers(1, 500, size=(40, 5))
+    want = store.rank(uids, ci, ci % 40)
+    store.save_bundle(str(tmp_path), quantize_embeddings=False)
+    on_card = UserMemoryStore.load_bundle(str(tmp_path), device=dev,
+                                          arena_dtype=arena_dtype)
+    n_ro = cuda_readout.launches
+    np.testing.assert_array_equal(on_card.rank(uids, ci, ci % 40), want)
+    assert cuda_readout.launches == n_ro + 1
+    on_cpu = UserMemoryStore.load_bundle(str(tmp_path), device="cpu",
+                                         arena_dtype=arena_dtype)
+    assert torch.equal(on_cpu._gather(uids)[0], store._gather(uids)[0].cpu())
+    np.testing.assert_allclose(on_cpu.rank(uids, ci, ci % 40), want,
+                               atol=TOL_GRU)

@@ -6,7 +6,9 @@ driver's (``train.train``, ``train.optim``, ``train.checkpoint``,
 ``train.evaluate``, ``train.metrics``, ``data.loader``,
 ``utils.asserts``) and the real-data layer's and the baselines'
 (``data.preprocess``, ``data.native``, ``data.native_batcher``, the three
-``data.process_*`` CLIs, ``models.gru4rec``, ``models.rum``) among them."""
+``data.process_*`` CLIs, ``models.gru4rec``, ``models.rum``) and the
+serving bundles' (``serving.history``, the ``tools.export_bundle`` and
+``tools.serve_batch`` CLIs) among them."""
 
 import ast
 import pathlib
@@ -20,7 +22,8 @@ DRIVER = ("train.train", "train.optim", "train.checkpoint", "train.evaluate",
           "train.metrics", "data.loader", "utils.asserts", "data.preprocess",
           "data.native", "data.native_batcher", "data.process_amazon",
           "data.process_taobao", "data.process_xlong", "models.gru4rec",
-          "models.rum")
+          "models.rum", "serving.history", "tools.export_bundle",
+          "tools.serve_batch")
 
 
 def _forbidden(module: str) -> bool:
@@ -42,7 +45,7 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 44  # every submodule was imported
+    assert int(out.stdout.split()[-1]) >= 46  # every submodule was imported
 
 
 def test_no_source_of_the_port_names_jax():

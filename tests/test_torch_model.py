@@ -220,7 +220,7 @@ def test_init_model_is_seeded_and_shaped_like_jax():
 
 @pytest.mark.parametrize("change", [
     dict(scan_dtype="float16"), dict(dtype="bfloat16"),
-    dict(use_user_emb=True), dict(name="bst")])
+    dict(name="dnn"), dict(name="bst")])
 def test_unported_options_raise(change):
     cfg = configs.get_config("xlong_hpmn").with_model(**change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
