@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's xlong_hpmn serving path and training step
 (f32 and bf16 scans, dense and strided-output), the taobao_dien training
 step and HistoryStore serving, the training driver, the real-data
-layer with the GRU4Rec and RUM baselines, and the stores' persistence and
-bundles from train to serve, once on one GPU.
+layer with the GRU4Rec and RUM baselines, the stores' persistence and
+bundles from train to serve, and the serving daemon with the AOT-exported
+graphs, once on one GPU.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a GPU
 
@@ -106,6 +107,27 @@ before the last line):
    --quantize`` and ``--ema``, then ``serve_batch --update``, as
    subprocesses, with their seconds and bundle bytes.
 
+13. the daemon and the AOT graphs: (a) ``python -m
+   hpmn_tpu_torch.tools.serve --warmup --journal`` as a subprocess on the
+   card, serving phase 12's xlong bundle and, as model "dien", its DIEN
+   bundle: predict (512 users) and rank (64 x 100) through a
+   ``ServingClient`` held to in-process stores on the same bundles (within
+   1e-6; it prints whether bit for bit), K5 counted per request (and (b)
+   K1 and K1-scale per DIEN request) through the daemon's ``stats``; then
+   update rounds, a SIGKILL, and a restart whose journal replay gives the
+   same scores; (c) phase 10's checkpoint through ``export_bundle
+   --export_compiled --platforms cpu,cuda`` (in the background of (a)) and
+   phase 9's DIEN store through ``save_bundle(export_compiled=True)``, then
+   ``serve --aot``: scores held to the eager stores within 1e-6, and the
+   exported graphs' launches of K5, K1 and K1-scale counted per request;
+   the bundle's cpu graphs against its cuda graphs at 1e-4; (d) ``python
+   -m hpmn_tpu_torch.tools.serve_fleet`` with 2 shards on the card behind a
+   ``ShardedServingClient``, against the single daemon's answers; (e) the
+   daemons' requests/s and latency percentiles under load (eager and
+   --aot), their startup seconds with --warmup, and the host's enqueue
+   time per call through the custom ops and through the direct launch
+   (K5 at B = 512 and 6400, K1 at DIEN's scoring shape), in turns.
+
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or away from the repo, it exits nonzero and prints no result. Imports
@@ -117,6 +139,7 @@ import copy
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -254,6 +277,22 @@ GATHER_REPS = 20  # native and numpy batch gathers, alternating
 # bit: its scores are compared for equality.
 TOL_Q8, Q8_SIZE = 0.03, 0.45
 TOL_ARENA_BF16_MEM, TOL_ARENA_BF16_SCORE = 3e-2, 1e-2
+# Phase 13: the daemon's scores against an in-process store on the same
+# bundle, and the AOT graphs' against the eager store's. Where the bucket
+# equals the request's size (as here) the daemon runs the store's ops on
+# the same rows, and the phase prints whether they are equal bit for bit;
+# a padded bucket may take another cuBLAS algorithm for the tower's
+# matmuls: 1e-6 (the JAX package's tests/test_aot.py tolerance). The host
+# enqueue check: rounds in turns, and calls per round for K5 (1000, as
+# phase 3) and K1 (200: each call allocates a workspace); a rank chunk's
+# readout rows.
+TOL_DAEMON = 1e-6
+# The load on each daemon: LOAD_CLIENTS clients at once, each sending
+# LOAD_REQUESTS predict requests of LOAD_ROWS users.
+LOAD_CLIENTS, LOAD_REQUESTS, LOAD_ROWS = 8, 25, 64
+HOST_ROUNDS = 6
+SCAN_HOST_CALLS = 200
+READOUT_RANK_ROWS = RANK_USERS * RANK_CANDS
 
 
 def fail(msg):
@@ -710,6 +749,364 @@ def phase_12(p):
           f"{t_s:.1f} s: {line_s}, scores in (0, 1), {cli_err:.2e} from "
           f"this process's, counters +1 saved | phase 12 "
           f"{time.perf_counter() - t12:.1f} s", flush=True)
+    return launches
+
+
+def host_enqueue(p, library, cuda_readout, cuda_gru):
+    """The host's time to enqueue one kernel call through its custom op
+    (``ops/library.py``) and through the direct launch the eager path
+    takes, in turns, HOST_ROUNDS rounds of calls with no synchronize: K5
+    at B = 512 and 6400 (phase 4's readout, L slots), K1 at DIEN's scoring
+    shape (T = 300, B = 512, masked f32, phase 9's interest GRU). -> {name:
+    (median op us, median direct us, spread of the direct rounds' us)}."""
+    import torch
+
+    dev = p.dev
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def us(fn, n):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = (time.perf_counter() - t0) / n * 1e6
+        sync()
+        return t
+
+    ro = p.model.readout
+    w = (ro.wm, ro.wq, ro.b, ro.v)
+    L, d_q = p.cfg.model.hpmn_layers, ro.wq.shape[0]
+    cases = {}
+    for B in (B_SCAN, READOUT_RANK_ROWS):
+        mem = torch.randn(B, L, 32, device=dev, generator=gen)
+        q = torch.randn(B, d_q, device=dev, generator=gen)
+        cases[f"readout_fwd B={B}"] = (
+            lambda m=mem, q_=q: library.readout_fwd(m, q_, *w),
+            lambda m=mem, q_=q: cuda_readout.readout_by_device(m, q_, *w),
+            READOUT_HOST_CALLS)
+    g1 = p.store_d.model.encoder.gru1
+    x = torch.randn(p.dien_window, B_SCAN, g1.wx.shape[0], device=dev,
+                    generator=gen)
+    mask = torch.ones(p.dien_window, B_SCAN, device=dev)
+    args = (x, mask, None, g1.wx, g1.wh, g1.b, None)
+    cases[f"gru_scan_fwd T={p.dien_window} B={B_SCAN}"] = (
+        lambda: library.gru_scan_fwd(*args),
+        lambda: cuda_gru.scan_by_device(*args), SCAN_HOST_CALLS)
+    out = {}
+    with torch.no_grad():
+        for name, (op, direct, n) in cases.items():
+            o, d = [], []
+            for _ in range(HOST_ROUNDS):
+                o.append(us(op, n))
+                d.append(us(direct, n))
+            out[name] = (float(np.median(o)), float(np.median(d)),
+                         max(d) - min(d))
+    return out
+
+
+def phase_13(p):
+    """The serving daemon and the AOT graphs on the card, from phase 12's
+    bundles and phase 10's checkpoint. ``p`` carries phase 12's, and the
+    host-enqueue check's tensors. -> the launches of each daemon path, by
+    path and kernel (read through the daemons' ``stats``)."""
+    import threading
+
+    from hpmn_tpu_torch.ops import cuda_gru, cuda_readout, library
+    from hpmn_tpu_torch.serving import load_bundle
+    from hpmn_tpu_torch.serving.aot import load_aot_store
+    from hpmn_tpu_torch.serving.client import ServingClient
+    from hpmn_tpu_torch.serving.sharded import ShardedServingClient
+
+    dev = p.dev
+    t13 = time.perf_counter()
+    d_hpmn, d_dien = (os.path.join(p.work, n) for n in ("hpmn", "dien"))
+    d_aot, d_dien_aot = (os.path.join(p.work, n)
+                         for n in ("aot", "dien_aot"))
+    journal = os.path.join(p.work, "daemon.journal")
+    log_path = os.path.join(p.work, "daemons.log")
+    log = open(log_path, "w")
+    procs, clients = [], []
+    launches = {}
+    rng = np.random.default_rng(13)
+
+    def log_tail():
+        log.flush()
+        with open(log_path) as f:
+            return f.read()[-3000:]
+
+    def start(module, *args):
+        # Each in a process group of its own, so that the fleet's shards
+        # are stopped with it whatever ends the phase.
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", f"hpmn_tpu_torch.tools.{module}",
+             *args, *p.cli_device], cwd=p.repo, stdout=subprocess.PIPE,
+            stderr=log, text=True, start_new_session=True)
+        procs.append(proc)
+        return proc
+
+    def ready(proc, marker):
+        """The process's lines up to the first that holds ``marker``."""
+        lines = []
+        while True:
+            line = proc.stdout.readline()
+            if not line:
+                fail(f"phase 13: a process exited ({proc.wait()}) before "
+                     f"'{marker}': {''.join(lines)[-1500:]} | stderr: "
+                     f"{log_tail()}")
+            lines.append(line)
+            if marker in line:
+                return lines
+
+    def daemon(*args):
+        """Start ``serve`` on an ephemeral port -> (process, client,
+        its lines up to ready, seconds from start to ready)."""
+        t0 = time.perf_counter()
+        proc = start("serve", "--port", "0", "--max_batch", str(B_SCAN),
+                     *args)
+        lines = ready(proc, "serving bundle")
+        secs = time.perf_counter() - t0
+        host, port = lines[-1].rsplit(" on ", 1)[1].split()[0].rsplit(":",
+                                                                        1)
+        client = ServingClient(host, int(port), timeout_s=300)
+        clients.append(client)
+        return proc, client, lines, secs
+
+    def stop(proc, sig=signal.SIGTERM):
+        proc.send_signal(sig)
+        proc.wait(timeout=60)
+
+    def launched(client):
+        return client.stats()["launches"]
+
+    def diff(after, before, names):
+        return {n: after[n] - before[n] for n in names}
+
+    def err(a, b):
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+    def load(client, model=None, threads=LOAD_CLIENTS, reqs=LOAD_REQUESTS,
+             rows=LOAD_ROWS):
+        """threads clients x reqs predict calls of rows users each, at
+        once -> (requests/s on the host's clock, the daemon's stats)."""
+        addr = client._sock.getpeername()
+        errors = []
+
+        def one(seed):
+            r = np.random.default_rng(seed)
+            try:
+                with ServingClient(*addr, timeout_s=300) as c:
+                    for _ in range(reqs):
+                        u = r.choice(p.upd_uids, rows, replace=False)
+                        c.predict(u, p.rank_items[0, :rows],
+                                  p.rank_cats[0, :rows], model=model)
+            except Exception as e:  # noqa: BLE001
+                errors.append(e)
+
+        ts = [threading.Thread(target=one, args=(s,)) for s in
+              range(threads)]
+        t0 = time.perf_counter()
+        [t.start() for t in ts]
+        [t.join() for t in ts]
+        wall = time.perf_counter() - t0
+        check(not errors, f"phase 13 load: {errors[:1]}")
+        return threads * reqs / wall, client.stats()
+
+    hp = (p.upd_uids, p.full["target_item"][:B_SCAN],
+          p.full["target_cat"][:B_SCAN])
+    rk = (p.rank_uids, p.rank_items, p.rank_cats)
+    dp = (p.h_uids[:B_SCAN], p.pr_i, p.pr_c)
+    dr = (p.h_uids[:RANK_USERS], p.rk_i, p.rk_c)
+    try:
+        # (a) + (b): one daemon serves the xlong bundle and, as model
+        # "dien", the DIEN bundle, with warm-up and a journal.
+        eager = load_bundle(d_hpmn, device=dev)
+        eager_d = load_bundle(d_dien, device=dev)
+        args_a = ("--bundle", d_hpmn, "--extra_bundle", f"dien={d_dien}",
+                  "--journal", journal, "--warmup")
+        proc, cl, lines, t_start = daemon(*args_a)
+        check(any("warmed predict buckets" in s for s in lines),
+              f"phase 13 --warmup: {lines}")
+        # the checkpoint's bundle with its graphs, and the fleet, in the
+        # background while (a) and (b) run
+        hist = os.path.join(p.work, "hist.npz")
+        t0 = time.perf_counter()
+        exporter = start("export_bundle", "--ckpt_dir", p.ckpt, "--config",
+                         "xlong_hpmn", "--set", *p.ckpt_set, "--out", d_aot,
+                         "--histories", hist, "--export_compiled",
+                         "--platforms", p.platforms)
+        fleet = start("serve_fleet", "--bundle", d_hpmn, "--shards", "2",
+                      "--base_port", "0", "--max_batch", str(B_SCAN))
+        st0 = launched(cl)
+        got_p, got_r = cl.predict(*hp), cl.rank(*rk)
+        n_a = diff(launched(cl), st0, ("readout_fwd",))
+        want_p, want_r = eager.predict(*hp), eager.rank(*rk)
+        st0 = launched(cl)
+        got_dp, got_dr = (cl.predict(*dp, model="dien"),
+                          cl.rank(*dr, model="dien"))
+        n_b = diff(launched(cl), st0, ("gru_scan_fwd", "gru_scan_fwd_scale"))
+        want_dp, want_dr = eager_d.predict(*dp), eager_d.rank(*dr)
+        e_a = max(err(got_p, want_p), err(got_r, want_r))
+        e_b = max(err(got_dp, want_dp), err(got_dr, want_dr))
+        same_a = (np.array_equal(got_p, want_p)
+                  and np.array_equal(got_r, want_r))
+        same_b = (np.array_equal(got_dp, want_dp)
+                  and np.array_equal(got_dr, want_dr))
+        check(e_a <= TOL_DAEMON and e_b <= TOL_DAEMON, f"phase 13 daemon "
+              f"vs the in-process stores: hpmn {e_a:.3e}, dien {e_b:.3e} "
+              f"(tol {TOL_DAEMON})")
+        check(n_a == {"readout_fwd": 2} and n_b == {
+            "gru_scan_fwd": 2, "gru_scan_fwd_scale": 2}, f"phase 13 daemon "
+            f"launches hpmn {n_a}, dien {n_b}: expected K5 once per predict "
+            f"and rank, K1 and K1-scale once per DIEN scoring call")
+        launches["daemon_hpmn"] = n_a
+        launches["daemon_dien"] = n_b
+        # updates through the daemon (journaled), then a crash and a
+        # restart that replays them
+        d_ev = rng.integers(1, p.dien_items, size=(2, B_SCAN))
+        for k in range(UPDATE_ROUNDS):
+            cl.update(p.upd_uids, p.upd_items[k], p.upd_cats[k])
+            eager.update(p.upd_uids, p.upd_items[k], p.upd_cats[k])
+        for k in range(2):
+            d_cat = d_ev[k] % (p.dien_cats - 1) + 1
+            cl.update(dp[0], d_ev[k], d_cat, model="dien")
+            eager_d.update(dp[0], d_ev[k], d_cat)
+        stop(proc, signal.SIGKILL)
+        proc, cl, lines, t_restart = daemon(*args_a)
+        replayed = [s.strip() for s in lines if s.startswith("replayed")]
+        check(len(replayed) == 2, f"phase 13 restart: no journal replay "
+              f"for both models: {lines}")
+        e_re = max(err(cl.predict(*hp), eager.predict(*hp)),
+                   err(cl.rank(*rk), eager.rank(*rk)),
+                   err(cl.predict(*dp, model="dien"), eager_d.predict(*dp)))
+        check(e_re <= TOL_DAEMON, f"phase 13 after the journal replay: "
+              f"{e_re:.3e} from the in-process stores")
+        check(exporter.wait(timeout=600) == 0, f"phase 13 export_bundle "
+              f"--export_compiled failed: {log_tail()}")
+        t_export = time.perf_counter() - t0
+        fleet_line = ready(fleet, "FLEET ready:")[-1]
+        rps_e, st_e = load(cl)
+        print(f"phase 13 (a)+(b) daemon xlong_hpmn + dien on {dev}: "
+              f"startup with --warmup {t_start:.1f} s (restart with journal "
+              f"replay {t_restart:.1f} s: {'; '.join(replayed)}) | predict "
+              f"{B_SCAN} and rank {RANK_USERS}x{RANK_CANDS} vs the "
+              f"in-process store {e_a:.2e} (bit for bit {same_a}), DIEN "
+              f"{e_b:.2e} (bit for bit {same_b}), tol {TOL_DAEMON} | "
+              f"launches {n_a} {n_b} | after {UPDATE_ROUNDS} + 2 update "
+              f"rounds, SIGKILL and restart: {e_re:.2e}", flush=True)
+
+        # (d) the fleet of 2 shards against the single daemon's answers.
+        addrs = [(h, int(x)) for h, x in (
+            a.rsplit(":", 1) for a in fleet_line.split(":", 1)[1].split())]
+        with ShardedServingClient(addrs, timeout_s=300) as sh:
+            st0 = [s["launches"] for s in sh.stats()]
+            f_p, f_r = sh.predict(*hp), sh.rank(*rk)
+            st1 = [s["launches"] for s in sh.stats()]
+        n_d = {"readout_fwd": sum(b["readout_fwd"] - a["readout_fwd"]
+                                  for a, b in zip(st0, st1))}
+        e_d = max(err(f_p, got_p), err(f_r, got_r))
+        check(e_d <= TOL_DAEMON and n_d["readout_fwd"] >= 2, f"phase 13 "
+              f"fleet vs the single daemon: {e_d:.3e} (tol {TOL_DAEMON}), "
+              f"launches {n_d}")
+        launches["fleet_hpmn"] = n_d
+        stop(fleet)
+        print(f"phase 13 (d) fleet of 2 shards on one card: predict and "
+              f"rank vs the single daemon {e_d:.2e} (tol {TOL_DAEMON}) | "
+              f"launches {n_d}", flush=True)
+        stop(proc)
+
+        # (c) AOT: the checkpoint's exported bundle and the DIEN store's.
+        with open(os.path.join(d_aot, "serving_config.json")) as f:
+            exp = json.load(f)["exported"]
+        check(exp["format"] == "torch.export" and exp["platforms"] == sorted(
+            p.platforms.split(",")), f"phase 13 export manifest {exp}")
+        t0 = time.perf_counter()
+        p.store_d.save_bundle(d_dien_aot, export_compiled=True,
+                              export_platforms=(dev.type,))
+        t_export_d = time.perf_counter() - t0
+        eager_x = load_bundle(d_aot, device=dev)
+        proc, cl, lines, t_aot = daemon(
+            "--bundle", d_aot, "--extra_bundle", f"dien={d_dien_aot}",
+            "--aot", "--warmup")
+        check("aot" in lines[-1], f"phase 13 --aot: {lines[-1]}")
+        st0 = launched(cl)
+        a_p, a_r = cl.predict(*hp), cl.rank(*rk)
+        n_c = diff(launched(cl), st0, ("readout_fwd",))
+        st0 = launched(cl)
+        a_dp, a_dr = (cl.predict(*dp, model="dien"),
+                      cl.rank(*dr, model="dien"))
+        n_cd = diff(launched(cl), st0, ("gru_scan_fwd",
+                                        "gru_scan_fwd_scale"))
+        e_c = max(err(a_p, eager_x.predict(*hp)),
+                  err(a_r, eager_x.rank(*rk)))
+        e_cd = max(err(a_dp, p.store_d.predict(*dp)),
+                   err(a_dr, p.store_d.rank(*dr)))
+        check(e_c <= TOL_DAEMON and e_cd <= TOL_DAEMON, f"phase 13 --aot vs "
+              f"the eager stores: hpmn {e_c:.3e}, dien {e_cd:.3e} (tol "
+              f"{TOL_DAEMON})")
+        check(n_c == {"readout_fwd": 2} and n_cd == {
+            "gru_scan_fwd": 2, "gru_scan_fwd_scale": 2}, f"phase 13 --aot "
+            f"launches hpmn {n_c}, dien {n_cd}: the exported graphs must "
+            f"launch K5 per predict and rank, K1 and K1-scale per DIEN call")
+        launches["aot_hpmn"] = n_c
+        launches["aot_dien"] = n_cd
+        # the bundle's CPU graphs, here in this process, against the
+        # card's graphs on the same state
+        on_cpu = load_aot_store(d_aot, device="cpu")
+        e_cpu = err(on_cpu.predict(*(a[:RANK_USERS] for a in hp)),
+                    a_p[:RANK_USERS])
+        check(e_cpu <= TOL_SLICE, f"phase 13 the bundle's cpu graphs vs "
+              f"its cuda graphs: {e_cpu:.3e} (tol {TOL_SLICE})")
+        del on_cpu
+        cl.update(p.upd_uids, p.upd_items[0], p.upd_cats[0])
+        eager_x.update(p.upd_uids, p.upd_items[0], p.upd_cats[0])
+        e_cu = err(cl.predict(*hp), eager_x.predict(*hp))
+        check(e_cu <= TOL_DAEMON, f"phase 13 --aot after an update: "
+              f"{e_cu:.3e}")
+        rps_a, st_a = load(cl)
+        stop(proc)
+        print(f"phase 13 (c) AOT: export_bundle --export_compiled "
+              f"--platforms {p.platforms} {t_export:.1f} s (in the "
+              f"background of (a)), DIEN store save_bundle(export_compiled) "
+              f"{t_export_d:.1f} s | serve --aot startup with --warmup "
+              f"{t_aot:.1f} s | vs the eager stores: hpmn {e_c:.2e}, dien "
+              f"{e_cd:.2e}, after an update {e_cu:.2e} (tol {TOL_DAEMON}); "
+              f"its cpu graphs (in this process) vs its cuda graphs "
+              f"{e_cpu:.2e} (tol {TOL_SLICE}) | "
+              f"launches per predict+rank {n_c} {n_cd}", flush=True)
+
+        # (e) the numbers: the daemons under load, and the host's cost of
+        # the custom ops against the direct launch.
+        enq = host_enqueue(p, library, cuda_readout, cuda_gru)
+        print(f"phase 13 (e) load: {LOAD_CLIENTS} clients x {LOAD_REQUESTS} "
+              f"predict requests of {LOAD_ROWS} users | eager {rps_e:.1f} requests/s, daemon latency "
+              f"{st_e['latency_ms']} stats {st_e['stats']} | aot "
+              f"{rps_a:.1f} requests/s, latency {st_a['latency_ms']} stats "
+              f"{st_a['stats']} | startup with --warmup: eager "
+              f"{t_start:.1f} s, aot {t_aot:.1f} s | host enqueue us per "
+              f"call, median of rounds in turns (op, direct; spread of the "
+              f"direct rounds): " + ", ".join(
+                  f"{k} op {v[0]:.2f} direct {v[1]:.2f} (spread {v[2]:.2f})"
+                  for k, v in enq.items()), flush=True)
+        p.numbers13 = {"rps_eager": rps_e, "rps_aot": rps_a,
+                       "lat_eager": st_e["latency_ms"],
+                       "lat_aot": st_a["latency_ms"], "startup": t_start,
+                       "startup_aot": t_aot, "enqueue": enq}
+    finally:
+        for c in clients:
+            c.close()
+        for proc in procs:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass  # the group has ended
+            proc.wait()
+        log.close()
+    print(f"phase 13 time: {time.perf_counter() - t13:.1f} s", flush=True)
     return launches
 
 
@@ -2698,8 +3095,12 @@ def main():
     # Train to serve: phase 4's store and phase 9's DIEN store through
     # bundles (f32, int8) and the bf16 arena, the use_user_emb step, and
     # phase 10's checkpoint through the export_bundle and serve_batch CLIs.
+    # ------------------------------ 13. the daemon and the AOT graphs --
+    # Phase 12's bundles served over TCP by the daemon (subprocesses on the
+    # card), the checkpoint exported with its graphs and served --aot, a
+    # fleet of 2 shards, and the host's cost of the custom ops.
     try:
-        launches12 = phase_12(SimpleNamespace(
+        p12 = SimpleNamespace(
             dev=dev, cfg=cfg, model=model, store=store, full=full,
             full_uids=full_uids, upd_uids=upd_uids, upd_items=upd_items,
             upd_cats=upd_cats, rank_uids=rank_uids, rank_items=rank_items,
@@ -2709,10 +3110,16 @@ def main():
             step_check=step_check, counters=counters,
             zero_counters=zero_counters, work=work12,
             ckpt=os.path.join(work12, "ckpt"),
-            ckpt_set=["model.use_pallas=true"], repo=repo, cli_device=[]))
+            ckpt_set=["model.use_pallas=true"], repo=repo, cli_device=[],
+            platforms="cpu,cuda", dien_items=TAOBAO.n_items,
+            dien_cats=TAOBAO.n_cats, dien_window=store_d.window)
+        launches12 = phase_12(p12)
+        launches13 = phase_13(p12)
     finally:
         shutil.rmtree(work12, ignore_errors=True)
-    del store, store_d
+    enq13 = p12.numbers13["enqueue"]
+    store_d_window = store_d.window
+    del store, store_d, p12
     torch.cuda.empty_cache()
 
     def entry(name, src, rep, row, err, by_path, **extra):
@@ -2736,8 +3143,14 @@ def main():
                "training_dien": fd[0], "serving_dien": serve_launches[0],
                **{k_: v[0] for k_, v in driver_launches.items()},
                "store_gru4rec": store_launches["gru4rec"],
-               **{k_: v[0] for k_, v in launches12.items()}},
+               **{k_: v[0] for k_, v in launches12.items()},
+               **{k_: v["gru_scan_fwd"] for k_, v in launches13.items()
+                  if "gru_scan_fwd" in v}},
               sources=list(cuda_gru.FWD_SOURCES),
+              host_us_op=enq13[f"gru_scan_fwd T={store_d_window} "
+                               f"B={B_SCAN}"][0],
+              host_us_direct=enq13[f"gru_scan_fwd T={store_d_window} "
+                                   f"B={B_SCAN}"][1],
               projection_ms=proj_rows[0][2],
               projection_max_err_over_max_abs=proj_err_max),
         entry("gru_scan_bwd", cuda_gru.BWD_SOURCE, cuda_gru.BWD_REPLACES,
@@ -2757,7 +3170,15 @@ def main():
                "training_stride_bf16": stride_launches["bf16"][4],
                **{k_: v[4] for k_, v in driver_launches.items()},
                "bundle_hpmn": launches12["bundle_hpmn"][4],
-               "training_user_emb": launches12["training_user_emb"][4]},
+               "training_user_emb": launches12["training_user_emb"][4],
+               **{k_: v["readout_fwd"] for k_, v in launches13.items()
+                  if "readout_fwd" in v}},
+              host_us_op=enq13[f"readout_fwd B={B_SCAN}"][0],
+              host_us_direct=enq13[f"readout_fwd B={B_SCAN}"][1],
+              host_us_op_rank=enq13[
+                  f"readout_fwd B={READOUT_RANK_ROWS}"][0],
+              host_us_direct_rank=enq13[
+                  f"readout_fwd B={READOUT_RANK_ROWS}"][1],
               call_ms=r[6], host_us=r[7], device_ms_rank=ro_rows[1][2],
               call_ms_rank=ro_rows[1][6], host_us_rank=ro_rows[1][7],
               device_ms_from=f"torch.profiler kernel durations, mean "
@@ -2816,7 +3237,10 @@ def main():
                 ({"training_dien_bf16": bd[9 + idx]} if "bf16" in name
                  else {"training_dien": fd[9 + idx], **(
                      {"serving_dien": serve_launches[9],
-                      "bundle_dien": launches12["bundle_dien"][9]}
+                      "bundle_dien": launches12["bundle_dien"][9],
+                      **{k_: v["gru_scan_fwd_scale"]
+                         for k_, v in launches13.items()
+                         if "gru_scan_fwd_scale" in v}}
                      if idx == 0 else {})}),
                 **({"max_err_over_max_abs": sc_err[name],
                     "sources": list(cuda_gru.BWD_SOURCES),

@@ -37,7 +37,10 @@ in bf16), so the CPU tests run the same plumbing (saved tensors, strided
 views, the mask). On a CUDA tensor a wrapper launches its kernel or raises
 on what it does not take (d_m != 32, d_in > 96, dtypes other than float32
 and bfloat16, a mix of the two, a scale that is not [T, B] with a unit
-batch stride); nothing falls back to the plain version.
+batch stride); nothing falls back to the plain version. Where nothing
+needs a gradient :func:`gru_sequence_tm` skips the autograd.Function.
+While ``torch.export`` traces, K1 is the custom op ``hpmn::gru_scan_fwd``
+(``ops/library.py``), whose CUDA implementation is :func:`_launch`.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, library
 from .gru import (GRUParams, GRUWeights, gru_bwd_pass, gru_input_proj,
                   gru_input_proj_bf16, gru_scan_tm, gru_scan_tm_bf16,
                   gru_scan_tm_bwd, gru_scan_tm_bwd_bf16, gru_scan_tm_sweep,
@@ -219,10 +222,14 @@ def _check_cuda_args(w, x_tm, mask_tm, h0, name, scale_tm=None):
                              f"or bfloat16) on one device; got {t.dtype} on "
                              f"{t.device} beside x's {x_tm.dtype} on "
                              f"{x_tm.device}")
-    if x_tm.stride(2) != 1 or x_tm.stride(1) != d_in:
+    # A stride of a size-1 dim is never read (a [T, 1] mask transposed from
+    # [1, T] keeps the stride T), so it is not checked.
+    if (d_in > 1 and x_tm.stride(2) != 1) or (B > 1
+                                              and x_tm.stride(1) != d_in):
         raise ValueError("x_tm rows must be contiguous (any time stride)")
     for arg, t in (("mask_tm", mask_tm), ("scale_tm", scale_tm)):
-        if t is not None and (t.shape != (T, B) or t.stride(1) != 1):
+        if t is not None and (t.shape != (T, B)
+                              or (B > 1 and t.stride(1) != 1)):
             raise ValueError(f"{arg} must be [T, B] with a unit batch stride")
     for t in (w.wx, w.wh, w.b):
         if not t.is_contiguous():
@@ -508,6 +515,29 @@ def bwd_gates(params: GRUParams, x_tm: torch.Tensor,
     return dg, out[4], out[5] if scale_tm is not None else None
 
 
+def scan_by_device(x_tm, mask_tm, h0, wx, wh, b, scale_tm=None):
+    """K1's forward by the tensors' device: the plain scan
+    (``gru_scan_tm``, ``gru_scan_tm_bf16``) on CPU tensors, :func:`_launch`
+    on CUDA tensors -> h_seq. The implementations of the op
+    ``hpmn::gru_scan_fwd`` (``ops/library.py``)."""
+    w = GRUWeights(wx, wh, b)
+    if x_tm.device.type == "cpu":
+        plain = (gru_scan_tm_bf16 if x_tm.dtype == torch.bfloat16
+                 else gru_scan_tm)
+        return plain(w, x_tm, mask_tm, h0, scale_tm)[0]
+    return _launch(w, x_tm, mask_tm, h0, scale_tm)
+
+
+def scan_fwd(x_tm, mask_tm, h0, wx, wh, b, scale_tm=None):
+    """K1's forward: through the op ``hpmn::gru_scan_fwd`` while
+    ``torch.compiler`` traces (``torch.export``), so that the graph holds
+    the kernel as one node; else :func:`scan_by_device` directly, which
+    spares an eager call the op's dispatch."""
+    if torch.compiler.is_compiling():
+        return library.gru_scan_fwd(x_tm, mask_tm, h0, wx, wh, b, scale_tm)
+    return scan_by_device(x_tm, mask_tm, h0, wx, wh, b, scale_tm)
+
+
 class GRUScan(torch.autograd.Function):
     """h_seq = scan(x_tm, mask_tm, h0, scale_tm; wx, wh, b), time-major.
     Forward K1 and backward K2 (or their scale forms, given a scale_tm) on
@@ -520,13 +550,7 @@ class GRUScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_tm, mask_tm, h0, wx, wh, b, scale_tm=None):
-        w = GRUWeights(wx, wh, b)
-        if x_tm.device.type == "cpu":
-            plain = (gru_scan_tm_bf16 if x_tm.dtype == torch.bfloat16
-                     else gru_scan_tm)
-            h_seq = plain(w, x_tm, mask_tm, h0, scale_tm)[0]
-        else:
-            h_seq = _launch(w, x_tm, mask_tm, h0, scale_tm)
+        h_seq = scan_fwd(x_tm, mask_tm, h0, wx, wh, b, scale_tm)
         ctx.save_for_backward(x_tm, mask_tm, h0, wx, wh, b, scale_tm, h_seq)
         return h_seq
 
@@ -549,7 +573,9 @@ def gru_sequence_tm(params: GRUParams, x_tm: torch.Tensor,
     """Time-major scan: x_tm [T, B, d_in], mask_tm [T, B] or None (full
     sequences), h0 [B, d_m] or None, scale_tm [T, B] or None (the AUGRU
     gate scale: DIEN's attention) -> (h_seq [T, B, d_m], h_T [B, d_m]),
-    differentiable through :class:`GRUScan`, the scale included.
+    differentiable through :class:`GRUScan`, the scale included. Where no
+    input needs a gradient (serving, under ``no_grad``) it runs
+    :func:`scan_fwd` without the autograd.Function.
 
     x_tm may be a leading-axis strided view (``h_seq[period-1::period]`` of
     the layer below): both kernels take the time stride, so nothing is
@@ -560,6 +586,10 @@ def gru_sequence_tm(params: GRUParams, x_tm: torch.Tensor,
         d_m = params.wh.shape[0]
         h = x_tm.new_zeros(B, d_m) if h0 is None else h0
         return x_tm.new_zeros(0, B, d_m), h
-    h_seq = GRUScan.apply(x_tm, mask_tm, h0, params.wx, params.wh, params.b,
-                          scale_tm)
+    args = (x_tm, mask_tm, h0, params.wx, params.wh, params.b, scale_tm)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in args):
+        h_seq = GRUScan.apply(*args)
+    else:
+        h_seq = scan_fwd(*args)
     return h_seq, h_seq[-1]

@@ -19,6 +19,10 @@ plain version, ``models.readout.attention_readout`` with no slot mask. Its
 backward is autograd of that plain version, recomputed from the saved
 memory, query and weights: what the JAX ``_core_bwd`` does (``jax.vjp`` of
 the jnp oracle; the TPU package has no backward kernel for the readout).
+Where nothing needs a gradient it skips the autograd.Function. While
+``torch.export`` traces, the forward is the custom op
+``hpmn::readout_fwd`` (``ops/library.py``), whose CUDA implementation is
+this module's launch.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.readout import attention_readout
-from . import _build
+from . import _build, library
 
 SOURCE = "hpmn_tpu_torch/csrc/readout_fwd.cu"
 REPLACES = "hpmn_tpu/ops/pallas_readout.py:42"
@@ -98,18 +102,35 @@ def _launch(module, memory: torch.Tensor, query: torch.Tensor):
     return out
 
 
+def readout_by_device(memory, query, wm, wq, b, v):
+    """K5 by the tensors' device: ``attention_readout`` on CPU tensors,
+    :func:`_launch` on CUDA tensors -> read. The implementations of the op
+    ``hpmn::readout_fwd`` (``ops/library.py``)."""
+    w = ReadoutWeights(wm, wq, b, v)
+    if memory.device.type == "cpu":
+        return attention_readout(w, memory, query)
+    return _launch(w, memory, query)
+
+
+def readout_fwd(memory, query, wm, wq, b, v):
+    """K5's forward: through the op ``hpmn::readout_fwd`` while
+    ``torch.compiler`` traces (``torch.export``), so that the graph holds
+    the kernel as one node; else :func:`readout_by_device` directly, which
+    spares an eager call the op's dispatch."""
+    if torch.compiler.is_compiling():
+        return library.readout_fwd(memory, query, wm, wq, b, v)
+    return readout_by_device(memory, query, wm, wq, b, v)
+
+
 class AttentionReadout(torch.autograd.Function):
-    """read = readout(memory, query; wm, wq, b, v). Forward: the kernel on
-    CUDA tensors, the plain version on CPU tensors. Backward: autograd of
-    the plain version, recomputed."""
+    """read = readout(memory, query; wm, wq, b, v). Forward:
+    :func:`readout_fwd` (the kernel on CUDA tensors, the plain version on
+    CPU tensors). Backward: autograd of the plain version, recomputed."""
 
     @staticmethod
     def forward(ctx, memory, query, wm, wq, b, v):
-        w = ReadoutWeights(wm, wq, b, v)
         ctx.save_for_backward(memory, query, wm, wq, b, v)
-        if memory.device.type == "cpu":
-            return attention_readout(w, memory, query)
-        return _launch(w, memory, query)
+        return readout_fwd(memory, query, wm, wq, b, v)
 
     @staticmethod
     def backward(ctx, d_read):
@@ -124,9 +145,13 @@ def fused_attention_readout(module, memory: torch.Tensor,
                             query: torch.Tensor) -> torch.Tensor:
     """memory [B, L, d_m], query [B, d_q] -> read [B, d_m], with the
     readout weights of ``module`` (a ``models.readout.Readout``),
-    differentiable through :class:`AttentionReadout`."""
+    differentiable through :class:`AttentionReadout`; where nothing needs
+    a gradient (serving, under ``no_grad``), :func:`readout_fwd` without
+    the autograd.Function."""
     if memory.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_attention_readout runs on cpu or cuda, not "
                          f"{memory.device}")
-    return AttentionReadout.apply(memory, query, module.wm, module.wq,
-                                  module.b, module.v)
+    args = (memory, query, module.wm, module.wq, module.b, module.v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return AttentionReadout.apply(*args)
+    return readout_fwd(*args)

@@ -36,41 +36,62 @@ Persistence keeps the JAX package's files: ``save``/``load`` write and read
 bundle is that file plus ``lifelong.save_params_npz``'s params.npz and
 serving_config.json with ``store: "history"`` and the window; the
 module-level :func:`load_bundle` opens any bundle with its store's class.
-The AOT export waits (ROADMAP.md).
+``save_bundle(export_compiled=True)`` adds the scoring function as a
+``torch.export`` graph (:func:`export_history_scoring`), which
+:class:`AotHistoryStore` serves with no model code
+(``aot.load_aot_store`` dispatches on the bundle's store kind).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ..configs import Config, config_to_dict
-from ..data.schema import batch_from_numpy
+from ..data.schema import Batch, batch_from_numpy
 from ..data.synthetic import SPECS
 from ..models.model import apply_model, check_supported
 from .lifelong import (UserMemoryStore, UserRows, _write_meta,
-                       check_user_ids, load_bundle_params, save_params_npz)
+                       check_user_ids, load_bundle_params, save_params_npz,
+                       user_rows)
+
+
+def score_config(cfg: Config) -> Config:
+    """The config a history store scores with: the auxiliary loss off (it
+    reads the batch's negatives and never the logits)."""
+    return cfg.with_model(dien_use_aux_loss=False)
+
+
+def score_batch(model, score_cfg: Config, batch: Batch) -> torch.Tensor:
+    """The history store's scoring math: sigmoid(apply_model) [B], with
+    ``score_cfg`` (:func:`score_config`). The store runs it eagerly and
+    :func:`export_history_scoring` traces it."""
+    logits, _ = apply_model(model, score_cfg, batch)
+    return torch.sigmoid(logits)
 
 
 class HistoryStore(UserRows):
     """Per-user recent-history windows with batched re-encoding
-    predict/rank; the public API of ``UserMemoryStore``."""
+    predict/rank; the public API of ``UserMemoryStore``. ``model`` None
+    makes a store without model code (:class:`AotHistoryStore`, which
+    brings its own scoring)."""
 
     def __init__(self, cfg: Config, model, window: Optional[int] = None,
                  max_users: Optional[int] = None, max_score_rows: int = 8192,
                  device="cuda"):
         check_supported(cfg)
         self.device = torch.empty(0, device=device).device  # "cuda" -> cuda:i
-        if model.embedding.item.device != self.device:
+        if model is not None and model.embedding.item.device != self.device:
             raise ValueError(f"the model is on {model.embedding.item.device}"
                              f", the store on {self.device}: move one")
         self.cfg = cfg
-        self._score_cfg = cfg.with_model(dien_use_aux_loss=False)
+        self._score_cfg = score_config(cfg)
         self.model = model
+        self._user_rows = 0 if model is None else user_rows(cfg, model)
         self.window = int(window) if window else SPECS[cfg.dataset].seq_len
         # Rows per scoring call (0: no bound): the encode's activations
         # grow with rows x W.
@@ -149,7 +170,7 @@ class HistoryStore(UserRows):
         """Scores of flat (user row, candidate) pairs, at most
         ``max_score_rows`` per call of the model."""
         if self.cfg.model.use_user_emb:
-            check_user_ids(self.model, uids)
+            check_user_ids(self._user_rows, uids)
         n = len(rows)
         step = self.max_score_rows or max(n, 1)
         out = np.empty((n,), np.float32)
@@ -158,9 +179,12 @@ class HistoryStore(UserRows):
             batch = batch_from_numpy(
                 self._batch_arrays(uids[sl], rows[sl], cand_items[sl],
                                    cand_cats[sl]), device=self.device)
-            logits, _ = apply_model(self.model, self._score_cfg, batch)
-            out[sl] = torch.sigmoid(logits).cpu().numpy()
+            out[sl] = self._score(batch).cpu().numpy()
         return out
+
+    def _score(self, batch: Batch) -> torch.Tensor:
+        """sigmoid(apply_model) [rows] of one scoring batch."""
+        return score_batch(self.model, self._score_cfg, batch)
 
     def predict(self, uids, cand_items, cand_cats) -> np.ndarray:
         """CTR scores sigmoid(logit) [B] for (user, candidate) pairs."""
@@ -226,14 +250,27 @@ class HistoryStore(UserRows):
         return store
 
     def save_bundle(self, directory: str,
-                    quantize_embeddings: bool = False) -> None:
+                    quantize_embeddings: bool = False,
+                    export_compiled: bool = False,
+                    export_platforms=("cpu", "cuda")) -> None:
         """The memory store's bundle layout, with ``store: "history"`` and
-        the window, so :func:`load_bundle` dispatches on it."""
+        the window, so :func:`load_bundle` dispatches on it. With
+        ``export_compiled`` it also holds the scoring function as
+        ``torch.export`` graphs, one file per platform
+        (:func:`export_history_scoring`; "cuda" needs a card)."""
         self.save(directory)
         save_params_npz(self.model, directory, quantize_embeddings)
-        _write_meta(directory, {"config": config_to_dict(self.cfg),
-                                "max_users": self.max_users,
-                                "store": "history", "window": self.window})
+        meta = {"config": config_to_dict(self.cfg),
+                "max_users": self.max_users, "store": "history",
+                "window": self.window}
+        if export_compiled:
+            from .aot import save_exported
+
+            meta["exported"] = save_exported(
+                directory, export_history_scoring(
+                    self.cfg, self.model, self.window, export_platforms),
+                self.model)
+        _write_meta(directory, meta)
 
     @classmethod
     def load_bundle(cls, directory: str, max_score_rows: int = 8192,
@@ -247,6 +284,80 @@ class HistoryStore(UserRows):
         return cls.load(directory, cfg, model, window=meta.get("window"),
                         max_users=meta.get("max_users"),
                         max_score_rows=max_score_rows, device=device)
+
+
+def _score_graph(model, score_cfg: Config, items, cats, mask, uids, ci, cc):
+    """:func:`score_batch` of a history batch's arrays (the graph's
+    requests): the windows [b, W], their mask, the uids and one candidate
+    per row."""
+    z = torch.zeros_like(items)
+    batch = Batch(uid=uids, item_seq=items, cat_seq=cats, seq_mask=mask,
+                  target_item=ci, target_cat=cc,
+                  label=mask.new_zeros(items.shape[0]), neg_item_seq=z,
+                  neg_cat_seq=z)
+    return score_batch(model, score_cfg, batch)
+
+
+def export_history_scoring(cfg: Config, model, window: int,
+                           platforms=("cpu", "cuda")) -> Dict:
+    """Export the history store's scoring, the window re-encode with the
+    candidate as attention target, -> {"score": {platform:
+    ExportedProgram}} (``aot.export_function``: the parameters are inputs).
+    The graph takes (item_seq, cat_seq [b, W] int32, seq_mask [b, W] f32,
+    uids, target_item, target_cat [b] int32) and returns scores [b]; b is
+    symbolic, W the bundle's window. The traced math is
+    :func:`score_batch`, ``apply_model`` with the aux loss off: with
+    ``use_pallas`` DIEN's two scans are K1 and K1-scale, each one
+    ``hpmn::gru_scan_fwd`` node."""
+    from torch.export import Dim
+
+    from .aot import _EXAMPLE_B, _platform_device, export_function
+
+    for p in platforms:
+        _platform_device(p)  # raise before any tracing
+    b = Dim("b")
+    i32 = torch.int32
+    win = torch.zeros(_EXAMPLE_B, window, dtype=i32)
+    vec = torch.zeros(_EXAMPLE_B, dtype=i32)
+    mask = torch.ones(_EXAMPLE_B, window)
+    dims = ({0: b},) * 6
+    return {"score": {p: export_function(_score_graph, score_config(cfg),
+                                         model, (win, win, mask, vec, vec,
+                                                 vec), dims, p)
+                      for p in platforms}}
+
+
+class AotHistoryStore(HistoryStore):
+    """A :class:`HistoryStore` whose scoring runs an exported graph
+    (:func:`export_history_scoring`) instead of model code (load it with
+    ``aot.load_aot_store`` or the daemon's ``--aot``). Updates and ingest
+    are host-side array writes and work unchanged; ``save()`` persists
+    the windows; re-exporting a bundle needs the trainer-side store. The
+    ``max_score_rows`` chunking stays. ``leaves``: the parameters by
+    keystr, in the manifest's ``leaf_order``."""
+
+    def __init__(self, cfg: Config, leaves: Dict[str, np.ndarray], program,
+                 window: Optional[int] = None,
+                 max_users: Optional[int] = None,
+                 max_score_rows: int = 8192, device="cuda"):
+        from .aot import leaf_tensors
+
+        super().__init__(cfg, None, window=window, max_users=max_users,
+                         max_score_rows=max_score_rows, device=device)
+        self._leaves, self._user_rows = leaf_tensors(leaves, self.device)
+        self._run = program.module()
+
+    def _score(self, batch: Batch) -> torch.Tensor:
+        i32 = torch.int32
+        return self._run((batch.item_seq.to(i32), batch.cat_seq.to(i32),
+                          batch.seq_mask, batch.uid.to(i32),
+                          batch.target_item.to(i32),
+                          batch.target_cat.to(i32)), self._leaves)
+
+    def save_bundle(self, *a, **k):
+        raise ValueError("AotHistoryStore cannot re-export a bundle; its "
+                         "window state persists via save() (the daemon's "
+                         "--save_on_exit path)")
 
 
 def load_bundle(directory: str, device="cuda", **kwargs):

@@ -26,7 +26,11 @@ deployment bundle (``save_bundle``/``load_bundle``) is that file plus
 ``params.npz`` (the flat keystr arrays of ``convert.flat_from_model``, the
 2-D embedding tables optionally per-row symmetric int8) and
 ``serving_config.json`` (the config, ``max_users``, ``store: "memory"``).
-The AOT export waits (ROADMAP.md).
+``save_bundle(export_compiled=True)`` adds the request functions as
+``torch.export`` graphs, which ``serving/aot.py::AotStore`` serves with no
+model code. The request math is :func:`update_memory`,
+:func:`predict_scores` and :func:`rank_scores`: the store runs them
+eagerly and ``serving/aot.py`` traces the same functions.
 """
 
 from __future__ import annotations
@@ -96,15 +100,54 @@ def load_bundle_params(directory: str, device="cuda"):
     return meta, cfg, model_from_flat(cfg, flat, device=device)
 
 
-def check_user_ids(model, uids: np.ndarray) -> None:
-    """Raise unless every uid has a row in the model's user table: a
+def check_user_ids(n: int, uids: np.ndarray) -> None:
+    """Raise unless every uid has a row in a user table of ``n`` rows: a
     request's uids index it on the device, where a row out of range would
     fault the card instead of raising."""
-    n = model.embedding.user.shape[0]
     if len(uids) and (uids.min() < 0 or uids.max() >= n):
         raise ValueError(f"uids must lie in [0, {n}), the user table's "
                          f"rows (use_user_emb); got {uids.min()} to "
                          f"{uids.max()}")
+
+
+def user_rows(cfg: Config, model) -> int:
+    """The user table's rows with use_user_emb (0 without)."""
+    return model.embedding.user.shape[0] if cfg.model.use_user_emb else 0
+
+
+def update_memory(model, cfg: Config, mem: torch.Tensor, cnt: torch.Tensor,
+                  items: torch.Tensor, cats: torch.Tensor):
+    """One event per row: mem [B, K, d_m] f32, cnt [B], items and cats [B]
+    ids -> (mem', cnt + 1) (``protocol.update_state``)."""
+    x = dense_lookup(model.embedding, items, cats)
+    return update_state(cfg.model.name, model.encoder, mem, cnt, x,
+                        cfg.model.hpmn_period)
+
+
+def predict_scores(model, cfg: Config, mem: torch.Tensor, uids: torch.Tensor,
+                   items: torch.Tensor, cats: torch.Tensor) -> torch.Tensor:
+    """sigmoid(tower([q; read; user])) [B] for mem [B, K, d_m] f32 and one
+    candidate per row; uids [B] are read only with use_user_emb."""
+    q = dense_lookup(model.embedding, items, cats)
+    read = read_state(cfg.model.name, model, mem, q)
+    parts = [q, read]
+    if cfg.model.use_user_emb:
+        parts.append(user_lookup(model.embedding, uids))
+    return torch.sigmoid(apply_tower(model.tower, torch.cat(parts, dim=-1)))
+
+
+def rank_scores(model, cfg: Config, mem: torch.Tensor, uids: torch.Tensor,
+                items: torch.Tensor, cats: torch.Tensor) -> torch.Tensor:
+    """:func:`predict_scores` of C candidates per row: items and cats
+    [B, C] -> [B, C]. Each row's state and uid are broadcast over its
+    candidates by expand + reshape, which a traced graph takes with B and
+    C symbolic (``repeat_interleave`` needs a concrete count)."""
+    B, C = items.shape
+    mem_bc = mem[:, None].expand(B, C, *mem.shape[1:]).reshape(
+        B * C, *mem.shape[1:])
+    uid_bc = uids[:, None].expand(B, C).reshape(B * C)
+    return predict_scores(model, cfg, mem_bc, uid_bc, items.reshape(B * C),
+                          cats.reshape(B * C)).reshape(B, C)
 
 
 def _write_meta(directory: str, meta: Dict) -> None:
@@ -231,7 +274,9 @@ class UserMemoryStore(UserRows):
     set, a full store evicts the least recently touched quarter in one
     pass; an evicted user who comes back starts from an empty state.
     ``uid_to_memory`` ({uid: [K, d_m]}) and ``counters`` ({uid: n}) seed
-    it, as the JAX store's do."""
+    it, as the JAX store's do. ``model`` None makes a store without model
+    code (``serving/aot.py::AotStore``, which brings its own request
+    math)."""
 
     def __init__(self, cfg: Config, model, max_users: Optional[int] = None,
                  device="cuda", arena_dtype: str = "float32",
@@ -250,11 +295,12 @@ class UserMemoryStore(UserRows):
                 f"window, batched re-encode per request).")
         check_supported(cfg)
         self.device = torch.empty(0, device=device).device  # "cuda" -> cuda:i
-        if model.embedding.item.device != self.device:
+        if model is not None and model.embedding.item.device != self.device:
             raise ValueError(f"the model is on {model.embedding.item.device}"
                              f", the store on {self.device}: move one")
         self.cfg = cfg
         self.model = model
+        self._user_rows = 0 if model is None else user_rows(cfg, model)
         self.family = cfg.model.name
         self.L = n_state_slots(cfg)
         self.d_m = cfg.model.mem_dim
@@ -331,54 +377,45 @@ class UserMemoryStore(UserRows):
         """Ingest one new behaviour per listed user (O(1) each)."""
         rows = self._rows_for(np.asarray(uids), create=True)
         r = torch.as_tensor(rows, device=self.device)
-        x = dense_lookup(self.model.embedding, self._ids(item_ids),
-                         self._ids(cat_ids))
-        mem, cnt = update_state(self.family, self.model.encoder,
-                                self._mem[r].float(), self._cnt[r], x,
-                                self.period)
+        mem, cnt = self._run_update(self._mem[r].float(), self._cnt[r],
+                                    self._ids(item_ids), self._ids(cat_ids))
         self._mem[r] = mem.to(self._mem.dtype)
         self._cnt[r] = cnt
         self._touch(rows)
 
-    def _user_emb(self, uids: np.ndarray) -> Optional[torch.Tensor]:
-        """The tower's user-embedding input [B, emb_dim] with use_user_emb,
-        else None."""
-        if not self.cfg.model.use_user_emb:
-            return None
-        check_user_ids(self.model, uids)
-        return user_lookup(self.model.embedding, self._ids(uids))
+    def _request_uids(self, uids) -> np.ndarray:
+        """uids as an array, checked against the user table with
+        use_user_emb (a request's uids index it on the device)."""
+        uids = np.asarray(uids)
+        if self.cfg.model.use_user_emb:
+            check_user_ids(self._user_rows, uids)
+        return uids
 
-    def _scores(self, mem: torch.Tensor, items: torch.Tensor,
-                cats: torch.Tensor, user_emb: Optional[torch.Tensor]
-                ) -> torch.Tensor:
-        q = dense_lookup(self.model.embedding, items, cats)
-        read = read_state(self.family, self.model, mem, q)
-        parts = [q, read] + ([] if user_emb is None else [user_emb])
-        logits = apply_tower(self.model.tower, torch.cat(parts, dim=-1))
-        return torch.sigmoid(logits)
+    def _run_update(self, mem, cnt, items, cats):
+        return update_memory(self.model, self.cfg, mem, cnt, items, cats)
+
+    def _run_predict(self, mem, uids, items, cats) -> torch.Tensor:
+        return predict_scores(self.model, self.cfg, mem, uids, items, cats)
+
+    def _run_rank(self, mem, uids, items, cats) -> torch.Tensor:
+        return rank_scores(self.model, self.cfg, mem, uids, items, cats)
 
     @torch.no_grad()
     def predict(self, uids, cand_items, cand_cats) -> np.ndarray:
         """CTR scores sigmoid(logit) [B] for (user, candidate) pairs."""
-        uids = np.asarray(uids)
+        uids = self._request_uids(uids)
         mem, _ = self._gather(uids)
-        return self._scores(mem, self._ids(cand_items), self._ids(cand_cats),
-                            self._user_emb(uids)).cpu().numpy()
+        return self._run_predict(mem, self._ids(uids), self._ids(cand_items),
+                                 self._ids(cand_cats)).cpu().numpy()
 
     @torch.no_grad()
     def rank(self, uids, cand_items, cand_cats) -> np.ndarray:
         """Scores [B, C] of C candidates per user in one call; column c
         equals ``predict(uids, cand_items[:, c], cand_cats[:, c])``."""
-        uids = np.asarray(uids)
-        items, cats = self._ids(cand_items), self._ids(cand_cats)
-        B, C = items.shape
+        uids = self._request_uids(uids)
         mem, _ = self._gather(uids)
-        user = self._user_emb(uids)
-        scores = self._scores(
-            mem.repeat_interleave(C, dim=0), items.reshape(-1),
-            cats.reshape(-1),
-            None if user is None else user.repeat_interleave(C, dim=0))
-        return scores.reshape(B, C).cpu().numpy()
+        return self._run_rank(mem, self._ids(uids), self._ids(cand_items),
+                              self._ids(cand_cats)).cpu().numpy()
 
     # ------------------------------------------------------- persistence --
     def save(self, directory: str) -> None:
@@ -404,15 +441,27 @@ class UserMemoryStore(UserRows):
         return store
 
     def save_bundle(self, directory: str,
-                    quantize_embeddings: bool = False) -> None:
+                    quantize_embeddings: bool = False,
+                    export_compiled: bool = False,
+                    export_platforms=("cpu", "cuda")) -> None:
         """A self-contained serving artifact in ``directory``: the user
         memories (``save``), params.npz (``save_params_npz``) and
-        serving_config.json. A serving host needs nothing else."""
+        serving_config.json. A serving host needs nothing else. With
+        ``export_compiled`` it also holds update, predict and rank as
+        ``torch.export`` graphs, one file per kind and platform
+        (``serving/aot.py``; "cuda" needs a card), which
+        ``aot.load_aot_store`` serves with no model code."""
         self.save(directory)
         save_params_npz(self.model, directory, quantize_embeddings)
-        _write_meta(directory, {"config": config_to_dict(self.cfg),
-                                "max_users": self.max_users,
-                                "store": "memory"})
+        meta = {"config": config_to_dict(self.cfg),
+                "max_users": self.max_users, "store": "memory"}
+        if export_compiled:
+            from .aot import export_serving, save_exported
+
+            meta["exported"] = save_exported(
+                directory, export_serving(self.cfg, self.model,
+                                          export_platforms), self.model)
+        _write_meta(directory, meta)
 
     @classmethod
     def load_bundle(cls, directory: str, device="cuda",

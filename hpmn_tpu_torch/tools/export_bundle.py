@@ -10,6 +10,9 @@ bundle files and its closing line.
                                 # [U, T], optional masks [U, T]
         [--quantize]            # int8 per-row embedding tables
         [--ema]                 # serve the checkpoint's EMA shadow
+        [--export_compiled]     # + update/predict/rank (DIEN: score) as
+                                # torch.export graphs (serve --aot)
+        [--platforms cpu,cuda]  # the graphs' platforms (default: both)
         [--device cuda|cuda:N|cpu] [--force_cpu]
 
 It reads the port's checkpoints (``train/checkpoint.py``, what ``train()``
@@ -18,9 +21,12 @@ fields. The store follows the family: ``UserMemoryStore`` for
 ``O1_FAMILIES`` (hpmn, gru4rec, rum), ``HistoryStore`` for DIEN. The
 bundle is the JAX package's format, so either package serves it
 (``python -m hpmn_tpu_torch.tools.serve_batch``, ``tools/serve_batch.py``).
-It runs on the card unless ``--device cpu`` (or ``--force_cpu``) is given,
-and raises when there is no card. ``--export_compiled`` and
-``--platforms`` (the AOT export) are not ported yet and raise.
+``--export_compiled`` adds the request functions as ``torch.export``
+graphs, one file per kind and platform (``serving/aot.py``), which
+``python -m hpmn_tpu_torch.tools.serve --aot`` serves with no model code;
+exporting for ``cuda`` needs a card. It runs on the card unless
+``--device cpu`` (or ``--force_cpu``) is given, and raises when there is
+no card.
 """
 
 from __future__ import annotations
@@ -31,9 +37,6 @@ import sys
 
 import numpy as np
 import torch
-
-AOT_TODO = ("the AOT export (--export_compiled, --platforms) is not ported "
-            "yet: ROADMAP.md queue 1 item 7")
 
 
 def main(argv=None):
@@ -50,17 +53,18 @@ def main(argv=None):
                          "checkpoint's optimizer state (the run must have "
                          "trained with train.ema_decay > 0)")
     ap.add_argument("--export_compiled", action="store_true",
-                    help="not ported yet: raises")
-    ap.add_argument("--platforms", default=None,
-                    help="not ported yet: raises")
+                    help="also export update/predict/rank (a history "
+                         "bundle: score) as torch.export graphs, so the "
+                         "daemon can serve with --aot (no model code)")
+    ap.add_argument("--platforms", default="cpu,cuda",
+                    help="comma-separated export platforms, cpu and cuda "
+                         "(with --export_compiled)")
     ap.add_argument("--device", default="cuda",
                     help="where the store runs: cuda (default), cuda:N or "
                          "cpu")
     ap.add_argument("--force_cpu", action="store_true",
                     help="the same as --device cpu")
     args = ap.parse_args(argv)
-    if args.export_compiled or args.platforms is not None:
-        raise NotImplementedError(AOT_TODO)
 
     from ..configs import get_config
     from ..models.model import build_model
@@ -111,11 +115,13 @@ def main(argv=None):
                                    masks=z["masks"] if "masks" in z.files
                                    else None)
     os.makedirs(args.out, exist_ok=True)
-    store.save_bundle(args.out, quantize_embeddings=args.quantize)
+    store.save_bundle(args.out, quantize_embeddings=args.quantize,
+                      export_compiled=args.export_compiled,
+                      export_platforms=tuple(args.platforms.split(",")))
     kind = "memory" if isinstance(store, UserMemoryStore) else "history"
     print(f"exported step {step} -> {args.out} (store={kind}, "
           f"n_users={store.n_users}, quantized={args.quantize}, "
-          f"ema={args.ema}, aot=False)")
+          f"ema={args.ema}, aot={args.export_compiled})")
 
 
 if __name__ == "__main__":

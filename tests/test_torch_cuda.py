@@ -65,7 +65,15 @@ chunk bit for bit, dscale included, and the recurrence's gate gradients,
 dh0 and dscale (``cuda_gru.bwd_gates``) are held to the plain sweep at
 the backward's tolerances. The DIEN step's kernel path to its plain
 path (``plain=True``) as the hpmn steps; the DIEN HistoryStore on the card
-to the same store on the CPU at 1e-4 (scores through two scans)."""
+to the same store on the CPU at 1e-4 (scores through two scans).
+
+The custom ops of ``ops/library.py`` (K1 in its forms, K5) launch their
+kernels once per call, at the kernels' tolerances against the plain
+versions and bit for bit the direct launch's; graphs exported on the card
+(``serving/aot.py``) launch K5, K1 and K1-scale at run time, once per
+call, and score within 1e-6 of the eager stores."""
+
+import copy
 
 import numpy as np
 import pytest
@@ -1210,3 +1218,121 @@ def test_bundle_from_the_card_serves_on_both(dev, tmp_path, arena_dtype):
     assert torch.equal(on_cpu._gather(uids)[0], store._gather(uids)[0].cpu())
     np.testing.assert_allclose(on_cpu.rank(uids, ci, ci % 40), want,
                                atol=TOL_GRU)
+
+
+@pytest.mark.parametrize("form", ["f32", "mask_h0", "scale_strided", "bf16"])
+def test_scan_op_matches_plain(dev, form):
+    """hpmn::gru_scan_fwd on the card launches K1 (the form's counter
+    rises by one per call) and holds to the plain scan at the kernels'
+    tolerances; its output is the direct launch's bit for bit."""
+    from hpmn_tpu_torch.ops import library
+
+    T, B, d_in = 40, 33, 32
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2 * T if form == "scale_strided" else T, B, d_in,
+                    generator=g).to(dev)
+    if form == "scale_strided":
+        x = x[1::2]
+    p = _gru(d_in, dev)
+    w = [p.wx, p.wh, p.b]
+    mask = _mask(T, B, dev) if form != "f32" else None
+    h0 = torch.randn(B, 32, generator=g).to(dev) if form == "mask_h0" \
+        else None
+    scale = (torch.rand(T, B, generator=g).to(dev)
+             if form == "scale_strided" else None)
+    args = [x, mask, h0, *w, scale]
+    if form == "bf16":
+        args = [None if a is None else a.to(BF16) for a in args]
+    counter = {"f32": "launches", "mask_h0": "launches",
+               "scale_strided": "launches_scale", "bf16": "launches_bf16"}
+    n = getattr(cuda_gru, counter[form])
+    got = library.gru_scan_fwd(*args)
+    torch.cuda.synchronize()
+    assert getattr(cuda_gru, counter[form]) == n + 1
+    plain = gru_scan_tm_bf16 if form == "bf16" else gru_scan_tm
+    want = plain(GRUWeights(*args[3:6]), args[0], args[1], args[2],
+                 args[6])[0]
+    tol = TOL_GRU_BF16 if form == "bf16" else TOL_GRU
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, cuda_gru.scan_by_device(*args))
+
+
+def test_readout_op_matches_plain(dev):
+    """hpmn::readout_fwd on the card launches K5 once per call and holds to
+    the plain readout at 1e-5."""
+    from hpmn_tpu_torch.ops import library
+
+    g = torch.Generator().manual_seed(6)
+    ro = Readout(32, 32, 32)
+    ro.reset_parameters(g)
+    ro = ro.requires_grad_(False).to(dev)
+    mem = torch.randn(300, 6, 32, generator=g).to(dev)
+    q = torch.randn(300, 32, generator=g).to(dev)
+    n = cuda_readout.launches
+    got = library.readout_fwd(mem, q, ro.wm, ro.wq, ro.b, ro.v)
+    torch.cuda.synchronize()
+    assert cuda_readout.launches == n + 1
+    assert (got - attention_readout(ro, mem, q)).abs().max().item() \
+        <= TOL_READOUT
+
+
+def test_exported_graphs_launch_the_kernels(dev, tmp_path):
+    """Graphs exported on the card (serving/aot.py) launch K5 once per
+    predict and rank call and K1 and K1-scale once per DIEN scoring call,
+    at run time, and give the eager stores' scores within 1e-6."""
+    from hpmn_tpu_torch.serving.aot import load_aot_store
+
+    cfg = configs.get_config("taobao_hpmn")
+    model = init_model(cfg, 200, 20, seed=0, device=dev)
+    store = UserMemoryStore(cfg, model, device=dev)
+    rng = np.random.default_rng(0)
+    hist = rng.integers(1, 200, size=(16, 13)).astype(np.int32)
+    store.ingest_histories(np.arange(16), hist, hist % 20)
+    store.save_bundle(str(tmp_path / "m"), export_compiled=True,
+                      export_platforms=("cuda",))
+    aot = load_aot_store(str(tmp_path / "m"), device=dev)
+    uids = np.arange(16)
+    ci = rng.integers(1, 200, size=(16, 4)).astype(np.int32)
+    for rep in range(2):
+        n = cuda_readout.launches
+        got_p = aot.predict(uids, ci[:, 0], ci[:, 0] % 20)
+        got_r = aot.rank(uids, ci, ci % 20)
+        assert cuda_readout.launches == n + 2
+    assert np.abs(got_p - store.predict(uids, ci[:, 0], ci[:, 0] % 20)
+                  ).max() <= 1e-6
+    assert np.abs(got_r - store.rank(uids, ci, ci % 20)).max() <= 1e-6
+
+    cfg_d = configs.get_config("taobao_dien").with_model(use_pallas=True)
+    md = init_model(cfg_d, 200, 20, seed=0, device=dev)
+    sd = HistoryStore(cfg_d, md, window=20, device=dev)
+    sd.ingest_histories(np.arange(16), hist, hist % 20)
+    sd.save_bundle(str(tmp_path / "d"), export_compiled=True,
+                   export_platforms=("cuda",))
+    ad = load_aot_store(str(tmp_path / "d"), device=dev)
+    for rep in range(2):
+        n = (cuda_gru.launches, cuda_gru.launches_scale)
+        got = ad.predict(uids, ci[:, 0], ci[:, 0] % 20)
+        assert (cuda_gru.launches, cuda_gru.launches_scale) == (n[0] + 1,
+                                                                n[1] + 1)
+    assert np.abs(got - sd.predict(uids, ci[:, 0], ci[:, 0] % 20)
+                  ).max() <= 1e-6
+
+
+def test_history_store_scores_one_user_on_the_card(dev):
+    """A one-row scoring batch (the daemon's warm-up bucket of 1) runs K1
+    and K1-scale on the card: the [T, 1] mask transposed from [1, T]
+    keeps a batch stride that K1 never reads. Scores within 1e-4 of the
+    CPU store's (two scans)."""
+    cfg = configs.get_config("taobao_dien").with_model(use_pallas=True)
+    model = init_model(cfg, 300, 30, seed=2, device="cpu")
+    hist = np.random.default_rng(3).integers(1, 300, size=(2, 40))
+    stores = [HistoryStore(cfg, model, window=30, device="cpu"),
+              HistoryStore(cfg, copy.deepcopy(model).to(dev), window=30,
+                           device=dev)]
+    for s in stores:
+        s.ingest_histories(np.arange(2), hist, hist % 30)
+    n = (cuda_gru.launches, cuda_gru.launches_scale)
+    got = [s.predict([1], [7], [7]) for s in stores]
+    assert (cuda_gru.launches, cuda_gru.launches_scale) == (n[0] + 1,
+                                                            n[1] + 1)
+    assert np.abs(got[0] - got[1]).max() <= 1e-4

@@ -131,3 +131,20 @@ def test_cpu_tensors_make_no_device_current(devices):
     with _build.on_device(torch.zeros(2)):
         pass
     assert devices.made_current == []
+
+
+def test_k1_takes_a_one_row_batch_transposed_from_batch_major():
+    """A one-user scoring batch (the daemon's bucket of 1): the mask
+    transposed from [1, T] is [T, 1] with the stride T, which
+    ``.contiguous()`` keeps, and K1 never reads it; K1's checks take it,
+    and still refuse a [T, B > 1] mask without a unit batch stride."""
+    w = GRUWeights(torch.zeros(D_IN, 96), torch.zeros(D_M, 96),
+                   torch.zeros(96))
+    x = torch.zeros(T, 1, D_IN)
+    mask = torch.ones(1, T).T.contiguous()
+    assert mask.stride() == (1, T)
+    cuda_gru._check_cuda_args(w, x, mask, None, "gru_scan_fwd", mask)
+    x5 = torch.zeros(T, B, D_IN)
+    with pytest.raises(ValueError, match="unit batch stride"):
+        cuda_gru._check_cuda_args(w, x5, torch.ones(B, T).T, None,
+                                  "gru_scan_fwd")

@@ -126,15 +126,20 @@ def test_export_the_ema_weights(trained):
 
 
 def test_unported_and_missing_options_raise(trained, tmp_path):
-    """The AOT flags raise and name the ROADMAP item; a run without EMA
-    has no shadow to export; an empty directory has no checkpoint; and
-    without a card both CLIs raise by default (no fallback to the CPU)."""
+    """The AOT export refuses a platform other than cpu and cuda, and
+    without a card the cuda platform (its default) raises; a run without
+    EMA has no shadow to export; an empty directory has no checkpoint;
+    and without a card both CLIs raise by default (no fallback to the
+    CPU)."""
     d, _ = trained
     base = ["--ckpt_dir", str(d / "ckpt"), "--config", "amazon_hpmn",
             "--out", str(tmp_path / "b"), "--device", "cpu"]
-    for extra in (["--export_compiled"], ["--platforms", "cpu,cuda"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            export_bundle.main(base + extra)
+    with pytest.raises(ValueError, match="platforms are cpu and cuda"):
+        export_bundle.main(base + ["--export_compiled", "--platforms",
+                                   "cpu,tpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="exporting for cuda"):
+            export_bundle.main(base + ["--export_compiled"])
     with pytest.raises(SystemExit, match="no checkpoints"):
         export_bundle.main(["--ckpt_dir", str(tmp_path / "none"),
                             "--config", "amazon_hpmn", "--out",

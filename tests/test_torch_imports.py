@@ -6,9 +6,12 @@ driver's (``train.train``, ``train.optim``, ``train.checkpoint``,
 ``train.evaluate``, ``train.metrics``, ``data.loader``,
 ``utils.asserts``) and the real-data layer's and the baselines'
 (``data.preprocess``, ``data.native``, ``data.native_batcher``, the three
-``data.process_*`` CLIs, ``models.gru4rec``, ``models.rum``) and the
+``data.process_*`` CLIs, ``models.gru4rec``, ``models.rum``), the
 serving bundles' (``serving.history``, the ``tools.export_bundle`` and
-``tools.serve_batch`` CLIs) among them."""
+``tools.serve_batch`` CLIs) and the daemon's and the AOT path's
+(``serving.server``, ``serving.client``, ``serving.journal``,
+``serving.sharded``, ``serving.fleet``, ``serving.aot``, ``ops.library``,
+the ``tools.serve`` and ``tools.serve_fleet`` CLIs) among them."""
 
 import ast
 import pathlib
@@ -23,7 +26,9 @@ DRIVER = ("train.train", "train.optim", "train.checkpoint", "train.evaluate",
           "data.native", "data.native_batcher", "data.process_amazon",
           "data.process_taobao", "data.process_xlong", "models.gru4rec",
           "models.rum", "serving.history", "tools.export_bundle",
-          "tools.serve_batch")
+          "tools.serve_batch", "serving.server", "serving.client",
+          "serving.journal", "serving.sharded", "serving.fleet",
+          "serving.aot", "ops.library", "tools.serve", "tools.serve_fleet")
 
 
 def _forbidden(module: str) -> bool:
@@ -45,7 +50,7 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 46  # every submodule was imported
+    assert int(out.stdout.split()[-1]) >= 55  # every submodule was imported
 
 
 def test_no_source_of_the_port_names_jax():
