@@ -3,8 +3,9 @@
 (f32 and bf16 scans, dense and strided-output), the taobao_dien training
 step and HistoryStore serving, the training driver, the real-data
 layer with the GRU4Rec and RUM baselines, the stores' persistence and
-bundles from train to serve, and the serving daemon with the AOT-exported
-graphs, once on one GPU.
+bundles from train to serve, the serving daemon with the AOT-exported
+graphs, and the remaining families (BST, DNN, LSTM, Caser, SHAN, SVD++)
+trained, served and compared, once on one GPU.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a GPU
 
@@ -127,6 +128,23 @@ before the last line):
    --aot), their startup seconds with --warmup, and the host's enqueue
    time per call through the custom ops and through the direct launch
    (K5 at B = 512 and 6400, K1 at DIEN's scoring shape), in turns.
+14. the remaining families (``models/extra_baselines.py``, which runs no
+   hand kernel, as JAX runs them in no Pallas kernel): (a) xlong_bst at
+   full width (B 256, T 1000, d 32, 2 heads, FFN 128, one block, chunk
+   128): the f32 loss and every gradient on the card against the same
+   weights and batch on the CPU, the bf16 step against the card's f32,
+   the two-block step (the chunked online softmax at S = 1001) against the
+   CPU on 64 rows; then k = 8 steps per dispatch timed after warm-up, with
+   examples/s, device ms per step, busy share, peak memory, and the
+   attention's, FFN's and gather's device time alone against the step's;
+   (b) taobao_bst's HistoryStore (W = 300): 8192 left-padded users, 4 x
+   512 updates, predict 512, rank 64 x 100, against the same store on the
+   CPU, through a bundle (bit for bit) and its exported scoring graph;
+   (c) ``hpmn_tpu_torch.tools.compare_models`` over the ten families on
+   amazon (B 128, 48 steps, use_pallas), its table, and each family's
+   test AUC beside the same table run on the CPU in a subprocess; (d) the
+   launch counters: none on (a), (b) and the six new families of (c);
+   hpmn, dien and gru4rec launch theirs in (c).
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -293,6 +311,37 @@ LOAD_CLIENTS, LOAD_REQUESTS, LOAD_ROWS = 8, 25, 64
 HOST_ROUNDS = 6
 SCAN_HOST_CALLS = 200
 READOUT_RANK_ROWS = RANK_USERS * RANK_CANDS
+# Phase 14: the remaining families. xlong_bst's card step against the same
+# weights and batch on the CPU at tests/test_torch_bst.py's tolerances:
+# logits 1e-4 abs, the loss rtol 1e-5, every gradient within 1e-5 of
+# max(1, its max abs) plus rtol 1e-4; the bf16 step against the card's
+# f32 at the JAX package's bounds (tests/test_models.py::
+# test_bst_bf16_matches_f32: loss 3e-2, logits 0.15); the two-block step
+# (the chunked inner block at S = 1001) on BST_BLOCKS2_ROWS rows of the
+# batch, so that its O(S^2) CPU run stays a few seconds. taobao_bst's
+# HistoryStore against the same store on the CPU at TOL_STORE; through a
+# bundle bit for bit; its exported scoring graph at TOL_DAEMON. The
+# comparison table over the ten families on amazon (COMPARE_EXAMPLES
+# examples, COMPARE_STEPS steps of COMPARE_BATCH, four evals), each
+# family's test AUC on the card against its CPU run from the same seed
+# within TOL_DRIVER (phase 10's: 48 steps of Adam keep the two runs a
+# few 1e-6 apart).
+BST_BLOCKS2_ROWS = 64
+TOL_BST_LOGITS = 1e-4
+TOL_BST_LOSS = 1e-5
+TOL_BST_GRAD_ABS, TOL_BST_GRAD_REL = 1e-5, 1e-4
+TOL_BST_BF16_LOSS, TOL_BST_BF16_LOGITS = 3e-2, 0.15
+COMPARE_STEPS, COMPARE_BATCH, COMPARE_EXAMPLES = 48, 128, 8000
+# The CPU table runs beside (b) and the card's table, as one process per
+# group of families, one thread each: the scan and write loops of hpmn,
+# gru4rec, dien, rum and lstm are small ops that threads do not speed up.
+COMPARE_CPU_GROUPS = ("hpmn", "gru4rec", "dien", "rum", "lstm",
+                      "dnn,caser,shan,svdpp,bst")
+# Which counters (the `counted` order of main) each family of the table
+# must move with use_pallas: K1, K2, K5 (hpmn); K1, K2, K1-scale, K2-scale
+# (dien); K1, K2 (gru4rec). No other family launches a hand kernel.
+COMPARE_KERNELS = {"hpmn": (0, 1, 4), "dien": (0, 1, 9, 10),
+                   "gru4rec": (0, 1)}
 
 
 def fail(msg):
@@ -1108,6 +1157,414 @@ def phase_13(p):
         log.close()
     print(f"phase 13 time: {time.perf_counter() - t13:.1f} s", flush=True)
     return launches
+
+
+def phase_14(p):
+    """The remaining families on the card (see the module docstring): (a)
+    xlong_bst's training step at full width, (b) taobao_bst's HistoryStore,
+    (c) the comparison table of all ten families, (d) no hand-kernel
+    launch on the six new families' legs. ``p`` carries the device, the
+    launch counters (``counters``, ``zero_counters``) and the repo root.
+    -> the counters of the table's kernel families, by path."""
+    import torch
+
+    from hpmn_tpu_torch.configs import get_config
+    from hpmn_tpu_torch.data.schema import batch_from_numpy
+    from hpmn_tpu_torch.data.synthetic import (AMAZON, TAOBAO, XLONG,
+                                               make_ctr_dataset)
+    from hpmn_tpu_torch.models import extra_baselines as eb
+    from hpmn_tpu_torch.models.embedding import dense_lookup
+    from hpmn_tpu_torch.models.model import init_model, loss_fn
+    from hpmn_tpu_torch.serving import load_bundle
+    from hpmn_tpu_torch.serving.aot import load_aot_store
+    from hpmn_tpu_torch.serving.history import HistoryStore
+    from hpmn_tpu_torch.tools import compare_models
+    from hpmn_tpu_torch.train.train import (make_multistep_train,
+                                            make_optimizer)
+
+    dev = p.dev
+    t14 = time.perf_counter()
+
+    def no_kernel(leg):
+        c = p.counters()
+        check(not any(c), f"phase 14 {leg}: hand-kernel launches {c} on a "
+              "family that runs none")
+        return c
+
+    def kernel_ms(fn, n):
+        """fn() once, then n times under torch.profiler -> (the device's
+        kernel time per call in ms, the top kernels)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kern = sorted(((a.self_device_time_total, a.key)
+                       for a in prof.key_averages()
+                       if a.device_type == DeviceType.CUDA
+                       and not getattr(a, "is_user_annotation", False)
+                       and a.self_device_time_total > 0), reverse=True)
+        return sum(t for t, _ in kern) / 1e3 / n, kern[:6]
+
+    # ------------------------------------------- (a) xlong_bst training --
+    cfg = get_config("xlong_bst")
+    m = cfg.model
+    n_b = cfg.train.batch_size
+    data = make_ctr_dataset(XLONG, N_TRAIN_BATCHES * n_b, seed=14)
+    check(data["seq_mask"].min() == 0.0, "phase 14: no padded history")
+    batches = [batch_from_numpy(data, np.arange(i * n_b, (i + 1) * n_b),
+                                device=dev) for i in range(N_TRAIN_BATCHES)]
+
+    def run(c, device, rows):
+        """One loss and backward of c's seeded model on the first ``rows``
+        examples -> (loss, logits, {name: grad}) on the host, seconds."""
+        model_r = init_model(c, XLONG.n_items, XLONG.n_cats, seed=c.seed,
+                             device=device)
+        batch = batch_from_numpy(data, np.arange(rows), device=device)
+        t0 = time.perf_counter()
+        loss, metrics = loss_fn(model_r, c, batch)
+        loss.backward()
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        return (loss.item(), metrics["logits"].detach().cpu(),
+                {n: q.grad.detach().cpu()
+                 for n, q in model_r.named_parameters()}), took
+
+    def held(form, card, cpu):
+        """The card's loss, logits and every gradient against the CPU's."""
+        (l_k, lg_k, g_k), (l_c, lg_c, g_c) = card, cpu
+        loss_rel = abs(l_k - l_c) / abs(l_c)
+        lg_err = (lg_k - lg_c).abs().max().item()
+        worst, worst_name = -np.inf, ""
+        for name, gc in g_c.items():
+            gk = g_k[name]
+            check(torch.isfinite(gk).all().item(),
+                  f"phase 14 (a) {form}: gradient of {name} not finite")
+            over = (((gk - gc).abs() - TOL_BST_GRAD_REL * gc.abs()).max()
+                    / (TOL_BST_GRAD_ABS * max(1.0, gc.abs().max().item()))
+                    ).item()
+            if over >= worst:
+                worst, worst_name = over, name
+        check(np.isfinite(l_k) and loss_rel <= TOL_BST_LOSS,
+              f"phase 14 (a) {form}: loss {l_k} vs CPU {l_c}")
+        check(lg_err <= TOL_BST_LOGITS,
+              f"phase 14 (a) {form}: logits {lg_err:.3e} from the CPU's")
+        check(worst <= 1.0, f"phase 14 (a) {form}: gradient of {worst_name}"
+              f" at {worst:.3f} of its tolerance")
+        return loss_rel, lg_err, worst, worst_name, len(g_c)
+
+    p.zero_counters()
+    card32, t_card = run(cfg, dev, n_b)
+    cpu32, t_cpu = run(cfg, "cpu", n_b)
+    r = held("f32", card32, cpu32)
+    print(f"phase 14 (a) xlong_bst f32 B={n_b} T={XLONG.seq_len} d="
+          f"{2 * m.emb_dim} heads={m.bst_heads} FFN {m.bst_ffn_mult * 2 * m.emb_dim}"
+          f" blocks={m.bst_blocks} chunk={m.bst_attn_chunk}: card vs CPU loss "
+          f"{card32[0]:.7f} / {cpu32[0]:.7f} (relative {r[0]:.2e}, tol "
+          f"{TOL_BST_LOSS}), logits {r[1]:.2e} (tol {TOL_BST_LOGITS}), "
+          f"{r[4]} gradients, worst {r[3]} at {r[2]:.3f} of its tolerance "
+          f"| first call: card {1e3 * t_card:.1f} ms, CPU {1e3 * t_cpu:.1f}"
+          " ms", flush=True)
+    c16 = cfg.with_model(bst_dtype="bfloat16")
+    card16, _ = run(c16, dev, n_b)
+    d_loss = abs(card16[0] - card32[0])
+    d_lg = (card16[1] - card32[1]).abs().max().item()
+    check(d_loss < TOL_BST_BF16_LOSS and d_lg < TOL_BST_BF16_LOGITS,
+          f"phase 14 (a) bf16: loss {d_loss:.3e}, logits {d_lg:.3e} from "
+          "the card's f32")
+    check(all(g.dtype == torch.float32 and torch.isfinite(g).all().item()
+              for g in card16[2].values()),
+          "phase 14 (a) bf16: a gradient not finite f32")
+    print(f"phase 14 (a) xlong_bst bf16 vs the card's f32: loss "
+          f"{card16[0]:.7f} / {card32[0]:.7f} ({d_loss:.3e}, tol "
+          f"{TOL_BST_BF16_LOSS}), logits {d_lg:.3e} (tol "
+          f"{TOL_BST_BF16_LOGITS}), every gradient f32 and finite",
+          flush=True)
+    c2 = cfg.with_model(bst_blocks=2)
+    card2, t_card2 = run(c2, dev, BST_BLOCKS2_ROWS)
+    cpu2, t_cpu2 = run(c2, "cpu", BST_BLOCKS2_ROWS)
+    r2 = held("2 blocks", card2, cpu2)
+    print(f"phase 14 (a) xlong_bst 2 blocks (the inner one chunked by "
+          f"{m.bst_attn_chunk} at S={XLONG.seq_len + 1}) B="
+          f"{BST_BLOCKS2_ROWS}: card vs CPU loss relative {r2[0]:.2e}, "
+          f"logits {r2[1]:.2e}, {r2[4]} gradients, worst {r2[3]} at "
+          f"{r2[2]:.3f} of its tolerance | card {1e3 * t_card2:.1f} ms, "
+          f"CPU {1e3 * t_cpu2:.1f} ms", flush=True)
+    no_kernel("(a) checks")
+
+    k = STEPS_PER_DISPATCH
+    stacks = [[batches[(i + j) % N_TRAIN_BATCHES] for j in range(k)]
+              for i in range(N_TRAIN_BATCHES)]
+    # Peak memory: the model, its optimizer state and the steps' own, above
+    # what earlier phases and the batches hold.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held_mib = torch.cuda.memory_allocated(dev) / 2**20
+    model_t = init_model(cfg, XLONG.n_items, XLONG.n_cats, seed=cfg.seed,
+                         device=dev)
+    multistep = make_multistep_train(
+        cfg, model_t, make_optimizer(cfg, model_t.parameters()))
+    p.zero_counters()
+    for i in range(WARMUP_DISPATCHES):
+        metrics = multistep(stacks[i % N_TRAIN_BATCHES])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(WARMUP_DISPATCHES, WARMUP_DISPATCHES + TIMED_DISPATCHES):
+        metrics = multistep(stacks[i % N_TRAIN_BATCHES])
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    no_kernel("(a) training")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20 - held_mib
+    metrics = {n: v.item() for n, v in metrics.items()}
+    check(all(np.isfinite(v) for v in metrics.values()),
+          f"phase 14 (a): training metrics not finite: {metrics}")
+    step_ms = 1e3 * t_train / (TIMED_DISPATCHES * k)
+    ex_s = TIMED_DISPATCHES * k * n_b / t_train
+    dev_ms, top = kernel_ms(lambda: multistep(stacks[0]), 1)
+    dev_ms /= k
+    # The step's parts alone, forward and backward, on the first batch's
+    # shapes under the profiler: the gather (both lookups), the block's
+    # attention (the projections, the target's scores over S keys, P.V and
+    # wo) and the rest of the block (the layer norms and the FFN).
+    blk = model_t.encoder.blocks[0]
+    emb = model_t.embedding
+    b0 = batches[0]
+    T = XLONG.seq_len
+    with torch.no_grad():
+        x0 = dense_lookup(emb, b0.item_seq, b0.cat_seq)
+        q0 = dense_lookup(emb, b0.target_item, b0.target_cat)
+        h0 = torch.cat([x0, q0[:, None, :]], 1) + model_t.encoder.pos[None,
+                                                                      :T + 1]
+        kmask = torch.cat([b0.seq_mask, torch.ones_like(b0.seq_mask[:, :1])],
+                          1)
+        kbias = (1.0 - kmask.float()) * -1e9
+        hq0, a0 = eb.bst_attention(blk, h0, kbias, m.bst_heads,
+                                   m.bst_attn_chunk, True)
+    h0.requires_grad_()
+    hq_in = hq0.clone().requires_grad_()
+    a_in = a0.clone().requires_grad_()
+    g_x = torch.ones_like(x0)
+    g_q = torch.ones_like(q0)
+    g_a = torch.ones_like(a0)
+
+    def gather():
+        x = dense_lookup(emb, b0.item_seq, b0.cat_seq)
+        q = dense_lookup(emb, b0.target_item, b0.target_cat)
+        torch.autograd.backward((x, q), (g_x, g_q))
+
+    def attention():
+        _, a = eb.bst_attention(blk, h0, kbias, m.bst_heads,
+                                m.bst_attn_chunk, True)
+        a.backward(g_a)
+
+    def ffn():
+        eb.bst_ffn(blk, h0, hq_in, a_in).backward(g_a)
+
+    parts = {name: kernel_ms(fn, 10)[0] for name, fn in
+             (("gather", gather), ("attention", attention), ("ffn", ffn))}
+    model_t.zero_grad(set_to_none=True)
+    rest = dev_ms - sum(parts.values())
+
+    def share(t):
+        return f"{t / dev_ms:.1%}" if dev_ms > 0 else "not measured"
+
+    top_s = ", ".join(f"{kernel_label(n)} {t / 1e3 / k:.3f}" for t, n in top)
+    busy = (f"busy {dev_ms / step_ms:.1%}, idle {1 - dev_ms / step_ms:.1%}"
+            if dev_ms > 0 else "the profiler saw no device time: busy "
+            "share not measured")
+    print(f"phase 14 (a) train xlong_bst B={n_b} T={T} f32, {k} steps per "
+          f"dispatch: {ex_s:.1f} examples/s ({step_ms:.3f} ms per step, "
+          f"{TIMED_DISPATCHES} dispatches after {WARMUP_DISPATCHES} warm-up,"
+          f" {N_TRAIN_BATCHES} batches cycled) | last step loss "
+          f"{metrics['loss']:.6f} | peak device memory {peak:.1f} MiB above "
+          f"the {held_mib:.1f} held before | "
+          f"profile: device kernel time {dev_ms:.3f} ms per step: {busy} | "
+          f"alone, forward and backward: attention {parts['attention']:.3f}"
+          f" ms ({share(parts['attention'])} of the step's device time), "
+          f"layer norms and FFN {parts['ffn']:.3f} ({share(parts['ffn'])}),"
+          f" gather {parts['gather']:.3f} ({share(parts['gather'])}), the "
+          f"rest (tower, loss, optimizer) {rest:.3f} | top: {top_s}",
+          flush=True)
+    del model_t, multistep, stacks, batches
+    torch.cuda.empty_cache()
+
+    t_a = time.perf_counter() - t14
+    # The CPU half of (c) runs beside (b) and the card's half of (c).
+    work = tempfile.mkdtemp(prefix="phase14_")
+    cmp_args = ["--dataset", "amazon", "--steps", str(COMPARE_STEPS),
+                "--batch_size", str(COMPARE_BATCH), "--n_examples",
+                str(COMPARE_EXAMPLES), "--use_pallas", "--device", "cpu"]
+    procs = [(os.path.join(work, f"compare_cpu_{i}.json"), subprocess.Popen(
+        [sys.executable, "-m", "hpmn_tpu_torch.tools.compare_models",
+         *cmp_args, "--models", group, "--json",
+         os.path.join(work, f"compare_cpu_{i}.json")], cwd=p.repo,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True, env=dict(os.environ, OMP_NUM_THREADS="1")))
+        for i, group in enumerate(COMPARE_CPU_GROUPS)]
+    try:
+        # ------------------------------- (b) taobao_bst HistoryStore --
+        cfg_b = get_config("taobao_bst")
+        model_b = init_model(cfg_b, TAOBAO.n_items, TAOBAO.n_cats,
+                             seed=cfg_b.seed, device=dev)
+        model_bc = init_model(cfg_b, TAOBAO.n_items, TAOBAO.n_cats,
+                              seed=cfg_b.seed, device="cpu")
+        store = HistoryStore(cfg_b, model_b, device=dev)
+        store_c = HistoryStore(cfg_b, model_bc, device="cpu")
+        hist = make_ctr_dataset(TAOBAO, N_FULL_USERS, seed=15)
+        check(hist["seq_mask"].min() == 0.0, "phase 14 (b): no padding")
+        users = np.arange(N_FULL_USERS)
+        rng = np.random.default_rng(16)
+        p.zero_counters()
+        t0 = time.perf_counter()
+        for s_ in (store, store_c):
+            for lo in range(0, N_FULL_USERS, B_SCAN):
+                sl = slice(lo, lo + B_SCAN)
+                s_.ingest_histories(users[sl], hist["item_seq"][sl],
+                                    hist["cat_seq"][sl],
+                                    masks=hist["seq_mask"][sl])
+            if s_ is store:
+                t_ingest = time.perf_counter() - t0
+        rounds = [(rng.choice(N_FULL_USERS, B_SCAN, replace=False),
+                   rng.integers(1, TAOBAO.n_items, B_SCAN),
+                   rng.integers(1, TAOBAO.n_cats, B_SCAN))
+                  for _ in range(UPDATE_ROUNDS)]
+        t0 = time.perf_counter()
+        for u, it, ct in rounds:
+            store.update(u, it, ct)
+        t_update = time.perf_counter() - t0
+        for u, it, ct in rounds:
+            store_c.update(u, it, ct)
+        pu = rng.choice(N_FULL_USERS + 64, B_SCAN, replace=False)  # some cold
+        pi = rng.integers(1, TAOBAO.n_items, B_SCAN)
+        pc = rng.integers(1, TAOBAO.n_cats, B_SCAN)
+        ru = rng.choice(N_FULL_USERS, RANK_USERS, replace=False)
+        ri = rng.integers(1, TAOBAO.n_items, (RANK_USERS, RANK_CANDS))
+        rc = rng.integers(1, TAOBAO.n_cats, (RANK_USERS, RANK_CANDS))
+        t_pred, t_rank = [], []
+        for _ in range(REQUEST_REPS):
+            t0 = time.perf_counter()
+            got_p = store.predict(pu, pi, pc)
+            t_pred.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            got_r = store.rank(ru, ri, rc)
+            t_rank.append(time.perf_counter() - t0)
+        no_kernel("(b) store")
+        want_p, want_r = store_c.predict(pu, pi, pc), store_c.rank(ru, ri, rc)
+        err_p = float(np.abs(got_p - want_p).max())
+        err_r = float(np.abs(got_r - want_r).max())
+        check(np.isfinite(got_p).all() and np.isfinite(got_r).all()
+              and err_p <= TOL_STORE and err_r <= TOL_STORE,
+              f"phase 14 (b): card store {err_p:.3e} / {err_r:.3e} from the "
+              "CPU store's")
+        check(np.allclose(got_r[:, 0], store.predict(ru, ri[:, 0], rc[:, 0]),
+                          atol=1e-6, rtol=0),
+              "phase 14 (b): rank's first column is not predict's")
+        bdir = os.path.join(work, "bundle")
+        t0 = time.perf_counter()
+        store.save_bundle(bdir)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_bundle(bdir, device=dev)
+        t_load = time.perf_counter() - t0
+        check(isinstance(back, HistoryStore) and back.n_users
+              == store.n_users, "phase 14 (b): the bundle's store")
+        check(np.array_equal(back.predict(pu, pi, pc), got_p)
+              and np.array_equal(back.rank(ru, ri, rc), got_r),
+              "phase 14 (b): the bundle's scores are not bit for bit")
+        adir = os.path.join(work, "aot")
+        t0 = time.perf_counter()
+        store.save_bundle(adir, export_compiled=True,
+                          export_platforms=(dev.type,))
+        t_export = time.perf_counter() - t0
+        aot = load_aot_store(adir, device=dev)
+        err_ap = float(np.abs(aot.predict(pu, pi, pc) - got_p).max())
+        err_ar = float(np.abs(aot.rank(ru, ri, rc) - got_r).max())
+        check(err_ap <= TOL_DAEMON and err_ar <= TOL_DAEMON,
+              f"phase 14 (b): the exported graph {err_ap:.3e} / "
+              f"{err_ar:.3e} from the eager store")
+        no_kernel("(b) bundle and exported graph")
+        print(f"phase 14 (b) serve taobao_bst HistoryStore W={store.window} "
+              f"{store.n_users} users: ingest "
+              f"{N_FULL_USERS / t_ingest:.1f} histories/s, update "
+              f"{UPDATE_ROUNDS * B_SCAN / t_update:.1f} events/s, predict "
+              f"{B_SCAN} {1e3 * np.median(t_pred):.3f} ms, rank "
+              f"{RANK_USERS} x {RANK_CANDS} {1e3 * np.median(t_rank):.3f} "
+              f"ms (medians of {REQUEST_REPS}) | the CPU store's scores "
+              f"{err_p:.2e} / {err_r:.2e} (tol {TOL_STORE}) | bundle saved "
+              f"in {t_save:.3f} s, loaded in {t_load:.3f} s, scores bit for "
+              f"bit | exported scoring graph ({dev.type}) in "
+              f"{t_export:.1f} s, "
+              f"{err_ap:.2e} / {err_ar:.2e} from eager (tol {TOL_DAEMON}) | "
+              f"no hand-kernel launch", flush=True)
+        del store, store_c, back, aot, model_b, model_bc
+        torch.cuda.empty_cache()
+        print(f"phase 14 (b) took {time.perf_counter() - t14 - t_a:.1f} s",
+              flush=True)
+
+        # ------------------------- (c) the table of the ten families --
+        results, launches = {}, {}
+        t0 = time.perf_counter()
+        for name in compare_models.DEFAULT_MODELS.split(","):
+            p.zero_counters()
+            results.update(compare_models.compare(
+                [name], device=dev, report=None, dataset="amazon",
+                steps=COMPARE_STEPS, n_examples=COMPARE_EXAMPLES,
+                batch_size=COMPARE_BATCH, use_pallas=True))
+            launches[name] = p.counters()
+            want = COMPARE_KERNELS.get(name, ())
+            c = launches[name]
+            check(all(c[i] > 0 for i in want)
+                  and not any(v for i, v in enumerate(c) if i not in want),
+                  f"phase 14 (c) {name}: launches {c}, expected counters "
+                  f"{want} only")
+        t_card = time.perf_counter() - t0
+        for line in compare_models.format_table(results).splitlines():
+            print(f"phase 14 (c) table | {line}", flush=True)
+        t0 = time.perf_counter()
+        cpu = {}
+        for path, proc in procs:
+            out, _ = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"phase 14 (c): the CPU table "
+                  f"failed:\n{out[-2000:]}")
+            with open(path) as f:
+                cpu.update(json.load(f)["results"])
+        t_wait = time.perf_counter() - t0
+        worst = 0.0
+        for name, res in results.items():
+            a_k, a_c = res["test"]["auc"], cpu[name]["auc"]
+            check(a_c is not None and np.isfinite(a_k),
+                  f"phase 14 (c) {name}: AUC {a_k} (CPU {a_c})")
+            d = abs(a_k - a_c)
+            worst = max(worst, d)
+            check(d <= TOL_DRIVER, f"phase 14 (c) {name}: test AUC {a_k:.4f}"
+                  f" on the card, {a_c:.4f} on the CPU")
+            print(f"phase 14 (c) {name:>8}: test AUC card {a_k:.6f} CPU "
+                  f"{a_c:.6f} (|diff| {d:.2e}), log-loss card "
+                  f"{res['test']['log_loss']:.6f} CPU "
+                  f"{cpu[name]['log_loss']:.6f} | launches "
+                  f"{launches[name]}", flush=True)
+        print(f"phase 14 (c) compare_models amazon B={COMPARE_BATCH} T="
+              f"{AMAZON.seq_len} {COMPARE_STEPS} steps, {COMPARE_EXAMPLES} "
+              f"examples, use_pallas: ten families in {t_card:.1f} s on the "
+              f"card, then {t_wait:.1f} s waiting for the CPU table "
+              f"({len(procs)} processes); AUCs within {worst:.2e} of the "
+              f"CPU run's (tol {TOL_DRIVER}); hpmn, dien and gru4rec "
+              f"launched their kernels, the other seven none", flush=True)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 14 time: {time.perf_counter() - t14:.1f} s ((a) "
+          f"{t_a:.1f} s, (b) and (c) {time.perf_counter() - t14 - t_a:.1f}"
+          " s)", flush=True)
+    return {f"compare_{name}": launches[name] for name in COMPARE_KERNELS}
 
 
 def main():
@@ -3122,6 +3579,12 @@ def main():
     del store, store_d, p12
     torch.cuda.empty_cache()
 
+    # ------------------------------------- 14. the remaining families --
+    # xlong_bst's step, taobao_bst's HistoryStore, and the comparison table
+    # of the ten families (hpmn, dien and gru4rec with their kernels).
+    launches14 = phase_14(SimpleNamespace(
+        dev=dev, counters=counters, zero_counters=zero_counters, repo=repo))
+
     def entry(name, src, rep, row, err, by_path, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3145,7 +3608,8 @@ def main():
                "store_gru4rec": store_launches["gru4rec"],
                **{k_: v[0] for k_, v in launches12.items()},
                **{k_: v["gru_scan_fwd"] for k_, v in launches13.items()
-                  if "gru_scan_fwd" in v}},
+                  if "gru_scan_fwd" in v},
+               **{k_: v[0] for k_, v in launches14.items()}},
               sources=list(cuda_gru.FWD_SOURCES),
               host_us_op=enq13[f"gru_scan_fwd T={store_d_window} "
                                f"B={B_SCAN}"][0],
@@ -3157,7 +3621,8 @@ def main():
               (gb[3], gb[4], gb[5], gb[6], gb[7]), bwd_abs,
               {"training": train_launches[1], "training_dien": fd[1],
                **{k_: v[1] for k_, v in driver_launches.items()},
-               "training_user_emb": launches12["training_user_emb"][1]},
+               "training_user_emb": launches12["training_user_emb"][1],
+               **{k_: v[1] for k_, v in launches14.items()}},
               sources=list(cuda_gru.BWD_SOURCES),
               max_err_over_max_abs=bwd_err,
               pass_ms=pass_first[torch.float32][1],
@@ -3172,7 +3637,8 @@ def main():
                "bundle_hpmn": launches12["bundle_hpmn"][4],
                "training_user_emb": launches12["training_user_emb"][4],
                **{k_: v["readout_fwd"] for k_, v in launches13.items()
-                  if "readout_fwd" in v}},
+                  if "readout_fwd" in v},
+               "compare_hpmn": launches14["compare_hpmn"][4]},
               host_us_op=enq13[f"readout_fwd B={B_SCAN}"][0],
               host_us_direct=enq13[f"readout_fwd B={B_SCAN}"][1],
               host_us_op_rank=enq13[
@@ -3235,7 +3701,9 @@ def main():
                 else cuda_gru.REPLACES_SCALE,
                 (row[2], row[3], None, row[4], row[5]), sc_abs[name],
                 ({"training_dien_bf16": bd[9 + idx]} if "bf16" in name
-                 else {"training_dien": fd[9 + idx], **(
+                 else {"training_dien": fd[9 + idx],
+                       "compare_dien": launches14["compare_dien"][9 + idx],
+                       **(
                      {"serving_dien": serve_launches[9],
                       "bundle_dien": launches12["bundle_dien"][9],
                       **{k_: v["gru_scan_fwd_scale"]

@@ -1,5 +1,7 @@
-"""The hpmn, dien, gru4rec and rum configs the port serves and trains, as
-frozen dataclasses.
+"""The configs the port serves and trains (every family of the JAX
+package's: hpmn, dien, gru4rec, rum and bst among the driver configs, and
+dnn, lstm, caser, shan and svdpp through ``model.name``), as frozen
+dataclasses.
 
 Counterpart of ``hpmn_tpu/configs/base.py``, which builds
 ``ml_collections.ConfigDict``s. Only the fields the forward, serving,
@@ -53,6 +55,21 @@ class ModelConfig:
     dien_use_aux_loss: bool = True
     aux_weight: float = 1.0
     rum_slots: int = 8  # RUM's external memory slots
+    # Caser: horizontal filters per window (2, 3, 4) and vertical filters.
+    caser_hfilters: int = 4
+    caser_vfilters: int = 4
+    shan_recent: int = 10  # SHAN's short-term window
+    # BST: post-LN blocks over [behaviours; target]; bst_heads must divide
+    # 2*emb_dim. bst_attn_chunk > 0: the inner blocks' attention is an
+    # online softmax over key chunks of that size (O(S*chunk) memory
+    # instead of the dense O(S^2) scores); 0 is dense. bst_dtype
+    # "bfloat16": bf16 matmul operands (f32 parameters, softmax and
+    # layer-norm statistics, f32 sums in attention).
+    bst_blocks: int = 1
+    bst_heads: int = 2
+    bst_ffn_mult: int = 4
+    bst_attn_chunk: int = 0
+    bst_dtype: str = "float32"
     # A [n_users, emb_dim] user table whose row of batch.uid the tower
     # reads after [target embedding; state].
     use_user_emb: bool = False
@@ -167,6 +184,29 @@ def taobao_dien() -> Config:
                   train=TrainConfig(batch_size=512, steps_per_dispatch=0))
 
 
+def taobao_bst() -> Config:
+    """BST, one post-LN block with dense attention, on Taobao, T=300, B 256
+    (hpmn_tpu taobao_bst: the taobao base keeps its hpmn_layers 5 and
+    period 3, which BST does not read)."""
+    return Config(dataset="taobao",
+                  model=ModelConfig(name="bst", hpmn_layers=5,
+                                    hpmn_period=3),
+                  loss=LossConfig(l2_weight=1e-5),
+                  train=TrainConfig(batch_size=256, steps_per_dispatch=0))
+
+
+def xlong_bst() -> Config:
+    """BST on XLong, T=1000, B 256 (hpmn_tpu xlong_bst): the final block
+    attends from the target position alone (O(T)), and the inner blocks,
+    with bst_blocks > 1, through the online softmax over key chunks of
+    128."""
+    return Config(dataset="xlong",
+                  model=ModelConfig(name="bst", hpmn_layers=6, hpmn_period=3,
+                                    bst_attn_chunk=128),
+                  loss=LossConfig(l2_weight=1e-5),
+                  train=TrainConfig(batch_size=256, steps_per_dispatch=0))
+
+
 def _amazon_baseline(name: str) -> Config:
     """A target-independent baseline on Amazon, T=100 (hpmn_tpu
     amazon_rum and amazon_gru4rec: the amazon base keeps its hpmn_layers 4
@@ -194,6 +234,8 @@ _CONFIGS = {
     "taobao_dien": taobao_dien,
     "amazon_rum": amazon_rum,
     "amazon_gru4rec": amazon_gru4rec,
+    "taobao_bst": taobao_bst,
+    "xlong_bst": xlong_bst,
 }
 
 
@@ -203,8 +245,7 @@ def list_configs():
 
 def get_config(name: str) -> Config:
     if name not in _CONFIGS:
-        raise KeyError(f"unknown config {name!r}; available: {list_configs()}"
-                       " (the other families wait, see ROADMAP.md)")
+        raise KeyError(f"unknown config {name!r}; available: {list_configs()}")
     return _CONFIGS[name]()
 
 

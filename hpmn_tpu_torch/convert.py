@@ -12,6 +12,11 @@ parameter names correspond one to one:
     ['encoder']['gru'].wh           encoder.gru.wh        (GRU4Rec's GRU)
     ['encoder']['beta']             encoder.beta          (RUM's, 0-d)
     ['encoder']['attn']['b']        encoder.attn.b        (a dict entry)
+    ['encoder']['wx']               encoder.wx            (LSTM's, a dict)
+    ['encoder']['hor'][0]           encoder.hor.0         (Caser's filters)
+    ['encoder']['attn_long']['wm']  encoder.attn_long.wm  (SHAN's readouts)
+    ['encoder']['p_u']              encoder.p_u           (SVD++'s users)
+    ['encoder']['blocks'][0]['ln1']['g']  encoder.blocks.0.ln1.g  (BST)
     ['readout']['wm']               readout.wm
     ['tower']['layers'][0]['w']     tower.layers.0.w
 
@@ -58,11 +63,12 @@ def jax_key(name: str) -> str:
 def model_from_flat(cfg: Config, flat: Mapping[str, np.ndarray],
                     device="cuda") -> nn.Module:
     """Build the model of ``cfg`` (``build_model``) holding the JAX arrays
-    of ``flat``; the vocab sizes are read from the embedding tables (the
-    user table's, when there is one)."""
+    of ``flat``; the vocab sizes are read from the embedding tables, the
+    users from the user table or, without one, SVD++'s ``p_u``."""
     n_items = np.shape(flat["['embedding']['item']"])[0]
     n_cats = np.shape(flat["['embedding']['cat']"])[0]
-    user = flat.get("['embedding']['user']")
+    user = flat.get("['embedding']['user']",
+                    flat.get("['encoder']['p_u']"))
     n_users = 0 if user is None else np.shape(user)[0]
     model = build_model(cfg, n_items, n_cats, n_users)
     left = dict(flat)

@@ -1,5 +1,5 @@
-"""The hpmn, dien, gru4rec and rum models and their loss — counterpart of
-``hpmn_tpu/models/model.py`` for those values of ``cfg.model.name``.
+"""Every model family of the JAX package and its loss — counterpart of
+``hpmn_tpu/models/model.py``: ``cfg.model.name`` in :data:`ENCODERS`.
 
     model = init_model(cfg, n_items, n_cats)             # on the card
     logits, aux = apply_model(model, cfg, batch)
@@ -25,15 +25,19 @@ forms), the negatives gathered time-major too; otherwise the batch-major
 plain ``dien.encode``. DIEN has no readout and returns aux["aux_loss"],
 which ``total_loss`` weighs by ``aux_weight``.
 
-and its gru4rec and rum branches: gru4rec with ``use_pallas`` runs its GRU
+its gru4rec and rum branches: gru4rec with ``use_pallas`` runs its GRU
 time-major through the CUDA scan kernels (K1 forward, K2 backward, or
 their bf16 forms), otherwise the batch-major plain ``gru4rec.encode``; rum
 is plain tensor ops in either case (``rum.encode``), as in JAX. Neither
 has a readout or an aux output: the tower reads [target embedding; state].
 
+and its last branch, the six families of ``extra_baselines.py`` (dnn,
+lstm, caser, shan, svdpp, bst): plain tensor ops whatever
+``use_pallas`` says, as JAX computes them in no Pallas kernel; SVD++ reads
+``batch.uid``. No aux output.
+
 With ``use_user_emb`` every family's tower reads the user table's row of
-``batch.uid`` after [target embedding; state], as in JAX. Other families
-raise.
+``batch.uid`` after [target embedding; state], as in JAX.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from ..ops import cuda_gru, cuda_gru_stride, cuda_readout
 from ..ops.gru import (GRUWeights, gru_scan_stride_tm, gru_scan_stride_tm_bf16,
                        gru_scan_tm, gru_scan_tm_bf16)
 from . import dien as dien_mod
+from . import extra_baselines
 from . import gru4rec as gru4rec_mod
 from . import hpmn as hpmn_mod
 from . import rum as rum_mod
@@ -59,6 +64,8 @@ from .readout import Readout, attention_readout
 from .tower import Tower, apply_tower
 
 
+ENCODERS = ("hpmn", "gru4rec", "dien", "rum", "dnn", "lstm", "caser", "shan",
+            "svdpp", "bst")
 _SCAN_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -70,11 +77,11 @@ def _embedding(cfg: Config, n_items: int, n_cats: int,
                      n_users if m.use_user_emb else 0)
 
 
-def _tower(cfg: Config) -> Tower:
+def _tower(cfg: Config, d_state: int) -> Tower:
     """The tower of every family, over [target embedding (2 emb_dim);
-    state (mem_dim)] and with use_user_emb the user embedding (emb_dim)."""
+    state (d_state)] and with use_user_emb the user embedding (emb_dim)."""
     m = cfg.model
-    d_in = 2 * m.emb_dim + m.mem_dim + (m.emb_dim if m.use_user_emb else 0)
+    d_in = 2 * m.emb_dim + d_state + (m.emb_dim if m.use_user_emb else 0)
     return Tower(d_in, m.tower_hidden)
 
 
@@ -90,7 +97,7 @@ class HPMNModel(nn.Module):
         self.embedding = _embedding(cfg, n_items, n_cats, n_users)
         self.encoder = hpmn_mod.HPMNEncoder(d_beh, m.mem_dim, m.hpmn_layers)
         self.readout = Readout(m.mem_dim, d_beh, m.readout_dim)
-        self.tower = _tower(cfg)
+        self.tower = _tower(cfg, m.mem_dim)
 
 
 class DIENModel(nn.Module):
@@ -104,7 +111,7 @@ class DIENModel(nn.Module):
         d_beh = 2 * m.emb_dim
         self.embedding = _embedding(cfg, n_items, n_cats, n_users)
         self.encoder = dien_mod.DIENEncoder(d_beh, m.mem_dim, m.readout_dim)
-        self.tower = _tower(cfg)
+        self.tower = _tower(cfg, m.mem_dim)
 
 
 class GRU4RecModel(nn.Module):
@@ -118,7 +125,7 @@ class GRU4RecModel(nn.Module):
         d_beh = 2 * m.emb_dim
         self.embedding = _embedding(cfg, n_items, n_cats, n_users)
         self.encoder = gru4rec_mod.GRU4RecEncoder(d_beh, m.mem_dim)
-        self.tower = _tower(cfg)
+        self.tower = _tower(cfg, m.mem_dim)
 
 
 class RUMModel(nn.Module):
@@ -133,19 +140,46 @@ class RUMModel(nn.Module):
         d_beh = 2 * m.emb_dim
         self.embedding = _embedding(cfg, n_items, n_cats, n_users)
         self.encoder = rum_mod.RUMEncoder(d_beh, m.mem_dim, m.rum_slots)
-        self.tower = _tower(cfg)
+        self.tower = _tower(cfg, m.mem_dim)
+
+
+class ExtraBaselineModel(nn.Module):
+    """embedding, encoder (``extra_baselines.build_encoder`` of the
+    family: dnn, lstm, caser, shan, svdpp or bst) and tower over [target
+    embedding; the family's state]. SVD++'s user factors are the
+    encoder's ``p_u`` [n_users, 2 emb_dim], apart from the
+    ``use_user_emb`` table, as in JAX."""
+
+    def __init__(self, cfg: Config, n_items: int, n_cats: int,
+                 n_users: int = 0):
+        super().__init__()
+        m = cfg.model
+        self.embedding = _embedding(cfg, n_items, n_cats, n_users)
+        self.encoder, d_state = extra_baselines.build_encoder(
+            m.name, cfg, 2 * m.emb_dim, n_users)
+        self.tower = _tower(cfg, d_state)
 
 
 _MODELS = {"hpmn": HPMNModel, "dien": DIENModel, "gru4rec": GRU4RecModel,
-           "rum": RUMModel}
+           "rum": RUMModel,
+           **{f: ExtraBaselineModel for f in extra_baselines.FAMILIES}}
+
+
+def model_n_users(model: nn.Module) -> int:
+    """The users a model has rows for: its user table's (use_user_emb) or
+    SVD++'s ``p_u``'s; 0 without either."""
+    if model.embedding.user is not None:
+        return model.embedding.user.shape[0]
+    p_u = getattr(model.encoder, "p_u", None)
+    return 0 if p_u is None else p_u.shape[0]
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise on config choices the port does not cover yet."""
+    """Raise on config choices the port does not cover: an unknown family
+    (ValueError, as JAX), or an option not ported yet."""
     m = cfg.model
     if m.name not in _MODELS:
-        raise NotImplementedError(
-            f"model family {m.name!r} is not ported yet (ROADMAP.md)")
+        raise ValueError(f"unknown encoder {m.name!r}")
     todo = {"dtype": m.dtype != "float32",
             "scan_dtype": m.scan_dtype not in _SCAN_DTYPES}
     for field, unsupported in todo.items():
@@ -158,11 +192,12 @@ def check_supported(cfg: Config) -> None:
 def build_model(cfg: Config, n_items: int, n_cats: int,
                 n_users: int = 0) -> nn.Module:
     """The model class of ``cfg.model.name`` (``HPMNModel``, ``DIENModel``,
-    ``GRU4RecModel`` or ``RUMModel``), its parameters allocated on the
-    CPU, not initialised. With ``use_user_emb`` it has a user table of
-    ``n_users`` rows (the dataset's user vocab), and raises when that is
-    not positive, as the JAX ``init_model`` does; without, ``n_users`` is
-    ignored."""
+    ``GRU4RecModel``, ``RUMModel`` or ``ExtraBaselineModel``), its
+    parameters allocated on the CPU, not initialised. With
+    ``use_user_emb`` it has a user table of ``n_users`` rows (the
+    dataset's user vocab), and svdpp has ``p_u`` of as many; either raises
+    when ``n_users`` is not positive, as the JAX ``init_model`` does;
+    otherwise ``n_users`` is ignored."""
     check_supported(cfg)
     if cfg.model.use_user_emb and n_users <= 0:
         raise ValueError("use_user_emb needs n_users > 0 passed to "
@@ -245,8 +280,9 @@ def _apply_dien(model: DIENModel, cfg: Config, batch: Batch,
 
 def _apply_baseline(model: nn.Module, cfg: Config, batch: Batch,
                     q: torch.Tensor, plain: bool) -> torch.Tensor:
-    """The gru4rec and rum branches of the JAX apply_model -> the state
-    [B, d_m] (float32) the tower reads beside q."""
+    """The gru4rec, rum and extra_baselines branches of the JAX
+    apply_model -> the state [B, d_state] (float32) the tower reads beside
+    q."""
     m = cfg.model
     emb = model.embedding
     if m.name == "gru4rec" and m.use_pallas:
@@ -260,7 +296,10 @@ def _apply_baseline(model: nn.Module, cfg: Config, batch: Batch,
     mask = batch.seq_mask.to(x.dtype)
     if m.name == "gru4rec":
         return gru4rec_mod.encode(model.encoder, x, mask)
-    return rum_mod.encode(model.encoder, x, mask, q)
+    if m.name == "rum":
+        return rum_mod.encode(model.encoder, x, mask, q)
+    return extra_baselines.encode(model.encoder, m.name, cfg, x, mask, q,
+                                  uid=batch.uid)
 
 
 def _logits(model: nn.Module, cfg: Config, batch: Batch, q: torch.Tensor,
@@ -278,7 +317,8 @@ def apply_model(model: nn.Module, cfg: Config, batch: Batch,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (logits [B], aux): for hpmn aux["memory"] is the slots [B, L,
     d_m] (float32) that the covariance regularizer reads; for dien
-    aux["aux_loss"] is the auxiliary loss; gru4rec and rum return no aux.
+    aux["aux_loss"] is the auxiliary loss; the other families return no
+    aux.
 
     ``plain=True`` runs the ``use_pallas`` branch with the kernels' plain
     versions under autograd (``gru_scan_tm`` or ``gru_scan_tm_bf16``, with
@@ -292,7 +332,7 @@ def apply_model(model: nn.Module, cfg: Config, batch: Batch,
     if m.name == "dien":
         state, aux_loss = _apply_dien(model, cfg, batch, q, plain)
         return _logits(model, cfg, batch, q, state), {"aux_loss": aux_loss}
-    if m.name in ("gru4rec", "rum"):
+    if m.name != "hpmn":
         state = _apply_baseline(model, cfg, batch, q, plain)
         return _logits(model, cfg, batch, q, state), {}
     if m.use_pallas and m.use_hierarchical_scan:

@@ -8,7 +8,8 @@ with the batch (``Dim("b")``) and rank's candidate count (``Dim("c")``)
 symbolic, one graph per platform (``cpu``, ``cuda``: a traced graph holds
 its device), written into the bundle as ``exported_<kind>.<platform>.pt2``
 (``torch.export.save``). ``serving/history.py::export_history_scoring`` does
-the same for the history store's scoring (DIEN). :func:`load_aot_store`
+the same for the history store's scoring (every family outside
+``protocol.O1_FAMILIES``). :func:`load_aot_store`
 serves them with no model code: a host that has this package, the bundle's
 ``params.npz`` and the graphs runs the graphs the trainer exported, and no
 ``nn.Module`` is built.
@@ -45,7 +46,7 @@ from torch.export import Dim
 
 from ..configs import Config, config_from_dict
 from ..convert import jax_key
-from ..models.model import build_model
+from ..models.model import build_model, model_n_users
 from ..ops import library  # noqa: F401  (registers the ops the graphs hold)
 from ..train.checkpoint import load_user_memory
 from .lifelong import (UserMemoryStore, _bundle_array, predict_scores,
@@ -117,7 +118,7 @@ def export_function(fn: Callable, cfg: Config, model: nn.Module,
     emb = model.embedding
     with torch.device("meta"):
         shell = build_model(cfg, emb.item.shape[0], emb.cat.shape[0],
-                            0 if emb.user is None else emb.user.shape[0])
+                            model_n_users(model))
     names = ["model." + name for name, _ in shell.named_parameters()]
     leaves = [p.detach().to(device) for _, p in model.named_parameters()]
     graph = _Graph(_Request(fn, cfg, shell), names)
@@ -180,8 +181,10 @@ def save_exported(directory: str, programs: Dict, model: nn.Module) -> Dict:
 
 def leaf_tensors(leaves: Dict[str, np.ndarray], device):
     """A bundle's parameters by keystr, in ``leaf_order`` -> (the f32
-    tensors on ``device`` a graph takes, the user table's rows)."""
-    user = leaves.get("['embedding']['user']")
+    tensors on ``device`` a graph takes, the rows of the user table, or
+    without one of SVD++'s ``p_u``)."""
+    user = leaves.get("['embedding']['user']",
+                      leaves.get("['encoder']['p_u']"))
     return ([torch.as_tensor(np.asarray(a, np.float32), device=device)
              for a in leaves.values()], 0 if user is None else len(user))
 

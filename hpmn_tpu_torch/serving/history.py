@@ -1,7 +1,8 @@
-"""Lifelong serving for a family whose encoder depends on the target
-(DIEN): a bounded window of each user's W most recent behaviours, re-encoded
-per request — counterpart of ``hpmn_tpu/serving/history.py::HistoryStore``
-and of its persistence and bundles.
+"""Lifelong serving for every family outside ``protocol.O1_FAMILIES``
+(dien, dnn, lstm, caser, shan, svdpp, bst): a bounded window of each
+user's W most recent behaviours, re-encoded per request — counterpart of
+``hpmn_tpu/serving/history.py::HistoryStore`` and of its persistence and
+bundles.
 
     store = HistoryStore(cfg, model)            # on the card, as the model
     store.ingest_histories(uids, item_seqs, cat_seqs, masks)  # cold start
@@ -10,9 +11,10 @@ and of its persistence and bundles.
     scores = store.rank(uids, cand_items_bc, cand_cats_bc)        # [B, C]
     store.save_bundle(dir); store = HistoryStore.load_bundle(dir)
 
-DIEN's attention scores every step of the history against the candidate,
-so no per-user state summarizes the history (``UserMemoryStore`` refuses
-the family): the store keeps the ids and re-encodes. The window has the
+These families have no target-independent recurrence that one event
+updates (DIEN and BST attend over every step from the candidate), so
+``UserMemoryStore`` refuses them: the store keeps the ids and re-encodes
+with the candidate as the target. The window has the
 training layout: ``[W]`` int32 ids, left-padded with zeros, the newest
 event at W-1, mask 1.0 at valid positions; W defaults to the dataset's
 sequence length. A user with at most W events scores exactly what
@@ -22,14 +24,18 @@ sequence length. A user with at most W events scores exactly what
 The ids live on the host (a request moves ids up and scores down); the
 uid -> row index, growth and LRU eviction are ``lifelong.UserRows``.
 Scores are ``sigmoid(apply_model(...))`` on the model's device, under
-``no_grad`` and with the auxiliary loss off (it reads the batch's
-negatives and never the logits): with ``use_pallas`` each scoring call
-runs K1 (the interest GRU, masked) and K1-scale (the AUGRU). A call scores at most
+``no_grad`` and with DIEN's auxiliary loss off (it reads the batch's
+negatives and never the logits): with ``use_pallas`` each DIEN scoring
+call runs K1 (the interest GRU, masked) and K1-scale (the AUGRU); the six
+families of ``models/extra_baselines.py`` run no kernel, as in JAX. A
+cold user scores from an all-masked window (BST's appended target keeps
+its attention defined). A call scores at most
 ``max_score_rows`` (user, candidate) rows at a time, so a large ``rank``
 cannot take the device's memory; each row's score depends on that row
-alone, so the chunking changes no score. With ``use_user_emb`` the
-tower reads the user's embedding through ``apply_model`` (the batch
-carries the uids).
+alone, so the chunking changes no score. The batch carries the uids:
+with ``use_user_emb`` the tower reads the user's embedding and SVD++
+its ``p_u`` row, and a uid outside that table raises
+(``lifelong.check_user_ids``) where JAX's gather would fill or clamp.
 
 Persistence keeps the JAX package's files: ``save``/``load`` write and read
 ``user_history.npz`` (uids, the windows' ids, the counts and W), and a
@@ -56,13 +62,14 @@ from ..data.schema import Batch, batch_from_numpy
 from ..data.synthetic import SPECS
 from ..models.model import apply_model, check_supported
 from .lifelong import (UserMemoryStore, UserRows, _write_meta,
-                       check_user_ids, load_bundle_params, save_params_npz,
-                       user_rows)
+                       check_user_ids, load_bundle_params, reads_user_ids,
+                       save_params_npz, user_rows)
 
 
 def score_config(cfg: Config) -> Config:
-    """The config a history store scores with: the auxiliary loss off (it
-    reads the batch's negatives and never the logits)."""
+    """The config a history store scores with: DIEN's auxiliary loss off
+    (it reads the batch's negatives and never the logits); no other
+    family reads the field."""
     return cfg.with_model(dien_use_aux_loss=False)
 
 
@@ -169,7 +176,7 @@ class HistoryStore(UserRows):
     def _score_rows(self, uids, rows, cand_items, cand_cats) -> np.ndarray:
         """Scores of flat (user row, candidate) pairs, at most
         ``max_score_rows`` per call of the model."""
-        if self.cfg.model.use_user_emb:
+        if reads_user_ids(self.cfg):
             check_user_ids(self._user_rows, uids)
         n = len(rows)
         step = self.max_score_rows or max(n, 1)
@@ -308,7 +315,9 @@ def export_history_scoring(cfg: Config, model, window: int,
     symbolic, W the bundle's window. The traced math is
     :func:`score_batch`, ``apply_model`` with the aux loss off: with
     ``use_pallas`` DIEN's two scans are K1 and K1-scale, each one
-    ``hpmn::gru_scan_fwd`` node."""
+    ``hpmn::gru_scan_fwd`` node; the other families trace plain ops (BST's
+    chunked inner blocks unrolled over the window's chunks, its last block
+    from the target's query)."""
     from torch.export import Dim
 
     from .aot import _EXAMPLE_B, _platform_device, export_function

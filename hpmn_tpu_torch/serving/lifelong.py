@@ -45,7 +45,7 @@ import torch
 from ..configs import Config, config_from_dict, config_to_dict
 from ..convert import flat_from_model, model_from_flat
 from ..models.embedding import dense_lookup, user_lookup
-from ..models.model import check_supported
+from ..models.model import check_supported, model_n_users
 from ..models.tower import apply_tower
 from ..train.checkpoint import load_user_memory, save_user_memory
 from .protocol import (O1_FAMILIES, encode_full, n_state_slots, read_state,
@@ -100,19 +100,27 @@ def load_bundle_params(directory: str, device="cuda"):
     return meta, cfg, model_from_flat(cfg, flat, device=device)
 
 
+def reads_user_ids(cfg: Config) -> bool:
+    """Whether scoring reads a table by the request's uids: the user table
+    (use_user_emb) or SVD++'s user factors ``p_u``."""
+    return cfg.model.use_user_emb or cfg.model.name == "svdpp"
+
+
 def check_user_ids(n: int, uids: np.ndarray) -> None:
     """Raise unless every uid has a row in a user table of ``n`` rows: a
     request's uids index it on the device, where a row out of range would
-    fault the card instead of raising."""
+    fault the card instead of raising. (The JAX gather fills or clamps
+    such a row silently.)"""
     if len(uids) and (uids.min() < 0 or uids.max() >= n):
         raise ValueError(f"uids must lie in [0, {n}), the user table's "
-                         f"rows (use_user_emb); got {uids.min()} to "
-                         f"{uids.max()}")
+                         f"rows (use_user_emb, or svdpp's p_u); got "
+                         f"{uids.min()} to {uids.max()}")
 
 
 def user_rows(cfg: Config, model) -> int:
-    """The user table's rows with use_user_emb (0 without)."""
-    return model.embedding.user.shape[0] if cfg.model.use_user_emb else 0
+    """The rows of the table the request's uids index
+    (:func:`reads_user_ids`; 0 when none is read)."""
+    return model_n_users(model) if reads_user_ids(cfg) else 0
 
 
 def update_memory(model, cfg: Config, mem: torch.Tensor, cnt: torch.Tensor,

@@ -11,8 +11,10 @@ read), :data:`O1_FAMILIES`:
 - **rum**: K slots of erase/add memory; every event is one write, whose
   address comes from the event, not the target.
 
-DIEN (its AUGRU gate needs the target's attention over the whole history)
-is target-dependent and served by ``serving.history.HistoryStore``.
+Every other family is served by ``serving.history.HistoryStore``: DIEN
+(its AUGRU gate needs the target's attention over the whole history), BST
+and SHAN (they attend over the history from the target), and DNN, LSTM,
+Caser and SVD++, which the JAX package serves the same way.
 
     state', counter' = update_state(family, encoder, state, counter, x, period)
     read             = read_state(family, model, state, q)

@@ -645,11 +645,14 @@ def main(argv=None) -> None:
             from ..ops import _build
 
             _build.load_library()  # nvcc at first use, before serving
+        from .lifelong import reads_user_ids
+
         top = _bucket(args.max_batch, 0)
         for st in stores.values():
             # Unknown users read the cold-start state and create none; a
-            # store whose tower reads the user table needs a real row.
-            uid = 0 if st.cfg.model.use_user_emb else -1
+            # store that reads a table by uid (the user table, SVD++'s
+            # p_u) needs a real row.
+            uid = 0 if reads_user_ids(st.cfg) else -1
             b = 1
             while b <= top:
                 u = np.full((b,), uid, np.int64)

@@ -89,8 +89,8 @@ def main(argv=None):
     mngr.close()
 
     params = state["params"]
-    n_users = (params["embedding.user"].shape[0]
-               if "embedding.user" in params else 0)
+    users = params.get("embedding.user", params.get("encoder.p_u"))
+    n_users = 0 if users is None else users.shape[0]
     model = build_model(cfg, params["embedding.item"].shape[0],
                         params["embedding.cat"].shape[0], n_users)
     model.load_state_dict(params)

@@ -162,12 +162,14 @@ def make_eval_step(cfg: Config, device) -> Callable:
 def init_model_for(cfg: Config, spec: synthetic.DatasetSpec,
                    device) -> torch.nn.Module:
     """The driver's model at the start of a run: the port's seeded init
-    (``init_model``) for the dataset's vocab, the user table sized from
-    ``spec.n_users`` with ``use_user_emb``. The one place the driver
-    initialises a model, so a caller can start it from other weights (for
-    example the JAX package's, through ``convert.model_from_flat``)."""
+    (``init_model``) for the dataset's vocab and ``spec.n_users`` (the
+    user table's rows with ``use_user_emb``, SVD++'s ``p_u``'s; the other
+    families ignore it), as the JAX driver passes. The one place the
+    driver initialises a model, so a caller can start it from other
+    weights (for example the JAX package's, through
+    ``convert.model_from_flat``)."""
     return init_model(cfg, spec.n_items, spec.n_cats, device=device,
-                      n_users=spec.n_users if cfg.model.use_user_emb else 0)
+                      n_users=spec.n_users)
 
 
 def _check_supported(cfg: Config) -> None:

@@ -339,10 +339,13 @@ def test_store_matches_jax_store(family):
                                atol=SERVE_TOL)
 
 
-@pytest.mark.parametrize("family", ["dien", "bst"])
+@pytest.mark.parametrize("family", ["dien", "dnn", "lstm", "caser", "shan",
+                                    "svdpp", "bst"])
 def test_target_dependent_families_still_refused(family):
-    """DIEN and BST have no O(1) state: UserMemoryStore raises the JAX
-    store's ValueError, which names HistoryStore."""
+    """Every family outside protocol.O1_FAMILIES has no O(1) state:
+    UserMemoryStore raises the JAX store's ValueError, which names
+    HistoryStore."""
+    assert family not in protocol.O1_FAMILIES
     cfg = configs.get_config("amazon_gru4rec")
     model = init_model(cfg, N_ITEMS, N_CATS, seed=0, device="cpu")
     with pytest.raises(ValueError, match="HistoryStore"):

@@ -1336,3 +1336,64 @@ def test_history_store_scores_one_user_on_the_card(dev):
     assert (cuda_gru.launches, cuda_gru.launches_scale) == (n[0] + 1,
                                                             n[1] + 1)
     assert np.abs(got[0] - got[1]).max() <= 1e-4
+
+
+@pytest.mark.parametrize("family,over", [
+    ("bst", dict(bst_blocks=2, bst_attn_chunk=5)),
+    ("bst", dict(bst_blocks=2, bst_dtype="bfloat16")),
+    ("lstm", {}), ("caser", {}), ("shan", {}), ("svdpp", {}), ("dnn", {})])
+def test_extra_family_step_on_the_card_matches_the_cpu(dev, family, over):
+    """A loss and backward of the families of models/extra_baselines.py on
+    the card == the same weights and batch on the CPU (loss 1e-5
+    relative, every gradient TOL_GRAD of its max abs), with no
+    hand-kernel launch. bf16 BST is held as tests/test_torch_bst.py holds
+    it to JAX's bf16 path: logits 2e-2, loss 2e-3 relative, every
+    gradient f32 and finite (bf16 rounds the matmuls' outputs, and the
+    card's and the CPU's bf16 products round in other places: the
+    embedding gradient differed by 5.4e-2 of its max abs)."""
+    cfg = configs.get_config("amazon_hpmn").with_model(name=family, **over)
+    data = _amazon_data(n=24)
+    counted = (cuda_gru.launches, cuda_gru.bwd_launches,
+               cuda_readout.launches)
+    out = []
+    for d in ("cpu", dev):
+        model = init_model(cfg, 500, 40, seed=3, device=d, n_users=600)
+        loss, metrics = loss_fn(model, cfg, batch_from_numpy(data, device=d))
+        loss.backward()
+        out.append((loss.item(), metrics["logits"].detach().cpu(),
+                    dict(model.named_parameters())))
+    assert (cuda_gru.launches, cuda_gru.bwd_launches,
+            cuda_readout.launches) == counted
+    (l_c, lg_c, p_c), (l_k, lg_k, p_k) = out
+    if over.get("bst_dtype") == "bfloat16":
+        assert abs(l_k - l_c) <= 2e-3 * abs(l_c)
+        assert (lg_k - lg_c).abs().max().item() <= 2e-2
+        for name, p in p_k.items():
+            assert p.grad.dtype == torch.float32, name
+            assert torch.isfinite(p.grad).all(), name
+        return
+    assert abs(l_k - l_c) <= 1e-5 * abs(l_c)
+    for name, p in p_k.items():
+        assert _rel_err(p.grad.cpu(), p_c[name].grad) <= TOL_GRAD, name
+
+
+def test_history_store_serves_bst_and_svdpp_on_the_card(dev):
+    """taobao_bst's and SVD++'s HistoryStores on the card == on the CPU
+    (1e-5); a uid outside SVD++'s p_u raises before reaching the card."""
+    for cfg in (configs.get_config("taobao_bst").with_model(bst_blocks=2,
+                                                            bst_attn_chunk=7),
+                configs.get_config("amazon_hpmn").with_model(name="svdpp")):
+        model = init_model(cfg, 300, 30, seed=2, device="cpu", n_users=50)
+        hist = np.random.default_rng(3).integers(1, 300, size=(6, 40))
+        stores = [HistoryStore(cfg, model, window=30, device="cpu"),
+                  HistoryStore(cfg, copy.deepcopy(model).to(dev), window=30,
+                               device=dev)]
+        for s in stores:
+            s.ingest_histories(np.arange(6), hist, hist % 30)
+        ci = hist[:, :4] % 299 + 1
+        uids = np.array([0, 1, 2, 3, 4, 40])  # 40: no history
+        got = [s.rank(uids, ci, ci % 30) for s in stores]
+        assert np.abs(got[0] - got[1]).max() <= 1e-5
+        if cfg.model.name == "svdpp":
+            with pytest.raises(ValueError, match="p_u"):
+                stores[1].predict([50], [3], [3])

@@ -21,6 +21,7 @@ thread (about 20 s for a 200-step golden run), so that it takes as long
 beside other test processes as alone.
 """
 
+import dataclasses
 import inspect
 import json
 import os
@@ -320,8 +321,37 @@ def test_train_runs_on_the_card_by_default(tiny, monkeypatch):
         T.main(["--config", "amazon_hpmn", "--set", *TINY])
 
 
+@pytest.mark.parametrize("config,family", [
+    ("taobao_bst", "bst"), ("amazon_hpmn", "svdpp"), ("amazon_hpmn", "dnn"),
+    ("amazon_hpmn", "lstm"), ("amazon_hpmn", "caser"),
+    ("amazon_hpmn", "shan")])
+def test_main_trains_the_remaining_families(tiny, monkeypatch, capsys,
+                                            config, family):
+    """``python -m hpmn_tpu_torch.train.train --config taobao_bst`` and
+    ``--config amazon_hpmn --set model.name=svdpp`` (and the other
+    extra_baselines families) train to a TEST line; SVD++'s p_u takes the
+    dataset's users (init_model_for passes spec.n_users)."""
+    monkeypatch.setitem(synthetic.SPECS, "taobao", dataclasses.replace(
+        TINY_SPEC, name="taobao", seq_len=30))
+    seen = {}
+    seam = T.init_model_for
+
+    def init(cfg, spec, device):
+        seen["model"] = seam(cfg, spec, device)
+        return seen["model"]
+
+    monkeypatch.setattr(T, "init_model_for", init)
+    T.main(["--config", config, "--device", "cpu", "--set",
+            f"model.name={family}", *TINY, "train.max_steps=10",
+            "train.eval_every=5"])
+    out = capsys.readouterr().out
+    assert sum(line.startswith("TEST auc ") for line in out.splitlines()) == 1
+    if family == "svdpp":
+        assert seen["model"].encoder.p_u.shape[0] == TINY_SPEC.n_users
+
+
 @pytest.mark.parametrize("override", [
-    "model.name=bst", "train.log_dir=/some/events",
+    "model.scan_dtype=float16", "train.log_dir=/some/events",
     "train.debug_nans=true", "model.dtype=bfloat16",
     "mesh.model_parallel=2", "mesh.seq_parallel=2",
     "mesh.embedding_mode=a2a"])

@@ -11,7 +11,9 @@ serving bundles' (``serving.history``, the ``tools.export_bundle`` and
 ``tools.serve_batch`` CLIs) and the daemon's and the AOT path's
 (``serving.server``, ``serving.client``, ``serving.journal``,
 ``serving.sharded``, ``serving.fleet``, ``serving.aot``, ``ops.library``,
-the ``tools.serve`` and ``tools.serve_fleet`` CLIs) among them."""
+the ``tools.serve`` and ``tools.serve_fleet`` CLIs) and the remaining
+families' (``models.extra_baselines``, the ``tools.compare_models`` CLI)
+among them."""
 
 import ast
 import pathlib
@@ -28,7 +30,8 @@ DRIVER = ("train.train", "train.optim", "train.checkpoint", "train.evaluate",
           "models.rum", "serving.history", "tools.export_bundle",
           "tools.serve_batch", "serving.server", "serving.client",
           "serving.journal", "serving.sharded", "serving.fleet",
-          "serving.aot", "ops.library", "tools.serve", "tools.serve_fleet")
+          "serving.aot", "ops.library", "tools.serve", "tools.serve_fleet",
+          "models.extra_baselines", "tools.compare_models")
 
 
 def _forbidden(module: str) -> bool:

@@ -219,12 +219,27 @@ def test_init_model_is_seeded_and_shaped_like_jax():
 
 
 @pytest.mark.parametrize("change", [
-    dict(scan_dtype="float16"), dict(dtype="bfloat16"),
-    dict(name="dnn"), dict(name="bst")])
+    dict(scan_dtype="float16"), dict(dtype="bfloat16")])
 def test_unported_options_raise(change):
     cfg = configs.get_config("xlong_hpmn").with_model(**change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_model(cfg, N_ITEMS, N_CATS, device="cpu")
+
+
+def test_unknown_family_raises():
+    """Every JAX family builds; another name raises ValueError("unknown
+    encoder ..."), as the JAX init_model does."""
+    from hpmn_tpu.models import ENCODERS as J_ENCODERS
+    from hpmn_tpu_torch.models.model import ENCODERS
+
+    assert ENCODERS == J_ENCODERS
+    cfg = configs.get_config("amazon_hpmn").with_model(name="transformer")
+    with pytest.raises(ValueError, match="unknown encoder 'transformer'"):
+        init_model(cfg, N_ITEMS, N_CATS, device="cpu")
+    j_cfg = j_get_config("amazon_hpmn")
+    j_cfg.model.name = "transformer"
+    with pytest.raises(ValueError, match="unknown encoder"):
+        j_init_model(jax.random.key(0), j_cfg, N_ITEMS, N_CATS)
 
 
 @pytest.mark.parametrize("entry", [init_model, model_from_flat,
