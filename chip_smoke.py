@@ -146,6 +146,29 @@ before the last line):
    launch counters: none on (a), (b) and the six new families of (c);
    hpmn, dien and gru4rec launch theirs in (c).
 
+15. data and model parallelism (``hpmn_tpu_torch/parallel/``, through
+   ``python -m hpmn_tpu_torch.tools.parallel_check``): (a) 4 ranks on the
+   card over gloo (CUDA tensors through the host), a (2, 2) grid, run
+   xlong_hpmn at full width (global B 512, T 1000, six layers, items
+   50000, cats 800, batch over data and model, the a2a exchange,
+   use_pallas) for 4 SGD steps from the seeded weights, held to the same
+   steps in one process (losses, parameters, the first step's table
+   gradients and the tables' change over the steps, the dense parameters
+   the same on every rank), K1 x 6, K2 x 6 and K5 counted on every rank
+   and step; a psum step, and a step with the capacity factor forced low,
+   which takes the exact fallback (overflow counter 1, the a2a step's
+   result); the step's ms per rank, and a profiled step's exchange split
+   into the wait for queued kernels, the transfer and the wait for the
+   other rank; (b) train() on the same ranks, 16 steps with evaluation
+   and checkpoints, against one process at phase 10's tolerances, rank 0
+   alone writing, its best checkpoint equal to the returned parameters
+   and loaded on one device; (c) ``python -m torch.distributed.run
+   --nproc_per_node <cards> -m hpmn_tpu_torch.train.train`` over NCCL (on
+   one card a 1-rank bootstrap check; (a) over NCCL, one rank per card,
+   where there are 2 cards or more); (d) bf16 BST's gradient gap
+   from f32 on the card (cuBLAS's reduced-precision bf16 reduction on and
+   off) beside the CPU's.
+
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or away from the repo, it exits nonzero and prints no result. Imports
@@ -342,6 +365,28 @@ COMPARE_CPU_GROUPS = ("hpmn", "gru4rec", "dien", "rum", "lstm",
 # (dien); K1, K2 (gru4rec). No other family launches a hand kernel.
 COMPARE_KERNELS = {"hpmn": (0, 1, 4), "dien": (0, 1, 9, 10),
                    "gru4rec": (0, 1)}
+# Phase 15: the sharded xlong_hpmn step on PARALLEL_RANKS ranks of the one
+# card (gloo, whose collectives take CUDA tensors through the host), a
+# (2, 2) grid, batch over data and model, against the same
+# PARALLEL_STEPS SGD steps in this process: the losses within
+# TOL_STEP_LOSS relative, the parameters within TOL_DRIVER_PARAMS of max
+# abs (the ranks sum the gradients in other orders); the psum step
+# likewise against the first step; the step through the forced fallback
+# against the a2a step within TOL_FALLBACK of max abs (its table
+# gradients are the same sums, gathered otherwise); train() on the ranks
+# at phase 10's tolerances. The tables, held on their own: the first
+# step's table gradients within TOL_TABLE_GRAD of each table's max abs
+# gradient, and each table's change over the steps within TOL_TABLE_DELTA
+# of its max abs change (a cotangent sent to the wrong owner or a lost
+# 1/n_model scale is off by the change itself). PARALLEL_CLI: the CLI under
+# torch.distributed.run with one rank per card (NCCL).
+PARALLEL_RANKS, PARALLEL_STEPS = 4, 4
+TOL_FALLBACK = 1e-6
+TOL_TABLE_GRAD, TOL_TABLE_DELTA = 1e-4, 1e-2
+PARALLEL_CLI = ["--config", "xlong_hpmn", "--set", "n_examples=2048",
+                "train.max_steps=4", "train.eval_every=4",
+                "train.log_every=2", "model.use_pallas=true",
+                "eval_batch_size=256", "train.steps_per_dispatch=1"]
 
 
 def fail(msg):
@@ -1565,6 +1610,250 @@ def phase_14(p):
           f"{t_a:.1f} s, (b) and (c) {time.perf_counter() - t14 - t_a:.1f}"
           " s)", flush=True)
     return {f"compare_{name}": launches[name] for name in COMPARE_KERNELS}
+
+
+def phase_15(p):
+    """Data and model parallelism on the card (see the module docstring):
+    (a) the sharded step on PARALLEL_RANKS ranks of the card against one
+    process, its psum step and its forced fallback, (b) train() on the same
+    ranks, (c) the CLI under torch.distributed.run over NCCL, (d) bf16
+    BST's gradient gap from f32. ``p`` carries the device, the repo root
+    and the card line. -> the ranks' launch counters (K1, K2, K5), by
+    path."""
+    import torch
+
+    from hpmn_tpu_torch.configs import get_config
+    from hpmn_tpu_torch.data.schema import batch_from_numpy
+    from hpmn_tpu_torch.data.synthetic import make_ctr_dataset
+    from hpmn_tpu_torch.models.model import init_model, loss_fn
+    from hpmn_tpu_torch.tools import parallel_check
+    from hpmn_tpu_torch.train.checkpoint import CheckpointManager
+
+    t15 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    launches = {}
+    try:
+        argv = ["--ranks", str(PARALLEL_RANKS), "--backend", "gloo",
+                "--steps", str(PARALLEL_STEPS), "--out", work]
+        res = parallel_check.run(argv)
+        c, ranks, ref = res["compare"], res["ranks"], res["reference"]
+        L = get_config("xlong_hpmn").model.hpmn_layers
+        for r in ranks:
+            check(all(tuple(n) == (L, L, 1) for n in r["launches"]),
+                  f"phase 15 (a) rank {r['rank']}: launches per step "
+                  f"{r['launches']}, expected K1 x {L}, K2 x {L}, K5 x 1")
+            check(r["overflow"] == [0.0] * PARALLEL_STEPS,
+                  f"phase 15 (a) rank {r['rank']}: a2a fallback "
+                  f"{r['overflow']}")
+            launches[f"sharded_step_rank{r['rank']}"] = tuple(
+                sum(n[i] for n in r["launches"]) for i in range(3))
+            launches[f"driver_sharded_rank{r['rank']}"] = tuple(
+                r["train"]["launches"])
+        check(c["loss_rel"] <= TOL_STEP_LOSS, f"phase 15 (a): losses "
+              f"{c['loss_rel']:.3e} relative from one process's")
+        check(c["params_err"] <= TOL_DRIVER_PARAMS * c["params_max"],
+              f"phase 15 (a): parameters off by {c['params_err']:.3e}")
+        check(c["table_grad_rel"] <= TOL_TABLE_GRAD, f"phase 15 (a): the "
+              f"first step's table gradients {c['table_grad_rel']:.3e} of "
+              f"their max abs from one process's")
+        check(c["table_delta_rel"] <= TOL_TABLE_DELTA, f"phase 15 (a): the "
+              f"tables' change {c['table_delta_rel']:.3e} of its max abs "
+              f"{c['table_delta_max']} from one process's")
+        check(c["dense_identical"], "phase 15 (a): the ranks' dense "
+              "parameters differ")
+        check(c["psum_loss_rel"] <= TOL_STEP_LOSS and c["psum_params_err"]
+              <= TOL_DRIVER_PARAMS * c["psum_params_max"]
+              and c["psum_table_delta_rel"] <= TOL_TABLE_DELTA,
+              f"phase 15 (a): the psum step off by {c['psum_loss_rel']:.3e}"
+              f" (loss), {c['psum_params_err']:.3e} (parameters), "
+              f"{c['psum_table_delta_rel']:.3e} (the tables' change)")
+        check(c["fallback_overflow"] == [1.0] * PARALLEL_RANKS,
+              f"phase 15 (a): the forced step's overflow counters "
+              f"{c['fallback_overflow']}, expected 1 on every rank")
+        check(c["fallback_params_err"] <= TOL_FALLBACK
+              * c["fallback_params_max"] and c["fallback_table_delta_rel"]
+              <= TOL_TABLE_DELTA, f"phase 15 (a): the fallback step off "
+              f"the a2a step by {c['fallback_params_err']:.3e} (parameters)"
+              f", {c['fallback_table_delta_rel']:.3e} (the tables' change)")
+        n_rank = [r["train"]["launches"] for r in ranks]
+        check(all(n == n_rank[0] and min(n) > 0 for n in n_rank),
+              f"phase 15 (b): the ranks' train() launches {n_rank}")
+        check(c["train_auc_gap"] < TOL_DRIVER and c["train_best_val_gap"]
+              < TOL_DRIVER and c["train_log_loss_gap"] < TOL_DRIVER_LOG_LOSS
+              and c["train_params_err"]
+              <= TOL_DRIVER_PARAMS * c["train_params_max"],
+              f"phase 15 (b): train() on the ranks against one process: "
+              f"{c}")
+        check(len(c["writes"][0]) > 0 and not any(c["writes"][1:]),
+              f"phase 15 (b): checkpoint writes by rank {c['writes']}")
+        check(c["checkpoint_matches"], "phase 15 (b): the best checkpoint "
+              "differs from rank 0's returned parameters")
+        mngr = CheckpointManager(res["ckpt"])
+        state = mngr.restore(mngr.best_step())
+        cfg_x = get_config("xlong_hpmn")
+        spec = parallel_check._spec(res["args"])
+        one = init_model(cfg_x.with_model(use_pallas=True), spec.n_items,
+                         spec.n_cats, device=p.dev)
+        one.load_state_dict(state["params"])
+        arrays = make_ctr_dataset(spec, 64, seed=5, min_len_frac=1.0)
+        with torch.no_grad():
+            lg = loss_fn(one, cfg_x.with_model(use_pallas=True),
+                         batch_from_numpy(arrays, device=p.dev))[1]["logits"]
+        check(bool(torch.isfinite(lg).all()), "phase 15 (b): the checkpoint "
+              "loaded on one device gives non-finite logits")
+        step_ms = [float(np.median(r["ms"][1:])) for r in ranks]
+        split = " / ".join(
+            f"{x['queue_ms']:.3f} {x['transfer_ms']:.3f} "
+            f"{x['peer_wait_ms']:.3f} of {x['wall_ms']:.3f}"
+            for x in c["exchange"])
+        deltas = ", ".join(f"{n} {v:.3e}"
+                           for n, v in c["table_delta_max"].items())
+        print(f"phase 15 (a) sharded step xlong_hpmn B=512 (128 rows a "
+              f"rank) T={spec.seq_len} L={L} items {spec.n_items} cats "
+              f"{spec.n_cats}, {PARALLEL_RANKS} ranks on the card over gloo "
+              f"(2 x 2, batch over data and model, a2a), {PARALLEL_STEPS} "
+              f"SGD steps against one process: losses "
+              f"{c['loss_rel']:.3e} relative (tol {TOL_STEP_LOSS}), "
+              f"parameters {c['params_err']:.3e} of max abs "
+              f"{c['params_max']:.3e} (tol {TOL_DRIVER_PARAMS} of it), "
+              f"first-step table gradients {c['table_grad_rel']:.3e} of "
+              f"their max abs (tol {TOL_TABLE_GRAD}), the tables' change "
+              f"{c['table_delta_rel']:.3e} of its max abs ({deltas}; tol "
+              f"{TOL_TABLE_DELTA}), "
+              f"dense parameters identical on every rank | launches per "
+              f"rank per step gru_scan_fwd {L} gru_scan_bwd {L} readout_fwd "
+              f"1 (= expected) | step ms per rank (median of steps 2-"
+              f"{PARALLEL_STEPS}) " + ", ".join(f"{x:.3f}" for x in step_ms)
+              + f" (one process "
+              f"{float(np.median(ref['ms'][1:])):.3f}), capacity factor "
+              f"{ranks[0]['capacity_factor']:.4f} (derived) | a profiled "
+              f"step's host ms per rank, queued-kernel wait, exchange "
+              f"transfer, wait for the model group's other rank, of the "
+              f"step: {split} ({c['exchange'][0]['collectives']} "
+              f"collectives) | psum step: loss "
+              f"{c['psum_loss_rel']:.3e} relative, parameters "
+              f"{c['psum_params_err']:.3e}, the tables' change "
+              f"{c['psum_table_delta_rel']:.3e} | capacity factor 0.01: "
+              f"overflow {c['fallback_overflow']}, parameters "
+              f"{c['fallback_params_err']:.3e} from the a2a step (tol "
+              f"{TOL_FALLBACK} of max abs), the tables' change "
+              f"{c['fallback_table_delta_rel']:.3e} | {p.card}", flush=True)
+        r0 = ranks[0]["train"]
+        print(f"phase 15 (b) train() xlong_hpmn on the {PARALLEL_RANKS} "
+              f"ranks, 16 steps, 2 evals, checkpoints: {r0['seconds']:.1f} s,"
+              f" test auc {r0['test']['auc']:.4f} log_loss "
+              f"{r0['test']['log_loss']:.4f} | against one process: auc gap "
+              f"{c['train_auc_gap']:.2e}, log_loss gap "
+              f"{c['train_log_loss_gap']:.2e}, parameters "
+              f"{c['train_params_err']:.3e} of max abs "
+              f"{c['train_params_max']:.3e} | checkpoint writes by rank "
+              f"{[len(w) for w in c['writes']]}, the best one equal to rank "
+              f"0's returned parameters bit for bit and loaded on one "
+              f"device | launches per rank "
+              f"{n_rank[0]} | " + " | ".join(
+                  line for line in r0["lines"]
+                  if line.startswith(("mesh", "derived", "goodput"))),
+              flush=True)
+
+        # (c) the CLI under NCCL, one rank per card; on one card a 1-rank
+        # group (a 1 x 1 mesh, no collective crosses ranks): the bootstrap
+        n_cards = torch.cuda.device_count()
+        grid = ([f"mesh.model_parallel={2 if n_cards % 2 == 0 else 1}"]
+                if n_cards > 1 else [])
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nnodes", "1", "--nproc_per_node", str(n_cards), "-m",
+             "hpmn_tpu_torch.train.train", *PARALLEL_CLI, *grid],
+            cwd=p.repo, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(cli.returncode == 0 and "TEST auc" in cli.stdout,
+              f"phase 15 (c): torch.distributed.run exited "
+              f"{cli.returncode}:\n{cli.stdout[-2000:]}\n"
+              f"{cli.stderr[-3000:]}")
+        mesh_line = next(line for line in cli.stdout.splitlines()
+                         if line.startswith("mesh"))
+        test_line = next(line for line in cli.stdout.splitlines()
+                         if line.startswith("TEST"))
+        what = ("a 1-rank bootstrap check, no collective crosses ranks"
+                if n_cards == 1 else f"{n_cards} ranks")
+        print(f"phase 15 (c) python -m torch.distributed.run "
+              f"--nproc_per_node {n_cards} -m hpmn_tpu_torch.train.train "
+              f"(NCCL, {what}): exit 0 in {cli_s:.1f} s | {mesh_line} | "
+              f"{test_line}", flush=True)
+        if n_cards >= 2:
+            n = n_cards - n_cards % 2
+            res2 = parallel_check.run(["--ranks", str(n), "--backend",
+                                       "nccl", "--steps",
+                                       str(PARALLEL_STEPS)])
+            c2 = {k: v for k, v in res2["compare"].items()
+                  if k not in ("writes", "exchange")}
+            check(c2["loss_rel"] <= TOL_STEP_LOSS and c2["params_err"]
+                  <= TOL_DRIVER_PARAMS * c2["params_max"]
+                  and c2["table_grad_rel"] <= TOL_TABLE_GRAD
+                  and c2["table_delta_rel"] <= TOL_TABLE_DELTA,
+                  f"phase 15 (c): the step over NCCL on {n} cards: {c2}")
+            print(f"phase 15 (c) the sharded step over NCCL, one rank per "
+                  f"card ({n}): {c2}", flush=True)
+
+        # (d) bf16 BST's gradients against f32, on the card and the CPU
+        print("phase 15 (d) " + bst_bf16_gap(p.dev), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 15 time: {time.perf_counter() - t15:.1f} s", flush=True)
+    return launches
+
+
+def bst_bf16_gap(dev):
+    """bf16 BST's gradient gap from the f32 gradient (the max over the
+    parameters of the max abs difference over the f32 one's max abs), the
+    shapes of tests/test_torch_cuda.py's bf16 BST case, on the card with
+    cuBLAS's reduced-precision bf16 reductions on and off, and on the CPU;
+    and the card's bf16 gradients' gap from the CPU's -> one line."""
+    import torch
+
+    from hpmn_tpu_torch.configs import get_config
+    from hpmn_tpu_torch.data.schema import batch_from_numpy
+    from hpmn_tpu_torch.data.synthetic import (DatasetSpec,
+                                               make_ctr_dataset)
+    from hpmn_tpu_torch.models.model import init_model, loss_fn
+
+    cfg = get_config("amazon_hpmn").with_model(name="bst", bst_blocks=2)
+    spec = DatasetSpec("amazon", seq_len=100, n_items=500, n_cats=40,
+                       n_users=50)
+    data = make_ctr_dataset(spec, 24, seed=3, min_len_frac=0.3)
+
+    def grads(device, dtype):
+        c = cfg.with_model(bst_dtype=dtype)
+        model = init_model(c, 500, 40, seed=3, device=device, n_users=600)
+        loss, _ = loss_fn(model, c, batch_from_numpy(data, device=device))
+        loss.backward()
+        return {n: q.grad.cpu() for n, q in model.named_parameters()}
+
+    def gap(got, want):
+        return max(((got[n] - want[n]).abs().max()
+                    / want[n].abs().max().clamp_min(1e-30)).item()
+                   for n in want)
+
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    try:
+        f32 = grads(dev, "float32")
+        card = {}
+        for on in (True, False):
+            torch.backends.cuda.matmul.\
+                allow_bf16_reduced_precision_reduction = on
+            card[on] = grads(dev, "bfloat16")
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+    cpu32, cpu16 = grads("cpu", "float32"), grads("cpu", "bfloat16")
+    return (f"bf16 BST gradients (amazon, 2 blocks, B 24, T 100), max over "
+            f"parameters of max abs gap / max abs: card bf16 vs card f32 "
+            f"{gap(card[True], f32):.4e} (reduced-precision reduction on, "
+            f"PyTorch's default), {gap(card[False], f32):.4e} (off); CPU "
+            f"bf16 vs CPU f32 {gap(cpu16, cpu32):.4e}; card bf16 vs CPU "
+            f"bf16 {gap(card[True], cpu16):.4e} (on), "
+            f"{gap(card[False], cpu16):.4e} (off)")
 
 
 def main():
@@ -3585,6 +3874,12 @@ def main():
     launches14 = phase_14(SimpleNamespace(
         dev=dev, counters=counters, zero_counters=zero_counters, repo=repo))
 
+    # ---------------------------------- 15. data and model parallelism --
+    # The sharded step and train() on 4 ranks of the card against one
+    # process, the CLI under torch.distributed.run (NCCL), bf16 BST's
+    # gradient gap.
+    launches15 = phase_15(SimpleNamespace(dev=dev, repo=repo, card=card))
+
     def entry(name, src, rep, row, err, by_path, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3609,7 +3904,8 @@ def main():
                **{k_: v[0] for k_, v in launches12.items()},
                **{k_: v["gru_scan_fwd"] for k_, v in launches13.items()
                   if "gru_scan_fwd" in v},
-               **{k_: v[0] for k_, v in launches14.items()}},
+               **{k_: v[0] for k_, v in launches14.items()},
+               **{k_: v[0] for k_, v in launches15.items()}},
               sources=list(cuda_gru.FWD_SOURCES),
               host_us_op=enq13[f"gru_scan_fwd T={store_d_window} "
                                f"B={B_SCAN}"][0],
@@ -3622,7 +3918,8 @@ def main():
               {"training": train_launches[1], "training_dien": fd[1],
                **{k_: v[1] for k_, v in driver_launches.items()},
                "training_user_emb": launches12["training_user_emb"][1],
-               **{k_: v[1] for k_, v in launches14.items()}},
+               **{k_: v[1] for k_, v in launches14.items()},
+               **{k_: v[1] for k_, v in launches15.items()}},
               sources=list(cuda_gru.BWD_SOURCES),
               max_err_over_max_abs=bwd_err,
               pass_ms=pass_first[torch.float32][1],
@@ -3638,7 +3935,8 @@ def main():
                "training_user_emb": launches12["training_user_emb"][4],
                **{k_: v["readout_fwd"] for k_, v in launches13.items()
                   if "readout_fwd" in v},
-               "compare_hpmn": launches14["compare_hpmn"][4]},
+               "compare_hpmn": launches14["compare_hpmn"][4],
+               **{k_: v[2] for k_, v in launches15.items()}},
               host_us_op=enq13[f"readout_fwd B={B_SCAN}"][0],
               host_us_direct=enq13[f"readout_fwd B={B_SCAN}"][1],
               host_us_op_rank=enq13[

@@ -17,7 +17,7 @@ write them); empty, the driver trains on the synthetic task.
 
 Fields the driver takes but does not run yet raise ``NotImplementedError``
 in ``train.train.train`` when they are set: ``train.log_dir``,
-``train.debug_nans`` and every mesh layout but one device (ROADMAP.md).
+``train.debug_nans`` and ``mesh.seq_parallel > 1`` (ROADMAP.md).
 Not carried: ``train.compilation_cache_dir`` (no compile cache to keep)
 and ``train.compact_transfer``.
 """
@@ -112,14 +112,23 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The JAX mesh fields the driver reads: the port trains on one device,
-    so anything else raises (ROADMAP.md). ``enable`` is taken so that the
-    JAX command lines' ``--set mesh.enable=false`` runs; the port is on
-    one device either way."""
+    """The JAX mesh fields the driver reads (``parallel/``). A run of
+    several ranks (``python -m torch.distributed.run``) trains over a
+    (data, model) grid of them, with the embedding tables row-sharded over
+    ``model_parallel`` ranks; one process trains on one device whatever
+    these say, as the JAX driver on one device. ``seq_parallel > 1``
+    raises: it is the next slice (ROADMAP.md)."""
 
     enable: bool = True
     model_parallel: int = 1
+    # replicated | psum | a2a; the driver resolves replicated to a2a (with
+    # batch_over_model) or psum when model_parallel > 1.
     embedding_mode: str = "replicated"
+    # a2a only: shard the batch over data and model, not data alone.
+    batch_over_model: bool = True
+    # The a2a buckets' capacity factor; 0 = derived from the training ids
+    # at startup (train.resolve_capacity_factor).
+    a2a_capacity_factor: float = 0.0
     seq_parallel: int = 1
 
 

@@ -25,6 +25,9 @@ are attributes; every other leaf is a dict entry, whatever its name.
 
 Every key must be consumed and every parameter filled, at its shape, or
 :func:`model_from_flat` raises. :func:`flat_from_model` is its inverse.
+On a grid of ranks, :func:`sharded_model_from_flat` keeps the rows of
+each table a rank owns and :func:`flat_from_sharded_model` gathers them
+back.
 """
 
 from __future__ import annotations
@@ -94,3 +97,26 @@ def flat_from_model(model: nn.Module) -> Dict[str, np.ndarray]:
     host): the inverse of :func:`model_from_flat`."""
     return {jax_key(name): p.detach().cpu().numpy().copy()
             for name, p in model.named_parameters()}
+
+
+def sharded_model_from_flat(cfg: Config, flat: Mapping[str, np.ndarray],
+                            mesh, device="cuda") -> nn.Module:
+    """:func:`model_from_flat`, keeping this rank's rows of every
+    row-sharded table (``parallel.mesh.is_row_sharded``; the JAX tree's
+    tables padded to a multiple of the model group, as
+    ``hpmn_tpu.parallel.init_sharded_model`` pads them): the rows the JAX
+    mesh places on the device at this rank's place in the grid."""
+    from .parallel.train_step import shard_model
+
+    return shard_model(model_from_flat(cfg, flat, device="cpu"),
+                       mesh).to(device)
+
+
+def flat_from_sharded_model(model: nn.Module, mesh) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`sharded_model_from_flat`: the JAX mapping
+    with every table whole (gathered over the model group: every rank of
+    the group calls it)."""
+    from .parallel.train_step import gather_params
+
+    return {jax_key(name): p.detach().cpu().numpy().copy()
+            for name, p in gather_params(model, mesh).items()}

@@ -32,6 +32,7 @@ the same f32 statistics). Parameters keep the JAX layout and names, and
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
@@ -137,15 +138,56 @@ class CaserEncoder(nn.Module):
                           generator=generator)
 
 
+@contextlib.contextmanager
+def _cudnn_without_tf32():
+    """cuDNN's f32 convolutions in f32, not TF32 (PyTorch lets cuDNN take
+    TF32 by default), the flag restored after."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class _Conv1dF32(torch.autograd.Function):
+    """``F.conv1d`` on the card, forward and backward, with cuDNN's TF32
+    off whatever the process's flag says (the backward runs after the
+    forward's context has closed, so it sets the flag again)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        with _cudnn_without_tf32():
+            return F.conv1d(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        with _cudnn_without_tf32():
+            if ctx.needs_input_grad[0]:
+                gx = torch.nn.grad.conv1d_input(x.shape, w, g)
+            if ctx.needs_input_grad[1]:
+                gw = torch.nn.grad.conv1d_weight(x, w.shape, g)
+        return gx, gw
+
+
+def _conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return _Conv1dF32.apply(x, w) if x.is_cuda else F.conv1d(x, w)
+
+
 def caser_encode(enc: CaserEncoder, x: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
     """-> [max over time of relu(conv_w) for w in 2, 3, 4; the vertical
     sums n-major, d minor]. ``F.conv1d`` is a cross-correlation, as
-    ``lax.conv_general_dilated``; the TIO filter becomes [n_h, d_in, w]."""
+    ``lax.conv_general_dilated``; the TIO filter becomes [n_h, d_in, w].
+    On the card it runs with cuDNN's TF32 off (``_Conv1dF32``): the
+    model's f32 is f32 there too."""
     B, T, _ = x.shape
     xm = x * mask[:, :, None]
     xc = xm.transpose(1, 2)  # [B, d_in, T]
-    outs = [torch.relu(F.conv1d(xc, f.permute(2, 1, 0))).amax(dim=-1)
+    outs = [torch.relu(_conv1d(xc, f.permute(2, 1, 0))).amax(dim=-1)
             for f in enc.hor]
     vert = torch.einsum("btd,tn->bnd", xm, enc.vert[:T]).reshape(B, -1)
     return torch.cat(outs + [vert], dim=-1)

@@ -1,13 +1,11 @@
 """Losses: BCE, the HPMN covariance regularizer, L2 — counterpart of
-``hpmn_tpu/models/losses.py``.
-
-``l2_parts`` (the table/dense split of the sharded step) waits with the
-sharded step (ROADMAP.md).
+``hpmn_tpu/models/losses.py``, with ``l2_parts``, the table/dense split
+that the sharded step rebuilds its l2 metric from.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Tuple
 
 import torch
 
@@ -42,3 +40,25 @@ def l2_regularizer(params: Iterable[torch.Tensor]) -> torch.Tensor:
     ``l2_regularizer`` over the param tree's leaves."""
     terms = [p.float().square().sum() for p in params if p.dim() >= 2]
     return torch.stack(terms).sum()
+
+
+def l2_parts(named_params: Iterable[Tuple[str, torch.Tensor]]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``l2_regularizer`` split into (the embedding tables', everything
+    else's): in the sharded step the table rows are sharded over the model
+    group (their part is summed over it) and the dense parameters are
+    replicated (their part is already whole). ``named_params`` as
+    ``model.named_parameters()``; a table is a >= 2-D parameter under
+    ``embedding``."""
+    table, dense, device = [], [], None
+    for name, p in named_params:
+        device = p.device
+        if p.dim() >= 2:
+            part = table if "embedding" in name.split(".") else dense
+            part.append(p.float().square().sum())
+
+    def total(terms):
+        return (torch.stack(terms).sum() if terms
+                else torch.zeros((), device=device))
+
+    return total(table), total(dense)

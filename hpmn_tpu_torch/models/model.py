@@ -253,7 +253,7 @@ def _tm_scan(dtype: torch.dtype, plain: bool):
 
 
 def _apply_dien(model: DIENModel, cfg: Config, batch: Batch,
-                q: torch.Tensor, plain: bool):
+                q: torch.Tensor, plain: bool, lookup=dense_lookup):
     """DIEN's two branches of the JAX apply_model -> (state [B, d_m]
     float32, the aux loss). The negatives feed only the aux loss, so
     without it they are not gathered: JAX's jit drops that dead work,
@@ -262,8 +262,8 @@ def _apply_dien(model: DIENModel, cfg: Config, batch: Batch,
     emb = model.embedding
     aux_on = m.dien_use_aux_loss
     if m.use_pallas:
-        x_tm = dense_lookup(emb, batch.item_seq.T, batch.cat_seq.T)
-        x_neg_tm = (dense_lookup(emb, batch.neg_item_seq.T,
+        x_tm = lookup(emb, batch.item_seq.T, batch.cat_seq.T)
+        x_neg_tm = (lookup(emb, batch.neg_item_seq.T,
                                  batch.neg_cat_seq.T) if aux_on else None)
         mask_tm = (None if m.assume_full_mask
                    else batch.seq_mask.T.to(x_tm.dtype).contiguous())
@@ -271,28 +271,29 @@ def _apply_dien(model: DIENModel, cfg: Config, batch: Batch,
             model.encoder, x_tm, mask_tm, q, x_neg_tm, aux_on,
             gru_seq_tm_fn=_tm_scan(_SCAN_DTYPES[m.scan_dtype], plain))
         return state.float(), aux_loss
-    x = dense_lookup(emb, batch.item_seq, batch.cat_seq)  # [B, T, 2d]
-    x_neg = (dense_lookup(emb, batch.neg_item_seq, batch.neg_cat_seq)
+    x = lookup(emb, batch.item_seq, batch.cat_seq)  # [B, T, 2d]
+    x_neg = (lookup(emb, batch.neg_item_seq, batch.neg_cat_seq)
              if aux_on else None)
     return dien_mod.encode(model.encoder, x, batch.seq_mask.to(x.dtype), q,
                            x_neg=x_neg, use_aux_loss=aux_on)
 
 
 def _apply_baseline(model: nn.Module, cfg: Config, batch: Batch,
-                    q: torch.Tensor, plain: bool) -> torch.Tensor:
+                    q: torch.Tensor, plain: bool,
+                    lookup=dense_lookup) -> torch.Tensor:
     """The gru4rec, rum and extra_baselines branches of the JAX
     apply_model -> the state [B, d_state] (float32) the tower reads beside
     q."""
     m = cfg.model
     emb = model.embedding
     if m.name == "gru4rec" and m.use_pallas:
-        x_tm = dense_lookup(emb, batch.item_seq.T, batch.cat_seq.T)
+        x_tm = lookup(emb, batch.item_seq.T, batch.cat_seq.T)
         mask_tm = (None if m.assume_full_mask
                    else batch.seq_mask.T.to(x_tm.dtype).contiguous())
         scan = _tm_scan(_SCAN_DTYPES[m.scan_dtype], plain)
         _, state = scan(model.encoder.gru, x_tm, mask_tm)
         return state.float()
-    x = dense_lookup(emb, batch.item_seq, batch.cat_seq)  # [B, T, 2d]
+    x = lookup(emb, batch.item_seq, batch.cat_seq)  # [B, T, 2d]
     mask = batch.seq_mask.to(x.dtype)
     if m.name == "gru4rec":
         return gru4rec_mod.encode(model.encoder, x, mask)
@@ -303,17 +304,19 @@ def _apply_baseline(model: nn.Module, cfg: Config, batch: Batch,
 
 
 def _logits(model: nn.Module, cfg: Config, batch: Batch, q: torch.Tensor,
-            state: torch.Tensor) -> torch.Tensor:
+            state: torch.Tensor, lookup=dense_lookup) -> torch.Tensor:
     """The tower over [q; state], with use_user_emb [q; state; the user
-    embedding of batch.uid] (the JAX apply_model's tower_in)."""
+    embedding of batch.uid] (the JAX apply_model's tower_in), the user
+    rows through ``lookup.user`` where the lookup has one."""
     parts = [q, state]
     if cfg.model.use_user_emb:
-        parts.append(user_lookup(model.embedding, batch.uid))
+        user = getattr(lookup, "user", user_lookup)
+        parts.append(user(model.embedding, batch.uid))
     return apply_tower(model.tower, torch.cat(parts, dim=-1))
 
 
 def apply_model(model: nn.Module, cfg: Config, batch: Batch,
-                plain: bool = False,
+                plain: bool = False, lookup=None,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (logits [B], aux): for hpmn aux["memory"] is the slots [B, L,
     d_m] (float32) that the covariance regularizer reads; for dien
@@ -324,17 +327,36 @@ def apply_model(model: nn.Module, cfg: Config, batch: Batch,
     versions under autograd (``gru_scan_tm`` or ``gru_scan_tm_bf16``, with
     the scale for DIEN's AUGRU, the strided ``gru_scan_stride_tm``/``_bf16``,
     the plain readout; GRU4Rec's scan likewise) on any device: the
-    reference that chip_smoke.py holds the kernel path to on the card."""
+    reference that chip_smoke.py holds the kernel path to on the card.
+
+    ``lookup`` (JAX's ``lookup_fn``) replaces ``dense_lookup`` at every
+    gather, and its ``.user`` replaces ``user_lookup``: the row-sharded
+    lookups of ``parallel/embedding_sharding.py``. The flags a lookup
+    appends to its ``overflow_sink`` come back as aux["a2a_overflow"]
+    (float32, 1.0 iff any exchange of this call took the fallback)."""
     check_supported(cfg)
+    sink = getattr(lookup, "overflow_sink", None)
+    if sink is not None:
+        sink.clear()
+    logits, aux = _apply(model, cfg, batch, plain, lookup or dense_lookup)
+    if sink:
+        aux["a2a_overflow"] = torch.stack(sink).max().float()
+        sink.clear()
+    return logits, aux
+
+
+def _apply(model: nn.Module, cfg: Config, batch: Batch, plain: bool,
+           lookup) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     m = cfg.model
     emb = model.embedding
-    q = dense_lookup(emb, batch.target_item, batch.target_cat)  # [B, 2d]
+    q = lookup(emb, batch.target_item, batch.target_cat)  # [B, 2d]
     if m.name == "dien":
-        state, aux_loss = _apply_dien(model, cfg, batch, q, plain)
-        return _logits(model, cfg, batch, q, state), {"aux_loss": aux_loss}
+        state, aux_loss = _apply_dien(model, cfg, batch, q, plain, lookup)
+        return (_logits(model, cfg, batch, q, state, lookup),
+                {"aux_loss": aux_loss})
     if m.name != "hpmn":
-        state = _apply_baseline(model, cfg, batch, q, plain)
-        return _logits(model, cfg, batch, q, state), {}
+        state = _apply_baseline(model, cfg, batch, q, plain, lookup)
+        return _logits(model, cfg, batch, q, state, lookup), {}
     if m.use_pallas and m.use_hierarchical_scan:
         # Transposing the int32 ids, not the activations, gives time-major
         # embeddings. The scans run in scan_dtype: x, the mask and the
@@ -342,7 +364,7 @@ def apply_model(model: nn.Module, cfg: Config, batch: Batch,
         # inside), and the memory comes back to float32 for the readout
         # and the covariance regularizer, as the JAX apply_model does.
         dtype = _SCAN_DTYPES[m.scan_dtype]
-        x_tm = dense_lookup(emb, batch.item_seq.T, batch.cat_seq.T)
+        x_tm = lookup(emb, batch.item_seq.T, batch.cat_seq.T)
         mask_tm = (None if m.assume_full_mask
                    else batch.seq_mask.T.to(dtype).contiguous())
         bf16 = dtype == torch.bfloat16
@@ -367,7 +389,7 @@ def apply_model(model: nn.Module, cfg: Config, batch: Batch,
         memory = memory.float()
         state = readout(model.readout, memory, q)
     else:
-        x = dense_lookup(emb, batch.item_seq, batch.cat_seq)  # [B, T, 2d]
+        x = lookup(emb, batch.item_seq, batch.cat_seq)  # [B, T, 2d]
         mask = batch.seq_mask.to(x.dtype)
         if m.use_hierarchical_scan:
             memory = hpmn_mod.encode_hierarchical(model.encoder, x, mask,
@@ -376,7 +398,7 @@ def apply_model(model: nn.Module, cfg: Config, batch: Batch,
             memory = hpmn_mod.encode_oracle(model.encoder, x, mask,
                                             m.hpmn_period)
         state = attention_readout(model.readout, memory, q)
-    return _logits(model, cfg, batch, q, state), {"memory": memory}
+    return _logits(model, cfg, batch, q, state, lookup), {"memory": memory}
 
 
 def total_loss(model: nn.Module, cfg: Config, logits: torch.Tensor,
@@ -404,13 +426,15 @@ def total_loss(model: nn.Module, cfg: Config, logits: torch.Tensor,
 
 
 def loss_fn(model: nn.Module, cfg: Config, batch: Batch,
-            plain: bool = False,
+            plain: bool = False, lookup=None,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One differentiable call: -> (loss, metrics with bce, cov_reg (hpmn)
-    or aux_loss (dien), l2, loss and the logits). ``plain`` as for
-    :func:`apply_model`."""
-    logits, aux = apply_model(model, cfg, batch, plain=plain)
+    or aux_loss (dien), l2, loss, a2a_overflow (a sharded lookup's) and
+    the logits). ``plain`` and ``lookup`` as for :func:`apply_model`."""
+    logits, aux = apply_model(model, cfg, batch, plain=plain, lookup=lookup)
     loss, metrics = total_loss(model, cfg, logits, aux,
                                batch.label.to(logits.dtype))
+    if "a2a_overflow" in aux:
+        metrics["a2a_overflow"] = aux["a2a_overflow"]
     metrics["logits"] = logits
     return loss, metrics

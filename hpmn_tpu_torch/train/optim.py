@@ -99,6 +99,10 @@ class Optimizer:
         else:
             self.inner = torch.optim.Adam(self.params, **kw)
         self.clip = t.grad_clip_norm
+        # () -> the squared global norm of the gradients, where they are
+        # sharded (``parallel.train_step`` sets it); None: the sum of the
+        # squares of this process's gradients.
+        self.grad_sq_norm: Optional[Callable[[], torch.Tensor]] = None
         self.accum = max(1, t.grad_accum)
         self.ema_decay = t.ema_decay
         self.count = 0  # updates made: the schedule's count
@@ -128,7 +132,10 @@ class Optimizer:
             self.mini_step = 0
         if self.clip > 0:
             grads = [p.grad for p in self.params if p.grad is not None]
-            norm = torch.sqrt(sum(g.square().sum() for g in grads))
+            if self.grad_sq_norm is not None:
+                norm = torch.sqrt(self.grad_sq_norm())
+            else:
+                norm = torch.sqrt(sum(g.square().sum() for g in grads))
             keep = norm < self.clip  # on the device: no host sync
             for g in grads:
                 g.copy_(torch.where(keep, g, g / norm * self.clip))

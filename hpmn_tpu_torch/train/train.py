@@ -1,11 +1,14 @@
-"""The training driver — counterpart of ``hpmn_tpu/train/train.py`` on one
-device: the optimizer, the training step, the data, evaluation,
-checkpoints, ``train()`` and the CLI.
+"""The training driver — counterpart of ``hpmn_tpu/train/train.py``: the
+optimizer, the training step, the data, evaluation, checkpoints,
+``train()`` and the CLI, on one device or over a grid of ranks.
 
     python -m hpmn_tpu_torch.train.train --config amazon_hpmn \\
         --set n_examples=4000 train.max_steps=150 train.eval_every=50
     python -m hpmn_tpu_torch.train.train --config amazon_gru4rec \\
         --set data_dir=data      # data/amazon.npz from process_amazon
+    python -m torch.distributed.run --nproc_per_node 4 \\
+        -m hpmn_tpu_torch.train.train --config xlong_hpmn \\
+        --set mesh.model_parallel=2   # 2 x 2 ranks, tables row-sharded
 
     opt = make_optimizer(cfg, model.parameters())   # train/optim.py
     step = make_train_step(cfg, model, opt)
@@ -20,7 +23,8 @@ training step runs the CUDA scan kernels forward and backward and the
 readout kernel forward, and an eval step the scan kernels forward and the
 readout kernel.
 
-Its loop is the JAX driver's single-device branch: log, eval and
+Several ranks run the JAX driver's mesh branch (``parallel/``, see
+:func:`train`). Its loop is the JAX driver's: log, eval and
 checkpoint boundaries crossed by ``step % every < k``, early stop on
 ``early_stop_patience``, the best checkpoint restored before the test
 eval, a preemption snapshot on SIGTERM, the goodput line, and the JAX
@@ -83,22 +87,35 @@ def make_train_step(cfg: Config, model: torch.nn.Module, opt: Optimizer,
     return step
 
 
+def fuse_steps(step: Callable[[Batch], Dict[str, torch.Tensor]]
+               ) -> Callable[[Sequence[Batch]], Dict[str, torch.Tensor]]:
+    """step(batch) -> metrics, made multistep(batches): k = len(batches)
+    steps, one per batch, in order (the JAX ``fuse_steps``, there one
+    dispatch of a ``lax.scan``; here a Python loop). -> the last step's
+    metrics, except ``a2a_overflow``, summed over the k steps (an event
+    count: the steps whose exchange took the fallback)."""
+
+    def multistep(batches: Sequence[Batch]) -> Dict[str, torch.Tensor]:
+        if not batches:
+            raise ValueError("a multistep needs at least one batch")
+        overflow = []
+        for batch in batches:
+            metrics = step(batch)
+            if "a2a_overflow" in metrics:
+                overflow.append(metrics["a2a_overflow"])
+        if overflow:
+            metrics = dict(metrics, a2a_overflow=torch.stack(overflow).sum())
+        return metrics
+
+    return multistep
+
+
 def make_multistep_train(cfg: Config, model: torch.nn.Module, opt: Optimizer,
                          ) -> Callable[[Sequence[Batch]],
                                        Dict[str, torch.Tensor]]:
     """-> multistep(batches) -> the last step's metrics: k = len(batches)
-    steps, one per batch, in order (the JAX ``fuse_steps``, there one
-    dispatch of a ``lax.scan``; here a Python loop)."""
-    step = make_train_step(cfg, model, opt)
-
-    def multistep(batches: Sequence[Batch]) -> Dict[str, torch.Tensor]:
-        if not batches:
-            raise ValueError("make_multistep_train needs at least one batch")
-        for batch in batches:
-            metrics = step(batch)
-        return metrics
-
-    return multistep
+    steps of :func:`make_train_step`, through :func:`fuse_steps`."""
+    return fuse_steps(make_train_step(cfg, model, opt))
 
 
 def make_datasets(cfg: Config):
@@ -180,12 +197,72 @@ def _check_supported(cfg: Config) -> None:
         if value:
             raise NotImplementedError(f"{what} is not ported yet "
                                       "(ROADMAP.md)")
-    if (mesh.model_parallel > 1 or mesh.seq_parallel > 1
-            or mesh.embedding_mode != "replicated"):
+    if mesh.seq_parallel > 1:
         raise NotImplementedError(
-            "the port trains on one device: mesh.model_parallel, "
-            "mesh.seq_parallel and the psum/a2a embedding modes wait for "
-            "ROADMAP.md item 10")
+            "mesh.seq_parallel > 1 (parallel/seq_parallel.py and the "
+            "DP x SP x TP branch) is the port's next slice (ROADMAP.md "
+            "queue 1, item 10)")
+
+
+def resolve_capacity_factor(cfg: Config, arrays, spec, n_model: int,
+                            bom: bool, n_data: int, n_hosts: int = 1,
+                            log: Callable[[str], None] = print) -> Config:
+    """``mesh.a2a_capacity_factor == 0`` (the default) is auto: derive it
+    from the training ids (``derive_capacity_factor``) at the per-rank
+    query counts of the train and the eval exchanges, as the JAX
+    driver's ``resolve_capacity_factor``. -> the config with the factor
+    (unchanged for an explicit factor or another mode)."""
+    if cfg.mesh.embedding_mode != "a2a" or \
+            float(cfg.mesh.a2a_capacity_factor) != 0.0:
+        return cfg
+    import numpy as np
+
+    from ..parallel.embedding_sharding import derive_capacity_factor
+    from ..parallel.embedding_sharding import pad_vocab
+
+    T = spec.seq_len
+    sizes = []
+    for B in (cfg.train.batch_size, cfg.eval_batch_size):
+        b_glob = B * n_hosts
+        if bom:  # ids arrive rank-local: examples per rank x T
+            ex = max(1, b_glob // (n_data * n_model))
+            sizes += [ex, ex * T]
+        else:  # replicated ids: each rank exchanges a 1/S chunk
+            ex = max(1, b_glob // n_data)
+            sizes += [-(-ex // n_model), -(-ex * T // n_model)]
+    sizes = sorted(set(sizes))
+    rows = min(2000, len(arrays["target_item"]))
+    samples = []
+    for seq_f, tgt_f, n_vocab in (("item_seq", "target_item", spec.n_items),
+                                  ("cat_seq", "target_cat", spec.n_cats)):
+        ids = np.concatenate([
+            np.asarray(arrays[seq_f][:rows]).reshape(-1).astype(np.int64),
+            np.asarray(arrays[tgt_f][:rows]).astype(np.int64)])
+        samples.append((ids, pad_vocab(int(n_vocab), n_model) // n_model))
+    factor = derive_capacity_factor(samples, n_model, sizes)
+    log(f"derived a2a_capacity_factor={factor:.2f} from the id "
+        f"distribution (slice sizes {sizes})")
+    return dataclasses.replace(cfg, mesh=dataclasses.replace(
+        cfg.mesh, a2a_capacity_factor=factor))
+
+
+def resolve_mesh(cfg: Config, mesh, arrays, spec,
+                 log: Callable[[str], None] = print):
+    """The JAX driver's mesh branch's choices -> (cfg, batch_over_model):
+    ``batch_over_model`` holds with more than one model rank unless the
+    mode is an explicit ``psum``; ``replicated`` becomes ``a2a`` under it,
+    else ``psum``; then the a2a capacity factor is resolved."""
+    from ..parallel import distributed
+
+    m = cfg.mesh
+    bom = (m.batch_over_model and mesh.n_model > 1
+           and m.embedding_mode in ("replicated", "a2a"))
+    if mesh.n_model > 1 and m.embedding_mode == "replicated":
+        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+            m, embedding_mode="a2a" if bom else "psum"))
+    cfg = resolve_capacity_factor(cfg, arrays, spec, mesh.n_model, bom,
+                                  mesh.n_data, distributed.host_count(), log)
+    return cfg, bom
 
 
 def resolve_device(device, what: str = "train()") -> torch.device:
@@ -217,22 +294,92 @@ def _grouped(items: Iterator, k: int) -> Iterator[List]:
             buf = []
 
 
+def _setup_mesh(cfg: Config, device: torch.device):
+    """-> (mesh or None, this rank's device). One process (no process
+    group) trains on ``device``; a process group of ranks (``initialize``
+    joined it, or ``torch.distributed.run`` set its variables) trains over
+    the (data, model) grid of them."""
+    import torch.distributed as dist
+
+    from ..parallel import distributed
+    from ..parallel.mesh import make_mesh
+
+    distributed.initialize(device=device)
+    if not dist.is_initialized():
+        if cfg.mesh.model_parallel > 1:
+            raise ValueError(
+                f"mesh.model_parallel={cfg.mesh.model_parallel} shards the "
+                "tables over that many ranks: run under python -m "
+                "torch.distributed.run")
+        return None, device
+    if not cfg.mesh.enable:
+        raise ValueError("mesh.enable=false with a process group of "
+                         f"{dist.get_world_size()} ranks")
+    device = distributed.rank_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return make_mesh(cfg.mesh.model_parallel), device
+
+
 def train(cfg: Config, log: Callable[[str], None] = print,
           device="cuda") -> Dict:
     """Run one config end to end on ``device``. -> {"test": the test
     metrics, "best_val_auc", "best_step", "history": the VAL metrics per
     eval, "params" and "ema_params" ({name: tensor}; None without EMA),
     "goodput"}, and "preempted": True after a SIGTERM (the test metrics
-    nan)."""
-    _check_supported(cfg)
-    device = resolve_device(device)
-    train_arrays, val_arrays, test_arrays, spec = make_datasets(cfg)
-    train_loader = DataLoader(train_arrays, cfg.train.batch_size,
-                              shuffle=True, seed=cfg.seed)
-    val_loader = DataLoader(val_arrays, cfg.eval_batch_size, shuffle=False)
-    test_loader = DataLoader(test_arrays, cfg.eval_batch_size, shuffle=False)
+    nan).
 
-    model = init_model_for(cfg, spec, device)
+    In a process group of several ranks (``python -m
+    torch.distributed.run``, or ``parallel.initialize`` called first)
+    every rank calls it: the JAX driver's mesh branch. The ranks form a
+    (data, model) grid (``mesh.model_parallel``), the tables are
+    row-sharded over the model group (vocab padded to a multiple of it),
+    each step is ``parallel.make_shardmap_steps`` on this rank's rows of
+    its host's batch (``train.batch_size`` per host, as in JAX), each
+    rank evaluates its own rows and the metrics are merged over every
+    rank, and only rank 0 logs and writes: its checkpoint holds the whole
+    tables (the single-device format, padded rows), which a resume on the
+    same grid shards again. A device of ``cuda`` is ``cuda:LOCAL_RANK``
+    modulo the card count. "params" and "ema_params" are whole on every
+    rank."""
+    from ..parallel import distributed
+
+    _check_supported(cfg)
+    mesh, device = _setup_mesh(cfg, resolve_device(device))
+    primary = distributed.is_primary()
+    if not primary:
+        log = lambda line: None  # noqa: E731 - only rank 0 logs
+    train_arrays, val_arrays, test_arrays, spec = make_datasets(cfg)
+    host, hosts = distributed.host_index(), distributed.host_count()
+    rank, world = distributed.process_index(), distributed.process_count()
+    if mesh is not None:
+        from ..parallel.embedding_sharding import pad_vocab
+
+        cfg, bom = resolve_mesh(cfg, mesh, train_arrays, spec, log)
+        over = ("data", "model") if bom else ("data",)
+        s = mesh.n_model
+        spec_init = dataclasses.replace(
+            spec, n_items=pad_vocab(spec.n_items, s),
+            n_cats=pad_vocab(spec.n_cats, s),
+            n_users=pad_vocab(spec.n_users, s))
+        log(f"mesh: {mesh.shape}, embedding_mode={cfg.mesh.embedding_mode}"
+            f", batch_over_model={bom}")
+    train_loader = DataLoader(train_arrays, cfg.train.batch_size,
+                              shuffle=True, seed=cfg.seed,
+                              process_index=host, process_count=hosts)
+    val_loader = DataLoader(val_arrays, cfg.eval_batch_size, shuffle=False,
+                            process_index=rank, process_count=world)
+    test_loader = DataLoader(test_arrays, cfg.eval_batch_size,
+                             shuffle=False, process_index=rank,
+                             process_count=world)
+
+    if mesh is None:
+        model = init_model_for(cfg, spec, device)
+    else:
+        from ..parallel.train_step import shard_model
+
+        model = shard_model(init_model_for(cfg, spec_init, "cpu"),
+                            mesh).to(device)
     opt = make_optimizer(cfg, model.parameters())
     names = [n for n, _ in model.named_parameters()]
     ema_on = cfg.train.ema_decay > 0
@@ -251,13 +398,44 @@ def train(cfg: Config, log: Callable[[str], None] = print,
     if k == 0:
         log("steps_per_dispatch=0 (the JAX startup probe) runs as 1 here")
         k = 1
-    train_step = make_multistep_train(cfg, model, opt)
-    eval_step = make_eval_step(cfg, device)
+    if mesh is None:
+        train_step = make_multistep_train(cfg, model, opt)
+        eval_step = make_eval_step(cfg, device)
+
+        def place(group):
+            return ([place_batch(b, device) for b, _ in group], group[-1][1])
+    else:
+        from ..parallel.mesh import shard_batch
+        from ..parallel.train_step import (gather_state, make_shardmap_steps,
+                                           shard_state)
+
+        train_step, sharded_eval = make_shardmap_steps(cfg, model, opt, mesh)
+
+        def eval_step(model_, batch):
+            return sharded_eval(model_, place_batch(batch, device))
+
+        def place(group):
+            return ([place_batch(shard_batch(mesh, b, over=over), device)
+                     for b, _ in group], group[-1][1])
+    merge_group = None if mesh is None else mesh.cpu_group
 
     def evaluate(loader):
         return run_evaluate(eval_step, params_for_eval(), loader,
                             cfg.eval_streaming_bins, cfg.eval_gauc_bins,
-                            cfg.eval_gauc_max_users)
+                            cfg.eval_gauc_max_users, group=merge_group)
+
+    def barrier():
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=mesh.cpu_group)
+
+    def load(restored):
+        params, opt_state = restored["params"], restored["opt_state"]
+        if mesh is not None:
+            params, opt_state = shard_state(model, params, opt_state, mesh)
+        model.load_state_dict(params)
+        opt.load_state_dict(opt_state)
 
     mngr = None
     start_step = 0
@@ -267,8 +445,7 @@ def train(cfg: Config, log: Callable[[str], None] = print,
             async_checkpointing=cfg.train.async_checkpoint)
         restored = mngr.restore()
         if restored is not None:
-            model.load_state_dict(restored["params"])
-            opt.load_state_dict(restored["opt_state"])
+            load(restored)
             train_loader.load_state_dict(restored["loader"])
             start_step = int(restored["step"])
             log(f"resumed from step {start_step}")
@@ -282,6 +459,17 @@ def train(cfg: Config, log: Callable[[str], None] = print,
         prev_sigterm = signal.signal(
             signal.SIGTERM, lambda s, f: stop_signal.append(s))
 
+    def stopping() -> bool:
+        """A SIGTERM seen here, or, in a process group, by any rank (every
+        rank then stops at the same step)."""
+        if mesh is None or mngr is None:
+            return bool(stop_signal)
+        import torch.distributed as dist
+
+        flag = torch.tensor([int(bool(stop_signal))])
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=mesh.cpu_group)
+        return bool(flag.item())
+
     best_auc, best_step, evals_since_best = -1.0, -1, 0
     preempted = False
     history = []
@@ -293,9 +481,15 @@ def train(cfg: Config, log: Callable[[str], None] = print,
     n_evals = n_saves = 0
     t_last, n_since = time.time(), 0
     position = train_loader.state_dict()
+    # The a2a exchange's fallback counter: the per-call flags (steps that
+    # fell back) are pulled at log boundaries only.
+    of_pending, overflow_steps, of_seen = [], 0, False
 
-    def place(group):
-        return ([place_batch(b, device) for b, _ in group], group[-1][1])
+    def fold_overflow() -> int:
+        nonlocal overflow_steps
+        overflow_steps += int(sum(float(x) for x in of_pending))
+        of_pending.clear()
+        return overflow_steps
 
     it = prefetch_to_device(_grouped(_with_position(train_loader), k), place)
     profiler, profiled = None, False
@@ -305,12 +499,14 @@ def train(cfg: Config, log: Callable[[str], None] = print,
     def save(metrics=None):
         nonlocal ckpt_s, n_saves
         t0 = time.time()
-        if metrics is None:
-            mngr.save_preemption(step, model.state_dict(), opt.state_dict(),
-                                 position)
-        else:
-            mngr.save(step, model.state_dict(), opt.state_dict(), position,
-                      metrics)
+        if mesh is None:
+            model_state, opt_state = model.state_dict(), opt.state_dict()
+        else:  # every rank gathers, rank 0 writes
+            model_state, opt_state = gather_state(model, opt, mesh)
+        if primary and metrics is None:
+            mngr.save_preemption(step, model_state, opt_state, position)
+        elif primary:
+            mngr.save(step, model_state, opt_state, position, metrics)
         ckpt_s += time.time() - t0
         n_saves += 1
 
@@ -327,7 +523,10 @@ def train(cfg: Config, log: Callable[[str], None] = print,
             metrics = train_step(batches)
             step += k
             n_since += k
-            if stop_signal:
+            if "a2a_overflow" in metrics:
+                of_pending.append(metrics["a2a_overflow"])
+                of_seen = True
+            if stopping():
                 save()
                 log(f"SIGTERM: checkpoint saved at step {step}; exiting")
                 preempted = True
@@ -336,17 +535,21 @@ def train(cfg: Config, log: Callable[[str], None] = print,
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 profiler.stop()
-                os.makedirs(trace_dir, exist_ok=True)
-                profiler.export_chrome_trace(
-                    os.path.join(trace_dir, "trace.json"))
+                if primary:
+                    os.makedirs(trace_dir, exist_ok=True)
+                    profiler.export_chrome_trace(
+                        os.path.join(trace_dir, "trace.json"))
                 profiler, profiled = None, True
                 log(f"profile trace written to {trace_dir}")
             if step % cfg.train.log_every < k:  # crossed a log boundary
                 loss_v = float(metrics["loss"])  # syncs before the clock
                 dt = time.time() - t_last
                 eps = n_since * cfg.train.batch_size / dt
+                of_line = (f" a2a_overflow_steps {fold_overflow()}"
+                           if of_seen else "")
                 log(f"step {step} loss {loss_v:.4f} "
-                    f"bce {float(metrics['bce']):.4f} ex/s {eps:.1f}")
+                    f"bce {float(metrics['bce']):.4f} ex/s {eps:.1f}"
+                    f"{of_line}")
                 t_last, n_since = time.time(), 0
             if step % cfg.train.eval_every < k or step >= cfg.train.max_steps:
                 t_pause = time.time()
@@ -378,6 +581,10 @@ def train(cfg: Config, log: Callable[[str], None] = print,
             signal.signal(signal.SIGTERM, prev_sigterm)
     total_s = max(time.time() - t_run_start, 1e-9)
     goodput = max(0.0, 1.0 - nonproductive_s / total_s)
+    fold_overflow()
+    if overflow_steps:
+        log(f"a2a_overflow_steps {overflow_steps} total (chronic fallback "
+            f"-> raise mesh.a2a_capacity_factor)")
     if step > start_step:
         log(f"goodput {100 * goodput:.1f}% (train "
             f"{total_s - nonproductive_s:.1f}s, eval+ckpt "
@@ -386,11 +593,21 @@ def train(cfg: Config, log: Callable[[str], None] = print,
             f"{ckpt_s:.2f}s in {n_saves} saves")
 
     def named(tensors):
-        return {n: t.detach() for n, t in zip(names, tensors)}
+        out = {n: t.detach() for n, t in zip(names, tensors)}
+        if mesh is not None:  # whole tables on every rank
+            from ..parallel.train_step import gather_rows, table_names
+
+            for n in table_names(model):
+                out[n] = gather_rows(out[n], mesh)
+        return out
 
     def ema_params():
         return named(opt.ema_params()) if ema_on else None
 
+    if mngr is not None:  # rank 0's writes are on disk before any read
+        if primary:
+            mngr.wait_until_finished()
+        barrier()
     if preempted:
         # Fast exit: no test eval; the restarted run resumes from here.
         mngr.close()
@@ -404,9 +621,7 @@ def train(cfg: Config, log: Callable[[str], None] = print,
 
     # The final test eval with the best checkpoint if there is one.
     if mngr is not None and mngr.best_step() is not None:
-        restored = mngr.restore(mngr.best_step())
-        model.load_state_dict(restored["params"])
-        opt.load_state_dict(restored["opt_state"])  # carries the EMA shadow
+        load(mngr.restore(mngr.best_step()))  # carries the EMA shadow
     test = evaluate(test_loader)
     log(f"TEST auc {test['auc']:.4f} gauc {test['gauc']:.4f} "
         f"log_loss {test['log_loss']:.4f} calib {test['calib']:.3f}")
@@ -444,7 +659,11 @@ def apply_overrides(cfg: Config, kvs: Sequence[str]) -> Config:
 
 def main(argv=None):
     """CLI: python -m hpmn_tpu_torch.train.train --config amazon_hpmn
-    [--device cuda|cpu|cuda:N] [--set key=value ...]."""
+    [--device cuda|cpu|cuda:N] [--set key=value ...]. Under ``python -m
+    torch.distributed.run --nproc_per_node N -m
+    hpmn_tpu_torch.train.train ...`` every rank runs it (NCCL on the card,
+    gloo with ``--device cpu``), and leaves the process group at the
+    end."""
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True)
     p.add_argument("--device", default="cuda",
@@ -452,8 +671,13 @@ def main(argv=None):
     p.add_argument("--set", nargs="*", default=[],
                    help="dotted config overrides, e.g. train.max_steps=100")
     args = p.parse_args(argv)
-    return train(apply_overrides(get_config(args.config), args.set),
-                 device=args.device)
+    from ..parallel import distributed
+
+    try:
+        return train(apply_overrides(get_config(args.config), args.set),
+                     device=args.device)
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -102,6 +102,9 @@ TOL_GRU, TOL_READOUT, TOL_GRAD = 1e-4, 1e-5, 1e-4
 TOL_PROJ = 1e-6
 TOL_GRU_BF16, TOL_GRAD_BF16 = 3e-2, 1e-2
 TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16 = 1e-4, 2e-2
+# bf16 BST's gradients, card against CPU: what the CPU's bf16 path meets
+# against JAX's bf16 path (tests/test_torch_bst.py::BF16_GRAD_TOL).
+BF16_GRAD_TOL = 0.3
 BF16 = torch.bfloat16
 
 
@@ -1348,9 +1351,11 @@ def test_extra_family_step_on_the_card_matches_the_cpu(dev, family, over):
     relative, every gradient TOL_GRAD of its max abs), with no
     hand-kernel launch. bf16 BST is held as tests/test_torch_bst.py holds
     it to JAX's bf16 path: logits 2e-2, loss 2e-3 relative, every
-    gradient f32 and finite (bf16 rounds the matmuls' outputs, and the
-    card's and the CPU's bf16 products round in other places: the
-    embedding gradient differed by 5.4e-2 of its max abs)."""
+    gradient f32, finite and within BF16_GRAD_TOL of its max abs (bf16
+    rounds the matmuls' outputs, and the card's and the CPU's bf16
+    products round in other places: the embedding gradient differed by
+    5.4e-2 of its max abs; the CPU's bf16 gradients meet JAX's bf16 ones
+    within 0.26 of their max abs, the bound's origin)."""
     cfg = configs.get_config("amazon_hpmn").with_model(name=family, **over)
     data = _amazon_data(n=24)
     counted = (cuda_gru.launches, cuda_gru.bwd_launches,
@@ -1371,10 +1376,44 @@ def test_extra_family_step_on_the_card_matches_the_cpu(dev, family, over):
         for name, p in p_k.items():
             assert p.grad.dtype == torch.float32, name
             assert torch.isfinite(p.grad).all(), name
+            assert _rel_err(p.grad.cpu(), p_c[name].grad) <= BF16_GRAD_TOL, \
+                name
         return
     assert abs(l_k - l_c) <= 1e-5 * abs(l_c)
     for name, p in p_k.items():
         assert _rel_err(p.grad.cpu(), p_c[name].grad) <= TOL_GRAD, name
+
+
+def test_caser_step_on_the_card_with_default_flags_matches_the_cpu():
+    """Caser's loss and gradients on the card with the process's TF32
+    flags at PyTorch's defaults (cuDNN may take TF32, cuBLAS may not) ==
+    the CPU's at the f32 tolerances of the test above: its convolutions
+    run in f32 whatever the flags say, and leave the flags as they
+    were."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        cfg = configs.get_config("amazon_hpmn").with_model(name="caser")
+        data = _amazon_data(n=24)
+        out = []
+        for d in ("cpu", torch.device("cuda", 0)):
+            model = init_model(cfg, 500, 40, seed=3, device=d)
+            loss, _ = loss_fn(model, cfg, batch_from_numpy(data, device=d))
+            loss.backward()
+            out.append((loss.item(), dict(model.named_parameters())))
+        assert (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32) == (False, True)
+        (l_c, p_c), (l_k, p_k) = out
+        assert abs(l_k - l_c) <= 1e-5 * abs(l_c)
+        for name, p in p_k.items():
+            assert _rel_err(p.grad.cpu(), p_c[name].grad) <= TOL_GRAD, name
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def test_history_store_serves_bst_and_svdpp_on_the_card(dev):
@@ -1397,3 +1436,46 @@ def test_history_store_serves_bst_and_svdpp_on_the_card(dev):
         if cfg.model.name == "svdpp":
             with pytest.raises(ValueError, match="p_u"):
                 stores[1].predict([50], [3], [3])
+
+
+def test_sharded_step_on_four_ranks_of_the_card_matches_one_process():
+    """chip_smoke.py phase 15 (a) and (b) at a smaller size: 4 ranks on
+    the card over gloo (CUDA tensors), a (2, 2) grid, xlong_hpmn's six
+    layers at T = 300, the a2a exchange with the batch over data and
+    model: 2 SGD steps against one process (losses 1e-5 relative,
+    parameters 1e-4 of max abs, the first step's table gradients 1e-4 and
+    the tables' change 1e-2 of their own max abs), K1 x 6, K2 x 6 and K5
+    per rank and step, the dense parameters the same on every rank; the
+    psum step; the forced fallback (overflow 1, the a2a step's parameters
+    within 1e-6 of max abs); train() on the ranks against one process
+    (AUC 0.02, log-loss 1e-5, parameters 1e-4 of max abs), rank 0 alone
+    writing, its best checkpoint the returned parameters bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    from hpmn_tpu_torch.tools import parallel_check
+
+    # capacity factor 2: each rank's 16 targets get 16 slots an owner, so
+    # the a2a steps take the exchange, not its (exact) fallback
+    res = parallel_check.run(["--seq_len", "300", "--items", "4000",
+                              "--cats", "100", "--batch", "64", "--steps",
+                              "2", "--train_examples", "1600",
+                              "--eval_batch", "64", "--capacity_factor",
+                              "2.0"])
+    c = res["compare"]
+    for r in res["ranks"]:
+        assert [tuple(n) for n in r["launches"]] == [(6, 6, 1)] * 2
+        assert r["overflow"] == [0.0, 0.0]
+    assert c["loss_rel"] <= 1e-5
+    assert c["params_err"] <= 1e-4 * c["params_max"]
+    assert c["table_grad_rel"] <= 1e-4 and c["table_delta_rel"] <= 1e-2
+    assert c["dense_identical"]
+    assert c["psum_loss_rel"] <= 1e-5
+    assert c["psum_params_err"] <= 1e-4 * c["psum_params_max"]
+    assert c["psum_table_delta_rel"] <= 1e-2
+    assert c["fallback_overflow"] == [1.0] * 4
+    assert c["fallback_params_err"] <= 1e-6 * c["fallback_params_max"]
+    assert c["fallback_table_delta_rel"] <= 1e-2
+    assert c["train_auc_gap"] < 0.02 and c["train_log_loss_gap"] < 1e-5
+    assert c["train_params_err"] <= 1e-4 * c["train_params_max"]
+    assert c["writes"][0] and not any(c["writes"][1:])
+    assert c["checkpoint_matches"]
