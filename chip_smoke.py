@@ -4,8 +4,9 @@
 step and HistoryStore serving, the training driver, the real-data
 layer with the GRU4Rec and RUM baselines, the stores' persistence and
 bundles from train to serve, the serving daemon with the AOT-exported
-graphs, and the remaining families (BST, DNN, LSTM, Caser, SHAN, SVD++)
-trained, served and compared, once on one GPU.
+graphs, the remaining families (BST, DNN, LSTM, Caser, SHAN, SVD++)
+trained, served and compared, and data, model and sequence parallelism
+over ranks of the card, once on one GPU.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a GPU
 
@@ -168,6 +169,25 @@ before the last line):
    where there are 2 cards or more); (d) bf16 BST's gradient gap
    from f32 on the card (cuBLAS's reduced-precision bf16 reduction on and
    off) beside the CPU's.
+16. sequence parallelism (``parallel/seq_parallel.py``, through
+   ``parallel_check --seq_parallel 2``; use_pallas off, the kernels as the
+   chunk scan, ``mesh.sp_inner=pallas``): (a) 2 ranks of the card over
+   gloo, a (1, 2, 1) grid, xlong_hpmn at full width and depth (B 512, T
+   1000: layer 0 split into chunks of 500 steps, 4 microbatches of 128
+   rows, through K1-scale and K2-scale from the received carry; the five
+   upper layers, whose T does not split, whole through K1 and K2), 3 SGD
+   steps against one process (losses, parameters, the first step's table
+   gradients, the tables' change), the launches counted per rank and
+   step; layer 0's SP scan with the kernels against the plain SP scan;
+   the step's ms per rank against one process's, and a profiled step's
+   ``seq_handoff`` and ``seq_gather`` spans; (b) the (1, 2, 2) grid on 4
+   ranks: the tables row-sharded, a2a with the batch over data and
+   model, the same checks, and its train(); (c) taobao_dien (T 300, B
+   512, left-padded) on (1, 2, 1), both scans T-sharded (K1-scale and
+   K2-scale, the AUGRU's dscale crossing the handoffs), against one
+   process; (d) train() with ``mesh.seq_parallel=2`` on the 2 ranks, 16
+   steps with evaluation and checkpoints, against one process at phase
+   10's tolerances, rank 0 alone writing.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -383,6 +403,15 @@ COMPARE_KERNELS = {"hpmn": (0, 1, 4), "dien": (0, 1, 9, 10),
 PARALLEL_RANKS, PARALLEL_STEPS = 4, 4
 TOL_FALLBACK = 1e-6
 TOL_TABLE_GRAD, TOL_TABLE_DELTA = 1e-4, 1e-2
+# Phase 16: sequence parallelism, SP_STEPS SGD steps on (1, 2, 1) (2
+# ranks: xlong_hpmn, then taobao_dien) and on (1, 2, 2) (4 ranks, a2a with
+# the batch over data and model), against the same steps in one process
+# with the kernels, time-major, at phase 15's tolerances (the SP ranks
+# split T and scan the chunks with K1-scale and K2-scale from a received
+# h0, another order of the same sums); layer 0's T-sharded scan with the
+# kernels against the plain chunk scan at TOL_GRU (values) and TOL_GRAD
+# (the gradients over their max abs); train() as phase 15 (b).
+SP_STEPS = 3
 PARALLEL_CLI = ["--config", "xlong_hpmn", "--set", "n_examples=2048",
                 "train.max_steps=4", "train.eval_every=4",
                 "train.log_every=2", "model.use_pallas=true",
@@ -1801,6 +1830,212 @@ def phase_15(p):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 15 time: {time.perf_counter() - t15:.1f} s", flush=True)
+    return launches
+
+
+def sp_launches(cfg, T, B, n_seq, train=True):
+    """A step's expected launches on one rank of a seq group over
+    sequences of T steps and B rows: (K1, K2, K1-scale, K2-scale) of
+    hpmn's hierarchy (a layer whose T splits into chunks of at least
+    ``sp_min_local_steps`` runs its microbatches through the scale forms,
+    the others run whole through K1 and K2) or of DIEN's two scans; K2
+    and K2-scale only with ``train``."""
+    m, mesh = cfg.model, cfg.mesh
+    mb = max(1, min(mesh.sp_microbatches, B))
+    while B % mb:
+        mb -= 1
+    if m.name == "dien":
+        lengths = [T, T]
+    else:
+        lengths = [T // m.hpmn_period ** l for l in range(m.hpmn_layers)]
+        lengths = [t for t in lengths if t]
+    whole = sum(1 for t in lengths
+                if t % n_seq or t // n_seq < mesh.sp_min_local_steps)
+    split = len(lengths) - whole
+    return (whole, whole * train, split * mb, split * mb * train)
+
+
+def phase_16(p):
+    """Sequence parallelism on the card (see the module docstring): (a)
+    and (c) the SP steps of xlong_hpmn and taobao_dien on 2 ranks of a
+    (1, 2, 1) grid, with layer 0's SP scan against the plain SP scan, and
+    (d) train(), all through one ``parallel_check`` run; (b) the
+    composed (1, 2, 2) grid on 4 ranks. ``p`` carries the card line. ->
+    the ranks' launch counters (K1, K2, K5, K1-scale, K2-scale), by
+    path."""
+    from hpmn_tpu_torch.configs import get_config
+    from hpmn_tpu_torch.tools import parallel_check
+    from hpmn_tpu_torch.train.train import apply_overrides
+
+    t16 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_seq_")
+    launches = {}
+    sp = ["mesh.seq_parallel=2", "model.use_pallas=false",
+          "mesh.sp_inner=pallas"]
+    cfg_x = apply_overrides(get_config("xlong_hpmn"), sp)
+    cfg_d = apply_overrides(get_config("taobao_dien"), sp)
+    B = 512
+    try:
+        runs = {}
+        for name, grid in (("sp", ["--ranks", "2", "--model_parallel", "1"]),
+                           ("composed", ["--ranks", "4"])):
+            t0 = time.perf_counter()
+            runs[name] = parallel_check.run(
+                [*grid, "--seq_parallel", "2", "--backend", "gloo",
+                 "--steps", str(SP_STEPS), "--out",
+                 os.path.join(work, name)])
+            runs[name]["seconds"] = time.perf_counter() - t0
+        for name, res in runs.items():
+            c, ranks, ref = res["compare"], res["ranks"], res["reference"]
+            tag = {"sp": "(a)", "composed": "(b)"}[name]
+            b_rank = B // ranks[0]["grid"][2]  # rows of a rank (bom)
+            T = parallel_check._spec(res["args"]).seq_len
+            k1, k2, k1s, k2s = sp_launches(cfg_x, T, b_rank, 2)
+            for r in ranks:
+                got = [(*n, *ns) for n, ns in zip(r["launches"],
+                                                  r["launches_scale"])]
+                check(got == [(k1, k2, 0, k1s, k2s)] * SP_STEPS
+                      and min(k1, k2, k1s, k2s) > 0,
+                      f"phase 16 {tag} rank {r['rank']}: launches per step "
+                      f"(K1, K2, K5, K1-scale, K2-scale) {got}, expected "
+                      f"{(k1, k2, 0, k1s, k2s)}")
+                launches[f"{name}_step_rank{r['rank']}"] = tuple(
+                    sum(n[i] for n in got) for i in range(5))
+                t = r["train"]
+                launches[f"driver_{name}_rank{r['rank']}"] = (
+                    *t["launches"], *t["launches_scale"])
+            check(c["loss_rel"] <= TOL_STEP_LOSS, f"phase 16 {tag}: losses "
+                  f"{c['loss_rel']:.3e} relative from one process's")
+            check(c["params_err"] <= TOL_DRIVER_PARAMS * c["params_max"],
+                  f"phase 16 {tag}: parameters off by {c['params_err']:.3e}")
+            check(c["table_grad_rel"] <= TOL_TABLE_GRAD, f"phase 16 {tag}: "
+                  f"the first step's table gradients {c['table_grad_rel']:.3e}"
+                  f" of their max abs from one process's")
+            check(c["table_delta_rel"] <= TOL_TABLE_DELTA, f"phase 16 {tag}: "
+                  f"the tables' change {c['table_delta_rel']:.3e} of its max "
+                  f"abs from one process's")
+            check(c["dense_identical"], f"phase 16 {tag}: the ranks' dense "
+                  "parameters differ")
+            n_rank = [(*r["train"]["launches"], *r["train"]["launches_scale"])
+                      for r in ranks]
+            check(all(n == n_rank[0] and n[0] > 0 and n[3] > 0
+                      for n in n_rank), f"phase 16 {tag}: the ranks' train() "
+                  f"launches {n_rank}")
+            check(c["train_auc_gap"] < TOL_DRIVER and c["train_best_val_gap"]
+                  < TOL_DRIVER and c["train_log_loss_gap"]
+                  < TOL_DRIVER_LOG_LOSS and c["train_params_err"]
+                  <= TOL_DRIVER_PARAMS * c["train_params_max"],
+                  f"phase 16 {tag}: train() on the ranks against one "
+                  f"process: {c}")
+            check(len(c["writes"][0]) > 0 and not any(c["writes"][1:])
+                  and c["checkpoint_matches"], f"phase 16 {tag}: checkpoint "
+                  f"writes by rank {c['writes']}, equal to rank 0's "
+                  f"parameters: {c['checkpoint_matches']}")
+            step_ms = [float(np.median(r["ms"][1:])) for r in ranks]
+            ex = c["exchange"]
+            spans = " / ".join(
+                f"{x['seq_handoff_ms']:.3f} {x['seq_gather_ms']:.3f} "
+                f"{x['seq_queue_ms']:.3f}"
+                + (f" {x['exchange_ms']:.3f}" if name == "composed" else "")
+                + f" of {x['wall_ms']:.3f}" for x in ex)
+            what = (f"(1, 2, 1), xlong_hpmn B={b_rank} on each rank"
+                    if name == "sp" else "(1, 2, 2), batch over data and "
+                    f"model ({b_rank} rows a rank), a2a (capacity factor "
+                    f"{ranks[0]['capacity_factor']:.4f}, derived)")
+            print(f"phase 16 {tag} SP step {what}, T={T} L="
+                  f"{cfg_x.model.hpmn_layers}, {len(ranks)} ranks on the card "
+                  f"over gloo, {SP_STEPS} SGD steps against one process "
+                  f"(kernels, time-major): losses {c['loss_rel']:.3e} "
+                  f"relative (tol {TOL_STEP_LOSS}), parameters "
+                  f"{c['params_err']:.3e} of max abs {c['params_max']:.3e} "
+                  f"(tol {TOL_DRIVER_PARAMS} of it), first-step table "
+                  f"gradients {c['table_grad_rel']:.3e} (tol "
+                  f"{TOL_TABLE_GRAD}), the tables' change "
+                  f"{c['table_delta_rel']:.3e} (tol {TOL_TABLE_DELTA}) | "
+                  f"launches per rank per step gru_scan_fwd {k1} "
+                  f"gru_scan_bwd {k2} gru_scan_fwd_scale {k1s} "
+                  f"gru_scan_bwd_scale {k2s} (= expected) | step ms per rank "
+                  f"(median of steps 2-{SP_STEPS}) "
+                  + ", ".join(f"{x:.3f}" for x in step_ms)
+                  + f" (one process {float(np.median(ref['ms'][1:])):.3f}) "
+                  f"| a profiled step's host ms per rank, seq_handoff, "
+                  f"seq_gather, seq_queue_wait"
+                  + (", embedding_exchange" if name == "composed" else "")
+                  + f", of the step: {spans} ({ex[0]['seq_collectives']} seq "
+                  f"collectives) | train() 16 steps, 2 evals: "
+                  f"{ranks[0]['train']['seconds']:.1f} s, auc gap "
+                  f"{c['train_auc_gap']:.2e}, log_loss gap "
+                  f"{c['train_log_loss_gap']:.2e}, parameters "
+                  f"{c['train_params_err']:.3e} of max abs "
+                  f"{c['train_params_max']:.3e}, launches per rank "
+                  f"{n_rank[0]}, writes by rank "
+                  f"{[len(w) for w in c['writes']]} | run "
+                  f"{res['seconds']:.1f} s | " + " | ".join(
+                      line for line in ranks[0]["train"]["lines"]
+                      if line.startswith(("mesh", "derived", "goodput")))
+                  + f" | {p.card}", flush=True)
+
+        # (a) layer 0's SP scan, kernels against the plain chunk scan
+        ranks = runs["sp"]["ranks"]
+        for r in ranks:
+            sc = r["sp_scan"]
+            check(sc["h_err"] <= TOL_GRU and sc["h_T_err"] <= TOL_GRU
+                  and sc["grad_rel"] <= TOL_GRAD, f"phase 16 (a) rank "
+                  f"{r['rank']}: layer 0's SP scan with the kernels off the "
+                  f"plain one: {sc}")
+            n = sc["launches"]["pallas"]
+            check(n[3] > 0 and n[4] > 0 and sum(
+                sc["launches"]["jnp"]) == 0, f"phase 16 (a) rank "
+                f"{r['rank']}: the SP scan's launches {sc['launches']}")
+        print(f"phase 16 (a) layer 0's SP scan (T {ranks[0]['sp_scan']['T']}"
+              f" over 2 ranks, {cfg_x.mesh.sp_microbatches} microbatches), "
+              "the kernels against the plain chunk scan, per rank: "
+              + " / ".join(
+                  f"h {r['sp_scan']['h_err']:.3e} of max abs "
+                  f"{r['sp_scan']['h_max']:.3e}, h_T "
+                  f"{r['sp_scan']['h_T_err']:.3e} (tol {TOL_GRU}), x and "
+                  f"weight gradients {r['sp_scan']['grad_rel']:.3e} of max "
+                  f"abs (tol {TOL_GRAD}), ms {r['sp_scan']['ms']['pallas']:.3f}"
+                  f" (plain {r['sp_scan']['ms']['jnp']:.3f}), launches "
+                  f"{r['sp_scan']['launches']['pallas']}" for r in ranks),
+              flush=True)
+
+        # (c) taobao_dien on (1, 2, 1)
+        c = runs["sp"]["compare"]
+        ref = runs["sp"]["reference"]
+        T_d = parallel_check._spec(runs["sp"]["args"],
+                                   parallel_check.DIEN_DATASET).seq_len
+        k1, k2, k1s, k2s = sp_launches(cfg_d, T_d, B, 2)
+        for r in ranks:
+            d = r["dien"]
+            got = [(*n, *ns) for n, ns in zip(d["launches"],
+                                              d["launches_scale"])]
+            check(got == [(k1, k2, 0, k1s, k2s)] * SP_STEPS and k1s > 0,
+                  f"phase 16 (c) rank {r['rank']}: launches per step {got}, "
+                  f"expected {(k1, k2, 0, k1s, k2s)}")
+            launches[f"sp_dien_step_rank{r['rank']}"] = tuple(
+                sum(n[i] for n in got) for i in range(5))
+        check(c["dien_loss_rel"] <= TOL_STEP_LOSS and c["dien_params_err"]
+              <= TOL_DRIVER_PARAMS * c["dien_params_max"]
+              and c["dien_identical"], f"phase 16 (c): the DIEN SP step "
+              f"against one process: losses {c['dien_loss_rel']:.3e}, "
+              f"parameters {c['dien_params_err']:.3e}, identical on the "
+              f"ranks {c['dien_identical']}")
+        print(f"phase 16 (c) SP step taobao_dien B={B} T={T_d} left-padded on "
+              f"(1, 2, 1), {SP_STEPS} SGD steps against one process (K1, K2, "
+              f"K1-scale, K2-scale time-major): losses "
+              f"{c['dien_loss_rel']:.3e} relative, parameters "
+              f"{c['dien_params_err']:.3e} of max abs "
+              f"{c['dien_params_max']:.3e}, the same on both ranks | "
+              f"launches per rank per step gru_scan_fwd_scale {k1s} "
+              f"gru_scan_bwd_scale {k2s} (= expected: two scans of 4 "
+              f"microbatches) | step ms per rank " + ", ".join(
+                  f"{float(np.median(r['dien']['ms'][1:])):.3f}"
+                  for r in ranks) + f" (one process "
+              f"{float(np.median(ref['dien']['ms'][1:])):.3f})", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 16 time: {time.perf_counter() - t16:.1f} s", flush=True)
     return launches
 
 
@@ -3880,6 +4115,12 @@ def main():
     # gradient gap.
     launches15 = phase_15(SimpleNamespace(dev=dev, repo=repo, card=card))
 
+    # ------------------------------------------ 16. sequence parallelism --
+    # The SP steps (xlong_hpmn and taobao_dien on (1, 2, 1), xlong on the
+    # composed (1, 2, 2)) and train() on ranks of the card against one
+    # process, layer 0's SP scan against the plain one.
+    launches16 = phase_16(SimpleNamespace(card=card))
+
     def entry(name, src, rep, row, err, by_path, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3905,7 +4146,8 @@ def main():
                **{k_: v["gru_scan_fwd"] for k_, v in launches13.items()
                   if "gru_scan_fwd" in v},
                **{k_: v[0] for k_, v in launches14.items()},
-               **{k_: v[0] for k_, v in launches15.items()}},
+               **{k_: v[0] for k_, v in launches15.items()},
+               **{k_: v[0] for k_, v in launches16.items() if v[0]}},
               sources=list(cuda_gru.FWD_SOURCES),
               host_us_op=enq13[f"gru_scan_fwd T={store_d_window} "
                                f"B={B_SCAN}"][0],
@@ -3919,7 +4161,8 @@ def main():
                **{k_: v[1] for k_, v in driver_launches.items()},
                "training_user_emb": launches12["training_user_emb"][1],
                **{k_: v[1] for k_, v in launches14.items()},
-               **{k_: v[1] for k_, v in launches15.items()}},
+               **{k_: v[1] for k_, v in launches15.items()},
+               **{k_: v[1] for k_, v in launches16.items() if v[1]}},
               sources=list(cuda_gru.BWD_SOURCES),
               max_err_over_max_abs=bwd_err,
               pass_ms=pass_first[torch.float32][1],
@@ -4001,6 +4244,8 @@ def main():
                 ({"training_dien_bf16": bd[9 + idx]} if "bf16" in name
                  else {"training_dien": fd[9 + idx],
                        "compare_dien": launches14["compare_dien"][9 + idx],
+                       **{k_: v[3 + idx] for k_, v in launches16.items()
+                          if v[3 + idx]},
                        **(
                      {"serving_dien": serve_launches[9],
                       "bundle_dien": launches12["bundle_dien"][9],

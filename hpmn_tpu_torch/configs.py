@@ -16,8 +16,8 @@ directory of preprocessed ``<dataset>.npz`` files (the ``process_*`` CLIs
 write them); empty, the driver trains on the synthetic task.
 
 Fields the driver takes but does not run yet raise ``NotImplementedError``
-in ``train.train.train`` when they are set: ``train.log_dir``,
-``train.debug_nans`` and ``mesh.seq_parallel > 1`` (ROADMAP.md).
+in ``train.train.train`` when they are set: ``train.log_dir`` and
+``train.debug_nans`` (ROADMAP.md).
 Not carried: ``train.compilation_cache_dir`` (no compile cache to keep)
 and ``train.compact_transfer``.
 """
@@ -115,9 +115,11 @@ class MeshConfig:
     """The JAX mesh fields the driver reads (``parallel/``). A run of
     several ranks (``python -m torch.distributed.run``) trains over a
     (data, model) grid of them, with the embedding tables row-sharded over
-    ``model_parallel`` ranks; one process trains on one device whatever
-    these say, as the JAX driver on one device. ``seq_parallel > 1``
-    raises: it is the next slice (ROADMAP.md)."""
+    ``model_parallel`` ranks, or with ``seq_parallel > 1`` over a (data,
+    seq) or (data, seq, model) grid, the long scans' T axis sharded over
+    ``seq_parallel`` ranks (``parallel/seq_parallel.py``); one process
+    trains on one device whatever these say, as the JAX driver on one
+    device."""
 
     enable: bool = True
     model_parallel: int = 1
@@ -130,6 +132,12 @@ class MeshConfig:
     # at startup (train.resolve_capacity_factor).
     a2a_capacity_factor: float = 0.0
     seq_parallel: int = 1
+    # The SP pipeline's microbatches (bubble (S-1)/(MB+S-1)), the chunk
+    # below which a scan runs whole on every seq rank, and the chunk scan:
+    # jnp (the plain scan) or pallas (the CUDA scan kernels).
+    sp_microbatches: int = 4
+    sp_min_local_steps: int = 8
+    sp_inner: str = "jnp"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -73,16 +73,23 @@ def auxiliary_loss(enc: DIENEncoder, h_seq: torch.Tensor, x: torch.Tensor,
 
 def encode(enc: DIENEncoder, x: torch.Tensor, mask: torch.Tensor,
            target: torch.Tensor, x_neg: Optional[torch.Tensor] = None,
-           use_aux_loss: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+           use_aux_loss: bool = True, gru_seq_fn: Optional[Callable] = None,
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batch-major plain DIEN: x [B, T, d], mask [B, T], target [B, d] ->
-    (the final evolved interest [B, d_m], the aux loss, a scalar)."""
-    h_seq, _ = gru_sequence(enc.gru1, x, mask=mask)
+    (the final evolved interest [B, d_m], the aux loss, a scalar).
+    gru_seq_fn: (params, x, mask, gate_scale=None) -> (h_seq, h_T) runs
+    both scans, the attention as the AUGRU's gate scale; default the plain
+    ``gru_sequence`` (the sequence-parallel scan passes its own)."""
+    if gru_seq_fn is None:
+        gru_seq_fn = lambda p, xs, m, a=None: gru_sequence(  # noqa: E731
+            p, xs, mask=m, gate_scale=a)
+    h_seq, _ = gru_seq_fn(enc.gru1, x, mask)
     aux = x.new_zeros(())
     if use_aux_loss and x_neg is not None:
         aux = auxiliary_loss(enc, h_seq, x, x_neg, mask)
     _, alpha = attention_readout(enc.attn, h_seq, target, slot_mask=mask,
                                  return_weights=True)
-    _, h_T = gru_sequence(enc.augru, h_seq, mask=mask, gate_scale=alpha)
+    _, h_T = gru_seq_fn(enc.augru, h_seq, mask, alpha)
     return h_T, aux
 
 

@@ -9,6 +9,8 @@ kernels (K1 forward, K2 backward; ``ops/cuda_gru.py::gru_sequence_tm``).
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 from torch import nn
 
@@ -26,8 +28,12 @@ class GRU4RecEncoder(nn.Module):
         self.gru.reset_parameters(generator)
 
 
-def encode(enc: GRU4RecEncoder, x: torch.Tensor,
-           mask: torch.Tensor) -> torch.Tensor:
-    """x [B, T, d_in], mask [B, T] -> the user state [B, mem_dim]."""
-    _, h_T = gru_sequence(enc.gru, x, mask=mask)
+def encode(enc: GRU4RecEncoder, x: torch.Tensor, mask: torch.Tensor,
+           gru_seq_fn: Optional[Callable] = None) -> torch.Tensor:
+    """x [B, T, d_in], mask [B, T] -> the user state [B, mem_dim].
+    gru_seq_fn: (params, x, mask) -> (h_seq, h_T); default the plain
+    ``gru_sequence`` (the sequence-parallel scan passes its own)."""
+    if gru_seq_fn is None:
+        gru_seq_fn = lambda p, xs, m: gru_sequence(p, xs, mask=m)  # noqa: E731
+    _, h_T = gru_seq_fn(enc.gru, x, mask)
     return h_T

@@ -253,7 +253,8 @@ def _tm_scan(dtype: torch.dtype, plain: bool):
 
 
 def _apply_dien(model: DIENModel, cfg: Config, batch: Batch,
-                q: torch.Tensor, plain: bool, lookup=dense_lookup):
+                q: torch.Tensor, plain: bool, lookup=dense_lookup,
+                gru_seq_fn=None):
     """DIEN's two branches of the JAX apply_model -> (state [B, d_m]
     float32, the aux loss). The negatives feed only the aux loss, so
     without it they are not gathered: JAX's jit drops that dead work,
@@ -275,12 +276,13 @@ def _apply_dien(model: DIENModel, cfg: Config, batch: Batch,
     x_neg = (lookup(emb, batch.neg_item_seq, batch.neg_cat_seq)
              if aux_on else None)
     return dien_mod.encode(model.encoder, x, batch.seq_mask.to(x.dtype), q,
-                           x_neg=x_neg, use_aux_loss=aux_on)
+                           x_neg=x_neg, use_aux_loss=aux_on,
+                           gru_seq_fn=gru_seq_fn)
 
 
 def _apply_baseline(model: nn.Module, cfg: Config, batch: Batch,
-                    q: torch.Tensor, plain: bool,
-                    lookup=dense_lookup) -> torch.Tensor:
+                    q: torch.Tensor, plain: bool, lookup=dense_lookup,
+                    gru_seq_fn=None) -> torch.Tensor:
     """The gru4rec, rum and extra_baselines branches of the JAX
     apply_model -> the state [B, d_state] (float32) the tower reads beside
     q."""
@@ -296,7 +298,8 @@ def _apply_baseline(model: nn.Module, cfg: Config, batch: Batch,
     x = lookup(emb, batch.item_seq, batch.cat_seq)  # [B, T, 2d]
     mask = batch.seq_mask.to(x.dtype)
     if m.name == "gru4rec":
-        return gru4rec_mod.encode(model.encoder, x, mask)
+        return gru4rec_mod.encode(model.encoder, x, mask,
+                                  gru_seq_fn=gru_seq_fn)
     if m.name == "rum":
         return rum_mod.encode(model.encoder, x, mask, q)
     return extra_baselines.encode(model.encoder, m.name, cfg, x, mask, q,
@@ -315,8 +318,20 @@ def _logits(model: nn.Module, cfg: Config, batch: Batch, q: torch.Tensor,
     return apply_tower(model.tower, torch.cat(parts, dim=-1))
 
 
+def _resolve_gru_seq_fn(cfg: Config, gru_seq_fn):
+    """The batch-major branches' scan, as the JAX ``_resolve_gru_seq_fn``:
+    the one given, else the plain scan (None), or with ``use_pallas`` the
+    CUDA scan kernels' batch-major wrapper (``cuda_gru.gru_sequence``).
+    The families that take the time-major ``use_pallas`` branch never
+    read it, there as in JAX."""
+    if gru_seq_fn is not None or not cfg.model.use_pallas:
+        return gru_seq_fn
+    return lambda p, xs, m, a=None: cuda_gru.gru_sequence(  # noqa: E731
+        p, xs, mask=m, gate_scale=a)
+
+
 def apply_model(model: nn.Module, cfg: Config, batch: Batch,
-                plain: bool = False, lookup=None,
+                plain: bool = False, lookup=None, gru_seq_fn=None,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (logits [B], aux): for hpmn aux["memory"] is the slots [B, L,
     d_m] (float32) that the covariance regularizer reads; for dien
@@ -333,12 +348,19 @@ def apply_model(model: nn.Module, cfg: Config, batch: Batch,
     gather, and its ``.user`` replaces ``user_lookup``: the row-sharded
     lookups of ``parallel/embedding_sharding.py``. The flags a lookup
     appends to its ``overflow_sink`` come back as aux["a2a_overflow"]
-    (float32, 1.0 iff any exchange of this call took the fallback)."""
+    (float32, 1.0 iff any exchange of this call took the fallback).
+
+    ``gru_seq_fn`` (JAX's): (params, x [B, T, d], mask [B, T],
+    gate_scale=None) -> (h_seq, h_T), the scan of the batch-major branches
+    (hpmn's hierarchy, gru4rec, both of DIEN's scans), for example the
+    sequence-parallel scan (``parallel/seq_parallel.py``); the
+    ``use_pallas`` time-major branches ignore it, as JAX's do."""
     check_supported(cfg)
     sink = getattr(lookup, "overflow_sink", None)
     if sink is not None:
         sink.clear()
-    logits, aux = _apply(model, cfg, batch, plain, lookup or dense_lookup)
+    logits, aux = _apply(model, cfg, batch, plain, lookup or dense_lookup,
+                         _resolve_gru_seq_fn(cfg, gru_seq_fn))
     if sink:
         aux["a2a_overflow"] = torch.stack(sink).max().float()
         sink.clear()
@@ -346,16 +368,18 @@ def apply_model(model: nn.Module, cfg: Config, batch: Batch,
 
 
 def _apply(model: nn.Module, cfg: Config, batch: Batch, plain: bool,
-           lookup) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+           lookup, gru_seq_fn) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     m = cfg.model
     emb = model.embedding
     q = lookup(emb, batch.target_item, batch.target_cat)  # [B, 2d]
     if m.name == "dien":
-        state, aux_loss = _apply_dien(model, cfg, batch, q, plain, lookup)
+        state, aux_loss = _apply_dien(model, cfg, batch, q, plain, lookup,
+                                      gru_seq_fn)
         return (_logits(model, cfg, batch, q, state, lookup),
                 {"aux_loss": aux_loss})
     if m.name != "hpmn":
-        state = _apply_baseline(model, cfg, batch, q, plain, lookup)
+        state = _apply_baseline(model, cfg, batch, q, plain, lookup,
+                                gru_seq_fn)
         return _logits(model, cfg, batch, q, state, lookup), {}
     if m.use_pallas and m.use_hierarchical_scan:
         # Transposing the int32 ids, not the activations, gives time-major
@@ -393,7 +417,7 @@ def _apply(model: nn.Module, cfg: Config, batch: Batch, plain: bool,
         mask = batch.seq_mask.to(x.dtype)
         if m.use_hierarchical_scan:
             memory = hpmn_mod.encode_hierarchical(model.encoder, x, mask,
-                                                  m.hpmn_period)
+                                                  m.hpmn_period, gru_seq_fn)
         else:
             memory = hpmn_mod.encode_oracle(model.encoder, x, mask,
                                             m.hpmn_period)
@@ -426,12 +450,14 @@ def total_loss(model: nn.Module, cfg: Config, logits: torch.Tensor,
 
 
 def loss_fn(model: nn.Module, cfg: Config, batch: Batch,
-            plain: bool = False, lookup=None,
+            plain: bool = False, lookup=None, gru_seq_fn=None,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One differentiable call: -> (loss, metrics with bce, cov_reg (hpmn)
     or aux_loss (dien), l2, loss, a2a_overflow (a sharded lookup's) and
-    the logits). ``plain`` and ``lookup`` as for :func:`apply_model`."""
-    logits, aux = apply_model(model, cfg, batch, plain=plain, lookup=lookup)
+    the logits). ``plain``, ``lookup`` and ``gru_seq_fn`` as for
+    :func:`apply_model`."""
+    logits, aux = apply_model(model, cfg, batch, plain=plain, lookup=lookup,
+                              gru_seq_fn=gru_seq_fn)
     loss, metrics = total_loss(model, cfg, logits, aux,
                                batch.label.to(logits.dtype))
     if "a2a_overflow" in aux:

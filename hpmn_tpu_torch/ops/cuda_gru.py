@@ -593,3 +593,22 @@ def gru_sequence_tm(params: GRUParams, x_tm: torch.Tensor,
     else:
         h_seq = scan_fwd(*args)
     return h_seq, h_seq[-1]
+
+
+def gru_sequence(params: GRUParams, x: torch.Tensor,
+                 h0: Optional[torch.Tensor] = None,
+                 mask: Optional[torch.Tensor] = None,
+                 gate_scale: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch-major scan through :func:`gru_sequence_tm` (the JAX
+    ``pallas_gru_sequence``): x [B, T, d_in], h0 [B, d_m] or None, mask and
+    gate_scale [B, T] or None -> (h_seq [B, T, d_m], h_T [B, d_m]). x, the
+    mask and the scale are copied time-major and contiguous (the layout
+    the kernels check); h0 is made contiguous and gets its gradient."""
+    def tm(t):
+        return None if t is None else t.transpose(0, 1).contiguous()
+
+    h_seq, h_T = gru_sequence_tm(
+        params, tm(x), tm(mask), None if h0 is None else h0.contiguous(),
+        tm(gate_scale))
+    return h_seq.transpose(0, 1), h_T

@@ -79,18 +79,20 @@ def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def _exchange(collective: Callable, t: torch.Tensor, group, *args):
+def _exchange(collective: Callable, t: torch.Tensor, group, *args,
+              span: str = "embedding_exchange",
+              wait_span: str = "exchange_queue_wait"):
     """``collective(t, group, *args)``, one collective of a lookup, under
-    the profiler span ``embedding_exchange``. Under gloo a CUDA tensor is
-    staged through the host, so the collective first waits for the
-    stream's queued kernels: that wait is made explicit before the span,
-    under its own span ``exchange_queue_wait``, and the exchange's span
-    holds the copies, the transfer and the wait for the group's other
-    ranks."""
+    the profiler span ``span``. Under gloo a CUDA tensor is staged through
+    the host, so the collective first waits for the stream's queued
+    kernels: that wait is made explicit before the span, under its own
+    span ``wait_span``, and the collective's span holds the copies, the
+    transfer and the wait for the group's other ranks. The sequence-
+    parallel scan's collectives pass their own span names."""
     if group is not None and t.is_cuda and dist.get_backend(group) == "gloo":
-        with torch.profiler.record_function("exchange_queue_wait"):
+        with torch.profiler.record_function(wait_span):
             torch.cuda.current_stream(t.device).synchronize()
-    with torch.profiler.record_function("embedding_exchange"):
+    with torch.profiler.record_function(span):
         return collective(t, group, *args)
 
 
@@ -403,7 +405,7 @@ def make_sharded_lookup(mesh: Mesh, mode: str = "psum",
     """JAX's drop-in for ``dense_lookup`` over a mesh: the ids of this
     rank's data shard (replicated over the model group) -> their complete
     rows. Without GSPMD this is :func:`local_lookup_fn`; the step averages
-    the table gradients over the data group."""
+    the table gradients over the table group."""
     return local_lookup_fn(mesh, mode, capacity_factor)
 
 

@@ -1,15 +1,21 @@
 """The grid of ranks and its sharding rules — counterpart of
 ``hpmn_tpu/parallel/mesh.py``.
 
-JAX lays its devices out as a ``Mesh`` with axes ("data", "model"); here
-the ranks of the process group are that grid, data-major: rank
-``d * n_model + m`` sits at data row ``d``, model column ``m``. A
-:class:`Mesh` holds the two kinds of process group the step needs:
+JAX lays its devices out as a ``Mesh`` with axes ("data", "model"), or
+("data", "seq", "model") with sequence parallelism; here the ranks of the
+process group are that grid, data-major with model innermost and seq
+between: rank ``(d * n_seq + s) * n_model + m`` sits at data row ``d``,
+seq index ``s``, model column ``m``. A :class:`Mesh` holds the process
+groups the steps need:
 
-- the **model group**: the ranks of this rank's data row, over which the
-  embedding tables are row-sharded (JAX's "model" axis);
-- the **data group**: the ranks of this rank's model column, which hold the
-  same table rows and average their gradients (JAX's "data" axis).
+- the **model group**: the ranks of this rank's (data, seq) cell, over
+  which the embedding tables are row-sharded (JAX's "model" axis);
+- the **seq group**: the ranks of this rank's (data, model) cell, which
+  hold the same examples and split the long scans' T axis
+  (``seq_parallel.py``; JAX's "seq" axis);
+- the **table group**: the ranks of this rank's model column, which hold
+  the same table rows and average their gradients (JAX's "data" axis,
+  with sequence parallelism its ("data", "seq") axes).
 
 Dense parameters are replicated on every rank; the rule for which
 parameters are row-sharded is JAX's: every 2-D table under ``embedding``
@@ -30,6 +36,7 @@ from . import distributed
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+SEQ_AXIS = "seq"
 # JAX's PartitionSpecs, as tuples: the table rows over "model", the rest
 # replicated.
 ROW_SHARDED = (MODEL_AXIS, None)
@@ -38,27 +45,33 @@ REPLICATED = ()
 
 @dataclasses.dataclass
 class Mesh:
-    """This rank's place in the (data, model) grid and its groups. Without
-    a process group (one process) the groups are None and every collective
-    of the port is skipped: the mesh is 1 x 1."""
+    """This rank's place in the (data, seq, model) grid and its groups.
+    Without a process group (one process) the groups are None and every
+    collective of the port is skipped: the mesh is 1 x 1."""
 
     n_data: int
     n_model: int
     rank: int
     model_group: Any = None
-    data_group: Any = None
     world_group: Any = None
     # A gloo group over every rank, for host-side merges (the eval merge,
     # barriers) whatever the step's backend is.
     cpu_group: Any = None
+    n_seq: int = 1
+    seq_group: Any = None
+    table_group: Any = None
 
     @property
     def size(self) -> int:
-        return self.n_data * self.n_model
+        return self.n_data * self.n_seq * self.n_model
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.n_model
+        return self.rank // (self.n_seq * self.n_model)
+
+    @property
+    def seq_index(self) -> int:
+        return self.rank // self.n_model % self.n_seq
 
     @property
     def model_index(self) -> int:
@@ -66,41 +79,55 @@ class Mesh:
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {DATA_AXIS: self.n_data, MODEL_AXIS: self.n_model}
-
+        """JAX's ``mesh.shape``: (data, model), (data, seq) with sequence
+        parallelism alone (``make_sp_mesh``), else (data, seq, model)."""
+        if self.n_seq == 1:
+            return {DATA_AXIS: self.n_data, MODEL_AXIS: self.n_model}
+        if self.n_model == 1:
+            return {DATA_AXIS: self.n_data, SEQ_AXIS: self.n_seq}
+        return {DATA_AXIS: self.n_data, SEQ_AXIS: self.n_seq,
+                MODEL_AXIS: self.n_model}
 
 
 def make_mesh(model_parallel: int = 1, seq_parallel: int = 1) -> Mesh:
-    """The ranks as a [world / model_parallel, model_parallel] grid,
-    data-major, with its groups. Every rank must call it, in the same
-    order as its other group creations (``new_group`` is collective)."""
-    if seq_parallel != 1:
-        raise NotImplementedError(
-            "seq_parallel > 1 (parallel/seq_parallel.py) is the port's "
-            "next slice (ROADMAP.md queue 1, item 10)")
+    """The ranks as a [world / (seq_parallel * model_parallel),
+    seq_parallel, model_parallel] grid with its groups (see the module
+    docstring). Every rank must call it, in the same order as its other
+    group creations (``new_group`` is collective)."""
     world = distributed.process_count()
-    if world % model_parallel:
-        raise ValueError(f"{world} ranks not divisible by model_parallel="
-                         f"{model_parallel}")
-    n_data = world // model_parallel
+    per = model_parallel * seq_parallel
+    if world % per:
+        raise ValueError(f"{world} ranks not divisible by model_parallel*"
+                         f"seq_parallel={per}")
+    n_data = world // per
     rank = distributed.process_index()
     if not dist.is_initialized():
-        return Mesh(n_data, model_parallel, rank)
-    mine_model = mine_data = None
-    for d in range(n_data):  # every rank creates every group, in order
-        g = dist.new_group(list(range(d * model_parallel,
-                                      (d + 1) * model_parallel)))
-        if rank // model_parallel == d:
-            mine_model = g
-    for m in range(model_parallel):
-        g = dist.new_group(list(range(m, world, model_parallel)))
-        if rank % model_parallel == m:
-            mine_data = g
+        return Mesh(n_data, model_parallel, rank, n_seq=seq_parallel)
+    n_seq, n_model = seq_parallel, model_parallel
+
+    def at(d, s, m):
+        return (d * n_seq + s) * n_model + m
+
+    def mine(cells):  # every rank creates every group, in order
+        out = None
+        for ranks in cells:
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                out = g
+        return out
+
+    model = mine([[at(d, s, m) for m in range(n_model)]
+                  for d in range(n_data) for s in range(n_seq)])
+    table = mine([list(range(m, world, n_model)) for m in range(n_model)])
+    seq = None
+    if n_seq > 1:
+        seq = mine([[at(d, s, m) for s in range(n_seq)]
+                    for d in range(n_data) for m in range(n_model)])
     cpu = (dist.group.WORLD if dist.get_backend() == "gloo"
            else dist.new_group(backend="gloo"))
-    return Mesh(n_data, model_parallel, rank, model_group=mine_model,
-                data_group=mine_data, world_group=dist.group.WORLD,
-                cpu_group=cpu)
+    return Mesh(n_data, n_model, rank, model_group=model,
+                world_group=dist.group.WORLD, cpu_group=cpu, n_seq=n_seq,
+                seq_group=seq, table_group=table)
 
 
 def is_row_sharded(name: str, param: torch.Tensor) -> bool:
@@ -120,11 +147,15 @@ def replicated(mesh: Mesh) -> tuple:
 
 
 def _shard_of(mesh: Mesh, over: Sequence[str]):
+    """(shards, this rank's shard) of the example axis over ``over``; the
+    seq ranks of a cell hold the same shard (the batch is replicated over
+    seq)."""
     over = tuple(over)
     if over == (DATA_AXIS,):
         return mesh.n_data, mesh.data_index
     if over == (DATA_AXIS, MODEL_AXIS):
-        return mesh.size, mesh.rank
+        return (mesh.n_data * mesh.n_model,
+                mesh.data_index * mesh.n_model + mesh.model_index)
     raise ValueError(f"batches shard over ('data',) or ('data', 'model'), "
                      f"not {over}")
 
@@ -149,7 +180,8 @@ def shard_batch(mesh: Mesh, batch, stacked: bool = False,
     """This rank's rows of its host's batch: the rows that JAX's
     ``P(("data",))`` (or ``P(("data", "model"))``) places on this device
     when every host contributes a batch of the same size (the global batch
-    is the hosts' batches in host order). ``stacked``: the fields carry a
+    is the hosts' batches in host order); every rank of a seq group gets
+    the same rows. ``stacked``: the fields carry a
     leading k axis, which is kept. A list of batches is sharded batch by
     batch."""
     if isinstance(batch, (list, tuple)):

@@ -12,7 +12,9 @@ written out:
    lookup; with ``use_pallas`` the scans and the readout are the CUDA
    kernels on this rank's shard, as in a single-device step);
 2. dense gradients summed over every rank and divided by their number,
-   table gradients likewise over the data group (``grad_mean``);
+   table gradients likewise over the table group (the ranks of the model
+   column: JAX's ``table_axes``, "data", with a seq axis "data" and
+   "seq");
 3. ``a2a_overflow`` max-reduced over every rank; with ``l2_weight > 0``
    and a model group of more than one rank the l2 metric (and the loss
    metric) rebuilt from ``l2_parts``, the table part summed over the model
@@ -27,6 +29,13 @@ every rank. With ``batch_over_model`` (a2a only) the batch is sharded over
 data and model, the lookup is the bucketed exchange and its backward
 scales the table gradient by 1/n_model, so that the exchange's sum over
 the model group's sources and the data-group mean make the global mean.
+
+On a (data, seq, model) grid (``make_mesh(model_parallel, seq_parallel)``)
+the seq axis owns the scans: the batch-major scans run T-sharded over the
+seq group (``seq_parallel.resolve_sp_fn``, ``mesh.sp_inner``), and the
+means over every rank and over the table group take in the seq ranks,
+which is exact for the sequence-sharded and the replicated parts of the
+graph alike (``seq_parallel.py``).
 """
 
 from __future__ import annotations
@@ -187,6 +196,7 @@ def _mean_(tensors: Sequence[torch.Tensor], group, n: int) -> None:
 
 
 def make_shardmap_steps(cfg: Config, model: nn.Module, opt, mesh: Mesh,
+                        gru_seq_fn: Optional[Callable] = None,
                         ) -> Tuple[Callable, Callable]:
     """-> (train_step, eval_step) of this rank (see the module docstring).
 
@@ -197,10 +207,25 @@ def make_shardmap_steps(cfg: Config, model: nn.Module, opt, mesh: Mesh,
     port's ``Optimizer``, or a ``torch.optim`` optimizer over
     ``model.parameters()``). ``eval_step(model, batch)`` -> this rank's
     logits for its own rows (each rank scores different rows, so the
-    eval lookup takes each rank's own queries)."""
+    eval lookup takes each rank's own queries; the ranks of a seq group
+    score the same rows). ``gru_seq_fn`` as for ``loss_fn``; on a grid
+    with a seq axis the seq group owns it, and one given raises, as does
+    ``use_pallas`` (its time-major scans would not take it)."""
     from ..train.train import fuse_steps
+    from .seq_parallel import resolve_sp_fn
 
     n_model, world = mesh.n_model, mesh.size
+    if mesh.n_seq > 1:
+        if cfg.model.use_pallas:
+            raise ValueError(
+                "seq axis in the mesh drives the scans via gru_seq_fn; the "
+                "use_pallas time-major path ignores it — set "
+                "model.use_pallas=False (mesh.sp_inner='pallas' still runs "
+                "the CUDA scan kernels inside the SP schedule)")
+        if gru_seq_fn is not None:
+            raise ValueError("gru_seq_fn is owned by the seq axis here")
+        gru_seq_fn = resolve_sp_fn(cfg, mesh.n_seq, mesh)
+    n_table = mesh.n_data * mesh.n_seq
     mode = cfg.mesh.embedding_mode
     cap_f = float(cfg.mesh.a2a_capacity_factor) or 2.0
     bom = batch_over_model(cfg, mesh)
@@ -222,7 +247,8 @@ def make_shardmap_steps(cfg: Config, model: nn.Module, opt, mesh: Mesh,
 
     def step(batch: Batch) -> Dict[str, torch.Tensor]:
         opt.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(model, cfg, batch, lookup=lookup)
+        loss, metrics = loss_fn(model, cfg, batch, lookup=lookup,
+                                gru_seq_fn=gru_seq_fn)
         loss.backward()
         del metrics["logits"]
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -245,9 +271,8 @@ def make_shardmap_steps(cfg: Config, model: nn.Module, opt, mesh: Mesh,
                 p.grad = torch.zeros_like(p)
         with torch.no_grad():
             _mean_([p.grad for p in dense], mesh.world_group, world)
-            if mesh.n_data > 1:
-                _mean_([p.grad for p in table], mesh.data_group,
-                       mesh.n_data)
+            if n_table > 1:
+                _mean_([p.grad for p in table], mesh.table_group, n_table)
         opt.step()
         keys = sorted(metrics)
         vals = torch.stack([metrics[k].float() for k in keys])
@@ -263,7 +288,8 @@ def make_shardmap_steps(cfg: Config, model: nn.Module, opt, mesh: Mesh,
 
     def eval_step(model_: nn.Module, batch: Batch) -> torch.Tensor:
         with torch.no_grad():
-            logits, _ = apply_model(model_, cfg, batch, lookup=eval_lookup)
+            logits, _ = apply_model(model_, cfg, batch, lookup=eval_lookup,
+                                    gru_seq_fn=gru_seq_fn)
         return logits
 
     return train_step, eval_step

@@ -3,32 +3,44 @@ same work in one process.
 
     python -m hpmn_tpu_torch.tools.parallel_check           # 4 ranks, 2 x 2
     python -m hpmn_tpu_torch.tools.parallel_check --backend nccl --ranks 2
+    python -m hpmn_tpu_torch.tools.parallel_check --ranks 2 \
+        --seq_parallel 2 --model_parallel 1                 # (1, 2, 1)
 
-Each rank is a process of its own, in a grid of ``--ranks / 2`` data rows
-and 2 model columns; the ranks share the cards round-robin
-(``cuda:LOCAL_RANK`` modulo the card count: several ranks on one card need
-``--backend gloo``, which takes CUDA tensors through the host). On
-``xlong_hpmn`` (``use_pallas``; ``--seq_len``, ``--items`` and ``--cats``
+Each rank is a process of its own, in a grid of ``--ranks /
+(seq_parallel * model_parallel)`` data rows, ``--seq_parallel`` seq ranks
+and ``--model_parallel`` model columns (default 1 and 2); the ranks share
+the cards round-robin (``cuda:LOCAL_RANK`` modulo the card count: several
+ranks on one card need ``--backend gloo``, which takes CUDA tensors
+through the host). On ``xlong_hpmn`` (``use_pallas``; with a seq axis the
+batch-major path with the kernels as the SP chunk scan,
+``mesh.sp_inner=pallas``; ``--seq_len``, ``--items`` and ``--cats``
 shrink its data for a rehearsal on the CPU) each rank:
 
 1. runs ``--steps`` SGD steps (lr 1e-2) of ``parallel.make_shardmap_steps``
    from the seeded weights (``init_sharded_model``) on its rows of the same
-   global batches (batch over data and model, the a2a exchange with the
-   capacity factor derived from the batches' ids unless given), counting
-   the kernel launches of each step and timing it; then one profiled step,
-   whose ``embedding_exchange`` and ``exchange_queue_wait`` spans (one
-   each per collective of the lookups) :func:`compare` splits into the
-   wait for this rank's queued kernels, the transfer and the wait for the
-   model group's other ranks;
-2. one psum-mode step, and one step with the capacity factor forced to
-   0.01, which must take the exact fallback (``a2a_overflow`` 1);
+   global batches (with model columns: batch over data and model, the a2a
+   exchange with the capacity factor derived from the batches' ids unless
+   given), counting the kernel launches of each step and timing it; then
+   one profiled step, whose ``embedding_exchange`` and
+   ``exchange_queue_wait`` spans (one each per collective of the lookups)
+   :func:`compare` splits into the wait for this rank's queued kernels,
+   the transfer and the wait for the model group's other ranks, and whose
+   seq collectives' spans (``seq_handoff``, ``seq_gather``,
+   ``seq_queue_wait``) it sums;
+2. with model columns and no seq axis, one psum-mode step, and one step
+   with the capacity factor forced to 0.01, which must take the exact
+   fallback (``a2a_overflow`` 1); with a seq axis and no model columns,
+   layer 0's T-sharded scan on the first batch with the kernels against
+   the plain chunk scan (values and the x and weight gradients), then
+   ``--steps`` steps of ``taobao_dien`` (T 300, left-padded: the AUGRU's
+   dscale crosses the handoffs);
 3. ``train()`` on the same ranks, with evaluation and a checkpoint,
    recording what it wrote into the checkpoint directory.
 
 Then a process of its own runs the same steps and ``train()`` on one
-device, and :func:`run` returns both sides' numbers; :func:`compare`
-measures the distances that ``chip_smoke.py`` phase 15 holds to its
-tolerances.
+device (``use_pallas``: the kernels, time-major), and :func:`run` returns
+both sides' numbers; :func:`compare` measures the distances that
+``chip_smoke.py`` phases 15 and 16 hold to their tolerances.
 """
 
 from __future__ import annotations
@@ -51,12 +63,16 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CONFIG, DATASET = "xlong_hpmn", "xlong"
-MODEL_PARALLEL = 2
+DIEN_CONFIG, DIEN_DATASET = "taobao_dien", "taobao"
 LR, SEED = 1e-2, 0
 THREADS = 2  # per rank: 4 ranks fill the card machine's 8 cores
+# K1, K2, K5 (a step's ``launches``) and K1-scale, K2-scale
+# (``launches_scale``)
 COUNTED = (("cuda_gru", "launches"), ("cuda_gru", "bwd_launches"),
-           ("cuda_readout", "launches"))
-SPANS = ("embedding_exchange", "exchange_queue_wait")
+           ("cuda_readout", "launches"), ("cuda_gru", "launches_scale"),
+           ("cuda_gru", "bwd_launches_scale"))
+SPANS = ("embedding_exchange", "exchange_queue_wait", "seq_handoff",
+         "seq_gather", "seq_queue_wait")
 
 
 def _counters():
@@ -71,10 +87,10 @@ def _zero(mods):
         setattr(mods[m], v, 0)
 
 
-def _spec(args):
+def _spec(args, dataset=DATASET):
     from ..data import synthetic
 
-    base = synthetic.SPECS[DATASET]
+    base = synthetic.SPECS[dataset]
     return dataclasses.replace(base, seq_len=args.seq_len or base.seq_len,
                                n_items=args.items or base.n_items,
                                n_cats=args.cats or base.n_cats)
@@ -89,39 +105,54 @@ def _use_spec(spec) -> None:
     synthetic.SPECS[DATASET] = spec
 
 
-def _step_config(args, mode="a2a", bom=True, factor=None):
+def _grid(args, reference=False):
+    """The overrides of the grid (none for the one-process reference):
+    the model columns, and a seq axis with the kernels as its chunk scan
+    on the batch-major path (``use_pallas`` off, as the seq axis needs)."""
+    if reference:
+        return ["model.use_pallas=true"]
+    out = [f"mesh.model_parallel={args.model_parallel}"]
+    if args.seq_parallel > 1:
+        return out + ["model.use_pallas=false",
+                      f"mesh.seq_parallel={args.seq_parallel}",
+                      "mesh.sp_inner=pallas"]
+    return out + ["model.use_pallas=true"]
+
+
+def _step_config(args, mode="a2a", bom=True, factor=None, reference=False,
+                 config=CONFIG):
     from ..configs import get_config
     from ..train.train import apply_overrides
 
     factor = args.capacity_factor if factor is None else factor
-    return apply_overrides(get_config(CONFIG), [
-        "model.use_pallas=true", f"mesh.model_parallel={MODEL_PARALLEL}",
+    tables = ([] if args.model_parallel == 1 or reference else [
         f"mesh.embedding_mode={mode}", f"mesh.batch_over_model={bom}",
-        f"mesh.a2a_capacity_factor={factor}", "train.steps_per_dispatch=1"])
+        f"mesh.a2a_capacity_factor={factor}"])
+    return apply_overrides(get_config(config), [
+        *_grid(args, reference), *tables, "train.steps_per_dispatch=1"])
 
 
-def _batches(args, spec):
+def _batches(args, spec, min_len_frac=1.0):
     """The global batches every rank and the reference share."""
     from ..data.synthetic import make_ctr_dataset
 
     arrays = make_ctr_dataset(spec, args.batch * args.steps, seed=SEED,
-                              min_len_frac=1.0)
+                              min_len_frac=min_len_frac)
     return [{k: v[i * args.batch:(i + 1) * args.batch]
              for k, v in arrays.items()} for i in range(args.steps)]
 
 
-def _train_config(args, ckpt_dir, model_parallel):
+def _train_config(args, ckpt_dir, reference=False):
     from ..configs import get_config
     from ..train.train import apply_overrides
 
     return apply_overrides(get_config(CONFIG), [
-        f"mesh.model_parallel={model_parallel}",
+        *_grid(args, reference),
         f"n_examples={args.train_examples}", "train.max_steps=16",
         "train.eval_every=8", "train.log_every=4",
         "train.early_stop_patience=100", "train.steps_per_dispatch=1",
         "eval_steps_per_dispatch=1", f"eval_batch_size={args.eval_batch}",
-        f"train.batch_size={args.batch}", "model.use_pallas=true",
-        f"train.ckpt_dir={ckpt_dir}"])
+        f"train.batch_size={args.batch}", f"train.ckpt_dir={ckpt_dir}"])
 
 
 def _host(params: Dict) -> Dict:
@@ -162,6 +193,70 @@ def _record_writes(directory: str) -> List[str]:
     return seen
 
 
+def _run_steps(step, placed, device, mods, counters, on_first=None):
+    """The steps, one per placed batch, each timed and its launches
+    counted -> {"losses", "ms", "launches" (K1, K2, K5 per step),
+    "launches_scale" (K1-scale, K2-scale per step), "overflow" (each
+    step's a2a fallback flag, None without the exchange)}."""
+    out = {"losses": [], "ms": [], "launches": [], "launches_scale": [],
+           "overflow": []}
+    for i, b in enumerate(placed):
+        _sync(device)
+        _zero(mods)
+        t0 = time.perf_counter()
+        m = step(b)
+        out["losses"].append(m["loss"].item())  # syncs
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        n = counters()
+        out["launches"].append(n[:3])
+        out["launches_scale"].append(n[3:])
+        out["overflow"].append(m["a2a_overflow"].item()
+                               if "a2a_overflow" in m else None)
+        if i == 0 and on_first is not None:
+            on_first()
+    return out
+
+
+def _sp_scan_check(model, cfg, mesh, batch, device, mods, counters):
+    """Layer 0's T-sharded scan on this rank over the first batch's
+    embeddings, with the kernels (``cuda_gru.gru_sequence``) and with the
+    plain chunk scan: the gradients of sum(h^2) + sum(h_T^2) with respect
+    to x and the layer's weights (this rank's share, before the mean over
+    seq) -> their distances, each leg's ms and launches."""
+    from ..models.embedding import dense_lookup
+    from ..ops import cuda_gru
+    from ..parallel.seq_parallel import sp_gru_sequence
+
+    layer = model.encoder.layers[0]
+    with torch.no_grad():
+        x = dense_lookup(model.embedding, batch.item_seq, batch.cat_seq)
+    x.requires_grad_()
+    mask = batch.seq_mask.to(x.dtype)
+    legs = {}
+    for name, inner in (("pallas", cuda_gru.gru_sequence), ("jnp", None)):
+        _sync(device)
+        _zero(mods)
+        t0 = time.perf_counter()
+        h, h_T = sp_gru_sequence(
+            layer, x, mask, n_shards=mesh.n_seq, mesh=mesh,
+            microbatches=cfg.mesh.sp_microbatches,
+            min_local_steps=cfg.mesh.sp_min_local_steps, inner=inner)
+        grads = torch.autograd.grad((h ** 2).sum() + (h_T ** 2).sum(),
+                                    [x, layer.wx, layer.wh, layer.b])
+        _sync(device)
+        legs[name] = ([h.detach(), h_T.detach(), *grads],
+                      1e3 * (time.perf_counter() - t0), counters())
+    got, want = legs["pallas"][0], legs["jnp"][0]
+    errs = [(g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+            for g, w in zip(got, want)]
+    return {"h_err": (got[0] - want[0]).abs().max().item(),
+            "h_max": want[0].abs().max().item(),
+            "h_T_err": (got[1] - want[1]).abs().max().item(),
+            "grad_rel": max(errs[2:]), "T": x.shape[1],
+            "ms": {k: v[1] for k, v in legs.items()},
+            "launches": {k: v[2] for k, v in legs.items()}}
+
+
 def worker(args) -> None:
     """One rank: see the module docstring; writes ``rank<r>.pt``."""
     from ..data.schema import batch_from_numpy
@@ -180,56 +275,51 @@ def worker(args) -> None:
     if device.type == "cuda":
         torch.cuda.set_device(device)
         _build.load_library()
-    mesh = make_mesh(MODEL_PARALLEL)
+    mesh = make_mesh(args.model_parallel, args.seq_parallel)
     mods, counters = _counters()
     spec = _spec(args)
     batches = _batches(args, spec)
-    out: Dict = {"rank": args.rank}
+    tables_on = args.model_parallel > 1
+    out: Dict = {"rank": args.rank,
+                 "grid": (mesh.n_data, mesh.n_seq, mesh.n_model)}
 
     def place(arrays, over):
         b = batch_from_numpy(arrays, device="cpu")
         return driver.place_batch(shard_batch(mesh, b, over=over), device)
 
-    def fresh(cfg):
-        model = init_sharded_model(cfg, spec.n_items, spec.n_cats, mesh,
+    def fresh(cfg, spec_=spec):
+        model = init_sharded_model(cfg, spec_.n_items, spec_.n_cats, mesh,
                                    seed=SEED, device=device)
         opt = torch.optim.SGD(model.parameters(), lr=LR)
         return model, make_shardmap_steps(cfg, model, opt, mesh)[0]
 
-    bom = ("data", "model")
-    # capacity factor 0: derived from these batches' ids, as the driver
-    # derives it from the training set's
-    cfg = driver.resolve_capacity_factor(
-        _step_config(args), {k: np.concatenate([b[k] for b in batches])
-                             for k in batches[0]}, spec,
-        MODEL_PARALLEL, True, args.ranks // MODEL_PARALLEL,
-        log=lambda line: None)
+    bom = ("data", "model") if tables_on else ("data",)
+    cfg = _step_config(args)
+    if tables_on:
+        # capacity factor 0: derived from these batches' ids, as the
+        # driver derives it from the training set's
+        cfg = driver.resolve_capacity_factor(
+            cfg, {k: np.concatenate([b[k] for b in batches])
+                  for k in batches[0]}, spec, args.model_parallel, True,
+            mesh.n_data, log=lambda line: None)
     out["capacity_factor"] = cfg.mesh.a2a_capacity_factor
     model, step = fresh(cfg)
     out["tables"] = table_names(model)
     out["params0"] = _host(gather_params(model, mesh))
     placed = [place(b, bom) for b in batches]
-    losses, launches, ms, overflow = [], [], [], []
-    for i, b in enumerate(placed):
-        _sync(device)
-        _zero(mods)
-        t0 = time.perf_counter()
-        m = step(b)
-        losses.append(m["loss"].item())  # syncs
-        ms.append(1e3 * (time.perf_counter() - t0))
-        launches.append(counters())
-        overflow.append(m["a2a_overflow"].item())
-        if i == 0:
-            out["params_step1"] = _host(gather_params(model, mesh))
-            out["table_grad1"] = _host({
-                n: gather_rows(p.grad, mesh)
-                for n, p in model.named_parameters() if n in out["tables"]})
-    out.update(losses=losses, launches=launches, ms=ms, overflow=overflow)
+
+    def first():
+        out["params_step1"] = _host(gather_params(model, mesh))
+        out["table_grad1"] = _host({
+            n: gather_rows(p.grad, mesh)
+            for n, p in model.named_parameters() if n in out["tables"]})
+
+    out.update(_run_steps(step, placed, device, mods, counters, first))
     out["params"] = _host(gather_params(model, mesh))
     tables = set(out["tables"])
     out["dense"] = _host({n: p for n, p in model.named_parameters()
                           if n not in tables})
-    # one profiled step: the lookups' spans, in the order they ran
+    # one profiled step: the collectives' spans, in the order they ran
     acts = [torch.profiler.ProfilerActivity.CPU]
     with torch.profiler.profile(activities=acts) as prof:
         _sync(device)
@@ -240,16 +330,29 @@ def worker(args) -> None:
                    for e in prof.events() if e.name in SPANS)
     out["profile"] = {"wall_ms": wall, **{
         name: [t for _, n, t in spans if n == name] for name in SPANS}}
+    if args.seq_parallel > 1 and not tables_on:
+        out["sp_scan"] = _sp_scan_check(model, cfg, mesh, placed[0], device,
+                                        mods, counters)
     del model, step, placed
 
-    for name, c in (("psum", _step_config(args, "psum", False)),
-                    ("fallback", _step_config(args, factor=0.01))):
-        model, step = fresh(c)
-        m = step(place(batches[0], ("data",) if name == "psum" else bom))
-        out[name] = {"loss": m["loss"].item(),
-                     "overflow": (m["a2a_overflow"].item()
-                                  if "a2a_overflow" in m else None),
-                     "params": _host(gather_params(model, mesh))}
+    if tables_on and args.seq_parallel == 1:
+        for name, c in (("psum", _step_config(args, "psum", False)),
+                        ("fallback", _step_config(args, factor=0.01))):
+            model, step = fresh(c)
+            m = step(place(batches[0],
+                           ("data",) if name == "psum" else bom))
+            out[name] = {"loss": m["loss"].item(),
+                         "overflow": (m["a2a_overflow"].item()
+                                      if "a2a_overflow" in m else None),
+                         "params": _host(gather_params(model, mesh))}
+            del model, step
+    if args.seq_parallel > 1 and not tables_on:
+        # DIEN: both of its scans T-sharded, the AUGRU's scale included
+        dspec = _spec(args, DIEN_DATASET)
+        model, step = fresh(_step_config(args, config=DIEN_CONFIG), dspec)
+        dien = _run_steps(step, [place(b, bom) for b in _batches(
+            args, dspec, min_len_frac=0.5)], device, mods, counters)
+        out["dien"] = dict(dien, params=_host(gather_params(model, mesh)))
         del model, step
 
     # train() on the ranks, every rank with the one checkpoint directory;
@@ -261,11 +364,13 @@ def worker(args) -> None:
     _sync(device)
     _zero(mods)
     t0 = time.perf_counter()
-    res = driver.train(_train_config(args, ckpt, MODEL_PARALLEL),
-                       log=lines.append, device=device)
+    res = driver.train(_train_config(args, ckpt), log=lines.append,
+                       device=device)
     _sync(device)
     out["train"] = {"seconds": time.perf_counter() - t0,
-                    "launches": counters(), "writes": list(writes),
+                    "launches": counters()[:3],
+                    "launches_scale": counters()[3:],
+                    "writes": list(writes),
                     "lines": lines, "test": res["test"],
                     "best_val_auc": res["best_val_auc"],
                     "best_step": res["best_step"],
@@ -275,8 +380,8 @@ def worker(args) -> None:
 
 
 def reference(args) -> None:
-    """The same steps and train() in one process on one device; writes
-    ``reference.pt``."""
+    """The same steps and train() in one process on one device, with the
+    kernels (``use_pallas``); writes ``reference.pt``."""
     from ..data.schema import batch_from_numpy
     from ..models.model import init_model
     from ..ops import _build
@@ -286,34 +391,43 @@ def reference(args) -> None:
     if device.type == "cuda":
         _build.load_library()
     mods, counters = _counters()
+
+    def fresh(cfg, spec):
+        model = init_model(cfg, spec.n_items, spec.n_cats, seed=SEED,
+                           device=device)
+        return model, driver.make_train_step(
+            cfg, model, torch.optim.SGD(model.parameters(), lr=LR))
+
+    def place(arrays):
+        return driver.place_batch(batch_from_numpy(arrays, device="cpu"),
+                                  device)
+
     spec = _spec(args)
-    cfg = _step_config(args)
-    model = init_model(cfg, spec.n_items, spec.n_cats, seed=SEED,
-                       device=device)
-    step = driver.make_train_step(
-        cfg, model, torch.optim.SGD(model.parameters(), lr=LR))
-    out: Dict = {"losses": [], "ms": [], "launches": [],
-                 "params0": _host(dict(model.named_parameters()))}
-    for i, arrays in enumerate(_batches(args, spec)):
-        b = driver.place_batch(batch_from_numpy(arrays, device="cpu"),
-                               device)
-        _sync(device)
-        _zero(mods)
-        t0 = time.perf_counter()
-        out["losses"].append(step(b)["loss"].item())
-        out["ms"].append(1e3 * (time.perf_counter() - t0))
-        out["launches"].append(counters())
-        if i == 0:
-            out["params_step1"] = _host(dict(model.named_parameters()))
-            out["grad1"] = _host({  # None: unused, the ranks' zeros
-                n: torch.zeros_like(p) if p.grad is None else p.grad
-                for n, p in model.named_parameters()})
+    model, step = fresh(_step_config(args, reference=True), spec)
+    out: Dict = {"params0": _host(dict(model.named_parameters()))}
+
+    def first():
+        out["params_step1"] = _host(dict(model.named_parameters()))
+        out["grad1"] = _host({  # None: unused, the ranks' zeros
+            n: torch.zeros_like(p) if p.grad is None else p.grad
+            for n, p in model.named_parameters()})
+
+    out.update(_run_steps(step, [place(b) for b in _batches(args, spec)],
+                          device, mods, counters, first))
     out["params"] = _host(dict(model.named_parameters()))
+    if args.seq_parallel > 1 and args.model_parallel == 1:
+        dspec = _spec(args, DIEN_DATASET)
+        model, step = fresh(_step_config(args, reference=True,
+                                         config=DIEN_CONFIG), dspec)
+        dien = _run_steps(step, [place(b) for b in _batches(
+            args, dspec, min_len_frac=0.5)], device, mods, counters)
+        out["dien"] = dict(dien, params=_host(dict(
+            model.named_parameters())))
     _use_spec(spec)
     lines: List[str] = []
-    res = driver.train(_train_config(args, os.path.join(args.out,
-                                                        "ckpt_reference"), 1),
-                       log=lines.append, device=device)
+    res = driver.train(_train_config(args, os.path.join(
+        args.out, "ckpt_reference"), reference=True), log=lines.append,
+        device=device)
     out["train"] = {"lines": lines, "test": res["test"],
                     "best_val_auc": res["best_val_auc"],
                     "params": _host(res["params"])}
@@ -352,17 +466,19 @@ def _delta_err(got: Dict, got0: Dict, want: Dict, want0: Dict, names):
 
 def _exchange_split(ranks: Sequence[Dict]) -> List[Dict]:
     """Each rank's profiled step, split: ``queue_ms`` the wait for its own
-    queued kernels before the collectives, ``exchange_ms`` the
+    queued kernels before the lookups' collectives, ``exchange_ms`` those
     collectives' spans, of which ``transfer_ms`` is the sum over the
     collectives of the shortest span of the model group (its last rank to
     arrive waited for no one) and ``peer_wait_ms`` the rest: the wait for
-    the group's other ranks."""
+    the group's other ranks; ``seq_handoff_ms``, ``seq_gather_ms`` and
+    ``seq_queue_ms`` the seq collectives' spans, summed, and
+    ``seq_collectives`` their count."""
     prof = [r["profile"] for r in ranks]
+    n_model = ranks[0]["grid"][2]
     out = []
     for i, p in enumerate(prof):
-        row = i // MODEL_PARALLEL * MODEL_PARALLEL
-        group = prof[row:row + MODEL_PARALLEL]
-        spans = [q["embedding_exchange"] for q in group]
+        row = i // n_model * n_model
+        spans = [q["embedding_exchange"] for q in prof[row:row + n_model]]
         if len({len(s) for s in spans}) != 1:
             raise ValueError(f"rank {i}'s model group ran "
                              f"{[len(s) for s in spans]} exchanges")
@@ -372,8 +488,18 @@ def _exchange_split(ranks: Sequence[Dict]) -> List[Dict]:
                     "queue_ms": sum(p["exchange_queue_wait"]),
                     "exchange_ms": sum(mine), "transfer_ms": transfer,
                     "peer_wait_ms": sum(mine) - transfer,
-                    "collectives": len(mine)})
+                    "collectives": len(mine),
+                    "seq_handoff_ms": sum(p["seq_handoff"]),
+                    "seq_gather_ms": sum(p["seq_gather"]),
+                    "seq_queue_ms": sum(p["seq_queue_wait"]),
+                    "seq_collectives": len(p["seq_handoff"])
+                    + len(p["seq_gather"])})
     return out
+
+
+def _loss_rel(ranks: Sequence[Dict], ref: Dict) -> float:
+    return max(abs(a - b) / abs(b) for r in ranks
+               for a, b in zip(r["losses"], ref["losses"]))
 
 
 def compare(ranks: Sequence[Dict], ref: Dict) -> Dict:
@@ -383,36 +509,17 @@ def compare(ranks: Sequence[Dict], ref: Dict) -> Dict:
     step_err, step_max = _max_err(r0["params"], ref["params"])
     tab_rel, tab_max = _delta_err(r0["params"], r0["params0"],
                                   ref["params"], ref["params0"], tables)
-    fb_err, fb_max = _max_err(r0["fallback"]["params"], r0["params_step1"])
-    fb_tab_rel, fb_tab_max = _delta_err(
-        r0["fallback"]["params"], r0["params0"], r0["params_step1"],
-        r0["params0"], tables)
-    ps_err, ps_max = _max_err(r0["psum"]["params"], ref["params_step1"])
-    ps_tab_rel, ps_tab_max = _delta_err(
-        r0["psum"]["params"], r0["params0"], ref["params_step1"],
-        ref["params0"], tables)
     tr_err, tr_max = _max_err(r0["train"]["params"],
                               ref["train"]["params"])
     dense_same = all(torch.equal(r["dense"][n], r0["dense"][n])
                      for r in ranks[1:] for n in r0["dense"])
-    return {
-        "loss_rel": max(abs(a - b) / abs(b) for r in ranks
-                        for a, b in zip(r["losses"], ref["losses"])),
+    out = {
+        "loss_rel": _loss_rel(ranks, ref),
         "params_err": step_err, "params_max": step_max,
         "table_grad_rel": max(_rel_err(r["table_grad1"], ref["grad1"],
                                        tables) for r in ranks),
         "table_delta_rel": tab_rel, "table_delta_max": tab_max,
         "dense_identical": dense_same,
-        "psum_loss_rel": abs(r0["psum"]["loss"] - ref["losses"][0])
-        / abs(ref["losses"][0]),
-        "psum_params_err": ps_err, "psum_params_max": ps_max,
-        "psum_table_delta_rel": ps_tab_rel,
-        "psum_table_delta_max": ps_tab_max,
-        "fallback_overflow": [r["fallback"]["overflow"] for r in ranks],
-        "fallback_params_err": fb_err, "fallback_params_max": fb_max,
-        "fallback_table_delta_rel": fb_tab_rel,
-        "fallback_table_delta_max": fb_tab_max,
-        "fallback_loss_diff": abs(r0["fallback"]["loss"] - r0["losses"][0]),
         "train_params_err": tr_err, "train_params_max": tr_max,
         "train_auc_gap": abs(r0["train"]["test"]["auc"]
                              - ref["train"]["test"]["auc"]),
@@ -423,6 +530,38 @@ def compare(ranks: Sequence[Dict], ref: Dict) -> Dict:
         "writes": [r["train"]["writes"] for r in ranks],
         "exchange": _exchange_split(ranks),
     }
+    if "psum" in r0:
+        fb_err, fb_max = _max_err(r0["fallback"]["params"],
+                                  r0["params_step1"])
+        fb_tab_rel, fb_tab_max = _delta_err(
+            r0["fallback"]["params"], r0["params0"], r0["params_step1"],
+            r0["params0"], tables)
+        ps_err, ps_max = _max_err(r0["psum"]["params"], ref["params_step1"])
+        ps_tab_rel, ps_tab_max = _delta_err(
+            r0["psum"]["params"], r0["params0"], ref["params_step1"],
+            ref["params0"], tables)
+        out.update({
+            "psum_loss_rel": abs(r0["psum"]["loss"] - ref["losses"][0])
+            / abs(ref["losses"][0]),
+            "psum_params_err": ps_err, "psum_params_max": ps_max,
+            "psum_table_delta_rel": ps_tab_rel,
+            "psum_table_delta_max": ps_tab_max,
+            "fallback_overflow": [r["fallback"]["overflow"] for r in ranks],
+            "fallback_params_err": fb_err, "fallback_params_max": fb_max,
+            "fallback_table_delta_rel": fb_tab_rel,
+            "fallback_table_delta_max": fb_tab_max,
+            "fallback_loss_diff": abs(r0["fallback"]["loss"]
+                                      - r0["losses"][0])})
+    if "dien" in r0:
+        d_err, d_max = _max_err(r0["dien"]["params"], ref["dien"]["params"])
+        out.update({"dien_loss_rel": _loss_rel([r["dien"] for r in ranks],
+                                               ref["dien"]),
+                    "dien_params_err": d_err, "dien_params_max": d_max,
+                    "dien_identical": all(
+                        torch.equal(r["dien"]["params"][n],
+                                    r0["dien"]["params"][n])
+                        for r in ranks[1:] for n in r0["dien"]["params"])})
+    return out
 
 
 def _checkpoint_matches(ckpt: str, r0: Dict) -> bool:
@@ -508,7 +647,9 @@ def _free_port() -> int:
 def parse(argv: Sequence[str]):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--ranks", type=int, default=4,
-                   help=f"a multiple of {MODEL_PARALLEL}")
+                   help="a multiple of seq_parallel * model_parallel")
+    p.add_argument("--seq_parallel", type=int, default=1)
+    p.add_argument("--model_parallel", type=int, default=2)
     p.add_argument("--backend", default="gloo")
     p.add_argument("--device", default="cuda")
     p.add_argument("--steps", type=int, default=4)
@@ -545,6 +686,7 @@ def main(argv=None) -> None:
     for r in res["ranks"]:
         print(json.dumps({"rank": r["rank"], "step_ms": r["ms"],
                           "launches": r["launches"],
+                          "launches_scale": r["launches_scale"],
                           "overflow": r["overflow"], "losses": r["losses"],
                           "train_seconds": r["train"]["seconds"],
                           "train_launches": r["train"]["launches"]}))

@@ -6,7 +6,10 @@ process_count=world)`` rows, and the scores (or, streaming, the
 histograms) are merged over every rank before the metrics, so that every
 rank reports the same global numbers (``_merge_across_hosts``,
 ``_merge_gauc_across_hosts``, JAX's). The merges gather over ``group``
-(default the whole process group), through gloo on the host.
+(default the whole process group), through gloo on the host. Ranks that
+score the same rows as another (the seq ranks of a cell, which run the
+T-sharded scans together) pass ``counted=False`` but one, so that each
+example counts once.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ def _world(group) -> int:
 def evaluate(eval_step: Callable, model, loader: DataLoader,
              streaming_bins: int = 0, gauc_bins: int = 256,
              gauc_max_users: int = 0,
-             steps_per_dispatch: int = 1, group=None) -> Dict[str, float]:
+             steps_per_dispatch: int = 1, group=None,
+             counted: bool = True) -> Dict[str, float]:
     """eval_step(model, batch) -> logits [B] (a tensor on any device, or
     an array). Scores every example of ``loader.one_epoch()`` once: the
     padded rows of the last batch are scored and dropped. In a process
@@ -44,6 +48,9 @@ def evaluate(eval_step: Callable, model, loader: DataLoader,
     port scores each batch and pulls its logits before the next, for any
     k, and the JAX function's numbers do not depend on k either.
 
+    ``counted=False``: this rank scores its batches (its eval steps may be
+    collective) and adds nothing to the merge.
+
     ``streaming_bins > 0`` switches to the bounded-memory histogram
     estimators (:class:`metrics.StreamingAUC` and
     :class:`metrics.StreamingGAUC`); ``gauc_bins = 0`` then drops the
@@ -54,7 +61,7 @@ def evaluate(eval_step: Callable, model, loader: DataLoader,
         gacc = (M.StreamingGAUC(gauc_bins, gauc_max_users)
                 if gauc_bins else None)
         for logits, batch, n_valid in _scored_batches(eval_step, model,
-                                                      loader):
+                                                      loader, counted):
             labels = batch.label.numpy()[:n_valid]
             acc.update(logits[:n_valid], labels)
             if gacc is not None:
@@ -69,7 +76,8 @@ def evaluate(eval_step: Callable, model, loader: DataLoader,
         out["gauc"] = gacc.result() if gacc is not None else float("nan")
         return out
     all_logits, all_labels, all_uids = [], [], []
-    for logits, batch, n_valid in _scored_batches(eval_step, model, loader):
+    for logits, batch, n_valid in _scored_batches(eval_step, model, loader,
+                                                  counted):
         all_logits.append(logits[:n_valid])
         all_labels.append(batch.label.numpy()[:n_valid])
         all_uids.append(batch.uid.numpy()[:n_valid])
@@ -89,10 +97,14 @@ def evaluate(eval_step: Callable, model, loader: DataLoader,
 
 
 def _scored_batches(eval_step: Callable, model, loader: DataLoader,
+                    counted: bool = True,
                     ) -> Iterator[Tuple[np.ndarray, Batch, int]]:
-    """Yield (host logits [B], host batch, n_valid) per eval batch."""
+    """Yield (host logits [B], host batch, n_valid) per eval batch; with
+    ``counted=False`` score every batch and yield none."""
     for batch, n_valid in loader.one_epoch():
         logits = eval_step(model, batch)
+        if not counted:
+            continue
         if isinstance(logits, torch.Tensor):
             logits = logits.detach().float().cpu().numpy()
         yield np.asarray(logits), batch, n_valid

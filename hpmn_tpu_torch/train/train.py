@@ -9,6 +9,10 @@ optimizer, the training step, the data, evaluation, checkpoints,
     python -m torch.distributed.run --nproc_per_node 4 \\
         -m hpmn_tpu_torch.train.train --config xlong_hpmn \\
         --set mesh.model_parallel=2   # 2 x 2 ranks, tables row-sharded
+    python -m torch.distributed.run --nproc_per_node 2 \\
+        -m hpmn_tpu_torch.train.train --config xlong_hpmn \\
+        --set mesh.seq_parallel=2 mesh.sp_inner=pallas \\
+              model.use_pallas=false  # T sharded over 2 ranks
 
     opt = make_optimizer(cfg, model.parameters())   # train/optim.py
     step = make_train_step(cfg, model, opt)
@@ -23,7 +27,7 @@ training step runs the CUDA scan kernels forward and backward and the
 readout kernel forward, and an eval step the scan kernels forward and the
 readout kernel.
 
-Several ranks run the JAX driver's mesh branch (``parallel/``, see
+Several ranks run the JAX driver's mesh branches (``parallel/``, see
 :func:`train`). Its loop is the JAX driver's: log, eval and
 checkpoint boundaries crossed by ``step % every < k``, early stop on
 ``early_stop_patience``, the best checkpoint restored before the test
@@ -190,18 +194,13 @@ def init_model_for(cfg: Config, spec: synthetic.DatasetSpec,
 
 
 def _check_supported(cfg: Config) -> None:
-    t, mesh = cfg.train, cfg.mesh
+    t = cfg.train
     todo = {"train.log_dir (tensorboard event files)": t.log_dir,
             "train.debug_nans": t.debug_nans}
     for what, value in todo.items():
         if value:
             raise NotImplementedError(f"{what} is not ported yet "
                                       "(ROADMAP.md)")
-    if mesh.seq_parallel > 1:
-        raise NotImplementedError(
-            "mesh.seq_parallel > 1 (parallel/seq_parallel.py and the "
-            "DP x SP x TP branch) is the port's next slice (ROADMAP.md "
-            "queue 1, item 10)")
 
 
 def resolve_capacity_factor(cfg: Config, arrays, spec, n_model: int,
@@ -296,9 +295,10 @@ def _grouped(items: Iterator, k: int) -> Iterator[List]:
 
 def _setup_mesh(cfg: Config, device: torch.device):
     """-> (mesh or None, this rank's device). One process (no process
-    group) trains on ``device``; a process group of ranks (``initialize``
-    joined it, or ``torch.distributed.run`` set its variables) trains over
-    the (data, model) grid of them."""
+    group) trains on ``device``, whatever ``seq_parallel`` says (the JAX
+    driver on one device); a process group of ranks (``initialize`` joined
+    it, or ``torch.distributed.run`` set its variables) trains over the
+    (data, model) or (data, seq, model) grid of them."""
     import torch.distributed as dist
 
     from ..parallel import distributed
@@ -318,7 +318,7 @@ def _setup_mesh(cfg: Config, device: torch.device):
     device = distributed.rank_device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    return make_mesh(cfg.mesh.model_parallel), device
+    return make_mesh(cfg.mesh.model_parallel, cfg.mesh.seq_parallel), device
 
 
 def train(cfg: Config, log: Callable[[str], None] = print,
@@ -331,17 +331,22 @@ def train(cfg: Config, log: Callable[[str], None] = print,
 
     In a process group of several ranks (``python -m
     torch.distributed.run``, or ``parallel.initialize`` called first)
-    every rank calls it: the JAX driver's mesh branch. The ranks form a
-    (data, model) grid (``mesh.model_parallel``), the tables are
+    every rank calls it: the JAX driver's mesh branches. The ranks form a
+    (data, model) grid (``mesh.model_parallel``), or with
+    ``mesh.seq_parallel > 1`` a (data, seq, model) grid whose seq groups
+    shard the long scans' T axis (``parallel/seq_parallel.py``): without
+    a model group that is ``make_sp_steps`` on replicated tables (JAX's
+    (data, seq) branch), else the composed step. The tables are
     row-sharded over the model group (vocab padded to a multiple of it),
     each step is ``parallel.make_shardmap_steps`` on this rank's rows of
-    its host's batch (``train.batch_size`` per host, as in JAX), each
-    rank evaluates its own rows and the metrics are merged over every
-    rank, and only rank 0 logs and writes: its checkpoint holds the whole
-    tables (the single-device format, padded rows), which a resume on the
-    same grid shards again. A device of ``cuda`` is ``cuda:LOCAL_RANK``
-    modulo the card count. "params" and "ema_params" are whole on every
-    rank."""
+    its host's batch (``train.batch_size`` per host, as in JAX; the seq
+    ranks of a cell take the same rows), each cell evaluates its own rows
+    (counted once, by its seq rank 0) and the metrics are merged over
+    every rank, and only rank 0 logs and writes: its checkpoint holds the
+    whole tables (the single-device format, padded rows), which a resume
+    on the same grid shards again. A device of ``cuda`` is
+    ``cuda:LOCAL_RANK`` modulo the card count. "params" and "ema_params"
+    are whole on every rank."""
     from ..parallel import distributed
 
     _check_supported(cfg)
@@ -351,27 +356,40 @@ def train(cfg: Config, log: Callable[[str], None] = print,
         log = lambda line: None  # noqa: E731 - only rank 0 logs
     train_arrays, val_arrays, test_arrays, spec = make_datasets(cfg)
     host, hosts = distributed.host_index(), distributed.host_count()
-    rank, world = distributed.process_index(), distributed.process_count()
+    # Each cell of the grid (the ranks of a seq group) scores its own
+    # eval rows; its seq rank 0 counts them.
+    cell, cells, counted = 0, 1, True
+    sp_only = mesh is not None and mesh.n_seq > 1 and mesh.n_model == 1
     if mesh is not None:
         from ..parallel.embedding_sharding import pad_vocab
 
-        cfg, bom = resolve_mesh(cfg, mesh, train_arrays, spec, log)
+        cell = mesh.data_index * mesh.n_model + mesh.model_index
+        cells, counted = mesh.n_data * mesh.n_model, mesh.seq_index == 0
+        bom = False
+        if not sp_only:
+            cfg, bom = resolve_mesh(cfg, mesh, train_arrays, spec, log)
         over = ("data", "model") if bom else ("data",)
         s = mesh.n_model
         spec_init = dataclasses.replace(
             spec, n_items=pad_vocab(spec.n_items, s),
             n_cats=pad_vocab(spec.n_cats, s),
             n_users=pad_vocab(spec.n_users, s))
-        log(f"mesh: {mesh.shape}, embedding_mode={cfg.mesh.embedding_mode}"
-            f", batch_over_model={bom}")
+        if sp_only:
+            log(f"mesh: {mesh.shape}, seq_parallel={mesh.n_seq} "
+                f"(microbatches={cfg.mesh.sp_microbatches})")
+        else:
+            sp = (f", sp_microbatches={cfg.mesh.sp_microbatches}"
+                  if mesh.n_seq > 1 else "")
+            log(f"mesh: {mesh.shape}, embedding_mode="
+                f"{cfg.mesh.embedding_mode}, batch_over_model={bom}{sp}")
     train_loader = DataLoader(train_arrays, cfg.train.batch_size,
                               shuffle=True, seed=cfg.seed,
                               process_index=host, process_count=hosts)
     val_loader = DataLoader(val_arrays, cfg.eval_batch_size, shuffle=False,
-                            process_index=rank, process_count=world)
+                            process_index=cell, process_count=cells)
     test_loader = DataLoader(test_arrays, cfg.eval_batch_size,
-                             shuffle=False, process_index=rank,
-                             process_count=world)
+                             shuffle=False, process_index=cell,
+                             process_count=cells)
 
     if mesh is None:
         model = init_model_for(cfg, spec, device)
@@ -406,10 +424,12 @@ def train(cfg: Config, log: Callable[[str], None] = print,
             return ([place_batch(b, device) for b, _ in group], group[-1][1])
     else:
         from ..parallel.mesh import shard_batch
+        from ..parallel.seq_parallel import make_sp_steps
         from ..parallel.train_step import (gather_state, make_shardmap_steps,
                                            shard_state)
 
-        train_step, sharded_eval = make_shardmap_steps(cfg, model, opt, mesh)
+        make_steps = make_sp_steps if sp_only else make_shardmap_steps
+        train_step, sharded_eval = make_steps(cfg, model, opt, mesh)
 
         def eval_step(model_, batch):
             return sharded_eval(model_, place_batch(batch, device))
@@ -422,7 +442,8 @@ def train(cfg: Config, log: Callable[[str], None] = print,
     def evaluate(loader):
         return run_evaluate(eval_step, params_for_eval(), loader,
                             cfg.eval_streaming_bins, cfg.eval_gauc_bins,
-                            cfg.eval_gauc_max_users, group=merge_group)
+                            cfg.eval_gauc_max_users, group=merge_group,
+                            counted=counted)
 
     def barrier():
         if mesh is not None:

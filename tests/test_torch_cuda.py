@@ -1479,3 +1479,42 @@ def test_sharded_step_on_four_ranks_of_the_card_matches_one_process():
     assert c["train_params_err"] <= 1e-4 * c["train_params_max"]
     assert c["writes"][0] and not any(c["writes"][1:])
     assert c["checkpoint_matches"]
+
+
+def test_sp_step_on_two_ranks_of_the_card_matches_one_process():
+    """chip_smoke.py phase 16 (a), (c) and (d) at a smaller size: 2 ranks
+    on the card over gloo, a (1, 2, 1) grid, xlong_hpmn's six layers at
+    T = 300 (layers 0 and 1, T 300 and 100, in chunks through K1-scale and
+    K2-scale in 4 microbatches each, the four upper layers whole through
+    K1 and K2, no K5): 2 SGD
+    steps against one process with the kernels (losses 1e-5 relative,
+    parameters 1e-4 of max abs, the first step's table gradients 1e-4 of
+    their max abs); layer 0's SP scan with the kernels against the plain
+    SP scan (h 1e-4, gradients 1e-4 of max abs); taobao_dien's SP step
+    (both scans in chunks, K1-scale and K2-scale only); train() on the
+    ranks against one process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    from hpmn_tpu_torch.tools import parallel_check
+
+    res = parallel_check.run(["--ranks", "2", "--seq_parallel", "2",
+                              "--model_parallel", "1", "--seq_len", "300",
+                              "--items", "4000", "--cats", "100", "--batch",
+                              "64", "--steps", "2", "--train_examples",
+                              "1600", "--eval_batch", "64"])
+    c = res["compare"]
+    for r in res["ranks"]:
+        assert [(*n, *s) for n, s in zip(r["launches"],
+                                         r["launches_scale"])] \
+            == [(4, 4, 0, 8, 8)] * 2
+        assert [tuple(n) for n in r["dien"]["launches_scale"]] \
+            == [(8, 8)] * 2
+        sc = r["sp_scan"]
+        assert sc["h_err"] <= 1e-4 and sc["grad_rel"] <= 1e-4
+    assert c["loss_rel"] <= 1e-5 and c["dien_loss_rel"] <= 1e-5
+    assert c["params_err"] <= 1e-4 * c["params_max"]
+    assert c["dien_params_err"] <= 1e-4 * c["dien_params_max"]
+    assert c["table_grad_rel"] <= 1e-4 and c["dense_identical"]
+    assert c["train_auc_gap"] < 0.02 and c["train_log_loss_gap"] < 1e-5
+    assert c["train_params_err"] <= 1e-4 * c["train_params_max"]
+    assert c["writes"][0] and not any(c["writes"][1:])

@@ -353,17 +353,16 @@ def test_main_trains_the_remaining_families(tiny, monkeypatch, capsys,
 @pytest.mark.parametrize("override,error,match", [
     pytest.param(o, NotImplementedError, "ROADMAP", id=o) for o in (
         "model.scan_dtype=float16", "train.log_dir=/some/events",
-        "train.debug_nans=true", "model.dtype=bfloat16",
-        "mesh.seq_parallel=2")] + [
+        "train.debug_nans=true", "model.dtype=bfloat16")] + [
     pytest.param("mesh.model_parallel=2", ValueError,
-                 "torch.distributed.run", id="mesh.model_parallel=2"),
-    pytest.param("mesh.embedding_mode=a2a", None, None,
-                 id="mesh.embedding_mode=a2a")])
+                 "torch.distributed.run", id="mesh.model_parallel=2")] + [
+    pytest.param(o, None, None, id=o) for o in (
+        "mesh.embedding_mode=a2a", "mesh.seq_parallel=2")])
 def test_unported_driver_options_raise(tiny, override, error, match):
-    """The options the port does not run raise, naming ROADMAP.md:
-    seq_parallel is the next slice. On one process, model_parallel > 1
-    raises (the tables shard over ranks: parallel/); an exchange mode
-    alone trains on the one device, as the JAX driver does on one."""
+    """The options the port does not run raise, naming ROADMAP.md. On one
+    process, model_parallel > 1 raises (the tables shard over ranks:
+    parallel/); an exchange mode alone, or seq_parallel > 1 alone, trains
+    on the one device, as the JAX driver does on one."""
     cfg = _cfg(TINY, override, "train.max_steps=2", "train.eval_every=2")
     if error is None:
         assert np.isfinite(T.train(cfg, log=lambda s: None,

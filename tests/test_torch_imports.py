@@ -14,7 +14,8 @@ serving bundles' (``serving.history``, the ``tools.export_bundle`` and
 the ``tools.serve`` and ``tools.serve_fleet`` CLIs) and the remaining
 families' (``models.extra_baselines``, the ``tools.compare_models`` CLI)
 and parallelism's (``parallel`` and its ``distributed``, ``mesh``,
-``embedding_sharding`` and ``train_step``) among them."""
+``embedding_sharding``, ``train_step`` and ``seq_parallel``) among
+them."""
 
 import ast
 import pathlib
@@ -34,7 +35,8 @@ DRIVER = ("train.train", "train.optim", "train.checkpoint", "train.evaluate",
           "serving.aot", "ops.library", "tools.serve", "tools.serve_fleet",
           "models.extra_baselines", "tools.compare_models",
           "parallel", "parallel.distributed", "parallel.mesh",
-          "parallel.embedding_sharding", "parallel.train_step")
+          "parallel.embedding_sharding", "parallel.train_step",
+          "parallel.seq_parallel")
 
 
 def _forbidden(module: str) -> bool:
