@@ -87,7 +87,10 @@ before the last line):
    then amazon_gru4rec (K1 per train step and eval batch, K2 per step,
    counted) and amazon_rum trained 200 steps through ``train()`` on that
    ``data_dir``, each against the same run on the CPU and beside a card
-   run from perturbed weights (see the tolerances below); (b) a ``UserMemoryStore``
+   run from perturbed weights (see the tolerances below), and amazon_rum
+   a second time on the card, its parameters bit for bit the first run's
+   (the gather's backward on the card repeats: ``models/embedding.py``);
+   (b) a ``UserMemoryStore``
    per trained model ingests the test users (gru4rec: K1 once per batch),
    its scores held to the training path's, to one event at a time and to
    the same store on the CPU; (c) a seeded XLong CSV of about 3.4M rows
@@ -188,6 +191,19 @@ before the last line):
    process; (d) train() with ``mesh.seq_parallel=2`` on the 2 ranks, 16
    steps with evaluation and checkpoints, against one process at phase
    10's tolerances, rank 0 alone writing.
+17. the bf16 model and the last driver options: (a) xlong_hpmn at full
+   width and depth with ``model.dtype=bfloat16``, f32 then bf16 scans
+   (K1, K2, K5 or K1-bf16, K2-bf16, K5 once a step, counted): the kernel
+   path against the plain path (the loss, every bf16 gradient, the update
+   of 3 Adam steps with bf16 moments), examples/s, the peak memory and a
+   profiled dispatch beside phase 5's f32 model; (b) taobao_dien's bf16
+   model (T 300, B 512, left-padded; K1, K2, K1-scale, K2-scale) the same
+   way; (c) train() on amazon_hpmn with a bf16 model, ``train.log_dir``
+   and ``train.debug_nans`` against the CPU at step 10, its event file
+   read back against its log lines, the same run without the options bit
+   for bit, a NaN weight raising FloatingPointError at step 1; (d)
+   ``python -m hpmn_tpu_torch.tools.quality_gate --device cuda`` (2000
+   steps, both floors met) and a two-point ``tools.sweep``.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -412,6 +428,25 @@ TOL_TABLE_GRAD, TOL_TABLE_DELTA = 1e-4, 1e-2
 # kernels against the plain chunk scan at TOL_GRU (values) and TOL_GRAD
 # (the gradients over their max abs); train() as phase 15 (b).
 SP_STEPS = 3
+# Phase 17: the bf16 model (model.dtype=bfloat16). The kernel path against
+# the plain path on the same bf16 weights and batches: the loss at
+# TOL_STEP_LOSS_BF16 relative; each bf16 gradient within
+# TOL_BF16_MODEL_GRAD of its norm (the two paths' f32 values differ by
+# ulps, and a bf16 rounding then flips: 1 ulp is 2^-8 of a value); the
+# update of 3 Adam steps within TOL_BF16_MODEL_UPDATE of its norm (a bf16
+# parameter moves a few ulps a step, so one flipped rounding of p + u is a
+# large share of u; on the CPU the port's kernel path meets JAX's within
+# 0.102 of the norm, tests/test_torch_dtype_kernels.py). train() on the
+# card against the CPU after 10 steps: the parameters' gap within
+# TOL_BF16_MODEL_DRIVER of the norm of the CPU's 10-step update (p10 -
+# p0 over every parameter; measured 3.18e-3 of it on an H100), far below
+# the 0.5 that an update of half the size reads, and the 1 of a card run
+# that did not train. OPTIONS_STEPS: that run's steps, an eval and a log
+# line every 10.
+TOL_BF16_MODEL_GRAD = 3e-2
+TOL_BF16_MODEL_UPDATE = 0.15
+TOL_BF16_MODEL_DRIVER = 1e-2
+OPTIONS_STEPS = 20
 PARALLEL_CLI = ["--config", "xlong_hpmn", "--set", "n_examples=2048",
                 "train.max_steps=4", "train.eval_every=4",
                 "train.log_every=2", "model.use_pallas=true",
@@ -2039,6 +2074,285 @@ def phase_16(p):
     return launches
 
 
+def phase_17(p):
+    """The bf16 model and the last driver options on the card (see the
+    module docstring): (a) xlong_hpmn at full width and depth with
+    model.dtype=bfloat16 and scan_dtype float32, then bfloat16: the kernel
+    path against the plain path (the loss, every gradient, the parameters
+    after 3 Adam steps), the launches per step, examples/s, the profiled
+    device time and the peak memory beside the f32 model's step (phase
+    5); (b) taobao_dien's bf16 model the same way, with K1, K2, K1-scale
+    and K2-scale; (c) train() on amazon_hpmn with a bf16 model, log_dir
+    and debug_nans against the CPU at step 10, its event file read back
+    against its log lines, the run with debug_nans off bit for bit, a NaN
+    weight raising at step 1; (d) quality_gate --device cuda at 2000 steps
+    and a 2-point sweep, as subprocesses. ``p`` carries main's closures
+    and phase 5's numbers. -> launches by path (main's 13 counters)."""
+    import torch
+
+    from hpmn_tpu_torch.data.synthetic import AMAZON, TAOBAO, XLONG
+    from hpmn_tpu_torch.models.model import init_model, loss_fn
+    from hpmn_tpu_torch.train import events
+    from hpmn_tpu_torch.train.train import make_optimizer
+
+    t17 = time.perf_counter()
+    dev, k, L = p.dev, p.k, p.cfg_k.model.hpmn_layers
+    launches = {}
+
+    def adam3(c, batches3, plain, spec):
+        """3 Adam steps from the seeded weights -> (the first step's loss,
+        its gradients, the parameters before and after, the peak device
+        memory in MiB)."""
+        model = init_model(c, spec.n_items, spec.n_cats, seed=p.seed,
+                           device=dev)
+        p0 = {n: t.detach().clone() for n, t in model.named_parameters()}
+        opt = make_optimizer(c, model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i, batch in enumerate(batches3):
+            opt.zero_grad()
+            loss, _ = loss_fn(model, c, batch, plain=plain)
+            loss.backward()
+            if i == 0:
+                loss0 = loss.item()
+                grads = {n: torch.zeros_like(t) if t.grad is None
+                         else t.grad.clone()
+                         for n, t in model.named_parameters()}
+            opt.step()
+        torch.cuda.synchronize()
+        mib = torch.cuda.max_memory_allocated(dev) / 2**20
+        p3 = {n: t.detach().clone() for n, t in model.named_parameters()}
+        return loss0, grads, p0, p3, mib
+
+    def rel_norm(a, b):
+        a, b = a.float(), b.float()
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    def model_check(tag, c, batches3, spec):
+        """The kernel path against the plain path: the loss, each gradient
+        (bf16, the parameters' dtype) and the update of 3 Adam steps, each
+        over its norm -> the kernel path's peak MiB."""
+        lk, gk, p0, pk, mib = adam3(c, batches3, False, spec)
+        lp, gp, _, pp, _ = adam3(c, batches3, True, spec)
+        check(np.isfinite(lk), f"phase 17 {tag}: loss {lk}")
+        loss_rel = abs(lk - lp) / abs(lp)
+        check(all(g.dtype == torch.bfloat16 for g in gk.values()),
+              f"phase 17 {tag}: gradients not in bf16")
+        grad = {n: rel_norm(gk[n], gp[n]) for n in gp}
+        upd = {n: rel_norm(pk[n] - p0[n], pp[n] - p0[n]) for n in pp}
+        gw, uw = max(grad, key=grad.get), max(upd, key=upd.get)
+        for what, gap, tol in (("loss", loss_rel, TOL_STEP_LOSS_BF16),
+                               (f"gradient of {gw}", grad[gw],
+                                TOL_BF16_MODEL_GRAD),
+                               (f"3-step update of {uw}", upd[uw],
+                                TOL_BF16_MODEL_UPDATE)):
+            check(np.isfinite(gap) and gap <= tol, f"phase 17 {tag}: {what}"
+                  f" kernel vs plain path {gap:.3e} > {tol}")
+        print(f"phase 17 {tag} kernel vs plain path (same bf16 weights and "
+              f"batches): loss {lk:.7f} vs {lp:.7f} (relative "
+              f"{loss_rel:.2e}, tol {TOL_STEP_LOSS_BF16}) | {len(grad)} bf16 "
+              f"gradients, worst {gw} {grad[gw]:.2e} of its norm (tol "
+              f"{TOL_BF16_MODEL_GRAD}) | after 3 Adam steps (bf16 moments) "
+              f"worst update {uw} {upd[uw]:.2e} of its norm (tol "
+              f"{TOL_BF16_MODEL_UPDATE})", flush=True)
+        return mib
+
+    # (a) xlong_hpmn, model.dtype=bfloat16, f32 then bf16 scans.
+    n_steps = (WARMUP_DISPATCHES + TIMED_DISPATCHES) * k
+    n_b = p.batches[0].batch_size
+    for scan in ("float32", "bfloat16"):
+        c = p.cfg_k.with_model(dtype="bfloat16", scan_dtype=scan)
+        tag = f"(a) xlong_hpmn bf16 model, {scan} scans"
+        mib = model_check(tag, c, p.batches[:3], XLONG)
+        torch.cuda.empty_cache()
+        metrics, step_ms, eps, got, multistep = p.timed_train(c, p.stacks)
+        b16 = scan == "bfloat16"
+        want = ((0, 0, L * n_steps, L * n_steps) if b16 else
+                (L * n_steps, L * n_steps, 0, 0)) + (n_steps,) + (0,) * 8
+        check(got == want, f"phase 17 {tag}: launches over {n_steps} steps "
+              f"{got}, expected {want}")
+        launches["bf16_model_xlong" + ("_bf16_scans" if b16 else "")] = got
+        print(f"phase 17 {tag} B={n_b} T={XLONG.seq_len} L={L}, {k} steps "
+              f"per dispatch: {eps:.1f} examples/s ({step_ms:.3f} ms per "
+              f"step) beside the f32 model's (phase 5) {p.f32_eps:.1f} "
+              f"examples/s ({p.f32_step_ms:.3f} ms) | last step loss "
+              f"{metrics['loss']:.6f} bce {metrics['bce']:.6f} | peak "
+              f"device memory of 3 steps {mib:.1f} MiB | launches over "
+              f"{n_steps} steps: {'gru_scan_fwd_bf16' if b16 else 'gru_scan_fwd'}"
+              f" {got[2 if b16 else 0]} {'gru_scan_bwd_bf16' if b16 else 'gru_scan_bwd'}"
+              f" {got[3 if b16 else 1]} readout_fwd {got[4]} ({L}, {L}, 1 "
+              f"per step)", flush=True)
+        p.profile_dispatch(17, multistep, step_ms, p.stacks[0])
+        del multistep
+        torch.cuda.empty_cache()
+
+    # (b) taobao_dien, model.dtype=bfloat16, left-padded (f32 scans).
+    c = p.cfg_d.with_model(dtype="bfloat16")
+    dien = p.dien_batches
+    tag = "(b) taobao_dien bf16 model, left-padded"
+    model_check(tag, c, dien[:3], TAOBAO)
+    torch.cuda.empty_cache()
+    stacks_d = [[dien[(i + j) % len(dien)] for j in range(k)]
+                for i in range(len(dien))]
+    metrics, step_ms, eps, got, multistep = p.timed_train(c, stacks_d,
+                                                          TAOBAO)
+    want = (n_steps, n_steps) + (0,) * 7 + (n_steps, n_steps, 0, 0)
+    check(got == want, f"phase 17 {tag}: launches over {n_steps} steps "
+          f"{got}, expected {want}")
+    launches["bf16_model_dien"] = got
+    print(f"phase 17 {tag} B={dien[0].batch_size} T={TAOBAO.seq_len}: "
+          f"{eps:.1f} examples/s ({step_ms:.3f} ms per step) | last step "
+          f"loss {metrics['loss']:.6f} aux_loss {metrics['aux_loss']:.6f} | "
+          f"launches over {n_steps} steps: gru_scan_fwd {got[0]} "
+          f"gru_scan_bwd {got[1]} gru_scan_fwd_scale {got[9]} "
+          f"gru_scan_bwd_scale {got[10]} (1 each per step)", flush=True)
+    p.profile_dispatch(17, multistep, step_ms, stacks_d[0])
+    del multistep
+    torch.cuda.empty_cache()
+
+    # (c) train() with a bf16 model, log_dir and debug_nans.
+    work = tempfile.mkdtemp(prefix="chip_smoke_options_")
+    try:
+        base = ["n_examples=3000", "train.batch_size=64",
+                f"train.max_steps={OPTIONS_STEPS}", "train.eval_every=10",
+                "train.log_every=10", "train.early_stop_patience=100",
+                "train.steps_per_dispatch=1", "eval_steps_per_dispatch=1",
+                "model.use_pallas=true", "model.dtype=bfloat16"]
+        on = [f"train.log_dir={os.path.join(work, 'events')}",
+              "train.debug_nans=true"]
+        c_on = p.apply_overrides(p.get_config("amazon_hpmn"), base + on)
+        c_off = p.apply_overrides(p.get_config("amazon_hpmn"), base)
+        t0 = time.perf_counter()
+        res_on, lines_on, early_on, got, secs_on = p.driver_run(
+            "driver_bf16_model_options", c_on, "cuda", capture_at=10)
+        res_off, _, early_off, _, secs_off = p.driver_run(
+            "driver_bf16_model", c_off, "cuda", capture_at=10)
+        c_cpu = p.apply_overrides(c_on, [
+            f"train.log_dir={os.path.join(work, 'events_cpu')}"])
+        res_cpu, _, early_cpu, _, secs_cpu = p.driver_run(
+            "driver_bf16_model_cpu", c_cpu, "cpu", capture_at=10)
+        want = p.expect(c_on, OPTIONS_STEPS, OPTIONS_STEPS // 10,
+                        c_on.model.hpmn_layers)
+        check(got == want, f"phase 17 (c) launches {got}, expected {want}")
+        same = (res_on["params"].keys() == res_off["params"].keys()
+                and all(torch.equal(res_on["params"][n], res_off["params"][n])
+                        for n in res_off["params"]))
+        check(same, "phase 17 (c): the run with debug_nans and log_dir is "
+              "not the run without them bit for bit")
+        check(all(t.dtype == torch.bfloat16
+                  for t in res_on["params"].values()),
+              "phase 17 (c): the trained parameters are not bf16")
+        init = res_cpu["params_init"]
+        upd = torch.cat([(early_cpu[n].float() - init[n].float()).flatten()
+                         for n in early_cpu]).norm().item()
+        gap = torch.cat([(early_on[n].cpu().float() - early_cpu[n].float()
+                          ).flatten() for n in early_cpu]).norm().item()
+        check(upd > 0 and gap <= TOL_BF16_MODEL_DRIVER * upd, f"phase 17 "
+              f"(c): step-10 parameters on the card vs the CPU off by "
+              f"{gap:.3e} (norm), the CPU's 10-step update {upd:.3e}, tol "
+              f"{TOL_BF16_MODEL_DRIVER} of it")
+        files = os.listdir(os.path.join(work, "events"))
+        check(len(files) == 1 and files[0].startswith("events.out.tfevents."),
+              f"phase 17 (c): event files {files}")
+        got_ev = events.scalars(os.path.join(work, "events", files[0]))
+        want_ev = []
+        for line in lines_on:
+            w = line.split()
+            if w[2:3] == ["loss"]:
+                want_ev += [("train/loss", int(w[1]), float(w[3])),
+                            ("train/bce", int(w[1]), float(w[5])),
+                            ("train/examples_per_sec", int(w[1]),
+                             float(w[7]))]
+            elif w[2:3] == ["VAL"]:
+                want_ev += [("val/auc", int(w[1]), float(w[4])),
+                            ("val/log_loss", int(w[1]), float(w[8]))]
+            elif w[:1] == ["TEST"]:
+                want_ev += [("test/auc", OPTIONS_STEPS, float(w[2])),
+                            ("test/log_loss", OPTIONS_STEPS, float(w[6]))]
+        found = {(tag_, s): v for tag_, s, v in got_ev}
+        # A log line prints 4 decimals (ex/s 1): half a unit of the last.
+        bad = [(tag_, s, v, found.get((tag_, s))) for tag_, s, v in want_ev
+               if (tag_, s) not in found or abs(found[tag_, s] - v) > (
+                   0.05 if "per_sec" in tag_ else 5e-5) * (1 + 1e-6)]
+        tags = sorted({tag_ for tag_, _, _ in got_ev})
+        want_tags = sorted({"train/bce", "train/cov_reg", "train/l2",
+                            "train/loss", "train/examples_per_sec",
+                            "val/auc", "val/log_loss", "test/auc",
+                            "test/log_loss"})
+        check(not bad and tags == want_tags, f"phase 17 (c): event file "
+              f"vs log lines {bad[:5]}, tags {tags}")
+        # One weight NaN: the first step raises.
+        seam = p.driver.init_model_for
+
+        def nan_init(c_i, spec_i, device_i):
+            model = seam(c_i, spec_i, device_i)
+            with torch.no_grad():
+                model.tower.layers[0].w.view(-1)[0] = float("nan")
+            return model
+
+        p.driver.init_model_for = nan_init
+        try:
+            p.driver.train(c_on, log=lambda s: None, device=dev)
+            nan_msg = None
+        except FloatingPointError as e:
+            nan_msg = str(e)
+        finally:
+            p.driver.init_model_for = seam
+        check(nan_msg is not None and nan_msg.startswith("train step 1:"),
+              f"phase 17 (c): a NaN weight gave {nan_msg!r}")
+        print(f"phase 17 (c) driver amazon_hpmn model.dtype=bfloat16 "
+              f"use_pallas {OPTIONS_STEPS} steps, log_dir and debug_nans: "
+              f"card vs CPU step-10 parameters {gap:.3e} (norm; the CPU's "
+              f"10-step update {upd:.3e}, {gap / upd:.2e} of it, tol "
+              f"{TOL_BF16_MODEL_DRIVER}) | test auc "
+              f"card {res_on['test']['auc']:.4f} CPU "
+              f"{res_cpu['test']['auc']:.4f} | debug_nans and log_dir on vs "
+              f"off: parameters bit for bit, wall {secs_on:.1f} s vs "
+              f"{secs_off:.1f} s (CPU {secs_cpu:.1f} s) | event file "
+              f"{files[0]}: {len(got_ev)} scalars, tags {', '.join(tags)}, "
+              f"each of the {len(want_ev)} logged values at its step (to the"
+              f" log line's digits) | a NaN weight: FloatingPointError "
+              f"{nan_msg!r} | launches gru_scan_fwd {got[0]} gru_scan_bwd "
+              f"{got[1]} readout_fwd {got[4]} (= expected)", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (d) the tools, as a user runs them.
+    def tool(name, *args):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", f"hpmn_tpu_torch.tools.{name}", *args],
+            cwd=p.repo, capture_output=True, text=True, timeout=600)
+        rows = [json.loads(line) for line in out.stdout.splitlines()
+                if line.startswith("{")]
+        return out.returncode, rows, time.perf_counter() - t0, out.stderr
+
+    rc, rows, secs_g, err = tool("quality_gate", "--device", "cuda")
+    gate = rows[-1] if rows else {}
+    check(rc == 0 and gate.get("passed") is True and gate.get("steps") ==
+          2000 and all(gate["auc"][m_] >= f_
+                       for m_, f_ in gate["floors"].items()),
+          f"phase 17 (d) quality_gate exited {rc}: {gate} {err[-1500:]}")
+    rc, rows, secs_s, err = tool(
+        "sweep", "--config", "amazon_hpmn", "--grid", "train.lr=1e-3,3e-3",
+        "--set", "n_examples=3000", "train.batch_size=64",
+        "train.max_steps=20", "train.eval_every=10",
+        "model.use_pallas=true", "--device", "cuda")
+    check(rc == 0 and len(rows) == 3 and "best" in rows[-1]
+          and all(np.isfinite(r_["test_auc"]) for r_ in rows[:2]),
+          f"phase 17 (d) sweep exited {rc}: {rows} {err[-1500:]}")
+    print(f"phase 17 (d) quality_gate --device cuda: {json.dumps(gate)} in "
+          f"{secs_g:.1f} s | sweep over train.lr=1e-3,3e-3 (20 steps each):"
+          f" " + ", ".join(f"lr {r_['trial']['train.lr']} best_val_auc "
+                           f"{r_['best_val_auc']:.4f} test_auc "
+                           f"{r_['test_auc']:.4f}" for r_ in rows[:2])
+          + f", best lr {rows[-1]['best']['trial']['train.lr']}, in "
+          f"{secs_s:.1f} s", flush=True)
+    print(f"phase 17 time: {time.perf_counter() - t17:.1f} s", flush=True)
+    return launches
+
+
 def bst_bf16_gap(dev):
     """bf16 BST's gradient gap from the f32 gradient (the max over the
     parameters of the max abs difference over the f32 one's max abs), the
@@ -3267,6 +3581,45 @@ def main():
             print(f"phase {phase} profile: the profiler saw no device time; "
                   "device busy share not measured", flush=True)
 
+    def embedding_backward_ms(multistep, stack):
+        """Phase 5's dispatch twice more under the profiler: the table
+        gradients' device ms per step (the kernels under
+        aten::embedding_dense_backward) and the step's, with the
+        deterministic sum the port runs on the card
+        (models.embedding.rows_backward) and without it (PyTorch's
+        default embedding backward, the form before the amazon_rum
+        repair). A measurement: nothing is checked."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from hpmn_tpu_torch.models import embedding
+
+        def run():
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                multistep(stack)
+                torch.cuda.synchronize()
+            rows = prof.key_averages()
+            emb = sum(a.device_time_total for a in rows
+                      if a.key == "aten::embedding_dense_backward")
+            total = sum(a.self_device_time_total for a in rows
+                        if a.device_type == DeviceType.CUDA
+                        and not getattr(a, "is_user_annotation", False))
+            return emb / 1e3 / k, total / 1e3 / k
+
+        emb_det, step_det = run()
+        keep = embedding._deterministic
+        embedding._deterministic = lambda on: contextlib.nullcontext()
+        try:
+            emb_def, step_def = run()
+        finally:
+            embedding._deterministic = keep
+        print(f"phase 5 table gradients (aten::embedding_dense_backward, "
+              f"device ms per step, one profiled dispatch each): "
+              f"deterministic sum {emb_det:.4f} of a {step_det:.3f} ms step "
+              f"| PyTorch's default (before the repair) {emb_def:.4f} of a "
+              f"{step_def:.3f} ms step", flush=True)
+
     def profile_dispatch(phase, multistep, step_ms, stack):
         """One more k-step dispatch under the profiler (profile_work)."""
         profile_work(phase, lambda: multistep(stack), step_ms, k, "step")
@@ -3304,6 +3657,7 @@ def main():
           f"{train_launches[4]} ({L}, {L}, 1 per step; bf16 scans "
           f"{train_launches[2]}, {train_launches[3]})", flush=True)
     profile_dispatch(5, multistep, step_ms, stacks[0])
+    embedding_backward_ms(multistep, stacks[0])
     del multistep
     torch.cuda.empty_cache()
 
@@ -3593,6 +3947,8 @@ def main():
                     for p_ in held["model"].parameters():
                         p_.mul_(1 + perturb * torch.randn(
                             p_.shape, generator=g).to(p_.device))
+            held["init"] = {n: p_.detach().clone() for n, p_ in
+                            held["model"].named_parameters()}
             return held["model"]
 
         def log(line):
@@ -3621,6 +3977,7 @@ def main():
             driver.init_model_for = seam
         if device != "cpu":
             driver_launches[name] = launches
+        res["params_init"] = held["init"]
         return res, lines, captured, launches, secs
 
     def eval_batches(c_e):
@@ -3822,6 +4179,18 @@ def main():
                 name_b + "_cpu", c_b, "cpu", capture_at=CAPTURE_STEP)
             res_q, _, _, _, secs_q = driver_run(
                 name_b + "_perturbed", c_b, "cuda", perturb=PERTURB)
+            if family == "rum":
+                # The same run again in this process: bit for bit.
+                res_k2 = driver_run(name_b + "_again", c_b, "cuda")[0]
+                repeat = max((res_k2["params"][n] - res_k["params"][n]
+                              ).abs().max().item() for n in res_k["params"])
+                check(repeat == 0.0, f"phase 11 {name_b}: a second card "
+                      f"run's step-{BASELINE_STEPS} parameters differ from "
+                      f"the first's by {repeat:.3e}")
+                print(f"phase 11 driver amazon_rum: two card runs in one "
+                      f"process, step-{BASELINE_STEPS} parameter gap "
+                      f"{repeat:.1e} (must be 0)", flush=True)
+                del res_k2
             n_val, n_test = eval_batches(c_b)
             n_eval = (BASELINE_STEPS // VAL_CHECK_STEP) * n_val + n_test
             want_b = ((BASELINE_STEPS + n_eval, BASELINE_STEPS)
@@ -4121,6 +4490,23 @@ def main():
     # process, layer 0's SP scan against the plain one.
     launches16 = phase_16(SimpleNamespace(card=card))
 
+    # ------------------------- 17. the bf16 model and the last options --
+    # xlong_hpmn and taobao_dien with model.dtype=bfloat16 through their
+    # kernels, train() with log_dir and debug_nans, the quality gate and a
+    # sweep.
+    launches17 = phase_17(SimpleNamespace(
+        dev=dev, seed=cfg.seed, cfg_k=cfg_k, cfg_d=cfg_d, batches=batches,
+        stacks=stacks, k=k, timed_train=timed_train,
+        profile_dispatch=profile_dispatch,
+        dien_batches=dien_batches["f32 padded"], f32_eps=ex_per_s,
+        f32_step_ms=step_ms, driver_run=driver_run, expect=expect,
+        driver=driver, apply_overrides=driver.apply_overrides,
+        get_config=get_config, repo=repo))
+
+    def p17(i):
+        """Phase 17's launches of main's counter i, by path."""
+        return {k_: v[i] for k_, v in launches17.items() if v[i]}
+
     def entry(name, src, rep, row, err, by_path, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -4147,7 +4533,8 @@ def main():
                   if "gru_scan_fwd" in v},
                **{k_: v[0] for k_, v in launches14.items()},
                **{k_: v[0] for k_, v in launches15.items()},
-               **{k_: v[0] for k_, v in launches16.items() if v[0]}},
+               **{k_: v[0] for k_, v in launches16.items() if v[0]},
+               **p17(0)},
               sources=list(cuda_gru.FWD_SOURCES),
               host_us_op=enq13[f"gru_scan_fwd T={store_d_window} "
                                f"B={B_SCAN}"][0],
@@ -4162,7 +4549,8 @@ def main():
                "training_user_emb": launches12["training_user_emb"][1],
                **{k_: v[1] for k_, v in launches14.items()},
                **{k_: v[1] for k_, v in launches15.items()},
-               **{k_: v[1] for k_, v in launches16.items() if v[1]}},
+               **{k_: v[1] for k_, v in launches16.items() if v[1]},
+               **p17(1)},
               sources=list(cuda_gru.BWD_SOURCES),
               max_err_over_max_abs=bwd_err,
               pass_ms=pass_first[torch.float32][1],
@@ -4179,7 +4567,7 @@ def main():
                **{k_: v["readout_fwd"] for k_, v in launches13.items()
                   if "readout_fwd" in v},
                "compare_hpmn": launches14["compare_hpmn"][4],
-               **{k_: v[2] for k_, v in launches15.items()}},
+               **{k_: v[2] for k_, v in launches15.items()}, **p17(4)},
               host_us_op=enq13[f"readout_fwd B={B_SCAN}"][0],
               host_us_direct=enq13[f"readout_fwd B={B_SCAN}"][1],
               host_us_op_rank=enq13[
@@ -4194,7 +4582,7 @@ def main():
               cuda_gru.REPLACES_BF16,
               (g16[3], g16[4], g16[5], g16[6], g16[7]), bf_err,
               {"training_bf16": bf16_launches[2],
-               "training_dien_bf16": bd[2]},
+               "training_dien_bf16": bd[2], **p17(2)},
               sources=list(cuda_gru.FWD_SOURCES),
               projection_ms=proj16_rows[0][3],
               projection_max_err_over_max_abs=proj16_err_max,
@@ -4204,7 +4592,7 @@ def main():
               cuda_gru.BWD_REPLACES_BF16,
               (gb16[3], gb16[4], gb16[5], gb16[6], gb16[7]), bfb_abs,
               {"training_bf16": bf16_launches[3],
-               "training_dien_bf16": bd[3]},
+               "training_dien_bf16": bd[3], **p17(3)},
               sources=list(cuda_gru.BWD_SOURCES),
               max_err_over_max_abs=bfb_err,
               diff_from_f32_kernel_over_max_abs=bfb_drift,
@@ -4245,7 +4633,7 @@ def main():
                  else {"training_dien": fd[9 + idx],
                        "compare_dien": launches14["compare_dien"][9 + idx],
                        **{k_: v[3 + idx] for k_, v in launches16.items()
-                          if v[3 + idx]},
+                          if v[3 + idx]}, **p17(9 + idx),
                        **(
                      {"serving_dien": serve_launches[9],
                       "bundle_dien": launches12["bundle_dien"][9],

@@ -15,10 +15,9 @@ bundle's ``serving_config.json`` holds (JAX's ``cfg.to_dict()``).
 directory of preprocessed ``<dataset>.npz`` files (the ``process_*`` CLIs
 write them); empty, the driver trains on the synthetic task.
 
-Fields the driver takes but does not run yet raise ``NotImplementedError``
-in ``train.train.train`` when they are set: ``train.log_dir`` and
-``train.debug_nans`` (ROADMAP.md).
-Not carried: ``train.compilation_cache_dir`` (no compile cache to keep)
+``model.dtype`` is float32 or bfloat16 (the parameters' dtype; float16,
+which the JAX package also takes, raises ``NotImplementedError`` in
+``models.model.check_supported``). Not carried: ``train.compilation_cache_dir`` (no compile cache to keep)
 and ``train.compact_transfer``.
 """
 
@@ -33,7 +32,7 @@ class ModelConfig:
     name: str = "hpmn"
     emb_dim: int = 16  # per id field; behaviour embedding = 2*emb_dim
     mem_dim: int = 32  # GRU memory/hidden width
-    dtype: str = "float32"
+    dtype: str = "float32"  # the parameters': float32 or bfloat16
     # Layer l (0-indexed) updates every hpmn_period**l steps.
     hpmn_layers: int = 3
     hpmn_period: int = 2
@@ -99,11 +98,11 @@ class TrainConfig:
     early_stop_patience: int = 5  # evals without a val-AUC improvement
     log_every: int = 50
     ckpt_dir: str = ""
-    log_dir: str = ""  # tensorboard event files: not ported
+    log_dir: str = ""  # tensorboard event files (train/events.py)
     keep_best_k: int = 3
     async_checkpoint: bool = False  # write snapshots on a thread
     profile_steps: int = 0  # >0: a torch.profiler trace of that many steps
-    debug_nans: bool = False  # not ported
+    debug_nans: bool = False  # raise FloatingPointError at the first NaN
     # Train steps per driver dispatch. 0 is the JAX driver's startup probe,
     # which the port reads as 1. The port's multistep is a Python loop, so
     # k changes only the grouping of steps (log and eval boundaries).

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..ops.gru import GRUParams, gru_sequence
+from .dtypes import matmul
 from .readout import Readout, attention_readout
 
 
@@ -102,7 +103,9 @@ def encode_tm(enc: DIENEncoder, x_tm: torch.Tensor,
     [T, B, d] or None. gru_seq_tm_fn(params, x_tm, mask_tm, scale_tm=None)
     -> (h_seq_tm, h_T) runs both scans in the scan dtype.
 
-    The aux loss and the attention read h_seq in float32; the AUGRU is fed
+    The aux loss and the attention read h_seq in float32 (with a bf16
+    model, each product in its operands' promoted dtype, as in JAX: the
+    target's projection in bf16, the rest in float32); the AUGRU is fed
     h_seq as the first scan returned it (bf16 in the bf16 chain) and alpha,
     which the scan casts to its dtype. alpha is a softmax over T of scores
     set to float32's min (not -inf) at padded steps, and 0 on rows with no
@@ -112,7 +115,7 @@ def encode_tm(enc: DIENEncoder, x_tm: torch.Tensor,
     hs = h_seq_tm.to(f32)
     aux = hs.new_zeros(())
     if use_aux_loss and x_neg_tm is not None:
-        per = _aux_terms(hs[:-1] @ enc.aux_w, x_tm[1:].to(f32),
+        per = _aux_terms(matmul(hs[:-1], enc.aux_w), x_tm[1:].to(f32),
                          x_neg_tm[1:].to(f32))
         if mask_tm is None:
             aux = per.mean()
@@ -120,8 +123,9 @@ def encode_tm(enc: DIENEncoder, x_tm: torch.Tensor,
             m = mask_tm[:-1] * mask_tm[1:]
             aux = (per * m).sum() / torch.clamp(m.sum(), min=1.0)
     att = enc.attn
-    e = torch.tanh(hs @ att.wm + (target @ att.wq + att.b)[None, :, :])
-    scores = e @ att.v  # [T, B]
+    e = torch.tanh(matmul(hs, att.wm)
+                   + (target @ att.wq + att.b)[None, :, :])
+    scores = matmul(e, att.v)  # [T, B]
     if mask_tm is not None:
         scores = torch.where(mask_tm > 0, scores, torch.finfo(f32).min)
     alpha = torch.softmax(scores, dim=0)

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data.synthetic import SPECS
+from .embedding import gather_rows
 from .readout import Readout, attention_readout
 
 FAMILIES = ("dnn", "lstm", "caser", "shan", "svdpp", "bst")
@@ -242,12 +243,12 @@ class SVDppEncoder(nn.Module):
 def svdpp_encode(enc: SVDppEncoder, x: torch.Tensor, mask: torch.Tensor,
                  uid: torch.Tensor) -> torch.Tensor:
     """-> [p_u[uid]; sum_t mask x_t / sqrt(max(sum mask, 1))] [B, 2 d_in].
-    The row gather is ``F.embedding``, whose backward sums a repeated
-    row's gradients in a fixed order."""
+    The row gather is ``embedding.gather_rows``, whose backward sums a
+    repeated row's gradients in a fixed order."""
     implicit = torch.einsum("btd,bt->bd", x, mask)
     implicit = implicit * torch.rsqrt(
         torch.clamp(mask.sum(-1, keepdim=True), min=1.0))
-    return torch.cat([F.embedding(uid.long(), enc.p_u), implicit], dim=-1)
+    return torch.cat([gather_rows(enc.p_u, uid), implicit], dim=-1)
 
 
 # ----------------------------------------------------------------- BST ----

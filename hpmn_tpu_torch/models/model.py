@@ -38,6 +38,15 @@ lstm, caser, shan, svdpp, bst): plain tensor ops whatever
 
 With ``use_user_emb`` every family's tower reads the user table's row of
 ``batch.uid`` after [target embedding; state], as in JAX.
+
+``model.dtype`` (float32 or bfloat16) is the parameters' dtype, and the
+plain paths compute in it. The use_pallas branches cast at JAX's places:
+x, the mask, the scale and the weights to ``scan_dtype`` at each scan
+(differentiably, so the gradients come back in the parameters' dtype),
+the memory and the states back to float32, and the readout's six
+operands to float32 (``cuda_readout.fused_attention_readout``); the tower
+and DIEN's attention then meet float32 operands and bf16 weights, whose
+products run in float32 (``dtypes.matmul``, JAX's promotion).
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from . import extra_baselines
 from . import gru4rec as gru4rec_mod
 from . import hpmn as hpmn_mod
 from . import rum as rum_mod
+from .dtypes import DTYPES
 from .embedding import Embedding, dense_lookup, user_lookup
 from .losses import bce_with_logits, covariance_regularizer, l2_regularizer
 from .readout import Readout, attention_readout
@@ -66,7 +76,6 @@ from .tower import Tower, apply_tower
 
 ENCODERS = ("hpmn", "gru4rec", "dien", "rum", "dnn", "lstm", "caser", "shan",
             "svdpp", "bst")
-_SCAN_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _embedding(cfg: Config, n_items: int, n_cats: int,
@@ -180,8 +189,8 @@ def check_supported(cfg: Config) -> None:
     m = cfg.model
     if m.name not in _MODELS:
         raise ValueError(f"unknown encoder {m.name!r}")
-    todo = {"dtype": m.dtype != "float32",
-            "scan_dtype": m.scan_dtype not in _SCAN_DTYPES}
+    todo = {"dtype": m.dtype not in DTYPES,
+            "scan_dtype": m.scan_dtype not in DTYPES}
     for field, unsupported in todo.items():
         if unsupported:
             raise NotImplementedError(
@@ -208,24 +217,26 @@ def build_model(cfg: Config, n_items: int, n_cats: int,
 def init_model(cfg: Config, n_items: int, n_cats: int,
                seed: Optional[int] = None, device="cuda",
                n_users: int = 0) -> nn.Module:
-    """The port's own seeded init, drawn on the CPU from a
+    """The port's own seeded init, drawn in float32 on the CPU from a
     ``torch.Generator`` (so the weights do not depend on the device), then
-    moved to ``device``. Same distributions as the JAX init, other numbers;
-    the parts are drawn in their order in the model (embedding, encoder,
-    readout where there is one, tower). ``n_users`` as for
-    :func:`build_model`."""
+    cast to ``model.dtype`` and moved to ``device``. Same distributions as
+    the JAX init, other numbers (JAX draws a bf16 model's weights in bf16;
+    here a bf16 weight is the rounding of the f32 draw); the parts are
+    drawn in their order in the model (embedding, encoder, readout where
+    there is one, tower). ``n_users`` as for :func:`build_model`."""
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
     model = build_model(cfg, n_items, n_cats, n_users)
     for part in model.children():
         part.reset_parameters(gen)
-    return model.to(device)
+    return model.to(device=device, dtype=DTYPES[cfg.model.dtype])
 
 
 def _scan_weights(enc: hpmn_mod.HPMNEncoder, dtype: torch.dtype):
-    """The encoder's layers with their weights cast to the scan's dtype,
-    differentiably (autograd carries the gradients back to the f32
-    parameters, as the VJP of the JAX ``astype`` does)."""
-    if dtype == torch.float32:
+    """The encoder's layers with their weights cast to the scan's dtype
+    where theirs differs, differentiably (autograd carries the gradients
+    back to the parameters' dtype, as the VJP of the JAX ``astype``
+    does)."""
+    if enc.layers[0].wx.dtype == dtype:
         return enc
     return SimpleNamespace(layers=[
         GRUWeights(layer.wx.to(dtype), layer.wh.to(dtype), layer.b.to(dtype))
@@ -270,7 +281,7 @@ def _apply_dien(model: DIENModel, cfg: Config, batch: Batch,
                    else batch.seq_mask.T.to(x_tm.dtype).contiguous())
         state, aux_loss = dien_mod.encode_tm(
             model.encoder, x_tm, mask_tm, q, x_neg_tm, aux_on,
-            gru_seq_tm_fn=_tm_scan(_SCAN_DTYPES[m.scan_dtype], plain))
+            gru_seq_tm_fn=_tm_scan(DTYPES[m.scan_dtype], plain))
         return state.float(), aux_loss
     x = lookup(emb, batch.item_seq, batch.cat_seq)  # [B, T, 2d]
     x_neg = (lookup(emb, batch.neg_item_seq, batch.neg_cat_seq)
@@ -292,7 +303,7 @@ def _apply_baseline(model: nn.Module, cfg: Config, batch: Batch,
         x_tm = lookup(emb, batch.item_seq.T, batch.cat_seq.T)
         mask_tm = (None if m.assume_full_mask
                    else batch.seq_mask.T.to(x_tm.dtype).contiguous())
-        scan = _tm_scan(_SCAN_DTYPES[m.scan_dtype], plain)
+        scan = _tm_scan(DTYPES[m.scan_dtype], plain)
         _, state = scan(model.encoder.gru, x_tm, mask_tm)
         return state.float()
     x = lookup(emb, batch.item_seq, batch.cat_seq)  # [B, T, 2d]
@@ -387,13 +398,13 @@ def _apply(model: nn.Module, cfg: Config, batch: Batch, plain: bool,
         # weights are cast to it here (pallas_gru_sequence_tm casts them
         # inside), and the memory comes back to float32 for the readout
         # and the covariance regularizer, as the JAX apply_model does.
-        dtype = _SCAN_DTYPES[m.scan_dtype]
+        dtype = DTYPES[m.scan_dtype]
         x_tm = lookup(emb, batch.item_seq.T, batch.cat_seq.T)
         mask_tm = (None if m.assume_full_mask
                    else batch.seq_mask.T.to(dtype).contiguous())
         bf16 = dtype == torch.bfloat16
         enc = _scan_weights(model.encoder, dtype)
-        readout = (attention_readout if plain
+        readout = (cuda_readout.plain_attention_readout if plain
                    else cuda_readout.fused_attention_readout)
         if mask_tm is None and m.pallas_stride_outputs and m.hpmn_period > 1:
             if plain:

@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .dtypes import einsum
+
 
 class RUMEncoder(nn.Module):
     """keys [K, mem_dim], proj [in_dim, mem_dim], erase and add [mem_dim,
@@ -76,9 +78,11 @@ def write_memory(enc: RUMEncoder, x: torch.Tensor,
 
 def read_memory(enc: RUMEncoder, M: torch.Tensor,
                 target: torch.Tensor) -> torch.Tensor:
-    """memory [B, K, mem_dim], target [B, in_dim] -> the read [B, mem_dim]."""
+    """memory [B, K, mem_dim], target [B, in_dim] -> the read [B, mem_dim]
+    (a store's float32 memory read by a bf16 model's weights in float32,
+    JAX's promotion)."""
     r = address(enc.keys, target @ enc.qproj, enc.beta)
-    return torch.einsum("bk,bkd->bd", r, M)
+    return einsum("bk,bkd->bd", r, M)
 
 
 def encode(enc: RUMEncoder, x: torch.Tensor, mask: torch.Tensor,

@@ -8,6 +8,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from .dtypes import matmul
+
 
 class TowerLayer(nn.Module):
     """w [a, b], bias b [b], and a PReLU slope alpha [b] (None on the final
@@ -46,10 +48,12 @@ def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 
 
 def apply_tower(tower: Tower, x: torch.Tensor) -> torch.Tensor:
-    """x [B, d_in] -> logits [B]."""
+    """x [B, d_in] -> logits [B], in the promoted dtype of x and the
+    weights (a bf16 tower on a float32 state computes in float32, as in
+    JAX)."""
     h = x
     for layer in tower.layers:
-        h = h @ layer.w + layer.b
+        h = matmul(h, layer.w) + layer.b
         if layer.alpha is not None:
             h = prelu(h, layer.alpha)
     return h[..., 0]

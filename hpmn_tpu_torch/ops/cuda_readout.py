@@ -141,17 +141,35 @@ class AttentionReadout(torch.autograd.Function):
         return torch.autograd.grad(read, inputs, d_read)
 
 
+def _f32_args(module, memory, query):
+    """(memory, query, wm, wq, b, v) in float32, cast differentiably where
+    they are not (a bf16 model's weights and query), as the JAX
+    ``pallas_attention_readout`` casts them for its kernel."""
+    return tuple(t.float() for t in (memory, query, module.wm, module.wq,
+                                     module.b, module.v))
+
+
+def plain_attention_readout(module, memory: torch.Tensor,
+                            query: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`fused_attention_readout` on any device:
+    the same float32 casts, then ``attention_readout`` under autograd."""
+    memory, query, *w = _f32_args(module, memory, query)
+    return attention_readout(ReadoutWeights(*w), memory, query)
+
+
 def fused_attention_readout(module, memory: torch.Tensor,
                             query: torch.Tensor) -> torch.Tensor:
-    """memory [B, L, d_m], query [B, d_q] -> read [B, d_m], with the
-    readout weights of ``module`` (a ``models.readout.Readout``),
+    """memory [B, L, d_m], query [B, d_q] -> read [B, d_m] float32, with
+    the readout weights of ``module`` (a ``models.readout.Readout``),
     differentiable through :class:`AttentionReadout`; where nothing needs
     a gradient (serving, under ``no_grad``), :func:`readout_fwd` without
-    the autograd.Function."""
+    the autograd.Function. The six operands are cast to float32 first
+    (no-ops for a float32 model; a bf16 model's gradients come back in
+    bf16 through the casts)."""
     if memory.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_attention_readout runs on cpu or cuda, not "
                          f"{memory.device}")
-    args = (memory, query, module.wm, module.wq, module.b, module.v)
+    args = _f32_args(module, memory, query)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return AttentionReadout.apply(*args)
     return readout_fwd(*args)

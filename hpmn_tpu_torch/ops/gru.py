@@ -26,6 +26,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from ..models.dtypes import matmul
+
 
 class GRUWeights(NamedTuple):
     """Bare weight tensors with GRUParams' field names, for the functions
@@ -58,15 +60,16 @@ class GRUParams(nn.Module):
 
 
 def gru_input_proj(params: GRUParams, x: torch.Tensor) -> torch.Tensor:
-    """x [..., d_in] -> xp [..., 3*d_m]."""
-    return x @ params.wx + params.b
+    """x [..., d_in] -> xp [..., 3*d_m] (JAX's promotion where x's dtype
+    is not the weights')."""
+    return matmul(x, params.wx) + params.b
 
 
 def _gates(params: GRUParams, xp: torch.Tensor, h: torch.Tensor):
     """One step's r, z, c and g_c = (h @ wh)_c from the input projection
     xp [..., 3*d_m] and h [..., d_m]."""
     d_m = h.shape[-1]
-    g = h @ params.wh
+    g = matmul(h, params.wh)
     r = torch.sigmoid(xp[..., :d_m] + g[..., :d_m])
     z = torch.sigmoid(xp[..., d_m:2 * d_m] + g[..., d_m:2 * d_m])
     g_c = g[..., 2 * d_m:]

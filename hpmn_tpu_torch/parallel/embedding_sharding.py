@@ -24,8 +24,9 @@ cotangent rows return to the owner by the inverse exchange (``add``, not
 ``set``, into a slot that duplicate ids share) and are summed into its
 table rows; the replicated-ids lookups (:func:`local_lookup_fn`) sum the
 cotangent rows of the ids a rank owns locally, with no collective. The
-sums use ``F.embedding``'s backward (``embedding_dense_backward``), the
-single-device table gradient, which adds a row's terms in a fixed order.
+sums are the single-device table gradient
+(``models.embedding.rows_backward``, ``F.embedding``'s backward), which
+adds a row's terms in a fixed order.
 JAX's one-hot matmul for tables of at most 4096 rows is the same sum in
 another order.
 
@@ -43,6 +44,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..models.embedding import rows_backward
 from .mesh import Mesh
 
 
@@ -100,8 +102,7 @@ def _scatter_rows(g: torch.Tensor, idx: torch.Tensor,
                   rows: int) -> torch.Tensor:
     """sum of g's rows into a [rows, d] table at idx (the backward of a row
     gather, ``F.embedding``'s)."""
-    return torch.ops.aten.embedding_dense_backward(
-        g.contiguous(), idx.long(), rows, -1, False)
+    return rows_backward(g, idx, rows)
 
 
 def _owned(ids: torch.Tensor, shard: int, rows_per: int):

@@ -210,8 +210,11 @@ def make_shardmap_steps(cfg: Config, model: nn.Module, opt, mesh: Mesh,
     eval lookup takes each rank's own queries; the ranks of a seq group
     score the same rows). ``gru_seq_fn`` as for ``loss_fn``; on a grid
     with a seq axis the seq group owns it, and one given raises, as does
-    ``use_pallas`` (its time-major scans would not take it)."""
-    from ..train.train import fuse_steps
+    ``use_pallas`` (its time-major scans would not take it). With
+    ``train.debug_nans`` the step checks what ``make_train_step`` checks,
+    each check's flags merged over every rank, so that all raise together;
+    the eval step checks this rank's logits."""
+    from ..train.train import check_nans, fuse_steps
     from .seq_parallel import resolve_sp_fn
 
     n_model, world = mesh.n_model, mesh.size
@@ -244,11 +247,19 @@ def make_shardmap_steps(cfg: Config, model: nn.Module, opt, mesh: Mesh,
             and hasattr(opt, "grad_sq_norm"):
         opt.grad_sq_norm = sharded_grad_sq_norm(model, mesh)
     l2_fix = cfg.loss.l2_weight > 0 and n_model > 1
+    debug = cfg.train.debug_nans
+
+    def any_rank(flags: torch.Tensor) -> torch.Tensor:
+        return _all_reduce(flags, mesh.world_group, dist.ReduceOp.MAX)
 
     def step(batch: Batch) -> Dict[str, torch.Tensor]:
         opt.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(model, cfg, batch, lookup=lookup,
                                 gru_seq_fn=gru_seq_fn)
+        if debug:
+            check_nans("the forward's", [("loss", loss),
+                                         ("logits", metrics["logits"])],
+                       any_rank)
         loss.backward()
         del metrics["logits"]
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -273,7 +284,12 @@ def make_shardmap_steps(cfg: Config, model: nn.Module, opt, mesh: Mesh,
             _mean_([p.grad for p in dense], mesh.world_group, world)
             if n_table > 1:
                 _mean_([p.grad for p in table], mesh.table_group, n_table)
+        if debug:
+            check_nans("the gradient of", ((n, p.grad) for n, p in params),
+                       any_rank)
         opt.step()
+        if debug:
+            check_nans("the updated parameter", params, any_rank)
         keys = sorted(metrics)
         vals = torch.stack([metrics[k].float() for k in keys])
         _mean_([vals], mesh.world_group, world)
@@ -290,6 +306,8 @@ def make_shardmap_steps(cfg: Config, model: nn.Module, opt, mesh: Mesh,
         with torch.no_grad():
             logits, _ = apply_model(model_, cfg, batch, lookup=eval_lookup,
                                     gru_seq_fn=gru_seq_fn)
+        if debug:
+            check_nans("the eval batch's", [("logits", logits)])
         return logits
 
     return train_step, eval_step

@@ -186,7 +186,9 @@ class HistoryStore(UserRows):
             batch = batch_from_numpy(
                 self._batch_arrays(uids[sl], rows[sl], cand_items[sl],
                                    cand_cats[sl]), device=self.device)
-            out[sl] = self._score(batch).cpu().numpy()
+            # float32 holds a bf16 model's bf16 scores exactly (JAX
+            # returns them as ml_dtypes.bfloat16, which numpy lacks).
+            out[sl] = self._score(batch).float().cpu().numpy()
         return out
 
     def _score(self, batch: Batch) -> torch.Tensor:

@@ -43,7 +43,8 @@ import numpy as np
 import torch
 
 from ..configs import Config, config_from_dict, config_to_dict
-from ..convert import flat_from_model, model_from_flat
+from ..convert import (flat_from_model, is_bf16, model_from_flat,
+                       tensor_from_array)
 from ..models.embedding import dense_lookup, user_lookup
 from ..models.model import check_supported, model_n_users
 from ..models.tower import apply_tower
@@ -64,10 +65,22 @@ def _bundle_array(z, key: str) -> np.ndarray:
     return q * z["__q8scale__" + key]
 
 
+def _quantize_rows(a: np.ndarray):
+    """-> (int8 rows, scales) of a 2-D table, in float32 arithmetic; a
+    bf16 table's exact float32 values first (JAX's ``ml_dtypes`` arrays
+    promote to float32 against the Python 127.0)."""
+    if is_bf16(a):
+        a = tensor_from_array(a).float().numpy()
+    scale = np.abs(a).max(axis=1, keepdims=True) / 127.0
+    scale[scale == 0] = 1.0
+    return np.clip(np.rint(a / scale), -127, 127).astype(np.int8), scale
+
+
 def save_params_npz(model, directory: str,
                     quantize_embeddings: bool = False) -> None:
     """Write a bundle's params.npz (every store kind's): the model's
-    arrays by JAX keystr, the 2-D embedding tables optionally as per-row
+    arrays by JAX keystr (a bf16 model's as the ``|V2`` bytes JAX's
+    ``np.savez`` writes), the 2-D embedding tables optionally as per-row
     symmetric int8 (scale = max |row| / 127, a zero row's scale 1) under
     ``__q8__<key>`` with the f32 scales under ``__q8scale__<key>``, the
     JAX package's arithmetic."""
@@ -75,9 +88,7 @@ def save_params_npz(model, directory: str,
     for key, a in flat_from_model(model).items():
         if (quantize_embeddings and key.startswith("['embedding'][")
                 and a.ndim == 2):
-            scale = np.abs(a).max(axis=1, keepdims=True) / 127.0
-            scale[scale == 0] = 1.0
-            q = np.clip(np.rint(a / scale), -127, 127).astype(np.int8)
+            q, scale = _quantize_rows(a)
             arrays["__q8__" + key] = q
             arrays["__q8scale__" + key] = scale.astype(np.float32)
         else:
@@ -370,7 +381,19 @@ class UserMemoryStore(UserRows):
         """Set many users' memories from whole histories in one batched
         encode; the same state as replaying each history through
         :meth:`update`. item_seqs, cat_seqs: [B, T] left-padded ids; masks:
-        [B, T] or None (full histories). Overwrites these users' state."""
+        [B, T] or None (full histories). Overwrites these users' state.
+
+        hpmn and gru4rec with a model whose embeddings are not float32
+        raise TypeError, as the JAX store does: there the scan's carry
+        comes in in the embeddings' dtype and goes out in float32 (the
+        mask's)."""
+        emb_dtype = self.model.embedding.item.dtype
+        if self.family in ("hpmn", "gru4rec") and emb_dtype != torch.float32:
+            raise TypeError(
+                f"ingest_histories of a {self.family} model in {emb_dtype}: "
+                "the JAX UserMemoryStore's encode scan raises here (its "
+                "carry is the embeddings' dtype on the way in and float32 "
+                "on the way out); replay the events through update()")
         items, cats = self._ids(item_seqs), self._ids(cat_seqs)
         # Gathering with the transposed ids gives time-major embeddings.
         x_tm = dense_lookup(self.model.embedding, items.T, cats.T)

@@ -6,7 +6,7 @@ optax composes it as ``MultiSteps(with_ema(chain(clip, adam|adamw)), k)``;
 ``step()``, after ``loss.backward()`` has filled the gradients:
 
 1. accumulation (``grad_accum = k > 1``, ``optax.MultiSteps``): the
-   running mean ``acc = (g + n * acc) / (n + 1)`` of the micro-batch
+   running mean ``acc = acc + (g - acc) / (n + 1)`` of the micro-batch
    gradients; the parameters, the schedule's count and the EMA move only on
    every k-th call, from the mean;
 2. global-norm clipping (``grad_clip_norm``, ``optax.clip_by_global_norm``):
@@ -26,10 +26,21 @@ step and nothing else. :meth:`Optimizer.state_dict` carries the inner
 optimizer's state, the accumulator and its counter, the schedule's count
 and the EMA shadow, so that a run resumed from a checkpoint continues bit
 for bit.
+
+The accumulation, clipping and EMA run in the parameters' dtype in
+optax's order of operations, each result rounded to that dtype and each
+Python constant rounded to it first, as JAX rounds a weakly typed scalar
+(PyTorch would keep it in float32 against a bf16 tensor; against a
+float32 tensor it rounds it the same way). Parameters in another dtype
+than float32 (``model.dtype="bfloat16"``) take :class:`LowPrecisionAdam`,
+optax's ``adam`` op for op (``mu_dtype=None``: the moments in the
+parameters' dtype), instead of ``torch.optim.Adam``, which rounds a bf16
+step in other places (``lerp_``, ``addcdiv_``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -83,6 +94,75 @@ def make_schedule(cfg: Config) -> Optional[Callable[[int], float]]:
     return schedule
 
 
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+def _const(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python constant as a 0-d tensor of ``like``'s dtype: JAX rounds a
+    weakly typed scalar to the array's dtype before the op."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+class LowPrecisionAdam:
+    """optax's ``adam`` (or ``adamw``: ``add_decayed_weights`` after the
+    moments) on parameters of a low-precision dtype, op for op in it:
+
+        mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
+        u = (mu / c1) / (sqrt(nu / c2) + eps)   c_i = 1 - b_i^count (f32,
+                                                then rounded to the dtype)
+        u += wd p (adamw);  p += -lr u
+
+    The moments are in the parameters' dtype (optax's ``mu_dtype=None``),
+    the count an int. ``param_groups[0]["lr"]`` is the lr, as
+    ``torch.optim``'s, so :class:`Optimizer` sets a schedule's value on it
+    the same way."""
+
+    def __init__(self, params: List[torch.Tensor], lr: float,
+                 weight_decay: float = 0.0):
+        self.params = params
+        self.param_groups = [{"lr": lr}]
+        self.weight_decay = weight_decay
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self.count += 1
+        lr = self.param_groups[0]["lr"]
+        f32 = torch.float32
+        for p, mu, nu in zip(self.params, self.mu, self.nu):
+            if p.grad is None:
+                continue
+            g = p.grad
+            c = functools.partial(_const, like=p)
+            mu.copy_(c(1 - B1) * g + c(B1) * mu)
+            nu.copy_(c(1 - B2) * (g * g) + c(B2) * nu)
+            c1, c2 = (1 - torch.tensor(b, dtype=f32) ** self.count
+                      for b in (B1, B2))
+            u = (mu / c1.to(p.dtype)) / (
+                torch.sqrt(nu / c2.to(p.dtype) + c(0.0)) + c(EPS))
+            if self.weight_decay > 0:
+                u = u + c(self.weight_decay) * p
+            p.copy_(p + c(-lr) * u)
+
+    def state_dict(self) -> Dict:
+        return {"count": self.count, "mu": list(self.mu),
+                "nu": list(self.nu), "lr": self.param_groups[0]["lr"]}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        self.count = int(state["count"])
+        self.param_groups[0]["lr"] = state["lr"]
+        for mine, saved in ((self.mu, state["mu"]), (self.nu, state["nu"])):
+            for a, b in zip(mine, saved):
+                a.copy_(b)
+
+
 class Optimizer:
     """See the module docstring. ``params`` are the model's parameters in
     a fixed order (that of ``model.parameters()``)."""
@@ -91,9 +171,12 @@ class Optimizer:
         t = cfg.train
         self.params: List[torch.Tensor] = list(params)
         self.schedule = make_schedule(cfg)
-        kw = dict(lr=t.lr, betas=(0.9, 0.999), eps=1e-8, fused=False,
+        # Every parameter float32: torch.optim's Adam; else optax's order.
+        kw = dict(lr=t.lr, betas=(B1, B2), eps=EPS, fused=False,
                   capturable=False)
-        if t.weight_decay > 0:
+        if any(p.dtype != torch.float32 for p in self.params):
+            self.inner = LowPrecisionAdam(self.params, t.lr, t.weight_decay)
+        elif t.weight_decay > 0:
             self.inner = torch.optim.AdamW(self.params,
                                            weight_decay=t.weight_decay, **kw)
         else:
@@ -122,7 +205,7 @@ class Optimizer:
             n = self.mini_step
             for a, p in zip(self.acc, self.params):
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
-                a.copy_((g + a * n) / (n + 1))
+                a.copy_(a + (g - a) / _const(n + 1, a))
             if n < self.accum - 1:
                 self.mini_step += 1
                 return False
@@ -134,11 +217,12 @@ class Optimizer:
             grads = [p.grad for p in self.params if p.grad is not None]
             if self.grad_sq_norm is not None:
                 norm = torch.sqrt(self.grad_sq_norm())
-            else:
+            else:  # optax's global_norm: each sum in the gradient's dtype
                 norm = torch.sqrt(sum(g.square().sum() for g in grads))
             keep = norm < self.clip  # on the device: no host sync
             for g in grads:
-                g.copy_(torch.where(keep, g, g / norm * self.clip))
+                clipped = g / norm.to(g.dtype) * _const(self.clip, g)
+                g.copy_(torch.where(keep, g, clipped))
         if self.schedule is not None:
             lr = float(self.schedule(self.count))
             for group in self.inner.param_groups:
@@ -148,7 +232,7 @@ class Optimizer:
         if self.ema is not None:
             d = self.ema_decay
             for e, p in zip(self.ema, self.params):
-                e.copy_(d * e + (1.0 - d) * p)
+                e.copy_(_const(d, e) * e + _const(1.0 - d, p) * p)
         return True
 
     def ema_params(self) -> Optional[List[torch.Tensor]]:

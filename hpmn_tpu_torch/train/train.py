@@ -38,6 +38,19 @@ startup probe) runs as 1, eval scores batch by batch whatever
 position after the last batch trained on, not after the batches
 prefetched, so that a resumed run continues the interrupted one bit for
 bit.
+
+``train.log_dir`` writes the JAX driver's TensorBoard scalars from rank 0
+(``train/<metric>`` and ``train/examples_per_sec`` at each log step,
+``val/auc`` and ``val/log_loss`` at each eval, ``test/auc`` and
+``test/log_loss`` at the end) into an event file written by hand
+(``train/events.py``). ``train.debug_nans`` (JAX's ``jax_debug_nans``)
+checks each step's loss and logits, every gradient and every updated
+parameter, and each eval batch's logits, and raises FloatingPointError
+naming the step and the tensor at the first NaN; it only reads, so a
+clean run keeps its bits. Off, nothing is checked and nothing syncs. The
+step's own builder checks (``make_train_step``, and
+``parallel.make_shardmap_steps`` on a mesh, where the ranks merge their
+flags so that every rank raises at the same check).
 """
 
 from __future__ import annotations
@@ -51,7 +64,8 @@ import signal
 import tempfile
 import threading
 import time
-from typing import Callable, Dict, Iterable, Iterator, List, Sequence
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Sequence)
 
 import torch
 
@@ -73,18 +87,46 @@ def make_optimizer(cfg: Config, params: Iterable[torch.Tensor]) -> Optimizer:
     return Optimizer(cfg, params)
 
 
+def check_nans(what: str, named: Iterable,
+               reduce: Optional[Callable[[torch.Tensor], torch.Tensor]]
+               = None) -> None:
+    """Raise FloatingPointError naming the first (name, tensor) of
+    ``named`` that holds a NaN (``train.debug_nans``), after one read of
+    the flags. ``reduce`` (flags [n] float32 -> flags [n]) merges them over
+    the ranks of a mesh, so that every rank raises at the same check."""
+    named = [(name, t) for name, t in named if t is not None]
+    if not named:
+        return
+    flags = torch.stack([torch.isnan(t).any().float() for _, t in named])
+    if reduce is not None:
+        flags = reduce(flags)
+    hit = flags.nonzero().flatten().tolist()
+    if hit:
+        raise FloatingPointError(f"NaN in {what} {named[hit[0]][0]}")
+
+
 def make_train_step(cfg: Config, model: torch.nn.Module, opt: Optimizer,
                     ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """-> step(batch) -> metrics (bce, cov_reg, l2, loss; detached tensors
     on the model's device). One forward and backward and one optimizer
     micro-step, as the JAX ``_raw_train_step``; the parameters are updated
-    in place."""
+    in place. With ``train.debug_nans`` the loss and the logits, then every
+    gradient, then every updated parameter are checked (:func:`check_nans`)."""
+    debug = cfg.train.debug_nans
 
     def step(batch: Batch) -> Dict[str, torch.Tensor]:
         opt.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(model, cfg, batch)
+        if debug:
+            check_nans("the forward's", [("loss", loss),
+                                         ("logits", metrics["logits"])])
         loss.backward()
+        if debug:
+            check_nans("the gradient of", ((n, p.grad) for n, p in
+                                           model.named_parameters()))
         opt.step()
+        if debug:
+            check_nans("the updated parameter", model.named_parameters())
         del metrics["logits"]
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -97,14 +139,19 @@ def fuse_steps(step: Callable[[Batch], Dict[str, torch.Tensor]]
     steps, one per batch, in order (the JAX ``fuse_steps``, there one
     dispatch of a ``lax.scan``; here a Python loop). -> the last step's
     metrics, except ``a2a_overflow``, summed over the k steps (an event
-    count: the steps whose exchange took the fallback)."""
+    count: the steps whose exchange took the fallback). A FloatingPointError
+    of step i (0-based) leaves with ``offset`` i."""
 
     def multistep(batches: Sequence[Batch]) -> Dict[str, torch.Tensor]:
         if not batches:
             raise ValueError("a multistep needs at least one batch")
         overflow = []
-        for batch in batches:
-            metrics = step(batch)
+        for i, batch in enumerate(batches):
+            try:
+                metrics = step(batch)
+            except FloatingPointError as e:
+                e.offset = i
+                raise
             if "a2a_overflow" in metrics:
                 overflow.append(metrics["a2a_overflow"])
         if overflow:
@@ -170,11 +217,14 @@ def prefetch_to_device(iterator: Iterable, place: Callable,
 
 def make_eval_step(cfg: Config, device) -> Callable:
     """-> eval_step(model, host batch) -> logits [B] on ``device``: the
-    forward alone (``apply_model`` under ``torch.no_grad()``)."""
+    forward alone (``apply_model`` under ``torch.no_grad()``), the logits
+    checked with ``train.debug_nans``."""
 
     def eval_step(model, batch: Batch) -> torch.Tensor:
         with torch.no_grad():
             logits, _ = apply_model(model, cfg, place_batch(batch, device))
+        if cfg.train.debug_nans:
+            check_nans("the eval batch's", [("logits", logits)])
         return logits
 
     return eval_step
@@ -191,16 +241,6 @@ def init_model_for(cfg: Config, spec: synthetic.DatasetSpec,
     ``convert.model_from_flat``)."""
     return init_model(cfg, spec.n_items, spec.n_cats, device=device,
                       n_users=spec.n_users)
-
-
-def _check_supported(cfg: Config) -> None:
-    t = cfg.train
-    todo = {"train.log_dir (tensorboard event files)": t.log_dir,
-            "train.debug_nans": t.debug_nans}
-    for what, value in todo.items():
-        if value:
-            raise NotImplementedError(f"{what} is not ported yet "
-                                      "(ROADMAP.md)")
 
 
 def resolve_capacity_factor(cfg: Config, arrays, spec, n_model: int,
@@ -349,7 +389,6 @@ def train(cfg: Config, log: Callable[[str], None] = print,
     are whole on every rank."""
     from ..parallel import distributed
 
-    _check_supported(cfg)
     mesh, device = _setup_mesh(cfg, resolve_device(device))
     primary = distributed.is_primary()
     if not primary:
@@ -513,6 +552,11 @@ def train(cfg: Config, log: Callable[[str], None] = print,
         return overflow_steps
 
     it = prefetch_to_device(_grouped(_with_position(train_loader), k), place)
+    writer = None
+    if cfg.train.log_dir and primary:
+        from .events import EventWriter
+
+        writer = EventWriter(cfg.train.log_dir)
     profiler, profiled = None, False
     trace_dir = os.path.join(cfg.train.ckpt_dir or tempfile.gettempdir(),
                              "hpmn_torch_trace")
@@ -541,7 +585,12 @@ def train(cfg: Config, log: Callable[[str], None] = print,
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
                 profiler = torch.profiler.profile(activities=activities)
                 profiler.start()
-            metrics = train_step(batches)
+            try:
+                metrics = train_step(batches)
+            except FloatingPointError as e:
+                raise FloatingPointError(
+                    f"train step {step + getattr(e, 'offset', 0) + 1}: {e}"
+                ) from e
             step += k
             n_since += k
             if "a2a_overflow" in metrics:
@@ -571,6 +620,11 @@ def train(cfg: Config, log: Callable[[str], None] = print,
                 log(f"step {step} loss {loss_v:.4f} "
                     f"bce {float(metrics['bce']):.4f} ex/s {eps:.1f}"
                     f"{of_line}")
+                if writer is not None:  # JAX's: its metrics come sorted
+                    for name in sorted(metrics):
+                        writer.add_scalar(f"train/{name}",
+                                          float(metrics[name]), step)
+                    writer.add_scalar("train/examples_per_sec", eps, step)
                 t_last, n_since = time.time(), 0
             if step % cfg.train.eval_every < k or step >= cfg.train.max_steps:
                 t_pause = time.time()
@@ -580,6 +634,9 @@ def train(cfg: Config, log: Callable[[str], None] = print,
                 log(f"step {step} VAL auc {val['auc']:.4f} "
                     f"gauc {val['gauc']:.4f} log_loss {val['log_loss']:.4f} "
                     f"calib {val['calib']:.3f}")
+                if writer is not None:
+                    writer.add_scalar("val/auc", val["auc"], step)
+                    writer.add_scalar("val/log_loss", val["log_loss"], step)
                 history.append({"step": step, **val})
                 if val["auc"] > best_auc:
                     best_auc, best_step, evals_since_best = val["auc"], step, 0
@@ -595,6 +652,10 @@ def train(cfg: Config, log: Callable[[str], None] = print,
                         break
                 nonproductive_s += time.time() - t_pause
                 t_last, n_since = time.time(), 0
+    except BaseException:
+        if writer is not None:
+            writer.close()
+        raise
     finally:
         if profiler is not None:
             profiler.stop()
@@ -631,6 +692,8 @@ def train(cfg: Config, log: Callable[[str], None] = print,
         barrier()
     if preempted:
         # Fast exit: no test eval; the restarted run resumes from here.
+        if writer is not None:
+            writer.close()
         mngr.close()
         nan = float("nan")
         return {"test": {"auc": nan, "gauc": nan, "log_loss": nan,
@@ -646,6 +709,10 @@ def train(cfg: Config, log: Callable[[str], None] = print,
     test = evaluate(test_loader)
     log(f"TEST auc {test['auc']:.4f} gauc {test['gauc']:.4f} "
         f"log_loss {test['log_loss']:.4f} calib {test['calib']:.3f}")
+    if writer is not None:
+        writer.add_scalar("test/auc", test["auc"], step)
+        writer.add_scalar("test/log_loss", test["log_loss"], step)
+        writer.close()
     if mngr is not None:
         mngr.close()
     return {"test": test, "best_val_auc": best_auc, "best_step": best_step,

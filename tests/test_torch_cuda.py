@@ -1518,3 +1518,61 @@ def test_sp_step_on_two_ranks_of_the_card_matches_one_process():
     assert c["train_auc_gap"] < 0.02 and c["train_log_loss_gap"] < 1e-5
     assert c["train_params_err"] <= 1e-4 * c["train_params_max"]
     assert c["writes"][0] and not any(c["writes"][1:])
+
+
+def test_amazon_rum_train_repeats_bit_for_bit_on_the_card(dev):
+    """Two train() runs of amazon_rum (60 steps with evals, the config's
+    400 categories repeated within every batch) from the same seeded
+    weights end with identical parameters: the gather's backward sums a
+    repeated row in one order on the card (``models/embedding.py``)."""
+    from hpmn_tpu_torch.train import train as T
+
+    cfg = T.apply_overrides(configs.get_config("amazon_rum"), [
+        "n_examples=4000", "train.max_steps=60", "train.eval_every=30",
+        "train.log_every=30", "train.steps_per_dispatch=1",
+        "eval_steps_per_dispatch=1", "train.early_stop_patience=100"])
+    runs = [T.train(cfg, log=lambda s: None, device=dev)["params"]
+            for _ in range(2)]
+    assert runs[0].keys() == runs[1].keys()
+    for name in runs[0]:
+        assert torch.equal(runs[0][name], runs[1][name]), name
+
+
+@pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16"])
+def test_bf16_model_step_kernel_path_matches_plain_path(dev, scan_dtype):
+    """model.dtype="bfloat16": one loss and gradient through the scan
+    kernels (f32 or bf16 scans) and K5 == the same branch with the plain
+    scans and the plain readout under autograd, from the same bf16
+    weights and batch; every gradient is bf16, each within
+    TOL_STEP_GRAD_BF16 of its max abs (the two paths' f32 values differ by
+    ulps, and a bf16 rounding may flip: 2^-8 of a value)."""
+    cfg = configs.get_config("xlong_hpmn").with_model(
+        use_pallas=True, assume_full_mask=True, dtype="bfloat16",
+        scan_dtype=scan_dtype)
+    spec = synthetic.DatasetSpec("mid", seq_len=250, n_items=500, n_cats=40,
+                                 n_users=50)
+    batch = batch_from_numpy(synthetic.make_ctr_dataset(
+        spec, 32, seed=1, min_len_frac=1.0), device=dev)
+    out = []
+    for plain in (False, True):
+        model = init_model(cfg, 500, 40, seed=2, device=dev)
+        counts = (cuda_gru.launches, cuda_gru.bwd_launches,
+                  cuda_gru.launches_bf16, cuda_gru.bwd_launches_bf16,
+                  cuda_readout.launches)
+        loss, _ = loss_fn(model, cfg, batch, plain=plain)
+        loss.backward()
+        torch.cuda.synchronize()
+        ran = tuple(a - b for a, b in zip(
+            (cuda_gru.launches, cuda_gru.bwd_launches,
+             cuda_gru.launches_bf16, cuda_gru.bwd_launches_bf16,
+             cuda_readout.launches), counts))
+        out.append((loss.item(), dict(model.named_parameters()), ran))
+    (l_k, p_k, ran_k), (l_p, p_p, ran_p) = out
+    L = cfg.model.hpmn_layers
+    want = (0, 0, L, L) if scan_dtype == "bfloat16" else (L, L, 0, 0)
+    assert ran_k == want + (1,) and ran_p == (0,) * 5
+    assert abs(l_k - l_p) <= TOL_STEP_LOSS_BF16 * abs(l_p)
+    for name, p in p_k.items():
+        assert p.dtype == BF16 and p.grad.dtype == BF16, name
+        assert _rel_err(p.grad.float(), p_p[name].grad.float()) \
+            <= TOL_STEP_GRAD_BF16, name

@@ -1,6 +1,7 @@
 """The port must run where JAX is absent: ``hpmn_tpu_torch`` and
 ``chip_smoke.py`` import neither ``jax``, ``optax``, ``orbax``,
-``ml_collections``, ``chex`` nor anything of ``hpmn_tpu``, at import time
+``ml_collections``, ``chex``, ``ml_dtypes``, ``tensorboardX``,
+``tensorboard`` nor anything of ``hpmn_tpu``, at import time
 or inside a function. Every module of the port is imported, the training
 driver's (``train.train``, ``train.optim``, ``train.checkpoint``,
 ``train.evaluate``, ``train.metrics``, ``data.loader``,
@@ -14,8 +15,9 @@ serving bundles' (``serving.history``, the ``tools.export_bundle`` and
 the ``tools.serve`` and ``tools.serve_fleet`` CLIs) and the remaining
 families' (``models.extra_baselines``, the ``tools.compare_models`` CLI)
 and parallelism's (``parallel`` and its ``distributed``, ``mesh``,
-``embedding_sharding``, ``train_step`` and ``seq_parallel``) among
-them."""
+``embedding_sharding``, ``train_step`` and ``seq_parallel``) and the last
+driver options' and tools' (``train.events``, the ``tools.sweep`` and
+``tools.quality_gate`` CLIs) among them."""
 
 import ast
 import pathlib
@@ -24,7 +26,7 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "ml_collections", "optax", "orbax", "chex",
-             "hpmn_tpu")
+             "hpmn_tpu", "ml_dtypes", "tensorboardX", "tensorboard")
 DRIVER = ("train.train", "train.optim", "train.checkpoint", "train.evaluate",
           "train.metrics", "data.loader", "utils.asserts", "data.preprocess",
           "data.native", "data.native_batcher", "data.process_amazon",
@@ -36,7 +38,8 @@ DRIVER = ("train.train", "train.optim", "train.checkpoint", "train.evaluate",
           "models.extra_baselines", "tools.compare_models",
           "parallel", "parallel.distributed", "parallel.mesh",
           "parallel.embedding_sharding", "parallel.train_step",
-          "parallel.seq_parallel")
+          "parallel.seq_parallel", "train.events", "tools.sweep",
+          "tools.quality_gate")
 
 
 def _forbidden(module: str) -> bool:
