@@ -5,8 +5,9 @@ step and HistoryStore serving, the training driver, the real-data
 layer with the GRU4Rec and RUM baselines, the stores' persistence and
 bundles from train to serve, the serving daemon with the AOT-exported
 graphs, the remaining families (BST, DNN, LSTM, Caser, SHAN, SVD++)
-trained, served and compared, and data, model and sequence parallelism
-over ranks of the card, once on one GPU.
+trained, served and compared, data, model and sequence parallelism
+over ranks of the card, and the kernels' width-general forms with the
+paths at other widths, once on one GPU.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a GPU
 
@@ -205,7 +206,31 @@ before the last line):
    ``python -m hpmn_tpu_torch.tools.quality_gate --device cuda`` (2000
    steps, both floors met) and a two-point ``tools.sweep``.
 
-Then one JSON line with every kernel's numbers, the card's name and power
+18. widths: the width-general forms (``csrc/gru_general_*.cu``: K1-general
+   and K2-general in every dtype, mask and scale form;
+   ``csrc/readout_general.cu``: K5-general), which run every width but the
+   fixed-width kernels' d_m = 32, d_in <= 96 (A = d_m = 32, L <= 16, d_q <=
+   256): (1) each against its plain version on the card at (d_in, d_m) in
+   (1, 1), (3, 4), (16, 16), (40, 48), (128, 64), (64, 128), (256, 256)
+   and (d_m, A, L, d_q) in (16, 24, 3, 8), (64, 64, 6, 128), (48, 96, 20,
+   300), (32, 32, 40, 32), at phase 3's tolerances; (2) their CUDA-event
+   times at T = 1000, B = 512 for d_m = d_in in 16, 64, 128 beside the
+   d_m = 32 kernels, cuDNN's nn.GRU at the same hidden size (forward, and
+   forward with backward) and each form's bound, the scale forms at T =
+   300, the readout at three widths; (3) (a) xlong_hpmn at mem_dim =
+   readout_dim = emb_dim = 64 (layer 0's d_in 128, K5's A = d_m = 64 and
+   d_q = 128), B 512, T 1000, f32 and bf16 scans, against the plain path
+   at phases 5 and 6's tolerances, then k = 8 steps per dispatch timed
+   (examples/s, ms per step, peak MiB, a profiled dispatch's busy share),
+   the general forms' launches counted; (b) its UserMemoryStore: 2048
+   histories ingested, updates, predict and rank against the plain
+   hierarchy and scores; (c) taobao_dien at mem_dim = 64, f32 left-padded
+   and bf16 full, as phase 8; (d) ``python -m hpmn_tpu_torch.tools.sweep
+   --grid model.mem_dim=16,32 --set model.use_pallas=true`` (200 steps)
+   as a subprocess, each point's kernel launches (> 0) and its metric.
+
+Then one JSON line with every kernel's numbers (the general forms' at d_m
+= 64, with their times at every width beside), the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or away from the repo, it exits nonzero and prints no result. Imports
 nothing of JAX.
@@ -470,27 +495,30 @@ def bound(flops, n_bytes, peak_flops=PEAK_FP32_FLOPS):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def scan_fwd_work(T, B, d_in, masked, es=4, scaled=False):
+def scan_fwd_work(T, B, d_in, masked, es=4, scaled=False, d_m=32):
     """K1: x@wx and h@wh per row-step; x, the mask and the weights read,
     h_seq written, es bytes per element (4 in f32, 2 in bf16). K1-scale
-    (``scaled``): the scale read too, and zs = z*a per unit."""
-    flops = 2 * T * B * (d_in + 32) * 96 + (T * B * 32 if scaled else 0)
-    n_bytes = es * (T * B * (d_in + 32) + (T * B if masked else 0)
-                    + (T * B if scaled else 0) + (d_in + 33) * 96)
+    (``scaled``): the scale read too, and zs = z*a per unit. d_m: the
+    hidden width (the general forms')."""
+    flops = (2 * T * B * (d_in + d_m) * 3 * d_m
+             + (T * B * d_m if scaled else 0))
+    n_bytes = es * (T * B * (d_in + d_m) + (T * B if masked else 0)
+                    + (T * B if scaled else 0) + (d_in + d_m + 1) * 3 * d_m)
     return flops, n_bytes
 
 
-def scan_bwd_work(T, B, d_in, masked, es=4, scaled=False):
+def scan_bwd_work(T, B, d_in, masked, es=4, scaled=False, d_m=32):
     """K2: the recompute, dh, dx, dWx and dWh products per row-step; x,
     h_seq, dh_seq, the mask and the weights read (es bytes per element),
     dx written (es), dh0 and the weight gradients written (f32). K2-scale
     (``scaled``): the scale read and dscale written (es), and per unit zs,
-    dz's factor a and dscale's product and sum."""
-    flops = (2 * T * B * 96 * (3 * d_in + 3 * 32)
-             + (4 * T * B * 32 if scaled else 0))
-    n_bytes = (es * (T * B * (2 * d_in + 64) + (T * B if masked else 0)
-                     + (2 * T * B if scaled else 0) + (d_in + 33) * 96)
-               + 4 * (B * 32 + (d_in + 33) * 96))
+    dz's factor a and dscale's product and sum. d_m: the hidden width."""
+    flops = (2 * T * B * 3 * d_m * (3 * d_in + 3 * d_m)
+             + (4 * T * B * d_m if scaled else 0))
+    n_bytes = (es * (T * B * (2 * d_in + 2 * d_m) + (T * B if masked else 0)
+                     + (2 * T * B if scaled else 0)
+                     + (d_in + d_m + 1) * 3 * d_m)
+               + 4 * (B * d_m + (d_in + d_m + 1) * 3 * d_m))
     return flops, n_bytes
 
 
@@ -550,11 +578,11 @@ def bf16_reach(got, want, delta):
             bool((is_bf16 & (g >= lo) & (g <= hi)).all().item()))
 
 
-def readout_work(B, L, d_q):
+def readout_work(B, L, d_q, d_m=32, A=32):
     """K5: memory and query through wm, wq and the scores; memory and query
-    read, the read written."""
-    flops = 2 * B * 32 * (L * 32 + d_q + L) + 2 * B * L * 32
-    n_bytes = 4 * (B * (L * 32 + d_q + 32) + (32 + d_q + 2) * 32)
+    read, the read written. d_m, A: the widths (K5-general's)."""
+    flops = 2 * B * A * (L * d_m + d_q + L) + 2 * B * L * d_m
+    n_bytes = 4 * (B * (L * d_m + d_q + d_m) + (d_m + d_q + 2) * A)
     return flops, n_bytes
 
 
@@ -2351,6 +2379,536 @@ def phase_17(p):
           f"{secs_s:.1f} s", flush=True)
     print(f"phase 17 time: {time.perf_counter() - t17:.1f} s", flush=True)
     return launches
+
+
+# Phase 18: the width-general forms (csrc/gru_general_*.cu,
+# csrc/readout_general.cu), which run every width but the fixed-width
+# kernels' d_m = 32, d_in <= 96 (A = d_m = 32, L <= 16, d_q <= 256).
+GEN_GRU_GRID = ((1, 1), (3, 4), (16, 16), (40, 48), (128, 64), (64, 128),
+                (256, 256))  # (d_in, d_m)
+GEN_READOUT_GRID = ((16, 24, 3, 8), (64, 64, 6, 128), (48, 96, 20, 300),
+                    (32, 32, 40, 32))  # (d_m, A, L, d_q)
+GEN_GRID_T, GEN_GRID_B = 40, 33
+GEN_TIME_WIDTHS = (16, 32, 64, 128)  # d_m = d_in; 32: the fixed-width row
+GEN_SCALE_T = 300  # the scale forms' timing T (DIEN's)
+WIDE = dict(mem_dim=64, readout_dim=64, emb_dim=64)
+GEN_STORE_USERS = 2048
+SWEEP_CLI = ["--config", "amazon_hpmn", "--grid", "model.mem_dim=16,32",
+             "--set", "model.use_pallas=true", "n_examples=4000",
+             "train.max_steps=200", "train.eval_every=100",
+             "train.log_every=100", "train.batch_size=64",
+             "train.early_stop_patience=100"]
+# The general forms, in the kernels line's order: (name, the gen_ counter
+# of cuda_gru, or None for K5-general).
+GEN_FORMS = (("gru_gen_fwd", "gen_launches"),
+             ("gru_gen_bwd", "gen_bwd_launches"),
+             ("gru_gen_fwd_bf16", "gen_launches_bf16"),
+             ("gru_gen_bwd_bf16", "gen_bwd_launches_bf16"),
+             ("gru_gen_fwd_scale", "gen_launches_scale"),
+             ("gru_gen_bwd_scale", "gen_bwd_launches_scale"),
+             ("gru_gen_fwd_scale_bf16", "gen_launches_scale_bf16"),
+             ("gru_gen_bwd_scale_bf16", "gen_bwd_launches_scale_bf16"),
+             ("readout_gen_fwd", None))
+
+
+def phase_18(p):
+    """The width-general forms on the card (see the module docstring): (1)
+    each form against its plain version on a grid of widths; (2) their
+    CUDA-event times at T = 1000, B = 512 beside the d_m = 32 kernels,
+    cuDNN's nn.GRU at the same hidden size and each form's bound; (3) the
+    paths at other widths: (a) xlong_hpmn at mem_dim = readout_dim =
+    emb_dim = 64, f32 and bf16 scans, (b) its UserMemoryStore, (c)
+    taobao_dien at mem_dim = 64, (d) the mem_dim = 16, 32 sweep as a
+    subprocess. ``p`` carries main's closures and batches. -> (the kernels
+    line's entries of the general forms, their launches by path)."""
+    import torch
+
+    from hpmn_tpu_torch.data.synthetic import TAOBAO, XLONG, make_ctr_dataset
+    from hpmn_tpu_torch.models.embedding import dense_lookup
+    from hpmn_tpu_torch.models.hpmn import encode_hierarchical_tm
+    from hpmn_tpu_torch.models.model import init_model
+    from hpmn_tpu_torch.models.readout import Readout, attention_readout
+    from hpmn_tpu_torch.models.tower import apply_tower
+    from hpmn_tpu_torch.ops import cuda_gru, cuda_readout
+    from hpmn_tpu_torch.ops.gru import (GRUParams, GRUWeights, gru_scan_tm,
+                                        gru_scan_tm_bf16, gru_scan_tm_bwd,
+                                        gru_scan_tm_bwd_bf16)
+    from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
+    from hpmn_tpu_torch.train.train import (make_multistep_train,
+                                            make_optimizer)
+
+    t18 = time.perf_counter()
+    dev, k = p.dev, p.k
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(18)
+    names = [n for n, _ in GEN_FORMS]
+
+    def gen_counts():
+        return tuple(getattr(cuda_gru, var) if var else
+                     cuda_readout.gen_launches for _, var in GEN_FORMS)
+
+    def zero_gen():
+        for _, var in GEN_FORMS:
+            setattr(cuda_gru if var else cuda_readout,
+                    var or "gen_launches", 0)
+
+    def cuda_ms(fn, reps, warmup=1):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def layer(d_in, d_m, dtype):
+        w = GRUParams(d_in, d_m)
+        w.reset_parameters(torch.Generator().manual_seed(d_in + d_m))
+        with torch.no_grad():
+            w.b.uniform_(-0.1, 0.1, generator=g)
+        w = w.requires_grad_(False).to(dev)
+        return GRUWeights(w.wx.to(dtype), w.wh.to(dtype), w.b.to(dtype))
+
+    def left_pad(T, B):
+        lens = torch.randint(1, T + 1, (B,), generator=g)
+        return (torch.arange(T)[:, None] >= T - lens[None, :]).float().to(
+            dev)
+
+    def form_name(bwd, scaled, bf16):
+        return ("gru_gen_" + ("bwd" if bwd else "fwd")
+                + ("_scale" if scaled else "") + ("_bf16" if bf16 else ""))
+
+    # (1) the grid: every form against its plain version.
+    err = {n: 0.0 for n in names}  # h: max abs; gradients: over max abs
+    abs_err = {n: 0.0 for n in names}
+    T, B = GEN_GRID_T, GEN_GRID_B
+    for d_in, d_m in GEN_GRU_GRID:
+        for dtype in (torch.float32, bf):
+            w = layer(d_in, d_m, dtype)
+            b16 = dtype == bf
+            tol_h, tol_g = (TOL_GRU_BF16, TOL_GRAD_BF16) if b16 else (
+                TOL_GRU, TOL_GRAD)
+            x = torch.randn(2 * T, B, d_in, generator=g).to(dev, dtype)[::2]
+            h0 = torch.randn(B, d_m, generator=g).to(dev, dtype)
+            dh = torch.randn(T, B, d_m, generator=g).to(dev, dtype)
+            for masked, scaled in ((False, False), (True, False),
+                                   (False, True), (True, True)):
+                mask = left_pad(T, B).to(dtype) if masked else None
+                a = (torch.rand(T, B, generator=g).to(dev, dtype) if scaled
+                     else None)
+                before = gen_counts()
+                h_k = cuda_gru.scan_fwd(x, mask, h0, w.wx, w.wh, w.b, a)
+                h_p = (gru_scan_tm_bf16 if b16 else gru_scan_tm)(
+                    w, x, mask, h0, a)[0]
+                got = cuda_gru.gru_scan_bwd(w, x, mask, h_k, dh, h0, a)
+                want = (gru_scan_tm_bwd_bf16 if b16 else gru_scan_tm_bwd)(
+                    w, x, mask, h_k, dh, h0, a)
+                torch.cuda.synchronize()
+                fw, bw = form_name(False, scaled, b16), form_name(True,
+                                                                   scaled,
+                                                                   b16)
+                ran = [b_ - a_ for a_, b_ in zip(before, gen_counts())]
+                check(ran[names.index(fw)] == 1 and ran[names.index(bw)] == 1
+                      and sum(ran) == 2, f"phase 18 grid d_in={d_in} "
+                      f"d_m={d_m} {fw}/{bw}: launches {ran}")
+                e_h = (h_k.float() - h_p.float()).abs().max().item()
+                check(np.isfinite(e_h) and e_h <= tol_h, f"phase 18 {fw} "
+                      f"d_in={d_in} d_m={d_m} mask={masked}: h max abs err "
+                      f"{e_h:.3e} > {tol_h}")
+                err[fw] = max(err[fw], e_h)
+                abs_err[fw] = max(abs_err[fw], e_h)
+                for gname, a_, b_ in zip(("dx", "dwx", "dwh", "db", "dh0",
+                                          "dscale"), got, want):
+                    d_ = (a_.float() - b_.float()).abs().max().item()
+                    rel = d_ / max(b_.float().abs().max().item(), 1e-30)
+                    check(a_.shape == b_.shape and np.isfinite(rel)
+                          and rel <= tol_g, f"phase 18 {bw} d_in={d_in} "
+                          f"d_m={d_m} mask={masked}: {gname} off by "
+                          f"{rel:.3e} of its max abs > {tol_g}")
+                    err[bw] = max(err[bw], rel)
+                    abs_err[bw] = max(abs_err[bw], d_)
+    B_ro = B_SCAN
+    for d_m, A, L, d_q in GEN_READOUT_GRID:
+        r = Readout(d_m, d_q, A)
+        r.reset_parameters(torch.Generator().manual_seed(d_m + A))
+        r = r.requires_grad_(False).to(dev)
+        mem = torch.randn(B_ro, L, d_m, generator=g).to(dev)
+        q = torch.randn(B_ro, d_q, generator=g).to(dev)
+        before = cuda_readout.gen_launches
+        got = cuda_readout.fused_attention_readout(r, mem, q)
+        want = attention_readout(r, mem, q)
+        torch.cuda.synchronize()
+        e_r = (got - want).abs().max().item()
+        check(cuda_readout.gen_launches == before + 1,
+              f"phase 18 readout_gen_fwd {(d_m, A, L, d_q)} not launched")
+        check(e_r <= TOL_READOUT, f"phase 18 readout_gen_fwd d_m={d_m} "
+              f"A={A} L={L} d_q={d_q}: max abs err {e_r:.3e} > "
+              f"{TOL_READOUT}")
+        err["readout_gen_fwd"] = max(err["readout_gen_fwd"], e_r)
+        abs_err["readout_gen_fwd"] = err["readout_gen_fwd"]
+    print(f"phase 18 (1) grid T={T} B={B} (x a strided time view, an h0), "
+          f"(d_in, d_m) in {list(GEN_GRU_GRID)}, every dtype, mask and "
+          f"scale form; readout B={B_ro} (d_m, A, L, d_q) in "
+          f"{list(GEN_READOUT_GRID)}: worst h (max abs) and gradient (of "
+          f"max abs) errors " + ", ".join(f"{n} {err[n]:.2e}" for n in names)
+          + f" (tol h {TOL_GRU}/{TOL_GRU_BF16}, gradients {TOL_GRAD}/"
+          f"{TOL_GRAD_BF16}, readout {TOL_READOUT}): ok", flush=True)
+
+    # (2) times at T = 1000, B = 512 (the scale forms at T = 300, masked
+    # in f32 and full in bf16, their paths' forms).
+    Tt = XLONG.seq_len
+    times = {}  # (name, width) -> (ms, plain_ms, library_ms, bound, by)
+    for wd in GEN_TIME_WIDTHS:
+        for dtype in (torch.float32, bf):
+            b16 = dtype == bf
+            es, peak = (2, PEAK_BF16_FLOPS) if b16 else (4, PEAK_FP32_FLOPS)
+            w = layer(wd, wd, dtype)
+            x = torch.randn(Tt, B_SCAN, wd, generator=g).to(dev, dtype)
+            dh = torch.randn(Tt, B_SCAN, wd, generator=g).to(dev, dtype)
+            h = cuda_gru.scan_fwd(x, None, None, w.wx, w.wh, w.b)
+            ms_f = cuda_ms(lambda: cuda_gru.scan_fwd(x, None, None, w.wx,
+                                                     w.wh, w.b), 5)
+            ms_b = cuda_ms(lambda: cuda_gru.gru_scan_bwd(w, x, None, h, dh),
+                           3)
+            pl_f = cuda_ms(lambda: (gru_scan_tm_bf16 if b16 else
+                                    gru_scan_tm)(w, x, None), 1, 0)
+            pl_b = cuda_ms(lambda: (gru_scan_tm_bwd_bf16 if b16 else
+                                    gru_scan_tm_bwd)(w, x, None, h, dh),
+                           1, 0)
+            lib = torch.nn.GRU(wd, wd).to(dev, dtype)
+            x_lib = x.clone().requires_grad_(True)
+
+            def lib_fwd():
+                with torch.no_grad():
+                    return lib(x)
+
+            def lib_fwd_bwd():
+                out, _ = lib(x_lib)
+                return torch.autograd.grad(out, [x_lib, *lib.parameters()],
+                                           dh)
+
+            lib_f, lib_fb = cuda_ms(lib_fwd, 5), cuda_ms(lib_fwd_bwd, 3)
+            bf_ms, bf_by = bound(*scan_fwd_work(Tt, B_SCAN, wd, False, es,
+                                                d_m=wd), peak)
+            bb_ms, bb_by = bound(*scan_bwd_work(Tt, B_SCAN, wd, False, es,
+                                                d_m=wd), peak)
+            tag = "fixed-width K1/K2" if wd == 32 else "general"
+            times[form_name(False, False, b16), wd] = (ms_f, pl_f, lib_f,
+                                                       bf_ms, bf_by)
+            times[form_name(True, False, b16), wd] = (ms_b, pl_b, lib_fb,
+                                                      bb_ms, bb_by)
+            print(f"phase 18 (2) {tag} d_m=d_in={wd} T={Tt} B={B_SCAN} "
+                  f"{'bf16' if b16 else 'f32'}: forward {ms_f:.4f} ms "
+                  f"(plain {pl_f:.4f}, cuDNN nn.GRU {lib_f:.4f}, bound "
+                  f"{bf_ms:.4f} {bf_by}) | backward {ms_b:.4f} ms (plain "
+                  f"{pl_b:.4f}, cuDNN forward with backward {lib_fb:.4f}, "
+                  f"bound {bb_ms:.4f} {bb_by})", flush=True)
+            del lib, x_lib, h
+        for dtype in (torch.float32, bf):
+            if wd == 32:
+                continue  # the fixed-width scale forms: phase 3
+            b16 = dtype == bf
+            es, peak = (2, PEAK_BF16_FLOPS) if b16 else (4, PEAK_FP32_FLOPS)
+            Ts = GEN_SCALE_T
+            w = layer(wd, wd, dtype)
+            x = torch.randn(Ts, B_SCAN, wd, generator=g).to(dev, dtype)
+            dh = torch.randn(Ts, B_SCAN, wd, generator=g).to(dev, dtype)
+            mask = None if b16 else left_pad(Ts, B_SCAN)
+            a = torch.rand(Ts, B_SCAN, generator=g).to(dev, dtype)
+            h = cuda_gru.scan_fwd(x, mask, None, w.wx, w.wh, w.b, a)
+            ms_f = cuda_ms(lambda: cuda_gru.scan_fwd(x, mask, None, w.wx,
+                                                     w.wh, w.b, a), 5)
+            ms_b = cuda_ms(lambda: cuda_gru.gru_scan_bwd(w, x, mask, h, dh,
+                                                         None, a), 3)
+            pl_f = cuda_ms(lambda: (gru_scan_tm_bf16 if b16 else
+                                    gru_scan_tm)(w, x, mask, None, a), 1, 0)
+            pl_b = cuda_ms(lambda: (gru_scan_tm_bwd_bf16 if b16 else
+                                    gru_scan_tm_bwd)(w, x, mask, h, dh, None,
+                                                     a), 1, 0)
+            bf_ms, bf_by = bound(*scan_fwd_work(Ts, B_SCAN, wd, not b16, es,
+                                                scaled=True, d_m=wd), peak)
+            bb_ms, bb_by = bound(*scan_bwd_work(Ts, B_SCAN, wd, not b16, es,
+                                                scaled=True, d_m=wd), peak)
+            times[form_name(False, True, b16), wd] = (ms_f, pl_f, None,
+                                                      bf_ms, bf_by)
+            times[form_name(True, True, b16), wd] = (ms_b, pl_b, None,
+                                                     bb_ms, bb_by)
+            print(f"phase 18 (2) general scale d_m=d_in={wd} T={Ts} "
+                  f"B={B_SCAN} {'bf16 full' if b16 else 'f32 left-padded'}: "
+                  f"forward {ms_f:.4f} ms (plain {pl_f:.4f}, bound "
+                  f"{bf_ms:.4f} {bf_by}) | backward {ms_b:.4f} ms (plain "
+                  f"{pl_b:.4f}, bound {bb_ms:.4f} {bb_by})", flush=True)
+    for d_m, A, L, d_q in ((64, 64, 6, 128), (16, 32, 4, 32),
+                           (128, 128, 6, 256)):
+        r = Readout(d_m, d_q, A)
+        r.reset_parameters(torch.Generator().manual_seed(d_m))
+        r = r.requires_grad_(False).to(dev)
+        mem = torch.randn(B_SCAN, L, d_m, generator=g).to(dev)
+        q = torch.randn(B_SCAN, d_q, generator=g).to(dev)
+        ms = cuda_ms(lambda: cuda_readout.fused_attention_readout(r, mem, q),
+                     50)
+        pl = cuda_ms(lambda: attention_readout(r, mem, q), 20)
+        b_ms, b_by = bound(*readout_work(B_SCAN, L, d_q, d_m, A))
+        times["readout_gen_fwd", d_m] = (ms, pl, None, b_ms, b_by)
+        print(f"phase 18 (2) readout_gen_fwd B={B_SCAN} d_m={d_m} A={A} "
+              f"L={L} d_q={d_q}: {ms:.4f} ms (call, CUDA events over 50) | "
+              f"plain {pl:.4f} ms | bound {b_ms:.4f} ms ({b_by})", flush=True)
+    zero_gen()
+    p.zero_counters()
+    torch.cuda.synchronize()
+
+    # (3) the paths at other widths. Each timed run: k steps per dispatch,
+    # 2 warm-up and 3 timed dispatches, the counters set to 0 just before.
+    launches = {}
+
+    def timed(c, stacks_, spec):
+        model_t = init_model(c, spec.n_items, spec.n_cats, seed=p.seed,
+                             device=dev)
+        multistep = make_multistep_train(
+            c, model_t, make_optimizer(c, model_t.parameters()))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_gen()
+        p.zero_counters()
+        for i in range(WARMUP_DISPATCHES):
+            metrics = multistep(stacks_[i % len(stacks_)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(WARMUP_DISPATCHES,
+                       WARMUP_DISPATCHES + TIMED_DISPATCHES):
+            metrics = multistep(stacks_[i % len(stacks_)])
+        torch.cuda.synchronize()
+        t_ = time.perf_counter() - t0
+        got, fixed = gen_counts(), p.counters()
+        mib = torch.cuda.max_memory_allocated(dev) / 2**20
+        metrics = {n_: v.item() for n_, v in metrics.items()}
+        check(all(np.isfinite(v) for v in metrics.values()),
+              f"phase 18 training metrics not finite: {metrics}")
+        check(not any(fixed), f"phase 18: a fixed-width kernel ran on a "
+              f"wide path: {fixed}")
+        n_ex = stacks_[0][0].batch_size
+        return (metrics, 1e3 * t_ / (TIMED_DISPATCHES * k),
+                TIMED_DISPATCHES * k * n_ex / t_, got, mib, multistep)
+
+    n_steps = (WARMUP_DISPATCHES + TIMED_DISPATCHES) * k
+    cfg_w = p.cfg_k.with_model(**WIDE)
+    L_x = cfg_w.model.hpmn_layers
+    for scan in ("float32", "bfloat16"):
+        b16 = scan == "bfloat16"
+        c = cfg_w.with_model(scan_dtype=scan)
+        tag = f"(a) xlong_hpmn mem_dim=readout_dim=emb_dim=64 {scan} scans"
+        if b16:
+            p.step_check(18, tag, c, p.batches[0], c, True,
+                         TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16)
+        else:
+            p.step_check(18, tag, c, p.batches[0],
+                         c.with_model(use_pallas=False), False,
+                         TOL_STEP_LOSS, TOL_STEP_GRAD)
+        torch.cuda.empty_cache()
+        metrics, step_ms, eps, got, mib, multistep = timed(c, p.stacks,
+                                                           XLONG)
+        want = [0] * len(names)
+        want[names.index(form_name(False, False, b16))] = L_x * n_steps
+        want[names.index(form_name(True, False, b16))] = L_x * n_steps
+        want[names.index("readout_gen_fwd")] = n_steps
+        check(list(got) == want, f"phase 18 {tag}: launches {got}, "
+              f"expected {want}")
+        launches["wide_xlong" + ("_bf16" if b16 else "")] = got
+        print(f"phase 18 {tag} B={p.batches[0].batch_size} "
+              f"T={XLONG.seq_len} L={L_x} (layer 0 d_in 128, K5 A=d_m=64 "
+              f"d_q=128), {k} steps per dispatch: {eps:.1f} examples/s "
+              f"({step_ms:.3f} ms per step) | last step loss "
+              f"{metrics['loss']:.6f} | peak device memory {mib:.1f} MiB | "
+              f"launches over {n_steps} steps: "
+              + ", ".join(f"{n_} {v}" for n_, v in zip(names, got) if v),
+              flush=True)
+        p.profile_dispatch(18, multistep, step_ms, p.stacks[0])
+        del multistep
+        torch.cuda.empty_cache()
+
+    # (b) the wide model served: ingest, update, predict, rank.
+    model_w = init_model(cfg_w, XLONG.n_items, XLONG.n_cats, seed=p.seed,
+                         device=dev).requires_grad_(False)
+    store = UserMemoryStore(cfg_w, model_w, device=dev)
+    full = make_ctr_dataset(XLONG, GEN_STORE_USERS, seed=21,
+                            min_len_frac=1.0)
+    uids = np.arange(GEN_STORE_USERS)
+    rng = np.random.default_rng(18)
+    zero_gen()
+    p.zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, GEN_STORE_USERS, B_SCAN):
+        sl = slice(lo, lo + B_SCAN)
+        store.ingest_histories(uids[sl], full["item_seq"][sl],
+                               full["cat_seq"][sl])
+    torch.cuda.synchronize()
+    t_ingest = time.perf_counter() - t0
+    ingest_launches = gen_counts()
+    upd = uids[:B_SCAN]
+    for _ in range(2):
+        items = rng.integers(1, XLONG.n_items, size=B_SCAN)
+        store.update(upd, items, items % (XLONG.n_cats - 1) + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = store.predict(upd, full["target_item"][:B_SCAN],
+                         full["target_cat"][:B_SCAN])
+    t_pred = time.perf_counter() - t0
+    ri = rng.integers(1, XLONG.n_items, size=(RANK_USERS, RANK_CANDS))
+    rc = rng.integers(1, XLONG.n_cats, size=(RANK_USERS, RANK_CANDS))
+    t0 = time.perf_counter()
+    ranked = store.rank(uids[:RANK_USERS], ri, rc)
+    t_rank = time.perf_counter() - t0
+    got = gen_counts()
+    check(not any(p.counters()), "phase 18 (b): a fixed-width kernel ran")
+    n_b = GEN_STORE_USERS // B_SCAN
+    check(ingest_launches[0] == L_x * n_b and got[0] == L_x * n_b
+          and got[names.index("readout_gen_fwd")] >= 2,
+          f"phase 18 (b): launches {got} (ingest {ingest_launches}), "
+          f"expected gru_gen_fwd {L_x} per ingest batch and "
+          f"readout_gen_fwd per request")
+    launches["store_wide"] = got
+    with torch.no_grad():
+        emb = model_w.embedding
+        ids = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        sl = slice(B_SCAN, 2 * B_SCAN)  # ingested, not updated
+        x_tm = dense_lookup(emb, ids(full["item_seq"][sl]).T,
+                            ids(full["cat_seq"][sl]).T)
+        mem_plain = encode_hierarchical_tm(
+            model_w.encoder, x_tm, None, cfg_w.model.hpmn_period,
+            gru_seq_tm_fn=lambda p_, xs, mk: gru_scan_tm(p_, xs, mk))
+        hier_err = (store._gather(uids[sl])[0] - mem_plain).abs().max()
+        q = dense_lookup(emb, ids(full["target_item"][:B_SCAN]),
+                         ids(full["target_cat"][:B_SCAN]))
+        read = attention_readout(model_w.readout, store._gather(upd)[0], q)
+        pred_plain = torch.sigmoid(apply_tower(
+            model_w.tower, torch.cat([q, read], -1))).cpu().numpy()
+    hier_err = hier_err.item()
+    score_err = float(np.abs(pred - pred_plain).max())
+    col_err = float(np.abs(ranked[:, 0] - store.predict(
+        uids[:RANK_USERS], ri[:, 0], rc[:, 0])).max())
+    check(np.isfinite(ranked).all() and ranked.shape == (RANK_USERS,
+                                                         RANK_CANDS),
+          "phase 18 (b): rank scores")
+    check(hier_err <= TOL_SLICE and score_err <= TOL_SLICE
+          and col_err <= TOL_READOUT, f"phase 18 (b): ingest vs plain "
+          f"hierarchy {hier_err:.3e}, predict vs plain scores "
+          f"{score_err:.3e} (tol {TOL_SLICE}), rank vs predict "
+          f"{col_err:.3e} (tol {TOL_READOUT})")
+    print(f"phase 18 (b) UserMemoryStore of the wide xlong_hpmn: ingest "
+          f"{GEN_STORE_USERS / t_ingest:.1f} histories/s ({GEN_STORE_USERS} "
+          f"of T={XLONG.seq_len}, batches of {B_SCAN}), 2 update rounds of "
+          f"{B_SCAN}, predict {B_SCAN} users {1e3 * t_pred:.2f} ms, rank "
+          f"{RANK_USERS}x{RANK_CANDS} {1e3 * t_rank:.2f} ms (first calls) | "
+          f"ingest vs plain hierarchy {hier_err:.2e}, predict vs plain "
+          f"scores {score_err:.2e}, rank column vs predict {col_err:.2e} | "
+          f"launches: gru_gen_fwd {got[0]}, readout_gen_fwd "
+          f"{got[names.index('readout_gen_fwd')]}", flush=True)
+    del store, model_w
+    torch.cuda.empty_cache()
+
+    # (c) taobao_dien at mem_dim = 64: f32 left-padded, bf16 full.
+    for form, c, batches_d, tols in (
+            ("f32 padded", p.cfg_d.with_model(mem_dim=64),
+             p.dien_batches["f32 padded"], (TOL_STEP_LOSS, TOL_STEP_GRAD)),
+            ("bf16 full", p.cfg_d.with_model(
+                mem_dim=64, scan_dtype="bfloat16", assume_full_mask=True),
+             p.dien_batches["bf16 full"],
+             (TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16))):
+        b16 = form.startswith("bf16")
+        tag = f"(c) taobao_dien mem_dim=64 {form}"
+        p.step_check(18, tag, c, batches_d[0], c, True, *tols, spec=TAOBAO)
+        torch.cuda.empty_cache()
+        st = [[batches_d[(i + j) % len(batches_d)] for j in range(k)]
+              for i in range(len(batches_d))]
+        metrics, step_ms, eps, got, mib, multistep = timed(c, st, TAOBAO)
+        want = [0] * len(names)
+        for bwd in (False, True):
+            for scaled in (False, True):
+                want[names.index(form_name(bwd, scaled, b16))] = n_steps
+        check(list(got) == want, f"phase 18 {tag}: launches {got}, "
+              f"expected {want}")
+        launches["wide_dien" + ("_bf16" if b16 else "")] = got
+        print(f"phase 18 {tag} B={batches_d[0].batch_size} "
+              f"T={TAOBAO.seq_len}: {eps:.1f} examples/s ({step_ms:.3f} ms "
+              f"per step) | last step loss {metrics['loss']:.6f} | peak "
+              f"device memory {mib:.1f} MiB | launches over {n_steps} "
+              f"steps: " + ", ".join(f"{n_} {v}" for n_, v in
+                                     zip(names, got) if v), flush=True)
+        p.profile_dispatch(18, multistep, step_ms, st[0])
+        del multistep
+        torch.cuda.empty_cache()
+
+    # (d) the sweep over mem_dim 16 and 32 with the kernels, a subprocess.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "hpmn_tpu_torch.tools.sweep", *SWEEP_CLI,
+         "--device", "cuda"], cwd=p.repo, capture_output=True, text=True,
+        timeout=600)
+    check(proc.returncode == 0, f"phase 18 (d) sweep exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+    trials = [r_ for r_ in rows if "trial" in r_]
+    counts = [json.loads(line) for line in proc.stderr.splitlines()
+              if line.startswith('{"trial"')]
+    check(len(trials) == len(counts) == 2
+          and rows[-1].get("best") is not None,
+          f"phase 18 (d) sweep printed {rows}, launches {counts}")
+    for r_, c_ in zip(trials, counts):
+        md = int(r_["trial"]["model.mem_dim"])
+        pre = "gru_gen_" if md != 32 else "gru_scan_"
+        ro = "readout_gen_fwd" if md != 32 else "readout_fwd"
+        n_ = c_["launches"]
+        check(c_["trial"] == r_["trial"] and n_.get(pre + "fwd", 0) > 0
+              and n_.get(pre + "bwd", 0) > 0 and n_.get(ro, 0) > 0
+              and np.isfinite(r_["best_val_auc"]),
+              f"phase 18 (d) sweep mem_dim={md}: {r_}, launches {c_}")
+        launches[f"sweep_mem_dim_{md}"] = tuple(
+            n_.get(n2, 0) for n2 in names)
+        print(f"phase 18 (d) sweep amazon_hpmn mem_dim={md} (200 steps, "
+              f"use_pallas): best_val_auc {r_['best_val_auc']:.4f} test_auc "
+              f"{r_['test_auc']:.4f} | launches {n_}", flush=True)
+    print(f"phase 18 (d) sweep subprocess {time.perf_counter() - t0:.1f} s; "
+          f"phase 18 in all {time.perf_counter() - t18:.1f} s", flush=True)
+
+    # The kernels line's entries: the numbers at d_m = 64 (the wide path's
+    # width; the readout's at (64, 64, 6, 128)), every width beside them.
+    entries = []
+    for i, (name, _) in enumerate(GEN_FORMS):
+        by_path = {path: v[i] for path, v in launches.items() if v[i]}
+        row = times[name, 64]
+        widths = sorted(wd for n_, wd in times if n_ == name and wd != 32)
+        source = (cuda_readout.GEN_SOURCE if name.startswith("readout")
+                  else cuda_gru.GEN_BWD_SOURCE if "bwd" in name
+                  else cuda_gru.GEN_SOURCE)
+        replaces = (cuda_readout.REPLACES if name.startswith("readout")
+                    else cuda_gru.BWD_REPLACES if "bwd" in name
+                    else cuda_gru.REPLACES)
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": abs_err[name],
+            "ms": row[0], "plain_ms": row[1], "bound_ms": row[3],
+            "bound_by": row[4], "library_ms": row[2],
+            "max_err_over_max_abs": err[name] if "bwd" in name else None,
+            "sources": ([source] if name.startswith("readout")
+                        else list(cuda_gru.GEN_SOURCES[:1]) + [source]),
+            "width": 64,
+            "ms_by_width": {str(wd): times[name, wd][0] for wd in widths},
+            "plain_ms_by_width": {str(wd): times[name, wd][1]
+                                  for wd in widths},
+            "library_ms_by_width": {str(wd): times[name, wd][2]
+                                    for wd in widths},
+            "bound_ms_by_width": {str(wd): times[name, wd][3]
+                                  for wd in widths},
+            "fixed_width_ms_d_m_32": (times[name, 32][0]
+                                      if (name, 32) in times else None)})
+    return entries, launches
 
 
 def bst_bf16_gap(dev):
@@ -4507,6 +5065,17 @@ def main():
         """Phase 17's launches of main's counter i, by path."""
         return {k_: v[i] for k_, v in launches17.items() if v[i]}
 
+    # ---------------------------------------------------------- 18. widths --
+    # The width-general forms: the grid against the plain versions, their
+    # times beside the d_m = 32 kernels and cuDNN, and the wide xlong step,
+    # its store, the wide DIEN step and the mem_dim sweep.
+    gen_entries, _ = phase_18(SimpleNamespace(
+        dev=dev, seed=cfg.seed, k=k, cfg_k=cfg_k, cfg_d=cfg_d,
+        batches=batches, stacks=stacks, dien_batches=dien_batches,
+        step_check=step_check, counters=counters,
+        zero_counters=zero_counters, profile_dispatch=profile_dispatch,
+        repo=repo))
+
     def entry(name, src, rep, row, err, by_path, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -4652,6 +5221,7 @@ def main():
                 masked=row[0])
           for idx, name in enumerate(("fwd", "bwd", "fwd_bf16", "bwd_bf16"))
           for row in [sc_rows[name][0 if "bf16" in name else 1]]),
+        *gen_entries,
     ]}), flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"ok": True, "device": {

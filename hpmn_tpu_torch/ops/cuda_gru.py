@@ -34,10 +34,20 @@ custom_vjp: on CUDA tensors its forward launches K1 and its backward K2;
 on CPU tensors they are the plain versions ``ops.gru.gru_scan_tm`` and
 ``ops.gru.gru_scan_tm_bwd`` (``gru_scan_tm_bf16``/``gru_scan_tm_bwd_bf16``
 in bf16), so the CPU tests run the same plumbing (saved tensors, strided
-views, the mask). On a CUDA tensor a wrapper launches its kernel or raises
-on what it does not take (d_m != 32, d_in > 96, dtypes other than float32
-and bfloat16, a mix of the two, a scale that is not [T, B] with a unit
-batch stride); nothing falls back to the plain version. Where nothing
+views, the mask).
+
+The kernels above take d_m = 32 and d_in <= 96, the width of every
+shipped config. Every other width, up to d_m = 256 and d_in = 512, runs
+their width-general forms (K1-general and K2-general, every dtype, mask
+and scale form alike: ``csrc/gru_general_*.cu``): the input projection
+and, in the backward, the recompute h_prev @ wh, dx and the weight
+gradients as tiled products, and the recurrences with hidden unit j on
+thread j of a row's warps and wh in shared memory where it fits. They
+count in their own counters (``gen_launches`` and the others below). On a
+CUDA tensor a wrapper launches its kernel or raises on what it does not
+take (d_m > 256, d_in > 512, dtypes other than float32 and bfloat16, a
+mix of the two, a scale that is not [T, B] with a unit batch stride);
+nothing falls back to the plain version. Where nothing
 needs a gradient :func:`gru_sequence_tm` skips the autograd.Function.
 While ``torch.export`` traces, K1 is the custom op ``hpmn::gru_scan_fwd``
 (``ops/library.py``), whose CUDA implementation is :func:`_launch`.
@@ -78,6 +88,12 @@ BWD_SOURCE_SCALE, BWD_REPLACES_SCALE = BWD_SOURCE, BWD_REPLACES
 # every form of K2 two: its recurrence, then the pass.
 FWD_SOURCES = (PROJ_SOURCE, SOURCE)
 BWD_SOURCES = (BWD_SOURCE, PASS_SOURCE)
+# K1-general's and K2-general's recurrences and entry points (every dtype,
+# mask and scale form); both run gru_general_gemm.cu's tiled products.
+GEN_SOURCE = "hpmn_tpu_torch/csrc/gru_general_fwd.cu"
+GEN_BWD_SOURCE = "hpmn_tpu_torch/csrc/gru_general_bwd.cu"
+GEN_SOURCES = ("hpmn_tpu_torch/csrc/gru_general_gemm.cu", GEN_SOURCE,
+               GEN_BWD_SOURCE)
 
 #: Kernel launches so far in this process (a run's proof that it went
 #: through the kernels): K1, K2, K1-bf16, K2-bf16, and the scale forms
@@ -97,18 +113,35 @@ bwd_launches_scale_bf16 = 0
 #: forms').
 proj_launches = 0
 pass_launches = 0
+#: Launches of the width-general forms (d_m != 32 or d_in > 96): K1-general
+#: and K2-general, their bf16, scale and scale-bf16 forms.
+gen_launches = 0
+gen_bwd_launches = 0
+gen_launches_bf16 = 0
+gen_bwd_launches_bf16 = 0
+gen_launches_scale = 0
+gen_bwd_launches_scale = 0
+gen_launches_scale_bf16 = 0
+gen_bwd_launches_scale_bf16 = 0
 
-#: The cap on the f32 workspace xp [Tc, B, 96] of K1 (every form), and on
-#: the gate gradients dg [Tc, B, 128] of K2 (every form) in x's dtype: Tc
-#: is the most steps that fit (at least 1), and the kernel runs
-#: ceil(T / Tc) chunks in one C call.
+#: The cap on the f32 workspace xp [Tc, B, 3*d_m] of K1 (every form, and
+#: K1-general), on the gate gradients dg [Tc, B, 128] of K2 (every form) in
+#: x's dtype, and on K2-general's xp and h_prev @ wh [Tc, B, 3*d_m] (f32)
+#: and dg [Tc, B, 4*d_m] together: Tc is the most steps that fit (at least
+#: 1), and the kernel runs ceil(T / Tc) chunks in one C call.
 #: 64 MiB: K1's Tc = 341 at B = 512 (DIEN's T = 300 is 1 chunk), 27 at
 #: B = 6400, 21 at B = 8192; K2's 256 at B = 512 (512 in bf16: DIEN's T =
 #: 300 is 2 chunks in f32, 1 in bf16).
 WORKSPACE_BYTES = 64 << 20
 
+# The fixed-width kernels' widths: d_m = 32 (one lane per hidden unit),
+# d_in <= 96 (x_t in up to three 32-chunks).
 _D_M = 32
 _MAX_D_IN = 96
+# The width-general forms' limits (csrc/gru_general.cuh): a row's threads
+# (d_m rounded up to 32) fit a block of 512 beside another row.
+_GEN_MAX_D_M = 256
+_GEN_MAX_D_IN = 512
 # The C entry points by stream dtype (the f32 chain and the bf16 one) and
 # AUGRU scale: K1's (projection and recurrence over a workspace) and K2's;
 # and the projection alone's by dtype.
@@ -122,11 +155,23 @@ _BWD_ENTRY = {(torch.float32, False): "hpmn_gru_scan_bwd_ws",
               (torch.bfloat16, False): "hpmn_gru_scan_bwd_bf16_ws",
               (torch.float32, True): "hpmn_gru_scan_bwd_scale_ws",
               (torch.bfloat16, True): "hpmn_gru_scan_bwd_scale_bf16_ws"}
+_GEN_ENTRY = {torch.float32: "hpmn_gru_gen_fwd",
+              torch.bfloat16: "hpmn_gru_gen_fwd_bf16"}
+_GEN_BWD_ENTRY = {torch.float32: "hpmn_gru_gen_bwd",
+                  torch.bfloat16: "hpmn_gru_gen_bwd_bf16"}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _kernel_name(dtype: torch.dtype, scaled: bool, bwd: bool) -> str:
-    return ("gru_scan_" + ("bwd" if bwd else "fwd")
+def fixed_width(d_in: int, d_m: int) -> bool:
+    """Whether (d_in, d_m) runs the fixed-width kernels (d_m = 32, d_in
+    <= 96); every other width in range runs the width-general forms."""
+    return d_m == _D_M and 1 <= d_in <= _MAX_D_IN
+
+
+def _kernel_name(dtype: torch.dtype, scaled: bool, bwd: bool,
+                 general: bool = False) -> str:
+    return (("gru_gen_" if general else "gru_scan_")
+            + ("bwd" if bwd else "fwd")
             + ("_scale" if scaled else "")
             + ("_bf16" if dtype == torch.bfloat16 else ""))
 
@@ -153,10 +198,11 @@ def _proj_fn(dtype: torch.dtype):
     return fn
 
 
-def workspace_steps(T: int, B: int) -> int:
-    """K1's chunk (every form's): the steps of xp [., B, 96] in f32 that
-    fit :data:`WORKSPACE_BYTES`, at least 1 and at most T."""
-    return max(1, min(T, WORKSPACE_BYTES // (B * 3 * _D_M * 4)))
+def workspace_steps(T: int, B: int, d_m: int = _D_M) -> int:
+    """K1's chunk (every form's, K1-general's too): the steps of xp [., B,
+    3*d_m] in f32 that fit :data:`WORKSPACE_BYTES`, at least 1 and at most
+    T."""
+    return max(1, min(T, WORKSPACE_BYTES // (B * 3 * d_m * 4)))
 
 
 def bwd_workspace_steps(T: int, B: int, dtype: torch.dtype) -> int:
@@ -164,6 +210,24 @@ def bwd_workspace_steps(T: int, B: int, dtype: torch.dtype) -> int:
     :data:`WORKSPACE_BYTES`, at least 1 and at most T."""
     es = torch.empty(0, dtype=dtype).element_size()
     return max(1, min(T, WORKSPACE_BYTES // (B * 4 * _D_M * es)))
+
+
+def gen_bwd_workspace_steps(T: int, B: int, d_m: int,
+                            dtype: torch.dtype) -> int:
+    """K2-general's chunk: the steps whose xp and h_prev @ wh [., B,
+    3*d_m] (f32) and dg [., B, 4*d_m] in ``dtype`` fit
+    :data:`WORKSPACE_BYTES` together, at least 1 and at most T."""
+    es = torch.empty(0, dtype=dtype).element_size()
+    return max(1, min(T, WORKSPACE_BYTES // (B * d_m * (2 * 3 * 4
+                                                        + 4 * es))))
+
+
+def gen_splits(d_in: int, d_m: int) -> int:
+    """K2-general's weight-gradient partials: the slices of a chunk's rows
+    that the x half's 64 x 64 output tiles (d_in + 1 rows, db's among them,
+    by 3*d_m columns) take, so that about 256 blocks run; 1 to 64."""
+    tiles = -(-(d_in + 1) // 64) * -(-(3 * d_m) // 64)
+    return max(1, min(64, 256 // tiles))
 
 
 def _acc_floats(d_in: int) -> int:
@@ -205,12 +269,34 @@ def _pass_fn(dtype: torch.dtype):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _gen_fwd_fn(dtype: torch.dtype):
+    """K1-general's C entry point by dtype (the scale null without one)."""
+    fn = getattr(_build.load_library(), _GEN_ENTRY[dtype])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 3
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _gen_bwd_fn(dtype: torch.dtype):
+    """K2-general's C entry point by dtype."""
+    fn = getattr(_build.load_library(), _GEN_BWD_ENTRY[dtype])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 3
+                   + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _check_cuda_args(w, x_tm, mask_tm, h0, name, scale_tm=None):
     T, B, d_in = x_tm.shape
     d_m = w.wh.shape[0]
-    if d_m != _D_M or not 1 <= d_in <= _MAX_D_IN:
-        raise ValueError(f"{name} takes d_m == {_D_M} and d_in <= "
-                         f"{_MAX_D_IN}; got d_m={d_m}, d_in={d_in}")
+    if not 1 <= d_m <= _GEN_MAX_D_M or not 1 <= d_in <= _GEN_MAX_D_IN:
+        raise ValueError(f"{name} takes d_m <= {_GEN_MAX_D_M} and d_in <= "
+                         f"{_GEN_MAX_D_IN}; got d_m={d_m}, d_in={d_in}")
     if x_tm.dtype not in _DTYPES:
         raise ValueError(f"{name} takes float32 or bfloat16 tensors; got "
                          f"{x_tm.dtype}")
@@ -240,10 +326,14 @@ def _check_cuda_args(w, x_tm, mask_tm, h0, name, scale_tm=None):
 
 def _count(name: str) -> None:
     """One more launch of the kernel ``name`` (the counter of that name
-    without its ``gru_scan_`` prefix)."""
+    without its ``gru_scan_`` prefix; ``gru_gen_`` names count in the
+    ``gen_`` counters)."""
     counter = {"fwd": "launches", "bwd": "bwd_launches"}
-    kind, _, form = name[len("gru_scan_"):].partition("_")
-    var = counter[kind] + ("_" + form if form else "")
+    general = name.startswith("gru_gen_")
+    kind, _, form = name[len("gru_gen_" if general else "gru_scan_"):
+                         ].partition("_")
+    var = (("gen_" if general else "") + counter[kind]
+           + ("_" + form if form else ""))
     globals()[var] += 1
 
 
@@ -260,9 +350,18 @@ def _k1(w, x_tm, mask_tm, h0, hseq, stream, scale_tm=None) -> int:
     call: the f32 workspace, then every chunk's projection and recurrence;
     -> the cudaError_t code."""
     T, B, d_in = x_tm.shape
-    t_chunk = workspace_steps(T, B)
-    ws = torch.empty(t_chunk, B, 3 * _D_M, dtype=torch.float32,
+    d_m = w.wh.shape[0]
+    t_chunk = workspace_steps(T, B, d_m)
+    ws = torch.empty(t_chunk, B, 3 * d_m, dtype=torch.float32,
                      device=x_tm.device)
+    if not fixed_width(d_in, d_m):
+        with _build.on_device(x_tm):
+            return _gen_fwd_fn(x_tm.dtype)(
+                x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm),
+                _tstride(mask_tm), _ptr(scale_tm), _tstride(scale_tm),
+                w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), _ptr(h0),
+                hseq.data_ptr(), ws.data_ptr(), t_chunk, T, B, d_in, d_m,
+                stream)
     scale = (() if scale_tm is None
              else (scale_tm.data_ptr(), scale_tm.stride(0)))
     with _build.on_device(x_tm):
@@ -275,12 +374,15 @@ def _k1(w, x_tm, mask_tm, h0, hseq, stream, scale_tm=None) -> int:
 
 def _launch(w, x_tm, mask_tm, h0, scale_tm=None) -> torch.Tensor:
     """K1 (float32) or K1-bf16 (bfloat16), K1-scale or K1-scale-bf16 with
-    a scale_tm: -> h_seq [T, B, 32], x's dtype."""
-    T, B, _ = x_tm.shape
+    a scale_tm, or their width-general forms: -> h_seq [T, B, d_m], x's
+    dtype."""
+    T, B, d_in = x_tm.shape
+    d_m = w.wh.shape[0]
     scaled = scale_tm is not None
-    name = _kernel_name(x_tm.dtype, scaled, bwd=False)
+    name = _kernel_name(x_tm.dtype, scaled, bwd=False,
+                        general=not fixed_width(d_in, d_m))
     _check_cuda_args(w, x_tm, mask_tm, h0, name, scale_tm)
-    hseq = torch.empty(T, B, _D_M, dtype=x_tm.dtype, device=x_tm.device)
+    hseq = torch.empty(T, B, d_m, dtype=x_tm.dtype, device=x_tm.device)
     code = _k1(w, x_tm, mask_tm, h0, hseq,
                torch.cuda.current_stream(x_tm.device).cuda_stream,
                scale_tm=scale_tm)
@@ -298,9 +400,13 @@ def _k2(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream, scale_tm=None,
     them with a scale_tm -> (the cudaError_t code, dg [n, B, 32, 4]): the
     gate gradients of the first n = min(t_chunk, T) steps."""
     T, B, d_in = x_tm.shape
+    d_m = w.wh.shape[0]
+    dev = x_tm.device
+    if not fixed_width(d_in, d_m):
+        return _k2_general(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream,
+                           scale_tm, t_chunk)
     if t_chunk is None:
         t_chunk = bwd_workspace_steps(T, B, x_tm.dtype)
-    dev = x_tm.device
     dg = torch.empty(min(t_chunk, T), B, _D_M, 4, dtype=x_tm.dtype,
                      device=dev)
     acc = torch.empty(B, _acc_floats(d_in), dtype=torch.float32, device=dev)
@@ -316,6 +422,34 @@ def _k2(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream, scale_tm=None,
     return code, dg
 
 
+def _k2_general(w, x_tm, mask_tm, h0, hseq, dhseq, outs, stream,
+                scale_tm=None, t_chunk=None):
+    """K2-general's C call (every dtype and scale form): the workspaces
+    of t_chunk steps (default :func:`gen_bwd_workspace_steps`), then every
+    chunk's products and recurrence; outs = (dx, dh0, dwx, dwh, db), the
+    last three :func:`gen_splits` partials, and dscale after them with a
+    scale_tm -> (the cudaError_t code, dg [n, B, d_m, 4])."""
+    T, B, d_in = x_tm.shape
+    d_m = w.wh.shape[0]
+    if t_chunk is None:
+        t_chunk = gen_bwd_workspace_steps(T, B, d_m, x_tm.dtype)
+    n = min(t_chunk, T)
+    dev = x_tm.device
+    dg = torch.empty(n, B, d_m, 4, dtype=x_tm.dtype, device=dev)
+    ws = torch.empty(2, n, B, 3 * d_m, dtype=torch.float32, device=dev)
+    dx, dh0, dwx, dwh, db, *dscale = outs
+    with _build.on_device(x_tm):
+        code = _gen_bwd_fn(x_tm.dtype)(
+            x_tm.data_ptr(), x_tm.stride(0), _ptr(mask_tm),
+            _tstride(mask_tm), _ptr(scale_tm), _tstride(scale_tm),
+            w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), _ptr(h0),
+            hseq.data_ptr(), dhseq.data_ptr(), dx.data_ptr(), dh0.data_ptr(),
+            dwx.data_ptr(), dwh.data_ptr(), db.data_ptr(),
+            dscale[0].data_ptr() if dscale else None, ws.data_ptr(),
+            dg.data_ptr(), dwx.shape[0], t_chunk, T, B, d_in, d_m, stream)
+    return code, dg
+
+
 def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq, scale_tm=None,
                 t_chunk=None):
     """K2 (float32) or K2-bf16 (bfloat16), K2-scale or K2-scale-bf16 with a
@@ -324,26 +458,29 @@ def _launch_bwd(w, x_tm, mask_tm, h0, hseq, dhseq, scale_tm=None,
     dg of :func:`_k2`); the weight gradients summed over the kernel's
     per-group partials."""
     T, B, d_in = x_tm.shape
+    d_m = w.wh.shape[0]
     scaled = scale_tm is not None
-    name = _kernel_name(x_tm.dtype, scaled, bwd=True)
+    general = not fixed_width(d_in, d_m)
+    name = _kernel_name(x_tm.dtype, scaled, bwd=True, general=general)
     _check_cuda_args(w, x_tm, mask_tm, h0, name, scale_tm)
     for t in (hseq, dhseq):
-        if t.shape != (T, B, _D_M) or t.dtype != x_tm.dtype \
+        if t.shape != (T, B, d_m) or t.dtype != x_tm.dtype \
                 or t.device != x_tm.device or not t.is_contiguous():
             raise ValueError("h_seq and dh_seq must be contiguous "
-                             f"[T, B, {_D_M}] tensors of x's dtype on x's "
+                             f"[T, B, {d_m}] tensors of x's dtype on x's "
                              "device")
-    n_blocks = -(-B // _rows_fn()(d_in))
+    n_blocks = (gen_splits(d_in, d_m) if general
+                else -(-B // _rows_fn()(d_in)))
     dev = x_tm.device
     dx = torch.empty(T, B, d_in, dtype=x_tm.dtype, device=dev)
     dscale = (torch.empty(T, B, dtype=x_tm.dtype, device=dev),) if scaled \
         else ()
-    dh0 = torch.empty(B, _D_M, dtype=torch.float32, device=dev)
-    dwx = torch.empty(n_blocks, d_in, 3 * _D_M, dtype=torch.float32,
+    dh0 = torch.empty(B, d_m, dtype=torch.float32, device=dev)
+    dwx = torch.empty(n_blocks, d_in, 3 * d_m, dtype=torch.float32,
                       device=dev)
-    dwh = torch.empty(n_blocks, _D_M, 3 * _D_M, dtype=torch.float32,
+    dwh = torch.empty(n_blocks, d_m, 3 * d_m, dtype=torch.float32,
                       device=dev)
-    db = torch.empty(n_blocks, 3 * _D_M, dtype=torch.float32, device=dev)
+    db = torch.empty(n_blocks, 3 * d_m, dtype=torch.float32, device=dev)
     code, dg = _k2(w, x_tm, mask_tm, h0, hseq, dhseq,
                    (dx, dh0, dwx, dwh, db) + dscale,
                    torch.cuda.current_stream(dev).cuda_stream,
@@ -371,8 +508,11 @@ def input_proj(params: GRUParams, x_tm: torch.Tensor) -> torch.Tensor:
                          f"{x_tm.device}")
     global proj_launches
     name = "gru_input_proj" + ("_bf16" if bf16 else "")
-    _check_cuda_args(params, x_tm, None, None, name)
     T, B, d_in = x_tm.shape
+    if not fixed_width(d_in, params.wh.shape[0]):
+        raise ValueError(f"{name} (the fixed-width projection alone) takes "
+                         f"d_m == {_D_M} and d_in <= {_MAX_D_IN}")
+    _check_cuda_args(params, x_tm, None, None, name)
     xp = torch.empty(T, B, 3 * _D_M, dtype=torch.float32, device=x_tm.device)
     with _build.on_device(x_tm):
         code = _proj_fn(x_tm.dtype)(
@@ -386,17 +526,17 @@ def input_proj(params: GRUParams, x_tm: torch.Tensor) -> torch.Tensor:
 
 def gate_layout(dpre_x: torch.Tensor, dpre_h: torch.Tensor) -> torch.Tensor:
     """The gate gradients dpre_x = [dr|dz|dc] and dpre_h = [dr|dz|dc*r]
-    [T, B, 96] in the recurrence's layout dg [T, B, 32, 4]: lane k's dr,
-    dz, dc and dc*r side by side (contiguous)."""
-    d = _D_M
+    [T, B, 3*d_m] in the recurrence's layout dg [T, B, d_m, 4]: unit k's
+    dr, dz, dc and dc*r side by side (contiguous)."""
+    d = dpre_x.shape[-1] // 3
     return torch.stack([dpre_x[..., :d], dpre_x[..., d:2 * d],
                         dpre_x[..., 2 * d:], dpre_h[..., 2 * d:]], -1
                        ).contiguous()
 
 
 def gate_blocks(dg: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`gate_layout`'s inverse: dg [T, B, 32, 4] -> (dpre_x,
-    dpre_h) [T, B, 96]."""
+    """:func:`gate_layout`'s inverse: dg [T, B, d_m, 4] -> (dpre_x,
+    dpre_h) [T, B, 3*d_m]."""
     return (torch.cat([dg[..., 0], dg[..., 1], dg[..., 2]], -1),
             torch.cat([dg[..., 0], dg[..., 1], dg[..., 3]], -1))
 
@@ -410,7 +550,10 @@ def bwd_pass(wx: torch.Tensor, x_tm: torch.Tensor, h_prev: torch.Tensor,
     (their r and z blocks the same, as the scan's are: the kernel reads
     them once) -> (dx in x's dtype, dwx, dwh, db in float32), by the kernel
     on CUDA tensors (float32 or bfloat16, one dtype; :func:`bwd_pass_dg`
-    on :func:`gate_layout`), by ``gru_bwd_pass`` on CPU tensors."""
+    on :func:`gate_layout`), by ``gru_bwd_pass`` on CPU tensors. The pass
+    kernel is the fixed-width K2's (d_m = 32, d_in <= 96); K2-general's
+    dx and weight gradients run inside it and have no entry of their
+    own."""
     if x_tm.device.type == "cpu":
         return gru_bwd_pass(x_tm, h_prev, dpre_x, dpre_h, wx)
     T, B, _ = x_tm.shape

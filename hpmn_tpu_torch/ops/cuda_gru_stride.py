@@ -127,6 +127,12 @@ def bwd_workspace_steps(T: int, B: int, dtype: torch.dtype,
 
 
 def _check_args(w, x_tm, h0, period, name):
+    d_in, d_m = x_tm.shape[2], w.wh.shape[0]
+    if not cuda_gru.fixed_width(d_in, d_m):
+        raise ValueError(
+            f"{name} takes d_m == {_D_M} and d_in <= {cuda_gru._MAX_D_IN} "
+            f"(its width-general form is ROADMAP queue 1 item 12); got "
+            f"d_m={d_m}, d_in={d_in}")
     cuda_gru._check_cuda_args(w, x_tm, None, h0, name)
     if period < 2:
         raise ValueError(f"{name} takes period >= 2; got {period}")

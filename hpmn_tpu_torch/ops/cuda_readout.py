@@ -9,12 +9,17 @@ of the weights in registers and reads the row, staged in shared memory by
 ``cp.async``, as broadcast float4s; persistent blocks stage the weights
 once. Bytes bound it in the limit (about 16 FLOP per byte read), the launch
 and the instructions per row at the paths' sizes. See the source's header
-for the rest.
+for the rest. That kernel takes A = d_m = 32, L <= 16 and d_q <= 256, the
+shapes of every shipped config; every other shape up to d_m = A = 256, L =
+64 and d_q = 512 runs its width-general form, K5-general
+(``csrc/readout_general.cu``: one warp per row, lane i owning attention
+units and output features i, i + 32, ..., L a runtime loop), counted in
+``gen_launches``.
 
 :func:`fused_attention_readout` goes through :class:`AttentionReadout`,
 a ``torch.autograd.Function``: its forward launches the kernel for CUDA
-tensors and raises on what it does not take (readout width or d_m other
-than 32, L > 16, d_q > 256, other dtypes); for CPU tensors it runs the
+tensors and raises on what it does not take (readout width or d_m past
+256, L > 64, d_q > 512, other dtypes); for CPU tensors it runs the
 plain version, ``models.readout.attention_readout`` with no slot mask. Its
 backward is autograd of that plain version, recomputed from the saved
 memory, query and weights: what the JAX ``_core_bwd`` does (``jax.vjp`` of
@@ -38,19 +43,45 @@ from . import _build, library
 
 SOURCE = "hpmn_tpu_torch/csrc/readout_fwd.cu"
 REPLACES = "hpmn_tpu/ops/pallas_readout.py:42"
+GEN_SOURCE = "hpmn_tpu_torch/csrc/readout_general.cu"
 
-#: Kernel launches so far in this process. Callers may reset it to 0.
+#: Kernel launches so far in this process: K5, and K5-general (every other
+#: shape). Callers may reset them to 0.
 launches = 0
+gen_launches = 0
 
-_WIDTH = 32  # readout width A and memory width d_m: one lane each
+# The fixed-width kernel's shapes: readout width A and memory width d_m 32
+# (one lane each), L a template argument of at most 16, d_q <= 256 (wq in
+# registers or shared memory).
+_WIDTH = 32
 _MAX_L = 16
 _MAX_D_Q = 256
+# K5-general's limits: at most 8 attention units and 8 output features a
+# lane, the row's L scores in shared memory.
+_GEN_MAX_WIDTH = 256
+_GEN_MAX_L = 64
+_GEN_MAX_D_Q = 512
+
+
+def fixed_width(d_m: int, A: int, L: int, d_q: int) -> bool:
+    """Whether a readout of these widths runs K5 (else K5-general)."""
+    return (d_m == _WIDTH and A == _WIDTH and 1 <= L <= _MAX_L
+            and 1 <= d_q <= _MAX_D_Q)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     fn = _build.load_library().hpmn_readout_fwd
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _gen_kernel_fn():
+    fn = _build.load_library().hpmn_readout_gen_fwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -66,26 +97,48 @@ class ReadoutWeights(NamedTuple):
 
 
 def _k5(w, memory, query, out, stream) -> int:
-    """K5's C call, on memory's device -> the cudaError_t code."""
-    B, L, _ = memory.shape
+    """K5's (or, at other widths, K5-general's) C call, on memory's device
+    -> the cudaError_t code."""
+    B, L, d_m = memory.shape
+    A, d_q = w.wm.shape[1], query.shape[1]
     with _build.on_device(memory):
+        if not fixed_width(d_m, A, L, d_q):
+            return _gen_kernel_fn()(
+                memory.data_ptr(), query.data_ptr(), w.wm.data_ptr(),
+                w.wq.data_ptr(), w.b.data_ptr(), w.v.data_ptr(),
+                out.data_ptr(), B, L, d_m, A, d_q, stream)
         return _kernel_fn()(memory.data_ptr(), query.data_ptr(),
                             w.wm.data_ptr(), w.wq.data_ptr(), w.b.data_ptr(),
-                            w.v.data_ptr(), out.data_ptr(), B, L,
-                            query.shape[1], stream)
+                            w.v.data_ptr(), out.data_ptr(), B, L, d_q,
+                            stream)
+
+
+def check_shapes(d_m: int, A: int, L: int, d_q: int, name: str) -> None:
+    """Raise ValueError past K5-general's limits."""
+    if not (1 <= d_m <= _GEN_MAX_WIDTH and 1 <= A <= _GEN_MAX_WIDTH
+            and 1 <= L <= _GEN_MAX_L and 1 <= d_q <= _GEN_MAX_D_Q):
+        raise ValueError(
+            f"{name} takes d_m <= {_GEN_MAX_WIDTH}, A <= {_GEN_MAX_WIDTH}, "
+            f"L <= {_GEN_MAX_L}, d_q <= {_GEN_MAX_D_Q}; got d_m={d_m}, "
+            f"A={A}, L={L}, d_q={d_q}")
 
 
 def _launch(module, memory: torch.Tensor, query: torch.Tensor):
-    global launches
+    global launches, gen_launches
     B, L, d_m = memory.shape
     d_q = query.shape[1]
     A = module.wm.shape[1]
-    if d_m != _WIDTH or A != _WIDTH or not 1 <= L <= _MAX_L \
-            or not 1 <= d_q <= _MAX_D_Q or query.shape[0] != B:
+    general = not fixed_width(d_m, A, L, d_q)
+    name = "readout_gen_fwd" if general else "readout_fwd"
+    check_shapes(d_m, A, L, d_q, name)
+    if query.shape[0] != B or module.wm.shape[0] != d_m \
+            or module.wq.shape != (d_q, A) or module.b.numel() != A \
+            or module.v.numel() != A:
         raise ValueError(
-            f"readout_fwd takes d_m == A == {_WIDTH}, L <= {_MAX_L}, d_q <= "
-            f"{_MAX_D_Q}; got memory {tuple(memory.shape)}, query "
-            f"{tuple(query.shape)}, A={A}")
+            f"{name}: memory [B, L, d_m], query [B, d_q], wm [d_m, A], wq "
+            f"[d_q, A], b [A], v [A]; got memory {tuple(memory.shape)}, "
+            f"query {tuple(query.shape)}, wm {tuple(module.wm.shape)}, wq "
+            f"{tuple(module.wq.shape)}")
     tensors = [memory, query, module.wm, module.wq, module.b, module.v]
     for t in tensors:
         if t.dtype != torch.float32 or t.device != memory.device \
@@ -97,8 +150,11 @@ def _launch(module, memory: torch.Tensor, query: torch.Tensor):
         return out
     code = _k5(module, memory, query, out,
                torch.cuda.current_stream(memory.device).cuda_stream)
-    _build.check_launch(code, "readout_fwd")
-    launches += 1
+    _build.check_launch(code, name)
+    if general:
+        gen_launches += 1
+    else:
+        launches += 1
     return out
 
 

@@ -8,11 +8,12 @@ lets ``jax.export`` trace a Pallas call.
                       Tensor b, Tensor v) -> Tensor
 
 ``gru_scan_fwd`` is K1 in every form (f32 or bf16 by the tensors' dtype,
-with or without a mask or an h0, with the AUGRU scale: K1-scale) -> h_seq
+with or without a mask or an h0, with the AUGRU scale: K1-scale), at any
+width the kernels take (K1-general past d_m = 32, d_in <= 96) -> h_seq
 [T, B, d_m] in x's dtype. Its CUDA implementation is
 ``cuda_gru._launch``, its CPU implementation the plain scan
-(``gru_scan_tm``, ``gru_scan_tm_bf16``). ``readout_fwd`` is K5 -> read
-[B, d_m] float32: CUDA ``cuda_readout._launch``, CPU
+(``gru_scan_tm``, ``gru_scan_tm_bf16``). ``readout_fwd`` is K5 (or
+K5-general) -> read [B, d_m] float32: CUDA ``cuda_readout._launch``, CPU
 ``attention_readout``. One implementation per op picks by the tensors'
 device (``cuda_gru.scan_by_device``, ``cuda_readout.readout_by_device``),
 which eager code calls too. Each has a fake implementation that gives the

@@ -7,12 +7,14 @@ events.
 
     git archive <commit> | tar -x -C build/other      # a gitignored place
     python3 -m hpmn_tpu_torch.tools.ab_scan_kernels \\
-        build/other/hpmn_tpu_torch/csrc [float32|bfloat16] [D_IN] [T] [B]
+        build/other/hpmn_tpu_torch/csrc [float32|bfloat16] [D_IN] [T] [B] \\
+        [D_M]
 
-Inputs: the xlong_hpmn layer-0 shape (T = 1000, B = 512, d_in = 32; D_IN,
-1 to 96, sets another d_in, T another length: 300 is taobao_dien's,
-where the AUGRU kernels run, and B another batch: 6400 is a DIEN rank
-call's 64 users x 100 candidates), the port's seeded GRU init, random x and
+Inputs: the xlong_hpmn layer-0 shape (T = 1000, B = 512, d_in = 32, d_m =
+32; D_IN, 1 to 512, sets another d_in, T another length: 300 is
+taobao_dien's, where the AUGRU kernels run, B another batch: 6400 is a
+DIEN rank call's 64 users x 100 candidates, and D_M, 1 to 256, another
+hidden width), the port's seeded GRU init, random x and
 dh_seq, no mask and a left-padded mask; for the strided kernels period 3
 and random cotangents of the strided rows and of h_T; for the AUGRU
 kernels a scale in [0, 1), with and without the mask. Exits nonzero if an
@@ -41,6 +43,13 @@ K1-bf16 and K2-bf16), K3 and K4 (K3-bf16 and K4-bf16), and K1-scale and
 K2-scale (their bf16 forms), dscale included, in the default chunks
 (``cuda_gru.WORKSPACE_BYTES``) are also held, bit for bit, to themselves
 in one chunk of all T steps.
+
+Past d_m = 32, d_in <= 96 the scans are the width-general forms
+(``csrc/gru_general_*.cu``: K1-general, K2-general and their bf16 and scale
+forms), which both trees must have; the strided kernels take d_m = 32
+only and are left out. Their weight gradients sum each chunk's rows in
+slices, so against one chunk they are held within 1e-5 of their max abs
+(printed), every other output bit for bit.
 """
 
 from __future__ import annotations
@@ -57,11 +66,13 @@ import torch
 from ..ops import _build, cuda_gru, cuda_gru_stride, cuda_readout
 from ..ops.gru import GRUParams
 
-T_DEFAULT, B_DEFAULT, D_IN = 1000, 512, 32
+T_DEFAULT, B_DEFAULT, D_IN, D_M = 1000, 512, 32, 32
 PERIOD = 3
 REPS = 20
 _CACHES = (cuda_gru._ws_fn, cuda_gru._proj_fn,
            cuda_gru._rows_fn, cuda_gru._bwd_fn, cuda_gru._pass_fn,
+           cuda_gru._gen_fwd_fn, cuda_gru._gen_bwd_fn,
+           cuda_readout._gen_kernel_fn,
            cuda_gru_stride.chunk, cuda_gru_stride._fwd_fn,
            cuda_gru_stride._rows_fn, cuda_gru_stride._bwd_fn,
            cuda_readout._kernel_fn)
@@ -263,37 +274,46 @@ def _ms(fn) -> float:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    if (len(argv) not in (1, 2, 3, 4, 5) or not os.path.isdir(argv[0])
+    if (len(argv) not in (1, 2, 3, 4, 5, 6) or not os.path.isdir(argv[0])
             or argv[1:] and argv[1] not in dtypes
             or argv[2:] and not (argv[2].isdigit()
-                                 and 1 <= int(argv[2]) <= 96)
+                                 and 1 <= int(argv[2]) <= 512)
+            or argv[5:] and not (argv[5].isdigit()
+                                 and 1 <= int(argv[5]) <= 256)
             or not all(a.isdigit() and int(a) >= 1 for a in argv[3:])):
         print("usage: python3 -m hpmn_tpu_torch.tools.ab_scan_kernels "
               "OTHER_TREE/hpmn_tpu_torch/csrc [float32|bfloat16] [D_IN] [T] "
-              "[B]")
+              "[B] [D_M]")
         return 2
     name = argv[1] if argv[1:] else "float32"
     dtype = dtypes[name]
     d_in = int(argv[2]) if argv[2:] else D_IN
     T = int(argv[3]) if argv[3:] else T_DEFAULT
     B = int(argv[4]) if argv[4:] else B_DEFAULT
+    d_m = int(argv[5]) if argv[5:] else D_M
     if not torch.cuda.is_available():
         print("FAIL no CUDA device")
         return 1
     trees = {"other": os.path.abspath(argv[0]), "this": _build.CSRC}
+    general = not cuda_gru.fixed_width(d_in, d_m)
+    if general and not all(os.path.isfile(os.path.join(c, "gru_general.cuh"))
+                           for c in trees.values()):
+        print(f"FAIL d_in={d_in} d_m={d_m} runs the width-general forms, "
+              "which the other tree does not have (csrc/gru_general.cuh)")
+        return 2
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
-    p = GRUParams(d_in, 32)
+    p = GRUParams(d_in, d_m)
     p.reset_parameters(gen)
     p = p.requires_grad_(False).to(dev, dtype)
     x = torch.randn(T, B, d_in, generator=gen).to(dev, dtype)
-    dh = torch.randn(T, B, 32, generator=gen).to(dev, dtype)
+    dh = torch.randn(T, B, d_m, generator=gen).to(dev, dtype)
     lens = torch.randint(1, T + 1, (B,), generator=gen)
     mask = (torch.arange(T)[:, None] >= T - lens[None, :]).to(dev, dtype)
-    dhs = torch.randn(T // PERIOD, B, 32, generator=gen).to(dev, dtype)
-    dhT = torch.randn(B, 32, generator=gen).to(dev, dtype)
+    dhs = torch.randn(T // PERIOD, B, d_m, generator=gen).to(dev, dtype)
+    dhT = torch.randn(B, d_m, generator=gen).to(dev, dtype)
     a = torch.rand(T, B, generator=gen).to(dev, dtype)
-    strided = all(_has_stride(c) for c in trees.values())
+    strided = not general and all(_has_stride(c) for c in trees.values())
     scaled = all(_has(c, "gru_scan_fwd.cu", "hpmn_gru_scan_fwd_scale")
                  for c in trees.values())
 
@@ -320,13 +340,15 @@ def main(argv=None) -> int:
     # masked outputs above): a cap that holds K1's (and K3's) f32
     # workspace, K2's (and K2-scale's) in x's dtype and K4's three.
     cap = cuda_gru.WORKSPACE_BYTES
-    k1_chunks = -(-T // cuda_gru.workspace_steps(T, B))
-    chunks = -(-T // cuda_gru.bwd_workspace_steps(T, B, dtype))
+    k1_chunks = -(-T // cuda_gru.workspace_steps(T, B, d_m))
+    chunks = -(-T // (cuda_gru.gen_bwd_workspace_steps(T, B, d_m, dtype)
+                      if general else
+                      cuda_gru.bwd_workspace_steps(T, B, dtype)))
     step = cuda_gru_stride.chunk() if strided else 1
     k4_chunks = -(-T // cuda_gru_stride.bwd_workspace_steps(
         T, B, dtype, step)) if strided else 0
-    cuda_gru.WORKSPACE_BYTES = (-(-T // step) * step * B
-                                * (96 * 4 + 160 * x.element_size()))
+    cuda_gru.WORKSPACE_BYTES = (-(-T // step) * step * B * d_m
+                                * (24 + 5 * x.element_size()))
     try:
         one = []
         for m in (None, mask):
@@ -342,11 +364,26 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     finally:
         cuda_gru.WORKSPACE_BYTES = cap
-    one_chunk = all(torch.equal(a, b) for a, b in zip(one, outs["this"]))
+    # The general backward's weight gradients (dwx, dwh, db: outputs 2-4 of
+    # each forward-and-backward group of 6 or 7) are held within 1e-5 of
+    # their max abs; every other output bit for bit.
+    wgrad = set()
+    if general:
+        i = 0
+        for size in [6, 6] + ([7, 7] if scaled else []):
+            wgrad |= {i + 2, i + 3, i + 4}
+            i += size
+    w_rel = max((((a_ - b_).abs().max() / b_.abs().max().clamp_min(1e-30)
+                  ).item() for j, (a_, b_) in enumerate(zip(one, outs["this"]))
+                 if j in wgrad), default=0.0)
+    one_chunk = all(torch.equal(a_, b_) for j, (a_, b_) in
+                    enumerate(zip(one, outs["this"])) if j not in wgrad)
+    one_chunk = one_chunk and w_rel <= 1e-5
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    print(f"ab_scan_kernels: {smi} | T={T} B={B} d_in={d_in} {name} | "
+    print(f"ab_scan_kernels: {smi} | T={T} B={B} d_in={d_in} d_m={d_m} "
+          f"{'(the width-general forms) ' if general else ''}{name} | "
           f"forward and backward outputs, mask and no mask"
           f"{', and the strided kernels' if strided else ''}"
           f"{', and the AUGRU kernels' if scaled else ''}, bit for bit "
@@ -355,7 +392,8 @@ def main(argv=None) -> int:
           f"{f', K3 in {k1_chunks} and K4 in {k4_chunks}' if strided else ''}"
           f"{f', K1-scale in {k1_chunks}' if scaled else ''}"
           f"{f', K2-scale in {chunks}' if scaled else ''}"
-          f", and each in one: bit for bit the same: {one_chunk}")
+          f", and each in one: bit for bit the same: {one_chunk}"
+          f"{f' (weight gradients within {w_rel:.2e} of max abs)' if general else ''}")
     h = outs["this"][0]
     bounds = outs["this"][14] if strided else None
     for tree in ("other", "this", "this", "other"):
@@ -385,7 +423,7 @@ def main(argv=None) -> int:
                        f"{sc_bwd:.4f} ms, masked {sc_bwd_m:.4f} ms")
         print(f"ab_scan_kernels: {tree} ({trees[tree]}): forward {fwd:.4f} "
               f"ms | backward {bwd:.4f} ms{st} (mean of {REPS}, no mask, "
-              f"{name}, d_in={d_in})")
+              f"{name}, d_in={d_in}, d_m={d_m})")
     return 0 if same and one_chunk else 1
 
 

@@ -8,7 +8,10 @@ For each ``csrc/*.cu`` of the tree (this package's by default): nvcc with
 registers, shared memory and spills; an entry line names the scan kernel
 it compiles where its mangled name says (:data:`LABELS`: K3's recurrence
 is ``gru_scan_fwd_xp_kernel`` with the ``StrideOut`` policy, K1-scale's
-the ``DenseOut`` one with ``kScale``, its last template argument, true).
+the ``DenseOut`` one with ``kScale``, its last template argument, true;
+the width-general forms' kernels are named by their operand functors and
+recurrences, the scale and shared-memory forms by their template
+arguments <S, kScale, kSmemW>).
 Then ``cuobjdump -sass`` of the
 library built from that tree and, per kernel, the static count of the
 instructions that load shared memory (LDS), shuffle (SHFL), load or store
@@ -42,7 +45,16 @@ LABELS = ((("gru_scan_fwd_xp_kernel", "StrideOut"), "K3 recurrence"),
           (("gru_scan_stride_bwd_rec_kernel",), "K4 recurrence"),
           (("gru_scan_bwd_rec_kernel",), "K2 recurrence"),
           (("gru_bwd_pass_kernel",), "K2/K4 pass"),
-          (("readout_fwd_kernel",), "K5"))
+          (("readout_fwd_kernel",), "K5"),
+          # the width-general forms (gru_general_*.cu, readout_general.cu)
+          (("gen_fwd_rec_kernel",), "K1-general recurrence"),
+          (("gen_bwd_rec_kernel",), "K2-general recurrence"),
+          (("gemm_kernel", "ProjOp"), "K1/K2-general projection"),
+          (("gemm_kernel", "HprevOp"), "K2-general h_prev @ wh"),
+          (("gemm_kernel", "DxOp"), "K2-general dx"),
+          (("gemm_kernel", "WxGradOp"), "K2-general dwx and db"),
+          (("gemm_kernel", "WhGradOp"), "K2-general dwh"),
+          (("readout_gen_kernel",), "K5-general"))
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_]+)")
 
 

@@ -13,6 +13,9 @@ there is no card, ``--device cpu`` trains on the CPU) in place of
 then a ``{"best": ..., "metric": ...}`` line. Values are cast against the
 config as ``--set`` casts them. ``steps_per_dispatch`` and
 ``eval_steps_per_dispatch`` of 0 (the JAX probes) run as 1, as there.
+Each trial also prints, on stderr, ``{"trial": ..., "launches": ...}``:
+its run's kernel launches by kernel (the fixed-width kernels and the
+width-general forms apart), those that ran.
 """
 
 from __future__ import annotations
@@ -21,6 +24,32 @@ import argparse
 import dataclasses
 import itertools
 import json
+import sys
+
+# Kernel name -> (module under hpmn_tpu_torch.ops, its launch counter).
+_COUNTERS = {
+    "gru_scan_fwd": ("cuda_gru", "launches"),
+    "gru_scan_bwd": ("cuda_gru", "bwd_launches"),
+    "gru_scan_fwd_bf16": ("cuda_gru", "launches_bf16"),
+    "gru_scan_bwd_bf16": ("cuda_gru", "bwd_launches_bf16"),
+    "gru_scan_fwd_scale": ("cuda_gru", "launches_scale"),
+    "gru_scan_bwd_scale": ("cuda_gru", "bwd_launches_scale"),
+    "gru_gen_fwd": ("cuda_gru", "gen_launches"),
+    "gru_gen_bwd": ("cuda_gru", "gen_bwd_launches"),
+    "gru_gen_fwd_bf16": ("cuda_gru", "gen_launches_bf16"),
+    "gru_gen_bwd_bf16": ("cuda_gru", "gen_bwd_launches_bf16"),
+    "gru_gen_fwd_scale": ("cuda_gru", "gen_launches_scale"),
+    "gru_gen_bwd_scale": ("cuda_gru", "gen_bwd_launches_scale"),
+    "readout_fwd": ("cuda_readout", "launches"),
+    "readout_gen_fwd": ("cuda_readout", "gen_launches"),
+}
+
+
+def _launch_counts():
+    import importlib
+    return {name: getattr(importlib.import_module(
+        f"hpmn_tpu_torch.ops.{mod}"), var)
+        for name, (mod, var) in _COUNTERS.items()}
 
 
 def main(argv=None):
@@ -55,6 +84,7 @@ def main(argv=None):
             train=dataclasses.replace(
                 cfg.train,
                 steps_per_dispatch=cfg.train.steps_per_dispatch or 1))
+        before = _launch_counts()
         res = train(cfg, log=lambda s: None, device=device)
         row = {"trial": dict(point),
                "best_val_auc": res["best_val_auc"],
@@ -62,6 +92,9 @@ def main(argv=None):
                "test_gauc": res["test"]["gauc"],
                "test_log_loss": res["test"]["log_loss"],
                "best_step": res["best_step"]}
+        print(json.dumps({"trial": dict(point), "launches": {
+            n: v - before[n] for n, v in _launch_counts().items()
+            if v > before[n]}}), file=sys.stderr, flush=True)
         if args.metric not in row:
             raise SystemExit(f"--metric {args.metric!r} is not reported; "
                              f"choose from {sorted(set(row) - {'trial'})}")

@@ -248,7 +248,7 @@ def test_input_proj_kernel_matches_plain(dev, d_in, B, dtype):
 
 def test_gru_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="d_m"):
-        p = GRUParams(32, 16).requires_grad_(False).to(dev)
+        p = GRUParams(32, 257).requires_grad_(False).to(dev)
         cuda_gru.gru_sequence_tm(p, torch.zeros(4, 2, 32, device=dev))
     p = _gru(32, dev)
     with pytest.raises(ValueError, match="float32"):
@@ -1576,3 +1576,238 @@ def test_bf16_model_step_kernel_path_matches_plain_path(dev, scan_dtype):
         assert p.dtype == BF16 and p.grad.dtype == BF16, name
         assert _rel_err(p.grad.float(), p_p[name].grad.float()) \
             <= TOL_STEP_GRAD_BF16, name
+
+
+# ---- The width-general forms (csrc/gru_general_*.cu, csrc/readout_general.cu):
+# every width but the fixed-width kernels' d_m = 32, d_in <= 96 (and A =
+# d_m = 32, L <= 16, d_q <= 256), against the plain versions on the card.
+GEN_GRU_SHAPES = [(1, 1), (3, 4), (16, 16), (40, 48), (128, 64), (64, 128),
+                  (256, 256)]
+GEN_READOUT_SHAPES = [(16, 24, 3, 8), (64, 64, 6, 128), (48, 96, 20, 300),
+                      (32, 32, 40, 32), (1, 1, 1, 1), (256, 256, 64, 512)]
+
+
+def _gen_counts():
+    return tuple(getattr(cuda_gru, "gen_" + name) for name in (
+        "launches", "bwd_launches", "launches_bf16", "bwd_launches_bf16",
+        "launches_scale", "bwd_launches_scale", "launches_scale_bf16",
+        "bwd_launches_scale_bf16"))
+
+
+def _gen_gru(d_in, d_m, dev, dtype, seed=0):
+    p = GRUParams(d_in, d_m)
+    p.reset_parameters(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        p.b.uniform_(-0.1, 0.1, generator=torch.Generator().manual_seed(1))
+    p = p.requires_grad_(False).to(dev)
+    return GRUWeights(p.wx.to(dtype), p.wh.to(dtype), p.b.to(dtype))
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("d_in,d_m", GEN_GRU_SHAPES)
+def test_general_gru_kernels_match_plain(dev, d_in, d_m, dtype, masked,
+                                         scaled):
+    """K1-general and K2-general (each dtype, mask and scale form) against
+    the plain scan and its backward on the same inputs on the card: h
+    within TOL_GRU (TOL_GRU_BF16), every gradient within TOL_GRAD
+    (TOL_GRAD_BF16) of its max abs; x a strided time view when masked."""
+    T, B = 23, 7
+    p = _gen_gru(d_in, d_m, dev, dtype)
+    g = torch.Generator().manual_seed(d_in + d_m)
+    x_all = torch.randn(2 * T, B, d_in, generator=g).to(dev, dtype)
+    x = x_all[1::2] if masked else x_all[:T]
+    mask = _mask(T, B, dev).to(dtype) if masked else None
+    scale = (torch.rand(T, B, generator=g).to(dev, dtype) if scaled
+             else None)
+    h0 = torch.randn(B, d_m, generator=g).to(dev, dtype)
+    dh_seq = torch.randn(T, B, d_m, generator=g).to(dev, dtype)
+    bf16 = dtype == BF16
+    plain_fwd = gru_scan_tm_bf16 if bf16 else gru_scan_tm
+    plain_bwd = gru_scan_tm_bwd_bf16 if bf16 else gru_scan_tm_bwd
+    fixed, counts = _scale_counts(), _gen_counts()
+    h_k = cuda_gru.scan_fwd(x, mask, h0, p.wx, p.wh, p.b, scale)
+    h_p = plain_fwd(p, x, mask, h0, scale)[0]
+    got = cuda_gru.gru_scan_bwd(p, x, mask, h_k, dh_seq, h0, scale)
+    want = plain_bwd(p, x, mask, h_k, dh_seq, h0, scale)
+    torch.cuda.synchronize()
+    assert _scale_counts() == fixed
+    slot = (4 if scaled else 0) + (2 if bf16 else 0)
+    ran = [b - a for a, b in zip(counts, _gen_counts())]
+    assert ran == [int(i in (slot, slot + 1)) for i in range(8)]
+    assert h_k.shape == (T, B, d_m) and h_k.dtype == dtype
+    tol_h, tol_g = (TOL_GRU_BF16, TOL_GRAD_BF16) if bf16 else (TOL_GRU,
+                                                               TOL_GRAD)
+    assert (h_k.float() - h_p.float()).abs().max().item() <= tol_h
+    names = ("dx", "dwx", "dwh", "db", "dh0", "dscale")
+    assert len(got) == len(want) == 5 + scaled
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel_err(a.float(), b.float()) <= tol_g, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_general_gru_chunks_match_one_chunk(dev, monkeypatch, dtype, scaled):
+    """Workspace chunks of a few steps: h_seq, dx, dh0 and dscale bit for
+    bit one chunk's; the weight gradients, whose partials slice each
+    chunk's rows, within TOL_GRAD (TOL_GRAD_BF16) of one chunk's."""
+    T, B, d_in, d_m = 29, 5, 40, 48
+    p = _gen_gru(d_in, d_m, dev, dtype)
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(T, B, d_in, generator=g).to(dev, dtype)
+    mask = _mask(T, B, dev).to(dtype)
+    scale = (torch.rand(T, B, generator=g).to(dev, dtype) if scaled
+             else None)
+    dh_seq = torch.randn(T, B, d_m, generator=g).to(dev, dtype)
+    runs = []
+    for steps in (T, 4):
+        per_step = B * d_m * (24 + 4 * x.element_size())
+        monkeypatch.setattr(cuda_gru, "WORKSPACE_BYTES", steps * per_step)
+        assert cuda_gru.gen_bwd_workspace_steps(T, B, d_m, dtype) == steps
+        h = cuda_gru.scan_fwd(x, mask, None, p.wx, p.wh, p.b, scale)
+        runs.append((h, cuda_gru.gru_scan_bwd(p, x, mask, h, dh_seq, None,
+                                              scale)))
+    torch.cuda.synchronize()
+    (h1, g1), (hc, gc) = runs
+    tol = TOL_GRAD_BF16 if dtype == BF16 else TOL_GRAD
+    assert torch.equal(h1, hc)
+    for i, (a, b) in enumerate(zip(g1, gc)):
+        if i in (1, 2, 3):
+            assert _rel_err(b.float(), a.float()) <= tol, i
+        else:
+            assert torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("B", [1, 37, 512])
+@pytest.mark.parametrize("d_m,A,L,d_q", GEN_READOUT_SHAPES)
+def test_general_readout_kernel_matches_plain(dev, d_m, A, L, d_q, B):
+    r = Readout(d_m, d_q, A)
+    r.reset_parameters(torch.Generator().manual_seed(B))
+    r = r.requires_grad_(False).to(dev)
+    g = torch.Generator().manual_seed(L)
+    mem = torch.randn(B, L, d_m, generator=g).to(dev)
+    q = torch.randn(B, d_q, generator=g).to(dev)
+    n, n_gen = cuda_readout.launches, cuda_readout.gen_launches
+    got = cuda_readout.fused_attention_readout(r, mem, q)
+    want = attention_readout(r, mem, q)
+    torch.cuda.synchronize()
+    assert (cuda_readout.launches, cuda_readout.gen_launches) == (
+        n, n_gen + 1)
+    assert (got - want).abs().max().item() <= TOL_READOUT
+
+
+def test_general_forms_refuse_past_their_limits(dev):
+    for d_in, d_m in ((32, 257), (513, 32)):
+        p = GRUParams(d_in, d_m).requires_grad_(False).to(dev)
+        with pytest.raises(ValueError, match="d_m <= 256 and d_in <= 512"):
+            cuda_gru.gru_sequence_tm(p, torch.zeros(4, 2, d_in, device=dev))
+    for d_m, A, L, d_q in ((257, 8, 2, 8), (8, 257, 2, 8), (8, 8, 65, 8),
+                           (8, 8, 2, 513)):
+        r = Readout(d_m, d_q, A).requires_grad_(False).to(dev)
+        with pytest.raises(ValueError, match="L <= 64"):
+            cuda_readout.fused_attention_readout(
+                r, torch.zeros(3, L, d_m, device=dev),
+                torch.zeros(3, d_q, device=dev))
+    p = GRUParams(16, 16).requires_grad_(False).to(dev)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        cuda_gru_stride.gru_stride_tm(p, torch.zeros(6, 2, 16, device=dev),
+                                      3)
+
+
+def _wide(name, **extra):
+    return configs.get_config(name).with_model(
+        use_pallas=True, mem_dim=64, readout_dim=64, emb_dim=64, **extra)
+
+
+@pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16"])
+def test_wide_train_step_kernel_path_matches_plain_path(dev, scan_dtype):
+    """xlong_hpmn at mem_dim = readout_dim = emb_dim = 64 (layer 0's d_in
+    128, K5's A = d_m = 64 and d_q = 128): one loss and gradient through
+    K1-general, K2-general (or their bf16 forms) and K5-general == the same
+    branch with the plain scans and readout (``plain=True``)."""
+    cfg = _wide("xlong_hpmn", assume_full_mask=True, scan_dtype=scan_dtype)
+    spec = synthetic.DatasetSpec("mid", seq_len=250, n_items=500, n_cats=40,
+                                 n_users=50)
+    batch = batch_from_numpy(synthetic.make_ctr_dataset(
+        spec, 32, seed=1, min_len_frac=1.0), device=dev)
+    out = []
+    for plain in (False, True):
+        model = init_model(cfg, 500, 40, seed=2, device=dev)
+        counts = _gen_counts() + (cuda_readout.gen_launches,)
+        loss, _ = loss_fn(model, cfg, batch, plain=plain)
+        loss.backward()
+        torch.cuda.synchronize()
+        ran = [b - a for a, b in zip(
+            counts, _gen_counts() + (cuda_readout.gen_launches,))]
+        out.append((loss.item(), dict(model.named_parameters()), ran))
+    (l_k, p_k, ran_k), (l_p, p_p, ran_p) = out
+    L = cfg.model.hpmn_layers
+    bf16 = scan_dtype == "bfloat16"
+    assert ran_k == ([0, 0, L, L] if bf16 else [L, L, 0, 0]) + [0] * 4 + [1]
+    assert ran_p == [0] * 9
+    tol_loss, tol_grad = ((TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16) if bf16
+                          else (1e-5, TOL_GRAD))
+    assert abs(l_k - l_p) <= tol_loss * abs(l_p)
+    for name, p in p_k.items():
+        assert _rel_err(p.grad, p_p[name].grad) <= tol_grad, name
+
+
+@pytest.mark.parametrize("scan_dtype,full_mask", [("float32", False),
+                                                  ("bfloat16", True)])
+def test_wide_dien_step_kernel_path_matches_plain_path(dev, scan_dtype,
+                                                       full_mask):
+    """taobao_dien at mem_dim = 64: K1-general, K2-general and their scale
+    forms (f32 left-padded, bf16 full) against the plain path."""
+    cfg = configs.get_config("taobao_dien").with_model(
+        use_pallas=True, mem_dim=64, assume_full_mask=full_mask,
+        scan_dtype=scan_dtype)
+    batch = batch_from_numpy(_dien_data(full_mask), device=dev)
+    out = []
+    for plain in (False, True):
+        model = init_model(cfg, 500, 40, seed=2, device=dev)
+        counts = _gen_counts()
+        loss, _ = loss_fn(model, cfg, batch, plain=plain)
+        loss.backward()
+        torch.cuda.synchronize()
+        ran = [b - a for a, b in zip(counts, _gen_counts())]
+        out.append((loss.item(), dict(model.named_parameters()), ran))
+    (l_k, p_k, ran_k), (l_p, p_p, ran_p) = out
+    if scan_dtype == "float32":
+        assert ran_k == [1, 1, 0, 0, 1, 1, 0, 0]
+        tol_loss, tol_grad = 1e-5, TOL_GRAD
+    else:
+        assert ran_k == [0, 0, 1, 1, 0, 0, 1, 1]
+        tol_loss, tol_grad = TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16
+    assert ran_p == [0] * 8
+    assert abs(l_k - l_p) <= tol_loss * abs(l_p)
+    for name, p in p_k.items():
+        assert _rel_err(p.grad, p_p[name].grad) <= tol_grad, name
+
+
+def test_narrow_store_on_the_card_matches_the_cpu_store(dev):
+    """UserMemoryStore of xlong_hpmn at mem_dim = 16, readout_dim = 24,
+    emb_dim = 20: ingest (K1-general), update and rank (K5-general) on the
+    card against the same store on the CPU."""
+    cfg = configs.get_config("xlong_hpmn").with_model(
+        mem_dim=16, readout_dim=24, emb_dim=20)
+    rng = np.random.default_rng(0)
+    T, B = 250, 16
+    items = rng.integers(1, 500, size=(B, T))
+    stores = [UserMemoryStore(cfg, init_model(cfg, 500, 40, device=d),
+                              device=d) for d in ("cpu", dev)]
+    n_gru, n_ro = cuda_gru.gen_launches, cuda_readout.gen_launches
+    for s in stores:
+        s.ingest_histories(np.arange(B), items, items % 40)
+        s.update(np.arange(0, B, 3), items[:6, 0], items[:6, 1] % 40)
+    assert cuda_gru.gen_launches == n_gru + cfg.model.hpmn_layers
+    uids = np.arange(B)
+    m_cpu, _ = stores[0]._gather(uids)
+    m_dev, _ = stores[1]._gather(uids)
+    assert (m_dev.cpu() - m_cpu).abs().max().item() <= TOL_GRU
+    ci = rng.integers(1, 500, size=(B, 7))
+    np.testing.assert_allclose(stores[1].rank(uids, ci, ci % 40),
+                               stores[0].rank(uids, ci, ci % 40),
+                               atol=TOL_GRU)
+    assert cuda_readout.gen_launches == n_ro + 1
