@@ -86,7 +86,7 @@ before the last line):
 11. real data and the baselines: (a) a seeded Amazon dump in the public
    JSON-lines format through ``python -m hpmn_tpu_torch.data.process_amazon``,
    then amazon_gru4rec (K1 per train step and eval batch, K2 per step,
-   counted) and amazon_rum trained 200 steps through ``train()`` on that
+   counted) and amazon_rum trained 100 steps through ``train()`` on that
    ``data_dir``, each against the same run on the CPU and beside a card
    run from perturbed weights (see the tolerances below), and amazon_rum
    a second time on the card, its parameters bit for bit the first run's
@@ -226,8 +226,16 @@ before the last line):
    histories ingested, updates, predict and rank against the plain
    hierarchy and scores; (c) taobao_dien at mem_dim = 64, f32 left-padded
    and bf16 full, as phase 8; (d) ``python -m hpmn_tpu_torch.tools.sweep
-   --grid model.mem_dim=16,32 --set model.use_pallas=true`` (200 steps)
-   as a subprocess, each point's kernel launches (> 0) and its metric.
+   --grid model.mem_dim=16,32 --set model.use_pallas=true`` (100 steps)
+   as a subprocess, each point's kernel launches (> 0) and its metric;
+   (e) the strided forms, K3-general and K4-general (f32 and bf16): in (1)
+   on (d_in, d_m) in (1, 1), (40, 48), (128, 64), (64, 128), (128, 32),
+   (512, 256), period 3, in (2) at d_m = d_in in 16, 64, 128 beside
+   K1-general, K2-general and cuDNN's nn.GRU (its backward from the
+   strided rows' cotangents), and (a)'s model with
+   ``pallas_stride_outputs``: against the plain strided path and the dense
+   wide step's loss, timed, with 6 K3-general and 6 K4-general launches a
+   step and no other scan kernel.
 
 Then one JSON line with every kernel's numbers (the general forms' at d_m
 = 64, with their times at every width beside), the card's name and power
@@ -344,18 +352,20 @@ TOL_RESUME = 1e-5
 # and categories 800, about 3.4M rows. Each user prefers two categories
 # and draws 80% of its events from them, so the next behaviour is
 # predictable and AUC moves off 0.5.
-# A baseline that learns makes a 200-step run chaotic: a run from weights
-# perturbed by 1e-7 (relative) ends about 1e-4 apart in test log-loss and
-# 1e-2 of max abs apart in parameters, where at step 10 it is about 1e-6
-# apart (the phase prints the distances). So the card's run is held to
-# the CPU's where the two can agree: its step-10 parameters within
+# A baseline that learns makes a long run chaotic: over 200 steps a run
+# from weights perturbed by 1e-7 (relative) ended about 1e-4 apart in test
+# log-loss and 1e-2 of max abs apart in parameters, where at step 10 it is
+# about 1e-6 apart (the phase prints the distances). So the card's run is
+# held to the CPU's where the two can agree: its step-10 parameters within
 # TOL_DRIVER_PARAMS of max abs and its step-50 VAL log-loss within
 # TOL_DRIVER_LOG_LOSS (phase 10's tolerances), the best VAL and the TEST
-# AUC within TOL_DRIVER; at step 200 its test log-loss and parameters to
-# within DIVERGENCE_FACTOR times the distance between the card run and a
-# card run from weights perturbed by PERTURB (measured in the phase; the
+# AUC within TOL_DRIVER; at its last step (BASELINE_STEPS, cut from 200 to
+# keep the script inside its time limit) its test log-loss and parameters
+# to within DIVERGENCE_FACTOR times the distance between the card run and
+# a card run from weights perturbed by PERTURB (measured in the phase; the
 # log-loss distance, a difference of two scalars, is the larger of the
-# TEST and the step-200 VAL log-loss's, and at least TOL_DRIVER_LOG_LOSS).
+# TEST and the last step's VAL log-loss's, and at least
+# TOL_DRIVER_LOG_LOSS).
 # The same for rum, which has no kernel (its matmuls sum in other orders
 # on the two devices). The stores' scores: the training path's at 1e-5,
 # the CPU store's at TOL_GRU.
@@ -367,7 +377,7 @@ AMAZON_REVIEWS = (5, 40)
 XLONG_USERS, XLONG_EVENTS = 3072, (1001, 1200)
 XLONG_ITEMS, XLONG_CATS = 50000, 800
 PREFERRED_SHARE = 0.8
-BASELINE_STEPS = 200
+BASELINE_STEPS = 100
 TOL_STORE = 1e-5
 STORE_BATCH = 512  # the stores' ingest batch
 ONE_BY_ONE_USERS = 32
@@ -523,29 +533,31 @@ def scan_bwd_work(T, B, d_in, masked, es=4, scaled=False, d_m=32):
 
 
 def stride_rows(T, period, chunk):
-    """K3's outputs, in rows of B x 32: the strided rows, the chunk
+    """K3's outputs, in rows of B x d_m: the strided rows, the chunk
     boundaries and h_T."""
     return T // period + -(-T // chunk) + 1
 
 
-def scan_stride_fwd_work(T, B, d_in, period, chunk, es=4):
+def scan_stride_fwd_work(T, B, d_in, period, chunk, es=4, d_m=32):
     """K3: K1's operations; x and the weights read, the strided rows, the
-    boundaries and h_T written."""
-    flops = 2 * T * B * (d_in + 32) * 96
-    n_bytes = es * (T * B * d_in + stride_rows(T, period, chunk) * B * 32
-                    + (d_in + 33) * 96)
+    boundaries and h_T written. d_m: the hidden width (the general
+    forms')."""
+    flops = 2 * T * B * (d_in + d_m) * 3 * d_m
+    n_bytes = es * (T * B * d_in + stride_rows(T, period, chunk) * B * d_m
+                    + (d_in + d_m + 1) * 3 * d_m)
     return flops, n_bytes
 
 
-def scan_stride_bwd_work(T, B, d_in, period, chunk, es=4):
+def scan_stride_bwd_work(T, B, d_in, period, chunk, es=4, d_m=32):
     """K4: K2's operations (its replay is K2's recompute of x@wx and h@wh:
     the sweep reads the replay's gates back); x, the boundaries, dhs, dhT
     and the weights read, dx written (es bytes per element), dh0 and the
-    weight gradients written (f32)."""
-    flops = 2 * T * B * 96 * (3 * d_in + 3 * 32)
-    n_bytes = (es * (2 * T * B * d_in + stride_rows(T, period, chunk) * B * 32
-                     + (d_in + 33) * 96)
-               + 4 * (B * 32 + (d_in + 33) * 96))
+    weight gradients written (f32). d_m: the hidden width."""
+    flops = 2 * T * B * 3 * d_m * (3 * d_in + 3 * d_m)
+    n_bytes = (es * (2 * T * B * d_in
+                     + stride_rows(T, period, chunk) * B * d_m
+                     + (d_in + d_m + 1) * 3 * d_m)
+               + 4 * (B * d_m + (d_in + d_m + 1) * 3 * d_m))
     return flops, n_bytes
 
 
@@ -2383,9 +2395,13 @@ def phase_17(p):
 
 # Phase 18: the width-general forms (csrc/gru_general_*.cu,
 # csrc/readout_general.cu), which run every width but the fixed-width
-# kernels' d_m = 32, d_in <= 96 (A = d_m = 32, L <= 16, d_q <= 256).
+# kernels' d_m = 32, d_in <= 96 (A = d_m = 32, L <= 16, d_q <= 256); the
+# strided ones (K3-general, K4-general) on their own grid and widths.
 GEN_GRU_GRID = ((1, 1), (3, 4), (16, 16), (40, 48), (128, 64), (64, 128),
                 (256, 256))  # (d_in, d_m)
+GEN_STRIDE_GRID = ((1, 1), (40, 48), (128, 64), (64, 128), (128, 32),
+                   (512, 256))  # (d_in, d_m)
+GEN_STRIDE_WIDTHS = (16, 64, 128)  # d_m = d_in, timed
 GEN_READOUT_GRID = ((16, 24, 3, 8), (64, 64, 6, 128), (48, 96, 20, 300),
                     (32, 32, 40, 32))  # (d_m, A, L, d_q)
 GEN_GRID_T, GEN_GRID_B = 40, 33
@@ -2395,20 +2411,28 @@ WIDE = dict(mem_dim=64, readout_dim=64, emb_dim=64)
 GEN_STORE_USERS = 2048
 SWEEP_CLI = ["--config", "amazon_hpmn", "--grid", "model.mem_dim=16,32",
              "--set", "model.use_pallas=true", "n_examples=4000",
-             "train.max_steps=200", "train.eval_every=100",
-             "train.log_every=100", "train.batch_size=64",
+             "train.max_steps=100", "train.eval_every=50",
+             "train.log_every=50", "train.batch_size=64",
              "train.early_stop_patience=100"]
-# The general forms, in the kernels line's order: (name, the gen_ counter
-# of cuda_gru, or None for K5-general).
-GEN_FORMS = (("gru_gen_fwd", "gen_launches"),
-             ("gru_gen_bwd", "gen_bwd_launches"),
-             ("gru_gen_fwd_bf16", "gen_launches_bf16"),
-             ("gru_gen_bwd_bf16", "gen_bwd_launches_bf16"),
-             ("gru_gen_fwd_scale", "gen_launches_scale"),
-             ("gru_gen_bwd_scale", "gen_bwd_launches_scale"),
-             ("gru_gen_fwd_scale_bf16", "gen_launches_scale_bf16"),
-             ("gru_gen_bwd_scale_bf16", "gen_bwd_launches_scale_bf16"),
-             ("readout_gen_fwd", None))
+# The general forms, in the kernels line's order: (name, the module of
+# hpmn_tpu_torch.ops that counts it, its gen_ counter).
+GEN_FORMS = (("gru_gen_fwd", "cuda_gru", "gen_launches"),
+             ("gru_gen_bwd", "cuda_gru", "gen_bwd_launches"),
+             ("gru_gen_fwd_bf16", "cuda_gru", "gen_launches_bf16"),
+             ("gru_gen_bwd_bf16", "cuda_gru", "gen_bwd_launches_bf16"),
+             ("gru_gen_fwd_scale", "cuda_gru", "gen_launches_scale"),
+             ("gru_gen_bwd_scale", "cuda_gru", "gen_bwd_launches_scale"),
+             ("gru_gen_fwd_scale_bf16", "cuda_gru",
+              "gen_launches_scale_bf16"),
+             ("gru_gen_bwd_scale_bf16", "cuda_gru",
+              "gen_bwd_launches_scale_bf16"),
+             ("readout_gen_fwd", "cuda_readout", "gen_launches"),
+             ("gru_stride_gen_fwd", "cuda_gru_stride", "gen_launches"),
+             ("gru_stride_gen_bwd", "cuda_gru_stride", "gen_bwd_launches"),
+             ("gru_stride_gen_fwd_bf16", "cuda_gru_stride",
+              "gen_launches_bf16"),
+             ("gru_stride_gen_bwd_bf16", "cuda_gru_stride",
+              "gen_bwd_launches_bf16"))
 
 
 def phase_18(p):
@@ -2419,8 +2443,12 @@ def phase_18(p):
     paths at other widths: (a) xlong_hpmn at mem_dim = readout_dim =
     emb_dim = 64, f32 and bf16 scans, (b) its UserMemoryStore, (c)
     taobao_dien at mem_dim = 64, (d) the mem_dim = 16, 32 sweep as a
-    subprocess. ``p`` carries main's closures and batches. -> (the kernels
-    line's entries of the general forms, their launches by path)."""
+    subprocess, (e) the wide xlong_hpmn with pallas_stride_outputs
+    (K3-general and K4-general). ``p`` carries main's closures and
+    batches. -> (the kernels line's entries of the general forms, their
+    launches by path)."""
+    import importlib
+
     import torch
 
     from hpmn_tpu_torch.data.synthetic import TAOBAO, XLONG, make_ctr_dataset
@@ -2429,10 +2457,14 @@ def phase_18(p):
     from hpmn_tpu_torch.models.model import init_model
     from hpmn_tpu_torch.models.readout import Readout, attention_readout
     from hpmn_tpu_torch.models.tower import apply_tower
-    from hpmn_tpu_torch.ops import cuda_gru, cuda_readout
-    from hpmn_tpu_torch.ops.gru import (GRUParams, GRUWeights, gru_scan_tm,
-                                        gru_scan_tm_bf16, gru_scan_tm_bwd,
-                                        gru_scan_tm_bwd_bf16)
+    from hpmn_tpu_torch.ops import cuda_gru, cuda_gru_stride, cuda_readout
+    from hpmn_tpu_torch.ops.gru import (GRUParams, GRUWeights,
+                                        gru_scan_stride_tm,
+                                        gru_scan_stride_tm_bf16,
+                                        gru_scan_stride_tm_bwd,
+                                        gru_scan_stride_tm_bwd_bf16,
+                                        gru_scan_tm, gru_scan_tm_bf16,
+                                        gru_scan_tm_bwd, gru_scan_tm_bwd_bf16)
     from hpmn_tpu_torch.serving.lifelong import UserMemoryStore
     from hpmn_tpu_torch.train.train import (make_multistep_train,
                                             make_optimizer)
@@ -2441,16 +2473,16 @@ def phase_18(p):
     dev, k = p.dev, p.k
     bf = torch.bfloat16
     g = torch.Generator().manual_seed(18)
-    names = [n for n, _ in GEN_FORMS]
+    names = [n for n, _, _ in GEN_FORMS]
+    mods = {m: importlib.import_module(f"hpmn_tpu_torch.ops.{m}")
+            for _, m, _ in GEN_FORMS}
 
     def gen_counts():
-        return tuple(getattr(cuda_gru, var) if var else
-                     cuda_readout.gen_launches for _, var in GEN_FORMS)
+        return tuple(getattr(mods[m], var) for _, m, var in GEN_FORMS)
 
     def zero_gen():
-        for _, var in GEN_FORMS:
-            setattr(cuda_gru if var else cuda_readout,
-                    var or "gen_launches", 0)
+        for _, m, var in GEN_FORMS:
+            setattr(mods[m], var, 0)
 
     def cuda_ms(fn, reps, warmup=1):
         for _ in range(warmup):
@@ -2550,9 +2582,52 @@ def phase_18(p):
               f"{TOL_READOUT}")
         err["readout_gen_fwd"] = max(err["readout_gen_fwd"], e_r)
         abs_err["readout_gen_fwd"] = err["readout_gen_fwd"]
+    # The strided forms: K3-general then K4-general from its boundaries,
+    # period 3 (T = 40 is ragged against it and the 16-step boundaries).
+    for d_in, d_m in GEN_STRIDE_GRID:
+        for dtype in (torch.float32, bf):
+            w = layer(d_in, d_m, dtype)
+            b16 = dtype == bf
+            tol_h, tol_g = (TOL_GRU_BF16, TOL_GRAD_BF16) if b16 else (
+                TOL_GRU, TOL_GRAD)
+            x = torch.randn(2 * T, B, d_in, generator=g).to(dev, dtype)[::2]
+            h0 = torch.randn(B, d_m, generator=g).to(dev, dtype)
+            dhs = torch.randn(T // 3, B, d_m, generator=g).to(dev, dtype)
+            dhT = torch.randn(B, d_m, generator=g).to(dev, dtype)
+            before = gen_counts()
+            hs, hT, bounds = cuda_gru_stride.stride_fwd(w, x, 3, h0)
+            got = cuda_gru_stride.stride_bwd(w, x, 3, bounds, dhs, dhT, h0)
+            hs_p, hT_p = (gru_scan_stride_tm_bf16 if b16
+                          else gru_scan_stride_tm)(w, x, 3, h0)
+            want = (gru_scan_stride_tm_bwd_bf16 if b16
+                    else gru_scan_stride_tm_bwd)(w, x, 3, dhs, dhT, h0)
+            torch.cuda.synchronize()
+            fw = "gru_stride_gen_fwd" + ("_bf16" if b16 else "")
+            bw = "gru_stride_gen_bwd" + ("_bf16" if b16 else "")
+            ran = [b_ - a_ for a_, b_ in zip(before, gen_counts())]
+            check(ran[names.index(fw)] == 1 and ran[names.index(bw)] == 1
+                  and sum(ran) == 2, f"phase 18 grid d_in={d_in} d_m={d_m} "
+                  f"{fw}/{bw}: launches {ran}")
+            e_h = max((hs.float() - hs_p.float()).abs().max().item(),
+                      (hT.float() - hT_p.float()).abs().max().item())
+            check(np.isfinite(e_h) and e_h <= tol_h, f"phase 18 {fw} "
+                  f"d_in={d_in} d_m={d_m}: h max abs err {e_h:.3e} > {tol_h}")
+            err[fw] = max(err[fw], e_h)
+            abs_err[fw] = max(abs_err[fw], e_h)
+            for gname, a_, b_ in zip(("dx", "dwx", "dwh", "db", "dh0"), got,
+                                     want):
+                d_ = (a_.float() - b_.float()).abs().max().item()
+                rel = d_ / max(b_.float().abs().max().item(), 1e-30)
+                check(a_.shape == b_.shape and np.isfinite(rel)
+                      and rel <= tol_g, f"phase 18 {bw} d_in={d_in} "
+                      f"d_m={d_m}: {gname} off by {rel:.3e} of its max abs "
+                      f"> {tol_g}")
+                err[bw] = max(err[bw], rel)
+                abs_err[bw] = max(abs_err[bw], d_)
     print(f"phase 18 (1) grid T={T} B={B} (x a strided time view, an h0), "
           f"(d_in, d_m) in {list(GEN_GRU_GRID)}, every dtype, mask and "
-          f"scale form; readout B={B_ro} (d_m, A, L, d_q) in "
+          f"scale form; strided (period 3) (d_in, d_m) in "
+          f"{list(GEN_STRIDE_GRID)}; readout B={B_ro} (d_m, A, L, d_q) in "
           f"{list(GEN_READOUT_GRID)}: worst h (max abs) and gradient (of "
           f"max abs) errors " + ", ".join(f"{n} {err[n]:.2e}" for n in names)
           + f" (tol h {TOL_GRU}/{TOL_GRU_BF16}, gradients {TOL_GRAD}/"
@@ -2642,6 +2717,63 @@ def phase_18(p):
                   f"forward {ms_f:.4f} ms (plain {pl_f:.4f}, bound "
                   f"{bf_ms:.4f} {bf_by}) | backward {ms_b:.4f} ms (plain "
                   f"{pl_b:.4f}, bound {bb_ms:.4f} {bb_by})", flush=True)
+    # K3-general and K4-general at period 3 (the xlong layers'), beside
+    # K1-general and K2-general above and cuDNN's dense nn.GRU (forward;
+    # forward with backward from the strided rows' and h_T's cotangents).
+    for wd in GEN_STRIDE_WIDTHS:
+        for dtype in (torch.float32, bf):
+            b16 = dtype == bf
+            es, peak = (2, PEAK_BF16_FLOPS) if b16 else (4, PEAK_FP32_FLOPS)
+            sfx = "_bf16" if b16 else ""
+            w = layer(wd, wd, dtype)
+            x = torch.randn(Tt, B_SCAN, wd, generator=g).to(dev, dtype)
+            dhs = torch.randn(Tt // 3, B_SCAN, wd, generator=g).to(dev,
+                                                                   dtype)
+            dhT = torch.randn(B_SCAN, wd, generator=g).to(dev, dtype)
+            bounds = cuda_gru_stride.stride_fwd(w, x, 3)[2]
+            ms_f = cuda_ms(lambda: cuda_gru_stride.stride_fwd(w, x, 3), 5)
+            ms_b = cuda_ms(lambda: cuda_gru_stride.stride_bwd(
+                w, x, 3, bounds, dhs, dhT), 3)
+            pl_f = cuda_ms(lambda: (gru_scan_stride_tm_bf16 if b16 else
+                                    gru_scan_stride_tm)(w, x, 3), 1, 0)
+            pl_b = cuda_ms(lambda: (gru_scan_stride_tm_bwd_bf16 if b16 else
+                                    gru_scan_stride_tm_bwd)(w, x, 3, dhs,
+                                                            dhT), 1, 0)
+            lib = torch.nn.GRU(wd, wd).to(dev, dtype)
+            x_lib = x.clone().requires_grad_(True)
+
+            def lib_fwd():
+                with torch.no_grad():
+                    return lib(x)
+
+            def lib_fwd_bwd():
+                out, h_n = lib(x_lib)
+                return torch.autograd.grad(
+                    (out[2::3], h_n[0]), [x_lib, *lib.parameters()],
+                    (dhs, dhT))
+
+            lib_f, lib_fb = cuda_ms(lib_fwd, 5), cuda_ms(lib_fwd_bwd, 3)
+            bf_ms, bf_by = bound(*scan_stride_fwd_work(
+                Tt, B_SCAN, wd, 3, 16, es, d_m=wd), peak)
+            bb_ms, bb_by = bound(*scan_stride_bwd_work(
+                Tt, B_SCAN, wd, 3, 16, es, d_m=wd), peak)
+            times["gru_stride_gen_fwd" + sfx, wd] = (ms_f, pl_f, lib_f,
+                                                     bf_ms, bf_by)
+            times["gru_stride_gen_bwd" + sfx, wd] = (ms_b, pl_b, lib_fb,
+                                                     bb_ms, bb_by)
+            dense_f = times[form_name(False, False, b16), wd][0]
+            dense_b = times[form_name(True, False, b16), wd][0]
+            print(f"phase 18 (2) strided general d_m=d_in={wd} T={Tt} "
+                  f"B={B_SCAN} period 3 {'bf16' if b16 else 'f32'}: forward "
+                  f"{ms_f:.4f} ms (dense K1-general {dense_f:.4f}, plain "
+                  f"{pl_f:.4f}, cuDNN nn.GRU {lib_f:.4f}, bound "
+                  f"{bf_ms:.4f} {bf_by}) | backward {ms_b:.4f} ms (dense "
+                  f"K2-general {dense_b:.4f}, plain {pl_b:.4f}, cuDNN "
+                  f"forward with backward, strided cotangent {lib_fb:.4f}, "
+                  f"bound {bb_ms:.4f} {bb_by})", flush=True)
+            del lib, x_lib, bounds
+    # The timed paths' peak memory counts what is live: free the inputs.
+    del x, dhs, dhT, w
     for d_m, A, L, d_q in ((64, 64, 6, 128), (16, 32, 4, 32),
                            (128, 128, 6, 256)):
         r = Readout(d_m, d_q, A)
@@ -2697,17 +2829,18 @@ def phase_18(p):
     n_steps = (WARMUP_DISPATCHES + TIMED_DISPATCHES) * k
     cfg_w = p.cfg_k.with_model(**WIDE)
     L_x = cfg_w.model.hpmn_layers
+    wide_dense = {}  # scan dtype -> (loss, ms per step, peak MiB)
     for scan in ("float32", "bfloat16"):
         b16 = scan == "bfloat16"
         c = cfg_w.with_model(scan_dtype=scan)
         tag = f"(a) xlong_hpmn mem_dim=readout_dim=emb_dim=64 {scan} scans"
         if b16:
-            p.step_check(18, tag, c, p.batches[0], c, True,
-                         TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16)
+            loss_a = p.step_check(18, tag, c, p.batches[0], c, True,
+                                  TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16)
         else:
-            p.step_check(18, tag, c, p.batches[0],
-                         c.with_model(use_pallas=False), False,
-                         TOL_STEP_LOSS, TOL_STEP_GRAD)
+            loss_a = p.step_check(18, tag, c, p.batches[0],
+                                  c.with_model(use_pallas=False), False,
+                                  TOL_STEP_LOSS, TOL_STEP_GRAD)
         torch.cuda.empty_cache()
         metrics, step_ms, eps, got, mib, multistep = timed(c, p.stacks,
                                                            XLONG)
@@ -2718,6 +2851,7 @@ def phase_18(p):
         check(list(got) == want, f"phase 18 {tag}: launches {got}, "
               f"expected {want}")
         launches["wide_xlong" + ("_bf16" if b16 else "")] = got
+        wide_dense[scan] = (loss_a, step_ms, mib)
         print(f"phase 18 {tag} B={p.batches[0].batch_size} "
               f"T={XLONG.seq_len} L={L_x} (layer 0 d_in 128, K5 A=d_m=64 "
               f"d_q=128), {k} steps per dispatch: {eps:.1f} examples/s "
@@ -2788,6 +2922,7 @@ def phase_18(p):
         pred_plain = torch.sigmoid(apply_tower(
             model_w.tower, torch.cat([q, read], -1))).cpu().numpy()
     hier_err = hier_err.item()
+    del emb, x_tm, mem_plain, q, read
     score_err = float(np.abs(pred - pred_plain).max())
     col_err = float(np.abs(ranked[:, 0] - store.predict(
         uids[:RANK_USERS], ri[:, 0], rc[:, 0])).max())
@@ -2843,6 +2978,46 @@ def phase_18(p):
         del multistep
         torch.cuda.empty_cache()
 
+    # (e) the wide xlong_hpmn with pallas_stride_outputs: each layer's scan
+    # K3-general (K3-general-bf16), its backward K4-general; no dense
+    # h_seq, and no dense or fixed-width scan kernel.
+    for scan in ("float32", "bfloat16"):
+        b16 = scan == "bfloat16"
+        sfx = "_bf16" if b16 else ""
+        c = cfg_w.with_model(scan_dtype=scan, pallas_stride_outputs=True)
+        tag = (f"(e) xlong_hpmn mem_dim=readout_dim=emb_dim=64 {scan} scans, "
+               f"strided outputs")
+        tols = ((TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16) if b16
+                else (TOL_STEP_LOSS, TOL_STEP_GRAD))
+        loss_e = p.step_check(18, tag, c, p.batches[0], c, True, *tols)
+        loss_a, dense_ms, dense_mib = wide_dense[scan]
+        rel = abs(loss_e - loss_a) / abs(loss_a)
+        check(rel <= tols[0], f"phase 18 {tag}: loss {loss_e} vs the dense "
+              f"wide step's {loss_a}, relative {rel:.3e} > {tols[0]}")
+        torch.cuda.empty_cache()
+        metrics, step_ms, eps, got, mib, multistep = timed(c, p.stacks,
+                                                           XLONG)
+        want = [0] * len(names)
+        want[names.index("gru_stride_gen_fwd" + sfx)] = L_x * n_steps
+        want[names.index("gru_stride_gen_bwd" + sfx)] = L_x * n_steps
+        want[names.index("readout_gen_fwd")] = n_steps
+        check(list(got) == want, f"phase 18 {tag}: launches {got}, "
+              f"expected {want}")
+        launches["wide_xlong_stride" + sfx] = got
+        print(f"phase 18 {tag} B={p.batches[0].batch_size} "
+              f"T={XLONG.seq_len} L={L_x}, {k} steps per dispatch: "
+              f"{eps:.1f} examples/s ({step_ms:.3f} ms per step; the dense "
+              f"wide step (a) {dense_ms:.3f}) | loss vs the dense wide "
+              f"step's (same weights and batch) {loss_e:.7f} vs "
+              f"{loss_a:.7f}, relative {rel:.2e} (tol {tols[0]}) | last step "
+              f"loss {metrics['loss']:.6f} | peak device memory {mib:.1f} "
+              f"MiB (dense {dense_mib:.1f}) | launches over {n_steps} "
+              f"steps: " + ", ".join(f"{n_} {v}" for n_, v in
+                                     zip(names, got) if v), flush=True)
+        p.profile_dispatch(18, multistep, step_ms, p.stacks[0])
+        del multistep
+        torch.cuda.empty_cache()
+
     # (d) the sweep over mem_dim 16 and 32 with the kernels, a subprocess.
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -2870,7 +3045,7 @@ def phase_18(p):
               f"phase 18 (d) sweep mem_dim={md}: {r_}, launches {c_}")
         launches[f"sweep_mem_dim_{md}"] = tuple(
             n_.get(n2, 0) for n2 in names)
-        print(f"phase 18 (d) sweep amazon_hpmn mem_dim={md} (200 steps, "
+        print(f"phase 18 (d) sweep amazon_hpmn mem_dim={md} (100 steps, "
               f"use_pallas): best_val_auc {r_['best_val_auc']:.4f} test_auc "
               f"{r_['test_auc']:.4f} | launches {n_}", flush=True)
     print(f"phase 18 (d) sweep subprocess {time.perf_counter() - t0:.1f} s; "
@@ -2879,16 +3054,27 @@ def phase_18(p):
     # The kernels line's entries: the numbers at d_m = 64 (the wide path's
     # width; the readout's at (64, 64, 6, 128)), every width beside them.
     entries = []
-    for i, (name, _) in enumerate(GEN_FORMS):
+    for i, (name, _, _) in enumerate(GEN_FORMS):
         by_path = {path: v[i] for path, v in launches.items() if v[i]}
         row = times[name, 64]
         widths = sorted(wd for n_, wd in times if n_ == name and wd != 32)
-        source = (cuda_readout.GEN_SOURCE if name.startswith("readout")
-                  else cuda_gru.GEN_BWD_SOURCE if "bwd" in name
-                  else cuda_gru.GEN_SOURCE)
-        replaces = (cuda_readout.REPLACES if name.startswith("readout")
-                    else cuda_gru.BWD_REPLACES if "bwd" in name
-                    else cuda_gru.REPLACES)
+        readout = name.startswith("readout")
+        stride = name.startswith("gru_stride")
+        mod = cuda_gru_stride if stride else cuda_gru
+        source = (cuda_readout.GEN_SOURCE if readout
+                  else mod.GEN_BWD_SOURCE if "bwd" in name
+                  else mod.GEN_SOURCE)
+        replaces = (cuda_readout.REPLACES if readout
+                    else mod.BWD_REPLACES if "bwd" in name
+                    else mod.REPLACES)
+        # K4-general runs the tiled products, K3-general's recurrence (its
+        # replay) and its own sweep.
+        sources = ([source] if readout
+                   else list(cuda_gru.GEN_SOURCES) if stride and "bwd" in name
+                   else list(cuda_gru.GEN_SOURCES[:1]) + [source])
+        extra = ({"dense_general_ms_by_width": {
+            str(wd): times[name.replace("stride_gen", "gen"), wd][0]
+            for wd in widths}} if stride else {})
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -2896,8 +3082,7 @@ def phase_18(p):
             "ms": row[0], "plain_ms": row[1], "bound_ms": row[3],
             "bound_by": row[4], "library_ms": row[2],
             "max_err_over_max_abs": err[name] if "bwd" in name else None,
-            "sources": ([source] if name.startswith("readout")
-                        else list(cuda_gru.GEN_SOURCES[:1]) + [source]),
+            "sources": sources,
             "width": 64,
             "ms_by_width": {str(wd): times[name, wd][0] for wd in widths},
             "plain_ms_by_width": {str(wd): times[name, wd][1]
@@ -2907,7 +3092,8 @@ def phase_18(p):
             "bound_ms_by_width": {str(wd): times[name, wd][3]
                                   for wd in widths},
             "fixed_width_ms_d_m_32": (times[name, 32][0]
-                                      if (name, 32) in times else None)})
+                                      if (name, 32) in times else None),
+            **extra})
     return entries, launches
 
 

@@ -67,6 +67,25 @@
 //   With the scale, dscale[t, row] is each warp's shuffle tree of its
 //   units' dzs*z, then the row's warps summed in order by thread 0.
 //
+// The strided forms (K3-general: hpmn_gru_gen_stride_fwd[_bf16], in
+// gru_general_fwd.cu; K4-general: hpmn_gru_gen_stride_bwd[_bf16], in
+// gru_general_bwd.cu) replace _fwd_stride_kernel and _bwd_stride_kernel at
+// the same widths; ops/cuda_gru_stride.py dispatches to them. They write
+// and read no dense [T, B, d_m] state or cotangent:
+//
+// - K3-general is K1-general's projection and recurrence with another
+//   output policy (GenStride): the rows h_seq[period-1::period], the state
+//   before every kStrideChunk-th step (the boundaries) and h_T, and the
+//   update stride_update (the TPU stride kernel's h + z*(c - h)).
+// - K4-general runs, per workspace chunk (a multiple of kStrideChunk steps,
+//   from the last), the projection, a replay of the chunk from its first
+//   boundary with K3-general's recurrence (GenReplay: each step's h_prev
+//   and h @ wh into workspaces, so the states are K3-general's bit for
+//   bit), gen_bwd_rec_kernel with the strided cotangents (StrideCot), then
+//   dx and the weight gradients as tiled products over the workspaces. Its
+//   partials are batch slices walked from the last step to the first
+//   (launch_wgrad's by_batch), so every output is the same over any chunk.
+//
 // The block's rows: enough that the grid is about one wave over the SMs
 // (ceil(B / SMs)), at most 512 threads a block.
 //
@@ -153,11 +172,26 @@ template <typename S>
 int launch_dx(const S* dg, const S* wx, S* dx, long long rows, int d_in,
               int d_m, cudaStream_t st);
 // The weight-gradient partials [splits] of dwx, db and dwh += the chunk's
-// (steps [t0, t0 + n)) rows' products, from 0 where `first`.
+// (steps [t0, t0 + n)) rows' products, from 0 where `first`. Partial z
+// sums the z-th slice of the chunk's rows in time-major order, or, with
+// `by_batch` (B a multiple of splits), the z-th slice of the batch rows
+// over the chunk's steps from the last to the first, so that chunks run
+// from the last to the first give every partial's sums in one order,
+// whatever the chunk (gru_general_gemm.cu's chunk_step).
 template <typename S>
 int launch_wgrad(const S* x, long long x_tstride, const S* h0, const S* hseq,
                  const S* dg, float* dwx_part, float* dwh_part,
                  float* db_part, bool first, int t0, long long rows,
-                 int splits, int B, int d_in, int d_m, cudaStream_t st);
+                 int splits, int B, int d_in, int d_m, bool by_batch,
+                 cudaStream_t st);
+
+// K4-general's replay (gru_general_fwd.cu): K3-general's recurrence over n
+// steps from h_start [B, d_m] (a boundary state) on the projection xp [n,
+// B, 3*d_m], writing each step's h_prev into hprev [n, B, d_m] and h @ wh
+// into gh [n, B, 3*d_m] f32; returns cudaGetLastError().
+template <typename S>
+int launch_replay(const float* xp, const S* wh, const S* b, const S* h_start,
+                  S* hprev, float* gh, int n, int B, int d_m,
+                  cudaStream_t st);
 
 }  // namespace hpmn_gen

@@ -173,6 +173,32 @@ struct DxOp {
   }
 };
 
+// The chunk's step t and batch row b of the weight-gradient products' k
+// index r over its `steps` steps. Dense (bz = 0, K2-general): r = t*B + b,
+// and partial z sums the z-th slice of that order. By batch slice (bz > 0,
+// K4-general; bz*splits = B): partial z sums batch rows [z*bz, (z+1)*bz),
+// walking the chunk's steps from the last to the first, r = (z*steps +
+// steps-1-t)*bz + b - z*bz; the chunks run from the last to the first, so
+// each output of a partial is one fmaf chain over its rows' steps in
+// reverse, whatever the chunk length. Its divisions are 32-bit (a chunk's
+// steps*B rows stay below 2^32, which gen_stride_bwd checks): the loads
+// of a tile run two per element, and a 64-bit division costs several
+// times a 32-bit one.
+__device__ __forceinline__ void chunk_step(long long r, int B, int steps,
+                                           int bz, long long& t,
+                                           long long& b) {
+  if (bz == 0) {
+    t = r / B;
+    b = r - t * B;
+    return;
+  }
+  const unsigned ur = (unsigned)r, ubz = (unsigned)bz;
+  const unsigned span = (unsigned)steps * ubz;
+  const unsigned z = ur / span, rem = ur - z * span, q = rem / ubz;
+  t = steps - 1 - (long long)q;
+  b = (long long)(z * ubz + (rem - q * ubz));
+}
+
 // The x half of the weight gradients and db, summed over the chunk's rows r
 // (GEMM k): row u < d_in of dwx_part[z] += x_r[u] [dr|dz|dc]_r, and u =
 // d_in (a row of ones) db_part[z] += [dr|dz|dc]_r. `first`: start from 0.
@@ -185,15 +211,18 @@ struct WxGradOp {
   float* dwx_part;
   float* db_part;
   bool first;
-  int t0, B, d_in, d_m;
+  int t0, B, d_in, d_m, steps, bz;
   __device__ float ld_a(long long u, long long r) const {
     if (u == d_in) return 1.0f;
-    const long long t = r / B, b = r - t * B;
+    long long t, b;
+    chunk_step(r, B, steps, bz, t, b);
     return load_f(x + (t0 + t) * x_tstride + b * d_in + u);
   }
   __device__ float ld_b(long long r, int n) const {
     const int g = n / d_m, k = n - g * d_m;
-    return load_f(dg + (r * d_m + k) * 4 + g);
+    long long t, b;
+    chunk_step(r, B, steps, bz, t, b);
+    return load_f(dg + ((t * B + b) * d_m + k) * 4 + g);
   }
   __device__ float* at(long long u, int n, int z) const {
     const long long G = 3 * d_m;
@@ -217,14 +246,17 @@ struct WhGradOp {
   const S* dg;
   float* dwh_part;
   bool first;
-  int t0, B, d_m;
+  int t0, B, d_m, steps, bz;
   __device__ float ld_a(long long u, long long r) const {
-    const long long t = r / B, b = r - t * B;
+    long long t, b;
+    chunk_step(r, B, steps, bz, t, b);
     return h_prev(h0, hseq, t0 + t, b, u, B, d_m);
   }
   __device__ float ld_b(long long r, int n) const {
     const int g = n / d_m, k = n - g * d_m;
-    return load_f(dg + (r * d_m + k) * 4 + (g < 2 ? g : 3));
+    long long t, b;
+    chunk_step(r, B, steps, bz, t, b);
+    return load_f(dg + ((t * B + b) * d_m + k) * 4 + (g < 2 ? g : 3));
   }
   __device__ float* at(long long u, int n, int z) const {
     return dwh_part + ((long long)z * d_m + u) * 3 * d_m + n;
@@ -265,12 +297,17 @@ template <typename S>
 int launch_wgrad(const S* x, long long x_tstride, const S* h0, const S* hseq,
                  const S* dg, float* dwx_part, float* dwh_part,
                  float* db_part, bool first, int t0, long long rows,
-                 int splits, int B, int d_in, int d_m, cudaStream_t st) {
-  const int code = launch_gemm(WxGradOp<S>{x, x_tstride, dg, dwx_part,
-                                           db_part, first, t0, B, d_in, d_m},
-                               d_in + 1, 3 * d_m, rows, splits, st);
+                 int splits, int B, int d_in, int d_m, bool by_batch,
+                 cudaStream_t st) {
+  const int steps = (int)(rows / B);
+  const int bz = by_batch ? B / splits : 0;
+  const int code = launch_gemm(
+      WxGradOp<S>{x, x_tstride, dg, dwx_part, db_part, first, t0, B, d_in,
+                  d_m, steps, bz},
+      d_in + 1, 3 * d_m, rows, splits, st);
   if (code != 0) return code;
-  return launch_gemm(WhGradOp<S>{h0, hseq, dg, dwh_part, first, t0, B, d_m},
+  return launch_gemm(WhGradOp<S>{h0, hseq, dg, dwh_part, first, t0, B, d_m,
+                                 steps, bz},
                      d_m, 3 * d_m, rows, splits, st);
 }
 
@@ -284,7 +321,7 @@ int launch_wgrad(const S* x, long long x_tstride, const S* h0, const S* hseq,
                             cudaStream_t);                                \
   template int launch_wgrad<S>(const S*, long long, const S*, const S*,   \
                                const S*, float*, float*, float*, bool,    \
-                               int, long long, int, int, int, int,        \
+                               int, long long, int, int, int, int, bool,  \
                                cudaStream_t);
 HPMN_GEN_PRODUCTS(float)
 HPMN_GEN_PRODUCTS(__nv_bfloat16)

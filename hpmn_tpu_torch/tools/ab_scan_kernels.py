@@ -46,10 +46,12 @@ in one chunk of all T steps.
 
 Past d_m = 32, d_in <= 96 the scans are the width-general forms
 (``csrc/gru_general_*.cu``: K1-general, K2-general and their bf16 and scale
-forms), which both trees must have; the strided kernels take d_m = 32
-only and are left out. Their weight gradients sum each chunk's rows in
-slices, so against one chunk they are held within 1e-5 of their max abs
-(printed), every other output bit for bit.
+forms), which both trees must have, and the strided ones K3-general and
+K4-general where both trees have them (``hpmn_gru_gen_stride_fwd``).
+K2-general's weight gradients sum each chunk's rows in slices, so against
+one chunk they are held within 1e-5 of their max abs (printed), every
+other output bit for bit (K4-general's weight gradients too: its
+partials are batch slices).
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ _CACHES = (cuda_gru._ws_fn, cuda_gru._proj_fn,
            cuda_readout._gen_kernel_fn,
            cuda_gru_stride.chunk, cuda_gru_stride._fwd_fn,
            cuda_gru_stride._rows_fn, cuda_gru_stride._bwd_fn,
+           cuda_gru_stride._gen_fwd_fn, cuda_gru_stride._gen_bwd_fn,
            cuda_readout._kernel_fn)
 
 
@@ -313,7 +316,8 @@ def main(argv=None) -> int:
     dhs = torch.randn(T // PERIOD, B, d_m, generator=gen).to(dev, dtype)
     dhT = torch.randn(B, d_m, generator=gen).to(dev, dtype)
     a = torch.rand(T, B, generator=gen).to(dev, dtype)
-    strided = not general and all(_has_stride(c) for c in trees.values())
+    strided = all(_has(c, "gru_general_fwd.cu", "hpmn_gru_gen_stride_fwd")
+                  if general else _has_stride(c) for c in trees.values())
     scaled = all(_has(c, "gru_scan_fwd.cu", "hpmn_gru_scan_fwd_scale")
                  for c in trees.values())
 
@@ -346,7 +350,7 @@ def main(argv=None) -> int:
                       cuda_gru.bwd_workspace_steps(T, B, dtype)))
     step = cuda_gru_stride.chunk() if strided else 1
     k4_chunks = -(-T // cuda_gru_stride.bwd_workspace_steps(
-        T, B, dtype, step)) if strided else 0
+        T, B, dtype, step, d_m, d_in)) if strided else 0
     cuda_gru.WORKSPACE_BYTES = (-(-T // step) * step * B * d_m
                                 * (24 + 5 * x.element_size()))
     try:
@@ -364,14 +368,18 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     finally:
         cuda_gru.WORKSPACE_BYTES = cap
-    # The general backward's weight gradients (dwx, dwh, db: outputs 2-4 of
-    # each forward-and-backward group of 6 or 7) are held within 1e-5 of
-    # their max abs; every other output bit for bit.
+    # K2-general's weight gradients (dwx, dwh, db: outputs 2-4 of each
+    # dense forward-and-backward group of 6 or 7) are held within 1e-5 of
+    # their max abs; every other output (the strided group's 8 too) bit
+    # for bit.
     wgrad = set()
     if general:
         i = 0
-        for size in [6, 6] + ([7, 7] if scaled else []):
-            wgrad |= {i + 2, i + 3, i + 4}
+        groups = ([(6, True)] * 2 + [(8, False)] * strided
+                  + [(7, True)] * (2 * scaled))  # (outputs, row-sliced)
+        for size, sliced in groups:
+            if sliced:
+                wgrad |= {i + 2, i + 3, i + 4}
             i += size
     w_rel = max((((a_ - b_).abs().max() / b_.abs().max().clamp_min(1e-30)
                   ).item() for j, (a_, b_) in enumerate(zip(one, outs["this"]))

@@ -47,13 +47,16 @@ LABELS = ((("gru_scan_fwd_xp_kernel", "StrideOut"), "K3 recurrence"),
           (("gru_bwd_pass_kernel",), "K2/K4 pass"),
           (("readout_fwd_kernel",), "K5"),
           # the width-general forms (gru_general_*.cu, readout_general.cu)
+          (("gen_fwd_rec_kernel", "GenStride"), "K3-general recurrence"),
+          (("gen_fwd_rec_kernel", "GenReplay"), "K4-general replay"),
+          (("gen_bwd_rec_kernel", "StrideCot"), "K4-general sweep"),
           (("gen_fwd_rec_kernel",), "K1-general recurrence"),
           (("gen_bwd_rec_kernel",), "K2-general recurrence"),
-          (("gemm_kernel", "ProjOp"), "K1/K2-general projection"),
+          (("gemm_kernel", "ProjOp"), "K1-K4-general projection"),
           (("gemm_kernel", "HprevOp"), "K2-general h_prev @ wh"),
-          (("gemm_kernel", "DxOp"), "K2-general dx"),
-          (("gemm_kernel", "WxGradOp"), "K2-general dwx and db"),
-          (("gemm_kernel", "WhGradOp"), "K2-general dwh"),
+          (("gemm_kernel", "DxOp"), "K2/K4-general dx"),
+          (("gemm_kernel", "WxGradOp"), "K2/K4-general dwx and db"),
+          (("gemm_kernel", "WhGradOp"), "K2/K4-general dwh"),
           (("readout_gen_kernel",), "K5-general"))
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_]+)")
 

@@ -645,7 +645,7 @@ def test_stride_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="period"):
         cuda_gru_stride.stride_fwd(p, x, 1)
     with pytest.raises(ValueError, match="d_m"):
-        q = GRUParams(32, 16).requires_grad_(False).to(dev)
+        q = GRUParams(32, 257).requires_grad_(False).to(dev)
         cuda_gru_stride.gru_stride_tm(q, x, 3)
     with pytest.raises(ValueError, match="one dtype"):
         cuda_gru_stride.gru_stride_tm(p, x.to(BF16), 3)
@@ -1710,10 +1710,180 @@ def test_general_forms_refuse_past_their_limits(dev):
             cuda_readout.fused_attention_readout(
                 r, torch.zeros(3, L, d_m, device=dev),
                 torch.zeros(3, d_q, device=dev))
-    p = GRUParams(16, 16).requires_grad_(False).to(dev)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        cuda_gru_stride.gru_stride_tm(p, torch.zeros(6, 2, 16, device=dev),
-                                      3)
+    for d_in, d_m in ((32, 257), (513, 32)):
+        p = GRUParams(d_in, d_m).requires_grad_(False).to(dev)
+        with pytest.raises(ValueError, match="d_m <= 256 and d_in <= 512"):
+            cuda_gru_stride.gru_stride_tm(
+                p, torch.zeros(6, 2, d_in, device=dev), 3)
+
+
+# ---- K3-general and K4-general (the strided forms at every other width).
+GEN_STRIDE_SHAPES = [(1, 1), (3, 4), (16, 16), (40, 48), (128, 64),
+                     (64, 128), (128, 32), (512, 256)]
+
+
+def _gen_stride_counts():
+    return tuple(getattr(cuda_gru_stride, name) for name in (
+        "gen_launches", "gen_bwd_launches", "gen_launches_bf16",
+        "gen_bwd_launches_bf16"))
+
+
+def _gen_stride_case(T, period, B, d_in, d_m, dtype, dev, seed=0):
+    p = _gen_gru(d_in, d_m, dev, dtype, seed)
+    g = torch.Generator().manual_seed(T + B + period + d_m + seed)
+    x = torch.randn(3 * T, B, d_in, generator=g).to(dev, dtype)[1::3]
+    h0 = torch.randn(B, d_m, generator=g).to(dev, dtype) if B % 2 else None
+    dhs = torch.randn(T // period, B, d_m, generator=g).to(dev, dtype)
+    dhT = torch.randn(B, d_m, generator=g).to(dev, dtype)
+    return p, x, h0, dhs, dhT
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("T,period,B", [(37, 3, 7), (2, 3, 5), (50, 4, 6)])
+@pytest.mark.parametrize("d_in,d_m", GEN_STRIDE_SHAPES)
+def test_general_stride_kernels_match_plain(dev, d_in, d_m, T, period, B,
+                                            dtype):
+    """K3-general and K4-general (or their bf16 forms) against the plain
+    strided scan and its backward on a strided time view of x, K4-general
+    run from K3-general's boundaries: ragged T (against the period and the
+    16-step boundaries), an empty h_stride (T < period), odd B with an h0;
+    each launched once and no other scan kernel."""
+    p, x, h0, dhs, dhT = _gen_stride_case(T, period, B, d_in, d_m, dtype,
+                                          dev)
+    bf16 = dtype == BF16
+    fixed, counts = _all_counts() + _gen_counts(), _gen_stride_counts()
+    hs, hT, bounds = cuda_gru_stride.stride_fwd(p, x, period, h0)
+    got = cuda_gru_stride.stride_bwd(p, x, period, bounds, dhs, dhT, h0)
+    plain_fwd, plain_bwd = ((gru_scan_stride_tm_bf16,
+                             gru_scan_stride_tm_bwd_bf16) if bf16 else
+                            (gru_scan_stride_tm, gru_scan_stride_tm_bwd))
+    hs_p, hT_p = plain_fwd(p, x, period, h0)
+    want = plain_bwd(p, x, period, dhs, dhT, h0)
+    torch.cuda.synchronize()
+    assert _all_counts() + _gen_counts() == fixed
+    ran = [b - a for a, b in zip(counts, _gen_stride_counts())]
+    assert ran == ([0, 0, 1, 1] if bf16 else [1, 1, 0, 0])
+    assert hs.shape == (T // period, B, d_m) and hs.dtype == dtype
+    assert bounds.shape == (-(-T // 16), B, d_m)
+    tol_h, tol_g = (TOL_GRU_BF16, TOL_GRAD_BF16) if bf16 else (TOL_GRU,
+                                                               TOL_GRAD)
+    if T >= period:
+        assert (hs.float() - hs_p.float()).abs().max().item() <= tol_h
+    assert (hT.float() - hT_p.float()).abs().max().item() <= tol_h
+    for name, a, b in zip(("dx", "dwx", "dwh", "db", "dh0"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel_err(a.float(), b.float()) <= tol_g, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("cotangents", ["strided", "last"])
+def test_general_stride_bwd_with_one_cotangent(dev, cotangents, dtype):
+    """K4-general with dhs or dhT absent (None: zero) == the plain backward
+    given that cotangent as zeros, at the backward's tolerances."""
+    T, period, B, d_in, d_m = 45, 3, 9, 40, 48
+    p, x, h0, dhs, dhT = _gen_stride_case(T, period, B, d_in, d_m, dtype,
+                                          dev)
+    bounds = cuda_gru_stride.stride_fwd(p, x, period, h0)[2]
+    if cotangents == "strided":
+        got = cuda_gru_stride.stride_bwd(p, x, period, bounds, dhs, None)
+        dhT = torch.zeros_like(dhT)
+    else:
+        got = cuda_gru_stride.stride_bwd(p, x, period, bounds, None, dhT)
+        dhs = torch.zeros_like(dhs)
+    want = (gru_scan_stride_tm_bwd_bf16 if dtype == BF16 else
+            gru_scan_stride_tm_bwd)(p, x, period, dhs, dhT, h0)
+    torch.cuda.synchronize()
+    tol = TOL_GRAD_BF16 if dtype == BF16 else TOL_GRAD
+    for name, a, b in zip(("dx", "dwx", "dwh", "db", "dh0"), got, want):
+        assert _rel_err(a.float(), b.float()) <= tol, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("T,B,d_in,d_m", [(100, 5, 40, 48),
+                                          (250, 8, 128, 64)])
+def test_general_stride_chunks_match_one_chunk(dev, monkeypatch, dtype, T, B,
+                                               d_in, d_m):
+    """K3-general over workspace chunks of 7 steps and K4-general over
+    chunks of 16 and 48 steps == one chunk, every output bit for bit (the
+    weight gradients' partials are batch slices, each summed over the
+    steps from the last to the first, whatever the chunk)."""
+    period = 3
+    p, x, h0, dhs, dhT = _gen_stride_case(T, period, B, d_in, d_m, dtype,
+                                          dev)
+    fwd_row = 3 * d_m * 4
+    bwd_row = d_m * (24 + 5 * x.element_size())
+    whole = -(-T // 16) * 16
+    monkeypatch.setattr(cuda_gru, "WORKSPACE_BYTES", whole * B * bwd_row)
+    assert cuda_gru.workspace_steps(T, B, d_m) == T
+    assert cuda_gru_stride.bwd_workspace_steps(T, B, dtype, 16, d_m,
+                                               d_in) == whole
+    one = cuda_gru_stride.stride_fwd(p, x, period, h0)
+    one_b = cuda_gru_stride.stride_bwd(p, x, period, one[2], dhs, dhT)
+    monkeypatch.setattr(cuda_gru, "WORKSPACE_BYTES", 7 * B * fwd_row)
+    assert cuda_gru.workspace_steps(T, B, d_m) == 7
+    chunked = cuda_gru_stride.stride_fwd(p, x, period, h0)
+    for name, a, b in zip(("h_stride", "h_T", "boundaries"), chunked, one):
+        assert torch.equal(a, b), name
+    for steps in (16, 48):
+        monkeypatch.setattr(cuda_gru, "WORKSPACE_BYTES", steps * B * bwd_row)
+        assert cuda_gru_stride.bwd_workspace_steps(T, B, dtype, 16, d_m,
+                                                   d_in) == steps
+        got = cuda_gru_stride.stride_bwd(p, x, period, one[2], dhs, dhT)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dx", "dwx", "dwh", "db", "dh0"), got, one_b):
+            assert torch.equal(a, b), (name, steps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("d_in,d_m", [(64, 64), (40, 48)])
+def test_general_stride_rows_against_the_dense_kernel(dev, dtype, d_in, d_m):
+    """K3-general's rows against K1-general's h_seq[period-1::period] on
+    the same inputs (T = 1000, B = 64): bit for bit in bf16 (K1-general's
+    no-mask h_cell is the stride update), within TOL_GRU in f32 (K1-general
+    writes h + 1*(h_cell - h), the TPU stride kernel h + z*(c - h))."""
+    p = _gen_gru(d_in, d_m, dev, dtype)
+    x = torch.randn(1000, 64, d_in, generator=torch.Generator().manual_seed(
+        7)).to(dev, dtype)
+    n = _gen_counts()[0] + _gen_counts()[2]
+    h_seq, h_T = cuda_gru.gru_sequence_tm(p, x)
+    hs, hT = cuda_gru_stride.gru_stride_tm(p, x, 3)
+    torch.cuda.synchronize()
+    assert _gen_counts()[0] + _gen_counts()[2] == n + 1
+    if dtype == BF16:
+        assert torch.equal(hs, h_seq[2::3]) and torch.equal(hT, h_T)
+    else:
+        assert (hs - h_seq[2::3]).abs().max().item() <= TOL_GRU
+        assert (hT - h_T).abs().max().item() <= TOL_GRU
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("T,period,B,d_in,d_m", [
+    (37, 3, 33, 40, 48), (250, 2, 8, 128, 64)])
+def test_general_stride_rec_gates_match_plain_sweep(dev, dtype, T, period, B,
+                                                    d_in, d_m):
+    """K4-general's replay and sweep, seen whole (stride_bwd_gates): the
+    gate gradients and dh0 within TOL_GRAD (TOL_GRAD_BF16) of their max abs
+    of the plain sweep's, h_prev within TOL_GRU (TOL_GRU_BF16) and, in the
+    replay's bf16 chain, K3-general's boundaries bit for bit."""
+    p, x, h0, dhs, dhT = _gen_stride_case(T, period, B, d_in, d_m, dtype,
+                                          dev)
+    _, _, bounds = cuda_gru_stride.stride_fwd(p, x, period, h0)
+    got = cuda_gru_stride.stride_bwd_gates(p, x, period, bounds, dhs, dhT)
+    want = cuda_gru_stride.stride_bwd_gates(
+        GRUWeights(*(t.cpu() for t in p)), x.cpu(), period, None, dhs.cpu(),
+        dhT.cpu(), None if h0 is None else h0.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(got[2][::16], bounds)
+    bf = dtype == BF16
+    tol_h, tol_g = ((TOL_GRU_BF16, TOL_GRAD_BF16) if bf
+                    else (TOL_GRU, TOL_GRAD))
+    for name, a, b in zip(("dpre_x", "dpre_h", "h_prev", "dh0"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        a, b = a.float().cpu(), b.float()
+        if name == "h_prev":
+            assert (a - b).abs().max().item() <= tol_h, name
+        else:
+            assert _rel_err(a, b) <= tol_g, name
 
 
 def _wide(name, **extra):
@@ -1747,6 +1917,44 @@ def test_wide_train_step_kernel_path_matches_plain_path(dev, scan_dtype):
     bf16 = scan_dtype == "bfloat16"
     assert ran_k == ([0, 0, L, L] if bf16 else [L, L, 0, 0]) + [0] * 4 + [1]
     assert ran_p == [0] * 9
+    tol_loss, tol_grad = ((TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16) if bf16
+                          else (1e-5, TOL_GRAD))
+    assert abs(l_k - l_p) <= tol_loss * abs(l_p)
+    for name, p in p_k.items():
+        assert _rel_err(p.grad, p_p[name].grad) <= tol_grad, name
+
+
+@pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16"])
+def test_wide_stride_train_step_kernel_path_matches_plain_path(dev,
+                                                               scan_dtype):
+    """xlong_hpmn at mem_dim = readout_dim = emb_dim = 64 with
+    pallas_stride_outputs: one loss and gradient through K3-general and
+    K4-general (or their bf16 forms) and K5-general == the same branch with
+    the plain strided scans (``plain=True``); no dense or fixed-width scan
+    kernel runs."""
+    cfg = _wide("xlong_hpmn", assume_full_mask=True,
+                pallas_stride_outputs=True, scan_dtype=scan_dtype)
+    spec = synthetic.DatasetSpec("mid", seq_len=250, n_items=500, n_cats=40,
+                                 n_users=50)
+    batch = batch_from_numpy(synthetic.make_ctr_dataset(
+        spec, 32, seed=1, min_len_frac=1.0), device=dev)
+    out = []
+    for plain in (False, True):
+        model = init_model(cfg, 500, 40, seed=2, device=dev)
+        others = _all_counts() + _gen_counts()
+        counts = _gen_stride_counts() + (cuda_readout.gen_launches,)
+        loss, _ = loss_fn(model, cfg, batch, plain=plain)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert _all_counts() + _gen_counts() == others
+        ran = [b - a for a, b in zip(
+            counts, _gen_stride_counts() + (cuda_readout.gen_launches,))]
+        out.append((loss.item(), dict(model.named_parameters()), ran))
+    (l_k, p_k, ran_k), (l_p, p_p, ran_p) = out
+    L = cfg.model.hpmn_layers
+    bf16 = scan_dtype == "bfloat16"
+    assert ran_k == ([0, 0, L, L] if bf16 else [L, L, 0, 0]) + [1]
+    assert ran_p == [0] * 5
     tol_loss, tol_grad = ((TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16) if bf16
                           else (1e-5, TOL_GRAD))
     assert abs(l_k - l_p) <= tol_loss * abs(l_p)

@@ -294,8 +294,33 @@ def test_wrapper_limits_and_workspaces_at_the_new_widths():
         cuda_gru._check_cuda_args(w, torch.zeros(3, 2, 513), None, None, "k")
     w = GRUWeights(torch.zeros(16, 48), torch.zeros(16, 48), torch.zeros(48))
     cuda_gru._check_cuda_args(w, torch.zeros(3, 2, 16), None, None, "k")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        cuda_gru_stride._check_args(w, torch.zeros(6, 2, 16), None, 3, "K3")
+    # The strided forms (K3/K4 and K3-general/K4-general) take the same
+    # widths, and K4-general's workspace chunk (xp and the replay's h @ wh
+    # in f32, dg and h_prev in x's dtype) is a multiple of the boundaries'
+    # 16 steps that fits 64 MiB.
+    for d_in, d_m in ((16, 16), (1, 1), (128, 64), (128, 32), (512, 256)):
+        w = GRUWeights(torch.zeros(d_in, 3 * d_m), torch.zeros(d_m, 3 * d_m),
+                       torch.zeros(3 * d_m))
+        cuda_gru_stride._check_args(w, torch.zeros(6, 2, d_in), None, 3,
+                                    "K3")
+    for d_in, d_m in ((8, 257), (513, 4)):
+        w = GRUWeights(torch.zeros(d_in, 3 * d_m), torch.zeros(d_m, 3 * d_m),
+                       torch.zeros(3 * d_m))
+        with pytest.raises(ValueError, match="d_m <= 256 and d_in <= 512"):
+            cuda_gru_stride._check_args(w, torch.zeros(6, 2, d_in), None, 3,
+                                        "K3")
+    for dt, es, want in ((torch.float32, 4, 32), (BF16, 2, 48)):
+        n = cuda_gru_stride.bwd_workspace_steps(1000, 512, dt, 16, 64, 64)
+        row = 64 * (2 * 3 * 4 + 5 * es)  # bytes per row-step
+        assert n == want and n % 16 == 0
+        assert n * 512 * row <= 64 << 20 < (n + 16) * 512 * row
+    # K4-general's partials: batch slices, the fewest divisors of B (up to
+    # 64) that reach K2-general's count, else the largest below it.
+    assert cuda_gru_stride.gen_splits(512, 128, 64) == 32
+    assert cuda_gru_stride.gen_splits(512, 64, 64) == 64
+    assert cuda_gru_stride.gen_splits(37, 128, 64) == 37
+    assert cuda_gru_stride.gen_splits(1009, 128, 64) == 1
+    assert cuda_gru_stride.gen_splits(6, 1, 1) == 6
     for d_m, A, L, d_q in ((257, 8, 2, 8), (8, 257, 2, 8), (8, 8, 65, 8),
                            (8, 8, 2, 513), (8, 8, 0, 8)):
         with pytest.raises(ValueError, match="L <= 64"):
