@@ -2409,6 +2409,36 @@ GEN_TIME_WIDTHS = (16, 32, 64, 128)  # d_m = d_in; 32: the fixed-width row
 GEN_SCALE_T = 300  # the scale forms' timing T (DIEN's)
 WIDE = dict(mem_dim=64, readout_dim=64, emb_dim=64)
 GEN_STORE_USERS = 2048
+# The general forms' kernels in a profile (substrings of the name, all
+# present): the tiled products (csrc/gru_general_gemm.cu), then the
+# recurrences by output or cotangent policy.
+GEN_PROFILE_PARTS = (
+    (("tall_kernel", "ProjOp"), "projection"),
+    (("tall_kernel", "HprevOp"), "h_prev @ wh"),
+    (("tall_kernel", "DxOp"), "dx"),
+    (("wgrad_kernel",), "weight gradients"),
+    (("gen_fwd_rec_kernel", "GenDense"), "K1-general recurrence"),
+    (("gen_fwd_rec_kernel", "GenStride"), "K3-general recurrence"),
+    (("gen_fwd_rec_kernel", "GenReplay"), "K4-general replay"),
+    (("gen_bwd_rec_kernel", "DenseCot"), "K2-general recurrence"),
+    (("gen_bwd_rec_kernel", "StrideCot"), "K4-general sweep"))
+
+
+def gen_products_gflop(Ts, B, d_ins, d_m, strided):
+    """GFLOP (2 per multiply-add) of the general forms' products in one
+    training step of GRU layers with lengths Ts and input widths d_ins:
+    the projection (the forward's and the backward's), h_prev @ wh (the
+    dense backward's; the strided one replays it in its recurrence), dx,
+    and the weight gradients with db's row of ones."""
+    G = 3 * d_m
+    rows = [T * B for T in Ts]
+    out = {"projection": sum(2 * 2 * r * d * G for r, d in zip(rows, d_ins)),
+           "dx": sum(2 * r * G * d for r, d in zip(rows, d_ins)),
+           "weight gradients": sum(2 * r * (d + 1 + d_m) * G
+                                   for r, d in zip(rows, d_ins))}
+    if not strided:
+        out["h_prev @ wh"] = sum(2 * r * d_m * G for r in rows)
+    return {k_: v / 1e9 for k_, v in out.items()}
 SWEEP_CLI = ["--config", "amazon_hpmn", "--grid", "model.mem_dim=16,32",
              "--set", "model.use_pallas=true", "n_examples=4000",
              "train.max_steps=100", "train.eval_every=50",
@@ -2829,6 +2859,13 @@ def phase_18(p):
     n_steps = (WARMUP_DISPATCHES + TIMED_DISPATCHES) * k
     cfg_w = p.cfg_k.with_model(**WIDE)
     L_x = cfg_w.model.hpmn_layers
+    wide_Ts = [XLONG.seq_len // cfg_w.model.hpmn_period ** l_
+               for l_ in range(L_x)]
+    wide_d_ins = [2 * WIDE["emb_dim"]] + [WIDE["mem_dim"]] * (L_x - 1)
+
+    def wide_gflop(strided):
+        return gen_products_gflop(wide_Ts, p.batches[0].batch_size,
+                                  wide_d_ins, WIDE["mem_dim"], strided)
     wide_dense = {}  # scan dtype -> (loss, ms per step, peak MiB)
     for scan in ("float32", "bfloat16"):
         b16 = scan == "bfloat16"
@@ -2860,7 +2897,8 @@ def phase_18(p):
               f"launches over {n_steps} steps: "
               + ", ".join(f"{n_} {v}" for n_, v in zip(names, got) if v),
               flush=True)
-        p.profile_dispatch(18, multistep, step_ms, p.stacks[0])
+        p.profile_dispatch(18, multistep, step_ms, p.stacks[0],
+                           wide_gflop(False))
         del multistep
         torch.cuda.empty_cache()
 
@@ -3014,7 +3052,8 @@ def phase_18(p):
               f"MiB (dense {dense_mib:.1f}) | launches over {n_steps} "
               f"steps: " + ", ".join(f"{n_} {v}" for n_, v in
                                      zip(names, got) if v), flush=True)
-        p.profile_dispatch(18, multistep, step_ms, p.stacks[0])
+        p.profile_dispatch(18, multistep, step_ms, p.stacks[0],
+                           wide_gflop(True))
         del multistep
         torch.cuda.empty_cache()
 
@@ -3152,6 +3191,7 @@ def bst_bf16_gap(dev):
 def main():
     import torch
 
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4211,13 +4251,16 @@ def main():
         return (metrics, 1e3 * t_train / (TIMED_DISPATCHES * k),
                 TIMED_DISPATCHES * k * n_b / t_train, launches, multistep)
 
-    def profile_work(phase, fn, wall_ms, n, unit):
+    def profile_work(phase, fn, wall_ms, n, unit, gflop=None):
         """fn() once more under the profiler, doing n units of work (steps
         or requests): the device's kernel time per unit against the
         unprofiled wall time per unit. Only kernels count: a CPU op (or an
         autograd Function's record) that launches a kernel also reports
         that kernel's time as its own, and a user annotation (the
-        optimizer's step) spans kernels listed apart."""
+        optimizer's step) spans kernels listed apart. ``gflop``: the
+        width-general forms' products' GFLOP per unit (gen_products_gflop);
+        a second line then gives each product's and each general
+        recurrence's device ms per unit, the products' TFLOP/s beside."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
@@ -4324,6 +4367,28 @@ def main():
         else:
             print(f"phase {phase} profile: the profiler saw no device time; "
                   "device busy share not measured", flush=True)
+        if gflop is not None and dev_ms > 0:
+            gen = {}
+            for t, _, name in kern:
+                part = next((lbl for keys, lbl in GEN_PROFILE_PARTS
+                             if all(k_ in name for k_ in keys)), None)
+                if part is not None:
+                    gen[part] = gen.get(part, 0.0) + t / 1e3 / n
+            prods = [lbl for _, lbl in GEN_PROFILE_PARTS if lbl in gflop]
+            recs = [lbl for _, lbl in GEN_PROFILE_PARTS
+                    if lbl not in gflop and gen.get(lbl)]
+            total = sum(gen.get(lbl, 0.0) for lbl in prods)
+            print(f"phase {phase} profile, the general forms' parts, device "
+                  f"ms per {unit}: products " + ", ".join(
+                      f"{lbl} {gen.get(lbl, 0.0):.3f} ("
+                      + (f"{gflop[lbl] / gen[lbl]:.1f} TFLOP/s"
+                         if gen.get(lbl) else "not run") + ")"
+                      for lbl in prods)
+                  + f", all products {total:.3f} ("
+                  + (f"{sum(gflop[lbl] for lbl in prods) / total:.1f} "
+                     f"TFLOP/s" if total > 0 else "not run")
+                  + ") | recurrences " + ", ".join(
+                      f"{lbl} {gen[lbl]:.3f}" for lbl in recs), flush=True)
 
     def embedding_backward_ms(multistep, stack):
         """Phase 5's dispatch twice more under the profiler: the table
@@ -4364,9 +4429,10 @@ def main():
               f"| PyTorch's default (before the repair) {emb_def:.4f} of a "
               f"{step_def:.3f} ms step", flush=True)
 
-    def profile_dispatch(phase, multistep, step_ms, stack):
+    def profile_dispatch(phase, multistep, step_ms, stack, gflop=None):
         """One more k-step dispatch under the profiler (profile_work)."""
-        profile_work(phase, lambda: multistep(stack), step_ms, k, "step")
+        profile_work(phase, lambda: multistep(stack), step_ms, k, "step",
+                     gflop)
 
     k = STEPS_PER_DISPATCH
     stacks = [[batches[(i + j) % N_TRAIN_BATCHES] for j in range(k)]
@@ -5276,6 +5342,8 @@ def main():
     g16, gb16 = bf_rows[0], bfb_rows[0]
     r = ro_rows[0]    # B=512: predict's and the training step's shape;
     # ro_rows[1]: a rank chunk's 6400 rows
+    print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from main's "
+          f"start to the kernels line", flush=True)
     print(json.dumps({"kernels": [
         entry("gru_scan_fwd", cuda_gru.SOURCE, cuda_gru.REPLACES,
               (g[3], g[4], g[5], g[6], g[7]), gru_err,

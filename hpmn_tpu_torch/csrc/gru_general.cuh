@@ -32,22 +32,31 @@
 // ops/cuda_gru.py's WORKSPACE_BYTES; the result does not depend on the
 // chunk):
 //
-// - gemm_kernel: C (+)= A @ B over a 64 x 64 tile per block, 256 threads
-//   of 4 x 4 outputs, A's and B's 16-deep slices staged in shared memory
-//   as f32. Each output is one fmaf chain over k in order, from 0.0f (or,
-//   for the weight-gradient partials of a later chunk, from the chunk
-//   before's sum), so the projection's outputs are the fmaf chain from 0
-//   over k = 0 ... d_in-1 of the fixed-width projection (gru_input_proj.cu,
-//   bits documented there), and in bf16 each is the f32 sum of exact
-//   products of bf16 values, rounded where the chain rounds: the r and z
-//   blocks without the bias, the c block bf16(x @ wx_c + b_c). No tensor
-//   cores: TF32, or bf16 products summed otherwise, would change the
-//   roundings. The operands are functors (ProjOp, HprevOp, DxOp,
-//   WxGradOp, WhGradOp) that read the streams at their own strides: x at
-//   its time stride, h_prev from h_seq or h0, the gate gradients from dg.
-//   The weight gradients split the chunk's rows into `splits` slices
-//   (grid z), one f32 partial each, carried across chunks in f32; the
-//   wrapper sums the partials, as the TPU kernel emits one per batch tile.
+// - The tiled products (gru_general_gemm.cu), f32 on the CUDA cores. Each
+//   output is one fmaf chain over k in order, from 0.0f (or, for the
+//   weight-gradient partials of a later chunk, from the chunk before's
+//   sum), so the projection's outputs are the fmaf chain from 0 over k =
+//   0 ... d_in-1 of the fixed-width projection (gru_input_proj.cu, bits
+//   documented there), and in bf16 each is the f32 sum of exact products
+//   of bf16 values, rounded where the chain rounds: the r and z blocks
+//   without the bias, the c block bf16(x @ wx_c + b_c). No tensor cores:
+//   TF32, or bf16 products summed otherwise, would change the roundings.
+//   tall_kernel runs the products over a chunk's rows (the projection, h_prev
+//   @ wh, dx): 128 x 64 outputs a block, 256 threads of 8 x 4. Its operand
+//   functors (ProjOp, HprevOp, DxOp) give each row's pointer once per
+//   block (x at its time stride, h_prev from h_seq or h0, the gate
+//   gradients from dg) and each k's offset once per k-tile. wgrad_kernel
+//   runs the weight gradients: 32 rows of dwx or dwh by 32 units' three
+//   gate columns a block (128 threads of 8 rows x one unit), x's tiles and
+//   h's in one grid, db summed beside the first x tile's rows 0-7, each
+//   unit's gate gradients one 16-byte (bf16: 8-byte) load. Both stage
+//   k-tiles (16 rows deep; the weight gradients' 32) in two shared
+//   buffers, the next tile's loads in flight in registers during the
+//   current tile's FMAs, one barrier a tile. The weight gradients split
+//   the chunk's rows into `splits` slices (grid z), one f32 partial each,
+//   carried across chunks in f32; the wrapper sums the partials, as the
+//   TPU kernel emits one per batch tile. A chunk's rows stay below 2^31
+//   (the products' row indices are 32-bit).
 // - gen_fwd_rec_kernel (K1's recurrence): `rows` batch rows per block, U =
 //   d_m rounded up to 32 threads each (thread j owns hidden unit j; lanes
 //   past d_m idle, so a row is whole warps). wh is staged in shared memory
@@ -111,14 +120,23 @@ inline bool dims_ok(int d_in, int d_m) {
   return d_in >= 1 && d_in <= kMaxDin && d_m >= 1 && d_m <= kMaxDm;
 }
 
-// h_prev of step t, row b, unit k: h_seq[t-1], or h0 (zeros when null) at
-// t = 0.
+// The row of h_prev of step t, batch row b: h_seq[t-1], or h0 at t = 0
+// (null, a row of zeros, when h0 is).
+template <typename S>
+__device__ __forceinline__ const S* h_prev_row(const S* h0, const S* hseq,
+                                               long long t, long long b,
+                                               int B, int d_m) {
+  if (t > 0) return hseq + ((t - 1) * B + b) * d_m;
+  return h0 != nullptr ? h0 + b * d_m : nullptr;
+}
+
+// h_prev of step t, row b, unit k.
 template <typename S>
 __device__ __forceinline__ float h_prev(const S* h0, const S* hseq,
                                         long long t, long long b, long long k,
                                         int B, int d_m) {
-  if (t > 0) return load_f(hseq + ((t - 1) * B + b) * d_m + k);
-  return h0 != nullptr ? load_f(h0 + b * d_m + k) : 0.0f;
+  const S* row = h_prev_row(h0, hseq, t, b, B, d_m);
+  return row != nullptr ? load_f(row + k) : 0.0f;
 }
 
 // ---- The recurrences' block: rows, threads, shared memory.
@@ -177,7 +195,7 @@ int launch_dx(const S* dg, const S* wx, S* dx, long long rows, int d_in,
 // `by_batch` (B a multiple of splits), the z-th slice of the batch rows
 // over the chunk's steps from the last to the first, so that chunks run
 // from the last to the first give every partial's sums in one order,
-// whatever the chunk (gru_general_gemm.cu's chunk_step).
+// whatever the chunk (gru_general_gemm.cu's WgradOp).
 template <typename S>
 int launch_wgrad(const S* x, long long x_tstride, const S* h0, const S* hseq,
                  const S* dg, float* dwx_part, float* dwh_part,

@@ -274,7 +274,7 @@ int gen_stride_bwd(const S* x, long long x_tstride, const S* wx,
       || ws == nullptr || dg == nullptr || hprev == nullptr)
     return (int)cudaErrorInvalidValue;
   const int n_max = t_chunk < T ? t_chunk : T;  // the workspaces' steps
-  if ((long long)n_max * B >= (1LL << 32))  // chunk_step's 32-bit rows
+  if ((long long)n_max * B >= (1LL << 31))  // the products' 32-bit rows
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int G = 3 * d_m;

@@ -223,9 +223,13 @@ def gen_bwd_workspace_steps(T: int, B: int, d_m: int,
 
 
 def gen_splits(d_in: int, d_m: int) -> int:
-    """K2-general's weight-gradient partials: the slices of a chunk's rows
-    that the x half's 64 x 64 output tiles (d_in + 1 rows, db's among them,
-    by 3*d_m columns) take, so that about 256 blocks run; 1 to 64."""
+    """K2-general's weight-gradient partials: how many slices of a chunk's
+    rows the products sum apart, each into an f32 partial, 1 to 64. The
+    count is part of the result: each slice is one fmaf chain per output,
+    so another count gives other bits. It is 256 over the 64 x 64 output
+    tiles of the x half (d_in + 1 rows, db's among them, by 3*d_m columns),
+    the tiles of the products' first form, and stays so whatever tiles
+    the products run."""
     tiles = -(-(d_in + 1) // 64) * -(-(3 * d_m) // 64)
     return max(1, min(64, 256 // tiles))
 

@@ -8,7 +8,7 @@ events.
     git archive <commit> | tar -x -C build/other      # a gitignored place
     python3 -m hpmn_tpu_torch.tools.ab_scan_kernels \\
         build/other/hpmn_tpu_torch/csrc [float32|bfloat16] [D_IN] [T] [B] \\
-        [D_M]
+        [D_M] [--bits]
 
 Inputs: the xlong_hpmn layer-0 shape (T = 1000, B = 512, d_in = 32, d_m =
 32; D_IN, 1 to 512, sets another d_in, T another length: 300 is
@@ -18,7 +18,8 @@ hidden width), the port's seeded GRU init, random x and
 dh_seq, no mask and a left-padded mask; for the strided kernels period 3
 and random cotangents of the strided rows and of h_T; for the AUGRU
 kernels a scale in [0, 1), with and without the mask. Exits nonzero if an
-output differs or there is no card.
+output differs or there is no card. ``--bits`` stops after the bit
+comparisons (no times).
 
 A tree whose K1 (f32, no scale) predates the two-kernel form has no
 ``hpmn_gru_scan_fwd_ws``; its K1 is then called through its one-kernel
@@ -276,6 +277,8 @@ def _ms(fn) -> float:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    bits_only = "--bits" in argv
+    argv = [a for a in argv if a != "--bits"]
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     if (len(argv) not in (1, 2, 3, 4, 5, 6) or not os.path.isdir(argv[0])
             or argv[1:] and argv[1] not in dtypes
@@ -286,7 +289,7 @@ def main(argv=None) -> int:
             or not all(a.isdigit() and int(a) >= 1 for a in argv[3:])):
         print("usage: python3 -m hpmn_tpu_torch.tools.ab_scan_kernels "
               "OTHER_TREE/hpmn_tpu_torch/csrc [float32|bfloat16] [D_IN] [T] "
-              "[B] [D_M]")
+              "[B] [D_M] [--bits]")
         return 2
     name = argv[1] if argv[1:] else "float32"
     dtype = dtypes[name]
@@ -404,7 +407,7 @@ def main(argv=None) -> int:
           f"{f' (weight gradients within {w_rel:.2e} of max abs)' if general else ''}")
     h = outs["this"][0]
     bounds = outs["this"][14] if strided else None
-    for tree in ("other", "this", "this", "other"):
+    for tree in () if bits_only else ("other", "this", "this", "other"):
         with _kernels_of(trees[tree]):
             fwd = _ms(lambda: cuda_gru.gru_sequence_tm(p, x, None))
             bwd = _ms(lambda: cuda_gru.gru_scan_bwd(p, x, None, h, dh))

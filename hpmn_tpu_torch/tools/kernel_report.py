@@ -52,6 +52,11 @@ LABELS = ((("gru_scan_fwd_xp_kernel", "StrideOut"), "K3 recurrence"),
           (("gen_bwd_rec_kernel", "StrideCot"), "K4-general sweep"),
           (("gen_fwd_rec_kernel",), "K1-general recurrence"),
           (("gen_bwd_rec_kernel",), "K2-general recurrence"),
+          (("tall_kernel", "ProjOp"), "K1-K4-general projection"),
+          (("tall_kernel", "HprevOp"), "K2-general h_prev @ wh"),
+          (("tall_kernel", "DxOp"), "K2/K4-general dx"),
+          (("wgrad_kernel",), "K2/K4-general dwx, db and dwh"),
+          # the earlier form of the products (an older tree's csrc)
           (("gemm_kernel", "ProjOp"), "K1-K4-general projection"),
           (("gemm_kernel", "HprevOp"), "K2-general h_prev @ wh"),
           (("gemm_kernel", "DxOp"), "K2/K4-general dx"),

@@ -1582,7 +1582,7 @@ def test_bf16_model_step_kernel_path_matches_plain_path(dev, scan_dtype):
 # every width but the fixed-width kernels' d_m = 32, d_in <= 96 (and A =
 # d_m = 32, L <= 16, d_q <= 256), against the plain versions on the card.
 GEN_GRU_SHAPES = [(1, 1), (3, 4), (16, 16), (40, 48), (128, 64), (64, 128),
-                  (256, 256)]
+                  (256, 256), (127, 43), (129, 43), (512, 43)]
 GEN_READOUT_SHAPES = [(16, 24, 3, 8), (64, 64, 6, 128), (48, 96, 20, 300),
                       (32, 32, 40, 32), (1, 1, 1, 1), (256, 256, 64, 512)]
 
@@ -1603,17 +1603,19 @@ def _gen_gru(d_in, d_m, dev, dtype, seed=0):
     return GRUWeights(p.wx.to(dtype), p.wh.to(dtype), p.b.to(dtype))
 
 
+@pytest.mark.parametrize("T,B", [(23, 7), (40, 33)])
 @pytest.mark.parametrize("scaled", [False, True])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("d_in,d_m", GEN_GRU_SHAPES)
 def test_general_gru_kernels_match_plain(dev, d_in, d_m, dtype, masked,
-                                         scaled):
+                                         scaled, T, B):
     """K1-general and K2-general (each dtype, mask and scale form) against
     the plain scan and its backward on the same inputs on the card: h
     within TOL_GRU (TOL_GRU_BF16), every gradient within TOL_GRAD
-    (TOL_GRAD_BF16) of its max abs; x a strided time view when masked."""
-    T, B = 23, 7
+    (TOL_GRAD_BF16) of its max abs; x a strided time view when masked.
+    The widths and T*B rows (161, 1320) leave ragged edges on the
+    products' tiles (128 rows by 64 columns; 32 rows by 32 units)."""
     p = _gen_gru(d_in, d_m, dev, dtype)
     g = torch.Generator().manual_seed(d_in + d_m)
     x_all = torch.randn(2 * T, B, d_in, generator=g).to(dev, dtype)
@@ -1647,13 +1649,16 @@ def test_general_gru_kernels_match_plain(dev, d_in, d_m, dtype, masked,
         assert _rel_err(a.float(), b.float()) <= tol_g, name
 
 
+@pytest.mark.parametrize("B,d_in,d_m", [(5, 40, 48), (33, 129, 43)])
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("scaled", [False, True])
-def test_general_gru_chunks_match_one_chunk(dev, monkeypatch, dtype, scaled):
+def test_general_gru_chunks_match_one_chunk(dev, monkeypatch, dtype, scaled,
+                                            B, d_in, d_m):
     """Workspace chunks of a few steps: h_seq, dx, dh0 and dscale bit for
     bit one chunk's; the weight gradients, whose partials slice each
-    chunk's rows, within TOL_GRAD (TOL_GRAD_BF16) of one chunk's."""
-    T, B, d_in, d_m = 29, 5, 40, 48
+    chunk's rows, within TOL_GRAD (TOL_GRAD_BF16) of one chunk's. At B =
+    33 a chunk's 132 rows end inside a 128-row tile of the products."""
+    T = 29
     p = _gen_gru(d_in, d_m, dev, dtype)
     g = torch.Generator().manual_seed(7)
     x = torch.randn(T, B, d_in, generator=g).to(dev, dtype)
@@ -1719,7 +1724,8 @@ def test_general_forms_refuse_past_their_limits(dev):
 
 # ---- K3-general and K4-general (the strided forms at every other width).
 GEN_STRIDE_SHAPES = [(1, 1), (3, 4), (16, 16), (40, 48), (128, 64),
-                     (64, 128), (128, 32), (512, 256)]
+                     (64, 128), (128, 32), (512, 256), (127, 43), (129, 43),
+                     (512, 43)]
 
 
 def _gen_stride_counts():
@@ -1739,7 +1745,8 @@ def _gen_stride_case(T, period, B, d_in, d_m, dtype, dev, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
-@pytest.mark.parametrize("T,period,B", [(37, 3, 7), (2, 3, 5), (50, 4, 6)])
+@pytest.mark.parametrize("T,period,B", [(37, 3, 7), (2, 3, 5), (50, 4, 6),
+                                        (40, 3, 33)])
 @pytest.mark.parametrize("d_in,d_m", GEN_STRIDE_SHAPES)
 def test_general_stride_kernels_match_plain(dev, d_in, d_m, T, period, B,
                                             dtype):
@@ -1800,7 +1807,8 @@ def test_general_stride_bwd_with_one_cotangent(dev, cotangents, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("T,B,d_in,d_m", [(100, 5, 40, 48),
-                                          (250, 8, 128, 64)])
+                                          (250, 8, 128, 64),
+                                          (100, 33, 129, 43)])
 def test_general_stride_chunks_match_one_chunk(dev, monkeypatch, dtype, T, B,
                                                d_in, d_m):
     """K3-general over workspace chunks of 7 steps and K4-general over

@@ -326,3 +326,43 @@ def test_wrapper_limits_and_workspaces_at_the_new_widths():
         with pytest.raises(ValueError, match="L <= 64"):
             cuda_readout.check_shapes(d_m, A, L, d_q, "readout")
     cuda_readout.check_shapes(256, 256, 64, 512, "readout")
+
+
+# The weight gradients' bits depend on how many partials each chunk's rows
+# are summed in (each partial one fmaf chain per output) and, for
+# K2-general, on the workspace chunk; the products' tiles do not enter.
+# (d_in, d_m): K2-general's partials, K4-general's at B = 512, 33 and 509,
+# and at T = 1000, B = 512 the chunks of K1-general, of K2-general in f32
+# and bf16 and of K4-general in f32 and bf16: the wide xlong_hpmn's layers
+# (128, 64) and (64, 64), taobao_dien's at mem_dim 64 (32, 64), the mem_dim
+# 16 sweep's (32, 16) and (16, 16), and the card tests' and the A/B grid's.
+PINNED_PARTIALS = [
+    ((128, 64), 28, (32, 33, 1), (170, 51, 64, 32, 48)),
+    ((64, 64), 42, (64, 33, 1), (170, 51, 64, 32, 48)),
+    ((32, 64), 64, (64, 33, 1), (170, 51, 64, 32, 48)),
+    ((32, 16), 64, (64, 33, 1), (682, 204, 256, 176, 240)),
+    ((16, 16), 64, (64, 33, 1), (682, 204, 256, 176, 240)),
+    ((1, 1), 64, (64, 33, 1), (1000, 1000, 1000, 1008, 1008)),
+    ((40, 48), 64, (64, 33, 1), (227, 68, 85, 48, 80)),
+    ((129, 43), 28, (32, 33, 1), (254, 76, 95, 64, 80)),
+    ((127, 43), 42, (64, 33, 1), (254, 76, 95, 64, 80)),
+    ((128, 128), 14, (16, 33, 1), (85, 25, 32, 16, 16)),
+    ((512, 256), 2, (2, 3, 1), (42, 12, 16, 16, 16)),
+    ((512, 43), 9, (16, 11, 1), (254, 76, 95, 64, 80)),
+]
+
+
+@pytest.mark.parametrize("shape,splits,stride_splits,chunks",
+                         PINNED_PARTIALS)
+def test_general_partials_and_chunks_are_pinned(shape, splits,
+                                                stride_splits, chunks):
+    d_in, d_m = shape
+    assert cuda_gru.gen_splits(d_in, d_m) == splits
+    assert tuple(cuda_gru_stride.gen_splits(B_, d_in, d_m)
+                 for B_ in (512, 33, 509)) == stride_splits
+    assert (cuda_gru.workspace_steps(1000, 512, d_m),
+            *(cuda_gru.gen_bwd_workspace_steps(1000, 512, d_m, dt)
+              for dt in (torch.float32, BF16)),
+            *(cuda_gru_stride.bwd_workspace_steps(1000, 512, dt, 16, d_m,
+                                                  d_in)
+              for dt in (torch.float32, BF16))) == chunks
